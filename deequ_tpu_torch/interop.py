@@ -1,0 +1,66 @@
+"""Carrying data and state across from the reference package.
+
+This system's counterpart of carrying a model's weights across: its data
+is the table and its parameters are the analyzer states. Both functions
+take plain numpy arrays and numbers, never objects of ``deequ_tpu``, so
+the port stays free of the reference (the parity tests read the arrays
+off a ``deequ_tpu`` table or state and hand them over).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Mapping
+
+from deequ_tpu_torch.analyzers.states import (
+    CorrelationState,
+    MaxState,
+    MeanState,
+    MinState,
+    NumMatches,
+    NumMatchesAndCount,
+    StandardDeviationState,
+    SumState,
+)
+from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+_STATES = {
+    cls.__name__: cls
+    for cls in (
+        NumMatches, NumMatchesAndCount, MeanState, SumState, MinState,
+        MaxState, StandardDeviationState, CorrelationState,
+    )
+}
+
+
+def table_from_arrays(columns: Iterable[Mapping]) -> ColumnarTable:
+    """Build a ColumnarTable from per-column dicts: ``name``, ``dtype``
+    (a ``DType`` or its value: "fractional" | "integral" | "boolean" |
+    "string"), then numpy ``values`` and optional ``mask`` (True = valid),
+    or, for strings, int32 ``codes`` (-1 = null) and ``dictionary``."""
+    built = []
+    for spec in columns:
+        dtype = DType(spec["dtype"])
+        if dtype == DType.STRING:
+            built.append(Column(
+                spec["name"], dtype, codes=spec["codes"],
+                dictionary=spec["dictionary"],
+            ))
+        else:
+            built.append(Column(
+                spec["name"], dtype, values=spec["values"], mask=spec.get("mask"),
+            ))
+    return ColumnarTable(built)
+
+
+def state_from_fields(kind: str, fields: Mapping):
+    """Build the port's state ``kind`` (its class name, e.g.
+    ``"StandardDeviationState"``) from plain numbers keyed by field name
+    (``{"n": ..., "avg": ..., "m2": ...}``) — the fields of the reference's
+    dataclass of the same name."""
+    try:
+        cls = _STATES[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown state kind {kind!r}; one of {sorted(_STATES)}"
+        ) from None
+    return cls(**{k: v for k, v in fields.items()})

@@ -1,0 +1,378 @@
+"""The fused scan on one device — the counterpart of
+``deequ_tpu/ops/scan_engine.py:run_scan`` for an in-memory table.
+
+One pass over the table runs every scan-shareable analyzer of a run:
+
+- the table is cut into chunks by the reference's rule (``_auto_chunk_rows``);
+- ``_ChunkPacker`` packs each chunk into one f64 value plane, one
+  validity-mask plane and one string-code plane, and moves each plane to
+  the card in one copy;
+- one step per chunk evaluates every op's ``update`` on those tensors;
+- ``_DeviceFoldPlan`` folds the chunk partials on the device by tag —
+  ``sum``/``min``/``max`` elementwise in chunk order, ``gather`` leaves
+  (Welford moments) appended per chunk — and the scan fetches the whole
+  folded state ONCE (``ScanStats.device_fetches``).
+
+The card has native f64, so the port computes in f64 and carries no
+counterpart of the reference's (hi, lo) f32 pairs (``ops/df32.py``).
+Moments are per-chunk (count, mean, M2) combined with the Chan merge by
+the analyzers' states, never a raw sum of squares.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deequ_tpu_torch.data.table import Column, DType
+from deequ_tpu_torch.exceptions import device_boundary
+from deequ_tpu_torch.expr.eval import Val
+
+DEFAULT_CHUNK_BYTES = 512 << 20
+MAX_CHUNK_ROWS = 1 << 23
+
+#: fold tags a ScanOp leaf may carry
+FOLD_TAGS = ("sum", "min", "max", "gather")
+
+
+def _auto_chunk_rows(
+    cols: Dict[str, Column],
+    target_bytes: int = DEFAULT_CHUNK_BYTES,
+    max_rows: int = MAX_CHUNK_ROWS,
+) -> int:
+    """The reference's chunking rule (scan_engine.py:_auto_chunk_rows_from_dtypes),
+    kept as it is so both packages cut a table at the same rows: the
+    per-chunk Welford moments then partition identically."""
+    bytes_per_row = 0
+    for col in cols.values():
+        if col.dtype == DType.STRING:
+            bytes_per_row += 4
+        elif col.dtype == DType.FRACTIONAL:
+            bytes_per_row += 9
+        else:
+            bytes_per_row += 5
+    bytes_per_row = max(bytes_per_row, 1)
+    rows = target_bytes // bytes_per_row
+    return int(min(max(rows, 1 << 18), max_rows))
+
+
+@dataclass
+class ScanOp:
+    """One analyzer's contribution to the fused scan.
+
+    ``update(vals, row_valid, n)`` maps one chunk's column Vals (device
+    tensors), its row-validity mask and its row count to a dict of
+    partial-state tensors; ``tags`` names each leaf's fold tag
+    (:data:`FOLD_TAGS`)."""
+
+    columns: Tuple[str, ...]
+    update: Callable[[Dict[str, Val], torch.Tensor, int], Dict[str, torch.Tensor]]
+    tags: Dict[str, str]
+
+
+class ScanStats:
+    """Execution-report counters (the reference's ScanStats, the subset the
+    port's slice touches): fused passes, rows scanned, device->host
+    fetches and their bytes, grouping passes, device sorts, and the
+    histogram census by route — ``hist_kernel_dispatches`` counts
+    dense-grouping counts that ran the CUDA kernel,
+    ``hist_plain_dispatches`` those that ran its plain version on a CPU
+    tensor, ``hist_host_dispatches`` those of tables small enough for
+    ``np.bincount`` on the host (``segment.HOST_GROUP_LIMIT``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        self.scan_passes = 0
+        self.chunks_processed = 0
+        self.rows_scanned = 0
+        self.bytes_packed = 0
+        self.grouping_passes = 0
+        self.device_sort_passes = 0
+        self.device_fetches = 0
+        self.bytes_fetched = 0
+        self.hist_kernel_dispatches = 0
+        self.hist_plain_dispatches = 0
+        self.hist_host_dispatches = 0
+        # device->host fetches of the most recent fused scan (the
+        # one-fetch-per-scan contract: 1)
+        self.last_scan_fetches = 0
+
+    def record_fetch(self, nbytes: int) -> None:
+        with self._lock:
+            self.device_fetches += 1
+            self.bytes_fetched += int(nbytes)
+
+    def record_hist_dispatch(self, route: str) -> None:
+        """``route``: "kernel", "plain" or "host"."""
+        with self._lock:
+            name = f"hist_{route}_dispatches"
+            setattr(self, name, getattr(self, name) + 1)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {k: v for k, v in vars(self).items() if not k.startswith("_")}
+
+
+SCAN_STATS = ScanStats()
+
+
+def fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Copy device tensors to host numpy arrays as ONE accounted fetch
+    (one ``record_fetch`` for the group: the call sites fetch arrays that
+    come back together)."""
+    with device_boundary("fetch"):
+        out = [t.detach().cpu().numpy() for t in tensors]
+    SCAN_STATS.record_fetch(sum(a.nbytes for a in out))
+    return out
+
+
+class _ChunkPacker:
+    """Packs one chunk of a table into three contiguous host planes and
+    moves each to the device in one copy:
+
+    - ``values``: (k, rows) float64 — every numeric and boolean column
+      (int64 values are exact in f64 below 2^53, as on the reference's
+      wide-f64 plane);
+    - ``masks``: (m, rows) bool — only columns with nulls ship a row;
+    - ``codes``: (s, rows) int32 — string dictionary codes, -1 = null.
+    """
+
+    def __init__(self, cols: Dict[str, Column]):
+        self.cols = cols
+        self.numeric_names = [n for n, c in cols.items() if c.dtype != DType.STRING]
+        self.string_names = [n for n, c in cols.items() if c.dtype == DType.STRING]
+        self.masked_names = [
+            n for n in self.numeric_names if not bool(cols[n].mask.all())
+        ]
+
+    def pack(self, start: int, stop: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        n = stop - start
+        values = np.empty((len(self.numeric_names), n), dtype=np.float64)
+        masks = np.empty((len(self.masked_names), n), dtype=np.bool_)
+        codes = np.empty((len(self.string_names), n), dtype=np.int32)
+        for i, name in enumerate(self.numeric_names):
+            values[i] = self.cols[name].values[start:stop]
+        for i, name in enumerate(self.masked_names):
+            masks[i] = self.cols[name].mask[start:stop]
+        for i, name in enumerate(self.string_names):
+            codes[i] = self.cols[name].codes[start:stop]
+        return values, masks, codes
+
+    def to_device(self, planes, device) -> Tuple[torch.Tensor, ...]:
+        with device_boundary("transfer"):
+            return tuple(torch.from_numpy(p).to(device) for p in planes)
+
+    def unpack_vals(self, values, masks, codes, row_valid) -> Dict[str, Val]:
+        """Slice the device planes back into per-column Vals (views)."""
+        mask_row = {n: i for i, n in enumerate(self.masked_names)}
+        vals: Dict[str, Val] = {}
+        for i, name in enumerate(self.numeric_names):
+            mask = masks[mask_row[name]] if name in mask_row else row_valid
+            if self.cols[name].dtype == DType.BOOLEAN:
+                vals[name] = Val("bool", values[i] != 0.0, mask)
+            else:
+                vals[name] = Val("num", values[i], mask)
+        for j, name in enumerate(self.string_names):
+            vals[name] = Val(
+                "str", codes[j], None, dictionary=self.cols[name].dictionary
+            )
+        return vals
+
+
+class _DeviceFoldPlan:
+    """Folds per-chunk flat state vectors on the device so a scan fetches
+    once (the reference's ``_DeviceFoldPlan``).
+
+    - sum/min/max leaves live in one elementwise f64 accumulator and merge
+      with plain f64 add/minimum/maximum in chunk order, starting from the
+      monoid identity (0, +inf, -inf) — the same operations, in the same
+      order, as the reference's fold;
+    - 'gather' leaves (per-chunk Welford moments) are written into row
+      ``ci`` of a (chunks, width) buffer — the device equivalent of the
+      host concatenation, order preserved.
+
+    Leaves are f64 on the device (counts are exact below 2^53); integer
+    leaves come back as int64 at :meth:`unflatten_host`.
+    """
+
+    def __init__(self, ops: Sequence[ScanOp], partials, n_chunks: int, device):
+        self._layout = []  # per op: [(key, tag, region_offset, size, shape, is_int)]
+        elem_src, gather_src = [], []
+        sum_mask, min_mask, init = [], [], []
+        src = elem_off = gather_off = 0
+        for op, part in zip(ops, partials):
+            leaves = []
+            for key, leaf in part.items():
+                tag = op.tags[key]
+                if tag not in FOLD_TAGS:
+                    raise ValueError(f"unknown fold tag {tag!r}")
+                size = leaf.numel()
+                is_int = not (leaf.is_floating_point() or leaf.is_complex())
+                idx = np.arange(src, src + size)
+                if tag == "gather":
+                    gather_src.append(idx)
+                    leaves.append((key, tag, gather_off, size, tuple(leaf.shape), is_int))
+                    gather_off += size
+                else:
+                    elem_src.append(idx)
+                    sum_mask.append(np.full(size, tag == "sum"))
+                    min_mask.append(np.full(size, tag == "min"))
+                    ident = {"sum": 0.0, "min": np.inf, "max": -np.inf}[tag]
+                    init.append(np.full(size, ident))
+                    leaves.append((key, tag, elem_off, size, tuple(leaf.shape), is_int))
+                    elem_off += size
+                src += size
+            self._layout.append(leaves)
+
+        def cat(parts, dtype):
+            return np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
+
+        def dev(a):
+            return torch.from_numpy(a).to(device)
+
+        self.elem_size = elem_off
+        self.gather_size = gather_off
+        self.n_chunks = n_chunks
+        self._elem_src = dev(cat(elem_src, np.int64))
+        self._gather_src = dev(cat(gather_src, np.int64))
+        self._is_sum = dev(cat(sum_mask, bool))
+        self._is_min = dev(cat(min_mask, bool))
+        self._acc = dev(cat(init, np.float64))
+        self._gathered = torch.zeros(
+            (n_chunks, self.gather_size), dtype=torch.float64, device=device
+        )
+        self._filled = 0
+
+    def merge(self, flat: torch.Tensor) -> None:
+        """Fold one chunk's flat vector into the accumulator."""
+        if self.elem_size:
+            new = flat[self._elem_src]
+            acc = self._acc
+            self._acc = torch.where(
+                self._is_sum,
+                acc + new,
+                torch.where(
+                    self._is_min, torch.minimum(acc, new), torch.maximum(acc, new)
+                ),
+            )
+        if self.gather_size:
+            self._gathered[self._filled] = flat[self._gather_src]
+        self._filled += 1
+
+    def fetch_unflatten(self) -> List[Dict[str, np.ndarray]]:
+        """The scan's one device->host fetch, unpacked into per-op dicts of
+        numpy leaves (gather leaves stacked over chunks)."""
+        (host,) = fetch(
+            torch.cat([self._acc, self._gathered[: self._filled].reshape(-1)])
+        )
+        elem = host[: self.elem_size]
+        gathered = host[self.elem_size:].reshape(self._filled, self.gather_size)
+        out = []
+        for leaves in self._layout:
+            result = {}
+            for key, tag, off, size, shape, is_int in leaves:
+                if tag == "gather":
+                    leaf = gathered[:, off:off + size].reshape((self._filled,) + shape)
+                    if not shape:
+                        leaf = leaf.reshape(self._filled)
+                else:
+                    leaf = elem[off:off + size].reshape(shape)
+                result[key] = leaf.astype(np.int64) if is_int else leaf
+            out.append(result)
+        return out
+
+
+def _flatten(partials: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Every op's partial leaves as ONE f64 vector (order: ops, then keys)."""
+    return torch.cat(
+        [leaf.reshape(-1).to(torch.float64) for part in partials for leaf in part.values()]
+    )
+
+
+def run_scan(
+    table,
+    ops: Sequence[ScanOp],
+    device,
+    chunk_rows: Optional[int] = None,
+) -> List[Dict[str, np.ndarray]]:
+    """Run all ops in ONE fused pass over the table on ``device``. Returns
+    one dict of reduced numpy leaves per op. The whole pass performs one
+    device->host fetch."""
+    device = torch.device(device)
+    n_rows = table.num_rows
+    needed = sorted({c for op in ops for c in op.columns})
+    cols = {name: table[name] for name in needed}
+    chunk = chunk_rows or min(_auto_chunk_rows(cols), max(n_rows, 1))
+    n_chunks = max(1, -(-n_rows // chunk))
+    packer = _ChunkPacker(cols)
+    SCAN_STATS.scan_passes += 1
+    SCAN_STATS.rows_scanned += n_rows
+    fetches_before = SCAN_STATS.device_fetches
+
+    plan: Optional[_DeviceFoldPlan] = None
+    for ci in range(n_chunks):
+        start = ci * chunk
+        stop = min(start + chunk, n_rows)
+        n = stop - start
+        planes = packer.pack(start, stop)
+        SCAN_STATS.bytes_packed += sum(p.nbytes for p in planes)
+        values, masks, codes = packer.to_device(planes, device)
+        with device_boundary("execute"):
+            row_valid = torch.ones(n, dtype=torch.bool, device=device)
+            vals = packer.unpack_vals(values, masks, codes, row_valid)
+            partials = [op.update(vals, row_valid, n) for op in ops]
+            if plan is None:
+                plan = _DeviceFoldPlan(ops, partials, n_chunks, device)
+            plan.merge(_flatten(partials))
+        SCAN_STATS.chunks_processed += 1
+    results = plan.fetch_unflatten()
+    SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
+    return results
+
+
+# -- per-chunk reductions (the f64 counterparts of ops/df32.py) -------------
+
+
+def masked_count(ok: torch.Tensor) -> torch.Tensor:
+    return ok.sum(dtype=torch.int64)
+
+
+def masked_sum(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, x, 0.0).sum()
+
+
+def masked_extremum(x: torch.Tensor, ok: torch.Tensor, mode: str) -> torch.Tensor:
+    """Min/max of x where ok; the identity (+inf / -inf) when nothing is
+    valid — callers guard on the separate count."""
+    ident = np.inf if mode == "min" else -np.inf
+    if x.numel() == 0:
+        return torch.tensor(ident, dtype=torch.float64, device=x.device)
+    guarded = torch.where(ok, x, ident)
+    return guarded.amin() if mode == "min" else guarded.amax()
+
+
+def masked_moments(x: torch.Tensor, ok: torch.Tensor):
+    """(count, mean, m2) of x where ok — the chunk's Welford state, with
+    m2 a centred two-pass sum (reference df32.masked_moments)."""
+    cnt = masked_count(ok)
+    mean = masked_sum(x, ok) / cnt.clamp(min=1)
+    d = torch.where(ok, x - mean, 0.0)
+    return cnt, mean, (d * d).sum()
+
+
+def masked_comoments(a: torch.Tensor, b: torch.Tensor, ok: torch.Tensor):
+    """(n, x_avg, y_avg, ck, x_mk, y_mk) chunk co-moment state
+    (reference df32.masked_comoments, Correlation.scala:37-52)."""
+    cnt = masked_count(ok)
+    denom = cnt.clamp(min=1)
+    ma = masked_sum(a, ok) / denom
+    mb = masked_sum(b, ok) / denom
+    da = torch.where(ok, a - ma, 0.0)
+    db = torch.where(ok, b - mb, 0.0)
+    return cnt, ma, mb, (da * db).sum(), (da * da).sum(), (db * db).sum()

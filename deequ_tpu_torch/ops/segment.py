@@ -1,0 +1,283 @@
+"""Group-by count statistics via dictionary codes + a device histogram —
+the count-stats half of ``deequ_tpu/ops/segment.py``.
+
+Every column becomes per-row integer codes (0 = null, 1..K = distinct
+values): strings are dictionary codes already, numeric columns get theirs
+from a device sort (``_device_unique_inverse``). A group key is the
+mixed-radix packing of the codes, built on the host as in the reference.
+
+- Dense key space (at most ``DENSE_KEYSPACE_LIMIT``): one histogram of the
+  packed keys over the key space — the CUDA kernel of
+  ``ops/histogram_device.py`` on the card — and the count distribution's
+  scalars are taken on the host from the fetched counts.
+- Sparse key space: one device lexsort of the (k, n) code matrix plus run
+  lengths; only four scalars come back.
+
+At or below ``HOST_GROUP_LIMIT`` rows (2^14) both paths run on the host,
+as in the reference (a round trip to the card costs more than the work):
+the unique-inverse and run lengths with numpy, a dense count with
+``np.bincount``, recorded in ``ScanStats.hist_host_dispatches``.
+
+The frequency-table state (``group_counts_state``), top-k, the resident
+string path and cross-set fusion wait for a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+from deequ_tpu_torch.exceptions import device_boundary
+from deequ_tpu_torch.ops.histogram_device import bincount
+from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, fetch
+
+# dense count vectors are used up to this key-space size
+DENSE_KEYSPACE_LIMIT = 1 << 22
+
+# at or below this row count grouping work runs entirely on the HOST, as
+# in the reference (a round trip to the card costs more than the work);
+# a plain module attribute, so tests can monkeypatch it
+HOST_GROUP_LIMIT = 1 << 14
+
+
+def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``np.lexsort`` on the device: the permutation sorting rows by the
+    LAST key first, ties broken by the earlier keys — one stable sort per
+    key, least significant first."""
+    perm = None
+    for key in keys:
+        k = key if perm is None else key[perm]
+        if k.dtype == torch.bool:
+            k = k.to(torch.uint8)
+        idx = torch.sort(k, stable=True).indices
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
+def _device_unique_inverse(
+    values: np.ndarray, mask: np.ndarray, device
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Sort-based unique on the device (reference ``_unique_inverse_kernel``):
+    one lexsort puts valid values first and in order — with every NaN in
+    ONE group after the numbers, which ``torch.unique`` would not do —
+    adjacent compares mark group starts, a cumsum assigns dense ids, and a
+    scatter maps them back to row order. Returns (uniques, codes) with
+    codes 0 = null, 1..K = distinct."""
+    n = len(values)
+    if n == 0:
+        return np.empty(0, dtype=values.dtype), np.zeros(0, dtype=np.int64)
+    if n <= HOST_GROUP_LIMIT and values.dtype != np.float64:
+        vals = values[mask]
+        uniques = np.unique(vals)
+        codes = np.zeros(n, dtype=np.int64)
+        if len(uniques):
+            codes[mask] = np.searchsorted(uniques, vals) + 1
+        return uniques, codes
+    SCAN_STATS.device_sort_passes += 1
+    with device_boundary("execute"):
+        v = torch.from_numpy(np.ascontiguousarray(values)).to(device)
+        m = torch.from_numpy(np.ascontiguousarray(mask)).to(device)
+        is_nan = torch.isnan(v) if v.is_floating_point() else torch.zeros_like(m)
+        # primary: validity (valid first), then NaN-ness, then the value
+        rank = (~m).to(torch.uint8) * 2 + is_nan.to(torch.uint8)
+        perm = _lexsort([v, rank])
+        sv, sm, snan = v[perm], m[perm], is_nan[perm]
+        neq = (sv[1:] != sv[:-1]) & ~(snan[1:] & snan[:-1])
+        starts = torch.cat([torch.ones(1, dtype=torch.bool, device=device), neq]) & sm
+        ids = torch.cumsum(starts.to(torch.int64), 0)
+        inv = torch.empty_like(ids)
+        inv[perm] = torch.where(sm, ids, 0)
+        uniques, codes = fetch(sv[starts], inv)
+    return uniques, codes
+
+
+def column_key_codes(col: Column, device) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row integer codes (0 = null, 1..K = distinct values) + the
+    distinct values in code order."""
+    if col.dtype == DType.STRING:
+        return col.codes.astype(np.int64) + 1, col.dictionary
+    if col.dtype == DType.BOOLEAN:
+        # 2-value domain: no sort needed at all
+        uniques = np.unique(col.values[col.mask])
+        lut = {v: i + 1 for i, v in enumerate(uniques.tolist())}
+        codes = np.where(
+            col.mask, np.where(col.values, lut.get(True, 0), lut.get(False, 0)), 0
+        ).astype(np.int64)
+        return codes, uniques
+    uniques, codes = _device_unique_inverse(col.values, col.mask, device)
+    return codes, uniques
+
+
+def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
+    """Count key occurrences; ``keys`` holds -1 for rows to ignore. On the
+    card this is one launch of the CUDA histogram kernel."""
+    n = len(keys)
+    if n <= HOST_GROUP_LIMIT:
+        SCAN_STATS.record_hist_dispatch("host")
+        slots = np.where(keys >= 0, keys, num_segments)
+        counts = np.bincount(slots, minlength=num_segments + 1)
+        return counts[:num_segments].astype(np.int64)
+    with device_boundary("execute"):
+        seg = torch.from_numpy(keys).to(device)
+        counts = bincount(seg, num_segments)
+        SCAN_STATS.record_hist_dispatch(
+            "kernel" if seg.device.type == "cuda" else "plain"
+        )
+        return fetch(counts)[0]
+
+
+@dataclass(frozen=True)
+class CountStats:
+    """Scalar aggregates of the group-count distribution — everything the
+    count-only grouping analyzers (Uniqueness, UniqueValueRatio,
+    Distinctness, CountDistinct, Entropy) need."""
+
+    num_rows: int
+    num_groups: int
+    singletons: int
+    entropy: float
+
+
+def _count_stats_from_counts(counts: np.ndarray, num_rows: int) -> CountStats:
+    """Host counts vector -> CountStats (the reference's formula, so the
+    dense path's entropy is the same float computation on both sides)."""
+    num_groups = int(len(counts))
+    singletons = int((counts == 1).sum())
+    if num_rows > 0 and num_groups > 0:
+        p = counts.astype(np.float64) / num_rows
+        entropy = float(-(p * np.log(p)).sum())
+    else:
+        entropy = float("nan")
+    return CountStats(num_rows, num_groups, singletons, entropy)
+
+
+@dataclass
+class _GroupPrep:
+    """One grouping set's key material: per-column codes and radices, the
+    rows with any non-null key, and (dense only) the mixed-radix packed
+    int64 keys with -1 marking excluded rows."""
+
+    code_arrays: List[np.ndarray]
+    any_non_null: Optional[np.ndarray]
+    num_rows: int
+    keyspace: int
+    dense: bool
+    keys: Optional[np.ndarray]
+
+
+def _prepare_grouping(
+    table: ColumnarTable,
+    columns: Sequence[str],
+    device,
+    require_any_non_null: bool = True,
+) -> _GroupPrep:
+    code_arrays = []
+    radices = []
+    for name in columns:
+        codes, values = column_key_codes(table[name], device)
+        code_arrays.append(codes)
+        radices.append(len(values) + 1)
+
+    if require_any_non_null and len(columns) > 0:
+        any_non_null = np.zeros(table.num_rows, dtype=bool)
+        for codes in code_arrays:
+            any_non_null |= codes > 0
+        num_rows = int(any_non_null.sum())
+    else:
+        any_non_null = None
+        num_rows = table.num_rows
+
+    # Python-int product: mixed-radix packing into int64 wraps past 2^63,
+    # so the key space is checked before packing
+    keyspace = 1
+    for radix in radices:
+        keyspace *= radix
+
+    dense = keyspace <= DENSE_KEYSPACE_LIMIT
+    keys = None
+    if dense:
+        keys = np.zeros(table.num_rows, dtype=np.int64)
+        for codes, radix in zip(code_arrays, radices):
+            keys = keys * radix + codes
+        if any_non_null is not None:
+            keys = np.where(any_non_null, keys, -1)
+    return _GroupPrep(code_arrays, any_non_null, num_rows, keyspace, dense, keys)
+
+
+def _host_rle_counts(matrix: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Run lengths of the distinct valid rows of a (k, n) code matrix, on
+    the host (the reference's small-input path)."""
+    perm = np.lexsort(tuple(matrix) + (~valid,))
+    smat = matrix[:, perm]
+    sva = valid[perm]
+    neq = np.any(smat[:, 1:] != smat[:, :-1], axis=0)
+    starts = np.concatenate([[True], neq]) & sva
+    positions = np.nonzero(starts)[0]
+    return np.diff(np.append(positions, int(sva.sum()))).astype(np.int64)
+
+
+def _device_rle_stats(matrix: np.ndarray, valid: np.ndarray, device):
+    """Sparse group-by count aggregates on the device (reference
+    ``_rle_stats_kernel``): lexsort the code matrix with valid rows first,
+    mark run starts, take run lengths; (m, num_groups, singletons,
+    sum(c log c)) come back in one fetch of four f64 scalars."""
+    with device_boundary("execute"):
+        mat = torch.from_numpy(np.ascontiguousarray(matrix)).to(device)
+        va = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+        perm = _lexsort(list(mat) + [~va])
+        smat, sva = mat[:, perm], va[perm]
+        neq = (smat[:, 1:] != smat[:, :-1]).any(dim=0)
+        starts = torch.cat([torch.ones(1, dtype=torch.bool, device=device), neq]) & sva
+        m = sva.sum()
+        positions = torch.nonzero(starts).squeeze(1)
+        counts = torch.diff(positions, append=m.reshape(1))
+        c = counts.to(torch.float64)
+        clogc = (c * torch.log(c)).sum()
+        scalars = torch.stack([
+            m.to(torch.float64),
+            starts.sum().to(torch.float64),
+            (counts == 1).sum().to(torch.float64),
+            clogc,
+        ])
+        host = fetch(scalars)[0]
+    return host[0], int(host[1]), int(host[2]), host[3]
+
+
+def group_count_stats(
+    table: ColumnarTable,
+    columns: Sequence[str],
+    device,
+    require_any_non_null: bool = True,
+) -> CountStats:
+    """Count-distribution aggregates for a grouping (reference
+    ``group_count_stats``): group values never decode on the host."""
+    SCAN_STATS.grouping_passes += 1
+    SCAN_STATS.rows_scanned += table.num_rows
+
+    prep = _prepare_grouping(table, columns, device, require_any_non_null)
+    num_rows = prep.num_rows
+
+    if prep.dense:
+        counts = _device_bincount(prep.keys, prep.keyspace, device)
+        return _count_stats_from_counts(counts[counts > 0], num_rows)
+
+    matrix = np.stack(prep.code_arrays, axis=0)
+    valid = (
+        prep.any_non_null
+        if prep.any_non_null is not None
+        else np.ones(table.num_rows, dtype=bool)
+    )
+    if table.num_rows <= HOST_GROUP_LIMIT:
+        return _count_stats_from_counts(_host_rle_counts(matrix, valid), num_rows)
+    SCAN_STATS.device_sort_passes += 1
+    m, num_groups, singletons, clogc = _device_rle_stats(matrix, valid, device)
+    if num_rows > 0 and num_groups > 0:
+        # entropy = -sum (c/N) log(c/N) = log N - (sum c*log c)/N, N = m
+        entropy = float(np.log(m) - clogc / m)
+    else:
+        entropy = float("nan")
+    return CountStats(num_rows, num_groups, singletons, entropy)
