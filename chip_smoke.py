@@ -86,7 +86,7 @@ def kernel_parity(device) -> dict:
     from deequ_tpu_torch.ops.histogram_device import (
         bincount,
         bincount_plain,
-        uses_shared_memory,
+        regime,
     )
 
     rng = np.random.default_rng(7)
@@ -120,7 +120,7 @@ def kernel_parity(device) -> dict:
         for dtype in (torch.int32, torch.int64):
             check(seg, m, dtype=dtype)
         check(seg, m, rng.integers(0, 100, size=len(seg)).astype(np.int32))
-        regimes[m] = "shared" if uses_shared_memory(m) else "global"
+        regimes[m] = regime(m)
     big = rng.integers(-1, 1_000_001, size=10_000_000)
     check(big, 1_000_001)
     check(big, 1_000_001, rng.integers(-5, 6, size=len(big)).astype(np.int32))
@@ -424,6 +424,52 @@ def phase_times(table, device) -> dict:
 # -- phase 5: kernel timing at the main path's shapes ------------------------
 
 
+def time_queued(fn, reps: int = 100) -> float:
+    """Milliseconds of one ``fn(i)`` on the card, the kernel alone: CUDA
+    events around ``reps`` back-to-back calls, divided by ``reps``. The
+    calls are enqueued behind a spin on the card that outlasts their
+    enqueueing, so the window holds the card's work and none of the host's
+    (unless a call waits for the card itself, as ``torch.bincount`` does)."""
+    import torch
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        marks[2].synchronize()
+        if marks[0].elapsed_time(marks[1]) > enqueue_ms or cycles > 10**10:
+            return marks[1].elapsed_time(marks[2]) / reps
+        cycles *= 4
+
+
+def profiled_ms(fn, reps: int = 10):
+    """Device milliseconds per ``fn(i)`` of the kernels named ``bincount*``
+    as torch.profiler sees them, or None where it shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if "bincount" in ev.key:
+            total_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
 def kernel_timing(table, device, rate: float) -> list:
     import torch
 
@@ -431,6 +477,7 @@ def kernel_timing(table, device, rate: float) -> list:
     from deequ_tpu_torch.ops.histogram_device import bincount, bincount_plain
     from deequ_tpu_torch.ops.segment import _prepare_grouping
 
+    reps = 100
     shapes = []
     for col in ("customer_id", "region", "status"):
         prep = _prepare_grouping(table, [col], device)
@@ -438,9 +485,15 @@ def kernel_timing(table, device, rate: float) -> list:
         m = prep.keyspace
         slots = torch.where(seg >= 0, seg, m)  # torch.bincount refuses negatives
         saved = histogram_device.LAUNCHES
-        ms = time_cuda(lambda: bincount(seg, m))
-        plain_ms = time_cuda(lambda: bincount_plain(seg, m))
-        library_ms = time_cuda(lambda: torch.bincount(slots, minlength=m + 1))
+        # the kernel alone: preallocated buffers as the wrapper makes them
+        bufs = [histogram_device._buffers(device, m) for _ in range(reps)]
+        launch = lambda i: histogram_device._launch(seg, m, None, *bufs[i % reps])
+        kernel_ms = time_queued(launch, reps)
+        prof_ms = profiled_ms(launch)
+        del bufs
+        call_ms = time_cuda(lambda: bincount(seg, m))
+        plain_ms = time_queued(lambda i: bincount_plain(seg, m), reps)
+        library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps)
         got, want = bincount(seg, m), bincount_plain(seg, m)
         histogram_device.LAUNCHES = saved  # timing launches are not the path's
         err = int((got - want).abs().max())
@@ -448,17 +501,21 @@ def kernel_timing(table, device, rate: float) -> list:
             fail(f"bincount != plain at the main path's {col} shape "
                  f"(n={seg.numel()}, m={m}): max err {err}")
         nbytes = seg.numel() * seg.element_size() + m * 8
+        bound_ms = nbytes / rate * 1e3
         shapes.append({
             "column": col,
             "n": seg.numel(),
             "num_segments": m,
             "ids": str(seg.dtype).replace("torch.", ""),
-            "regime": "shared" if histogram_device.uses_shared_memory(m) else "global",
-            "kernel_ms": ms,
+            "regime": histogram_device.regime(m),
+            "kernel_ms": kernel_ms,
+            "profiler_ms": prof_ms if prof_ms is not None else "no device time",
+            "call_ms": call_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "bound_ms": nbytes / rate * 1e3,
+            "bound_ms": bound_ms,
             "bound_by": "bytes",
+            "bound_share": bound_ms / kernel_ms,
             "max_abs_err": err,
         })
     return shapes

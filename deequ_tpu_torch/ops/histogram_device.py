@@ -111,9 +111,9 @@ def _library() -> ctypes.CDLL:
         return _LIB
 
 
-def uses_shared_memory(num_segments: int) -> bool:
-    """Which regime the kernel takes at this width on the current card."""
-    return bool(_library().deequ_bincount_uses_shared(int(num_segments)))
+def regime(num_segments: int) -> str:
+    """The regime the kernel takes at this width on the current card."""
+    return "shared" if _library().deequ_bincount_uses_shared(int(num_segments)) else "global"
 
 
 def _check_args(seg, num_segments, weights) -> None:
@@ -169,10 +169,27 @@ def bincount(
     ):
         raise ValueError("bincount: seg and weights must be contiguous")
     num_segments = int(num_segments)
-    out = torch.zeros(num_segments, dtype=torch.int64, device=seg.device)
+    if seg.numel() == 0 or num_segments == 0:
+        return torch.zeros(num_segments, dtype=dtype, device=seg.device)
+    bufs = _buffers(seg.device, num_segments)
+    _launch(seg, num_segments, weights, *bufs)
+    LAUNCHES += 1
+    out = bufs[-1]
+    return out if dtype == torch.int64 else out.to(dtype)
+
+
+def _buffers(device, num_segments: int) -> tuple:
+    """What one launch writes, as the wrapper allocates it: the zeroed int64
+    output."""
+    return (torch.zeros(num_segments, dtype=torch.int64, device=device),)
+
+
+def _launch(seg, num_segments: int, weights, out) -> None:
+    """Enqueue the kernel on the current stream into ``out``
+    (:func:`_buffers`), with no checks and no allocation: :func:`bincount`
+    calls it once, ``chip_smoke.py`` times it alone. Raises if the launch
+    was refused."""
     n = seg.numel()
-    if n == 0 or num_segments == 0:
-        return out.to(dtype)
     lib = _library()
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
@@ -186,5 +203,3 @@ def bincount(
             f"bincount kernel launch failed: CUDA error {rc} "
             f"(n={n}, num_segments={num_segments})"
         )
-    LAUNCHES += 1
-    return out if dtype == torch.int64 else out.to(dtype)
