@@ -11,7 +11,9 @@ Phases, each printed as one JSON line on stdout:
 1. ``device``  — the card (torch) and its name and power limit (nvidia-smi);
 2. ``build``   — compile the CUDA kernels from the checkout's sources;
 3. ``kernel_parity`` — every kernel against its plain version on the card,
-   bit-exact, over edge cases, key-space boundaries and 10^7 ids;
+   bit-exact, over edge cases, both sides of each regime boundary, 10^7
+   Zipf and single-hot-bin ids in every regime that can take their width,
+   and weights whose per-block partial sums leave int32;
 4. ``main_path`` — ``VerificationSuite.on_data(table).add_check(check).run()``
    on a 10^7-row table (20 float64 columns with 1% nulls, the repo's
    profiling config 2 in BASELINE.md, plus an all-distinct int64 id, a
@@ -19,9 +21,12 @@ Phases, each printed as one JSON line on stdout:
    columns of 8 and 5,000 values), every metric checked against numpy;
    the kernel launch counts are read around the run and the run is
    watched for any torch operation computing on a CPU tensor;
-5. ``kernel_timing`` — each kernel at the shapes the main path gave it,
-   beside its plain version, the PyTorch library call computing the same
-   function, and its bound;
+5. ``kernel_timing`` — each kernel at the shapes the main path gave it:
+   the kernel alone (``kernel_ms``: 100 queued launches into preallocated
+   buffers, CUDA events; the same in every other regime that can take the
+   width, ``regime_ms``; torch.profiler's device time beside it), one
+   wrapper call as a caller pays it (``call_ms``), its plain version, the
+   PyTorch library call computing the same function, and its bound;
 
 then the ``kernels`` summary line, the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
@@ -79,33 +84,67 @@ def time_cuda(fn, reps: int = 15, warmup: int = 3) -> float:
 # -- phase 3: kernel parity --------------------------------------------------
 
 
+def zipf_ids(rng, n: int, m: int, exponent: float = 0.7):
+    """n ids over [1, m) drawn with Zipf weights k^-exponent (the main
+    path's customer_id exponent) by inverse transform, ranks scattered over
+    the key space, 1% null (-1)."""
+    import numpy as np
+
+    u = rng.random(n)
+    top = (m - 1) ** (1.0 - exponent)
+    ranks = np.floor((u * (top - 1.0) + 1.0) ** (1.0 / (1.0 - exponent))).astype(np.int64)
+    keys = 1 + rng.permutation(m - 1)[np.clip(ranks, 1, m - 1) - 1]
+    keys[rng.random(n) < 0.01] = -1
+    return keys
+
+
 def kernel_parity(device) -> dict:
+    """The kernel against its plain version, bit for bit: the edge cases of
+    tests/test_torch_histogram.py, both sides of every regime boundary the
+    rule reports, K4's 65,536-bin width, 10^7-row Zipf and single-hot-bin
+    inputs in every regime that can take their width, and weights whose
+    per-block partial sums leave int32 while each bin's total does not."""
     import numpy as np
     import torch
 
+    from deequ_tpu_torch.ops import histogram_device
     from deequ_tpu_torch.ops.histogram_device import (
+        REGIMES,
         bincount,
         bincount_plain,
         regime,
+        regime_widths,
     )
 
     rng = np.random.default_rng(7)
     cases = 0
     max_err = 0
 
-    def check(seg_np, m, weights_np=None, dtype=torch.int64):
+    def check(seg_np, m, weights_np=None, dtype=torch.int64, regimes=(None,)):
+        """bincount (regime None: the rule's, through the wrapper) or a
+        launch in each named regime, against the plain version."""
         nonlocal cases, max_err
         seg = torch.from_numpy(seg_np).to(device=device, dtype=dtype)
         w = None if weights_np is None else torch.from_numpy(weights_np).to(device)
-        got = bincount(seg, m, weights=w)
         want = bincount_plain(seg, m, weights=w)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if m else 0
-        max_err = max(max_err, err)
-        if not torch.equal(got, want):
-            fail(f"bincount != plain (n={len(seg_np)}, m={m}, "
-                 f"weighted={weights_np is not None}, dtype={dtype}): max err {err}")
-        cases += 1
+        for name in regimes:
+            if name is None:
+                got = bincount(seg, m, weights=w)
+            else:
+                bufs = histogram_device._buffers(seg, m, w, name)
+                histogram_device._launch(seg, m, w, *bufs, regime_name=name)
+                got = bufs[-1]
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max()) if m else 0
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                fail(f"bincount != plain (n={len(seg_np)}, m={m}, regime={name}, "
+                     f"weighted={weights_np is not None}, dtype={dtype}): max err {err}")
+            cases += 1
+
+    def takers(m):
+        return [r for r in REGIMES if histogram_device._library()
+                .deequ_bincount_scratch_bytes(REGIMES.index(r), 1, m, 0) >= 0]
 
     for dtype in (torch.int32, torch.int64):
         for m in (1, 7, 511, 512, 513, 4097):
@@ -114,20 +153,56 @@ def kernel_parity(device) -> dict:
                 seg = rng.integers(-3, m + 3, size=n)
                 check(seg, m, dtype=dtype)
                 check(seg, m, rng.integers(-50, 1000, size=n).astype(np.int32), dtype)
-    regimes = {}
-    for m in (8, 5000, 58_000, 58_200, 1_000_001, 4_194_305):
-        seg = rng.integers(-1, m, size=2_000_000)
+
+    # both sides of every boundary of the rule, and K4's first-pass width
+    widths = regime_widths()
+    boundaries = {}
+    for i, name in enumerate(REGIMES):
+        widest = widths[name]
+        if widest is None:
+            continue
+        got = {widest: regime(widest), widest + 1: regime(widest + 1)}
+        if got != {widest: name, widest + 1: REGIMES[i + 1]}:
+            fail(f"regime boundary of {name} not at {widest}: {got}")
+        boundaries[name] = widest
+    for m in sorted({8, 5001, 65_536, 1_000_001, 4_194_305}
+                    | {w + d for w in boundaries.values() for d in (0, 1)}):
+        seg = rng.integers(-1, m + 1, size=2_000_000)
         for dtype in (torch.int32, torch.int64):
             check(seg, m, dtype=dtype)
-        check(seg, m, rng.integers(0, 100, size=len(seg)).astype(np.int32))
-        regimes[m] = regime(m)
-    big = rng.integers(-1, 1_000_001, size=10_000_000)
-    check(big, 1_000_001)
-    check(big, 1_000_001, rng.integers(-5, 6, size=len(big)).astype(np.int32))
-    check(rng.integers(0, 9, size=10_000_000), 9)
-    if regimes[58_000] != "shared" or regimes[58_200] != "global":
-        fail(f"shared-memory boundary not where expected: {regimes}")
-    return {"cases": cases, "max_abs_err": max_err, "regimes": regimes}
+        check(seg, m, rng.integers(-5, 100, size=len(seg)).astype(np.int32))
+
+    # skew at 10^7 rows: Zipf and one hot bin, in every regime that can
+    # take the width, int32 and int64 ids
+    rows = 10_000_000
+    skew_widths = (9, 5001, 65_536, 1_078_737, boundaries["partition"] + 1)
+    for m in skew_widths:
+        hot = np.full(rows, m // 2, dtype=np.int64)
+        zipf = zipf_ids(rng, rows, m)
+        for seg in (zipf, hot):
+            for dtype in (torch.int32, torch.int64):
+                check(seg, m, dtype=dtype, regimes=takers(m))
+    check(zipf_ids(rng, rows, 65_536), 65_536)  # K4's width, by the rule
+
+    # weights: per-block partials leave int32, each bin's total does not
+    # (the second half repeats the first half's ids with negated weights),
+    # and then totals past int32 (taken mod 2^32 by both)
+    half = rng.integers(0, 8, size=2_000_000)
+    seg = np.concatenate([half, half, rng.integers(0, 8, size=1000)])
+    big = np.int32(2**30 + 12345)
+    inside = np.concatenate([np.full(len(half), big, np.int32),
+                             np.full(len(half), -big, np.int32),
+                             rng.integers(-100, 100, size=1000).astype(np.int32)])
+    totals = np.bincount(seg, weights=inside.astype(np.float64), minlength=8)
+    partial = np.bincount(half, minlength=8).max() * int(big)
+    if np.abs(totals).max() >= 2**31 or partial < 2**31:
+        fail("weighted edge case is not at the edge")
+    beyond = np.full(len(seg), big, np.int32)
+    for m in (9, 5001, 65_536):
+        for weights in (inside, beyond):
+            check(seg, m, weights, regimes=takers(m))
+    return {"cases": cases, "max_abs_err": max_err, "boundaries": boundaries,
+            "skew_widths": {m: takers(m) for m in skew_widths}}
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -485,12 +560,22 @@ def kernel_timing(table, device, rate: float) -> list:
         m = prep.keyspace
         slots = torch.where(seg >= 0, seg, m)  # torch.bincount refuses negatives
         saved = histogram_device.LAUNCHES
-        # the kernel alone: preallocated buffers as the wrapper makes them
-        bufs = [histogram_device._buffers(device, m) for _ in range(reps)]
-        launch = lambda i: histogram_device._launch(seg, m, None, *bufs[i % reps])
-        kernel_ms = time_queued(launch, reps)
-        prof_ms = profiled_ms(launch)
-        del bufs
+        # the kernel alone, in the rule's regime and in every other regime
+        # that can take the width: buffers preallocated as the wrapper makes them
+        name = histogram_device.regime(m)
+        regime_ms = {}
+        for other in histogram_device.REGIMES:
+            try:
+                bufs = [histogram_device._buffers(seg, m, None, other) for _ in range(reps)]
+            except ValueError:
+                continue  # this regime cannot take the width
+            launch = lambda i: histogram_device._launch(seg, m, None, *bufs[i % reps],
+                                                        regime_name=other)
+            regime_ms[other] = time_queued(launch, reps)
+            if other == name:
+                prof_ms = profiled_ms(launch)
+            del bufs
+        kernel_ms = regime_ms[name]
         call_ms = time_cuda(lambda: bincount(seg, m))
         plain_ms = time_queued(lambda i: bincount_plain(seg, m), reps)
         library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps)
@@ -507,8 +592,9 @@ def kernel_timing(table, device, rate: float) -> list:
             "n": seg.numel(),
             "num_segments": m,
             "ids": str(seg.dtype).replace("torch.", ""),
-            "regime": histogram_device.regime(m),
+            "regime": name,
             "kernel_ms": kernel_ms,
+            "regime_ms": regime_ms,
             "profiler_ms": prof_ms if prof_ms is not None else "no device time",
             "call_ms": call_ms,
             "plain_ms": plain_ms,

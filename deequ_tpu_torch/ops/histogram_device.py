@@ -6,9 +6,11 @@ one-hot MXU matmul, and ``bincount_pallas``, its one Pallas kernel). The
 port has one formulation per device:
 
 - on a CUDA tensor, :func:`bincount` launches the hand-written kernel of
-  ``deequ_tpu_torch/csrc/bincount.cu`` (shared-memory atomics for narrow
-  key spaces, global 64-bit atomics for wide ones; the source says why),
-  or raises;
+  ``deequ_tpu_torch/csrc/bincount.cu`` in the regime its width calls for
+  (:func:`regime`: a shared-memory histogram a block for narrow key
+  spaces, a partition by bucket then a shared-memory histogram a bucket
+  for wide ones, L2 atomics past 2^25 bins; the source says why), or
+  raises;
 - on a CPU tensor it runs :func:`bincount_plain`, the kernel's plain
   PyTorch version, which is also what tests and ``chip_smoke.py`` hold
   the kernel against.
@@ -16,7 +18,10 @@ port has one formulation per device:
 Contract (the reference's, shared by every variant): counts over
 ``[0, num_segments)``; ids outside that range — negative sentinels,
 padding — are dropped; optional int32 weights replace the 1; results are
-exact integers.
+exact integers. Weighted, each bin's total is taken mod 2^32 and read as
+an int32, as the reference's int32 accumulation gives it: that is the
+exact total whenever it lies in int32, whatever the partial sums on the
+way, and kernel and plain version agree on every input.
 
 The kernel is compiled from the source in the checkout with ``nvcc`` at
 first use into ``build/deequ_tpu_torch/`` (rebuilt when the source
@@ -100,20 +105,41 @@ def _library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             lib.deequ_bincount.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
             ]
             lib.deequ_bincount.restype = ctypes.c_int
-            lib.deequ_bincount_uses_shared.argtypes = [ctypes.c_longlong]
-            lib.deequ_bincount_uses_shared.restype = ctypes.c_int
+            lib.deequ_bincount_regime.argtypes = [ctypes.c_longlong]
+            lib.deequ_bincount_regime.restype = ctypes.c_int
+            lib.deequ_bincount_widest.argtypes = [ctypes.c_int]
+            lib.deequ_bincount_widest.restype = ctypes.c_longlong
+            lib.deequ_bincount_scratch_bytes.argtypes = [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ]
+            lib.deequ_bincount_scratch_bytes.restype = ctypes.c_longlong
             _LIB = lib
         return _LIB
 
 
+#: the kernel's regimes, narrowest first, in the source's numbering
+REGIMES = ("shared", "partition", "global")
+
+
 def regime(num_segments: int) -> str:
-    """The regime the kernel takes at this width on the current card."""
-    return "shared" if _library().deequ_bincount_uses_shared(int(num_segments)) else "global"
+    """The regime the kernel takes at this width (the rule lives in
+    ``bincount.cu``: the narrowest regime whose width covers it)."""
+    return REGIMES[_library().deequ_bincount_regime(int(num_segments))]
+
+
+def regime_widths() -> dict:
+    """The widest width the rule gives each regime (None: no limit)."""
+    lib = _library()
+    widths = {}
+    for i, name in enumerate(REGIMES):
+        widest = lib.deequ_bincount_widest(i)
+        widths[name] = None if widest < 0 else int(widest)
+    return widths
 
 
 def _check_args(seg, num_segments, weights) -> None:
@@ -150,14 +176,21 @@ def bincount_plain(
     )
     counts = torch.zeros(num_segments + 1, dtype=torch.int64, device=seg.device)
     counts.index_add_(0, slots, add)
-    return counts[:num_segments].to(dtype)
+    counts = counts[:num_segments]
+    if weights is not None:
+        # the weighted domain (module doc): the total mod 2^32, as an int32
+        counts = counts.to(torch.int32).to(torch.int64)
+    return counts.to(dtype)
 
 
 def bincount(
     seg: torch.Tensor, num_segments: int, weights=None, dtype=torch.int64
 ) -> torch.Tensor:
     """Histogram of ``seg`` over ``[0, num_segments)`` (module doc). A CUDA
-    tensor runs the CUDA kernel; a CPU tensor runs the plain version."""
+    tensor runs the CUDA kernel; a CPU tensor runs the plain version.
+    Unweighted counts are exact; with int32 ``weights`` each bin holds its
+    total mod 2^32 read as an int32 — the exact total wherever that lies in
+    int32, as the reference accumulates."""
     global LAUNCHES
     _check_args(seg, num_segments, weights)
     if seg.device.type == "cpu":
@@ -171,35 +204,54 @@ def bincount(
     num_segments = int(num_segments)
     if seg.numel() == 0 or num_segments == 0:
         return torch.zeros(num_segments, dtype=dtype, device=seg.device)
-    bufs = _buffers(seg.device, num_segments)
-    _launch(seg, num_segments, weights, *bufs)
+    name = regime(num_segments)
+    bufs = _buffers(seg, num_segments, weights, name)
+    _launch(seg, num_segments, weights, *bufs, regime_name=name)
     LAUNCHES += 1
     out = bufs[-1]
     return out if dtype == torch.int64 else out.to(dtype)
 
 
-def _buffers(device, num_segments: int) -> tuple:
-    """What one launch writes, as the wrapper allocates it: the zeroed int64
-    output."""
-    return (torch.zeros(num_segments, dtype=torch.int64, device=device),)
+def _buffers(seg, num_segments: int, weights=None, regime_name=None) -> tuple:
+    """What one launch writes, as the wrapper allocates it: the scratch the
+    regime needs (bytes) and the int64 output, which the kernel writes
+    whole."""
+    lib = _library()
+    name = regime_name or regime(num_segments)
+    with torch.cuda.device(seg.device):
+        nbytes = lib.deequ_bincount_scratch_bytes(
+            REGIMES.index(name), seg.numel(), num_segments,
+            0 if weights is None else 1,
+        )
+    if nbytes < 0:
+        raise ValueError(
+            f"bincount: the {name} regime cannot take {num_segments} segments"
+        )
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=seg.device)
+    out = torch.empty(num_segments, dtype=torch.int64, device=seg.device)
+    return scratch, out
 
 
-def _launch(seg, num_segments: int, weights, out) -> None:
-    """Enqueue the kernel on the current stream into ``out``
-    (:func:`_buffers`), with no checks and no allocation: :func:`bincount`
-    calls it once, ``chip_smoke.py`` times it alone. Raises if the launch
-    was refused."""
+def _launch(seg, num_segments: int, weights, scratch, out, regime_name=None) -> None:
+    """Enqueue the kernel on the current stream into ``out`` with the
+    buffers of :func:`_buffers`, with no checks and no allocation:
+    :func:`bincount` calls it once in the regime of :func:`regime`;
+    ``chip_smoke.py`` times it alone, and in each regime that can take the
+    width. Raises if the launch was refused."""
     n = seg.numel()
     lib = _library()
+    name = regime_name or regime(num_segments)
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
         rc = lib.deequ_bincount(
-            seg.data_ptr(), 1 if seg.dtype == torch.int64 else 0,
+            REGIMES.index(name), seg.data_ptr(),
+            1 if seg.dtype == torch.int64 else 0,
             None if weights is None else weights.data_ptr(),
-            n, num_segments, out.data_ptr(), stream,
+            n, num_segments, scratch.data_ptr() if scratch.numel() else None,
+            out.data_ptr(), stream,
         )
     if rc != 0:
         raise DeviceException(
             f"bincount kernel launch failed: CUDA error {rc} "
-            f"(n={n}, num_segments={num_segments})"
+            f"(n={n}, num_segments={num_segments}, regime={name})"
         )

@@ -22,9 +22,20 @@ SEGMENTS = (1, 7, 511, 512, 513, 4097)
 ROWS = (0, 1, 1023, 1024, 1025, 5000)
 
 
-def _ids(n, m, seed):
-    # ids in [-3, m + 3): negative sentinels and ids >= m must be dropped
-    return np.random.default_rng(seed).integers(-3, m + 3, size=n)
+def _ids(n, m, seed, dist="uniform"):
+    """n ids for a key space of m. uniform: ids in [-3, m + 3), so negative
+    sentinels and ids >= m must be dropped; zipf: Zipf-skewed keys at the
+    main path's exponent (0.7) scattered over [0, m), 1% -1; hot: every id
+    the same bin."""
+    rng = np.random.default_rng(seed)
+    if dist == "hot":
+        return np.full(n, m // 2, dtype=np.int64)
+    if dist == "zipf":
+        p = np.arange(1, m + 1, dtype=np.float64) ** -0.7
+        keys = rng.permutation(m)[rng.choice(m, size=n, p=p / p.sum())]
+        keys[rng.random(n) < 0.01] = -1
+        return keys.astype(np.int64)
+    return rng.integers(-3, m + 3, size=n)
 
 
 def _numpy_bincount(seg, m, weights=None):
@@ -33,11 +44,19 @@ def _numpy_bincount(seg, m, weights=None):
     return np.bincount(seg[keep], weights=w, minlength=m)[:m].astype(np.int64)
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
-@pytest.mark.parametrize("m", SEGMENTS)
-@pytest.mark.parametrize("n", ROWS)
-def test_bincount_matches_numpy(n, m, dtype):
-    seg = _ids(n, m, seed=n * 7919 + m)
+_DTYPES = {"i32": torch.int32, "i64": torch.int64}
+NUMPY_CASES = [
+    pytest.param(n, m, _DTYPES[dt], "uniform", id=f"{n}-{m}-{dt}")
+    for n in ROWS for m in SEGMENTS for dt in _DTYPES
+] + [
+    pytest.param(n, m, _DTYPES[dt], dist, id=f"{dist}-{n}-{m}-{dt}")
+    for dist in ("zipf", "hot") for n in (1025, 5000) for m in SEGMENTS for dt in _DTYPES
+]
+
+
+@pytest.mark.parametrize("n,m,dtype,dist", NUMPY_CASES)
+def test_bincount_matches_numpy(n, m, dtype, dist):
+    seg = _ids(n, m, seed=n * 7919 + m, dist=dist)
     weights = np.random.default_rng(m).integers(-50, 1000, size=n).astype(np.int32)
     t = torch.from_numpy(seg).to(dtype)
     got = bincount(t, m)
@@ -49,36 +68,79 @@ def test_bincount_matches_numpy(n, m, dtype):
 
 # the Pallas side runs in interpret mode (~0.25 s a call here), so it takes a
 # spread of the edge cases: empty, single row, block edges on both axes,
-# the widest segment count, weights, both id types
+# the widest segment count, weights, both id types, Zipf skew, one hot bin
 PALLAS_CASES = [
-    (0, 7, "i64", False),
-    (1, 1, "i32", False),
-    (1023, 511, "i64", True),
-    (1024, 512, "i32", False),
-    (1025, 513, "i64", False),
-    (5000, 4097, "i32", True),
-    (5000, 7, "i64", True),
+    pytest.param(0, 7, "i64", False, "uniform", id="0-7-i64-False"),
+    pytest.param(1, 1, "i32", False, "uniform", id="1-1-i32-False"),
+    pytest.param(1023, 511, "i64", True, "uniform", id="1023-511-i64-True"),
+    pytest.param(1024, 512, "i32", False, "uniform", id="1024-512-i32-False"),
+    pytest.param(1025, 513, "i64", False, "uniform", id="1025-513-i64-False"),
+    pytest.param(5000, 4097, "i32", True, "uniform", id="5000-4097-i32-True"),
+    pytest.param(5000, 7, "i64", True, "uniform", id="5000-7-i64-True"),
+    pytest.param(5000, 4097, "i64", False, "zipf", id="zipf-5000-4097-i64-False"),
+    pytest.param(5000, 513, "i32", True, "zipf", id="zipf-5000-513-i32-True"),
+    pytest.param(5000, 4097, "i32", False, "hot", id="hot-5000-4097-i32-False"),
+    pytest.param(1025, 7, "i64", True, "hot", id="hot-1025-7-i64-True"),
 ]
 
 
-@pytest.mark.parametrize("n,m,ids,weighted", PALLAS_CASES)
-def test_bincount_matches_pallas_kernel(n, m, ids, weighted):
-    np_dtype = np.int32 if ids == "i32" else np.int64
-    seg = _ids(n, m, seed=n + m).astype(np_dtype)
-    weights = (
-        np.random.default_rng(n).integers(0, 100, size=n).astype(np.int32)
-        if weighted else None
-    )
-    want = np.asarray(bincount_pallas(
+def _pallas(seg, m, weights=None):
+    return np.asarray(bincount_pallas(
         jnp.asarray(seg), m, jnp,
         weights=None if weights is None else jnp.asarray(weights),
         interpret=True,
     )).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,m,ids,weighted,dist", PALLAS_CASES)
+def test_bincount_matches_pallas_kernel(n, m, ids, weighted, dist):
+    np_dtype = np.int32 if ids == "i32" else np.int64
+    seg = _ids(n, m, seed=n + m, dist=dist).astype(np_dtype)
+    weights = (
+        np.random.default_rng(n).integers(0, 100, size=n).astype(np.int32)
+        if weighted else None
+    )
+    want = _pallas(seg, m, weights)
     got = bincount(
         torch.from_numpy(seg), m,
         weights=None if weights is None else torch.from_numpy(weights),
     )
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _weighted_edge(n_half=1500, m=7, seed=3):
+    """ids and int32 weights whose running per-bin sums leave int32 while
+    each bin's total does not: the second half repeats the first half's ids
+    with the weights negated, then a few small weights."""
+    rng = np.random.default_rng(seed)
+    half = rng.integers(0, m, size=n_half)
+    seg = np.concatenate([half, half, rng.integers(-1, m + 1, size=50)])
+    big = 2**30 + 12345
+    weights = np.concatenate([
+        np.full(n_half, big), np.full(n_half, -big), rng.integers(-100, 100, size=50),
+    ]).astype(np.int32)
+    return seg, weights
+
+
+def test_weighted_edge_inside_int32_matches_numpy_and_pallas():
+    seg, weights = _weighted_edge()
+    want = _numpy_bincount(seg, 7, weights)
+    first_half = _numpy_bincount(seg[:1500], 7, weights[:1500])
+    assert np.abs(want).max() < 2**31 <= first_half.max()  # at the edge
+    got = bincount(torch.from_numpy(seg), 7, weights=torch.from_numpy(weights))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _pallas(seg, 7, weights))
+
+
+def test_weighted_totals_past_int32_wrap_as_the_reference():
+    # past the domain both take each total mod 2^32 as an int32
+    seg, weights = _weighted_edge()
+    weights = np.abs(weights)
+    exact = _numpy_bincount(seg, 7, weights)
+    assert exact.max() >= 2**31
+    got = bincount(torch.from_numpy(seg), 7, weights=torch.from_numpy(weights))
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.int32).astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), _pallas(seg, 7, weights))
 
 
 def test_bincount_output_dtype_and_cpu_route_never_launches():
@@ -117,9 +179,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# the rule's boundaries (bincount.cu: kSharedBins, then 2^25 bins), each on
+# both sides, K4's first-pass width, and the main path's widths
+CUDA_WIDTHS = [
+    (8, "shared"), (5000, "shared"), (12_288, "shared"), (12_289, "partition"),
+    (65_536, "partition"), (1_000_001, "partition"),
+    (33_554_432, "partition"), (33_554_433, "global"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", (8, 5000, 58_000, 58_200, 1_000_001))
-def test_cuda_kernel_matches_plain(cuda_device, m):
+@pytest.mark.parametrize("m,regime", CUDA_WIDTHS, ids=[str(m) for m, _ in CUDA_WIDTHS])
+def test_cuda_kernel_matches_plain(cuda_device, m, regime):
+    assert histogram_device.regime(m) == regime
     rng = np.random.default_rng(m)
     seg = torch.from_numpy(rng.integers(-1, m + 1, size=1_000_000)).to(cuda_device)
     w = torch.from_numpy(rng.integers(-5, 100, size=1_000_000).astype(np.int32)).to(cuda_device)
@@ -128,3 +200,12 @@ def test_cuda_kernel_matches_plain(cuda_device, m):
     assert torch.equal(bincount(seg.to(torch.int32), m), bincount_plain(seg, m))
     assert torch.equal(bincount(seg, m, weights=w), bincount_plain(seg, m, weights=w))
     assert histogram_device.LAUNCHES == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", (7, 65_536, 33_554_433))
+def test_cuda_weighted_edge_matches_plain(cuda_device, m):
+    seg, weights = _weighted_edge(n_half=1_000_000, m=7)
+    seg = torch.from_numpy(seg).to(cuda_device)
+    w = torch.from_numpy(weights).to(cuda_device)
+    assert torch.equal(bincount(seg, m, weights=w), bincount_plain(seg, m, weights=w))
