@@ -26,7 +26,8 @@ Phases, each printed as one JSON line on stdout:
    buffers, CUDA events; the same in every other regime that can take the
    width, ``regime_ms``; torch.profiler's device time beside it), one
    wrapper call as a caller pays it (``call_ms``), its plain version, the
-   PyTorch library call computing the same function, and its bound;
+   PyTorch library call computing the same function, and its bound; and
+   every regime on both sides of each regime boundary (``boundaries``);
 
 then the ``kernels`` summary line, the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
@@ -142,9 +143,12 @@ def kernel_parity(device) -> dict:
                      f"weighted={weights_np is not None}, dtype={dtype}): max err {err}")
             cases += 1
 
+    widths = regime_widths()
+
     def takers(m):
-        return [r for r in REGIMES if histogram_device._library()
-                .deequ_bincount_scratch_bytes(REGIMES.index(r), 1, m, 0) >= 0]
+        """Every regime that can take width m (each takes any width up to
+        its widest)."""
+        return [r for r in REGIMES if widths[r] is None or m <= widths[r]]
 
     for dtype in (torch.int32, torch.int64):
         for m in (1, 7, 511, 512, 513, 4097):
@@ -155,7 +159,6 @@ def kernel_parity(device) -> dict:
                 check(seg, m, rng.integers(-50, 1000, size=n).astype(np.int32), dtype)
 
     # both sides of every boundary of the rule, and K4's first-pass width
-    widths = regime_widths()
     boundaries = {}
     for i, name in enumerate(REGIMES):
         widest = widths[name]
@@ -528,8 +531,9 @@ def time_queued(fn, reps: int = 100) -> float:
 
 
 def profiled_ms(fn, reps: int = 10):
-    """Device milliseconds per ``fn(i)`` of the kernels named ``bincount*``
-    as torch.profiler sees them, or None where it shows no device time."""
+    """Device milliseconds per ``fn(i)`` as torch.profiler sees them, by
+    kernel (the kernels named ``bincount*`` and, in some regimes, the
+    output's memset), or None where the profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -537,12 +541,15 @@ def profiled_ms(fn, reps: int = 10):
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
-    total_us = 0.0
+    by_kernel = {}
     for ev in prof.key_averages():
-        if "bincount" in ev.key:
-            total_us += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / reps / 1e3 if total_us > 0 else None
+        us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ("bincount" in ev.key or ev.key.startswith("Memset")):
+            name = ev.key.split("::")[-1].split("(")[0]
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / reps / 1e3
+    if not by_kernel:
+        return None
+    return {"total": sum(by_kernel.values()), "by_kernel": by_kernel}
 
 
 def kernel_timing(table, device, rate: float) -> list:
@@ -607,6 +614,37 @@ def kernel_timing(table, device, rate: float) -> list:
     return shapes
 
 
+def boundary_timing(device, rate: float, rows: int = 10_000_000, reps: int = 20) -> list:
+    """The kernel alone on uniform ids on both sides of each boundary of
+    the regime rule, in every regime that can take the width: what the
+    rule's choice rests on, measured on this card."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+
+    rng = np.random.default_rng(11)
+    out = []
+    for name, widest in histogram_device.regime_widths().items():
+        if widest is None:
+            continue
+        for m in (widest, widest + 1):
+            seg = torch.from_numpy(rng.integers(0, m, size=rows)).to(device)
+            regime_ms = {}
+            for other in histogram_device.REGIMES:
+                try:
+                    bufs = histogram_device._buffers(seg, m, None, other)
+                except ValueError:
+                    continue  # this regime cannot take the width
+                regime_ms[other] = time_queued(
+                    lambda i: histogram_device._launch(seg, m, None, *bufs, regime_name=other),
+                    reps)
+            out.append({"num_segments": m, "regime": histogram_device.regime(m),
+                        "regime_ms": regime_ms,
+                        "bound_ms": (rows * 8 + m * 8) / rate * 1e3})
+    return out
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -657,7 +695,8 @@ def main(argv=None) -> int:
     emit(report)
 
     shapes = kernel_timing(table, device, rate)
-    emit({"phase": "kernel_timing", "kernel": "bincount", "card": smi, "shapes": shapes})
+    emit({"phase": "kernel_timing", "kernel": "bincount", "card": smi, "shapes": shapes,
+          "boundaries": boundary_timing(device, rate)})
 
     widest = max(shapes, key=lambda s: s["num_segments"])
     max_err = max([parity["max_abs_err"]] + [s["max_abs_err"] for s in shapes])

@@ -15,34 +15,44 @@
 //
 // The TPU kernel compares every row tile against an iota of segment ids
 // (O(n * num_segments) vector compares): a fit for the TPU's wide VPU and
-// its sequential grid, ruinous here. This kernel is bound by reading the ids
-// once (8 bytes a row for int64 ids) and writing the counts once (8 bytes a
-// bin). What keeps it from that bound on an H100 is the rate of atomics:
-// shared-memory atomics keep up with the memory, global (L2) atomics do not
-// (10^7 scattered L2 atomics take several times as long as reading 80 MB).
-// So the width picks one of three regimes, by one rule (regime() below),
-// from the card's limits read once per device:
+// its sequential grid, ruinous here. The least this function can cost is
+// reading the ids once (8 bytes a row for int64 ids) and writing the counts
+// once (8 bytes a bin). On an H100 the atomics are what keep a histogram
+// from that: shared-memory atomics keep pace with the memory, L2 atomics
+// to scattered bins do not (10^7 of them take several times as long as
+// reading 80 MB of ids). So the width picks one of three regimes, by one
+// rule (regime() below), from the card's limits, read once per device:
 //
-// - shared (num_segments <= kSharedBins, the bins of the default 48 KB of
-//   shared memory): one block per SM, each with a private u32 histogram in
-//   shared memory (up to one copy per warp while they fit in 48 KB, so a
-//   few hot bins spread their contention), fed by 16-byte vector loads
-//   unrolled four deep; each block then adds its non-zero bins to the output
-//   with one 64-bit atomic each. Bound by the memory; one block per SM keeps
-//   the zeroing and flushing of the copies (blocks x bins) small.
-// - partition (kSharedBins < num_segments <= kMaxBuckets * kMaxBucketWidth,
-//   2^25): too wide for a histogram per block, and too few rows per bin to
-//   make L2 atomics cheap. Pass 1 reads the ids once and sorts each tile of
-//   kTile rows by bucket (the id's high bits) in shared memory, writing each
-//   row as a u16 offset within its bucket plus the tile's bucket offsets
-//   (20 MB for 10^7 rows: it stays in L2). Pass 2 gives each bucket of at
-//   most 32,768 bins to one block, which counts its rows of every tile in a
-//   shared-memory histogram and writes its bins of the output once, with
-//   plain stores: no global atomic at all. The bucket width is chosen so
-//   that there are about as many buckets as SMs.
+// - shared (up to one u32 histogram in the shared memory a block may opt
+//   into: 58,112 bins on an H100). Bound by reading the ids. One block of
+//   1024 threads per SM, each with a private histogram in shared memory
+//   (up to one copy per warp while they fit in 48 KB, so a few hot bins
+//   spread their contention), fed by 16-byte vector loads kept four deep
+//   in flight; each block then adds its non-zero bins to the output with
+//   one 64-bit atomic each. One block per SM, not as many as fit, keeps the
+//   zeroing and flushing (blocks x bins) small beside the rows.
+// - partition (to 2^25 bins): too wide for a histogram a block, too few
+//   rows a bin for L2 atomics. Pass 1 reads the ids once, with evict-first
+//   loads, sorts each tile of kTile rows by bucket (the id's high bits) in
+//   shared memory, and writes each row as a u16 offset within its bucket,
+//   plus the tile's bucket offsets: 2 bytes a row that stay in L2. It is
+//   bound by the memory. Pass 2 gives each bucket (at most 32,768 bins;
+//   about as many buckets as SMs) to one block, which counts its rows of
+//   every tile in a shared-memory histogram and writes its bins of the
+//   output once, with plain stores: no global atomic at all. Pass 2 is
+//   bound by L2 latency (the runs a tile holds for one bucket are short)
+//   and by shared-memory atomics; a skewed key space gives the block of its
+//   hottest bucket more rows than the rest. More buckets (more blocks, each
+//   walking every tile) and more histogram copies measured slower.
 // - global (wider): every row adds straight into the 64-bit output with an
-//   L2 atomic. Only reachable through the API (the dense grouping path
-//   stops at 2^22 bins).
+//   L2 atomic. Not reachable from the dense grouping path, which stops at
+//   2^22 bins.
+//
+// Also measured and not taken: a histogram spread over a thread-block
+// cluster's shared memory (distributed shared-memory atomics were no
+// faster than L2 atomics), two cluster passes over halves of a wide key
+// space, and warp aggregation of equal keys (__match_any_sync costs more
+// than it saves unless most of a warp's keys are equal).
 //
 // Integer adds commute, so the result is bit-exact and deterministic. A
 // launch counts at most kChunkRows rows at a time, so every u32 count is
@@ -68,7 +78,6 @@ constexpr int kMaxBuckets = 1024;
 constexpr int kMaxBucketShift = 15;     // u16 offsets: 32,768 bins a bucket
 constexpr long long kChunkRows = 1ll << 31;
 constexpr int kDefaultSmem = 48 * 1024;
-constexpr long long kSharedBins = kDefaultSmem / 4;                    // 12,288
 constexpr long long kPartitionBins = (long long)kMaxBuckets << kMaxBucketShift;
 
 // -- the row walk of the shared and global regimes ---------------------------
@@ -114,7 +123,7 @@ __device__ __forceinline__ void walk(const Id* __restrict__ ids, long long n, F 
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long j = v + u * T;
-      buf[u] = j < hi ? __ldcs(vp + j) : V::none();
+      buf[u] = j < hi ? __ldg(vp + j) : V::none();
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -235,8 +244,8 @@ bincount_partition(const Id* __restrict__ ids, const int32_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const long long i = base + j * kTileThreads + threadIdx.x;
-      v[j] = i < n ? ids[i] : (Id)-1;
-      if (Weighted) wv[j] = i < n ? w[i] : 0;
+      v[j] = i < n ? __ldcs(ids + i) : (Id)-1;
+      if (Weighted) wv[j] = i < n ? __ldcs(w + i) : 0;
     }
     // key and rank within its bucket in this tile; ~0u for a dropped row
     unsigned key[kRowsPerThread], rank[kRowsPerThread];
@@ -403,24 +412,28 @@ const Card* card(int* err) {
 
 // -- the regime rule, and what each regime needs ------------------------------
 
-// The widest num_segments regime r takes by the rule (-1: no limit).
-long long widest(int r) {
-  return r == kShared ? kSharedBins : (r == kPartition ? kPartitionBins : -1);
+// The widest num_segments regime r takes on this card (-1: no limit):
+// shared while one u32 histogram fits the shared memory a block may opt
+// into (58,112 bins on an H100), partition up to kMaxBuckets buckets of
+// 2^kMaxBucketShift bins.
+long long widest(const Card& c, int r) {
+  if (r == kShared) return c.optin_smem / 4;
+  return r == kPartition ? kPartitionBins : -1;
 }
 
 // The one rule: the narrowest regime whose width covers num_segments.
-int regime(long long m) {
+int regime(const Card& c, long long m) {
   for (int r = 0; r < kGlobal; ++r)
-    if (m <= widest(r)) return r;
+    if (m <= widest(c, r)) return r;
   return kGlobal;
 }
 
-// Whether regime r can run at this width at all (wider than the rule gives
-// it, for a measurement that compares regimes at one width).
+// Whether regime r can run at this width at all (a regime takes every
+// width up to its widest, so a measurement can compare regimes at one
+// width).
 bool can_take(const Card& c, int r, long long m) {
-  if (r == kShared) return m * 4 <= c.optin_smem;
-  if (r == kPartition) return m <= kPartitionBins;
-  return r == kGlobal;
+  const long long w = widest(c, r);
+  return r >= 0 && r < kRegimes && (w < 0 || m <= w);
 }
 
 // Buckets of the partition regime: widths a power of two, about one bucket
@@ -494,12 +507,21 @@ int launch(const Card& c, int r, const void* idsv, const void* wv, long long n,
 
 extern "C" {
 
-// The regime the rule gives this width on the current device:
-// 0 shared, 1 partition, 2 global.
-int deequ_bincount_regime(long long num_segments) { return regime(num_segments); }
+// The regime the rule gives this width on the current device: 0 shared,
+// 1 partition, 2 global; a negative CUDA error if the device has none.
+int deequ_bincount_regime(long long num_segments) {
+  int err = 0;
+  const Card* c = card(&err);
+  return c ? regime(*c, num_segments) : -err;
+}
 
-// The widest width the rule gives regime r (-1: no limit).
-long long deequ_bincount_widest(int r) { return widest(r); }
+// The widest width regime r takes on the current device (-1: no limit;
+// -2: no device).
+long long deequ_bincount_widest(int r) {
+  int err = 0;
+  const Card* c = card(&err);
+  return c ? widest(*c, r) : -2;
+}
 
 // Bytes of scratch a launch in regime r needs; -1 if r cannot take the
 // width on the current device.
@@ -507,7 +529,7 @@ long long deequ_bincount_scratch_bytes(int r, long long n, long long num_segment
                                        int weighted) {
   int err = 0;
   const Card* c = card(&err);
-  if (!c || r < 0 || r >= kRegimes || !can_take(*c, r, num_segments)) return -1;
+  if (!c || !can_take(*c, r, num_segments)) return -1;
   if (r != kPartition) return 0;
   int shift = 0, buckets = 0;
   buckets_for(*c, num_segments, &shift, &buckets);
@@ -527,8 +549,7 @@ int deequ_bincount(int r, const void* ids, int ids_are_64, const void* weights,
   int err = 0;
   const Card* c = card(&err);
   if (!c) return err;
-  if (r < 0 || r >= kRegimes || !can_take(*c, r, num_segments))
-    return (int)cudaErrorInvalidValue;
+  if (!can_take(*c, r, num_segments)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ids_are_64) {
     return weights ? launch<long long, true>(*c, r, ids, weights, n, num_segments, scratch, out, s)

@@ -7,10 +7,10 @@ port has one formulation per device:
 
 - on a CUDA tensor, :func:`bincount` launches the hand-written kernel of
   ``deequ_tpu_torch/csrc/bincount.cu`` in the regime its width calls for
-  (:func:`regime`: a shared-memory histogram a block for narrow key
-  spaces, a partition by bucket then a shared-memory histogram a bucket
-  for wide ones, L2 atomics past 2^25 bins; the source says why), or
-  raises;
+  (:func:`regime`: a shared-memory histogram a block while one fits a
+  block's shared memory, a partition by bucket then a shared-memory
+  histogram a bucket up to 2^25 bins, L2 atomics past that; the source
+  says why), or raises;
 - on a CPU tensor it runs :func:`bincount_plain`, the kernel's plain
   PyTorch version, which is also what tests and ``chip_smoke.py`` hold
   the kernel against.
@@ -127,17 +127,24 @@ REGIMES = ("shared", "partition", "global")
 
 
 def regime(num_segments: int) -> str:
-    """The regime the kernel takes at this width (the rule lives in
-    ``bincount.cu``: the narrowest regime whose width covers it)."""
-    return REGIMES[_library().deequ_bincount_regime(int(num_segments))]
+    """The regime the kernel takes at this width on the current card (the
+    rule lives in ``bincount.cu``: the narrowest regime whose width covers
+    it)."""
+    code = _library().deequ_bincount_regime(int(num_segments))
+    if code < 0:
+        raise DeviceException(f"bincount: no CUDA device (CUDA error {-code})")
+    return REGIMES[code]
 
 
 def regime_widths() -> dict:
-    """The widest width the rule gives each regime (None: no limit)."""
+    """The widest width each regime takes on the current card (None: no
+    limit); the rule gives a width the narrowest regime that covers it."""
     lib = _library()
     widths = {}
     for i, name in enumerate(REGIMES):
         widest = lib.deequ_bincount_widest(i)
+        if widest == -2:
+            raise DeviceException("bincount: no CUDA device")
         widths[name] = None if widest < 0 else int(widest)
     return widths
 
@@ -204,7 +211,8 @@ def bincount(
     num_segments = int(num_segments)
     if seg.numel() == 0 or num_segments == 0:
         return torch.zeros(num_segments, dtype=dtype, device=seg.device)
-    name = regime(num_segments)
+    with torch.cuda.device(seg.device):
+        name = regime(num_segments)
     bufs = _buffers(seg, num_segments, weights, name)
     _launch(seg, num_segments, weights, *bufs, regime_name=name)
     LAUNCHES += 1
@@ -217,8 +225,8 @@ def _buffers(seg, num_segments: int, weights=None, regime_name=None) -> tuple:
     regime needs (bytes) and the int64 output, which the kernel writes
     whole."""
     lib = _library()
-    name = regime_name or regime(num_segments)
     with torch.cuda.device(seg.device):
+        name = regime_name or regime(num_segments)
         nbytes = lib.deequ_bincount_scratch_bytes(
             REGIMES.index(name), seg.numel(), num_segments,
             0 if weights is None else 1,
@@ -240,8 +248,8 @@ def _launch(seg, num_segments: int, weights, scratch, out, regime_name=None) -> 
     width. Raises if the launch was refused."""
     n = seg.numel()
     lib = _library()
-    name = regime_name or regime(num_segments)
     with torch.cuda.device(seg.device):
+        name = regime_name or regime(num_segments)
         stream = torch.cuda.current_stream(seg.device).cuda_stream
         rc = lib.deequ_bincount(
             REGIMES.index(name), seg.data_ptr(),

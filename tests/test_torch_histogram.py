@@ -179,19 +179,27 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# the rule's boundaries (bincount.cu: kSharedBins, then 2^25 bins), each on
-# both sides, K4's first-pass width, and the main path's widths
-CUDA_WIDTHS = [
-    (8, "shared"), (5000, "shared"), (12_288, "shared"), (12_289, "partition"),
-    (65_536, "partition"), (1_000_001, "partition"),
-    (33_554_432, "partition"), (33_554_433, "global"),
-]
+# fixed widths (the main path's, K4's first-pass width) and both sides of
+# each regime boundary, which the card reports (bincount.cu: shared while
+# one histogram fits a block's shared memory, partition to 2^25 bins)
+CUDA_WIDTHS = [8, 5000, 65_536, 1_000_001,
+               ("shared", 0), ("shared", 1), ("partition", 0), ("partition", 1)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,regime", CUDA_WIDTHS, ids=[str(m) for m, _ in CUDA_WIDTHS])
-def test_cuda_kernel_matches_plain(cuda_device, m, regime):
-    assert histogram_device.regime(m) == regime
+@pytest.mark.parametrize(
+    "width", CUDA_WIDTHS,
+    ids=[str(w) if isinstance(w, int) else f"{w[0]}-edge+{w[1]}" for w in CUDA_WIDTHS],
+)
+def test_cuda_kernel_matches_plain(cuda_device, width):
+    if isinstance(width, int):
+        m = width
+    else:
+        name, side = width
+        m = histogram_device.regime_widths()[name] + side
+        regimes = histogram_device.REGIMES
+        want = name if side == 0 else regimes[regimes.index(name) + 1]
+        assert histogram_device.regime(m) == want
     rng = np.random.default_rng(m)
     seg = torch.from_numpy(rng.integers(-1, m + 1, size=1_000_000)).to(cuda_device)
     w = torch.from_numpy(rng.integers(-5, 100, size=1_000_000).astype(np.int32)).to(cuda_device)
