@@ -27,10 +27,11 @@
 //   into: 58,112 bins on an H100). Bound by reading the ids. One block of
 //   1024 threads per SM, each with a private histogram in shared memory
 //   (up to one copy per warp while they fit in 48 KB, so a few hot bins
-//   spread their contention), fed by 16-byte vector loads kept four deep
-//   in flight; each block then adds its non-zero bins to the output with
-//   one 64-bit atomic each. One block per SM, not as many as fit, keeps the
-//   zeroing and flushing (blocks x bins) small beside the rows.
+//   spread their contention), fed by 16-byte evict-first vector loads
+//   kept four deep in flight; each block then adds its non-zero bins to
+//   the output with one 64-bit atomic each. One block per SM, not as many
+//   as fit, keeps the zeroing and flushing (blocks x bins) small beside
+//   the rows.
 // - partition (to 2^25 bins): too wide for a histogram a block, too few
 //   rows a bin for L2 atomics. Pass 1 reads the ids once, with evict-first
 //   loads, sorts each tile of kTile rows by bucket (the id's high bits) in
@@ -56,9 +57,10 @@
 //
 // Integer adds commute, so the result is bit-exact and deterministic. A
 // launch counts at most kChunkRows rows at a time, so every u32 count is
-// exact. The kernel allocates nothing: the caller passes the output and the
-// scratch that deequ_bincount_scratch_bytes asks for. Plain C interface for
-// ctypes; deequ_bincount returns the launch's cudaGetLastError().
+// exact. The kernel allocates nothing: the caller passes the zeroed output
+// and the scratch that deequ_bincount_scratch_bytes asks for. Plain C
+// interface for ctypes; deequ_bincount returns the launch's
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,7 +125,7 @@ __device__ __forceinline__ void walk(const Id* __restrict__ ids, long long n, F 
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long j = v + u * T;
-      buf[u] = j < hi ? __ldg(vp + j) : V::none();
+      buf[u] = j < hi ? __ldcs(vp + j) : V::none();
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -468,7 +470,6 @@ int launch(const Card& c, int r, const void* idsv, const void* wv, long long n,
   const Id* ids = static_cast<const Id*>(idsv);
   const int32_t* w = static_cast<const int32_t*>(wv);
   unsigned long long* out = static_cast<unsigned long long*>(outv);
-  if (r != kPartition) cudaMemsetAsync(out, 0, (size_t)m * 8, stream);
   int shift = 0, buckets = 0;
   if (r == kPartition) buckets_for(c, m, &shift, &buckets);
   for (long long off = 0; off < n; off += kChunkRows) {
@@ -537,8 +538,9 @@ long long deequ_bincount_scratch_bytes(int r, long long n, long long num_segment
   return (long long)partition_scratch(rows, buckets, weighted != 0).bytes;
 }
 
-// Counts into out (num_segments int64, written whole: it needs no zeroing)
-// in regime r, normally deequ_bincount_regime(num_segments). ids: n int32
+// Counts into out (num_segments int64, zeroed: the shared and global
+// regimes add into it, the partition regime writes it whole) in regime r,
+// normally deequ_bincount_regime(num_segments). ids: n int32
 // (ids_are_64 == 0) or int64 ids on the device; weights: n int32 or NULL;
 // scratch: deequ_bincount_scratch_bytes(r, ...) bytes. n >= 1 and
 // num_segments >= 1 (the caller skips empty launches). Enqueues on stream

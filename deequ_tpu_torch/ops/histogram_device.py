@@ -222,8 +222,7 @@ def bincount(
 
 def _buffers(seg, num_segments: int, weights=None, regime_name=None) -> tuple:
     """What one launch writes, as the wrapper allocates it: the scratch the
-    regime needs (bytes) and the int64 output, which the kernel writes
-    whole."""
+    regime needs (bytes) and the zeroed int64 output."""
     lib = _library()
     with torch.cuda.device(seg.device):
         name = regime_name or regime(num_segments)
@@ -236,7 +235,7 @@ def _buffers(seg, num_segments: int, weights=None, regime_name=None) -> tuple:
             f"bincount: the {name} regime cannot take {num_segments} segments"
         )
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=seg.device)
-    out = torch.empty(num_segments, dtype=torch.int64, device=seg.device)
+    out = torch.zeros(num_segments, dtype=torch.int64, device=seg.device)
     return scratch, out
 
 
