@@ -10,10 +10,13 @@ Entry points run on ``cuda`` unless the caller asks for the CPU, with
 and without that request they raise ``DeviceUnavailableException``. The
 device computes in native float64.
 
-This slice carries ``VerificationSuite.run`` over an in-memory
+The port carries ``VerificationSuite.run`` over an in-memory
 ``ColumnarTable``: the scan analyzers (Size, Completeness, Compliance,
-Minimum, Maximum, Mean, Sum, StandardDeviation, Correlation) fused into
-one pass, and the count-based grouping analyzers (Uniqueness,
+Minimum, Maximum, Mean, Sum, StandardDeviation, Correlation) and the
+sketch analyzers (ApproxCountDistinct, whose registers come from the
+hand-written CUDA kernel of ``csrc/hll.cu``; KLLSketch, ApproxQuantile,
+ApproxQuantiles, sorted a chunk at a time on the device) fused into one
+pass, and the count-based grouping analyzers (Uniqueness,
 UniqueValueRatio, Distinctness, CountDistinct, Entropy), whose dense
 counts run the hand-written CUDA histogram of ``csrc/bincount.cu``.
 """

@@ -23,6 +23,15 @@ from deequ_tpu_torch.analyzers.scan import (
     StandardDeviation,
     Sum,
 )
+from deequ_tpu_torch.analyzers.sketches import (
+    ApproxCountDistinct,
+    ApproxCountDistinctState,
+    ApproxQuantile,
+    ApproxQuantiles,
+    KLLParameters,
+    KLLSketch,
+    KLLState,
+)
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
     MaxState,
@@ -42,4 +51,6 @@ __all__ = [
     "StandardDeviation", "Correlation",
     "FrequencyBasedAnalyzer", "Uniqueness", "UniqueValueRatio", "Distinctness",
     "CountDistinct", "Entropy",
+    "ApproxCountDistinct", "ApproxCountDistinctState", "ApproxQuantile",
+    "ApproxQuantiles", "KLLParameters", "KLLSketch", "KLLState",
 ]

@@ -14,13 +14,14 @@ Planning pipeline, mirroring doAnalysisRun (reference L97-203):
 Partial failure is data: a failure inside the fused scan maps onto every
 participating analyzer (reference L320-323); precondition failures become
 failure metrics instead of aborting (L137-145). Streams, saved and
-aggregated states, repositories and sketches wait for later slices.
+aggregated states and repositories wait for later slices. Where-free KLL
+ops of one sketch size run as one batched op (``_coalesce_scan_ops``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from deequ_tpu_torch.analyzers.base import (
     Analyzer,
@@ -126,16 +127,20 @@ class AnalysisRunner:
             scannable.append(analyzer)
         if not scannable:
             return ctx
+        exec_ops, plan = AnalysisRunner._coalesce_scan_ops(ops)
         try:
-            results = run_scan(data, ops, device)
+            results = run_scan(data, exec_ops, device)
         except Exception as e:  # noqa: BLE001 — a failure inside the shared
             # scan maps onto every participating analyzer (reference L320-323)
             wrapped = wrap_if_necessary(e)
             for a in scannable:
                 ctx.metric_map[a] = a.to_failure_metric(wrapped)
             return ctx
-        for analyzer, result in zip(scannable, results):
+        for analyzer, (exec_idx, extract) in zip(scannable, plan):
             try:
+                result = results[exec_idx]
+                if extract is not None:
+                    result = extract(result)
                 state = analyzer.state_from_scan_result(result)
             except Exception as e:  # noqa: BLE001
                 ctx.metric_map[analyzer] = analyzer.to_failure_metric(
@@ -144,6 +149,41 @@ class AnalysisRunner:
                 continue
             ctx.metric_map[analyzer] = analyzer.calculate_metric(state)
         return ctx
+
+    @staticmethod
+    def _coalesce_scan_ops(ops):
+        """Merge where-free KLL ops of one sketch size into one batched op:
+        one (K, n) sort a chunk instead of K sorts (reference
+        ``runner._coalesce_scan_ops``). A column asked for by several such
+        ops (say, quantiles 0.1 and 0.9 of one column) is sorted once: each
+        column's summary is a function of its values alone.
+
+        Returns (exec_ops, plan) where plan[i] = (exec index, extractor or
+        None) for ops[i]."""
+        from deequ_tpu_torch.analyzers.sketches import (
+            _kll_multi_extract,
+            _kll_multi_scan_op,
+        )
+
+        groups: Dict[Tuple, List[int]] = {}
+        for i, op in enumerate(ops):
+            hint = op.batch_hint
+            if hint is not None and hint[0] == "kll":
+                groups.setdefault(hint[:2], []).append(i)
+        mergeable = {key: idxs for key, idxs in groups.items() if len(idxs) >= 2}
+        members = {i for idxs in mergeable.values() for i in idxs}
+        exec_ops = [op for i, op in enumerate(ops) if i not in members]
+        plan: List[Optional[Tuple[int, Optional[Callable]]]] = [None] * len(ops)
+        for j, i in enumerate(i for i in range(len(ops)) if i not in members):
+            plan[i] = (j, None)
+        for (_, sketch_size), idxs in sorted(mergeable.items()):
+            columns = tuple(dict.fromkeys(ops[i].batch_hint[2] for i in idxs))
+            exec_idx = len(exec_ops)
+            exec_ops.append(_kll_multi_scan_op(columns, sketch_size))
+            for i in idxs:
+                j = columns.index(ops[i].batch_hint[2])
+                plan[i] = (exec_idx, lambda result, j=j: _kll_multi_extract(result, j))
+        return exec_ops, plan
 
     @staticmethod
     def _run_grouping_analyzers(

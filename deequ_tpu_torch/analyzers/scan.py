@@ -130,7 +130,7 @@ class Size(StandardScanAnalyzer):
     def scan_op(self, table: ColumnarTable) -> ScanOp:
         pred, cols = _compile_where(self.where)
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             return {"n": masked_count(_rows(vals, row_valid, n, pred))}
 
         return ScanOp(tuple(sorted(cols)), update, {"n": "sum"})
@@ -155,7 +155,7 @@ class Completeness(StandardScanAnalyzer):
         pred, wcols = _compile_where(self.where)
         col = self.column
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             rows = _rows(vals, row_valid, n, pred)
             return {
                 "matches": masked_count(rows & _col_mask(vals[col])),
@@ -190,7 +190,7 @@ class Compliance(StandardScanAnalyzer):
         pred, wcols = _compile_where(self.where)
         crit, ccols = compile_predicate(self.predicate)
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             rows = _rows(vals, row_valid, n, pred)
             return {
                 "matches": masked_count(rows & crit(vals, n, row_valid.device)),
@@ -219,7 +219,7 @@ class _ExtremumAnalyzer(StandardScanAnalyzer):
         col = self.column
         tag = self._tag
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             v = vals[col]
             ok = _rows(vals, row_valid, n, pred) & v.mask
             return {
@@ -264,7 +264,7 @@ class _SumAnalyzer(StandardScanAnalyzer):
         pred, wcols = _compile_where(self.where)
         col = self.column
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             v = vals[col]
             ok = _rows(vals, row_valid, n, pred) & v.mask
             return {"sum": masked_sum(v.data, ok), "n": masked_count(ok)}
@@ -319,7 +319,7 @@ class StandardDeviation(StandardScanAnalyzer):
         pred, wcols = _compile_where(self.where)
         col = self.column
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             v = vals[col]
             ok = _rows(vals, row_valid, n, pred) & v.mask
             cnt, mean, m2 = masked_moments(v.data, ok)
@@ -373,7 +373,7 @@ class Correlation(StandardScanAnalyzer):
         pred, wcols = _compile_where(self.where)
         ca, cb = self.first_column, self.second_column
 
-        def update(vals, row_valid, n):
+        def update(vals, row_valid, n, capacity):
             va, vb = vals[ca], vals[cb]
             ok = _rows(vals, row_valid, n, pred) & va.mask & vb.mask
             return dict(zip(self._FIELDS, masked_comoments(va.data, vb.data, ok)))

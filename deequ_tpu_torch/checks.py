@@ -6,9 +6,9 @@ return a CheckWithLastConstraintFilterable whose ``.where(...)`` rebuilds the
 last-added constraint with the filter
 (reference checks/CheckWithLastConstraintFilterable.scala:22-53).
 
-Methods whose analyzers this slice of the port does not carry (patterns,
-lengths, data types, histograms, sketches, mutual information, anomaly
-checks) raise NotYetPortedException when the check is built.
+Methods whose analyzers the port does not carry yet (patterns, lengths,
+data types, histograms, mutual information, anomaly checks) raise
+NotYetPortedException when the check is built.
 """
 
 from __future__ import annotations
@@ -25,11 +25,14 @@ from deequ_tpu_torch.constraints import (
     ConstraintDecorator,
     ConstraintResult,
     ConstraintStatus,
+    approx_count_distinct_constraint,
+    approx_quantile_constraint,
     completeness_constraint,
     compliance_constraint,
     correlation_constraint,
     distinctness_constraint,
     entropy_constraint,
+    kll_constraint,
     max_constraint,
     mean_constraint,
     min_constraint,
@@ -162,7 +165,9 @@ class Check:
     def kll_sketch_satisfies(
         self, column: str, assertion, kll_parameters=None, hint=None
     ) -> "Check":
-        raise NotYetPortedException("Check.kll_sketch_satisfies")
+        return self.add_constraint(
+            kll_constraint(column, assertion, kll_parameters, hint)
+        )
 
     # -- information theory -------------------------------------------------
 
@@ -180,7 +185,11 @@ class Check:
         self, column: str, quantile: float, assertion, relative_error: float = 0.01,
         hint=None,
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_approx_quantile")
+        return self._add_filterable(
+            lambda where: approx_quantile_constraint(
+                column, quantile, assertion, relative_error, where, hint
+            )
+        )
 
     # -- value ranges -------------------------------------------------------
 
@@ -232,7 +241,9 @@ class Check:
     def has_approx_count_distinct(
         self, column: str, assertion, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_approx_count_distinct")
+        return self._add_filterable(
+            lambda where: approx_count_distinct_constraint(column, assertion, where, hint)
+        )
 
     def has_correlation(
         self, column_a: str, column_b: str, assertion, hint=None

@@ -290,3 +290,35 @@ def correlation_constraint(
         AnalysisBasedConstraint(analyzer, assertion, hint=hint),
         f"CorrelationConstraint({analyzer!r})",
     )
+
+
+def approx_count_distinct_constraint(column, assertion, where=None, hint=None) -> Constraint:
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+
+    analyzer = ApproxCountDistinct(column, where)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"ApproxCountDistinctConstraint({analyzer!r})",
+    )
+
+
+def approx_quantile_constraint(
+    column, quantile, assertion, relative_error=0.01, where=None, hint=None
+) -> Constraint:
+    from deequ_tpu_torch.analyzers import ApproxQuantile
+
+    analyzer = ApproxQuantile(column, quantile, relative_error, where)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"ApproxQuantileConstraint({analyzer!r})",
+    )
+
+
+def kll_constraint(column, assertion, kll_parameters=None, hint=None) -> Constraint:
+    from deequ_tpu_torch.analyzers import KLLSketch
+
+    analyzer = KLLSketch(column, kll_parameters)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"kllSketchConstraint({analyzer!r})",
+    )

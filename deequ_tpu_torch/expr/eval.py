@@ -45,14 +45,23 @@ class Val:
     kind 'num'/'bool': data is a tensor (or Python scalar), mask is a bool
     tensor, a Python bool, or None (None = all valid). kind 'str': either
     a scalar Python string (data=str), or a dictionary-encoded column
-    (data=int32 codes tensor, dictionary=np array). kind 'null': SQL NULL.
-    Numeric column data is float64.
+    (data=int32 codes tensor, dictionary=np array, luts=the scan's device
+    lookup tables over that dictionary). kind 'null': SQL NULL. Numeric
+    column data is float64.
     """
 
     kind: str
     data: Any = None
     mask: Any = None
     dictionary: Optional[np.ndarray] = None
+    luts: Optional[Dict[str, Any]] = None
+
+    def lut(self, key: str):
+        """A device lookup table over this string column's dictionary,
+        built once per scan from a ScanOp's ``luts``."""
+        if not self.luts or key not in self.luts:
+            raise ExprEvalError(f"no lookup table {key!r} on this column")
+        return self.luts[key]
 
 
 def _and_masks(*masks):

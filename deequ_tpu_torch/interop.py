@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from typing import Iterable, Mapping
 
+import numpy as np
+
+from deequ_tpu_torch.analyzers.sketches import ApproxCountDistinctState, KLLState
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
     MaxState,
@@ -22,6 +25,7 @@ from deequ_tpu_torch.analyzers.states import (
     SumState,
 )
 from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+from deequ_tpu_torch.ops.kll import KLLSketchState
 
 _STATES = {
     cls.__name__: cls
@@ -30,6 +34,22 @@ _STATES = {
         MaxState, StandardDeviationState, CorrelationState,
     )
 }
+
+
+def _hll_state(registers, hash_version) -> ApproxCountDistinctState:
+    return ApproxCountDistinctState(tuple(int(r) for r in registers), int(hash_version))
+
+
+def _kll_state(compactors, count, rng_count, sketch_size, shrinking_factor,
+               global_min, global_max) -> KLLState:
+    sketch = KLLSketchState(
+        sketch_size, shrinking_factor,
+        [np.array(c, dtype=np.float64) for c in compactors], count, rng_count,
+    )
+    return KLLState(sketch, float(global_min), float(global_max))
+
+
+_STATES.update({"ApproxCountDistinctState": _hll_state, "KLLState": _kll_state})
 
 
 def table_from_arrays(columns: Iterable[Mapping]) -> ColumnarTable:
@@ -56,7 +76,13 @@ def state_from_fields(kind: str, fields: Mapping):
     """Build the port's state ``kind`` (its class name, e.g.
     ``"StandardDeviationState"``) from plain numbers keyed by field name
     (``{"n": ..., "avg": ..., "m2": ...}``) — the fields of the reference's
-    dataclass of the same name."""
+    dataclass of the same name. Two kinds hold more than numbers:
+
+    - ``"ApproxCountDistinctState"``: ``registers`` (a sequence of ints)
+      and ``hash_version``;
+    - ``"KLLState"``: the sketch's ``compactors`` (one array of items a
+      level), ``count``, ``rng_count``, ``sketch_size`` and
+      ``shrinking_factor``, and ``global_min`` / ``global_max``."""
     try:
         cls = _STATES[kind]
     except KeyError:

@@ -5,14 +5,14 @@ A metric is ``{entity, name, instance, value: Try[T]}`` where failure is a
 first-class value. ``flatten()`` turns any metric into a sequence of
 DoubleMetrics for uniform repository storage.
 
-The KLL bucket metric waits for the sketch slice of the port.
+``KLLMetric`` carries a KLL sketch's buckets and its raw compactors.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 from deequ_tpu_torch.tryresult import Success, Try
 
@@ -134,3 +134,53 @@ class HistogramMetric(Metric):
             )
         return out
 
+
+
+@dataclass(frozen=True)
+class BucketValue:
+    low_value: float
+    high_value: float
+    count: int
+
+
+@dataclass(frozen=True)
+class BucketDistribution:
+    """Bucketed numeric distribution + raw sketch data, from a KLL sketch
+    (reference metrics/KLLMetric.scala:24-123)."""
+
+    buckets: List[BucketValue]
+    parameters: Tuple[float, ...]  # (shrinking factor, sketch size)
+    data: tuple  # raw compactor item arrays (serializable)
+
+    def compute_percentiles(self) -> List[float]:
+        """Reconstruct the sketch and query the 1..100 percentiles."""
+        from deequ_tpu_torch.ops.kll import KLLSketchState
+
+        sketch = KLLSketchState.reconstruct(self.data, self.parameters)
+        return [sketch.quantile(p / 100.0) for p in range(1, 101)]
+
+    def argmax(self) -> int:
+        """Index of the bucket with the highest count."""
+        counts = [b.count for b in self.buckets]
+        return counts.index(max(counts))
+
+
+@dataclass(frozen=True)
+class KLLMetric(Metric):
+    instance: str
+    value: Try[BucketDistribution]
+    entity: Entity = Entity.COLUMN
+    name: str = "KLL"
+
+    def flatten(self) -> Sequence[DoubleMetric]:
+        if not self.value.is_success:
+            return [DoubleMetric(self.entity, self.name, self.instance, self.value)]
+        out = []
+        for i, b in enumerate(self.value.get().buckets):
+            for part, v in (("low", b.low_value), ("high", b.high_value),
+                            ("count", float(b.count))):
+                out.append(DoubleMetric(
+                    self.entity, f"{self.name}.bucket.{i}.{part}", self.instance,
+                    Success(v),
+                ))
+        return out

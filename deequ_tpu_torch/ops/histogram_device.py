@@ -23,103 +23,43 @@ an int32, as the reference's int32 accumulation gives it: that is the
 exact total whenever it lies in int32, whatever the partial sums on the
 way, and kernel and plain version agree on every input.
 
-The kernel is compiled from the source in the checkout with ``nvcc`` at
-first use into ``build/deequ_tpu_torch/`` (rebuilt when the source
-changes) and bound with ``ctypes``.
+The kernel is compiled from the source in the checkout at first use and
+bound with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
 
 from deequ_tpu_torch.exceptions import DeviceException
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bincount.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deequ_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from deequ_tpu_torch.ops import cuda_build
 
 #: kernel launches since the last reset: one per launch of the CUDA
 #: kernel, and nowhere else (chip_smoke.py reads it around the main path)
 LAUNCHES = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
 
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise DeviceException(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the bincount kernel is built "
-        "from deequ_tpu_torch/csrc/bincount.cu at first use"
-    )
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel's shared library if the one for this source's
-    hash is missing; returns its path. A failed build raises."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    target = _BUILD_DIR / f"libbincount_{digest}.so"
-    if target.exists():
-        return target
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise DeviceException(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, target)
-    return target
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.deequ_bincount.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.deequ_bincount.restype = ctypes.c_int
+    lib.deequ_bincount_regime.argtypes = [ctypes.c_longlong]
+    lib.deequ_bincount_regime.restype = ctypes.c_int
+    lib.deequ_bincount_widest.argtypes = [ctypes.c_int]
+    lib.deequ_bincount_widest.restype = ctypes.c_longlong
+    lib.deequ_bincount_scratch_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ]
+    lib.deequ_bincount_scratch_bytes.restype = ctypes.c_longlong
 
 
 def _library() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.deequ_bincount.argtypes = [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.deequ_bincount.restype = ctypes.c_int
-            lib.deequ_bincount_regime.argtypes = [ctypes.c_longlong]
-            lib.deequ_bincount_regime.restype = ctypes.c_int
-            lib.deequ_bincount_widest.argtypes = [ctypes.c_int]
-            lib.deequ_bincount_widest.restype = ctypes.c_longlong
-            lib.deequ_bincount_scratch_bytes.argtypes = [
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ]
-            lib.deequ_bincount_scratch_bytes.restype = ctypes.c_longlong
-            _LIB = lib
-        return _LIB
+    return cuda_build.library("bincount", _bind)
 
 
 #: the kernel's regimes, narrowest first, in the source's numbering

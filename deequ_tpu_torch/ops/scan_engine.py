@@ -64,14 +64,23 @@ def _auto_chunk_rows(
 class ScanOp:
     """One analyzer's contribution to the fused scan.
 
-    ``update(vals, row_valid, n)`` maps one chunk's column Vals (device
-    tensors), its row-validity mask and its row count to a dict of
-    partial-state tensors; ``tags`` names each leaf's fold tag
-    (:data:`FOLD_TAGS`)."""
+    ``update(vals, row_valid, n, capacity)`` maps one chunk's column Vals
+    (device tensors), its row-validity mask, its row count and the scan's
+    chunk capacity (the rows of every chunk but a shorter last one: what
+    fixes a partial's static width) to a dict of partial-state tensors;
+    ``tags`` names each leaf's fold tag (:data:`FOLD_TAGS`).
+
+    ``luts``: ``(column, key, build)`` host lookup tables over a string
+    column's dictionary, built and moved to the device once per scan and
+    read in ``update`` as ``vals[column].lut(key)``. ``batch_hint``: ops
+    with the same hint kind and parameters may be coalesced into one
+    batched op by the runner (``("kll", sketch_size, column)``)."""
 
     columns: Tuple[str, ...]
-    update: Callable[[Dict[str, Val], torch.Tensor, int], Dict[str, torch.Tensor]]
+    update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, torch.Tensor]]
     tags: Dict[str, str]
+    luts: Tuple[Tuple[str, str, Callable], ...] = ()
+    batch_hint: Optional[Tuple] = None
 
 
 class ScanStats:
@@ -100,6 +109,10 @@ class ScanStats:
         self.hist_kernel_dispatches = 0
         self.hist_plain_dispatches = 0
         self.hist_host_dispatches = 0
+        # KLL chunk sorts: one per torch.sort of a KLL op (a batched op
+        # sorts all its columns at once), and the columns they sorted
+        self.kll_sort_passes = 0
+        self.kll_sorted_columns = 0
         # device->host fetches of the most recent fused scan (the
         # one-fetch-per-scan contract: 1)
         self.last_scan_fetches = 0
@@ -108,6 +121,11 @@ class ScanStats:
         with self._lock:
             self.device_fetches += 1
             self.bytes_fetched += int(nbytes)
+
+    def record_kll_sort(self, columns: int) -> None:
+        with self._lock:
+            self.kll_sort_passes += 1
+            self.kll_sorted_columns += int(columns)
 
     def record_hist_dispatch(self, route: str) -> None:
         """``route``: "kernel", "plain" or "host"."""
@@ -168,8 +186,9 @@ class _ChunkPacker:
         with device_boundary("transfer"):
             return tuple(torch.from_numpy(p).to(device) for p in planes)
 
-    def unpack_vals(self, values, masks, codes, row_valid) -> Dict[str, Val]:
-        """Slice the device planes back into per-column Vals (views)."""
+    def unpack_vals(self, values, masks, codes, row_valid, luts=None) -> Dict[str, Val]:
+        """Slice the device planes back into per-column Vals (views);
+        ``luts`` ({column: {key: device tensor}}) rides on string Vals."""
         mask_row = {n: i for i, n in enumerate(self.masked_names)}
         vals: Dict[str, Val] = {}
         for i, name in enumerate(self.numeric_names):
@@ -180,7 +199,8 @@ class _ChunkPacker:
                 vals[name] = Val("num", values[i], mask)
         for j, name in enumerate(self.string_names):
             vals[name] = Val(
-                "str", codes[j], None, dictionary=self.cols[name].dictionary
+                "str", codes[j], None, dictionary=self.cols[name].dictionary,
+                luts=(luts or {}).get(name),
             )
         return vals
 
@@ -295,6 +315,21 @@ def _flatten(partials: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
     )
 
 
+def _device_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], device):
+    """Every op's host lookup tables, each built once and moved to the
+    device in one copy: {column: {key: tensor}}."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for op in ops:
+        for col, key, build in op.luts:
+            per_col = out.setdefault(col, {})
+            if key not in per_col:
+                with device_boundary("transfer"):
+                    per_col[key] = torch.from_numpy(
+                        np.ascontiguousarray(build(cols[col].dictionary))
+                    ).to(device)
+    return out
+
+
 def run_scan(
     table,
     ops: Sequence[ScanOp],
@@ -311,6 +346,7 @@ def run_scan(
     chunk = chunk_rows or min(_auto_chunk_rows(cols), max(n_rows, 1))
     n_chunks = max(1, -(-n_rows // chunk))
     packer = _ChunkPacker(cols)
+    op_luts = _device_luts(ops, cols, device)
     SCAN_STATS.scan_passes += 1
     SCAN_STATS.rows_scanned += n_rows
     fetches_before = SCAN_STATS.device_fetches
@@ -325,8 +361,8 @@ def run_scan(
         values, masks, codes = packer.to_device(planes, device)
         with device_boundary("execute"):
             row_valid = torch.ones(n, dtype=torch.bool, device=device)
-            vals = packer.unpack_vals(values, masks, codes, row_valid)
-            partials = [op.update(vals, row_valid, n) for op in ops]
+            vals = packer.unpack_vals(values, masks, codes, row_valid, op_luts)
+            partials = [op.update(vals, row_valid, n, chunk) for op in ops]
             if plan is None:
                 plan = _DeviceFoldPlan(ops, partials, n_chunks, device)
             plan.merge(_flatten(partials))

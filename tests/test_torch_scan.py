@@ -244,7 +244,7 @@ def test_scan_op_tensors_stay_on_requested_device(parity_env):
     packer = port_scan_engine._ChunkPacker({c: port[c] for c in op.columns})
     planes = packer.to_device(packer.pack(0, 100), torch.device("cpu"))
     row_valid = torch.ones(100, dtype=torch.bool)
-    out = op.update(packer.unpack_vals(*planes, row_valid), row_valid, 100)
+    out = op.update(packer.unpack_vals(*planes, row_valid), row_valid, 100, 100)
     assert {k: v.dtype for k, v in out.items()} == {
         "n": torch.int64, "x_avg": torch.float64, "y_avg": torch.float64,
         "ck": torch.float64, "x_mk": torch.float64, "y_mk": torch.float64,

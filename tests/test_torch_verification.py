@@ -243,9 +243,9 @@ def test_unported_checks_are_refused_when_built():
     for build in (
         lambda: check.has_pattern("s", r"\d+"),
         lambda: check.has_number_of_distinct_values("s", lambda n: n > 1),
-        lambda: check.has_approx_quantile("x", 0.5, lambda v: True),
+        lambda: check.has_histogram_values("s", lambda d: True),
         lambda: check.has_min_length("s", lambda v: True),
-        lambda: check.has_approx_count_distinct("x", lambda v: True),
+        lambda: check.has_mutual_information("a", "b", lambda v: True),
         lambda: check.has_data_type("s", None),
     ):
         with pytest.raises(deequ_tpu_torch.NotYetPortedException):
