@@ -10,7 +10,8 @@ Phases, each printed as one JSON line on stdout:
 
 1. ``device``  — the card (torch) and its name and power limit (nvidia-smi);
 2. ``build``   — compile the CUDA kernels from the checkout's sources, one
-   ``nvcc`` each, all at once;
+   ``nvcc`` each, all at once, and the native host kernels
+   (``deequ_tpu_torch/native/kernels.cpp``) with ``g++``;
 3. ``kernel_parity`` — every kernel against its plain version on the card,
    bit-exact, over edge cases, both sides of each regime boundary, 10^7
    Zipf and single-hot-bin ids in every regime that can take their width,
@@ -46,11 +47,33 @@ Phases, each printed as one JSON line on stdout:
    states against the CPU's on a 10^6-row slice; then the run's wall time
    and its pieces;
 8. ``kernel_timing`` of the HLL kernel at that table's shape;
+9. ``check_api_path`` (run after phase 4, over its table) — a second
+   ``run()`` of one check holding the check methods of the frequency
+   tables and the string analyzers: has_histogram_values(status),
+   has_number_of_distinct_values(region) with a binning UDF,
+   has_mutual_information(status, region) (dense, 9 x 5,001 slots) and
+   (customer_id, status) (about 9.7M slots: the sparse device route),
+   has_min_length / has_max_length / has_pattern / contains_email(region),
+   has_data_type(status) and a Histogram of the float64 f0; every metric
+   against numpy (exact; MutualInformation relative 1e-12), four K5
+   launches, one fused scan with one fetch, no torch op on a CPU tensor;
+10. ``frequency_path`` — BASELINE config 4 (benchmarks/run_configs.py:
+   config4) at 10^7 rows: ApproxCountDistinct, Histogram (1,000 detail
+   bins) and Uniqueness over one string column of 3,333,333 distinct
+   labels; the Distribution (its tied boundary included) and Uniqueness
+   exactly against numpy, the estimate within 0.15, one K5 launch a
+   count, no torch op on a CPU tensor, no lookup table built by a second
+   run, and the card's Distribution equal to the CPU's over 10^6 rows;
+   then the run's wall time and its pieces;
+11. ``kernel_timing`` of K5 at the frequency path's two shapes and at
+   config 4's own width (10^8 ids over 33,333,334 slots, made on the
+   card), and of the packed-key top-k there;
 
-then the ``kernels`` summary line, the nvidia-smi line, and the result
-line ``{"ok": true, "device": {...}}`` last. Each path runs with the
-launch counts set to 0 just before it and read just after. Any failure
-exits non-zero without the result line. The script imports nothing of JAX.
+then the ``kernels`` summary line (each kernel's launches summed over the
+paths, and by path), the nvidia-smi line, and the result line
+``{"ok": true, "device": {...}}`` last. Each path runs with the launch
+counts set to 0 just before it and read just after. Any failure exits
+non-zero without the result line. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -582,65 +605,78 @@ def profiled_ms(fn, reps: int = 10, match: str = "bincount"):
             "launches": reps}
 
 
-def kernel_timing(table, device, rate: float) -> list:
+def bincount_shape_timing(label: str, seg, m: int, rate: float, reps: int = 100,
+                          fresh_buffers: bool = True) -> dict:
+    """K5 at one shape a path gave it: the kernel alone in the rule's
+    regime and in every other regime that can take the width (buffers
+    preallocated as the wrapper makes them, one set a launch, or one set
+    reused where ``reps`` sets would not fit: the partition regime writes
+    its output whole), torch.profiler's device time, one wrapper call, the
+    plain version, torch.bincount, and the bound: each id read once and
+    each count written once, over the card's memory rate."""
     import torch
 
     from deequ_tpu_torch.ops import histogram_device
     from deequ_tpu_torch.ops.histogram_device import bincount, bincount_plain
+
+    slots = torch.where(seg >= 0, seg, m).long()  # torch.bincount refuses negatives
+    saved = histogram_device.LAUNCHES
+    name = histogram_device.regime(m)
+    regime_ms = {}
+    prof_ms = None
+    for other in histogram_device.REGIMES:
+        try:
+            bufs = [histogram_device._buffers(seg, m, None, other)
+                    for _ in range(reps if fresh_buffers else 1)]
+        except ValueError:
+            continue  # this regime cannot take the width
+        launch = lambda i: histogram_device._launch(seg, m, None, *bufs[i % len(bufs)],
+                                                    regime_name=other)
+        regime_ms[other] = time_queued(launch, reps)
+        if other == name:
+            prof_ms = profiled_ms(launch)
+        del bufs
+    kernel_ms = regime_ms[name]
+    call_ms = time_cuda(lambda: bincount(seg, m))
+    plain_ms = time_queued(lambda i: bincount_plain(seg, m), reps)
+    library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps)
+    got, want = bincount(seg, m), bincount_plain(seg, m)
+    histogram_device.LAUNCHES = saved  # timing launches are not the path's
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"bincount != plain at the {label} shape (n={seg.numel()}, m={m}): "
+             f"max err {err}")
+    bound_ms = (seg.numel() * seg.element_size() + m * 8) / rate * 1e3
+    return {
+        "column": label,
+        "n": seg.numel(),
+        "num_segments": m,
+        "ids": str(seg.dtype).replace("torch.", ""),
+        "regime": name,
+        "kernel_ms": kernel_ms,
+        "regime_ms": regime_ms,
+        "profiler_ms": prof_ms if prof_ms is not None else "no device time",
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "bound_share": bound_ms / kernel_ms,
+        "max_abs_err": err,
+    }
+
+
+def kernel_timing(table, device, rate: float) -> list:
+    """K5 at the three dense grouping shapes of the main path."""
+    import torch
+
     from deequ_tpu_torch.ops.segment import _prepare_grouping
 
-    reps = 100
     shapes = []
     for col in ("customer_id", "region", "status"):
         prep = _prepare_grouping(table, [col], device)
         seg = torch.from_numpy(prep.keys).to(device)
-        m = prep.keyspace
-        slots = torch.where(seg >= 0, seg, m)  # torch.bincount refuses negatives
-        saved = histogram_device.LAUNCHES
-        # the kernel alone, in the rule's regime and in every other regime
-        # that can take the width: buffers preallocated as the wrapper makes them
-        name = histogram_device.regime(m)
-        regime_ms = {}
-        for other in histogram_device.REGIMES:
-            try:
-                bufs = [histogram_device._buffers(seg, m, None, other) for _ in range(reps)]
-            except ValueError:
-                continue  # this regime cannot take the width
-            launch = lambda i: histogram_device._launch(seg, m, None, *bufs[i % reps],
-                                                        regime_name=other)
-            regime_ms[other] = time_queued(launch, reps)
-            if other == name:
-                prof_ms = profiled_ms(launch)
-            del bufs
-        kernel_ms = regime_ms[name]
-        call_ms = time_cuda(lambda: bincount(seg, m))
-        plain_ms = time_queued(lambda i: bincount_plain(seg, m), reps)
-        library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps)
-        got, want = bincount(seg, m), bincount_plain(seg, m)
-        histogram_device.LAUNCHES = saved  # timing launches are not the path's
-        err = int((got - want).abs().max())
-        if not torch.equal(got, want):
-            fail(f"bincount != plain at the main path's {col} shape "
-                 f"(n={seg.numel()}, m={m}): max err {err}")
-        nbytes = seg.numel() * seg.element_size() + m * 8
-        bound_ms = nbytes / rate * 1e3
-        shapes.append({
-            "column": col,
-            "n": seg.numel(),
-            "num_segments": m,
-            "ids": str(seg.dtype).replace("torch.", ""),
-            "regime": name,
-            "kernel_ms": kernel_ms,
-            "regime_ms": regime_ms,
-            "profiler_ms": prof_ms if prof_ms is not None else "no device time",
-            "call_ms": call_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes",
-            "bound_share": bound_ms / kernel_ms,
-            "max_abs_err": err,
-        })
+        shapes.append(bincount_shape_timing(col, seg, prep.keyspace, rate))
     return shapes
 
 
@@ -1157,6 +1193,452 @@ def hll_timing(table, device, rate: float, launches: int) -> dict:
 
 
 
+# -- the check-method path: frequency tables and string analyzers ------------
+
+
+def _stringify(value) -> str:
+    """A group value as the Histogram metric labels it (null: NullValue)."""
+    if value is None:
+        return "NullValue"
+    if isinstance(value, float) and value.is_integer():
+        return f"{value:.1f}"
+    return str(value)
+
+
+def numpy_histogram(slot_counts, label, k: int, n: int):
+    """The Histogram metric by numpy: slot_counts over slots (slot 0 =
+    null), the top k by count, the lower slot first on equal counts;
+    ({label: (count, ratio)}, number_of_bins)."""
+    import numpy as np
+
+    order = np.argsort(-slot_counts, kind="stable")[:k]
+    return ({label(int(i)): (int(slot_counts[i]), int(slot_counts[i]) / n)
+             for i in order if slot_counts[i] > 0},
+            int((slot_counts > 0).sum()))
+
+
+def distribution_of(metric):
+    if not metric.value.is_success:
+        fail(f"metric failed: {metric}")
+    dist = metric.value.get()
+    return ({k: (v.absolute, v.ratio) for k, v in dist.values.items()},
+            dist.number_of_bins)
+
+
+def numpy_mutual_information(a, a_valid, b, b_valid) -> float:
+    """MI by numpy with the reference's rule: the rows with either value
+    present are the total, the marginals count those rows, the joint only
+    the rows with both."""
+    import numpy as np
+
+    rows = a_valid | b_valid
+    total = int(rows.sum())
+    _, ai = np.unique(np.where(a_valid, a, a[a_valid][0]), return_inverse=True)
+    _, bi = np.unique(np.where(b_valid, b, b[b_valid][0]), return_inverse=True)
+    both = a_valid & b_valid
+    ma = np.bincount(ai[a_valid & rows]).astype(np.float64)
+    mb = np.bincount(bi[b_valid & rows]).astype(np.float64)
+    pair = ai[both].astype(np.int64) * (int(bi.max()) + 1) + bi[both]
+    keys, joint = np.unique(pair, return_counts=True)
+    ka, kb = keys // (int(bi.max()) + 1), keys % (int(bi.max()) + 1)
+    pxy = joint / total
+    return float(np.sum(pxy * np.log(pxy / ((ma[ka] / total) * (mb[kb] / total)))))
+
+
+def build_check_api(table):
+    from deequ_tpu_torch import Check, CheckLevel, ConstrainableDataTypes
+
+    yes = lambda v: True  # noqa: E731 — the metrics are checked against numpy
+    return (
+        Check(CheckLevel.ERROR, "check api")
+        .has_histogram_values("status", yes)
+        .has_number_of_distinct_values("region", yes, binning_udf=lambda s: s[:3])
+        .has_mutual_information("status", "region", yes)
+        .has_mutual_information("customer_id", "status", yes)
+        .has_min_length("region", yes)
+        .has_max_length("region", yes)
+        .has_pattern("region", r"^R00\d\d$", yes)
+        .contains_email("region", yes)
+        .has_data_type("status", ConstrainableDataTypes.STRING, yes)
+        .has_histogram_values("f0", yes)
+    )
+
+
+def expected_check_api(table) -> dict:
+    """Every metric of the check-method path by numpy: {(name, instance,
+    histogram binned?): value}."""
+    import numpy as np
+
+    n = table.num_rows
+    st, rg = table["status"].codes, table["region"].codes
+    status_dict, region_dict = table["status"].dictionary, table["region"].dictionary
+    exp = {}
+    counts = np.bincount(st + 1, minlength=len(status_dict) + 1)
+    exp[("Histogram", "status", False)] = numpy_histogram(
+        counts, lambda i: "NullValue" if i == 0 else status_dict[i - 1], 1000, n)
+    labels = np.array([s[:3] for s in region_dict])
+    uniq, inv = np.unique(labels, return_inverse=True)
+    binned = np.where(rg >= 0, inv[np.maximum(rg, 0)] + 1, 0)
+    counts = np.bincount(binned, minlength=len(uniq) + 1)
+    exp[("Histogram", "region", True)] = numpy_histogram(
+        counts, lambda i: "NullValue" if i == 0 else str(uniq[i - 1]), 1000, n)
+    exp[("MutualInformation", "status,region", None)] = numpy_mutual_information(
+        st, st >= 0, rg, rg >= 0)
+    cu = table["customer_id"]
+    exp[("MutualInformation", "customer_id,status", None)] = numpy_mutual_information(
+        cu.values, cu.mask, st, st >= 0)
+    lengths = np.array([len(s) for s in region_dict])[rg[rg >= 0]]
+    exp[("MinLength", "region", None)] = float(lengths.min())
+    exp[("MaxLength", "region", None)] = float(lengths.max())
+    exp[("PatternMatch", "region", "R00")] = float(((rg >= 0) & (rg < 100)).sum()) / n
+    exp[("PatternMatch", "region", "email")] = 0.0
+    exp[("DataType", "status", None)] = (
+        {"Unknown": (int((st < 0).sum()), float((st < 0).sum()) / n),
+         "Fractional": (0, 0.0), "Integral": (0, 0.0), "Boolean": (0, 0.0),
+         "String": (int((st >= 0).sum()), float((st >= 0).sum()) / n)}, 5)
+    f0 = table["f0"]
+    uniq, counts = np.unique(f0.values[f0.mask], return_counts=True)
+    counts = np.concatenate([[int((~f0.mask).sum())], counts])
+    exp[("Histogram", "f0", False)] = numpy_histogram(
+        counts, lambda i: _stringify(None if i == 0 else float(uniq[i - 1])), 1000, n)
+    return exp
+
+
+def check_api_path(table, device) -> dict:
+    """A second run() over the main path's table holding the check methods
+    of the frequency tables and the string analyzers; every metric against
+    numpy: exact for counts, bins, lengths and fractions, relative 1e-12
+    for MutualInformation."""
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.ops import histogram_device, hll, lut_cache
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    t0 = time.perf_counter()
+    expected = expected_check_api(table)
+    t_numpy = time.perf_counter() - t0
+    suite = VerificationSuite.on_data(table).add_check(build_check_api(table))
+
+    SCAN_STATS.reset()
+    histogram_device.LAUNCHES = 0
+    hll.LAUNCHES = 0
+    builds = lut_cache.BUILDS
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watch:
+        result = suite.run()
+    t_first = time.perf_counter() - t0
+    launches = histogram_device.LAUNCHES
+    stats = SCAN_STATS.snapshot()
+    builds = lut_cache.BUILDS - builds
+    if watch.cpu_ops:
+        fail(f"torch operations computed on CPU tensors during run(): {watch.cpu_ops}")
+    # Histogram(status), the binned Histogram(region), the dense
+    # MI(status, region) and Histogram(f0) count on K5; MI(customer_id,
+    # status) has 9.7M slots, so it takes the sparse device route
+    if launches != 4 or stats["hist_kernel_dispatches"] != 4:
+        fail(f"check api path: {launches} bincount launches, "
+             f"{stats['hist_kernel_dispatches']} kernel dispatches (want 4 and 4)")
+    if hll.LAUNCHES or stats["hist_plain_dispatches"] or stats["hist_host_dispatches"]:
+        fail(f"check api path: unexpected routes {stats}")
+    if stats["scan_passes"] != 1 or stats["last_scan_fetches"] != 1:
+        fail(f"check api scan: {stats['scan_passes']} passes, "
+             f"{stats['last_scan_fetches']} fetches (want 1 and 1)")
+
+    worst_mi = 0.0
+    checked = 0
+    for analyzer, metric in result.metrics.items():
+        name = type(analyzer).__name__
+        if name == "Histogram":
+            key = (name, metric.instance, analyzer.binning_udf is not None)
+            if distribution_of(metric) != expected[key]:
+                fail(f"{analyzer!r}: the Distribution differs from numpy's")
+        elif name == "DataType":
+            if distribution_of(metric) != expected[(name, metric.instance, None)]:
+                fail(f"{analyzer!r}: the Distribution differs from numpy's")
+        else:
+            if not metric.value.is_success:
+                fail(f"metric failed: {metric}")
+            have = metric.value.get()
+            tag = None
+            if name == "PatternMatch":
+                tag = "R00" if analyzer.pattern.startswith("^R00") else "email"
+            want = expected[(name, metric.instance, tag)]
+            if name == "MutualInformation":
+                rel = abs(have - want) / abs(want)
+                worst_mi = max(worst_mi, rel)
+                if rel > 1e-12:
+                    fail(f"{analyzer!r}: {have!r} vs numpy {want!r}, rel {rel:.3g}")
+            elif have != want:
+                fail(f"{analyzer!r}: {have!r} != numpy {want!r}")
+        checked += 1
+    if checked != len(expected):
+        fail(f"check api path: {checked} metrics, numpy has {len(expected)}")
+
+    walls = []
+    for _ in range(4):  # one warm run, then three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        suite.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {
+        "phase": "check_api_path",
+        "rows": table.num_rows,
+        "metrics_checked": checked,
+        "worst_mi_rel_err": worst_mi,
+        "kernel_launches": launches,
+        "lut_builds": builds,
+        "scan_stats": stats,
+        "first_run_s_watched": t_first,
+        "warm_run_s": walls[0],
+        "run_wall_s_median_of_3": statistics.median(walls[1:]),
+        "run_wall_s": walls[1:],
+        "numpy_reference_s": t_numpy,
+    }
+
+
+# -- the frequency path: BASELINE config 4 -----------------------------------
+
+
+def make_config4_table(rows: int, seed: int):
+    """BASELINE config 4 (benchmarks/run_configs.py:config4) at ``rows``
+    rows: one dictionary-encoded string column ``key`` of rows // 3
+    distinct labels ``id_{i:09d}``, uniform int32 codes."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+    rng = np.random.default_rng(43 + seed)
+    cardinality = max(rows // 3, 1)
+    codes = rng.integers(0, cardinality, rows).astype(np.int32)
+    dictionary = np.array([f"id_{i:09d}" for i in range(cardinality)], dtype=object)
+    return ColumnarTable([Column("key", DType.STRING, codes=codes, dictionary=dictionary)])
+
+
+def build_config4_check():
+    from deequ_tpu_torch import Check, CheckLevel
+
+    yes = lambda v: True  # noqa: E731 — the metrics are checked against numpy
+    return (
+        Check(CheckLevel.ERROR, "config 4")
+        .has_approx_count_distinct("key", yes)
+        .has_histogram_values("key", yes, max_bins=1000)
+        .has_uniqueness(["key"], yes)
+    )
+
+
+def frequency_pieces(table, device) -> dict:
+    """Host-clock seconds of the config 4 run's pieces, each ending in a
+    synchronisation: the Histogram's key codes on the host, their copy to
+    the card, K5 over card + 1 slots, the packed-key top-k and its fetch,
+    the host decode and stringify of the top 1,000; Uniqueness's count;
+    the fused scan of ApproxCountDistinct (its LUT memoized); and the
+    string LUT built cold (xxHash64 of every label, native)."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+    from deequ_tpu_torch.analyzers.grouping import _stringify as label
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops.scan_engine import fetch
+    from deequ_tpu_torch.ops.segment import _packed_topk, _unpack_topk, group_count_stats
+
+    col = table["key"]
+    m = len(col.dictionary) + 1
+    out = {}
+    saved = histogram_device.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = col.codes + np.int32(1)
+    out["key_codes_host"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = torch.from_numpy(codes).to(device)
+    torch.cuda.synchronize()
+    out["h2d_copy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = histogram_device.bincount(seg, m)
+    torch.cuda.synchronize()
+    out["k5_call"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys, groups = _packed_topk(counts, 1000)
+    groups, keys = fetch(groups, keys)
+    out["topk_and_fetch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slots, cnts = _unpack_topk(keys)
+    _ = {label(col.dictionary[i - 1]): int(c) for i, c in zip(slots.tolist(), cnts.tolist())}
+    out["host_decode_stringify"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    group_count_stats(table, ["key"], device)
+    out["uniqueness_count_stats"] = time.perf_counter() - t0
+    histogram_device.LAUNCHES = saved
+    t0 = time.perf_counter()
+    AnalysisRunner._run_scanning_analyzers(table, [ApproxCountDistinct("key")], device)
+    torch.cuda.synchronize()
+    out["fused_scan_acd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hll.string_idx_rank_lut(col.dictionary, 9)
+    out["string_lut_build_cold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hll.hash_strings_plain(col.dictionary[:100_000])
+    out["string_hash_plain_python_1e5"] = time.perf_counter() - t0
+    return out
+
+
+def frequency_path(rows: int, seed: int, device) -> dict:
+    """A run() at BASELINE config 4 (ApproxCountDistinct, Histogram with
+    1,000 detail bins and Uniqueness over one n/3-cardinality string
+    column); every metric against numpy, one K5 launch a count, no torch
+    op on a CPU tensor, no LUT built by a second run, and the card's
+    Distribution equal to the CPU's over a 10^6-row slice."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.analyzers import Histogram
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+    from deequ_tpu_torch.ops import histogram_device, hll, lut_cache
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    t0 = time.perf_counter()
+    table = make_config4_table(rows, seed)
+    t_table = time.perf_counter() - t0
+    col = table["key"]
+    t0 = time.perf_counter()
+    counts = np.bincount(col.codes + 1, minlength=len(col.dictionary) + 1)
+    want_hist = numpy_histogram(
+        counts, lambda i: "NullValue" if i == 0 else col.dictionary[i - 1], 1000, rows)
+    distinct = int((counts > 0).sum())
+    want_unique = float((counts == 1).sum()) / rows
+    t_numpy = time.perf_counter() - t0
+    suite = VerificationSuite.on_data(table).add_check(build_config4_check())
+
+    torch.cuda.reset_peak_memory_stats(device)
+    SCAN_STATS.reset()
+    histogram_device.LAUNCHES = 0
+    hll.LAUNCHES = 0
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watch:
+        result = suite.run()
+    t_first = time.perf_counter() - t0
+    launches = histogram_device.LAUNCHES
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    if watch.cpu_ops:
+        fail(f"torch operations computed on CPU tensors during run(): {watch.cpu_ops}")
+    if launches != 2 or stats["hist_kernel_dispatches"] != 2:
+        fail(f"config 4: {launches} bincount launches, {stats['hist_kernel_dispatches']} "
+             "kernel dispatches (want one each for the top-k and Uniqueness counts)")
+    if hll.LAUNCHES != stats["chunks_processed"]:
+        fail(f"config 4: {hll.LAUNCHES} hll launches over {stats['chunks_processed']} chunks")
+    got = {m.name: (a, m) for a, m in result.metrics.items()}
+    if distribution_of(got["Histogram"][1]) != want_hist:
+        fail("config 4: the Histogram's Distribution differs from numpy's")
+    if got["Uniqueness"][1].value.get() != want_unique:
+        fail(f"config 4: Uniqueness {got['Uniqueness'][1].value.get()} != {want_unique}")
+    est = got["ApproxCountDistinct"][1].value.get()
+    hll_rel = abs(est - distinct) / distinct
+    if hll_rel > 0.15:
+        fail(f"config 4: ApproxCountDistinct {est} vs exact {distinct}: rel {hll_rel:.3g}")
+    boundary = sorted(want_hist[0].values())[0][0]
+    tied = int((counts[1:] == boundary).sum())
+
+    walls = []
+    builds = lut_cache.BUILDS
+    for _ in range(4):  # one warm run, then three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        suite.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if lut_cache.BUILDS != builds:
+        fail(f"config 4: a second run() built {lut_cache.BUILDS - builds} lookup tables")
+
+    # the card's Distribution against the port's own CPU run, 10^6 rows
+    cut = min(rows, 1_000_000)
+    sub = ColumnarTable([Column("key", DType.STRING, codes=col.codes[:cut],
+                                dictionary=col.dictionary)])
+    hist = Histogram("key")
+    card, cpu = (distribution_of(AnalysisRunner.do_analysis_run(sub, [hist], d).metric(hist))
+                 for d in (device, "cpu"))
+    if card != cpu:
+        fail("config 4: the card's Distribution over 10^6 rows != the CPU's")
+    return {
+        "phase": "frequency_path",
+        "rows": rows,
+        "cardinality": len(col.dictionary),
+        "reduced": {"rows": "BASELINE config 4's 10^8 rows cut to 10^7 for the "
+                            "script's time limit"},
+        "kernel_launches": launches,
+        "hll_launches": stats["chunks_processed"],
+        "number_of_bins": want_hist[1],
+        "boundary_count": boundary,
+        "groups_tied_at_boundary": tied,
+        "hll_rel_err": hll_rel,
+        "uniqueness": want_unique,
+        "second_run_lut_builds": 0,
+        "card_equals_cpu_rows": cut,
+        "scan_stats": stats,
+        "first_run_s_watched": t_first,
+        "warm_run_s": walls[0],
+        "run_wall_s_median_of_3": statistics.median(walls[1:]),
+        "run_wall_s": walls[1:],
+        "piece_s": frequency_pieces(table, device),
+        "peak_device_bytes": peak,
+        "table_build_s": t_table,
+        "numpy_reference_s": t_numpy,
+    }, table
+
+
+def config4_timing(table, device, rate: float, full_rows: int = 100_000_000) -> dict:
+    """K5 and the packed-key top-k at the shapes of the frequency path
+    (the Histogram's int32 codes and Uniqueness's int64 keys over card + 1
+    slots), and at config 4's own width: 10^8 uniform ids over
+    10^8 // 3 + 1 slots, made on the card."""
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.segment import _packed_topk, _prepare_grouping
+
+    col = table["key"]
+    m = len(col.dictionary) + 1
+    shapes = [bincount_shape_timing(
+        "key (top-k)", torch.from_numpy(col.codes + 1).to(device), m, rate)]
+    prep = _prepare_grouping(table, ["key"], device)
+    shapes.append(bincount_shape_timing(
+        "key (Uniqueness)", torch.from_numpy(prep.keys).to(device), prep.keyspace, rate))
+    full_m = full_rows // 3 + 1
+    gen = torch.Generator(device=device).manual_seed(7)
+    seg = torch.randint(1, full_m, (full_rows,), dtype=torch.int32, device=device,
+                        generator=gen)
+    shapes.append(bincount_shape_timing(
+        "config 4 width", seg, full_m, rate, reps=20, fresh_buffers=False))
+
+    topk = []
+    saved = histogram_device.LAUNCHES
+    for label, s, width in (("key", torch.from_numpy(col.codes + 1).to(device), m),
+                            ("config 4 width", seg, full_m)):
+        counts = histogram_device.bincount(s, width)
+        ms = time_queued(lambda i: _packed_topk(counts, 1000), 20)
+        sort_ms = time_queued(lambda i: torch.sort(counts, descending=True, stable=True), 20)
+        keys, _ = _packed_topk(counts, 1000)
+        want = torch.sort(counts, descending=True, stable=True).indices[:1000]
+        got = 0xFFFFFFFF - (keys & 0xFFFFFFFF)
+        if not torch.equal(got, want):
+            fail(f"packed top-k at {label} != a stable descending sort's first 1,000")
+        # the function reads the counts once; its 1,000 keys out are noise
+        bound_ms = width * 8 / rate * 1e3
+        topk.append({"column": label, "num_segments": width, "k": 1000, "ms": ms,
+                     "stable_sort_ms": sort_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bound_share": bound_ms / ms})
+    histogram_device.LAUNCHES = saved
+    return {"bincount": shapes, "packed_topk": topk}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1180,6 +1662,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     try:
+        from deequ_tpu_torch import native
         from deequ_tpu_torch.ops import cuda_build
     except ImportError as e:
         print(f"chip_smoke: run from the root of a deequ_tpu checkout ({e})",
@@ -1196,7 +1679,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_build.build(*KERNELS, verbose=True)
-    emit({"phase": "build", "built": list(KERNELS), "seconds": time.perf_counter() - t0})
+    native_lib = native.build()
+    emit({"phase": "build", "built": list(KERNELS), "native": str(native_lib.name),
+          "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     parity = kernel_parity(device)
@@ -1211,6 +1696,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report, table = main_path(args.rows, args.seed, device)
     emit({**report, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    api = check_api_path(table, device)
+    emit({**api, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     shapes = kernel_timing(table, device, rate)
@@ -1228,14 +1717,34 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
     del table
 
-    widest = max(shapes, key=lambda s: s["num_segments"])
+    t0 = time.perf_counter()
+    freq, table = frequency_path(args.rows, args.seed, device)
+    emit({**freq, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    c4 = config4_timing(table, device, rate)
+    emit({"phase": "kernel_timing", "kernel": "bincount", "card": smi,
+          "shapes": c4["bincount"], "packed_topk": c4["packed_topk"],
+          "seconds": time.perf_counter() - t0})
+    del table
+
+    launches = {"main_path": report["kernel_launches"],
+                "check_api_path": api["kernel_launches"],
+                "sketch_path": sketch["kernel_launches"]["bincount"],
+                "frequency_path": freq["kernel_launches"]}
+    # the headline shape: the config 4 top-k count, the shape this slice
+    # was cut for; every shape timed is listed beside it
+    shapes = shapes + c4["bincount"]
+    widest = c4["bincount"][0]
     max_err = max([parity["max_abs_err"]] + [s["max_abs_err"] for s in shapes])
     emit({"kernels": [{
         "name": "bincount",
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/bincount.cu",
         "replaces": "deequ_tpu/ops/histogram_device.py:200",
-        "launches": report["kernel_launches"],
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "headline_shape": widest["column"],
         "max_abs_err": max_err,
         "ms": widest["kernel_ms"],
         "plain_ms": widest["plain_ms"],
@@ -1249,7 +1758,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/hll.cu",
         "replaces": "deequ_tpu/ops/hll.py:350",
-        "launches": sketch["kernel_launches"]["hll"],
+        "launches": sketch["kernel_launches"]["hll"] + freq["hll_launches"],
+        "launches_by_path": {"sketch_path": sketch["kernel_launches"]["hll"],
+                             "frequency_path": freq["hll_launches"]},
         "max_abs_err": 0,
         "ms": htime["kernel_ms"],
         "plain_ms": htime["plain_ms"],

@@ -12,16 +12,21 @@ device computes in native float64.
 
 The port carries ``VerificationSuite.run`` over an in-memory
 ``ColumnarTable``: the scan analyzers (Size, Completeness, Compliance,
-Minimum, Maximum, Mean, Sum, StandardDeviation, Correlation) and the
-sketch analyzers (ApproxCountDistinct, whose registers come from the
-hand-written CUDA kernel of ``csrc/hll.cu``; KLLSketch, ApproxQuantile,
+Minimum, Maximum, Mean, Sum, StandardDeviation, Correlation), the string
+analyzers (PatternMatch, MinLength, MaxLength, DataType, each a lookup
+table over the dictionary built once per distinct value, the lengths and
+type classes by the native C++ batch of ``native/``) and the sketch
+analyzers (ApproxCountDistinct, whose registers come from the hand-written
+CUDA kernel of ``csrc/hll.cu``; KLLSketch, ApproxQuantile,
 ApproxQuantiles, sorted a chunk at a time on the device) fused into one
-pass, and the count-based grouping analyzers (Uniqueness,
-UniqueValueRatio, Distinctness, CountDistinct, Entropy), whose dense
-counts run the hand-written CUDA histogram of ``csrc/bincount.cu``.
+pass; the grouping analyzers (Uniqueness, UniqueValueRatio, Distinctness,
+CountDistinct, Entropy, MutualInformation) and Histogram, whose dense
+counts run the hand-written CUDA histogram of ``csrc/bincount.cu``. Every
+in-memory ``Check`` method but the anomaly check is carried.
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
+from deequ_tpu_torch.constraints import ConstrainableDataTypes
 from deequ_tpu_torch.data.table import ColumnarTable
 from deequ_tpu_torch.device import use_device
 from deequ_tpu_torch.exceptions import (
@@ -30,7 +35,7 @@ from deequ_tpu_torch.exceptions import (
     DeviceUnavailableException,
     NotYetPortedException,
 )
-from deequ_tpu_torch.metrics import DoubleMetric, Entity, Metric
+from deequ_tpu_torch.metrics import DoubleMetric, Entity, HistogramMetric, Metric
 from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
 
 __version__ = "0.1.0"
@@ -40,11 +45,13 @@ __all__ = [
     "CheckLevel",
     "CheckStatus",
     "ColumnarTable",
+    "ConstrainableDataTypes",
     "DeviceException",
     "DeviceOOMException",
     "DeviceUnavailableException",
     "DoubleMetric",
     "Entity",
+    "HistogramMetric",
     "Metric",
     "NotYetPortedException",
     "VerificationResult",

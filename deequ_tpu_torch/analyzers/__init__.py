@@ -8,7 +8,10 @@ from deequ_tpu_torch.analyzers.grouping import (
     CountDistinct,
     Distinctness,
     Entropy,
+    FrequenciesAndNumRows,
     FrequencyBasedAnalyzer,
+    Histogram,
+    MutualInformation,
     UniqueValueRatio,
     Uniqueness,
 )
@@ -16,9 +19,15 @@ from deequ_tpu_torch.analyzers.scan import (
     Completeness,
     Compliance,
     Correlation,
+    DataType,
+    DataTypeInstances,
     Maximum,
+    MaxLength,
     Mean,
     Minimum,
+    MinLength,
+    PatternMatch,
+    Patterns,
     Size,
     StandardDeviation,
     Sum,
@@ -34,6 +43,7 @@ from deequ_tpu_torch.analyzers.sketches import (
 )
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
+    DataTypeHistogram,
     MaxState,
     MeanState,
     MinState,
@@ -46,11 +56,13 @@ from deequ_tpu_torch.analyzers.states import (
 __all__ = [
     "Analyzer", "ScanShareableAnalyzer", "State", "DoubleValuedState",
     "NumMatches", "NumMatchesAndCount", "MinState", "MaxState", "MeanState",
-    "SumState", "StandardDeviationState", "CorrelationState",
+    "SumState", "StandardDeviationState", "CorrelationState", "DataTypeHistogram",
     "Size", "Completeness", "Compliance", "Minimum", "Maximum", "Mean", "Sum",
-    "StandardDeviation", "Correlation",
-    "FrequencyBasedAnalyzer", "Uniqueness", "UniqueValueRatio", "Distinctness",
-    "CountDistinct", "Entropy",
+    "StandardDeviation", "Correlation", "PatternMatch", "Patterns", "MinLength",
+    "MaxLength", "DataType", "DataTypeInstances",
+    "FrequencyBasedAnalyzer", "FrequenciesAndNumRows", "Uniqueness",
+    "UniqueValueRatio", "Distinctness", "CountDistinct", "Entropy",
+    "MutualInformation", "Histogram",
     "ApproxCountDistinct", "ApproxCountDistinctState", "ApproxQuantile",
     "ApproxQuantiles", "KLLParameters", "KLLSketch", "KLLState",
 ]

@@ -14,11 +14,12 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import Callable, List, Optional, Sequence
 
-from deequ_tpu_torch.data.table import ColumnarTable, Schema
+from deequ_tpu_torch.data.table import ColumnarTable, DType, Schema
 from deequ_tpu_torch.exceptions import (
     DeviceUnavailableException,
     NoColumnsSpecifiedException,
     NoSuchColumnException,
+    NumberOfSpecifiedColumnsException,
     WrongColumnTypeException,
     wrap_if_necessary,
 )
@@ -67,11 +68,33 @@ def is_numeric(column: str) -> Callable[[Schema], None]:
     return check
 
 
+def is_string(column: str) -> Callable[[Schema], None]:
+    def check(schema: Schema) -> None:
+        if schema.has_column(column) and schema[column].dtype != DType.STRING:
+            raise WrongColumnTypeException(
+                f"Expected type of column {column} to be string, but found "
+                f"{schema[column].dtype.value} instead!"
+            )
+
+    return check
+
+
 def at_least_one(columns: Sequence[str]) -> Callable[[Schema], None]:
     def check(schema: Schema) -> None:
         if len(columns) == 0:
             raise NoColumnsSpecifiedException(
                 "At least one column needs to be specified!"
+            )
+
+    return check
+
+
+def exactly_n_columns(columns: Sequence[str], n: int) -> Callable[[Schema], None]:
+    def check(schema: Schema) -> None:
+        if len(columns) != n:
+            raise NumberOfSpecifiedColumnsException(
+                f"{n} columns have to be specified! Currently, columns contains "
+                f"only {len(columns)} column(s): {','.join(columns)}!"
             )
 
     return check

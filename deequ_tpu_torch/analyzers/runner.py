@@ -5,11 +5,14 @@ analyzers/runners/AnalysisRunner.scala; the counterpart of
 Planning pipeline, mirroring doAnalysisRun (reference L97-203):
 
 1. partition analyzers by failing preconditions -> failure metrics;
-2. split {scan-shareable | grouping};
+2. split {scan-shareable | shared grouping | own pass (Histogram)};
 3. fuse ALL scan-shareable analyzers into ONE pass (ops/scan_engine.py —
    the analogue of the single data.agg(...) job);
-4. for each distinct grouping-column set, compute the count statistics
-   ONCE and finalize all its analyzers from them.
+4. run each own-pass analyzer on its own (``analyzer.calculate``);
+5. for each distinct grouping-column set, compute ONCE what its analyzers
+   need — the count statistics when every analyzer is a function of the
+   count distribution, else the frequency table — and finalize all its
+   analyzers from it.
 
 Partial failure is data: a failure inside the fused scan maps onto every
 participating analyzer (reference L320-323); precondition failures become
@@ -28,13 +31,38 @@ from deequ_tpu_torch.analyzers.base import (
     ScanShareableAnalyzer,
     find_first_failing,
 )
-from deequ_tpu_torch.analyzers.grouping import FrequencyBasedAnalyzer
+from deequ_tpu_torch.analyzers.grouping import (
+    FrequencyBasedAnalyzer,
+    Histogram,
+    ScanShareableFrequencyBasedAnalyzer,
+)
 from deequ_tpu_torch.data.table import ColumnarTable
 from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.exceptions import wrap_if_necessary
 from deequ_tpu_torch.metrics import Metric
 from deequ_tpu_torch.ops.scan_engine import run_scan
-from deequ_tpu_torch.ops.segment import group_count_stats
+from deequ_tpu_torch.ops.segment import group_count_stats, group_counts_state
+
+
+def _is_grouping_shared(analyzer: Analyzer) -> bool:
+    """Grouping analyzers that share one computation per grouping set.
+    Histogram is excluded: its null handling and row count differ, so it
+    runs its own pass (reference Histogram.scala is a plain Analyzer)."""
+    return isinstance(analyzer, FrequencyBasedAnalyzer) and not isinstance(
+        analyzer, Histogram
+    )
+
+
+def _count_stats_capable(analyzer: Analyzer) -> bool:
+    """True when the analyzer is a pure function of the count distribution
+    (the ``group_count_stats`` route: group values never decode). Gated on
+    an explicit override, so a subclass that implements only
+    ``compute_from_frequencies`` gets the frequency table."""
+    return (
+        isinstance(analyzer, ScanShareableFrequencyBasedAnalyzer)
+        and type(analyzer).compute_from_count_stats
+        is not ScanShareableFrequencyBasedAnalyzer.compute_from_count_stats
+    )
 
 
 @dataclass
@@ -83,13 +111,19 @@ class AnalysisRunner:
                 failure_ctx.metric_map[analyzer] = analyzer.to_failure_metric(exc)
 
         # (2) split (reference L148-153)
-        grouping = [a for a in passed if isinstance(a, FrequencyBasedAnalyzer)]
+        grouping = [a for a in passed if _is_grouping_shared(a)]
         scanning = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
+        own_pass = [a for a in passed if a not in grouping and a not in scanning]
 
         # (3) one fused scan for all shareable analyzers (reference L289-336)
         scan_ctx = AnalysisRunner._run_scanning_analyzers(data, scanning, dev)
 
-        # (4) one count-stats pass per distinct sorted grouping-column set
+        # (4) own-pass analyzers (reference L155-160)
+        own_ctx = AnalyzerContext(
+            {a: a.calculate(data, dev) for a in own_pass}
+        )
+
+        # (5) one computation per distinct sorted grouping-column set
         # (reference L175-190)
         by_grouping: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
         for analyzer in grouping:
@@ -100,7 +134,7 @@ class AnalysisRunner:
             group_ctx += AnalysisRunner._run_grouping_analyzers(
                 data, list(group_key), group_analyzers, dev
             )
-        return failure_ctx + scan_ctx + group_ctx
+        return failure_ctx + scan_ctx + own_ctx + group_ctx
 
     @staticmethod
     def _run_scanning_analyzers(
@@ -192,13 +226,24 @@ class AnalysisRunner:
         analyzers: Sequence[FrequencyBasedAnalyzer],
         device,
     ) -> AnalyzerContext:
+        """The count statistics when every analyzer of the set is a
+        function of the count distribution (group values never decode),
+        else the frequency table (reference L1266-1331)."""
+        count_stats = all(_count_stats_capable(a) for a in analyzers)
         try:
-            stats = group_count_stats(data, grouping_columns, device)
+            if count_stats:
+                stats = group_count_stats(data, grouping_columns, device)
+            else:
+                state = group_counts_state(data, grouping_columns, device)
         except Exception as e:  # noqa: BLE001 — failure is data
             wrapped = wrap_if_necessary(e)
             return AnalyzerContext(
                 {a: a.to_failure_metric(wrapped) for a in analyzers}
             )
+        if count_stats:
+            return AnalyzerContext(
+                {a: a.metric_from_count_stats(stats) for a in analyzers}
+            )
         return AnalyzerContext(
-            {a: a.calculate_metric(stats) for a in analyzers}
+            {a: a.calculate_metric(state) for a in analyzers}
         )

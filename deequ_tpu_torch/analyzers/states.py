@@ -10,7 +10,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from deequ_tpu_torch.analyzers.base import DoubleValuedState
+from deequ_tpu_torch.analyzers.base import DoubleValuedState, State
 
 
 @dataclass(frozen=True)
@@ -155,3 +155,31 @@ class CorrelationState(DoubleValuedState):
         if denom == 0 or self.n == 0:
             return float("nan")
         return self.ck / denom
+
+
+@dataclass(frozen=True)
+class DataTypeHistogram(State):
+    """Counts of inferred value types; element-wise additive
+    (reference analyzers/DataType.scala:44-51). Nulls count as Unknown."""
+
+    num_null: int
+    num_fractional: int
+    num_integral: int
+    num_boolean: int
+    num_string: int
+
+    def sum(self, other: "DataTypeHistogram") -> "DataTypeHistogram":
+        return DataTypeHistogram(
+            self.num_null + other.num_null,
+            self.num_fractional + other.num_fractional,
+            self.num_integral + other.num_integral,
+            self.num_boolean + other.num_boolean,
+            self.num_string + other.num_string,
+        )
+
+    @property
+    def total(self) -> int:
+        return (
+            self.num_null + self.num_fractional + self.num_integral
+            + self.num_boolean + self.num_string
+        )

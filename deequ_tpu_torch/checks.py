@@ -6,9 +6,9 @@ return a CheckWithLastConstraintFilterable whose ``.where(...)`` rebuilds the
 last-added constraint with the filter
 (reference checks/CheckWithLastConstraintFilterable.scala:22-53).
 
-Methods whose analyzers the port does not carry yet (patterns, lengths,
-data types, histograms, mutual information, anomaly checks) raise
-NotYetPortedException when the check is built.
+The one method whose machinery the port does not carry yet, the anomaly
+check (it needs a metrics repository), raises NotYetPortedException when
+the check is built.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from deequ_tpu_torch.analyzers.base import Analyzer
+from deequ_tpu_torch.analyzers.scan import Patterns
 from deequ_tpu_torch.constraints import (
     AnalysisBasedConstraint,
     ConstrainableDataTypes,
@@ -30,12 +31,19 @@ from deequ_tpu_torch.constraints import (
     completeness_constraint,
     compliance_constraint,
     correlation_constraint,
+    data_type_constraint,
     distinctness_constraint,
     entropy_constraint,
+    histogram_bin_constraint,
+    histogram_constraint,
     kll_constraint,
     max_constraint,
+    max_length_constraint,
     mean_constraint,
     min_constraint,
+    min_length_constraint,
+    mutual_information_constraint,
+    pattern_match_constraint,
     size_constraint,
     standard_deviation_constraint,
     sum_constraint,
@@ -155,12 +163,16 @@ class Check:
     def has_number_of_distinct_values(
         self, column: str, assertion, binning_udf=None, max_bins: int = 1000, hint=None
     ) -> "Check":
-        raise NotYetPortedException("Check.has_number_of_distinct_values")
+        return self.add_constraint(
+            histogram_bin_constraint(column, assertion, binning_udf, max_bins, hint)
+        )
 
     def has_histogram_values(
         self, column: str, assertion, binning_udf=None, max_bins: int = 1000, hint=None
     ) -> "Check":
-        raise NotYetPortedException("Check.has_histogram_values")
+        return self.add_constraint(
+            histogram_constraint(column, assertion, binning_udf, max_bins, hint)
+        )
 
     def kll_sketch_satisfies(
         self, column: str, assertion, kll_parameters=None, hint=None
@@ -177,7 +189,9 @@ class Check:
     def has_mutual_information(
         self, column_a: str, column_b: str, assertion, hint=None
     ) -> "Check":
-        raise NotYetPortedException("Check.has_mutual_information")
+        return self.add_constraint(
+            mutual_information_constraint(column_a, column_b, assertion, hint)
+        )
 
     # -- quantiles ----------------------------------------------------------
 
@@ -196,12 +210,16 @@ class Check:
     def has_min_length(
         self, column: str, assertion, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_min_length")
+        return self._add_filterable(
+            lambda where: min_length_constraint(column, assertion, where, hint)
+        )
 
     def has_max_length(
         self, column: str, assertion, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_max_length")
+        return self._add_filterable(
+            lambda where: max_length_constraint(column, assertion, where, hint)
+        )
 
     def has_min(
         self, column: str, assertion, hint=None
@@ -266,27 +284,43 @@ class Check:
     def has_pattern(
         self, column: str, pattern: str, assertion=IsOne, name=None, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_pattern")
+        return self._add_filterable(
+            lambda where: pattern_match_constraint(
+                column, pattern, assertion, where, name, hint
+            )
+        )
 
     def contains_credit_card_number(
         self, column: str, assertion=IsOne, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.contains_credit_card_number")
+        return self.has_pattern(
+            column, Patterns.CREDITCARD, assertion,
+            name=f"containsCreditCardNumber({column})", hint=hint,
+        )
 
     def contains_email(
         self, column: str, assertion=IsOne, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.contains_email")
+        return self.has_pattern(
+            column, Patterns.EMAIL, assertion,
+            name=f"containsEmail({column})", hint=hint,
+        )
 
     def contains_url(
         self, column: str, assertion=IsOne, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.contains_url")
+        return self.has_pattern(
+            column, Patterns.URL, assertion,
+            name=f"containsURL({column})", hint=hint,
+        )
 
     def contains_social_security_number(
         self, column: str, assertion=IsOne, hint=None
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.contains_social_security_number")
+        return self.has_pattern(
+            column, Patterns.SOCIAL_SECURITY_NUMBER_US, assertion,
+            name=f"containsSocialSecurityNumber({column})", hint=hint,
+        )
 
     def has_data_type(
         self,
@@ -295,7 +329,9 @@ class Check:
         assertion=IsOne,
         hint=None,
     ) -> "CheckWithLastConstraintFilterable":
-        raise NotYetPortedException("Check.has_data_type")
+        return self._add_filterable(
+            lambda where: data_type_constraint(column, data_type, assertion, where, hint)
+        )
 
     # -- numeric sign / comparisons -----------------------------------------
 

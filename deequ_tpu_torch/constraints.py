@@ -6,8 +6,9 @@ value (optionally through a value picker). Evaluation distinguishes
 missing-analysis, metric-failure, picker-failure, and assertion-failure —
 all reported as data, never raised.
 
-The factories below cover the analyzers this slice of the port carries;
-``checks.py`` refuses the others when a check is built.
+The factories below cover the analyzers the port carries; ``checks.py``
+refuses the anomaly check, which needs a metrics repository, when a check
+is built.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 from deequ_tpu_torch.analyzers.base import Analyzer
-from deequ_tpu_torch.metrics import Metric
+from deequ_tpu_torch.metrics import Distribution, Metric
 
 
 class ConstraintStatus(enum.Enum):
@@ -321,4 +322,130 @@ def kll_constraint(column, assertion, kll_parameters=None, hint=None) -> Constra
     return _named(
         AnalysisBasedConstraint(analyzer, assertion, hint=hint),
         f"kllSketchConstraint({analyzer!r})",
+    )
+
+
+def pattern_match_constraint(
+    column, pattern, assertion, where=None, name=None, hint=None
+) -> Constraint:
+    from deequ_tpu_torch.analyzers import PatternMatch
+
+    analyzer = PatternMatch(column, pattern, where)
+    display = name or f"PatternMatchConstraint({analyzer!r})"
+    return _named(AnalysisBasedConstraint(analyzer, assertion, hint=hint), display)
+
+
+def mutual_information_constraint(column_a, column_b, assertion, hint=None) -> Constraint:
+    from deequ_tpu_torch.analyzers import MutualInformation
+
+    analyzer = MutualInformation(column_a, column_b)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"MutualInformationConstraint({analyzer!r})",
+    )
+
+
+def histogram_constraint(
+    column, assertion, binning_udf=None, max_bins=None, hint=None
+) -> Constraint:
+    from deequ_tpu_torch.analyzers import Histogram
+    from deequ_tpu_torch.analyzers.grouping import MAXIMUM_ALLOWED_DETAIL_BINS
+
+    analyzer = Histogram(column, binning_udf, max_bins or MAXIMUM_ALLOWED_DETAIL_BINS)
+    return _named(
+        AnalysisBasedConstraint(
+            analyzer, assertion, value_picker=lambda d: d, hint=hint
+        ),
+        f"HistogramConstraint({analyzer!r})",
+    )
+
+
+def histogram_bin_constraint(
+    column, assertion, binning_udf=None, max_bins=None, hint=None
+) -> Constraint:
+    from deequ_tpu_torch.analyzers import Histogram
+    from deequ_tpu_torch.analyzers.grouping import MAXIMUM_ALLOWED_DETAIL_BINS
+
+    analyzer = Histogram(column, binning_udf, max_bins or MAXIMUM_ALLOWED_DETAIL_BINS)
+    return _named(
+        AnalysisBasedConstraint(
+            analyzer,
+            assertion,
+            value_picker=lambda d: float(d.number_of_bins),
+            hint=hint,
+        ),
+        f"HistogramBinConstraint({analyzer!r})",
+    )
+
+
+def max_length_constraint(column, assertion, where=None, hint=None) -> Constraint:
+    from deequ_tpu_torch.analyzers import MaxLength
+
+    analyzer = MaxLength(column, where)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"MaxLengthConstraint({analyzer!r})",
+    )
+
+
+def min_length_constraint(column, assertion, where=None, hint=None) -> Constraint:
+    from deequ_tpu_torch.analyzers import MinLength
+
+    analyzer = MinLength(column, where)
+    return _named(
+        AnalysisBasedConstraint(analyzer, assertion, hint=hint),
+        f"MinLengthConstraint({analyzer!r})",
+    )
+
+
+def data_type_constraint(
+    column, data_type: ConstrainableDataTypes, assertion, where=None, hint=None
+) -> Constraint:
+    """Ratio of values matching the required type (reference
+    Constraint.scala:592-681; picker logic at ratioTypes)."""
+    from deequ_tpu_torch.analyzers import DataType
+    from deequ_tpu_torch.analyzers.scan import DataTypeInstances
+
+    def ratio_types(ignore_unknown: bool, key: DataTypeInstances, dist: Distribution) -> float:
+        if ignore_unknown:
+            dv = dist.values.get(key.value)
+            absolute = dv.absolute if dv else 0
+            if absolute == 0:
+                return 0.0
+            num_values = sum(v.absolute for v in dist.values.values())
+            unknown = dist.values.get(DataTypeInstances.UNKNOWN.value)
+            num_unknown = unknown.absolute if unknown else 0
+            denominator = num_values - num_unknown
+            return absolute / denominator if denominator else 0.0
+        dv = dist.values.get(key.value)
+        return dv.ratio if dv else 0.0
+
+    pickers = {
+        ConstrainableDataTypes.NULL: lambda d: ratio_types(
+            False, DataTypeInstances.UNKNOWN, d
+        ),
+        ConstrainableDataTypes.FRACTIONAL: lambda d: ratio_types(
+            True, DataTypeInstances.FRACTIONAL, d
+        ),
+        ConstrainableDataTypes.INTEGRAL: lambda d: ratio_types(
+            True, DataTypeInstances.INTEGRAL, d
+        ),
+        ConstrainableDataTypes.BOOLEAN: lambda d: ratio_types(
+            True, DataTypeInstances.BOOLEAN, d
+        ),
+        ConstrainableDataTypes.STRING: lambda d: ratio_types(
+            True, DataTypeInstances.STRING, d
+        ),
+        ConstrainableDataTypes.NUMERIC: lambda d: (
+            ratio_types(True, DataTypeInstances.FRACTIONAL, d)
+            + ratio_types(True, DataTypeInstances.INTEGRAL, d)
+        ),
+    }
+
+    analyzer = DataType(column, where)
+    return _named(
+        AnalysisBasedConstraint(
+            analyzer, assertion, value_picker=pickers[data_type], hint=hint
+        ),
+        f"DataTypeConstraint({analyzer!r})",
     )

@@ -42,6 +42,10 @@ class NoColumnsSpecifiedException(MetricCalculationPreconditionException):
     pass
 
 
+class NumberOfSpecifiedColumnsException(MetricCalculationPreconditionException):
+    pass
+
+
 class IllegalAnalyzerParameterException(MetricCalculationPreconditionException):
     def __init__(self, message: str):
         super().__init__(f"Can't execute the analysis: {message}")

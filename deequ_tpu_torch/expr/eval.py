@@ -7,8 +7,8 @@ matching the reference's Spark SQL semantics for ``where`` and
 
 String predicates never touch the device as strings: each is computed on
 the host as an O(cardinality) boolean lookup table over the column's
-dictionary (``_str_lut_bool``), moved to the card once per scan, and
-gathered there by code.
+dictionary (``_str_lut_bool``), moved to the card once per dictionary
+(``ops/lut_cache.py``), and gathered there by code.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from deequ_tpu_torch.expr.ast import (
     Lit,
     UnaryOp,
 )
+from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 
 
 class ExprEvalError(ValueError):
@@ -97,31 +98,25 @@ def _like_to_regex(pattern: str) -> str:
 
 
 class EvalContext:
-    """Resolves column references to Vals for one chunk. ``luts`` is the
-    caller-owned cache of device lookup tables, keyed by (column, kind):
-    a compiled predicate builds each table once per scan, not per chunk."""
+    """Resolves column references to Vals for one chunk. Dictionary lookup
+    tables come from ``ops/lut_cache.py``: each is built and moved to the
+    device once per dictionary, kind and device, not once per scan."""
 
-    def __init__(self, columns: Dict[str, Val], device, luts: Dict):
+    def __init__(self, columns: Dict[str, Val], device):
         self.columns = columns
         self.device = device
-        self.luts = luts
 
     def get(self, name: str) -> Val:
         if name not in self.columns:
             raise ExprEvalError(f"unknown column: {name}")
         return self.columns[name]
 
-    def dictionary_lut(self, name: str, col: Val, kind: str, build) -> torch.Tensor:
-        key = (name, kind)
-        lut = self.luts.get(key)
-        if lut is None:
-            lut = torch.as_tensor(build(col.dictionary), device=self.device)
-            self.luts[key] = lut
-        return lut
+    def dictionary_lut(self, col: Val, kind: str, build) -> torch.Tensor:
+        return dictionary_lut_device(col.dictionary, kind, build, self.device)
 
 
 def _str_lut_bool(
-    ctx: EvalContext, name: str, col: Val, fn: Callable[[str], bool], kind: str
+    ctx: EvalContext, col: Val, fn: Callable[[str], bool], kind: str
 ) -> Val:
     """Apply a per-distinct-value predicate as a device lookup table."""
 
@@ -129,13 +124,13 @@ def _str_lut_bool(
         lut = np.array([bool(fn(v)) for v in dictionary], dtype=np.bool_)
         return lut if len(lut) else np.zeros(1, dtype=np.bool_)
 
-    lut = ctx.dictionary_lut(name, col, f"pred:{kind}", build)
+    lut = ctx.dictionary_lut(col, f"pred:{kind}", build)
     codes = col.data
     vals = lut[codes.clamp(min=0).long()]
     return Val("bool", vals, codes >= 0)
 
 
-def _str_col_as_num(ctx: EvalContext, name: str, col: Val) -> Val:
+def _str_col_as_num(ctx: EvalContext, col: Val) -> Val:
     """Cast a string column to numeric via the dictionary (unparsable ->
     null)."""
 
@@ -149,14 +144,10 @@ def _str_col_as_num(ctx: EvalContext, name: str, col: Val) -> Val:
                 pass
         return lut
 
-    pair = ctx.dictionary_lut(name, col, "strtonum", build)
+    pair = ctx.dictionary_lut(col, "strtonum", build)
     safe = col.data.clamp(min=0).long()
     mask = (col.data >= 0) & (pair[1][safe] > 0)
     return Val("num", pair[0][safe], mask)
-
-
-def _column_name(expr: Expr) -> Optional[str]:
-    return expr.name if isinstance(expr, ColumnRef) else None
 
 
 def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
@@ -176,7 +167,7 @@ def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
     if isinstance(expr, UnaryOp):
         operand = eval_expression(expr.operand, ctx)
         if expr.op == "neg":
-            operand = _coerce_num(ctx, expr.operand, operand)
+            operand = _coerce_num(ctx, operand)
             return Val("num", -operand.data, operand.mask)
         if expr.op == "not":
             operand = _coerce_bool(operand)
@@ -205,11 +196,11 @@ def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
         if operand.kind == "str" and operand.dictionary is not None:
             opts = {str(o) for o in expr.options if o is not None}
             res = _str_lut_bool(
-                ctx, _column_name(expr.operand), operand, lambda s: s in opts,
+                ctx, operand, lambda s: s in opts,
                 kind=f"inlist:{sorted(opts)!r}",
             )
         else:
-            operand = _coerce_num(ctx, expr.operand, operand)
+            operand = _coerce_num(ctx, operand)
             hit = None
             for o in expr.options:
                 if o is None:
@@ -224,9 +215,9 @@ def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
         return res
 
     if isinstance(expr, Between):
-        operand = _coerce_num(ctx, expr.operand, eval_expression(expr.operand, ctx))
-        low = _coerce_num(ctx, expr.low, eval_expression(expr.low, ctx))
-        high = _coerce_num(ctx, expr.high, eval_expression(expr.high, ctx))
+        operand = _coerce_num(ctx, eval_expression(expr.operand, ctx))
+        low = _coerce_num(ctx, eval_expression(expr.low, ctx))
+        high = _coerce_num(ctx, eval_expression(expr.high, ctx))
         val = (operand.data >= low.data) & (operand.data <= high.data)
         mask = _and_masks(operand.mask, low.mask, high.mask)
         if expr.negated:
@@ -237,17 +228,16 @@ def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
         operand = eval_expression(expr.operand, ctx)
         if operand.kind != "str" or operand.dictionary is None:
             raise ExprEvalError("LIKE requires a string column")
-        name = _column_name(expr.operand)
         if expr.regex:
             rx = re.compile(expr.pattern)
             res = _str_lut_bool(
-                ctx, name, operand, lambda s: rx.search(s) is not None,
+                ctx, operand, lambda s: rx.search(s) is not None,
                 kind=f"rlike:{expr.pattern}",
             )
         else:
             rx = re.compile(_like_to_regex(expr.pattern), re.DOTALL)
             res = _str_lut_bool(
-                ctx, name, operand, lambda s: rx.match(s) is not None,
+                ctx, operand, lambda s: rx.match(s) is not None,
                 kind=f"like:{expr.pattern}",
             )
         if expr.negated:
@@ -260,7 +250,7 @@ def eval_expression(expr: Expr, ctx: EvalContext) -> Val:
     raise ExprEvalError(f"unsupported expression node {type(expr).__name__}")
 
 
-def _coerce_num(ctx: EvalContext, expr: Expr, v: Val) -> Val:
+def _coerce_num(ctx: EvalContext, v: Val) -> Val:
     if v.kind == "num":
         return v
     if v.kind == "bool":
@@ -268,7 +258,7 @@ def _coerce_num(ctx: EvalContext, expr: Expr, v: Val) -> Val:
             return Val("num", float(v.data), v.mask)
         return Val("num", v.data.to(torch.float64), v.mask)
     if v.kind == "str" and v.dictionary is not None:
-        return _str_col_as_num(ctx, _column_name(expr), v)
+        return _str_col_as_num(ctx, v)
     if v.kind == "str":
         try:
             return Val("num", float(v.data), None)
@@ -353,17 +343,17 @@ def _eval_binary(expr: BinaryOp, ctx: EvalContext) -> Val:
             res = _str_cols_cmp(ctx, a, b, "=")
         elif _is_str_col(a) and _is_str_lit(b):
             res = _str_lut_bool(
-                ctx, _column_name(expr.left), a, lambda s, t=b.data: s == t,
+                ctx, a, lambda s, t=b.data: s == t,
                 kind=f"eq:{b.data!r}",
             )
         elif _is_str_col(b) and _is_str_lit(a):
             res = _str_lut_bool(
-                ctx, _column_name(expr.right), b, lambda s, t=a.data: s == t,
+                ctx, b, lambda s, t=a.data: s == t,
                 kind=f"eq:{a.data!r}",
             )
         else:
-            an = _coerce_num(ctx, expr.left, a)
-            bn = _coerce_num(ctx, expr.right, b)
+            an = _coerce_num(ctx, a)
+            bn = _coerce_num(ctx, b)
             res = Val("bool", an.data == bn.data, _and_masks(an.mask, bn.mask))
         if op == "!=":
             return Val("bool", _not(res.data), res.mask)
@@ -377,17 +367,17 @@ def _eval_binary(expr: BinaryOp, ctx: EvalContext) -> Val:
             fns = {"<": lambda s: s < t, "<=": lambda s: s <= t,
                    ">": lambda s: s > t, ">=": lambda s: s >= t}
             return _str_lut_bool(
-                ctx, _column_name(expr.left), a, fns[op], kind=f"cmp{op}:{t!r}"
+                ctx, a, fns[op], kind=f"cmp{op}:{t!r}"
             )
-        an = _coerce_num(ctx, expr.left, a)
-        bn = _coerce_num(ctx, expr.right, b)
+        an = _coerce_num(ctx, a)
+        bn = _coerce_num(ctx, b)
         return Val(
             "bool", _COMPARE[op](an.data, bn.data), _and_masks(an.mask, bn.mask)
         )
 
     # arithmetic
-    an = _coerce_num(ctx, expr.left, a)
-    bn = _coerce_num(ctx, expr.right, b)
+    an = _coerce_num(ctx, a)
+    bn = _coerce_num(ctx, b)
     mask = _and_masks(an.mask, bn.mask)
     if op == "+":
         return Val("num", an.data + bn.data, mask)
@@ -406,7 +396,7 @@ def _eval_binary(expr: BinaryOp, ctx: EvalContext) -> Val:
 def _eval_fn(expr: FnCall, ctx: EvalContext) -> Val:
     if expr.name == "coalesce":
         vals = [
-            _coerce_num(ctx, arg, eval_expression(arg, ctx)) for arg in expr.args
+            _coerce_num(ctx, eval_expression(arg, ctx)) for arg in expr.args
         ]
         out = None
         out_mask = None
@@ -421,14 +411,14 @@ def _eval_fn(expr: FnCall, ctx: EvalContext) -> Val:
             out_mask = None
         return Val("num", out, out_mask)
     if expr.name == "abs":
-        v = _coerce_num(ctx, expr.args[0], eval_expression(expr.args[0], ctx))
+        v = _coerce_num(ctx, eval_expression(expr.args[0], ctx))
         return Val("num", abs(v.data), v.mask)
     if expr.name == "length":
         v = eval_expression(expr.args[0], ctx)
         if v.kind != "str" or v.dictionary is None:
             raise ExprEvalError("length() requires a string column")
         lut = ctx.dictionary_lut(
-            _column_name(expr.args[0]), v, "len",
+            v, "len",
             lambda d: np.array([len(s) for s in d], dtype=np.float64)
             if len(d)
             else np.zeros(1),
@@ -458,16 +448,16 @@ def compile_predicate(src_or_expr):
     predicate needs, and ``fn(chunk_vals, n, device) -> bool row-mask``
     where ``chunk_vals`` maps column name -> Val built from that chunk's
     device tensors. Dictionary lookup tables are built on the host at the
-    first chunk and kept on the device for the rest of the scan.
+    first chunk that needs them and kept on the device
+    (``ops/lut_cache.py``).
     """
     from deequ_tpu_torch.expr.parser import parse_expression
 
     expr = src_or_expr if isinstance(src_or_expr, Expr) else parse_expression(src_or_expr)
     cols = expr.columns()
-    luts: Dict = {}
 
     def fn(chunk_vals: Dict[str, Val], n: int, device):
-        ctx = EvalContext(chunk_vals, device, luts)
+        ctx = EvalContext(chunk_vals, device)
         return predicate_row_mask(eval_expression(expr, ctx), n, device)
 
     return fn, cols

@@ -3,10 +3,12 @@
 
 Two halves:
 
-- the host half, copied from the reference: the string hash
-  (pure-Python xxHash64 over utf-8 bytes, once per distinct dictionary
-  value), the v1 (idx, rank) derivation from a 64-bit hash, the packed
-  i32 (idx, rank) LUT of a string dictionary, and Ertl's estimator;
+- the host half, copied from the reference: the string hash (xxHash64
+  over utf-8 bytes, once per distinct dictionary value, in the native C++
+  batch of ``deequ_tpu_torch/native``, with the pure-Python version beside
+  it as its plain version), the v1 (idx, rank) derivation from a 64-bit
+  hash, the packed i32 (idx, rank) LUT of a string dictionary, and Ertl's
+  estimator;
 - the device half: per row, the canonical split of the f64 value into an
   f32 pair (hi, lo), two murmur ``fmix32`` rounds over the pair's u32 bits
   giving (idx, rank), and the register max. On a CUDA tensor
@@ -40,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deequ_tpu_torch import native
 from deequ_tpu_torch.exceptions import DeviceException
 from deequ_tpu_torch.ops import cuda_build
 
@@ -138,7 +141,14 @@ def xxhash64_bytes(data: bytes, seed: int = XXHASH_SEED) -> int:
 
 
 def hash_strings(values, seed: int = XXHASH_SEED) -> np.ndarray:
-    """xxhash64 per distinct string (host, O(cardinality))."""
+    """xxhash64 per distinct string (host, O(cardinality)), in the native
+    batch of ``deequ_tpu_torch/native`` (C++)."""
+    return native.hash_strings(values, seed)
+
+
+def hash_strings_plain(values, seed: int = XXHASH_SEED) -> np.ndarray:
+    """:func:`hash_strings` in pure Python: what the native batch is held
+    against."""
     return np.array(
         [xxhash64_bytes(str(v).encode("utf-8"), seed) for v in values],
         dtype=np.uint64,

@@ -31,6 +31,7 @@ import torch
 from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
 from deequ_tpu_torch.expr.eval import Val
+from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 
 DEFAULT_CHUNK_BYTES = 512 << 20
 MAX_CHUNK_ROWS = 1 << 23
@@ -71,8 +72,9 @@ class ScanOp:
     ``tags`` names each leaf's fold tag (:data:`FOLD_TAGS`).
 
     ``luts``: ``(column, key, build)`` host lookup tables over a string
-    column's dictionary, built and moved to the device once per scan and
-    read in ``update`` as ``vals[column].lut(key)``. ``batch_hint``: ops
+    column's dictionary, built and moved to the device once per dictionary
+    (``ops/lut_cache.py``: ``key`` names the derivation) and read in
+    ``update`` as ``vals[column].lut(key)``. ``batch_hint``: ops
     with the same hint kind and parameters may be coalesced into one
     batched op by the runner (``("kll", sketch_size, column)``)."""
 
@@ -316,17 +318,19 @@ def _flatten(partials: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
 
 
 def _device_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], device):
-    """Every op's host lookup tables, each built once and moved to the
-    device in one copy: {column: {key: tensor}}."""
+    """Every op's lookup tables on the device: {column: {key: tensor}},
+    each built and copied once per dictionary and device
+    (``ops/lut_cache.py``), so a second scan of the same table builds
+    none."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for op in ops:
         for col, key, build in op.luts:
             per_col = out.setdefault(col, {})
             if key not in per_col:
                 with device_boundary("transfer"):
-                    per_col[key] = torch.from_numpy(
-                        np.ascontiguousarray(build(cols[col].dictionary))
-                    ).to(device)
+                    per_col[key] = dictionary_lut_device(
+                        cols[col].dictionary, key, build, device
+                    )
     return out
 
 

@@ -18,14 +18,25 @@ as in the reference (a round trip to the card costs more than the work):
 the unique-inverse and run lengths with numpy, a dense count with
 ``np.bincount``, recorded in ``ScanStats.hist_host_dispatches``.
 
-The frequency-table state (``group_counts_state``), top-k, the resident
-string path and cross-set fusion wait for a later slice.
+Three results come out of those counts:
+
+- ``group_count_stats``: the count distribution's scalars (Uniqueness and
+  the other count-only analyzers) — group values never decode;
+- ``group_counts_state``: the columnar frequency table
+  (``FrequenciesAndNumRows``; MutualInformation, Histogram with a binning
+  UDF) — the dense counts' present slots decode by mixed-radix digits, the
+  sparse route gathers the (k, G) representatives and run lengths on the
+  card, and group values decode by gathers into the typed distinct arrays;
+- ``group_top_k``: one column's top-k groups (Histogram), ranked on the
+  card — only k (slot, count) pairs come back.
+
+The resident string path and cross-set fusion wait for later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,13 +166,30 @@ def _count_stats_from_counts(counts: np.ndarray, num_rows: int) -> CountStats:
     return CountStats(num_rows, num_groups, singletons, entropy)
 
 
+def _typed_values(col_dtype: DType, values) -> np.ndarray:
+    """Distinct values (code order) -> a typed numpy array the columnar
+    frequency state can factorize with vectorized np.unique."""
+    if col_dtype == DType.STRING:
+        return np.asarray(values, dtype=np.str_) if len(values) else np.empty(
+            0, dtype=np.str_
+        )
+    if col_dtype == DType.BOOLEAN:
+        return np.asarray(values, dtype=np.bool_)
+    if col_dtype == DType.INTEGRAL:
+        return np.asarray(values, dtype=np.int64)
+    return np.asarray(values, dtype=np.float64)
+
+
 @dataclass
 class _GroupPrep:
-    """One grouping set's key material: per-column codes and radices, the
-    rows with any non-null key, and (dense only) the mixed-radix packed
-    int64 keys with -1 marking excluded rows."""
+    """One grouping set's key material: per-column codes, their distinct
+    values as typed arrays (``with_values`` only) and radices, the rows
+    with any non-null key, and (dense only) the mixed-radix packed int64
+    keys with -1 marking excluded rows."""
 
     code_arrays: List[np.ndarray]
+    value_arrays: Optional[List[np.ndarray]]
+    radices: List[int]
     any_non_null: Optional[np.ndarray]
     num_rows: int
     keyspace: int
@@ -174,11 +202,22 @@ def _prepare_grouping(
     columns: Sequence[str],
     device,
     require_any_non_null: bool = True,
+    with_values: bool = False,
 ) -> _GroupPrep:
     code_arrays = []
+    value_arrays: Optional[List[np.ndarray]] = [] if with_values else None
     radices = []
     for name in columns:
-        codes, values = column_key_codes(table[name], device)
+        col = table[name]
+        codes, values = column_key_codes(col, device)
+        if with_values:
+            # the typed distinct array is memoized on the column: for a
+            # string column it converts the whole dictionary
+            typed = getattr(col, "_typed_distinct", None)
+            if typed is None or len(typed) != len(values):
+                typed = _typed_values(col.dtype, values)
+                col._typed_distinct = typed
+            value_arrays.append(typed)
         code_arrays.append(codes)
         radices.append(len(values) + 1)
 
@@ -205,7 +244,10 @@ def _prepare_grouping(
             keys = keys * radix + codes
         if any_non_null is not None:
             keys = np.where(any_non_null, keys, -1)
-    return _GroupPrep(code_arrays, any_non_null, num_rows, keyspace, dense, keys)
+    return _GroupPrep(
+        code_arrays, value_arrays, radices, any_non_null, num_rows, keyspace,
+        dense, keys,
+    )
 
 
 def _host_rle_counts(matrix: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -281,3 +323,234 @@ def group_count_stats(
     else:
         entropy = float("nan")
     return CountStats(num_rows, num_groups, singletons, entropy)
+
+
+# -- the frequency table --------------------------------------------------------
+
+
+def _dense_digits(
+    prep: _GroupPrep, counts: np.ndarray
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Dense counts vector -> (per-column digit codes of the present
+    groups, their counts) by vectorized mixed-radix decode."""
+    present = np.nonzero(counts)[0]
+    group_counts_vec = counts[present].astype(np.int64)
+    digit_cols = []
+    rest = present
+    for radix in reversed(prep.radices):
+        digit_cols.append(rest % radix)
+        rest = rest // radix
+    digit_cols.reverse()
+    return digit_cols, group_counts_vec
+
+
+def _freq_state_from_digits(
+    columns: Sequence[str],
+    digit_cols: List[np.ndarray],
+    group_counts_vec: np.ndarray,
+    value_arrays: List[np.ndarray],
+    num_rows: int,
+):
+    """Digit codes + counts -> columnar ``FrequenciesAndNumRows``: each
+    column's group values decode by one gather into its typed distinct
+    array (digit 0 = null)."""
+    from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
+
+    key_values = []
+    key_nulls = []
+    for digits, values in zip(digit_cols, value_arrays):
+        if len(values):
+            key_values.append(values[np.maximum(digits - 1, 0)])
+        else:
+            key_values.append(np.zeros(len(digits), dtype=values.dtype))
+        key_nulls.append(digits == 0)
+    return FrequenciesAndNumRows(
+        tuple(columns), tuple(key_values), tuple(key_nulls),
+        group_counts_vec, num_rows,
+    )
+
+
+def _device_matrix_rle(
+    code_matrix: np.ndarray, valid: np.ndarray, device
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Run-length-encode the distinct valid rows of a (k, n) code matrix
+    (reference ``_device_matrix_rle``): one device lexsort with valid rows
+    first and an adjacent compare mark the run starts; ``torch.nonzero``
+    reads the group count G back (its one scalar round trip) and the
+    (k, G) representatives and G run lengths are gathered on the card, so
+    the fetch is O(k·G), never the sorted (k, n) matrix. At or below
+    ``HOST_GROUP_LIMIT`` rows the same runs are taken on the host.
+    Returns (groups (k, G), counts (G,))."""
+    k, n = code_matrix.shape
+    if n == 0:
+        return code_matrix[:, :0], np.zeros(0, dtype=np.int64)
+    if n <= HOST_GROUP_LIMIT:
+        perm = np.lexsort(tuple(code_matrix) + (~valid,))
+        smat = code_matrix[:, perm]
+        sva = valid[perm]
+        neq = np.any(smat[:, 1:] != smat[:, :-1], axis=0)
+        starts = np.concatenate([[True], neq]) & sva
+        positions = np.nonzero(starts)[0]
+        counts = np.diff(np.append(positions, int(sva.sum()))).astype(np.int64)
+        return smat[:, positions], counts
+    SCAN_STATS.device_sort_passes += 1
+    with device_boundary("execute"):
+        mat = torch.from_numpy(np.ascontiguousarray(code_matrix)).to(device)
+        va = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+        perm = _lexsort(list(mat) + [~va])
+        smat, sva = mat[:, perm], va[perm]
+        neq = (smat[:, 1:] != smat[:, :-1]).any(dim=0)
+        starts = torch.cat([torch.ones(1, dtype=torch.bool, device=device), neq]) & sva
+        positions = torch.nonzero(starts).squeeze(1)
+        counts = torch.diff(positions, append=sva.sum().reshape(1))
+        groups, counts = fetch(smat[:, positions], counts)
+    return groups, counts.astype(np.int64)
+
+
+def group_counts_state(
+    table: ColumnarTable,
+    columns: Sequence[str],
+    device,
+    require_any_non_null: bool = True,
+):
+    """The frequency table of a grouping as a columnar
+    ``FrequenciesAndNumRows`` (reference ``group_counts_state`` with
+    ``canonicalize=False``; GroupingAnalyzers.scala:53-79): dense key
+    spaces count on the card (the CUDA histogram) and decode the present
+    slots by mixed-radix digits; sparse ones take the device run-length
+    route. Group values decode by vectorized gathers — no per-group
+    Python loop."""
+    SCAN_STATS.grouping_passes += 1
+    SCAN_STATS.rows_scanned += table.num_rows
+
+    prep = _prepare_grouping(
+        table, columns, device, require_any_non_null, with_values=True
+    )
+    if prep.dense:
+        counts = _device_bincount(prep.keys, prep.keyspace, device)
+        digit_cols, group_counts_vec = _dense_digits(prep, counts)
+    else:
+        matrix = np.stack(prep.code_arrays, axis=0)
+        valid = (
+            prep.any_non_null
+            if prep.any_non_null is not None
+            else np.ones(table.num_rows, dtype=bool)
+        )
+        groups_mat, group_counts_vec = _device_matrix_rle(matrix, valid, device)
+        digit_cols = list(groups_mat)
+    return _freq_state_from_digits(
+        columns, digit_cols, group_counts_vec, prep.value_arrays, prep.num_rows
+    )
+
+
+def group_counts(
+    table: ColumnarTable,
+    columns: Sequence[str],
+    device,
+    require_any_non_null: bool = True,
+) -> Tuple[Dict[tuple, int], int]:
+    """Dict-shaped view of ``group_counts_state``: each tuple of group
+    values (None = null) -> its count, and the row count."""
+    state = group_counts_state(table, columns, device, require_any_non_null)
+    return state.as_dict(), state.num_rows
+
+
+# -- top-k ----------------------------------------------------------------------
+
+NULL_FIELD_REPLACEMENT = "NullValue"
+
+_SLOT_MASK = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class TopKCounts:
+    """One column's top-k groups: total rows, distinct-group count, and
+    the top (group value, count) pairs, count descending, the lower slot
+    first on equal counts (the reference's ``jax.lax.top_k`` order)."""
+
+    num_rows: int
+    num_groups: int
+    top: Tuple[Tuple[object, int], ...]  # (value-or-None, count)
+
+
+def _packed_topk(counts: torch.Tensor, kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``kk`` slots of a counts vector, ranked by ONE distinct
+    int64 key a slot, ``(count << 32) | (0xFFFFFFFF - slot)``: a higher
+    count first, the lower slot first on equal counts — ``jax.lax.top_k``'s
+    order, which ``torch.topk`` does not promise on ties. Needs counts
+    below 2^31 and slots below 2^32. Returns the keys (descending) and the
+    group count."""
+    slots = torch.arange(counts.numel(), dtype=torch.int64, device=counts.device)
+    keys = (counts << 32) | (_SLOT_MASK - slots)
+    return torch.topk(keys, kk).values, (counts > 0).sum()
+
+
+def _unpack_topk(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed keys -> (slots, counts)."""
+    keys = keys.astype(np.int64)
+    return _SLOT_MASK - (keys & _SLOT_MASK), keys >> 32
+
+
+def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts:
+    """Top-k most frequent values of ONE column (reference
+    ``group_top_k``): counts over card + 1 slots (slot 0 = null) on the
+    card — the CUDA histogram — ranked there by :func:`_packed_topk`; only
+    k (slot, count) pairs come back and only those values decode. A string
+    column's codes go over as int32. Nulls form their own group (value
+    None); when the dictionary holds the literal "NullValue" (the label the
+    Histogram metric gives nulls), the null slot merges into it before
+    ranking."""
+    SCAN_STATS.grouping_passes += 1
+    SCAN_STATS.rows_scanned += table.num_rows
+
+    col = table[column]
+    nv_code = -1
+    if col.dtype == DType.STRING:
+        hits = np.nonzero(col.dictionary == NULL_FIELD_REPLACEMENT)[0]
+        if len(hits):
+            nv_code = int(hits[0]) + 1
+        codes = col.codes + np.int32(1)
+        values = col.dictionary
+        decode = lambda idx: values[idx - 1]  # noqa: E731
+    elif col.dtype == DType.BOOLEAN:
+        codes, values = column_key_codes(col, device)
+        decode = lambda idx: bool(values[idx - 1])  # noqa: E731
+    else:
+        values, codes = _device_unique_inverse(col.values, col.mask, device)
+        cast = int if col.dtype == DType.INTEGRAL else float
+        decode = lambda idx: cast(values[idx - 1])  # noqa: E731
+    num_segments = len(values) + 1
+    kk = min(k, num_segments)
+    if table.num_rows >= 1 << 31:
+        raise ValueError("group_top_k: counts must stay below 2^31 to be ranked")
+
+    if table.num_rows <= HOST_GROUP_LIMIT:
+        SCAN_STATS.record_hist_dispatch("host")
+        counts = np.bincount(codes, minlength=num_segments).astype(np.int64)
+        if nv_code >= 0:
+            counts[nv_code] += counts[0]
+            counts[0] = 0
+        num_groups = int((counts > 0).sum())
+        top_idx = np.argsort(-counts, kind="stable")[:kk]
+        top_counts = counts[top_idx]
+    else:
+        with device_boundary("execute"):
+            seg = torch.from_numpy(np.ascontiguousarray(codes)).to(device)
+            counts = bincount(seg, num_segments)
+            SCAN_STATS.record_hist_dispatch(
+                "kernel" if seg.device.type == "cuda" else "plain"
+            )
+            if nv_code >= 0:
+                counts[nv_code] += counts[0]
+                counts[0] = 0
+            keys, groups = _packed_topk(counts, kk)
+            num_groups, keys = fetch(groups, keys)
+        top_idx, top_counts = _unpack_topk(keys)
+        num_groups = int(num_groups)
+
+    top = []
+    for idx, cnt in zip(top_idx.tolist(), top_counts.tolist()):
+        if cnt <= 0:
+            continue
+        top.append((None if idx == 0 else decode(idx), int(cnt)))
+    return TopKCounts(table.num_rows, num_groups, tuple(top))

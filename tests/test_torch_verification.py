@@ -211,7 +211,8 @@ def test_import_isolation():
     """The port imports torch and numpy, never jax and nothing of deequ_tpu."""
     code = (
         "import sys, deequ_tpu_torch, deequ_tpu_torch.verification, "
-        "deequ_tpu_torch.interop, deequ_tpu_torch.ops.segment\n"
+        "deequ_tpu_torch.interop, deequ_tpu_torch.ops.segment, "
+        "deequ_tpu_torch.native, deequ_tpu_torch.ops.lut_cache\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deequ_tpu' or m.startswith('deequ_tpu.'))\n"
         "print(bad)\n"
@@ -239,17 +240,27 @@ def test_run_without_cuda_raises_device_unavailable(monkeypatch):
 
 
 def test_unported_checks_are_refused_when_built():
+    """Only the anomaly check (it needs a metrics repository) is refused;
+    the frequency-table and string-analyzer methods build."""
     check = deequ_tpu_torch.Check(deequ_tpu_torch.CheckLevel.ERROR, "x")
+    with pytest.raises(deequ_tpu_torch.NotYetPortedException):
+        check.is_newest_point_non_anomalous(None, None, None, None, None)
     for build in (
         lambda: check.has_pattern("s", r"\d+"),
         lambda: check.has_number_of_distinct_values("s", lambda n: n > 1),
         lambda: check.has_histogram_values("s", lambda d: True),
         lambda: check.has_min_length("s", lambda v: True),
+        lambda: check.has_max_length("s", lambda v: True),
         lambda: check.has_mutual_information("a", "b", lambda v: True),
-        lambda: check.has_data_type("s", None),
+        lambda: check.has_data_type(
+            "s", deequ_tpu_torch.ConstrainableDataTypes.STRING
+        ),
+        lambda: check.contains_email("s"),
+        lambda: check.contains_url("s"),
+        lambda: check.contains_credit_card_number("s"),
+        lambda: check.contains_social_security_number("s"),
     ):
-        with pytest.raises(deequ_tpu_torch.NotYetPortedException):
-            build()
+        assert len(build().constraints) == 1
 
 
 def test_cpu_route_launches_no_kernel(parity_env):
