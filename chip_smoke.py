@@ -68,6 +68,27 @@ Phases, each printed as one JSON line on stdout:
 11. ``kernel_timing`` of K5 at the frequency path's two shapes and at
    config 4's own width (10^8 ids over 33,333,334 slots, made on the
    card), and of the packed-key top-k there;
+12. ``resident_path`` — ``persist()`` and the resident scan, in three
+   parts run over the tables above before each is dropped (each runs its
+   suite once checked, counts set to 0 just before and read just after,
+   watched for CPU ops, then once warm and three times timed, and shows
+   ``unpersist()`` dropping ``torch.cuda.memory_allocated()`` by at least
+   the resident bytes): ``main`` (after phase 5) — every metric equal to
+   the streaming run's (exact, or within PERF.md §2's bounds), no bytes
+   packed, ``status`` and ``region`` counted from resident codes by K5;
+   and, inside it, ``encoded`` — two low-cardinality numeric columns made
+   from the main table, encoded and persisted, bit-identical to their
+   decoded twin with at most half its resident bytes; ``sketch`` (after
+   phase 8) — the select (K4) in place of every sort
+   (``device_select_passes`` > 0, ``device_sort_passes`` = 0), every KLL
+   state bit-identical to a ``select_kernel=False`` scan of the same
+   resident chunks, quantiles within the rank bound, HLL estimates equal
+   to the streaming run's, then a ``kernel_timing`` line of K4 at the
+   resident chunk's shape (the call, each of its seven passes, the
+   remainder, ``torch.sort`` of the same keys, K3 whole, the bound);
+   ``frequency`` (after phase 11) — Histogram's top-k and Uniqueness's
+   count statistics from resident codes, equal to the streaming run's,
+   Uniqueness fetching four scalars (32 bytes);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
@@ -524,7 +545,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         "peak_device_bytes": peak,
         "table_build_s": t_table,
         "numpy_reference_s": t_numpy,
-    }, table
+    }, table, result
 
 
 def phase_times(table, device) -> dict:
@@ -859,12 +880,16 @@ def build_sketch_check(table):
     return check.has_correlation("q0", "q1", lambda v: -1.0 <= v <= 1.0)
 
 
-def check_sketch_metrics(table, result) -> dict:
+def check_sketch_metrics(table, result, sorted_cols=None) -> dict:
     """Each HLL estimate within 0.2 of numpy's exact distinct count (the
     reference's own test bound) and each quantile's rank among numpy's
     valid values within relative_error * m of q * m; the KLL metric has
-    its 100 buckets holding every valid row."""
+    its 100 buckets holding every valid row. ``sorted_cols`` keeps each
+    column's sorted valid values for a later call."""
     import numpy as np
+
+    if sorted_cols is None:
+        sorted_cols = {}
 
     got = {}
     for analyzer, metric in result.metrics.items():
@@ -875,12 +900,13 @@ def check_sketch_metrics(table, result) -> dict:
     numeric, every = sketch_columns(table)
     worst_hll, worst_rank = 0.0, 0.0
     for c in every:
-        col = table[c]
-        if col.dtype.value == "string":
-            valid = col.codes[col.codes >= 0]
-        else:
-            valid = col.values[col.mask]
-        s = np.sort(valid)
+        if c not in sorted_cols:
+            col = table[c]
+            if col.dtype.value == "string":
+                sorted_cols[c] = np.sort(col.codes[col.codes >= 0])
+            else:
+                sorted_cols[c] = np.sort(col.values[col.mask])
+        s = sorted_cols[c]
         distinct = int(len(s) > 0) + int(np.count_nonzero(s[1:] != s[:-1]))
         est = got[("ApproxCountDistinct", c, None)]
         rel = abs(est - distinct) / distinct
@@ -938,9 +964,9 @@ def registers_against_plain(table, device, result) -> int:
     folded = {c: torch.zeros(512, dtype=torch.int32, device=device) for c in every}
     for start in range(0, table.num_rows, chunk):
         stop = min(start + chunk, table.num_rows)
-        values, masks, codes = packer.to_device(packer.pack(start, stop), device)
+        planes = packer.to_device(packer.pack(start, stop), device)
         row_valid = torch.ones(stop - start, dtype=torch.bool, device=device)
-        vals = packer.unpack_vals(values, masks, codes, row_valid, luts)
+        vals = packer.unpack_vals(*planes, row_valid, luts)
         for c in every:
             v = vals[c]
             lut = v.lut("hll_ir_p9") if v.kind == "str" else None
@@ -1102,7 +1128,8 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
              f"{stats['kll_sorted_columns']} columns in {chunks} chunks, want one batched "
              f"sort of {len(numeric)} columns and one of KLLSketch's a chunk")
     t0 = time.perf_counter()
-    checked = check_sketch_metrics(table, result)
+    sorted_cols = {}
+    checked = check_sketch_metrics(table, result, sorted_cols)
     t_numpy = time.perf_counter() - t0
 
     walls = []
@@ -1137,7 +1164,7 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
         "peak_device_bytes": peak,
         "table_build_s": t_table,
         "numpy_check_s": t_numpy,
-    }, table
+    }, table, {"result": result, "sorted": sorted_cols}
 
 
 def hll_timing(table, device, rate: float, launches: int) -> dict:
@@ -1591,7 +1618,7 @@ def frequency_path(rows: int, seed: int, device) -> dict:
         "peak_device_bytes": peak,
         "table_build_s": t_table,
         "numpy_reference_s": t_numpy,
-    }, table
+    }, table, result
 
 
 def config4_timing(table, device, rate: float, full_rows: int = 100_000_000) -> dict:
@@ -1637,6 +1664,444 @@ def config4_timing(table, device, rate: float, full_rows: int = 100_000_000) -> 
                      "bound_by": "bytes", "bound_share": bound_ms / ms})
     histogram_device.LAUNCHES = saved
     return {"bincount": shapes, "packed_topk": topk}
+
+
+# -- the resident path: persist(), resident grouping, K4, encoded columns ----
+
+
+class ResidentSpy:
+    """Counts the grouping counts taken from resident codes
+    (``segment._resident_string_bincount`` returning a tensor) while
+    active."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import segment
+
+        self._orig = segment._resident_string_bincount
+
+        def spy(*args, **kwargs):
+            out = self._orig(*args, **kwargs)
+            self.calls += out is not None
+            return out
+
+        segment._resident_string_bincount = spy
+        return self
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import segment
+
+        segment._resident_string_bincount = self._orig
+
+
+def metric_values(result) -> dict:
+    """{(name, instance, quantile): value} of a run; a failed metric fails."""
+    got = {}
+    for analyzer, metric in result.metrics.items():
+        if not metric.value.is_success:
+            fail(f"metric failed: {metric}")
+        got[(metric.name, metric.instance, getattr(analyzer, "quantile", None))] = (
+            metric.value.get())
+    return got
+
+
+def resident_runs(suite, table, device, label: str) -> dict:
+    """The checked run of ``suite`` over the persisted ``table`` (counts
+    set to 0 just before, read just after, watched for CPU ops), then one
+    warm and three timed runs. Fails unless the runs read the resident
+    chunks and packed nothing."""
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    torch.cuda.reset_peak_memory_stats(device)
+    SCAN_STATS.reset()
+    histogram_device.LAUNCHES = 0
+    hll.LAUNCHES = 0
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watch, ResidentSpy() as spy:
+        result = suite.run()
+    t_first = time.perf_counter() - t0
+    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES}
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if stats["resident_passes"] != stats["scan_passes"] or stats["bytes_packed"] != 0:
+        fail(f"{label}: {stats['resident_passes']} of {stats['scan_passes']} scans "
+             f"resident, {stats['bytes_packed']} bytes packed (want all and 0)")
+    walls = []
+    with ResidentSpy() as later:
+        for _ in range(4):  # one warm run, then three timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            suite.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    if later.calls != 4 * spy.calls:
+        fail(f"{label}: later runs took {later.calls} resident counts, want 4 x {spy.calls}")
+    return {
+        "result": result,
+        "kernel_launches": launches,
+        "resident_string_counts": spy.calls,
+        "scan_stats": stats,
+        "first_run_s_watched": t_first,
+        "warm_run_s": walls[0],
+        "run_wall_s_median_of_3": statistics.median(walls[1:]),
+        "run_wall_s": walls[1:],
+        "peak_device_bytes": peak,
+    }
+
+
+def compare_runs(streamed: dict, resident: dict, label: str) -> float:
+    """Every metric of a resident run against the streaming run's: exact
+    where PERF.md §2 says exact, within its relative bound elsewhere
+    (the runs cut chunks differently). Returns the worst relative error."""
+    if set(streamed) != set(resident):
+        fail(f"{label}: metric sets differ")
+    worst = 0.0
+    for key, want in streamed.items():
+        have = resident[key]
+        if key[0] in _REL:
+            rel = abs(have - want) / max(abs(want), 1e-300)
+            worst = max(worst, rel)
+            if rel > _REL[key[0]]:
+                fail(f"{label}: {key} resident {have!r} vs streamed {want!r}, "
+                     f"rel {rel:.3g} > {_REL[key[0]]}")
+        elif have != want:
+            fail(f"{label}: {key} resident {have!r} != streamed {want!r}")
+    return worst
+
+
+def persist_timed(table, device, **kwargs):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table.persist(device, **kwargs)
+    return table._device_cache, time.perf_counter() - t0
+
+
+def unpersist_frees(table, device, label: str) -> dict:
+    """unpersist() must drop torch.cuda.memory_allocated() by at least the
+    resident bytes."""
+    import torch
+
+    from deequ_tpu_torch.ops.scan_engine import total_resident_bytes
+
+    nbytes = table._device_cache.nbytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    table.unpersist()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated(device)
+    if freed < nbytes or table.is_persisted or total_resident_bytes() != 0:
+        fail(f"{label}: unpersist() freed {freed} bytes of {nbytes} resident")
+    return {"resident_bytes": nbytes, "freed_bytes": freed}
+
+
+def make_encoded_table(table, encode: bool):
+    """Two low-cardinality numeric columns made from the main table's
+    (customer_id mod 1,000 with its nulls; f5 rounded to 0.1, about 600
+    values) beside status, encoded or not."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+    cu, f5 = table["customer_id"], table["f5"]
+    out = ColumnarTable([
+        Column("cbucket", DType.INTEGRAL, values=cu.values % 1000, mask=cu.mask),
+        Column("f5r", DType.FRACTIONAL, values=np.round(f5.values, 1), mask=f5.mask),
+        table["status"],
+    ])
+    if encode and out.encode(["cbucket", "f5r"])["cbucket"].encoding is None:
+        fail("encoded: cbucket did not take an encoding")
+    return out
+
+
+def build_encoded_check():
+    from deequ_tpu_torch import Check, CheckLevel
+
+    yes = lambda v: True  # noqa: E731 — compared bit for bit between two runs
+    check = Check(CheckLevel.ERROR, "encoded")
+    for c in ("cbucket", "f5r"):
+        check = (check.has_min(c, yes).has_max(c, yes).has_mean(c, yes).has_sum(c, yes)
+                 .has_standard_deviation(c, yes).has_completeness(c, yes)
+                 .has_approx_quantile(c, 0.5, yes).has_approx_count_distinct(c, yes))
+    return (check.has_correlation("f5r", "cbucket", yes).satisfies("f5r > 55", "f5r above 55", yes)
+            .has_uniqueness(["cbucket"], yes).has_entropy("status", yes))
+
+
+def resident_main(table, device, streamed_result, streamed_report) -> dict:
+    """(a) the main path over its persisted table and (d) encoded columns."""
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    cache, persist_s = persist_timed(table, device)
+    n_chunks = len(cache.device_chunks)
+    runs = resident_runs(build_suite(table), table, device, "resident main")
+    result = runs.pop("result")
+    worst = compare_runs(metric_values(streamed_result), metric_values(result), "resident main")
+    stats = runs["scan_stats"]
+    if runs["resident_string_counts"] != 2:
+        fail(f"resident main: {runs['resident_string_counts']} grouping counts from "
+             "resident codes, want 2 (status and region)")
+    if runs["kernel_launches"]["bincount"] < 2 * n_chunks + 1:
+        fail(f"resident main: {runs['kernel_launches']['bincount']} K5 launches")
+    if stats["hist_plain_dispatches"] or stats["hist_host_dispatches"]:
+        fail("resident main: a grouping count ran off the kernel")
+    freed = unpersist_frees(table, device, "resident main")
+
+    # (d) encoded columns against their decoded twin, both persisted
+    t0 = time.perf_counter()
+    enc, dec = make_encoded_table(table, True), make_encoded_table(table, False)
+    enc_cache, enc_persist_s = persist_timed(enc, device)
+    dec_cache, _ = persist_timed(dec, device, encode=False)
+    check = build_encoded_check()
+    SCAN_STATS.reset()
+    got_enc = metric_values(VerificationSuite.on_data(enc).add_check(check).run())
+    enc_stats = SCAN_STATS.snapshot()
+    got_dec = metric_values(VerificationSuite.on_data(dec).add_check(check).run())
+    if enc_stats["encoded_scan_passes"] < 1 or enc_stats["bytes_packed"] != 0:
+        fail(f"encoded: {enc_stats['encoded_scan_passes']} encoded passes, "
+             f"{enc_stats['bytes_packed']} bytes packed")
+    for key, want in got_dec.items():
+        have = got_enc[key]
+        if not (have == want or (have != have and want != want)):
+            fail(f"encoded: {key} encoded {have!r} != decoded {want!r}")
+    if enc_cache.nbytes * 2 > dec_cache.nbytes:
+        fail(f"encoded: {enc_cache.nbytes} resident bytes, decoded {dec_cache.nbytes}")
+    encoded = {
+        "columns": list(enc_cache.packer.enc_names),
+        "metrics_bit_identical": len(got_dec),
+        "resident_bytes_encoded": enc_cache.nbytes,
+        "resident_bytes_decoded": dec_cache.nbytes,
+        "persist_s_encoded": enc_persist_s,
+        "scan_stats": enc_stats,
+        "seconds": time.perf_counter() - t0,
+    }
+    enc.unpersist()
+    dec.unpersist()
+    return {
+        "phase": "resident_path", "part": "main",
+        "rows": table.num_rows, "chunks": n_chunks,
+        "persist_s": persist_s, **freed,
+        "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
+        "worst_rel_err_vs_streaming": worst,
+        **runs,
+        "encoded": encoded,
+    }
+
+
+def kll_states_select_vs_sort(table, device, check) -> dict:
+    """K4 against K3 on the same resident chunks: every KLL state of the
+    sketch check from a resident scan with the select and one without,
+    bit for bit; the select scan sorts nothing."""
+    import numpy as np
+
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, run_scan
+
+    kll = list(dict.fromkeys(a for a in check.required_analyzers()
+                             if type(a).__name__ in ("ApproxQuantile", "KLLSketch")))
+    exec_ops, plan = AnalysisRunner._coalesce_scan_ops([a.scan_op(table) for a in kll])
+    states = {}
+    for select in (True, False):
+        SCAN_STATS.reset()
+        results = run_scan(table, exec_ops, device, select_kernel=select)
+        stats = SCAN_STATS.snapshot()
+        if stats["resident_passes"] != 1:
+            fail("select vs sort: the scan did not read the resident chunks")
+        if select and (stats["device_sort_passes"] or not stats["device_select_passes"]):
+            fail(f"select scan: {stats['device_sort_passes']} sorts, "
+                 f"{stats['device_select_passes']} selects")
+        states[select] = [a.state_from_scan_result(ex(results[i]) if ex else results[i])
+                          for a, (i, ex) in zip(kll, plan)]
+    for a, sel, srt in zip(kll, states[True], states[False]):
+        same = (
+            (sel.global_min, sel.global_max) == (srt.global_min, srt.global_max)
+            and (sel.sketch.count, sel.sketch.rng_count) == (srt.sketch.count,
+                                                             srt.sketch.rng_count)
+            and len(sel.sketch.compactors) == len(srt.sketch.compactors)
+            and all(np.array_equal(x.view(np.uint64), y.view(np.uint64))
+                    for x, y in zip(sel.sketch.compactors, srt.sketch.compactors))
+        )
+        if not same:
+            fail(f"KLL state of {a!r}: the select (K4) != the sort (K3) on the same chunks")
+    return {"states": len(kll), "batched_ops": len(exec_ops)}
+
+
+def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
+    """(b) the sketch path over its persisted table: the select replaces
+    every sort, K4 = K3 on the same chunks, quantiles within the rank
+    bound, HLL estimates equal to the streaming run's."""
+    from deequ_tpu_torch import VerificationSuite
+
+    cache, persist_s = persist_timed(table, device)
+    check = build_sketch_check(table)
+    runs = resident_runs(VerificationSuite.on_data(table).add_check(check), table,
+                         device, "resident sketch")
+    result = runs.pop("result")
+    stats = runs["scan_stats"]
+    if stats["device_select_passes"] <= 0 or stats["device_sort_passes"] != 0 or (
+            stats["kll_sort_passes"] != 0):
+        fail(f"resident sketch: {stats['device_select_passes']} select passes, "
+             f"{stats['device_sort_passes']} sort passes (want > 0 and 0)")
+    if stats["last_scan_fetches"] != 1:
+        fail(f"resident sketch: {stats['last_scan_fetches']} fetches")
+    checked = check_sketch_metrics(table, result, streamed["sorted"])
+    got, want = metric_values(result), metric_values(streamed["result"])
+    for key, value in want.items():
+        if key[0] == "ApproxCountDistinct" and got[key] != value:
+            fail(f"resident sketch: {key} {got[key]} != streamed {value}")
+    select_vs_sort = kll_states_select_vs_sort(table, device, check)
+    return {
+        "phase": "resident_path", "part": "sketch",
+        "rows": table.num_rows, "chunks": len(cache.device_chunks), "chunk_rows": cache.chunk,
+        "persist_s": persist_s, "resident_bytes": cache.nbytes,
+        "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
+        **checked, "kll_select_equals_sort": select_vs_sort,
+        **runs,
+    }
+
+
+def select_timing(table, device, rate: float) -> dict:
+    """K4 for one batched summary at the resident sketch chunk's shape
+    (50 columns x chunk rows, k = 256): the whole call and each of its
+    seven passes (CUDA events at each K5 launch), K3's torch.sort of the
+    same (K, n) keys and K3 whole, and K4's bound (one read of the values
+    and validity). K4 is checked against K3 on the chunk."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.analyzers.sketches import _sketch_size_for_error
+    from deequ_tpu_torch.ops import histogram_device, select_device
+    from deequ_tpu_torch.ops.kll_device import chunk_summary_batched
+
+    cache = table._device_cache
+    numeric, _ = sketch_columns(table)
+    planes = cache.device_chunks[0]
+    n = planes[0].shape[1]
+    row_valid = torch.ones(n, dtype=torch.bool, device=device)
+    vals = cache.packer.unpack_vals(*planes, row_valid, names=numeric)
+    X = torch.stack([vals[c].data for c in numeric])
+    M = torch.stack([vals[c].mask for c in numeric])
+    k = _sketch_size_for_error(SKETCH_RELATIVE_ERROR)
+    saved = histogram_device.LAUNCHES
+
+    sel = select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
+    srt = chunk_summary_batched(X, M, k, cache.chunk)
+    for key in ("count", "weights", "min", "max"):
+        if not torch.equal(sel[key], srt[key]):
+            fail(f"select timing: K4 {key} != K3")
+    a, b = sel["items"].cpu().numpy(), srt["items"].cpu().numpy()
+    if not np.array_equal(a[:, :k].view(np.int64), b[:, :k].view(np.int64)) or not (
+            np.array_equal(np.sort(a[:, k:].view(np.int64), 1), np.sort(b[:, k:].view(np.int64), 1))):
+        fail("select timing: K4 items != K3 items")
+    del sel, srt
+
+    orig = select_device._segment_count
+    marks = []
+
+    def timed(seg, num):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = orig(seg, num)
+        e1.record()
+        marks.append((e0, e1, num))
+        return out
+
+    runs = []
+    select_device._segment_count = timed
+    try:
+        for _ in range(4):  # one warm call, then three timed
+            marks.clear()
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
+            stop.record()
+            stop.synchronize()
+            prev, passes = start, []
+            for e0, e1, num in marks:
+                passes.append({"bins": num, "pass_ms": prev.elapsed_time(e1),
+                               "k5_ms": e0.elapsed_time(e1)})
+                prev = e1
+            runs.append({"ms": start.elapsed_time(stop), "passes": passes,
+                         "remainder_ms": prev.elapsed_time(stop)})
+    finally:
+        select_device._segment_count = orig
+    histogram_device.LAUNCHES = saved
+    runs = runs[1:]
+    best = min(runs, key=lambda r: r["ms"])
+    key = torch.where(M, X, math.inf)
+    key = torch.where(key == 0, 0.0, key)
+    sort_ms = time_cuda(lambda: torch.sort(key, dim=-1, stable=True), reps=3, warmup=1)
+    k3_ms = time_cuda(lambda: chunk_summary_batched(X, M, k, cache.chunk), reps=3, warmup=1)
+    K = X.shape[0]
+    bound_ms = K * n * 9 / rate * 1e3
+    peak = torch.cuda.max_memory_allocated(device)
+    return {
+        "name": "select (K4)",
+        "shape": {"columns": K, "rows": n, "k": k, "targets": k + 2},
+        "ms_median_of_3": statistics.median(r["ms"] for r in runs),
+        "ms_runs": [r["ms"] for r in runs],
+        "passes_of_fastest": best["passes"],
+        "remainder_ms_of_fastest": best["remainder_ms"],
+        "k5_launches": len(best["passes"]),
+        "torch_sort_ms": sort_ms,
+        "k3_summary_ms": k3_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "bound_share": bound_ms / statistics.median(r["ms"] for r in runs),
+        "peak_device_bytes_after": peak,
+    }
+
+
+def resident_frequency(table, device, streamed_result, streamed_report) -> dict:
+    """(c) config 4 over its persisted table: Histogram's top-k and
+    Uniqueness's count statistics from resident codes, equal to the
+    streaming run's; Uniqueness fetches four scalars."""
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.ops.segment import group_count_stats
+
+    cache, persist_s = persist_timed(table, device)
+    n_chunks = len(cache.device_chunks)
+    runs = resident_runs(VerificationSuite.on_data(table).add_check(build_config4_check()),
+                         table, device, "resident frequency")
+    result = runs.pop("result")
+    if runs["resident_string_counts"] != 2:
+        fail(f"resident frequency: {runs['resident_string_counts']} resident counts, "
+             "want 2 (Histogram and Uniqueness)")
+    got = {m.name: m for m in result.metrics.values()}
+    want = {m.name: m for m in streamed_result.metrics.values()}
+    if distribution_of(got["Histogram"]) != distribution_of(want["Histogram"]):
+        fail("resident frequency: the Histogram differs from the streaming run's")
+    for name in ("Uniqueness", "ApproxCountDistinct"):
+        if got[name].value.get() != want[name].value.get():
+            fail(f"resident frequency: {name} {got[name].value.get()} != "
+                 f"{want[name].value.get()}")
+    before = SCAN_STATS.snapshot()
+    with ResidentSpy() as spy:
+        group_count_stats(table, ["key"], device)
+    fetched = SCAN_STATS.bytes_fetched - before["bytes_fetched"]
+    fetches = SCAN_STATS.device_fetches - before["device_fetches"]
+    if spy.calls != 1 or fetches != 1 or fetched != 32:
+        fail(f"resident Uniqueness: {fetches} fetches of {fetched} bytes (want 1 of 32)")
+    freed = unpersist_frees(table, device, "resident frequency")
+    return {
+        "phase": "resident_path", "part": "frequency",
+        "rows": table.num_rows, "chunks": n_chunks,
+        "persist_s": persist_s, **freed,
+        "uniqueness_fetch_bytes": fetched,
+        "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
+        **runs,
+    }
 
 
 def nvidia_smi_line() -> str:
@@ -1694,7 +2159,7 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    report, table = main_path(args.rows, args.seed, device)
+    report, table, main_result = main_path(args.rows, args.seed, device)
     emit({**report, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -1705,20 +2170,33 @@ def main(argv=None) -> int:
     shapes = kernel_timing(table, device, rate)
     emit({"phase": "kernel_timing", "kernel": "bincount", "card": smi, "shapes": shapes,
           "boundaries": boundary_timing(device, rate), "seconds": time.perf_counter() - t0})
-    del table
 
     t0 = time.perf_counter()
-    sketch, table = sketch_path(args.rows, args.seed, device)
+    res_main = resident_main(table, device, main_result, report)
+    emit({**res_main, "seconds": time.perf_counter() - t0})
+    del table, main_result
+
+    t0 = time.perf_counter()
+    sketch, table, streamed = sketch_path(args.rows, args.seed, device)
     emit({**sketch, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     htime = hll_timing(table, device, rate, sketch["kernel_launches"]["hll"])
     emit({"phase": "kernel_timing", "kernel": "hll", "card": smi, "shapes": [htime],
           "seconds": time.perf_counter() - t0})
-    del table
 
     t0 = time.perf_counter()
-    freq, table = frequency_path(args.rows, args.seed, device)
+    res_sketch = resident_sketch(table, device, streamed, sketch)
+    t_sel = time.perf_counter()
+    select = select_timing(table, device, rate)
+    emit({"phase": "kernel_timing", "kernel": "select (K4)", "card": smi, "shapes": [select],
+          "seconds": time.perf_counter() - t_sel})
+    res_sketch.update(unpersist_frees(table, device, "resident sketch"))
+    emit({**res_sketch, "seconds": time.perf_counter() - t0})
+    del table, streamed
+
+    t0 = time.perf_counter()
+    freq, table, freq_result = frequency_path(args.rows, args.seed, device)
     emit({**freq, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -1726,12 +2204,18 @@ def main(argv=None) -> int:
     emit({"phase": "kernel_timing", "kernel": "bincount", "card": smi,
           "shapes": c4["bincount"], "packed_topk": c4["packed_topk"],
           "seconds": time.perf_counter() - t0})
-    del table
+
+    t0 = time.perf_counter()
+    res_freq = resident_frequency(table, device, freq_result, freq)
+    emit({**res_freq, "seconds": time.perf_counter() - t0})
+    del table, freq_result
 
     launches = {"main_path": report["kernel_launches"],
                 "check_api_path": api["kernel_launches"],
                 "sketch_path": sketch["kernel_launches"]["bincount"],
-                "frequency_path": freq["kernel_launches"]}
+                "frequency_path": freq["kernel_launches"],
+                "resident_path": sum(r["kernel_launches"]["bincount"]
+                                     for r in (res_main, res_sketch, res_freq))}
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -1758,9 +2242,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/hll.cu",
         "replaces": "deequ_tpu/ops/hll.py:350",
-        "launches": sketch["kernel_launches"]["hll"] + freq["hll_launches"],
+        "launches": (sketch["kernel_launches"]["hll"] + freq["hll_launches"]
+                     + sum(r["kernel_launches"]["hll"] for r in (res_main, res_sketch, res_freq))),
         "launches_by_path": {"sketch_path": sketch["kernel_launches"]["hll"],
-                             "frequency_path": freq["hll_launches"]},
+                             "frequency_path": freq["hll_launches"],
+                             "resident_path": sum(r["kernel_launches"]["hll"]
+                                                  for r in (res_main, res_sketch, res_freq))},
         "max_abs_err": 0,
         "ms": htime["kernel_ms"],
         "plain_ms": htime["plain_ms"],

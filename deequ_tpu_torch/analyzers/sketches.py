@@ -11,7 +11,10 @@ KLLSketch and ApproxQuantile(s) are scan-shareable: the sketch is built
 inside the same fused pass (per-chunk sort + deterministic strata
 compaction, ops/kll_device.py) and folded on the host from the one fetch.
 Where-free KLL ops of one sketch size are coalesced by the runner into one
-batched sort a chunk (:func:`_kll_multi_scan_op`).
+batched sort a chunk (:func:`_kll_multi_scan_op`). Each KLL op of a sketch
+size up to ``MAX_SELECT_SKETCH_SIZE`` also carries a ``select_update``
+that makes the same summary with the radix select (ops/select_device.py);
+a scan of a persisted table runs it (ops/scan_plan.py).
 
 ApproxQuantile(s): the reference uses Spark's GK percentile digest
 (StatefulApproxQuantile). Here, as in ``deequ_tpu``, both are backed by
@@ -65,6 +68,11 @@ from deequ_tpu_torch.ops.kll_device import (
     fold_summaries,
 )
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, ScanOp
+from deequ_tpu_torch.ops.select_device import (
+    MAX_SELECT_SKETCH_SIZE,
+    chunk_summary_select,
+    chunk_summary_select_batched,
+)
 from deequ_tpu_torch.tryresult import Failure, Success, Try
 
 
@@ -229,10 +237,20 @@ def _kll_scan_op(column: str, sketch_size: int, where: Optional[str] = None) -> 
             v.data, _rows(vals, row_valid, n, pred) & v.mask, sketch_size, capacity
         )
 
+    def update_select(vals, row_valid, n, capacity):
+        v = vals[column]
+        return chunk_summary_select(
+            v.data, _rows(vals, row_valid, n, pred) & v.mask, sketch_size, capacity
+        )
+
     # where-free single-column KLL ops are coalescible into one batched
     # sort (see _kll_multi_scan_op / runner._coalesce_scan_ops)
     hint = ("kll", sketch_size, column) if where is None else None
-    return ScanOp(tuple(sorted(wcols | {column})), update, dict(_KLL_TAGS), batch_hint=hint)
+    return ScanOp(
+        tuple(sorted(wcols | {column})), update, dict(_KLL_TAGS), batch_hint=hint,
+        sorts_chunk=True,
+        select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
+    )
 
 
 def _kll_multi_scan_op(columns: Tuple[str, ...], sketch_size: int) -> ScanOp:
@@ -241,13 +259,21 @@ def _kll_multi_scan_op(columns: Tuple[str, ...], sketch_size: int) -> ScanOp:
     it from coalescible single-column ops and slices each analyzer's result
     back out (:func:`_kll_multi_extract`)."""
 
-    def update(vals, row_valid, n, capacity):
-        X = torch.stack([vals[c].data for c in columns])
-        M = torch.stack([vals[c].mask for c in columns])
-        SCAN_STATS.record_kll_sort(len(columns))
-        return chunk_summary_batched(X, M, sketch_size, capacity)
+    def stacked(vals):
+        return (torch.stack([vals[c].data for c in columns]),
+                torch.stack([vals[c].mask for c in columns]))
 
-    return ScanOp(tuple(sorted(set(columns))), update, dict(_KLL_TAGS))
+    def update(vals, row_valid, n, capacity):
+        SCAN_STATS.record_kll_sort(len(columns))
+        return chunk_summary_batched(*stacked(vals), sketch_size, capacity)
+
+    def update_select(vals, row_valid, n, capacity):
+        return chunk_summary_select_batched(*stacked(vals), sketch_size, capacity)
+
+    return ScanOp(
+        tuple(sorted(set(columns))), update, dict(_KLL_TAGS), sorts_chunk=True,
+        select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
+    )
 
 
 def _kll_multi_extract(result, j: int) -> dict:

@@ -24,7 +24,7 @@ from deequ_tpu_torch.analyzers.states import (
     StandardDeviationState,
     SumState,
 )
-from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+from deequ_tpu_torch.data.table import Column, ColumnarTable, ColumnChunk, DType
 from deequ_tpu_torch.ops.kll import KLLSketchState
 
 _STATES = {
@@ -56,7 +56,10 @@ def table_from_arrays(columns: Iterable[Mapping]) -> ColumnarTable:
     """Build a ColumnarTable from per-column dicts: ``name``, ``dtype``
     (a ``DType`` or its value: "fractional" | "integral" | "boolean" |
     "string"), then numpy ``values`` and optional ``mask`` (True = valid),
-    or, for strings, int32 ``codes`` (-1 = null) and ``dictionary``."""
+    or, for strings, int32 ``codes`` (-1 = null) and ``dictionary``. An
+    encoded numeric column gives the fields of its ``ColumnChunk``
+    instead: int16 ``codes`` (-1 = null), ``dictionary``, ``validity``
+    (the packed null bitmap, or None) and ``num_rows``."""
     built = []
     for spec in columns:
         dtype = DType(spec["dtype"])
@@ -65,6 +68,14 @@ def table_from_arrays(columns: Iterable[Mapping]) -> ColumnarTable:
                 spec["name"], dtype, codes=spec["codes"],
                 dictionary=spec["dictionary"],
             ))
+        elif "codes" in spec:
+            validity = spec.get("validity")
+            built.append(Column(spec["name"], dtype, encoded=ColumnChunk(
+                np.asarray(spec["codes"], dtype=np.int16),
+                np.asarray(spec["dictionary"]),
+                None if validity is None else np.asarray(validity, dtype=np.uint8),
+                int(spec["num_rows"]),
+            )))
         else:
             built.append(Column(
                 spec["name"], dtype, values=spec["values"], mask=spec.get("mask"),

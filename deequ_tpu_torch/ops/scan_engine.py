@@ -13,6 +13,14 @@ One pass over the table runs every scan-shareable analyzer of a run:
   (Welford moments) appended per chunk — and the scan fetches the whole
   folded state ONCE (``ScanStats.device_fetches``).
 
+A table ``persist()``-ed on the scan's device (``persist_table``) is
+packed and copied once, into larger chunks (``DeviceTableCache``); a scan
+of it walks the resident chunks with the same step and fold, and its KLL
+summaries take the radix select (``ops/scan_plan.py``,
+``ops/select_device.py``) instead of the sort. A dictionary-encoded
+numeric column (``Column.encoding``) rides an int16 code plane, streamed
+or resident, and decodes on the device with one gather of its dictionary.
+
 The card has native f64, so the port computes in f64 and carries no
 counterpart of the reference's (hi, lo) f32 pairs (``ops/df32.py``).
 Moments are per-chunk (count, mean, M2) combined with the Chan merge by
@@ -22,6 +30,7 @@ the analyzers' states, never a raw sum of squares.
 from __future__ import annotations
 
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -32,12 +41,31 @@ from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
 from deequ_tpu_torch.expr.eval import Val
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
+from deequ_tpu_torch.ops.scan_plan import plan_scan_ops
 
 DEFAULT_CHUNK_BYTES = 512 << 20
 MAX_CHUNK_ROWS = 1 << 23
 
+# resident chunks are larger (the reference's persist_table rule): a chunk
+# costs a step of launches, and the device holds the whole table anyway
+RESIDENT_CHUNK_BYTES = 2 << 30
+RESIDENT_MAX_CHUNK_ROWS = 1 << 25
+
+#: the share of a card's memory that persisted tables may hold together;
+#: the rest is the scans' working set (a batched KLL summary of 50 columns
+#: of a 2 GiB resident chunk peaks near 11 GB)
+RESIDENT_FRACTION = 0.5
+
 #: fold tags a ScanOp leaf may carry
 FOLD_TAGS = ("sum", "min", "max", "gather")
+
+
+def _chunk_bounds(num_rows: int, chunk: int) -> List[Tuple[int, int]]:
+    """(start, stop) of each chunk; an empty table is one empty chunk."""
+    return [
+        (start, min(start + chunk, num_rows))
+        for start in range(0, max(num_rows, 1), chunk)
+    ]
 
 
 def _auto_chunk_rows(
@@ -76,13 +104,19 @@ class ScanOp:
     (``ops/lut_cache.py``: ``key`` names the derivation) and read in
     ``update`` as ``vals[column].lut(key)``. ``batch_hint``: ops
     with the same hint kind and parameters may be coalesced into one
-    batched op by the runner (``("kll", sketch_size, column)``)."""
+    batched op by the runner (``("kll", sketch_size, column)``).
+
+    ``sorts_chunk``: ``update`` sorts each chunk on the device (the KLL
+    summary); ``select_update``: the same partials by the radix select,
+    which a resident scan runs instead (``ops/scan_plan.py``)."""
 
     columns: Tuple[str, ...]
     update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, torch.Tensor]]
     tags: Dict[str, str]
     luts: Tuple[Tuple[str, str, Callable], ...] = ()
     batch_hint: Optional[Tuple] = None
+    sorts_chunk: bool = False
+    select_update: Optional[Callable] = None
 
 
 class ScanStats:
@@ -90,10 +124,20 @@ class ScanStats:
     port's slice touches): fused passes, rows scanned, device->host
     fetches and their bytes, grouping passes, device sorts, and the
     histogram census by route — ``hist_kernel_dispatches`` counts
-    dense-grouping counts that ran the CUDA kernel,
-    ``hist_plain_dispatches`` those that ran its plain version on a CPU
-    tensor, ``hist_host_dispatches`` those of tables small enough for
-    ``np.bincount`` on the host (``segment.HOST_GROUP_LIMIT``)."""
+    grouping counts that ran the CUDA kernel (a resident string count:
+    one a chunk), ``hist_plain_dispatches`` those that ran its plain
+    version on a CPU tensor, ``hist_host_dispatches`` those of tables
+    small enough for ``np.bincount`` on the host
+    (``segment.HOST_GROUP_LIMIT``).
+
+    Residency (the reference's meanings): ``resident_passes`` scans that
+    walked a persisted table, ``bytes_resident`` the resident bytes they
+    read (``bytes_packed`` counts only host packing),
+    ``encoded_scan_passes`` scans whose layout had an int16 code plane;
+    ``device_sort_passes`` chunk sorts (a sorting KLL op a chunk, plus
+    the grouping sorts of ``ops/segment.py``) and
+    ``device_select_passes`` KLL ops a chunk that ran the radix select
+    instead."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -106,6 +150,10 @@ class ScanStats:
         self.bytes_packed = 0
         self.grouping_passes = 0
         self.device_sort_passes = 0
+        self.device_select_passes = 0
+        self.resident_passes = 0
+        self.bytes_resident = 0
+        self.encoded_scan_passes = 0
         self.device_fetches = 0
         self.bytes_fetched = 0
         self.hist_kernel_dispatches = 0
@@ -152,58 +200,106 @@ def fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
     return out
 
 
+def _enc_lut(dictionary: np.ndarray) -> np.ndarray:
+    """An encoded column's decode table: its dictionary as f64 with one
+    trailing 0.0, the value a null row (code -1) gathers."""
+    return np.append(dictionary.astype(np.float64), 0.0)
+
+
 class _ChunkPacker:
-    """Packs one chunk of a table into three contiguous host planes and
+    """Packs one chunk of a table into four contiguous host planes and
     moves each to the device in one copy:
 
     - ``values``: (k, rows) float64 — every numeric and boolean column
       (int64 values are exact in f64 below 2^53, as on the reference's
       wide-f64 plane);
     - ``masks``: (m, rows) bool — only columns with nulls ship a row;
-    - ``codes``: (s, rows) int32 — string dictionary codes, -1 = null.
+    - ``codes``: (s, rows) int32 — string dictionary codes, -1 = null;
+    - ``enc``: (e, rows) int16 — the codes of dictionary-encoded numeric
+      columns (``encode``, default on), -1 = null: validity rides in the
+      codes, and the values decode on the device (:meth:`unpack_vals`).
     """
 
-    def __init__(self, cols: Dict[str, Column]):
+    def __init__(self, cols: Dict[str, Column], encode: bool = True):
         self.cols = cols
-        self.numeric_names = [n for n, c in cols.items() if c.dtype != DType.STRING]
+        numeric = [n for n, c in cols.items() if c.dtype != DType.STRING]
+        self.enc_names = [
+            n for n in numeric
+            if encode and cols[n].encoding is not None
+        ]
+        self.numeric_names = [n for n in numeric if n not in self.enc_names]
         self.string_names = [n for n, c in cols.items() if c.dtype == DType.STRING]
         self.masked_names = [
             n for n in self.numeric_names if not bool(cols[n].mask.all())
         ]
 
-    def pack(self, start: int, stop: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def pack(self, start: int, stop: int) -> Tuple[np.ndarray, ...]:
         n = stop - start
         values = np.empty((len(self.numeric_names), n), dtype=np.float64)
         masks = np.empty((len(self.masked_names), n), dtype=np.bool_)
         codes = np.empty((len(self.string_names), n), dtype=np.int32)
+        enc = np.empty((len(self.enc_names), n), dtype=np.int16)
         for i, name in enumerate(self.numeric_names):
             values[i] = self.cols[name].values[start:stop]
         for i, name in enumerate(self.masked_names):
             masks[i] = self.cols[name].mask[start:stop]
         for i, name in enumerate(self.string_names):
             codes[i] = self.cols[name].codes[start:stop]
-        return values, masks, codes
+        for i, name in enumerate(self.enc_names):
+            enc[i] = self.cols[name].encoding.codes[start:stop]
+        return values, masks, codes, enc
 
     def to_device(self, planes, device) -> Tuple[torch.Tensor, ...]:
         with device_boundary("transfer"):
             return tuple(torch.from_numpy(p).to(device) for p in planes)
 
-    def unpack_vals(self, values, masks, codes, row_valid, luts=None) -> Dict[str, Val]:
-        """Slice the device planes back into per-column Vals (views);
-        ``luts`` ({column: {key: device tensor}}) rides on string Vals."""
+    def enc_luts(self, device) -> Dict[str, torch.Tensor]:
+        """Each encoded column's decode table on ``device``, built and
+        copied once per dictionary (``ops/lut_cache.py``)."""
+        with device_boundary("transfer"):
+            return {
+                name: dictionary_lut_device(
+                    self.cols[name].encoding.dictionary, "enc_f64", _enc_lut, device
+                )
+                for name in self.enc_names
+            }
+
+    def unpack_vals(self, values, masks, codes, enc, row_valid, luts=None,
+                    enc_luts=None, names=None) -> Dict[str, Val]:
+        """Slice the device planes back into per-column Vals (views; an
+        encoded column decodes by one gather of its ``enc_luts`` table,
+        bit for bit the value its decoded plane row would hold). ``luts``
+        ({column: {key: device tensor}}) rides on string Vals; ``names``
+        limits the Vals to the columns a scan reads."""
+        want = set(self.cols) if names is None else set(names)
+        if enc_luts is None and self.enc_names:
+            enc_luts = self.enc_luts(enc.device)
         mask_row = {n: i for i, n in enumerate(self.masked_names)}
         vals: Dict[str, Val] = {}
         for i, name in enumerate(self.numeric_names):
+            if name not in want:
+                continue
             mask = masks[mask_row[name]] if name in mask_row else row_valid
             if self.cols[name].dtype == DType.BOOLEAN:
                 vals[name] = Val("bool", values[i] != 0.0, mask)
             else:
                 vals[name] = Val("num", values[i], mask)
         for j, name in enumerate(self.string_names):
-            vals[name] = Val(
-                "str", codes[j], None, dictionary=self.cols[name].dictionary,
-                luts=(luts or {}).get(name),
-            )
+            if name in want:
+                vals[name] = Val(
+                    "str", codes[j], None, dictionary=self.cols[name].dictionary,
+                    luts=(luts or {}).get(name),
+                )
+        for i, name in enumerate(self.enc_names):
+            if name not in want:
+                continue
+            lut = enc_luts[name]
+            code = enc[i].to(torch.int32)
+            valid = code >= 0
+            data = lut.index_select(0, torch.where(valid, code, lut.numel() - 1))
+            if self.cols[name].encoding.validity is None:
+                valid = row_valid
+            vals[name] = Val("num", data, valid)
         return vals
 
 
@@ -334,44 +430,177 @@ def _device_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], device):
     return out
 
 
+class DeviceTableCache:
+    """A table's packed chunks resident on one device — the analogue of
+    Spark's ``df.persist()`` (the reference's ``DeviceTableCache``):
+    ``device_chunks`` holds one tuple of device planes
+    (values, masks, codes, enc) a chunk of ``chunk`` rows, packed by
+    ``packer`` from every column of the table; ``nbytes`` counts them."""
+
+    def __init__(self, packer: _ChunkPacker, chunk: int, device_chunks, device, nbytes: int):
+        self.packer = packer
+        self.chunk = chunk
+        self.device_chunks = device_chunks
+        self.device = torch.device(device)
+        self.nbytes = nbytes
+        _ACTIVE_CACHES.add(self)
+
+    def matches(self, device, needed_cols) -> bool:
+        return torch.device(device) == self.device and set(needed_cols) <= set(
+            self.packer.cols
+        )
+
+
+# the live caches, weakly held: persist() checks the combined resident
+# bytes of every persisted table against the budget, not the newest alone
+_ACTIVE_CACHES: "weakref.WeakSet[DeviceTableCache]" = weakref.WeakSet()
+
+
+def total_resident_bytes() -> int:
+    return sum(c.nbytes for c in _ACTIVE_CACHES)
+
+
+def resident_budget(device) -> int:
+    """The default cap on resident bytes: :data:`RESIDENT_FRACTION` of the
+    card's memory. The CPU has none; its callers pass ``max_bytes``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(
+            "persist on the CPU needs max_bytes: the resident budget is a "
+            "share of a card's memory"
+        )
+    return int(RESIDENT_FRACTION * torch.cuda.get_device_properties(device).total_memory)
+
+
+def persist_table(
+    table,
+    device=None,
+    chunk_rows: Optional[int] = None,
+    max_bytes: Optional[int] = None,
+    encode: Optional[bool] = None,
+) -> DeviceTableCache:
+    """Pack every column of ``table`` and copy it to ``device`` (resolved
+    as every entry point resolves it: ``cuda`` unless the caller asks for
+    the CPU) once, into chunks of the reference's resident size; attach
+    the cache as ``table._device_cache``. Encoded columns stay encoded
+    unless ``encode=False``. Persisting a persisted table replaces its
+    chunks. Raises MemoryError, leaving the table not persisted, when the
+    combined resident bytes would pass ``max_bytes``
+    (:func:`resident_budget` by default)."""
+    from deequ_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    if max_bytes is None:
+        max_bytes = resident_budget(device)
+    _evict_device_cache(table)
+    cols = {name: table[name] for name in table.column_names}
+    n_rows = table.num_rows
+    chunk = chunk_rows or min(
+        _auto_chunk_rows(cols, RESIDENT_CHUNK_BYTES, RESIDENT_MAX_CHUNK_ROWS),
+        max(n_rows, 1),
+    )
+    packer = _ChunkPacker(cols, encode=True if encode is None else bool(encode))
+    base = total_resident_bytes()
+    device_chunks = []
+    nbytes = 0
+    for start, stop in _chunk_bounds(n_rows, chunk):
+        planes = packer.pack(start, stop)
+        nbytes += sum(p.nbytes for p in planes)
+        if base + nbytes > max_bytes:
+            raise MemoryError(
+                f"persist_table: the combined resident size would pass "
+                f"{max_bytes} bytes; stream instead or raise max_bytes"
+            )
+        device_chunks.append(packer.to_device(planes, device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    cache = DeviceTableCache(packer, chunk, device_chunks, device, nbytes)
+    table._device_cache = cache
+    return cache
+
+
+def _evict_device_cache(table) -> int:
+    """Drop the table's resident chunks now and take them off the budget;
+    returns the bytes freed."""
+    cache = getattr(table, "_device_cache", None)
+    if cache is None:
+        return 0
+    freed = cache.nbytes
+    cache.device_chunks = []
+    cache.nbytes = 0
+    _ACTIVE_CACHES.discard(cache)
+    table._device_cache = None
+    return freed
+
+
+def _resident_cache(table, device, needed, chunk_rows) -> Optional[DeviceTableCache]:
+    """The table's resident cache when it can serve this scan: the same
+    device, every needed column, and the chunk size if one was asked."""
+    cache = getattr(table, "_device_cache", None)
+    if cache is None or not cache.matches(device, needed):
+        return None
+    if chunk_rows is not None and chunk_rows != cache.chunk:
+        return None
+    return cache
+
+
 def run_scan(
     table,
     ops: Sequence[ScanOp],
     device,
     chunk_rows: Optional[int] = None,
+    select_kernel: Optional[bool] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
-    device->host fetch."""
+    device->host fetch. A table persisted on ``device`` is read from its
+    resident chunks (no packing, no copy), and its KLL summaries take the
+    radix select unless ``select_kernel`` is False
+    (``ops/scan_plan.py``)."""
     device = torch.device(device)
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
-    cols = {name: table[name] for name in needed}
-    chunk = chunk_rows or min(_auto_chunk_rows(cols), max(n_rows, 1))
-    n_chunks = max(1, -(-n_rows // chunk))
-    packer = _ChunkPacker(cols)
-    op_luts = _device_luts(ops, cols, device)
+    cache = _resident_cache(table, device, needed, chunk_rows)
+    if cache is not None:
+        packer, chunk = cache.packer, cache.chunk
+    else:
+        packer = _ChunkPacker({name: table[name] for name in needed})
+        chunk = chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1))
+    bounds = _chunk_bounds(n_rows, chunk)
+    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel)
+    ops = plan.ops
+    n_chunks = len(bounds)
+    op_luts = _device_luts(ops, packer.cols, device)
+    enc_luts = packer.enc_luts(device)
     SCAN_STATS.scan_passes += 1
     SCAN_STATS.rows_scanned += n_rows
+    SCAN_STATS.device_sort_passes += plan.sort_ops * n_chunks
+    SCAN_STATS.device_select_passes += plan.select_ops * n_chunks
+    if plan.encoded_columns:
+        SCAN_STATS.encoded_scan_passes += 1
+    if cache is not None:
+        SCAN_STATS.resident_passes += 1
+        SCAN_STATS.bytes_resident += cache.nbytes
     fetches_before = SCAN_STATS.device_fetches
 
-    plan: Optional[_DeviceFoldPlan] = None
-    for ci in range(n_chunks):
-        start = ci * chunk
-        stop = min(start + chunk, n_rows)
+    fold: Optional[_DeviceFoldPlan] = None
+    for ci, (start, stop) in enumerate(bounds):
         n = stop - start
-        planes = packer.pack(start, stop)
-        SCAN_STATS.bytes_packed += sum(p.nbytes for p in planes)
-        values, masks, codes = packer.to_device(planes, device)
+        if cache is not None:
+            planes = cache.device_chunks[ci]
+        else:
+            host = packer.pack(start, stop)
+            SCAN_STATS.bytes_packed += sum(p.nbytes for p in host)
+            planes = packer.to_device(host, device)
         with device_boundary("execute"):
             row_valid = torch.ones(n, dtype=torch.bool, device=device)
-            vals = packer.unpack_vals(values, masks, codes, row_valid, op_luts)
+            vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
             partials = [op.update(vals, row_valid, n, chunk) for op in ops]
-            if plan is None:
-                plan = _DeviceFoldPlan(ops, partials, n_chunks, device)
-            plan.merge(_flatten(partials))
+            if fold is None:
+                fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
+            fold.merge(_flatten(partials))
         SCAN_STATS.chunks_processed += 1
-    results = plan.fetch_unflatten()
+    results = fold.fetch_unflatten()
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results
 

@@ -30,7 +30,12 @@ Three results come out of those counts:
 - ``group_top_k``: one column's top-k groups (Histogram), ranked on the
   card — only k (slot, count) pairs come back.
 
-The resident string path and cross-set fusion wait for later slices.
+On a table persisted on the run's device (``ColumnarTable.persist``), a
+string column's counts come from its resident codes
+(:func:`_resident_string_bincount`: one K5 launch a resident chunk, summed
+on the device): ``group_top_k`` ranks them there, and ``group_count_stats``
+of one string column reduces them there to four scalars. Cross-set fusion
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -139,6 +144,49 @@ def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
             "kernel" if seg.device.type == "cuda" else "plain"
         )
         return fetch(counts)[0]
+
+
+def _resident_string_bincount(table, column: str, include_null: bool, device):
+    """Counts per code slot (slot 0: null, counted only with
+    ``include_null``) from the codes resident on ``device``, one K5 launch
+    a resident chunk summed on the device — a device tensor of length
+    cardinality + 1; None when the table or column is not resident there.
+    (The port's resident chunks hold no padding rows, so none is dropped.)"""
+    cache = getattr(table, "_device_cache", None)
+    if cache is None or not cache.device_chunks or not cache.matches(device, [column]):
+        return None
+    packer = cache.packer
+    if column not in packer.string_names:
+        return None
+    row = packer.string_names.index(column)
+    slots = len(packer.cols[column].dictionary) + 1
+    counts = None
+    with device_boundary("execute"):
+        for planes in cache.device_chunks:
+            seg = planes[2][row] + 1  # code -1 (null) lands in slot 0
+            part = bincount(seg, slots)
+            SCAN_STATS.record_hist_dispatch(
+                "kernel" if seg.device.type == "cuda" else "plain"
+            )
+            counts = part if counts is None else counts + part
+        if not include_null:
+            counts[0] = 0
+    return counts
+
+
+def _stats_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """(total, groups, singletons, entropy) of a device counts vector, as
+    one f64 tensor of four — the reference's ``_stats_from_counts``."""
+    total = counts.sum()
+    p = counts.to(torch.float64) / total.clamp(min=1)
+    logp = torch.log(torch.where(p > 0, p, 1.0))
+    entropy = -torch.where(counts > 0, p * logp, 0.0).sum()
+    return torch.stack([
+        total.to(torch.float64),
+        (counts > 0).sum().to(torch.float64),
+        (counts == 1).sum().to(torch.float64),
+        entropy,
+    ])
 
 
 @dataclass(frozen=True)
@@ -299,6 +347,19 @@ def group_count_stats(
     ``group_count_stats``): group values never decode on the host."""
     SCAN_STATS.grouping_passes += 1
     SCAN_STATS.rows_scanned += table.num_rows
+
+    # one resident string column: the four scalars from its resident codes
+    if len(columns) == 1 and table[columns[0]].dtype == DType.STRING:
+        resident = _resident_string_bincount(
+            table, columns[0], not require_any_non_null, device
+        )
+        if resident is not None:
+            total, groups, singles, entropy = fetch(_stats_from_counts(resident))[0]
+            total, groups = int(total), int(groups)
+            return CountStats(
+                total, groups, int(singles),
+                float(entropy) if total > 0 and groups > 0 else float("nan"),
+            )
 
     prep = _prepare_grouping(table, columns, device, require_any_non_null)
     num_rows = prep.num_rows
@@ -499,9 +560,12 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
     column's codes go over as int32. Nulls form their own group (value
     None); when the dictionary holds the literal "NullValue" (the label the
     Histogram metric gives nulls), the null slot merges into it before
-    ranking."""
+    ranking. A string column of a table resident on ``device`` counts from
+    its resident codes."""
     SCAN_STATS.grouping_passes += 1
     SCAN_STATS.rows_scanned += table.num_rows
+    if table.num_rows >= 1 << 31:
+        raise ValueError("group_top_k: counts must stay below 2^31 to be ranked")
 
     col = table[column]
     nv_code = -1
@@ -509,6 +573,16 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
         hits = np.nonzero(col.dictionary == NULL_FIELD_REPLACEMENT)[0]
         if len(hits):
             nv_code = int(hits[0]) + 1
+        resident = _resident_string_bincount(table, column, True, device)
+        if resident is not None:
+            kk = min(k, len(col.dictionary) + 1)
+            with device_boundary("execute"):
+                keys, groups = _topk_merged(resident, kk, nv_code)
+                num_groups, keys = fetch(groups, keys)
+            return _top_k_counts(
+                table.num_rows, int(num_groups), *_unpack_topk(keys),
+                lambda idx: col.dictionary[idx - 1],
+            )
         codes = col.codes + np.int32(1)
         values = col.dictionary
         decode = lambda idx: values[idx - 1]  # noqa: E731
@@ -521,8 +595,6 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
         decode = lambda idx: cast(values[idx - 1])  # noqa: E731
     num_segments = len(values) + 1
     kk = min(k, num_segments)
-    if table.num_rows >= 1 << 31:
-        raise ValueError("group_top_k: counts must stay below 2^31 to be ranked")
 
     if table.num_rows <= HOST_GROUP_LIMIT:
         SCAN_STATS.record_hist_dispatch("host")
@@ -540,17 +612,26 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
             SCAN_STATS.record_hist_dispatch(
                 "kernel" if seg.device.type == "cuda" else "plain"
             )
-            if nv_code >= 0:
-                counts[nv_code] += counts[0]
-                counts[0] = 0
-            keys, groups = _packed_topk(counts, kk)
+            keys, groups = _topk_merged(counts, kk, nv_code)
             num_groups, keys = fetch(groups, keys)
         top_idx, top_counts = _unpack_topk(keys)
         num_groups = int(num_groups)
+    return _top_k_counts(table.num_rows, num_groups, top_idx, top_counts, decode)
 
+
+def _topk_merged(counts: torch.Tensor, kk: int, nv_code: int):
+    """:func:`_packed_topk` after merging the null slot into the literal
+    "NullValue" slot ``nv_code`` (when >= 0), before ranking."""
+    if nv_code >= 0:
+        counts[nv_code] += counts[0]
+        counts[0] = 0
+    return _packed_topk(counts, kk)
+
+
+def _top_k_counts(num_rows, num_groups, top_idx, top_counts, decode) -> TopKCounts:
     top = []
     for idx, cnt in zip(top_idx.tolist(), top_counts.tolist()):
         if cnt <= 0:
             continue
         top.append((None if idx == 0 else decode(idx), int(cnt)))
-    return TopKCounts(table.num_rows, num_groups, tuple(top))
+    return TopKCounts(num_rows, num_groups, tuple(top))
