@@ -88,7 +88,10 @@ Phases, each printed as one JSON line on stdout:
    remainder, ``torch.sort`` of the same keys, K3 whole, the bound);
    ``frequency`` (after phase 11) — Histogram's top-k and Uniqueness's
    count statistics from resident codes, equal to the streaming run's,
-   Uniqueness fetching four scalars (32 bytes);
+   Uniqueness fetching four scalars (32 bytes). Each part runs its suite
+   once more with every K5 launch held against ``bincount_plain`` on the
+   same ids (``bincount_vs_plain``: the shapes checked), and K4's timing
+   line does the same for its seven passes (``k5_vs_plain``);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
@@ -1696,6 +1699,54 @@ class ResidentSpy:
         segment._resident_string_bincount = self._orig
 
 
+class PlainCheck:
+    """While active, every K5 launch of the resident consumers (the K4
+    passes in ``select_device``, the resident counts in ``segment``) is
+    held against ``bincount_plain`` on the same ids with ``torch.equal``;
+    a mismatch fails. ``shapes`` lists what was checked: ids, bins, calls
+    and the least and most ids inside the bins (the rest are dropped)."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.seen = {}
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import histogram_device, segment, select_device
+
+        self._mods = (segment, select_device)
+        self._orig = histogram_device.bincount
+
+        def checked(seg, num_segments, *args, **kwargs):
+            import torch
+
+            out = self._orig(seg, num_segments, *args, **kwargs)
+            want = histogram_device.bincount_plain(seg, num_segments, *args, **kwargs)
+            if not torch.equal(out, want):
+                fail(f"{self.label}: K5 != bincount_plain at {seg.numel()} ids, "
+                     f"{num_segments} bins")
+            if seg.numel() == 0 or num_segments == 0:
+                return out  # the wrapper launches nothing
+            inside = int(want.sum())
+            key = (seg.numel(), int(num_segments))
+            lo, hi, calls = self.seen.get(key, (inside, inside, 0))
+            self.seen[key] = (min(lo, inside), max(hi, inside), calls + 1)
+            return out
+
+        for mod in self._mods:
+            mod.bincount = checked
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.bincount = self._orig
+
+    @property
+    def shapes(self) -> list:
+        return [{"ids": ids, "bins": bins, "calls": calls,
+                 "ids_in_range_min": lo, "ids_in_range_max": hi}
+                for (ids, bins), (lo, hi, calls) in sorted(self.seen.items())]
+
+
 def metric_values(result) -> dict:
     """{(name, instance, quantile): value} of a run; a failed metric fails."""
     got = {}
@@ -1744,9 +1795,16 @@ def resident_runs(suite, table, device, label: str) -> dict:
             walls.append(time.perf_counter() - t0)
     if later.calls != 4 * spy.calls:
         fail(f"{label}: later runs took {later.calls} resident counts, want 4 x {spy.calls}")
+    with PlainCheck(label) as plain:  # every K5 launch of a further run against plain
+        suite.run()
+    checked = sum(s["calls"] for s in plain.shapes)
+    if checked != launches["bincount"]:
+        fail(f"{label}: {checked} K5 launches held against plain, the run made "
+             f"{launches['bincount']}")
     return {
         "result": result,
         "kernel_launches": launches,
+        "bincount_vs_plain": plain.shapes,
         "resident_string_counts": spy.calls,
         "scan_stats": stats,
         "first_run_s_watched": t_first,
@@ -1860,7 +1918,7 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
     t0 = time.perf_counter()
     enc, dec = make_encoded_table(table, True), make_encoded_table(table, False)
     enc_cache, enc_persist_s = persist_timed(enc, device)
-    dec_cache, _ = persist_timed(dec, device, encode=False)
+    dec_cache, _ = persist_timed(dec, device)
     check = build_encoded_check()
     SCAN_STATS.reset()
     got_enc = metric_values(VerificationSuite.on_data(enc).add_check(check).run())
@@ -1974,7 +2032,8 @@ def select_timing(table, device, rate: float) -> dict:
     (50 columns x chunk rows, k = 256): the whole call and each of its
     seven passes (CUDA events at each K5 launch), K3's torch.sort of the
     same (K, n) keys and K3 whole, and K4's bound (one read of the values
-    and validity). K4 is checked against K3 on the chunk."""
+    and validity). K4 is checked against K3 on the chunk, and each of its
+    K5 launches against ``bincount_plain`` on the same ids."""
     import numpy as np
     import torch
 
@@ -1993,7 +2052,10 @@ def select_timing(table, device, rate: float) -> dict:
     k = _sketch_size_for_error(SKETCH_RELATIVE_ERROR)
     saved = histogram_device.LAUNCHES
 
-    sel = select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
+    with PlainCheck("select timing") as plain:  # K5 on each of K4's passes
+        sel = select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
+    if sum(s["calls"] for s in plain.shapes) != 7:
+        fail(f"select timing: K5 launches held against plain {plain.shapes}, want 7")
     srt = chunk_summary_batched(X, M, k, cache.chunk)
     for key in ("count", "weights", "min", "max"):
         if not torch.equal(sel[key], srt[key]):
@@ -2053,6 +2115,7 @@ def select_timing(table, device, rate: float) -> dict:
         "passes_of_fastest": best["passes"],
         "remainder_ms_of_fastest": best["remainder_ms"],
         "k5_launches": len(best["passes"]),
+        "k5_vs_plain": plain.shapes,
         "torch_sort_ms": sort_ms,
         "k3_summary_ms": k3_ms,
         "bound_ms": bound_ms,

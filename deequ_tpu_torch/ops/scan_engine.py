@@ -452,12 +452,18 @@ class DeviceTableCache:
 
 
 # the live caches, weakly held: persist() checks the combined resident
-# bytes of every persisted table against the budget, not the newest alone
+# bytes of every table persisted on its device against that device's
+# budget, not the newest alone
 _ACTIVE_CACHES: "weakref.WeakSet[DeviceTableCache]" = weakref.WeakSet()
 
 
-def total_resident_bytes() -> int:
-    return sum(c.nbytes for c in _ACTIVE_CACHES)
+def total_resident_bytes(device=None) -> int:
+    """The resident bytes of every persisted table, or of those on
+    ``device`` alone."""
+    if device is None:
+        return sum(c.nbytes for c in _ACTIVE_CACHES)
+    device = torch.device(device)
+    return sum(c.nbytes for c in _ACTIVE_CACHES if c.device == device)
 
 
 def resident_budget(device) -> int:
@@ -485,7 +491,7 @@ def persist_table(
     the cache as ``table._device_cache``. Encoded columns stay encoded
     unless ``encode=False``. Persisting a persisted table replaces its
     chunks. Raises MemoryError, leaving the table not persisted, when the
-    combined resident bytes would pass ``max_bytes``
+    combined resident bytes on ``device`` would pass ``max_bytes``
     (:func:`resident_budget` by default)."""
     from deequ_tpu_torch.device import resolve_device
 
@@ -500,7 +506,7 @@ def persist_table(
         max(n_rows, 1),
     )
     packer = _ChunkPacker(cols, encode=True if encode is None else bool(encode))
-    base = total_resident_bytes()
+    base = total_resident_bytes(device)
     device_chunks = []
     nbytes = 0
     for start, stop in _chunk_bounds(n_rows, chunk):

@@ -165,6 +165,26 @@ def test_budget_raises_memory_error():
     b.unpersist()
 
 
+def test_budget_is_each_devices_own():
+    """A table resident on another device takes nothing of this device's
+    budget. The CPU build has no second card, so the first table's cache
+    is relabelled as lying on one; its bytes and accounting are real."""
+    a, b = _numeric_table(1), _numeric_table(2)
+    a.persist("cpu", max_bytes=BUDGET)
+    one = total_resident_bytes("cpu")
+    a._device_cache.device = torch.device("cuda", 1)
+    assert total_resident_bytes("cpu") == 0
+    assert total_resident_bytes(torch.device("cuda", 1)) == one
+    b.persist("cpu", max_bytes=one + one // 2)  # would not fit beside a on one device
+    assert total_resident_bytes("cpu") == one and total_resident_bytes() == 2 * one
+    a._device_cache.device = torch.device("cpu")
+    with pytest.raises(MemoryError):  # both on the CPU: b no longer fits
+        b.persist("cpu", max_bytes=one + one // 2)
+    a.unpersist()
+    b.unpersist()
+    assert total_resident_bytes() == 0
+
+
 def test_unpersist_zeroes_the_accounting():
     table = _numeric_table()
     table.persist("cpu", max_bytes=BUDGET)
