@@ -36,6 +36,14 @@ Phases, each printed as one JSON line on stdout:
    range, ±2^31, 2^53 + 1), boolean and string-LUT inputs, an all-invalid
    column, one row, sizes around a block's and the grid's rows, and 10^7
    rows of each input mode;
+6b. ``select_parity`` (run after phase 6) — K4's kernel
+   (``csrc/select.cu``) against its plain version on the card, bit for bit
+   (the summary with the remainder in the same row order, and
+   ``select_ranks``' keys, tie ranks and each pass's prefix and rank left,
+   at the summary's targets and at ranks in any order), and against K3
+   (the remainder sorted): tests/select_cases.py's adversarial columns at
+   k = 256, 2,048 and 16,384, the kernel's tile edges at K = 1 and 50, and
+   a constant column at the resident sketch chunk's rows;
 7. ``sketch_path`` — a second ``run()`` at BASELINE.md config 3's width
    (10^7 rows: 48 float64 columns, an int64 column within int32 and one
    beyond it, a boolean and a 5,000-value string column): ApproxQuantile at
@@ -82,16 +90,20 @@ Phases, each printed as one JSON line on stdout:
    phase 8) — the select (K4) in place of every sort
    (``device_select_passes`` > 0, ``device_sort_passes`` = 0), every KLL
    state bit-identical to a ``select_kernel=False`` scan of the same
-   resident chunks, quantiles within the rank bound, HLL estimates equal
-   to the streaming run's, then a ``kernel_timing`` line of K4 at the
-   resident chunk's shape (the call, each of its seven passes, the
-   remainder, ``torch.sort`` of the same keys, K3 whole, the bound);
+   resident chunks, one K4 kernel launch a select pass, quantiles within
+   the rank bound, HLL estimates equal to the streaming run's, the run's
+   pieces (``host_fold_summaries`` among them), then a ``kernel_timing``
+   line of K4 at the resident chunk's shape (the kernel alone and each of
+   its stages, a wrapper call and its working set, its plain version,
+   ``torch.sort`` of the same keys, K3 whole, the bound; the same for
+   constant columns), and a ``select_shapes`` line: K4 against K3 at
+   resident chunk shapes (1, 8 and 50 columns, 2^16 to 2^25 rows, k =
+   2^8, 2^11 and 2^14);
    ``frequency`` (after phase 11) — Histogram's top-k and Uniqueness's
    count statistics from resident codes, equal to the streaming run's,
    Uniqueness fetching four scalars (32 bytes). Each part runs its suite
    once more with every K5 launch held against ``bincount_plain`` on the
-   same ids (``bincount_vs_plain``: the shapes checked), and K4's timing
-   line does the same for its seven passes (``k5_vs_plain``);
+   same ids (``bincount_vs_plain``: the shapes checked);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
@@ -105,6 +117,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -112,7 +125,7 @@ import time
 
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
-KERNELS = ("bincount", "hll")
+KERNELS = ("bincount", "hll", "select")
 
 # memory rate of each H100 part (NVIDIA data sheets), bytes/s
 _HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -1700,20 +1713,19 @@ class ResidentSpy:
 
 
 class PlainCheck:
-    """While active, every K5 launch of the resident consumers (the K4
-    passes in ``select_device``, the resident counts in ``segment``) is
-    held against ``bincount_plain`` on the same ids with ``torch.equal``;
-    a mismatch fails. ``shapes`` lists what was checked: ids, bins, calls
-    and the least and most ids inside the bins (the rest are dropped)."""
+    """While active, every K5 launch of the resident consumers (the
+    resident counts in ``segment``; K4 launches its own kernel) is held
+    against ``bincount_plain`` on the same ids with ``torch.equal``; a
+    mismatch fails. ``shapes`` lists what was checked: ids, bins, calls and
+    the least and most ids inside the bins (the rest are dropped)."""
 
     def __init__(self, label: str):
         self.label = label
         self.seen = {}
 
     def __enter__(self):
-        from deequ_tpu_torch.ops import histogram_device, segment, select_device
+        from deequ_tpu_torch.ops import histogram_device, segment
 
-        self._mods = (segment, select_device)
         self._orig = histogram_device.bincount
 
         def checked(seg, num_segments, *args, **kwargs):
@@ -1732,13 +1744,13 @@ class PlainCheck:
             self.seen[key] = (min(lo, inside), max(hi, inside), calls + 1)
             return out
 
-        for mod in self._mods:
-            mod.bincount = checked
+        segment.bincount = checked
         return self
 
     def __exit__(self, *exc):
-        for mod in self._mods:
-            mod.bincount = self._orig
+        from deequ_tpu_torch.ops import segment
+
+        segment.bincount = self._orig
 
     @property
     def shapes(self) -> list:
@@ -1765,19 +1777,21 @@ def resident_runs(suite, table, device, label: str) -> dict:
     chunks and packed nothing."""
     import torch
 
-    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops import histogram_device, hll, select_device
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
+    select_device.LAUNCHES = 0
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch, ResidentSpy() as spy:
         result = suite.run()
     t_first = time.perf_counter() - t0
-    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES}
+    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+                "select": select_device.LAUNCHES}
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -1993,10 +2007,43 @@ def kll_states_select_vs_sort(table, device, check) -> dict:
     return {"states": len(kll), "batched_ops": len(exec_ops)}
 
 
+def resident_sketch_pieces(table, device, check) -> dict:
+    """Host-clock seconds of the resident sketch run's pieces: the whole
+    resident scan with its fetch and fold, the scan of the KLL ops alone
+    (K4 a chunk and op, one fetch), and the host fold of every KLL
+    analyzer's fetched summaries (``kll_device.fold_summaries`` through
+    ``state_from_scan_result``)."""
+    import torch
+
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.ops.scan_engine import run_scan
+
+    scanning = list(dict.fromkeys(
+        a for a in check.required_analyzers() if isinstance(a, ScanShareableAnalyzer)))
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    AnalysisRunner._run_scanning_analyzers(table, scanning, device)
+    out["fused_scan"] = time.perf_counter() - t0
+    kll = [a for a in scanning if type(a).__name__ in ("ApproxQuantile", "KLLSketch")]
+    exec_ops, plan = AnalysisRunner._coalesce_scan_ops([a.scan_op(table) for a in kll])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_scan(table, exec_ops, device)
+    out["kll_scan_select"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a, (i, ex) in zip(kll, plan):
+        a.state_from_scan_result(ex(results[i]) if ex else results[i])
+    out["host_fold_summaries"] = time.perf_counter() - t0
+    out["kll_analyzers_folded"] = len(kll)
+    return out
+
+
 def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
-    """(b) the sketch path over its persisted table: the select replaces
-    every sort, K4 = K3 on the same chunks, quantiles within the rank
-    bound, HLL estimates equal to the streaming run's."""
+    """(b) the sketch path over its persisted table: the select (K4's
+    kernel) replaces every sort, K4 = K3 on the same chunks, quantiles
+    within the rank bound, HLL estimates equal to the streaming run's."""
     from deequ_tpu_torch import VerificationSuite
 
     cache, persist_s = persist_timed(table, device)
@@ -2009,6 +2056,9 @@ def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
             stats["kll_sort_passes"] != 0):
         fail(f"resident sketch: {stats['device_select_passes']} select passes, "
              f"{stats['device_sort_passes']} sort passes (want > 0 and 0)")
+    if runs["kernel_launches"]["select"] != stats["device_select_passes"]:
+        fail(f"resident sketch: {runs['kernel_launches']['select']} K4 kernel launches for "
+             f"{stats['device_select_passes']} select passes")
     if stats["last_scan_fetches"] != 1:
         fail(f"resident sketch: {stats['last_scan_fetches']} fetches")
     checked = check_sketch_metrics(table, result, streamed["sorted"])
@@ -2024,22 +2074,131 @@ def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
         "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
         **checked, "kll_select_equals_sort": select_vs_sort,
         **runs,
+        "piece_s": resident_sketch_pieces(table, device, check),
     }
+
+
+def _same_values(a, b) -> bool:
+    """Equal as values, any NaN equal to any NaN (min and max)."""
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _summaries_agree(got: dict, want: dict, k: int, exact_order: bool) -> bool:
+    """Two summaries agree: count and weights equal, min and max as values,
+    the strata items bit for bit and the remainder's items bit for bit in
+    the same order (``exact_order``: the kernel against its plain version)
+    or as a multiset (against K3, which sorts it)."""
+    import torch
+
+    if not (torch.equal(got["count"], want["count"])
+            and torch.equal(got["weights"], want["weights"])
+            and _same_values(got["min"], want["min"]) and _same_values(got["max"], want["max"])):
+        return False
+    a, b = got["items"].view(torch.int64), want["items"].view(torch.int64)
+    if exact_order:
+        return torch.equal(a, b)
+    return torch.equal(a[:, :k], b[:, :k]) and torch.equal(
+        a[:, k:].sort(1).values, b[:, k:].sort(1).values)
+
+
+def select_case(X, M, k: int, label: str) -> None:
+    """K4's kernel on one (K, n) case against its plain version on the
+    same card tensors, bit for bit: the summary, and ``select_ranks``'
+    keys, tie ranks and every pass's prefix and rank left, at the
+    summary's targets and at 37 ranks a column in any order; the summary
+    against K3 too."""
+    import torch
+
+    from deequ_tpu_torch.ops import select_device as sd
+    from deequ_tpu_torch.ops.kll_device import chunk_summary_batched
+
+    capacity = X.shape[1]
+    got = sd.chunk_summary_select_batched(X, M, k, capacity)
+    if not _summaries_agree(got, sd.chunk_summary_select_batched_plain(X, M, k, capacity), k,
+                            exact_order=True):
+        fail(f"select parity ({label}): the kernel's summary != its plain version's")
+    if not _summaries_agree(got, chunk_summary_batched(X, M, k, capacity), k,
+                            exact_order=False):
+        fail(f"select parity ({label}): the kernel's summary != K3's")
+    Xp, Mp = sd._padded(X, M)
+    gen = torch.Generator(device=X.device).manual_seed(37)
+    n = Xp.shape[1]
+    for ranks in (sd._targets(Mp.sum(-1), k)[0],
+                  torch.randint(-3, n + 3, (Xp.shape[0], 37), generator=gen, device=X.device)):
+        a = sd.select_ranks(Xp, Mp, ranks, trace=True)
+        b = sd.select_ranks_plain(Xp, Mp, ranks, trace=True)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and torch.equal(a[2][0], b[2][0]) and torch.equal(a[2][1], b[2][1])):
+            fail(f"select parity ({label}): select_ranks' keys, ties or passes != plain")
+
+
+def select_parity(device) -> dict:
+    """K4's kernel against its plain version and K3 on the card
+    (:func:`select_case`): tests/select_cases.py's adversarial columns (the
+    CPU tests' generator and seed; each with its reverse, K = 2) at k = 256,
+    2,048 and 16,384; the kernel's tile edges (1, 8,191, 8,192, 8,193 and
+    20,000 rows) at K = 1 and 50, normal columns and columns of few tied
+    values (both zeros, NaN payloads, +inf, nulls); a constant column at
+    the resident sketch chunk's rows."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device, select_device
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from select_cases import adversarial_cases
+
+    saved = (select_device.LAUNCHES, histogram_device.LAUNCHES)
+    _, nan_bits, cases = adversarial_cases()
+    checked = []
+    for name, (values, mask) in sorted(cases.items()):
+        mask = np.ones(len(values), dtype=bool) if mask is None else mask
+        X = torch.from_numpy(np.stack([values, values[::-1].copy()])).to(device)
+        M = torch.from_numpy(np.stack([mask, mask[::-1].copy()])).to(device)
+        for k in (256, 2048, 16384):
+            select_case(X, M, k, f"{name}, k={k}")
+        checked.append(name)
+    rng = np.random.default_rng(8192)
+    pool = np.array([-0.0, 0.0, 1.5, -2.0, np.inf, nan_bits[1].view(np.float64), 2.0 ** 60])
+    edges = []
+    for n in (1, 8191, 8192, 8193, 20_000):
+        for K in (1, 50):
+            for kind in ("normal", "ties"):
+                if kind == "normal":
+                    values = rng.normal(100, 10, (K, n))
+                else:
+                    values = rng.choice(pool, (K, n))
+                X = torch.from_numpy(values).to(device)
+                M = torch.from_numpy(rng.random((K, n)) > 0.05).to(device)
+                select_case(X, M, 256, f"{kind}, K={K}, n={n}")
+                edges.append(f"{kind} {K}x{n}")
+    chunk_rows = 4_761_604  # the resident sketch chunk (resident_path)
+    X = torch.full((1, chunk_rows), 2.5, dtype=torch.float64, device=device)
+    select_case(X, torch.ones_like(X, dtype=torch.bool), 256, "constant column")
+    select_device.LAUNCHES, histogram_device.LAUNCHES = saved
+    return {"adversarial": checked, "ks": [256, 2048, 16384], "tile_edges": edges,
+            "constant_column_rows": chunk_rows, "max_abs_err": 0,
+            "parity": "bit-exact against the plain version; K3's summary"}
 
 
 def select_timing(table, device, rate: float) -> dict:
     """K4 for one batched summary at the resident sketch chunk's shape
-    (50 columns x chunk rows, k = 256): the whole call and each of its
-    seven passes (CUDA events at each K5 launch), K3's torch.sort of the
-    same (K, n) keys and K3 whole, and K4's bound (one read of the values
-    and validity). K4 is checked against K3 on the chunk, and each of its
-    K5 launches against ``bincount_plain`` on the same ids."""
-    import numpy as np
+    (50 columns x chunk rows, k = 256): the kernel alone (CUDA events
+    around a launch into preallocated buffers, median of 3 after a warm
+    launch) and each of its stages (``select_device.STAGES``, events
+    between them, median of 3), one wrapper call, its plain version (the
+    previous route: eight K5 launches and torch passes), torch.sort of the
+    same (K, n) keys (the library call), K3 whole, and the bound: one read
+    of the values and validity and one write of the summary. The same for
+    a constant column at that shape. The kernel's summary is held against
+    its plain version (bit for bit) and K3 at both."""
     import torch
 
     from deequ_tpu_torch.analyzers.sketches import _sketch_size_for_error
-    from deequ_tpu_torch.ops import histogram_device, select_device
-    from deequ_tpu_torch.ops.kll_device import chunk_summary_batched
+    from deequ_tpu_torch.ops import histogram_device, select_device as sd
+    from deequ_tpu_torch.ops.kll_device import chunk_summary_batched, strata_capacity
 
     cache = table._device_cache
     numeric, _ = sketch_columns(table)
@@ -2049,80 +2208,111 @@ def select_timing(table, device, rate: float) -> dict:
     vals = cache.packer.unpack_vals(*planes, row_valid, names=numeric)
     X = torch.stack([vals[c].data for c in numeric])
     M = torch.stack([vals[c].mask for c in numeric])
+    del vals
     k = _sketch_size_for_error(SKETCH_RELATIVE_ERROR)
-    saved = histogram_device.LAUNCHES
-
-    with PlainCheck("select timing") as plain:  # K5 on each of K4's passes
-        sel = select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
-    if sum(s["calls"] for s in plain.shapes) != 7:
-        fail(f"select timing: K5 launches held against plain {plain.shapes}, want 7")
-    srt = chunk_summary_batched(X, M, k, cache.chunk)
-    for key in ("count", "weights", "min", "max"):
-        if not torch.equal(sel[key], srt[key]):
-            fail(f"select timing: K4 {key} != K3")
-    a, b = sel["items"].cpu().numpy(), srt["items"].cpu().numpy()
-    if not np.array_equal(a[:, :k].view(np.int64), b[:, :k].view(np.int64)) or not (
-            np.array_equal(np.sort(a[:, k:].view(np.int64), 1), np.sort(b[:, k:].view(np.int64), 1))):
-        fail("select timing: K4 items != K3 items")
-    del sel, srt
-
-    orig = select_device._segment_count
-    marks = []
-
-    def timed(seg, num):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        out = orig(seg, num)
-        e1.record()
-        marks.append((e0, e1, num))
-        return out
-
-    runs = []
-    select_device._segment_count = timed
-    try:
-        for _ in range(4):  # one warm call, then three timed
-            marks.clear()
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda.synchronize()
-            start.record()
-            select_device.chunk_summary_select_batched(X, M, k, cache.chunk)
-            stop.record()
-            stop.synchronize()
-            prev, passes = start, []
-            for e0, e1, num in marks:
-                passes.append({"bins": num, "pass_ms": prev.elapsed_time(e1),
-                               "k5_ms": e0.elapsed_time(e1)})
-                prev = e1
-            runs.append({"ms": start.elapsed_time(stop), "passes": passes,
-                         "remainder_ms": prev.elapsed_time(stop)})
-    finally:
-        select_device._segment_count = orig
-    histogram_device.LAUNCHES = saved
-    runs = runs[1:]
-    best = min(runs, key=lambda r: r["ms"])
-    key = torch.where(M, X, math.inf)
-    key = torch.where(key == 0, 0.0, key)
-    sort_ms = time_cuda(lambda: torch.sort(key, dim=-1, stable=True), reps=3, warmup=1)
-    k3_ms = time_cuda(lambda: chunk_summary_batched(X, M, k, cache.chunk), reps=3, warmup=1)
+    cap = cache.chunk
+    saved = (sd.LAUNCHES, histogram_device.LAUNCHES)
     K = X.shape[0]
-    bound_ms = K * n * 9 / rate * 1e3
-    peak = torch.cuda.max_memory_allocated(device)
-    return {
-        "name": "select (K4)",
-        "shape": {"columns": K, "rows": n, "k": k, "targets": k + 2},
-        "ms_median_of_3": statistics.median(r["ms"] for r in runs),
-        "ms_runs": [r["ms"] for r in runs],
-        "passes_of_fastest": best["passes"],
-        "remainder_ms_of_fastest": best["remainder_ms"],
-        "k5_launches": len(best["passes"]),
-        "k5_vs_plain": plain.shapes,
-        "torch_sort_ms": sort_ms,
-        "k3_summary_ms": k3_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "bound_share": bound_ms / statistics.median(r["ms"] for r in runs),
-        "peak_device_bytes_after": peak,
-    }
+    W = strata_capacity(cap, k)
+    bound_ms = (K * n * 9 + K * (k + W) * 16 + K * 24) / rate * 1e3
+
+    def measure(X, M, label):
+        bufs = sd.summary_buffers(X, k, cap)
+        kernel_ms = time_cuda(lambda: sd.launch_summary(X, M, k, bufs), reps=3, warmup=1)
+        stages = [sd.launch_summary(X, M, k, bufs, stage_ms=True) for _ in range(4)][1:]
+        got = {key: bufs[key] for key in ("items", "weights", "count", "min", "max")}
+        if not _summaries_agree(got, sd.chunk_summary_select_batched_plain(X, M, k, cap), k,
+                                exact_order=True):
+            fail(f"select timing ({label}): the kernel's summary != its plain version's")
+        if not _summaries_agree(got, chunk_summary_batched(X, M, k, cap), k,
+                                exact_order=False):
+            fail(f"select timing ({label}): the kernel's summary != K3's")
+        del bufs, got
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        call_ms = time_cuda(lambda: sd.chunk_summary_select_batched(X, M, k, cap),
+                            reps=3, warmup=1)
+        working = torch.cuda.max_memory_allocated(device) - base
+        plain_ms = time_cuda(lambda: sd.chunk_summary_select_batched_plain(X, M, k, cap),
+                             reps=3, warmup=1)
+        key = torch.where(M, X, math.inf)
+        key = torch.where(key == 0, 0.0, key)
+        sort_ms = time_cuda(lambda: torch.sort(key, dim=-1, stable=True), reps=3, warmup=1)
+        del key
+        k3_ms = time_cuda(lambda: chunk_summary_batched(X, M, k, cap), reps=3, warmup=1)
+        return {
+            "column": label,
+            "shape": {"columns": K, "rows": n, "k": k, "targets": k + 2, "W": W},
+            "kernel_ms": kernel_ms,
+            "stage_ms_median_of_3": {name: statistics.median(s[name] for s in stages)
+                                     for name in sd.STAGES},
+            "call_ms": call_ms,
+            "working_set_bytes": working,
+            "plain_ms": plain_ms,
+            "torch_sort_ms": sort_ms,
+            "k3_summary_ms": k3_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "bound_share": bound_ms / kernel_ms,
+            "max_abs_err": 0,
+        }
+
+    out = measure(X, M, "resident sketch chunk")
+    const = torch.full_like(X, 2.5)
+    out["constant_column"] = measure(const, torch.ones_like(M), "constant columns")
+    del const, X, M
+    sd.LAUNCHES, histogram_device.LAUNCHES = saved
+    out["name"] = "select (K4)"
+    out["peak_device_bytes_after"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+#: the resident chunk rule's bytes (scan_engine.persist_table: 2 GiB a
+#: chunk, 9 bytes a row of an f64 column with its validity)
+_CHUNK_ROWS_9B = (2 << 30) // 9
+
+
+def select_shapes(device, rate: float) -> dict:
+    """K4's kernel (alone, into preallocated buffers) against K3 whole at
+    resident chunk shapes: batch widths 1, 8 and 50, rows 2^16 to 2^25,
+    k = 2^8, 2^11 and 2^14, CUDA events, median of 3 after a warm call.
+    Shapes whose chunk would pass the resident chunk rule's 2 GiB are not
+    resident chunks and are listed as skipped. Normal(100, 10) values, 1%
+    null, made on the card from a seed; the kernel's summary is held
+    against K3's at every shape."""
+    import torch
+
+    from deequ_tpu_torch.ops import select_device as sd
+    from deequ_tpu_torch.ops.kll_device import chunk_summary_batched
+
+    saved = sd.LAUNCHES
+    gen = torch.Generator(device=device).manual_seed(3)
+    cells, skipped = [], []
+    for K in (1, 8, 50):
+        for n in (1 << 16, 1 << 19, 1 << 22, 1 << 24, 1 << 25):
+            if K * n > _CHUNK_ROWS_9B:
+                skipped.append({"columns": K, "rows": n})
+                continue
+            X = torch.randn((K, n), generator=gen, dtype=torch.float64, device=device) * 10 + 100
+            M = torch.rand((K, n), generator=gen, device=device) > 0.01
+            for k in (1 << 8, 1 << 11, 1 << 14):
+                bufs = sd.summary_buffers(X, k, n)
+                k4 = time_cuda(lambda: sd.launch_summary(X, M, k, bufs), reps=3, warmup=1)
+                got = {key: bufs[key] for key in ("items", "weights", "count", "min", "max")}
+                if not _summaries_agree(got, chunk_summary_batched(X, M, k, n), k,
+                                        exact_order=False):
+                    fail(f"select shapes: K4 != K3 at K={K}, n={n}, k={k}")
+                del bufs, got
+                k3 = time_cuda(lambda: chunk_summary_batched(X, M, k, n), reps=3, warmup=1)
+                cells.append({"columns": K, "rows": n, "k": k, "k4_ms": k4, "k3_ms": k3,
+                              "k4_over_k3": k4 / k3,
+                              "bound_ms": K * n * 9 / rate * 1e3})
+            del X, M
+            torch.cuda.empty_cache()
+    sd.LAUNCHES = saved
+    return {"cells": cells, "skipped_past_the_chunk_rule": skipped,
+            "k4_faster_everywhere": all(c["k4_ms"] < c["k3_ms"] for c in cells)}
 
 
 def resident_frequency(table, device, streamed_result, streamed_report) -> dict:
@@ -2222,6 +2412,11 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    sparity = select_parity(device)
+    emit({"phase": "select_parity", "kernel": "select", **sparity,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     report, table, main_result = main_path(args.rows, args.seed, device)
     emit({**report, "seconds": time.perf_counter() - t0})
 
@@ -2257,6 +2452,11 @@ def main(argv=None) -> int:
     res_sketch.update(unpersist_frees(table, device, "resident sketch"))
     emit({**res_sketch, "seconds": time.perf_counter() - t0})
     del table, streamed
+
+    t0 = time.perf_counter()
+    sshapes = select_shapes(device, rate)
+    emit({"phase": "select_shapes", "kernel": "select", "card": smi, **sshapes,
+          "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     freq, table, freq_result = frequency_path(args.rows, args.seed, device)
@@ -2320,6 +2520,24 @@ def main(argv=None) -> int:
         "library_call": htime["library_call"],
         "parity": "exact",
         "shapes": [htime],
+    }, {
+        "name": "select",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/select.cu",
+        "replaces": "deequ_tpu/ops/select_device.py:149",
+        "launches": res_sketch["kernel_launches"]["select"],
+        "launches_by_path": {"resident_path": res_sketch["kernel_launches"]["select"]},
+        "max_abs_err": 0,
+        "ms": select["kernel_ms"],
+        "plain_ms": select["plain_ms"],
+        "bound_ms": select["bound_ms"],
+        "bound_by": select["bound_by"],
+        "library_ms": select["torch_sort_ms"],
+        "library_call": "torch.sort of the same (K, n) keys, stable",
+        "k3_summary_ms": select["k3_summary_ms"],
+        "parity": "exact",
+        "shapes": [select],
+        "routing_shapes": sshapes["cells"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

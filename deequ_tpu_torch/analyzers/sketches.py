@@ -250,6 +250,7 @@ def _kll_scan_op(column: str, sketch_size: int, where: Optional[str] = None) -> 
         tuple(sorted(wcols | {column})), update, dict(_KLL_TAGS), batch_hint=hint,
         sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
+        select_size=sketch_size,
     )
 
 
@@ -273,6 +274,7 @@ def _kll_multi_scan_op(columns: Tuple[str, ...], sketch_size: int) -> ScanOp:
     return ScanOp(
         tuple(sorted(set(columns))), update, dict(_KLL_TAGS), sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
+        select_size=sketch_size,
     )
 
 

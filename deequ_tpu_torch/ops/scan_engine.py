@@ -108,7 +108,8 @@ class ScanOp:
 
     ``sorts_chunk``: ``update`` sorts each chunk on the device (the KLL
     summary); ``select_update``: the same partials by the radix select,
-    which a resident scan runs instead (``ops/scan_plan.py``)."""
+    which a resident scan runs instead where the select is the faster
+    (``ops/scan_plan.py``), and ``select_size`` its sketch size."""
 
     columns: Tuple[str, ...]
     update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, torch.Tensor]]
@@ -117,6 +118,7 @@ class ScanOp:
     batch_hint: Optional[Tuple] = None
     sorts_chunk: bool = False
     select_update: Optional[Callable] = None
+    select_size: int = 0
 
 
 class ScanStats:
@@ -573,7 +575,7 @@ def run_scan(
         packer = _ChunkPacker({name: table[name] for name in needed})
         chunk = chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1))
     bounds = _chunk_bounds(n_rows, chunk)
-    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel)
+    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, chunk)
     ops = plan.ops
     n_chunks = len(bounds)
     op_luts = _device_luts(ops, packer.cols, device)

@@ -5,13 +5,24 @@ A KLL chunk summary (``ops/kll_device.py``) reads only k + 2 rank
 positions of a sorted column: the k strata midpoints and the two ends of
 the exact remainder. This module finds the values at those ranks without
 sorting: it narrows every target rank of every column at once with
-histogram passes over radix digits of an order-preserving key, and each
-pass is one launch of the bincount kernel (``ops/histogram_device.py``,
-K5). Its output is K3's, bit for bit: {items, weights, count, min, max}
-with the same strata and remainder layout and the same static width
+histogram passes over the bytes of an order-preserving key. Its output is
+K3's, bit for bit: {items, weights, count, min, max} with the same strata
+and remainder layout and the same static width
 ``W = strata_capacity(capacity, k)``; only the remainder's order differs
-(row order here, sorted there), which ``fold_summaries`` undoes by
-sorting each level.
+(row order here, sorted there), which ``fold_summaries`` undoes by sorting
+each level.
+
+One formulation per device, as ``histogram_device`` has:
+
+- on a CUDA tensor, :func:`chunk_summary_select_batched` and
+  :func:`select_ranks` launch the hand-written kernel of
+  ``deequ_tpu_torch/csrc/select.cu`` (its passes, their resolution, the
+  remainder and the tied strata all on the card, no full-size tensor, no
+  host sync), or raise;
+- on a CPU tensor they run :func:`chunk_summary_select_batched_plain` /
+  :func:`select_ranks_plain`, the kernel's plain PyTorch version in the
+  kernel's digit plan, which is also what the tests and ``chip_smoke.py``
+  hold the kernel against (pass by pass, through ``trace``).
 
 The key. The reference keys on the 32 bits of its f32 hi plane and keeps
 wide-f64 columns on the sort. Every numeric column of the port is f64, so
@@ -20,38 +31,44 @@ in the order K3 sorts (``kll_device._sorted_values``): -0.0 and +0.0 share
 one key, every NaN takes one key above +inf, invalid rows take the +inf
 key (K3 pads them with +inf). As a signed int64 (torch has no unsigned
 64-bit arithmetic on the CPU) the key is the f64's bits, with every bit
-but the sign flipped for negative values.
+but the sign flipped for negative values; the passes read it unsigned
+(the sign bit flipped), most significant byte first.
 
-The passes. 16 bits, then six 8-bit digits: seven K5 launches a batch.
-Pass 1 counts 65,536 bins a column; each later pass counts R·256 bins a
-column (R = k + 2 targets): an element's histogram row is the target
-interval its digits so far fall in (a dense cell→row table scattered from
-the targets, the reference's LUT), its bin its next digit. Every column of
-a batch goes into one launch, bins offset by column, and a batch holds at
-most ``MAX_BINS`` bins (2^25: K5's partition regime), so a large k splits
-the columns. After pass 7 each target knows its key and its rank inside
-the key's tie group.
+The passes. Eight, one byte each. Pass p counts, for every element whose
+top 8p bits equal the prefix resolved so far by some target, its next
+byte, in the row of that target interval: the intervals are the distinct
+prefixes of the column's targets, ascending (the targets' ranks sorted,
+so their prefixes are), and an element finds its interval by search. Each
+target then takes the byte whose cumulative count passes its rank inside
+the interval. After pass 8 each target knows its key and its rank inside
+the key's tie group. The plain version counts each pass with one
+``bincount`` over every column of a batch (bins offset by column; K5 on
+the card, its plain version on the CPU), a batch holding at most
+``MAX_BINS`` bins.
 
 Bits. A key other than the zero key and the NaN key is one f64 bit
 pattern, so its value is the key inverted. A target on the zero key
 (-0.0 against +0.0) or the NaN key (payloads) takes the row that K3's
-stable sort puts there: the (tie rank)-th row of that key in row order,
-found with one cumulative sum a column and a search. The remainder is the
-reference's: every row between the keys at ranks r0 and m - 1, ties at
-either end split by row order, scattered into W slots in row order.
+stable sort puts there: the (tie rank)-th row of that key in row order.
+The remainder is the reference's: every row between the keys at ranks r0
+and m - 1, ties at either end split by row order, in row order. Count,
+min and max are K3's: min and max over the valid rows, NaN if one is NaN
+(the kernel returns the canonical NaN; ±0 compare equal).
 
-Bound: one read of the (K, n) values and their validity. The passes read
-the (K, n) keys and cell ids seven times over as torch tensor ops, and
-the gathers between passes are (K, R·256), so K4 is bound by those bytes,
-not by K5's counting.
+Bound: one read of the (K, n) values and their validity, 9 bytes a row.
+The kernel reads them once a pass and twice for the remainder.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Optional
 
 import torch
 
+from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.ops import cuda_build
 from deequ_tpu_torch.ops.histogram_device import bincount
 from deequ_tpu_torch.ops.kll_device import strata_capacity, strata_weight
 
@@ -59,18 +76,28 @@ from deequ_tpu_torch.ops.kll_device import strata_capacity, strata_weight
 #: (k + 2)·256 bins a column; a larger k keeps the sort (the reference's cap)
 MAX_SELECT_SKETCH_SIZE = 1 << 14
 
-#: the most bins one K5 launch of a pass counts (the columns of a batch
-#: are split to stay at or below it)
+#: the most bins one bincount of a plain pass counts (the columns of a
+#: batch are split to stay at or below it)
 MAX_BINS = 1 << 25
 
-_PASS1_BITS = 16
+#: kernel launches since the last reset: one per call of the CUDA kernel's
+#: pipeline (its passes, resolution and remainder), and nowhere else
+#: (chip_smoke.py reads it around the main path)
+LAUNCHES = 0
+
+#: the passes, one byte of the key each
+PASSES = 8
 _B = 256
-#: the right shifts of the six 8-bit digits after the first pass
-_SHIFTS = (40, 32, 24, 16, 8, 0)
 _SIGN_REST = 0x7FFFFFFFFFFFFFFF
+_SIGN = -(1 << 63)
 #: the key of every NaN (above +inf's) and of both zeros
 NAN_KEY = _SIGN_REST
 ZERO_KEY = 0
+
+#: the kernel's stages, in the order ``deequ_select_summary`` times them
+STAGES = ("init", "pass1", "targets", "resolve1",
+          *(f"{kind}{p}" for p in range(2, PASSES + 1) for kind in ("pass", "resolve")),
+          "remainder_count", "tile_scan", "remainder_write", "tie_rows", "assemble")
 
 
 def monotone_i64(x: torch.Tensor) -> torch.Tensor:
@@ -89,11 +116,6 @@ def inverse_monotone_i64(key: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64)
 
 
-def _segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """One histogram pass: K5 on the card, its plain version on the CPU."""
-    return bincount(seg.reshape(-1), num_segments)
-
-
 def _bucket_of_rank(tcum: torch.Tensor, rank_rem: torch.Tensor):
     """Per target: the first bucket whose cumulative count passes the
     target's rank inside its interval, and the count below that bucket.
@@ -103,62 +125,88 @@ def _bucket_of_rank(tcum: torch.Tensor, rank_rem: torch.Tensor):
     return bucket, torch.where(bucket > 0, below, 0)
 
 
-def _select_batch(key: torch.Tensor, ranks: torch.Tensor):
+def _intervals(prefix: torch.Tensor):
+    """The distinct prefixes of each row of ``prefix`` ((K, R), each below
+    2^56), ascending and padded with int64's maximum, and each target's
+    index among them."""
+    K, R = prefix.shape
+    srt = prefix.sort(dim=1).values
+    head = torch.ones_like(srt, dtype=torch.bool)
+    head[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    at = torch.where(head, head.cumsum(1) - 1, R)
+    table = torch.full((K, R + 1), _SIGN_REST, dtype=torch.int64, device=prefix.device)
+    table.scatter_(1, at, srt)  # the non-heads all land in the cut column
+    table = table[:, :R].contiguous()
+    return table, torch.searchsorted(table, prefix)
+
+
+def _select_batch(key: torch.Tensor, ranks: torch.Tensor, trace: Optional[list] = None):
     """Resolve ``ranks`` ((K, R) int64, each in [0, n)) against the
     ascending order of each row of ``key`` ((K, n) int64): returns the key
     at each rank and the target's rank inside that key's tie group, both
-    (K, R). Seven histogram passes, no sort."""
+    (K, R). Eight histogram passes, no sort of the data. With ``trace``,
+    appends each pass's (prefix, rank left), the prefix read unsigned."""
     K, n = key.shape
     R = ranks.shape[1]
     dev = key.device
-    col = torch.arange(K, dtype=torch.int32, device=dev).unsqueeze(1)
-    targets = torch.arange(R, dtype=torch.int32, device=dev).expand(K, R).reshape(-1)
-
-    # pass 1: the top 16 bits, one interval a column
-    c_prev = 1 << _PASS1_BITS
-    cell = ((key >> 48) + (1 << 15)).to(torch.int32) + col * c_prev
-    cum = _segment_count(cell, K * c_prev).view(K, c_prev).cumsum(1)
-    pfx = torch.searchsorted(cum, ranks, right=True)
-    below = cum.gather(1, (pfx - 1).clamp(min=0))
-    rank_rem = ranks - torch.where(pfx > 0, below, 0)
-    target_cell = pfx + col.long() * c_prev
-    digits = [pfx]
-
-    key_bytes = key.view(torch.uint8).view(K, n, 8)  # little-endian bytes
+    col = torch.arange(K, dtype=torch.int64, device=dev).unsqueeze(1)
+    ukey = key ^ _SIGN  # the key's bits with the sign flipped: unsigned order
+    prefix = torch.zeros((K, R), dtype=torch.int64, device=dev)
+    row = torch.zeros((K, R), dtype=torch.int64, device=dev)
+    rank_rem = ranks.clone()
+    table = None
     c = R * _B
-    for shift in _SHIFTS:
-        # each target interval's row: the least target index sharing it;
-        # an element outside every target interval gathers R
-        lut = torch.full((K * c_prev + 1,), R, dtype=torch.int32, device=dev)
-        lut.scatter_reduce_(0, target_cell.reshape(-1), targets, reduce="amin")
-        row = lut.index_select(0, cell.reshape(-1)).view(K, n)
-        digit = key_bytes[:, :, shift // 8].to(torch.int32)
-        cell = torch.where(row < R, col * c + row * _B + digit, K * c)
-        hist = _segment_count(cell, K * c).view(K, R, _B)
-        trow = lut[target_cell].long()
-        tcum = hist.cumsum(2).gather(1, trow.unsqueeze(2).expand(K, R, _B))
+    for p in range(PASSES):
+        shift = 56 - 8 * p
+        digit = (ukey >> shift) & (_B - 1)
+        if p == 0:
+            cell = col * c + digit
+        else:  # the element's top 8p bits, unsigned; its interval, if any
+            top = (ukey >> (shift + 8)) & ((1 << (8 * p)) - 1)
+            at = torch.searchsorted(table, top).clamp(max=R - 1)
+            inside = table.gather(1, at) == top
+            cell = torch.where(inside, col * c + at * _B + digit, K * c)
+        hist = bincount(cell.reshape(-1), K * c).view(K, R, _B)
+        tcum = hist.cumsum(2).gather(1, row.unsqueeze(2).expand(K, R, _B))
         bucket, below = _bucket_of_rank(tcum, rank_rem)
         rank_rem = rank_rem - below
-        target_cell = col.long() * c + trow * _B + bucket
-        digits.append(bucket)
-        c_prev = c
-
-    keys = (digits[0] - (1 << 15)) * (1 << 48)
-    for shift, bucket in zip(_SHIFTS, digits[1:]):
-        keys = keys + bucket * (1 << shift)
-    return keys, rank_rem
+        prefix = (prefix << 8) | bucket  # after the last pass: the unsigned key's bits
+        if trace is not None:
+            trace.append((prefix.clone(), rank_rem.clone()))
+        if p < PASSES - 1:
+            table, row = _intervals(prefix)
+    return prefix ^ _SIGN, rank_rem
 
 
-def select_ranks(key: torch.Tensor, ranks: torch.Tensor):
-    """:func:`_select_batch` over column batches of at most
+def _as_key(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    return monotone_i64(torch.where(M, X, math.inf))
+
+
+def select_ranks_plain(X: torch.Tensor, M: torch.Tensor, ranks: torch.Tensor,
+                       trace: bool = False):
+    """The key (:func:`monotone_i64` of the value, +inf's key for an
+    invalid row) at each of ``ranks`` ((K, R) int64, clipped into [0, n))
+    of the ascending order of each row of (K, n) values ``X`` with
+    validity ``M``, and the rank inside that key's ties: (keys, tie), both
+    (K, R). With ``trace``, also (prefix, rank left) of every pass, each
+    (K, 8, R). :func:`_select_batch` over column batches of at most
     :data:`MAX_BINS` bins a pass."""
-    K = key.shape[0]
-    width = max(1 << _PASS1_BITS, ranks.shape[1] * _B)
-    per = max(1, MAX_BINS // width)
-    if K <= per:
-        return _select_batch(key, ranks)
-    parts = [_select_batch(key[i:i + per], ranks[i:i + per]) for i in range(0, K, per)]
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    key = _as_key(X, M)
+    K, n = key.shape
+    ranks = ranks.clamp(0, n - 1)
+    per = max(1, MAX_BINS // (ranks.shape[1] * _B))
+    parts = []
+    for i in range(0, K, per):
+        steps = [] if trace else None
+        keys, tie = _select_batch(key[i:i + per], ranks[i:i + per], steps)
+        parts.append((keys, tie, steps))
+    keys = torch.cat([p[0] for p in parts])
+    tie = torch.cat([p[1] for p in parts])
+    if not trace:
+        return keys, tie
+    pfx = torch.cat([torch.stack([s[0] for s in p[2]], 1) for p in parts])
+    rem = torch.cat([torch.stack([s[1] for s in p[2]], 1) for p in parts])
+    return keys, tie, (pfx, rem)
 
 
 def _tie_rows(key: torch.Tensor, tie_key: int, tie_rank: torch.Tensor) -> torch.Tensor:
@@ -170,31 +218,43 @@ def _tie_rows(key: torch.Tensor, tie_key: int, tie_rank: torch.Tensor) -> torch.
     return rows.clamp(max=key.shape[1] - 1)
 
 
-def chunk_summary_select_batched(
-    X: torch.Tensor, M: torch.Tensor, sketch_size: int, capacity: int
-) -> dict:
-    """K columns at once: (K, n) f64 values and (K, n) validity -> one
-    summary per column, exactly ``kll_device.chunk_summary_batched``'s
-    (module doc), by the radix select."""
-    k = sketch_size
-    W = strata_capacity(capacity, k)
-    if X.shape[-1] == 0:  # an empty chunk: one invalid row, as K3 pads it
+def _targets(m: torch.Tensor, k: int):
+    """The ranks of the summary's targets ((K, k + 2): the k strata
+    midpoints, then the remainder's first and last rank, all clipped into
+    [0, m); a padding target's weight is 0), and (w, n_strata)."""
+    w, n_strata = strata_weight(m, k)
+    hi_rank = (m - 1).clamp(min=0).unsqueeze(1)
+    r0 = (n_strata * w).unsqueeze(1)
+    sidx = torch.arange(k, device=m.device) * w.unsqueeze(1) + (w // 2).unsqueeze(1)
+    ranks = torch.cat([torch.minimum(sidx, hi_rank), torch.minimum(r0, hi_rank), hi_rank], 1)
+    return ranks, w, n_strata
+
+
+def _padded(X: torch.Tensor, M: torch.Tensor):
+    """An empty chunk summarises as one invalid row, as K3 pads it."""
+    if X.shape[-1] == 0:
         X = torch.zeros(X.shape[:-1] + (1,), dtype=torch.float64, device=X.device)
         M = torch.zeros(X.shape, dtype=torch.bool, device=X.device)
+    return X, M
+
+
+def chunk_summary_select_batched_plain(
+    X: torch.Tensor, M: torch.Tensor, sketch_size: int, capacity: int
+) -> dict:
+    """The kernel's plain version: K columns at once, (K, n) f64 values
+    and (K, n) validity -> one summary per column, exactly
+    ``kll_device.chunk_summary_batched``'s (module doc), by the radix
+    select."""
+    k = sketch_size
+    W = strata_capacity(capacity, k)
+    X, M = _padded(X, M)
     K, n = X.shape
     dev = X.device
     m = M.sum(dim=-1)
-    w, n_strata = strata_weight(m, k)
     xf = torch.where(M, X, math.inf)
     key = monotone_i64(xf)
-
-    # targets: k strata midpoints, then the remainder's first and last
-    # rank, all clipped into [0, m) (a padding target's weight is 0)
-    hi_rank = (m - 1).clamp(min=0).unsqueeze(1)
-    r0 = (n_strata * w).unsqueeze(1)
-    sidx = torch.arange(k, device=dev) * w.unsqueeze(1) + (w // 2).unsqueeze(1)
-    ranks = torch.cat([torch.minimum(sidx, hi_rank), torch.minimum(r0, hi_rank), hi_rank], 1)
-    keys, tie = select_ranks(key, ranks)
+    ranks, w, n_strata = _targets(m, k)
+    keys, tie = select_ranks_plain(X, M, ranks)
 
     # strata items: the value of each key, or, on the zero and NaN keys,
     # the row K3's stable sort puts at that rank
@@ -208,6 +268,7 @@ def chunk_summary_select_batched(
 
     # the exact remainder: rows between the keys at ranks r0 and m - 1,
     # ties at either end split by row order, in row order
+    r0 = (n_strata * w).unsqueeze(1)
     v_b, v_t = keys[:, k:k + 1], keys[:, k + 1:k + 2]
     j0, j1 = tie[:, k:k + 1], tie[:, k + 1:k + 2]
     tie_b, tie_t = key == v_b, key == v_t
@@ -233,6 +294,144 @@ def chunk_summary_select_batched(
         "min": torch.where(M, X, math.inf).amin(dim=-1),
         "max": torch.where(M, X, -math.inf).amax(dim=-1),
     }
+
+
+# -- the CUDA kernel --------------------------------------------------------
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.deequ_select_scratch_bytes.argtypes = [i64, i64, i32]
+    lib.deequ_select_scratch_bytes.restype = i64
+    lib.deequ_select_summary.argtypes = [p, p, i64, i64, i32, i64, p, p, p, p, p, p, p, p]
+    lib.deequ_select_summary.restype = i32
+    lib.deequ_select_ranks.argtypes = [p, p, i64, i64, p, i32, p, p, p, p, p, p]
+    lib.deequ_select_ranks.restype = i32
+
+
+def _library() -> ctypes.CDLL:
+    return cuda_build.library("select", _bind)
+
+
+def _check_args(X, M) -> None:
+    if not isinstance(X, torch.Tensor) or X.dim() != 2 or X.dtype != torch.float64:
+        raise ValueError("select: X must be a (K, n) float64 tensor")
+    if not isinstance(M, torch.Tensor) or M.shape != X.shape or M.dtype != torch.bool:
+        raise ValueError("select: M must be a bool tensor shaped like X")
+    if M.device != X.device:
+        raise ValueError("select: X and M lie on different devices")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"select: unsupported device {X.device}")
+
+
+def _on_card(X, M) -> None:
+    if not X.is_contiguous() or not M.is_contiguous():
+        raise ValueError("select: X and M must be contiguous")
+    if X.shape[1] >= 1 << 31 or X.shape[0] > 65535:
+        raise ValueError(f"select: the kernel takes at most 65,535 columns of fewer "
+                         f"than 2^31 rows, got {tuple(X.shape)}")
+
+
+def _scratch(K: int, n: int, R: int, device) -> torch.Tensor:
+    nbytes = _library().deequ_select_scratch_bytes(K, n, R)
+    if nbytes < 0:
+        raise ValueError(f"select: the kernel cannot take K={K}, n={n}, R={R}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def summary_buffers(X: torch.Tensor, sketch_size: int, capacity: int) -> dict:
+    """What one launch of the summary writes, as the wrapper allocates
+    it: the outputs and the scratch."""
+    K, n = X.shape
+    k = sketch_size
+    W = strata_capacity(capacity, k)
+    dev = X.device
+    return {
+        "items": torch.empty((K, k + W), dtype=torch.float64, device=dev),
+        "weights": torch.empty((K, k + W), dtype=torch.float64, device=dev),
+        "count": torch.empty(K, dtype=torch.int64, device=dev),
+        "min": torch.empty(K, dtype=torch.float64, device=dev),
+        "max": torch.empty(K, dtype=torch.float64, device=dev),
+        "scratch": _scratch(K, n, k + 2, dev) if K else None,
+    }
+
+
+def launch_summary(X: torch.Tensor, M: torch.Tensor, sketch_size: int, bufs: dict,
+                   stage_ms: bool = False):
+    """Enqueue the summary kernel on the current stream into ``bufs``
+    (:func:`summary_buffers`) with no checks and no allocation:
+    :func:`chunk_summary_select_batched` calls it once; ``chip_smoke.py``
+    times it alone. With ``stage_ms``, waits for the stream and returns
+    {stage: ms} (:data:`STAGES`). Raises if a launch was refused."""
+    K, n = X.shape
+    k = sketch_size
+    W = bufs["items"].shape[1] - k
+    times = (ctypes.c_float * len(STAGES))() if stage_ms else None
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = _library().deequ_select_summary(
+            X.data_ptr(), M.data_ptr(), K, n, k, W,
+            *(bufs[name].data_ptr() for name in ("items", "weights", "count", "min", "max",
+                                                  "scratch")),
+            stream, ctypes.cast(times, ctypes.c_void_p) if stage_ms else None,
+        )
+    if rc != 0:
+        raise DeviceException(f"select kernel launch failed: CUDA error {rc} "
+                              f"(K={K}, n={n}, k={k}, W={W})")
+    return dict(zip(STAGES, times)) if stage_ms else None
+
+
+def chunk_summary_select_batched(
+    X: torch.Tensor, M: torch.Tensor, sketch_size: int, capacity: int
+) -> dict:
+    """K columns at once: (K, n) f64 values and (K, n) validity -> one
+    summary per column, exactly ``kll_device.chunk_summary_batched``'s
+    (module doc). A CUDA tensor runs the CUDA kernel; a CPU tensor runs
+    the plain version."""
+    global LAUNCHES
+    _check_args(X, M)
+    if X.device.type == "cpu":
+        return chunk_summary_select_batched_plain(X, M, sketch_size, capacity)
+    _on_card(X, M)
+    X, M = _padded(X, M)
+    bufs = summary_buffers(X, sketch_size, capacity)
+    if X.shape[0]:
+        launch_summary(X, M, sketch_size, bufs)
+        LAUNCHES += 1
+    return {name: bufs[name] for name in ("items", "weights", "count", "min", "max")}
+
+
+def select_ranks(X: torch.Tensor, M: torch.Tensor, ranks: torch.Tensor, trace: bool = False):
+    """:func:`select_ranks_plain`'s function: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    global LAUNCHES
+    _check_args(X, M)
+    if ranks.shape[0] != X.shape[0] or ranks.dtype != torch.int64 or ranks.device != X.device:
+        raise ValueError("select: ranks must be (K, R) int64 on X's device")
+    if X.device.type == "cpu":
+        return select_ranks_plain(X, M, ranks, trace)
+    _on_card(X, M)
+    ranks = ranks.contiguous()
+    K, n = X.shape
+    R = ranks.shape[1]
+    keys = torch.empty((K, R), dtype=torch.int64, device=X.device)
+    tie = torch.empty((K, R), dtype=torch.int64, device=X.device)
+    steps = (torch.empty((K, PASSES, R), dtype=torch.int64, device=X.device),
+             torch.empty((K, PASSES, R), dtype=torch.int64, device=X.device)) if trace else None
+    if K and R and n:
+        scratch = _scratch(K, n, R, X.device)
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = _library().deequ_select_ranks(
+                X.data_ptr(), M.data_ptr(), K, n, ranks.data_ptr(), R, keys.data_ptr(),
+                tie.data_ptr(), *((s.data_ptr() for s in steps) if trace else (None, None)),
+                scratch.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise DeviceException(f"select kernel launch failed: CUDA error {rc} "
+                                  f"(K={K}, n={n}, R={R})")
+        LAUNCHES += 1
+    return (keys, tie, steps) if trace else (keys, tie)
 
 
 def chunk_summary_select(x: torch.Tensor, valid: torch.Tensor, sketch_size: int,

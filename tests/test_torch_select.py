@@ -4,15 +4,21 @@ the CPU (K5 runs as its plain version here; ``chip_smoke.py``'s
 ``resident_path`` holds the kernel on the card).
 
 - K4 against K3 (the port's sort, bit-identical to the reference's f64
-  path, tests/test_torch_sketches.py) on adversarial columns: the strata
-  items bit for bit, the remainder as a multiset of bit patterns (K4
-  writes it in row order), count/weights/min/max, and the folded states
-  bit for bit — twin of ``test_select_matches_sort_reference_adversarial``;
+  path, tests/test_torch_sketches.py) on adversarial columns (generated
+  by ``tests/select_cases.py``, which ``chip_smoke.py``'s
+  ``select_parity`` runs on the card too): the strata items bit for bit,
+  the remainder as a multiset of bit patterns (K4 writes it in row
+  order), count/weights/min/max, and the folded states bit for bit —
+  twin of ``test_select_matches_sort_reference_adversarial``;
+- the plain version in the kernel's digit plan (eight byte passes)
+  against K3 and numpy's exact ranks at the kernel's tile edges (8,192
+  rows) and at k = 16,384; its per-pass trace; ranks in any order;
 - exact ranks against numpy; the order-preserving key;
 - a select-made sketch merges with a host sketch;
 - routing: resident scans select with ``device_sort_passes == 0``,
   streaming scans and sketches past 2^14 sort, the plan census,
-  ``select_kernel`` validation;
+  ``select_kernel`` validation, and the rule read from the card's K4-vs-K3
+  table (``select_beats_sort``: large sketches over small chunks sort);
 - a persisted port run's folded KLL states equal the reference's
   persisted run under ``DEEQU_TPU_COMPUTE=f64`` (its wide-f64 columns
   sort) bit for bit, and the reference's default persisted run (its
@@ -36,13 +42,22 @@ from deequ_tpu_torch.ops import select_device
 from deequ_tpu_torch.ops.kll import KLLSketchState
 from deequ_tpu_torch.ops.kll_device import chunk_summary_batched, fold_summaries
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, run_scan
-from deequ_tpu_torch.ops.scan_plan import plan_scan_ops, select_kernel_enabled
+from deequ_tpu_torch.ops.scan_plan import (
+    plan_scan_ops,
+    select_beats_sort,
+    select_kernel_enabled,
+)
 from deequ_tpu_torch.ops.select_device import (
     NAN_KEY,
+    PASSES,
     chunk_summary_select_batched,
+    chunk_summary_select_batched_plain,
     inverse_monotone_i64,
     monotone_i64,
+    select_ranks,
+    select_ranks_plain,
 )
+from select_cases import adversarial_cases
 from torch_parity import parity_env, port_table, ref_column  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
@@ -58,41 +73,7 @@ def _from_bits(bits) -> np.ndarray:
     return np.asarray(bits, dtype=np.int64).view(np.float64)
 
 
-_RNG = np.random.default_rng(2024)
-_N = 2000
-_NAN_BITS = _RNG.integers(0x7FF0000000000001, 0x7FFFFFFFFFFFFFFF, _N, dtype=np.int64)
-_DIGIT = 0x3FF0000000000000 + np.arange(_N, dtype=np.int64) % 7 * (1 << 40)
-_ADVERSARIAL = {
-    # -0.0 against +0.0 in every proportion, with some 1.0s between
-    "signed_zeros": (_RNG.choice([-0.0, 0.0, 0.0, -1.0, 1.0], _N), None),
-    # NaN payloads of both signs, valid, beside normals and nulls
-    "nan_payloads": (
-        np.where(_RNG.random(_N) < 0.3,
-                 np.copysign(_from_bits(_NAN_BITS), _RNG.choice([1.0, -1.0], _N)),
-                 _RNG.normal(0, 1, _N)),
-        _RNG.random(_N) > 0.2,
-    ),
-    "infinities": (
-        np.where(_RNG.random(_N) < 0.1, _RNG.choice([np.inf, -np.inf], _N),
-                 _RNG.normal(0, 1, _N)),
-        _RNG.random(_N) > 0.3,
-    ),
-    "all_null": (_RNG.normal(0, 1, 300), np.zeros(300, dtype=bool)),
-    "one_valid_row": (_RNG.normal(0, 1, 300), np.arange(300) == 123),
-    "single_row": (np.array([42.0]), None),
-    # ties straddling each digit boundary: values that differ in one byte
-    # of the key (and so meet only in later passes), heavily repeated
-    "digit_boundaries": (
-        _from_bits(_DIGIT + _RNG.integers(0, 3, _N) * (1 << 8)
-                   + _RNG.integers(0, 2, _N) * (1 << 48)), None,
-    ),
-    "subnormals": (_RNG.choice([5e-324, -5e-324, 1e-310, -1e-310, 0.0, -0.0], _N), None),
-    "past_2_53": (
-        (2.0 ** 53 + _RNG.integers(0, 64, _N)) * _RNG.choice([1.0, -1.0], _N), None,
-    ),
-    "all_equal": (np.full(_N, 3.25), None),
-    "normals": (_RNG.normal(100, 10, _N), _RNG.random(_N) > 0.05),
-}
+_RNG, _NAN_BITS, _ADVERSARIAL = adversarial_cases()
 
 
 def _both(values, mask, k, capacity=None):
@@ -181,6 +162,130 @@ def test_select_exact_ranks_vs_numpy():
     n_rem = m - n_strata * w
     got = np.sort(items[k:][weights[k:] > 0])
     assert np.array_equal(got, sv[m - n_rem:])
+
+
+#: the kernel's tile (rows of one column a block takes, csrc/select.cu)
+_TILE = 8192
+
+
+def _edge_column(n, kind, rng):
+    if kind == "normal":
+        return rng.normal(100, 10, n), rng.random(n) > 0.05
+    # ties across tiles: few values, both zeros, NaN payloads, nulls
+    pool = np.array([-0.0, 0.0, 1.5, -2.0, np.inf, _from_bits(_NAN_BITS[1]), 2.0 ** 60])
+    return rng.choice(pool, n), rng.random(n) > 0.1
+
+
+def _assert_exact_strata(out, values, mask, k):
+    """Each column's strata items equal numpy's sorted valid values (nulls
+    as +inf, NaNs last) at the midpoint ranks, bit for bit up to the zero
+    and NaN keys."""
+    for j in range(values.shape[0]):
+        xf = np.where(mask[j], values[j], np.inf)
+        sv = np.sort(np.where(xf == 0, 0.0, xf))
+        items, weights = out["items"][j].numpy(), out["weights"][j].numpy()
+        w = int(weights[0]) if weights[0] > 0 else 1
+        for i in np.nonzero(weights[:k] > 0)[0]:
+            want, got = sv[i * w + w // 2], items[i]
+            assert (np.isnan(want) and np.isnan(got)) or want == got, (j, i)
+
+
+@pytest.mark.parametrize("n", [1, _TILE - 1, _TILE, _TILE + 1, 20_000])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_plain_at_tile_edges_matches_sort_and_numpy(n, kind):
+    """The plain version in the kernel's plan (eight byte passes) at the
+    kernel's tile edges: K3's summary, numpy's exact ranks."""
+    rng = np.random.default_rng(n)
+    cols = [_edge_column(n, kind, rng) for _ in range(3)]
+    values = np.stack([c[0] for c in cols])
+    mask = np.stack([c[1] for c in cols])
+    X, M = torch.from_numpy(values), torch.from_numpy(mask)
+    for k in (16, 256):
+        got = chunk_summary_select_batched_plain(X, M, k, n)
+        _assert_summaries_equal(chunk_summary_batched(X, M, k, n), got, k)
+        _assert_exact_strata(got, values, mask, k)
+
+
+def test_plain_at_the_largest_sketch_size():
+    """k = 16,384 (MAX_SELECT_SKETCH_SIZE): 16,386 targets a column."""
+    k = select_device.MAX_SELECT_SKETCH_SIZE
+    rng = np.random.default_rng(16384)
+    values = rng.normal(0, 1, (2, 40_000))
+    values[1, ::3] = 0.25  # a tie group wider than many strata
+    mask = rng.random((2, 40_000)) > 0.02
+    X, M = torch.from_numpy(values), torch.from_numpy(mask)
+    got = chunk_summary_select_batched_plain(X, M, k, 40_000)
+    _assert_summaries_equal(chunk_summary_batched(X, M, k, 40_000), got, k)
+    _assert_exact_strata(got, values, mask, k)
+
+
+def test_select_ranks_any_order_and_trace_vs_numpy():
+    """Ranks in any order (clipped into [0, n)): the key at each rank, the
+    rank inside its ties, and after each pass the top 8(p + 1) bits of that
+    key (unsigned) and the rank left below them, all from numpy."""
+    values, mask = _ADVERSARIAL["nan_payloads"]
+    values = np.stack([values, _ADVERSARIAL["digit_boundaries"][0]])
+    mask = np.stack([mask, np.ones(len(mask), dtype=bool)])
+    n = values.shape[1]
+    ranks = torch.from_numpy(np.random.default_rng(41).integers(-5, n + 5, (2, 41)))
+    X, M = torch.from_numpy(values), torch.from_numpy(mask)
+    keys, tie, (pfx, rem) = select_ranks_plain(X, M, ranks, trace=True)
+    assert pfx.shape == rem.shape == (2, PASSES, 41)
+    for j in range(2):
+        skey = np.sort(monotone_i64(torch.where(M[j], X[j], np.inf)).numpy())
+        ukey = skey.view(np.uint64) ^ np.uint64(1 << 63)
+        for t, r in enumerate(np.clip(ranks[j].numpy(), 0, n - 1)):
+            assert keys[j, t] == skey[r]
+            assert tie[j, t] == r - np.searchsorted(skey, skey[r])
+            for p in range(PASSES):
+                shift = np.uint64(56 - 8 * p)
+                top = ukey[r] >> shift
+                assert np.uint64(pfx[j, p, t].numpy()).view(np.uint64) == top
+                assert rem[j, p, t] == r - np.searchsorted(ukey >> shift, top)
+    assert torch.equal(select_ranks(X, M, ranks)[0], keys)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    values, mask = _ADVERSARIAL["normals"]
+    X = torch.from_numpy(np.stack([values, values]))
+    M = torch.from_numpy(np.stack([mask, mask]))
+    before = select_device.LAUNCHES
+    got = chunk_summary_select_batched(X, M, 64, 2000)
+    want = chunk_summary_select_batched_plain(X, M, 64, 2000)
+    assert select_device.LAUNCHES == before
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("args", [
+    (torch.zeros(5), torch.zeros(5, dtype=torch.bool)),
+    (torch.zeros((2, 5), dtype=torch.float32), torch.zeros((2, 5), dtype=torch.bool)),
+    (torch.zeros((2, 5), dtype=torch.float64), torch.zeros((2, 4), dtype=torch.bool)),
+    (torch.zeros((2, 5), dtype=torch.float64), torch.zeros((2, 5), dtype=torch.uint8)),
+])
+def test_select_rejects_bad_input(args):
+    with pytest.raises(ValueError):
+        chunk_summary_select_batched(*args, 16, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["signed_zeros", "nan_payloads", "all_null", "normals"])
+def test_cuda_kernel_matches_plain_and_sort(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the select kernel has no CPU mode")
+    values, mask = _ADVERSARIAL[case]
+    mask = np.ones(len(values), dtype=bool) if mask is None else mask
+    X = torch.from_numpy(np.stack([values, values[::-1].copy()])).cuda()
+    M = torch.from_numpy(np.stack([mask, mask[::-1].copy()])).cuda()
+    before = select_device.LAUNCHES
+    got = chunk_summary_select_batched(X, M, 256, len(values))
+    assert select_device.LAUNCHES == before + 1
+    got = {key: t.cpu() for key, t in got.items()}
+    want = chunk_summary_select_batched_plain(X.cpu(), M.cpu(), 256, len(values))
+    for key in ("items", "weights", "count"):
+        assert torch.equal(got[key].view(torch.int64) if key == "items" else got[key],
+                           want[key].view(torch.int64) if key == "items" else want[key]), key
+    _assert_summaries_equal(chunk_summary_batched(X.cpu(), M.cpu(), 256, len(values)), got, 256)
 
 
 def test_monotone_key_round_trip_and_order():
@@ -311,6 +416,36 @@ def test_plan_scan_ops_census():
     assert (mixed.select_ops, mixed.sort_ops, mixed.variant) == (5, 1, "mixed")
     none = plan_scan_ops(ops[:1], None, resident=True)
     assert (none.select_ops, none.sort_ops, none.variant) == (0, 0, "none")
+
+
+@pytest.mark.parametrize("rows,k,select", [
+    (65_536, 256, True), (65_536, 2048, True), (1 << 25, 2048, True),
+    (65_536, 16_384, False), (524_288, 16_384, False), (1_048_703, 16_384, False),
+    (1_048_704, 16_384, True), (4_194_304, 16_384, True), (1 << 25, 16_384, True),
+    (100_000, 4096, False), (262_272, 4096, True),
+])
+def test_select_beats_sort_rule(rows, k, select):
+    """The rule read from PERF.md's K4-vs-K3 table: K3 for more than 2,050
+    targets with fewer than 64 rows each, K4 everywhere else."""
+    assert select_beats_sort(rows, k) is select
+
+
+def test_resident_scan_routes_large_sketches_over_small_chunks_to_sort(parity_env):
+    """relative_error 2e-4 asks for k = 11,499: over 6,000-row chunks (under
+    64 rows a target) that op sorts on a resident scan while the default
+    sketch selects; over chunks of 64 rows a target it would select."""
+    analyzers = [port_analyzers.ApproxQuantile("c0", 0.5, relative_error=2e-4),
+                 port_analyzers.ApproxQuantile("c1", 0.5)]
+    with use_device("cpu"):
+        table = _two_col_table().persist(max_bytes=BUDGET)
+        SCAN_STATS.reset()
+        PortRunner.do_analysis_run(table, analyzers)
+        table.unpersist()
+    assert SCAN_STATS.device_sort_passes == 1 and SCAN_STATS.device_select_passes == 1
+    ops = [a.scan_op(table) for a in analyzers]
+    assert [op.select_size for op in ops] == [11_499, 256]
+    assert plan_scan_ops(ops, None, resident=True, chunk_rows=6000).select_ops == 1
+    assert plan_scan_ops(ops, None, resident=True, chunk_rows=64 * 11_501).select_ops == 2
 
 
 @pytest.mark.parametrize("bad", ["1", 2, 0.5, "yes", None])
