@@ -105,6 +105,35 @@ Phases, each printed as one JSON line on stdout:
    once more with every K5 launch held against ``bincount_plain`` on the
    same ids (``bincount_vs_plain``: the shapes checked);
 
+13. ``partition_path`` (after ``resident_path``'s ``main`` part, over the
+   main path's table) — deequ's partitioned workflow: the table cut by row
+   range into 10 daily partitions of 10^6 rows, each verified on the card
+   (the main check plus ApproxCountDistinct(customer_id) and
+   ApproxQuantiles of f0–f3 at 0.1/0.5/0.9) with its states saved to a
+   ``FileSystemStateProvider`` under a temporary directory the phase
+   removes; then ``VerificationSuite.run_on_aggregated_states`` over the
+   10 directories, held against a whole-table run of the same suite
+   (counts, completeness, compliance, min/max, uniqueness, distinctness,
+   CountDistinct, the merged frequency tables and the HLL registers
+   exact; sums and means within 1e-12, standard deviation, correlation
+   and entropy within 1e-10; each quantile's rank within relative_error
+   · n); then partition 3 regenerated from ``seed + 1``, rerun alone and
+   aggregated again against a whole-table run over the updated table;
+   every K5 and K2 launch of the partition runs held against its plain
+   version; a subnormal column cut into partitions and aggregated,
+   against numpy. Prints the partition and aggregate walls, the state
+   bytes written and the largest state file, the launches, the peak
+   device bytes and the CPU-op watch;
+14. ``stream_path`` — ``IncrementalVerificationStream`` (window 8) over
+   32 batches of 2^18 rows of the same schema (the main path's
+   scan-shareable constraints, has_distinctness(status),
+   ApproxCountDistinct(customer_id)), states carried in an in-memory
+   provider, against a serial loop of ``do_verification_run`` with the
+   same providers: every batch's metrics and every saved state's bytes
+   identical; 4 groups, one fetch a group, the host-to-device copies a
+   group scan makes, both walls, K2 one launch a batch, every K5 and K2
+   launch against its plain version;
+
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
@@ -473,13 +502,26 @@ def watch_cpu_ops():
     }
 
     class Watch(TorchDispatchMode):
+        """``cpu_ops``: computations on CPU tensors by op name;
+        ``h2d_copies``: host-to-device copies, and ``h2d_marked`` those
+        made while ``marked`` is set."""
+
         def __init__(self):
             super().__init__()
             self.cpu_ops = {}
+            self.h2d_copies = 0
+            self.h2d_marked = 0
+            self.marked = False
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func._schema.name
+            if name in ("aten::_to_copy", "aten::copy_"):
+                src = args[1] if name == "aten::copy_" else args[0]
+                dst = args[0] if name == "aten::copy_" else out
+                if src.device.type == "cpu" and dst.device.type == "cuda":
+                    self.h2d_copies += 1
+                    self.h2d_marked += self.marked
             if name not in transport:
                 tensors = [
                     t for t in tree_flatten((args, kwargs or {}, out))[0]
@@ -2357,6 +2399,494 @@ def resident_frequency(table, device, streamed_result, streamed_report) -> dict:
     }
 
 
+# -- partition_path and stream_path: saved, merged and streamed states -------
+
+#: the partition path's cut: daily partitions of the main table
+PARTITIONS = 10
+PARTITION_QUANTILES = (0.1, 0.5, 0.9)
+#: the stream path: batches of 2^18 rows in groups of 8
+STREAM_BATCHES = 32
+STREAM_BATCH_ROWS = 1 << 18
+STREAM_WINDOW = 8
+#: metrics compared exactly between an aggregated and a whole-table run
+_MERGE_EXACT = _EXACT | {"ApproxCountDistinct"}
+#: the subnormal column held on the card against numpy
+SUBNORMALS = (5e-324, 1e-310, -1e-310, 1.0, -2.0, 1e-40, 3e-39, 1e-38)
+
+
+class HllPlainCheck:
+    """While active, every K2 launch (``hll.registers`` on a card tensor)
+    is held against ``hll.registers_plain`` on the same inputs with
+    ``torch.equal``; a mismatch fails. ``checked`` counts the launches."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.checked = 0
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import hll
+
+        self._orig = hll.registers
+
+        def checked(x, valid=None, p=9, lut=None):
+            import torch
+
+            out = self._orig(x, valid, p, lut)
+            if x.is_cuda:
+                if not torch.equal(out, hll.registers_plain(x, valid, p, lut)):
+                    fail(f"{self.label}: K2 != registers_plain at {x.numel()} rows")
+                self.checked += 1
+            return out
+
+        hll.registers = checked
+        return self
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import hll
+
+        hll.registers = self._orig
+
+
+def kernel_counts_zero() -> None:
+    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    SCAN_STATS.reset()
+    histogram_device.LAUNCHES = 0
+    hll.LAUNCHES = 0
+
+
+def kernel_counts() -> dict:
+    from deequ_tpu_torch.ops import histogram_device, hll
+
+    return {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES}
+
+
+def slice_rows(table, start: int, stop: int):
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import ColumnarTable
+
+    idx = np.arange(start, stop)
+    return ColumnarTable([c.take(idx) for c in table.columns.values()])
+
+
+def replace_rows(table, start: int, part):
+    """``table`` with rows [start, start + len(part)) taken from ``part``
+    (same schema; string columns of equal dictionaries)."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+    stop = start + part.num_rows
+    cols = []
+    for name, col in table.columns.items():
+        new = part[name]
+        if col.dtype == DType.STRING:
+            if not np.array_equal(col.dictionary.astype(str), new.dictionary.astype(str)):
+                fail(f"replace_rows: {name} dictionaries differ")
+            codes = col.codes.copy()
+            codes[start:stop] = new.codes
+            cols.append(Column(name, col.dtype, codes=codes, dictionary=col.dictionary))
+        else:
+            values, mask = col.values.copy(), col.mask.copy()
+            values[start:stop], mask[start:stop] = new.values, new.mask
+            cols.append(Column(name, col.dtype, values=values, mask=mask))
+    return ColumnarTable(cols)
+
+
+def partition_required():
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, ApproxQuantiles, CountDistinct
+
+    return ([CountDistinct(["customer_id"]), ApproxCountDistinct("customer_id")]
+            + [ApproxQuantiles(f"f{j}", PARTITION_QUANTILES) for j in range(4)])
+
+
+def run_partition(part, provider, device):
+    """One partition's checked run on the card, its states saved."""
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = (VerificationSuite.on_data(part, device).add_check(build_check())
+              .add_required_analyzers(partition_required())
+              .save_states_with(provider).run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for metric in result.metrics.values():
+        if not metric.value.is_success:
+            fail(f"partition run: metric failed: {metric}")
+    return wall
+
+
+def canonical_frequencies(state):
+    """A frequency state's (key columns, nulls, counts) in key order."""
+    import numpy as np
+
+    order = np.lexsort(tuple(
+        a for v, m in reversed(list(zip(state.key_values, state.key_nulls)))
+        for a in (np.where(m, v.dtype.type(0), v), m)))
+    return ([v[order] for v in state.key_values], [m[order] for m in state.key_nulls],
+            state.counts[order], state.num_rows)
+
+
+def frequencies_equal(a, b) -> bool:
+    import numpy as np
+
+    ka, na, ca, ra = canonical_frequencies(a)
+    kb, nb, cb, rb = canonical_frequencies(b)
+    return (ra == rb and np.array_equal(ca, cb)
+            and all(np.array_equal(x[~m], y[~m]) for x, y, m in zip(ka, kb, na))
+            and all(np.array_equal(x, y) for x, y in zip(na, nb)))
+
+
+def compare_aggregated(agg, agg_states, whole, whole_states, table, label: str) -> dict:
+    """An aggregated run against the whole-table run of the same suite:
+    exact where PERF.md §2 says exact, sums and means within 1e-12,
+    standard deviation, correlation and entropy within 1e-10, HLL
+    registers and frequency tables identical, each quantile's rank among
+    numpy's valid values within relative_error · n."""
+    import numpy as np
+
+    from deequ_tpu_torch.analyzers import ApproxCountDistinctState, FrequenciesAndNumRows
+
+    worst = worst_rank = 0.0
+    freq_checked = hll_checked = 0
+    for analyzer, want in whole.metrics.items():
+        have = agg.metrics[analyzer]
+        if not (have.value.is_success and want.value.is_success):
+            fail(f"{label}: {analyzer!r} failed: {have} / {want}")
+        w_state, h_state = whole_states.load(analyzer), agg_states.load(analyzer)
+        if isinstance(w_state, FrequenciesAndNumRows):
+            if not frequencies_equal(h_state, w_state):
+                fail(f"{label}: {analyzer!r}: merged frequency table != whole table's")
+            freq_checked += 1
+        if isinstance(w_state, ApproxCountDistinctState):
+            if h_state != w_state:
+                fail(f"{label}: {analyzer!r}: merged HLL registers != whole table's")
+            hll_checked += 1
+        if want.name == "ApproxQuantiles":
+            col = table[analyzer.column]
+            s = np.sort(col.values[col.mask])
+            m = len(s)
+            for q, v in have.value.get().items():
+                lo, hi = np.searchsorted(s, v, "left"), np.searchsorted(s, v, "right")
+                t = float(q) * m
+                err = 0.0 if lo <= t <= hi else min(abs(lo - t), abs(hi - t)) / m
+                worst_rank = max(worst_rank, err)
+                if err > analyzer.relative_error:
+                    fail(f"{label}: {analyzer!r} at {q}: rank error {err:.4g}")
+            continue
+        a, b = have.value.get(), want.value.get()
+        if want.name in _MERGE_EXACT:
+            if a != b:
+                fail(f"{label}: {analyzer!r}: aggregated {a!r} != whole {b!r}")
+        else:
+            rel = abs(a - b) / max(abs(b), 1e-300)
+            worst = max(worst, rel)
+            if rel > _REL[want.name]:
+                fail(f"{label}: {analyzer!r}: aggregated {a!r} vs whole {b!r}, "
+                     f"rel {rel:.3g} > {_REL[want.name]}")
+    return {"metrics_compared": len(whole.metrics), "frequency_tables_identical": freq_checked,
+            "hll_states_identical": hll_checked, "worst_rel_err": worst,
+            "worst_quantile_rank_err": worst_rank}
+
+
+def aggregate_and_compare(table, providers, device, label: str) -> dict:
+    """run_on_aggregated_states over the partitions' providers, timed, and
+    the whole-table run it is held against."""
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.states import InMemoryStateProvider
+
+    agg_states, whole_states = InMemoryStateProvider(), InMemoryStateProvider()
+    t0 = time.perf_counter()
+    agg = VerificationSuite.run_on_aggregated_states(
+        table.schema, [build_check()], providers,
+        required_analyzers=partition_required(), save_states_with=agg_states)
+    t_agg = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = (VerificationSuite.on_data(table, device).add_check(build_check())
+             .add_required_analyzers(partition_required())
+             .save_states_with(whole_states).run())
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    if agg.status != whole.status:
+        fail(f"{label}: aggregated status {agg.status} != whole-table {whole.status}")
+    return {"aggregate_wall_s": t_agg, "whole_table_run_wall_s": t_whole,
+            **compare_aggregated(agg, agg_states, whole, whole_states, table, label)}
+
+
+def subnormal_partitions(device, root: str) -> dict:
+    """The subnormal column cut into four partitions of two rows, each run
+    on the card with its states saved, then aggregated: Minimum -2, the
+    least positive value (Minimum where f > 0) 5e-324, Compliance(f > 0)
+    0.75 and Compliance(f = 0) 0, each equal to numpy."""
+    import numpy as np
+
+    from deequ_tpu_torch.analyzers import Compliance, Minimum
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+    from deequ_tpu_torch.states import FileSystemStateProvider
+
+    f = np.array(SUBNORMALS)
+    analyzers = [Minimum("f"), Minimum("f", where="f > 0"),
+                 Compliance("f > 0", "f > 0"), Compliance("f = 0", "f = 0")]
+    providers = []
+    for i in range(4):
+        part = ColumnarTable([Column("f", DType.FRACTIONAL, values=f[2 * i:2 * i + 2])])
+        providers.append(FileSystemStateProvider(os.path.join(root, f"subnormal-{i}")))
+        AnalysisRunner.do_analysis_run(part, analyzers, device, save_states_with=providers[-1])
+    schema = ColumnarTable([Column("f", DType.FRACTIONAL, values=f)]).schema
+    ctx = AnalysisRunner.run_on_aggregated_states(schema, analyzers, providers)
+    got = [ctx.metric(a).value.get() for a in analyzers]
+    want = [float(f.min()), float(f[f > 0].min()), float(np.mean(f > 0)),
+            float(np.mean(f == 0))]
+    if got != want or want != [-2.0, 5e-324, 0.75, 0.0]:
+        fail(f"subnormals: aggregated {got} != numpy {want}")
+    return {"minimum": got[0], "minimum_where_positive": got[1],
+            "compliance_gt_0": got[2], "compliance_eq_0": got[3]}
+
+
+def partition_path(table, seed: int, device) -> dict:
+    """Phase ``partition_path`` (module doc)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deequ_tpu_torch.states import FileSystemStateProvider
+
+    n = table.num_rows
+    bounds = [(i * n // PARTITIONS, (i + 1) * n // PARTITIONS) for i in range(PARTITIONS)]
+    parts = [slice_rows(table, a, b) for a, b in bounds]
+    root = tempfile.mkdtemp(prefix="deequ_partition_path_")
+    try:
+        providers = [FileSystemStateProvider(os.path.join(root, f"part-{i}"))
+                     for i in range(PARTITIONS)]
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel_counts_zero()
+        watch = watch_cpu_ops()
+        with watch:
+            watched = [run_partition(part, prov, device) for part, prov in zip(parts, providers)]
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        # the walls: the same runs again, unwatched (each rewrites its files)
+        walls = [run_partition(part, prov, device) for part, prov in zip(parts, providers)]
+        if watch.cpu_ops:
+            fail(f"partition_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
+        if launches["bincount"] < 3 * PARTITIONS or launches["hll"] < PARTITIONS:
+            fail(f"partition_path: launches {launches}, want >= 3 K5 and 1 K2 a partition")
+        files = [os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs]
+        sizes = [os.path.getsize(f) for f in files]
+        first = aggregate_and_compare(table, providers, device, "partition_path")
+
+        # the partition update: partition 3 regenerated, rerun alone
+        update_part = make_table(bounds[3][1] - bounds[3][0], seed + 1)
+        kernel_counts_zero()
+        watch2 = watch_cpu_ops()
+        with watch2:
+            update_wall = run_partition(update_part, providers[3], device)
+        update_launches = kernel_counts()
+        if watch2.cpu_ops:
+            fail(f"partition update: torch operations computed on CPU tensors: {watch2.cpu_ops}")
+        updated = replace_rows(table, bounds[3][0], update_part)
+        second = aggregate_and_compare(updated, providers, device, "partition update")
+        del updated
+
+        # every K5 and K2 launch of the partition runs against its plain version
+        from deequ_tpu_torch.states import InMemoryStateProvider
+
+        kernel_counts_zero()
+        with PlainCheck("partition_path") as plain, HllPlainCheck("partition_path") as hplain:
+            for part in parts:
+                run_partition(part, InMemoryStateProvider(), device)
+        k5_checked = sum(s["calls"] for s in plain.shapes)
+        if k5_checked != launches["bincount"] or hplain.checked != launches["hll"]:
+            fail(f"partition_path: held {k5_checked} K5 / {hplain.checked} K2 launches "
+                 f"against plain, the runs made {launches}")
+        subnormal = subnormal_partitions(device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "phase": "partition_path",
+        "rows": n, "partitions": PARTITIONS, "partition_rows": bounds[0][1] - bounds[0][0],
+        "analyzers": len(build_check().required_analyzers()) + len(partition_required()),
+        "partition_run_wall_s_median": statistics.median(walls),
+        "partition_run_wall_s": walls,
+        "partition_run_wall_s_watched": watched,
+        "state_files": len(files), "state_bytes_written": sum(sizes),
+        "largest_state_file_bytes": max(sizes),
+        "kernel_launches": {k: launches[k] + update_launches[k] for k in launches},
+        "kernel_launches_partitions": launches,
+        "kernel_launches_update": update_launches,
+        "k5_vs_plain": plain.shapes, "k2_vs_plain_launches": hplain.checked,
+        "peak_device_bytes": peak,
+        "cpu_ops": watch.cpu_ops,
+        "aggregated": first,
+        "update_run_wall_s": update_wall,
+        "updated": second,
+        "subnormals": subnormal,
+    }
+
+
+def build_stream_check():
+    """main_path's scan-shareable constraints and has_distinctness(status)."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    check = Check(CheckLevel.ERROR, "stream").has_size(lambda n: n > 0)
+    check = check.is_complete("id").has_completeness("f0", lambda v: v > 0.9)
+    for j in range(20):
+        c = f"f{j}"
+        check = (check.has_min(c, lambda v: True).has_max(c, lambda v: True)
+                 .has_mean(c, lambda v: True).has_sum(c, lambda v: True)
+                 .has_standard_deviation(c, lambda v: v > 0))
+    return (
+        check.has_correlation("f0", "f1", lambda v: -1.0 <= v <= 1.0)
+        .is_non_negative("f5", lambda v: v > 0)
+        .is_contained_in("status", [f"S{i}" for i in range(7)], lambda v: v > 0.9)
+        .satisfies("f3 > -20", "f3 above -20", lambda v: v > 0.5)
+        .where("status = 'S1'")
+        .has_distinctness(["status"], lambda v: v > 0)
+    )
+
+
+def stream_path(seed: int, device) -> dict:
+    """Phase ``stream_path`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+    from deequ_tpu_torch.ops import scan_engine
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.states import InMemoryStateProvider
+    from deequ_tpu_torch.states.serde import serialize_state
+    from deequ_tpu_torch.verification import IncrementalVerificationStream
+
+    class Recording(InMemoryStateProvider):
+        """Keeps the bytes of every state saved, in order."""
+
+        def __init__(self):
+            super().__init__()
+            self.saved = []
+
+        def persist(self, analyzer, state):
+            self.saved.append((repr(analyzer), serialize_state(state)))
+            super().persist(analyzer, state)
+
+    source = make_table(STREAM_BATCHES * STREAM_BATCH_ROWS, seed + 2)
+    batches = [slice_rows(source, b * STREAM_BATCH_ROWS, (b + 1) * STREAM_BATCH_ROWS)
+               for b in range(STREAM_BATCHES)]
+    del source
+    required = [ApproxCountDistinct("customer_id")]
+
+    def run_stream(provider, watch=None):
+        stream = IncrementalVerificationStream(
+            [build_stream_check()], required, aggregate_with=provider,
+            save_states_with=provider, window=STREAM_WINDOW, device=device)
+        done = []
+        for b, batch in enumerate(batches):
+            done.extend(stream.submit(batch, result_key=b))
+        done.extend(stream.close())
+        return dict(done)
+
+    def serial_loop(provider):
+        return {b: VerificationSuite.do_verification_run(
+            batch, [build_stream_check()], required, device,
+            aggregate_with=provider, save_states_with=provider)
+            for b, batch in enumerate(batches)}
+
+    orig_group = scan_engine.run_scan_group
+
+    def marked_group(*args, **kwargs):  # copies inside the group scan, counted apart
+        watch.marked = True
+        try:
+            return orig_group(*args, **kwargs)
+        finally:
+            watch.marked = False
+
+    stream_states = Recording()
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    scan_engine.run_scan_group = marked_group
+    try:
+        with watch:
+            piped = run_stream(stream_states)
+    finally:
+        scan_engine.run_scan_group = orig_group
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    if watch.cpu_ops:
+        fail(f"stream_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    groups = stats["group_scan_passes"]
+    if groups != STREAM_BATCHES // STREAM_WINDOW:
+        fail(f"stream_path: {groups} groups dispatched, want {STREAM_BATCHES // STREAM_WINDOW}")
+    if stats["group_fetches"] != groups:
+        fail(f"stream_path: {stats['group_fetches']} fetches over {groups} groups, want one a group")
+    if launches["hll"] != STREAM_BATCHES:
+        fail(f"stream_path: {launches['hll']} K2 launches, want one a batch")
+
+    serial_states = Recording()
+    serial = serial_loop(serial_states)
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(InMemoryStateProvider())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the walls, unwatched, the two alternating: three each
+    walls = {"stream": [], "serial": []}
+    for _ in range(3):
+        walls["stream"].append(timed(run_stream))
+        walls["serial"].append(timed(serial_loop))
+
+    compared = 0
+    for b in range(STREAM_BATCHES):
+        want = {repr(a): m.value.get() for a, m in serial[b].metrics.items()}
+        got = {repr(a): m.value.get() for a, m in piped[b].metrics.items()}
+        if want.keys() != got.keys():
+            fail(f"stream_path: batch {b}: metric sets differ")
+        for key, w in want.items():
+            g = got[key]
+            if not (g == w or (g != g and w != w)):
+                fail(f"stream_path: batch {b}: {key} stream {g!r} != serial {w!r}")
+            compared += 1
+        if piped[b].status != serial[b].status:
+            fail(f"stream_path: batch {b}: status differs")
+    if stream_states.saved != serial_states.saved:
+        fail("stream_path: the saved states' bytes differ from the serial loop's")
+
+    kernel_counts_zero()
+    with PlainCheck("stream_path") as plain, HllPlainCheck("stream_path") as hplain:
+        run_stream(InMemoryStateProvider())
+    k5_checked = sum(s["calls"] for s in plain.shapes)
+    if k5_checked != launches["bincount"] or hplain.checked != launches["hll"]:
+        fail(f"stream_path: held {k5_checked} K5 / {hplain.checked} K2 launches against "
+             f"plain, the stream made {launches}")
+    return {
+        "phase": "stream_path",
+        "batches": STREAM_BATCHES, "batch_rows": STREAM_BATCH_ROWS, "window": STREAM_WINDOW,
+        "groups_dispatched": groups,
+        "fetches_a_group": stats["group_fetches"] / groups,
+        "h2d_copies_a_group_in_group_scan": watch.h2d_marked / groups,
+        "h2d_copies_stream_total": watch.h2d_copies,
+        "stream_wall_s_median_of_3": statistics.median(walls["stream"]),
+        "serial_loop_wall_s_median_of_3": statistics.median(walls["serial"]),
+        "stream_wall_s": walls["stream"], "serial_loop_wall_s": walls["serial"],
+        "metrics_bit_identical": compared,
+        "states_bytes_identical": len(serial_states.saved),
+        "kernel_launches": launches,
+        "k5_vs_plain": plain.shapes, "k2_vs_plain_launches": hplain.checked,
+        "scan_stats": stats,
+    }
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2432,7 +2962,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     res_main = resident_main(table, device, main_result, report)
     emit({**res_main, "seconds": time.perf_counter() - t0})
-    del table, main_result
+    del main_result
+
+    t0 = time.perf_counter()
+    part = partition_path(table, args.seed, device)
+    emit({**part, "card": smi, "seconds": time.perf_counter() - t0})
+    del table
+
+    t0 = time.perf_counter()
+    stream = stream_path(args.seed, device)
+    emit({**stream, "card": smi, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     sketch, table, streamed = sketch_path(args.rows, args.seed, device)
@@ -2478,7 +3017,15 @@ def main(argv=None) -> int:
                 "sketch_path": sketch["kernel_launches"]["bincount"],
                 "frequency_path": freq["kernel_launches"],
                 "resident_path": sum(r["kernel_launches"]["bincount"]
-                                     for r in (res_main, res_sketch, res_freq))}
+                                     for r in (res_main, res_sketch, res_freq)),
+                "partition_path": part["kernel_launches"]["bincount"],
+                "stream_path": stream["kernel_launches"]["bincount"]}
+    hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
+                    "frequency_path": freq["hll_launches"],
+                    "resident_path": sum(r["kernel_launches"]["hll"]
+                                         for r in (res_main, res_sketch, res_freq)),
+                    "partition_path": part["kernel_launches"]["hll"],
+                    "stream_path": stream["kernel_launches"]["hll"]}
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -2505,12 +3052,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/hll.cu",
         "replaces": "deequ_tpu/ops/hll.py:350",
-        "launches": (sketch["kernel_launches"]["hll"] + freq["hll_launches"]
-                     + sum(r["kernel_launches"]["hll"] for r in (res_main, res_sketch, res_freq))),
-        "launches_by_path": {"sketch_path": sketch["kernel_launches"]["hll"],
-                             "frequency_path": freq["hll_launches"],
-                             "resident_path": sum(r["kernel_launches"]["hll"]
-                                                  for r in (res_main, res_sketch, res_freq))},
+        "launches": sum(hll_launches.values()),
+        "launches_by_path": hll_launches,
         "max_abs_err": 0,
         "ms": htime["kernel_ms"],
         "plain_ms": htime["plain_ms"],

@@ -23,6 +23,12 @@ pass; the grouping analyzers (Uniqueness, UniqueValueRatio, Distinctness,
 CountDistinct, Entropy, MutualInformation) and Histogram, whose dense
 counts run the hand-written CUDA histogram of ``csrc/bincount.cu``. Every
 in-memory ``Check`` method but the anomaly check is carried.
+
+Analyzer states persist and merge (``states/``: the reference's state
+format byte for byte, in-memory and filesystem providers;
+``aggregate_with``/``save_states_with`` on every run,
+``run_on_aggregated_states``), and ``IncrementalVerificationStream`` runs
+deequ's incremental workflow over arriving batches.
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
@@ -36,7 +42,11 @@ from deequ_tpu_torch.exceptions import (
     NotYetPortedException,
 )
 from deequ_tpu_torch.metrics import DoubleMetric, Entity, HistogramMetric, Metric
-from deequ_tpu_torch.verification import VerificationResult, VerificationSuite
+from deequ_tpu_torch.verification import (
+    IncrementalVerificationStream,
+    VerificationResult,
+    VerificationSuite,
+)
 
 __version__ = "0.1.0"
 
@@ -52,6 +62,7 @@ __all__ = [
     "DoubleMetric",
     "Entity",
     "HistogramMetric",
+    "IncrementalVerificationStream",
     "Metric",
     "NotYetPortedException",
     "VerificationResult",

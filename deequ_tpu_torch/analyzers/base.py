@@ -138,9 +138,18 @@ class Analyzer(ABC):
     def preconditions(self) -> List[Callable[[Schema], None]]:
         return []
 
-    def calculate(self, table: ColumnarTable, device=None) -> Metric:
+    def calculate(
+        self,
+        table: ColumnarTable,
+        device=None,
+        aggregate_with=None,
+        save_states_with=None,
+    ) -> Metric:
         """One analyzer on its own pass, on ``device`` (resolved as the
-        entry points resolve it: ``deequ_tpu_torch.device``)."""
+        entry points resolve it: ``deequ_tpu_torch.device``). With
+        ``aggregate_with`` (a StateLoader) the state loaded for this
+        analyzer merges into the computed one; with ``save_states_with``
+        (a StatePersister) the merged state is saved."""
         from deequ_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)
@@ -153,17 +162,49 @@ class Analyzer(ABC):
             raise
         except Exception as e:  # noqa: BLE001 — failure is data
             return self.to_failure_metric(wrap_if_necessary(e))
-        return self.calculate_metric(state)
+        return self.calculate_metric(state, aggregate_with, save_states_with)
 
-    def calculate_metric(self, state: Optional[State]) -> Metric:
+    def calculate_metric(
+        self, state: Optional[State], aggregate_with=None, save_states_with=None
+    ) -> Metric:
         try:
+            if aggregate_with is not None:
+                state = merge_states(state, aggregate_with.load(self))
+            if save_states_with is not None and state is not None:
+                save_states_with.persist(self, state)
             return self.compute_metric_from(state)
         except Exception as e:  # noqa: BLE001
             return self.to_failure_metric(wrap_if_necessary(e))
 
+    def aggregate_state_to(self, source_a, source_b, target) -> None:
+        """Merge the states of two loaders into a persister (reference
+        Analyzer.scala:130-147)."""
+        merged = merge_states(source_a.load(self), source_b.load(self))
+        if merged is not None:
+            target.persist(self, merged)
+
+    def load_state_and_compute_metric(self, source) -> Metric:
+        """The metric of a saved state, with no scan."""
+        try:
+            return self.compute_metric_from(source.load(self))
+        except Exception as e:  # noqa: BLE001
+            return self.to_failure_metric(wrap_if_necessary(e))
+
+    def copy_state_to(self, source, target) -> None:
+        state = source.load(self)
+        if state is not None:
+            target.persist(self, state)
+
     @property
     def name(self) -> str:
         return type(self).__name__
+
+
+def merge_states(a: Optional[State], b: Optional[State]) -> Optional[State]:
+    """Option-aware monoid merge (reference analyzers/Analyzer.scala:366-386)."""
+    if a is not None and b is not None:
+        return a.sum(b)
+    return a if a is not None else b
 
 
 class ScanShareableAnalyzer(Analyzer):

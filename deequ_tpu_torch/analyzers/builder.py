@@ -1,0 +1,62 @@
+"""AnalysisRunBuilder — fluent raw-metric runs (reference analyzers/
+runners/AnalysisRunBuilder.scala:25-186; the port's copy of
+``deequ_tpu/analyzers/builder.py`` without ``use_repository``, which comes
+with the metrics repository)."""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence
+
+from deequ_tpu_torch.analyzers.base import Analyzer
+from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
+from deequ_tpu_torch.data.table import ColumnarTable
+
+
+class AnalysisRunBuilder:
+    def __init__(self, data: ColumnarTable, device=None):
+        self._data = data
+        self._device = device
+        self._analyzers: List[Analyzer] = []
+        self._aggregate_with = None
+        self._save_states_with = None
+        self._success_metrics_path: Optional[str] = None
+        self._overwrite_output_files = False
+
+    def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
+        self._analyzers.append(analyzer)
+        return self
+
+    def add_analyzers(self, analyzers: Sequence[Analyzer]) -> "AnalysisRunBuilder":
+        self._analyzers.extend(analyzers)
+        return self
+
+    def aggregate_with(self, state_loader) -> "AnalysisRunBuilder":
+        self._aggregate_with = state_loader
+        return self
+
+    def save_states_with(self, state_persister) -> "AnalysisRunBuilder":
+        self._save_states_with = state_persister
+        return self
+
+    def save_success_metrics_json_to_path(self, path: str) -> "AnalysisRunBuilder":
+        self._success_metrics_path = path
+        return self
+
+    def overwrite_previous_files(self, overwrite: bool) -> "AnalysisRunBuilder":
+        self._overwrite_output_files = overwrite
+        return self
+
+    def run(self) -> AnalyzerContext:
+        ctx = AnalysisRunner.do_analysis_run(
+            self._data, self._analyzers, self._device,
+            aggregate_with=self._aggregate_with,
+            save_states_with=self._save_states_with,
+        )
+        if self._success_metrics_path is not None and (
+            self._overwrite_output_files
+            or not os.path.exists(self._success_metrics_path)
+        ):
+            with open(self._success_metrics_path, "w") as f:
+                f.write(AnalyzerContext.success_metrics_as_json(ctx))
+        return ctx

@@ -613,14 +613,19 @@ class Histogram(FrequencyBasedAnalyzer):
             counts, table.num_rows,
         )
 
-    def calculate(self, table: ColumnarTable, device=None) -> HistogramMetric:
-        """Without a binning UDF, counts are ranked on the card and only
-        max_detail_bins (slot, count) pairs come back and decode — the
-        engine-side top() of the reference (Histogram.scala:97-103). Ties
-        at the truncation boundary keep the lower slot (dictionary or
-        value order). With a UDF the frequency-table path runs."""
-        if self.binning_udf is not None:
-            return super().calculate(table, device)
+    def calculate(
+        self, table: ColumnarTable, device=None, aggregate_with=None,
+        save_states_with=None,
+    ) -> HistogramMetric:
+        """Without a binning UDF, and with no state to load or save, counts
+        are ranked on the card and only max_detail_bins (slot, count) pairs
+        come back and decode — the engine-side top() of the reference
+        (Histogram.scala:97-103). Ties at the truncation boundary keep the
+        lower slot (dictionary or value order). Otherwise the
+        frequency-table path runs: its state is the mergeable one."""
+        if (self.binning_udf is not None or aggregate_with is not None
+                or save_states_with is not None):
+            return super().calculate(table, device, aggregate_with, save_states_with)
         from deequ_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)

@@ -16,27 +16,38 @@ Planning pipeline, mirroring doAnalysisRun (reference L97-203):
 
 Partial failure is data: a failure inside the fused scan maps onto every
 participating analyzer (reference L320-323); precondition failures become
-failure metrics instead of aborting (L137-145). Streams, saved and
-aggregated states and repositories wait for later slices. Where-free KLL
-ops of one sketch size run as one batched op (``_coalesce_scan_ops``).
+failure metrics instead of aborting (L137-145). Where-free KLL ops of one
+sketch size run as one batched op (``_coalesce_scan_ops``).
+
+States: on every route (the fused scan, own-pass Histogram, grouping)
+``aggregate_with`` merges a saved state into the computed one and
+``save_states_with`` saves the result; a grouping set with either set
+materialises its frequency table (the count-statistics shortcut holds no
+mergeable state). ``run_on_aggregated_states`` computes metrics from
+saved states alone, with no scan. The pipelined stream of arriving
+batches is ``analyzers/incremental.py``; metrics repositories wait for a
+later slice.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from deequ_tpu_torch.analyzers.base import (
     Analyzer,
     ScanShareableAnalyzer,
+    State,
     find_first_failing,
+    merge_states,
 )
 from deequ_tpu_torch.analyzers.grouping import (
     FrequencyBasedAnalyzer,
     Histogram,
     ScanShareableFrequencyBasedAnalyzer,
 )
-from deequ_tpu_torch.data.table import ColumnarTable
+from deequ_tpu_torch.data.table import ColumnarTable, Schema
 from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.exceptions import wrap_if_necessary
 from deequ_tpu_torch.metrics import Metric
@@ -83,19 +94,62 @@ class AnalyzerContext:
     def metric(self, analyzer: Analyzer) -> Optional[Metric]:
         return self.metric_map.get(analyzer)
 
+    @staticmethod
+    def success_metrics_as_rows(
+        analyzer_context: "AnalyzerContext",
+        for_analyzers: Optional[Sequence[Analyzer]] = None,
+    ) -> List[dict]:
+        """The successful metrics, flattened, as row dicts (the reference's
+        DataFrame of them, AnalyzerContext.scala:60-85)."""
+        rows = []
+        for analyzer, metric in analyzer_context.metric_map.items():
+            if for_analyzers and analyzer not in for_analyzers:
+                continue
+            if not metric.value.is_success:
+                continue
+            for m in metric.flatten():
+                if m.value.is_success:
+                    rows.append({
+                        "entity": m.entity.value,
+                        "instance": m.instance,
+                        "name": m.name,
+                        "value": m.value.get(),
+                    })
+        return rows
+
+    @staticmethod
+    def success_metrics_as_json(
+        analyzer_context: "AnalyzerContext",
+        for_analyzers: Optional[Sequence[Analyzer]] = None,
+    ) -> str:
+        return json.dumps(
+            AnalyzerContext.success_metrics_as_rows(analyzer_context, for_analyzers)
+        )
+
 
 class AnalysisRunner:
     """Entry point for computing metrics (reference AnalysisRunner.scala)."""
+
+    @staticmethod
+    def on_data(data: ColumnarTable, device=None) -> "AnalysisRunBuilder":
+        from deequ_tpu_torch.analyzers.builder import AnalysisRunBuilder
+
+        return AnalysisRunBuilder(data, device)
 
     @staticmethod
     def do_analysis_run(
         data: ColumnarTable,
         analyzers: Sequence[Analyzer],
         device=None,
+        aggregate_with=None,
+        save_states_with=None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
-        DeviceUnavailableException when that device is not there)."""
+        DeviceUnavailableException when that device is not there).
+        ``aggregate_with`` (a StateLoader) merges each analyzer's saved
+        state into the one computed here; ``save_states_with`` (a
+        StatePersister) saves the result."""
         dev = resolve_device(device)
         if not analyzers:
             return AnalyzerContext.empty()
@@ -116,12 +170,15 @@ class AnalysisRunner:
         own_pass = [a for a in passed if a not in grouping and a not in scanning]
 
         # (3) one fused scan for all shareable analyzers (reference L289-336)
-        scan_ctx = AnalysisRunner._run_scanning_analyzers(data, scanning, dev)
+        scan_ctx = AnalysisRunner._run_scanning_analyzers(
+            data, scanning, dev, aggregate_with, save_states_with
+        )
 
         # (4) own-pass analyzers (reference L155-160)
-        own_ctx = AnalyzerContext(
-            {a: a.calculate(data, dev) for a in own_pass}
-        )
+        own_ctx = AnalyzerContext({
+            a: a.calculate(data, dev, aggregate_with, save_states_with)
+            for a in own_pass
+        })
 
         # (5) one computation per distinct sorted grouping-column set
         # (reference L175-190)
@@ -132,44 +189,59 @@ class AnalysisRunner:
         group_ctx = AnalyzerContext.empty()
         for group_key, group_analyzers in by_grouping.items():
             group_ctx += AnalysisRunner._run_grouping_analyzers(
-                data, list(group_key), group_analyzers, dev
+                data, list(group_key), group_analyzers, dev,
+                aggregate_with, save_states_with,
             )
         return failure_ctx + scan_ctx + own_ctx + group_ctx
 
     @staticmethod
-    def _run_scanning_analyzers(
+    def _build_scan_ops(data: ColumnarTable, analyzers):
+        """Each analyzer's ScanOp, with failure isolation: a malformed op
+        (say, a bad where expression) fails only its analyzer. Returns
+        (ops, scannable, op_failures); shared by the serial path and the
+        stream's group path (analyzers/incremental.py)."""
+        ops, scannable, op_failures = [], [], {}
+        for analyzer in analyzers:
+            try:
+                ops.append(analyzer.scan_op(data))
+                scannable.append(analyzer)
+            except Exception as e:  # noqa: BLE001 — failure is data
+                op_failures[analyzer] = wrap_if_necessary(e)
+        return ops, scannable, op_failures
+
+    @staticmethod
+    def _dispatch_scanning_analyzers(
         data: ColumnarTable,
         analyzers: Sequence[ScanShareableAnalyzer],
         device,
-    ) -> AnalyzerContext:
-        """Per-analyzer ScanOp construction with failure isolation (a
-        malformed op, e.g. a bad where expression, fails only its
-        analyzer), then one fused scan whose failure maps onto every
-        participating analyzer."""
+    ):
+        """Build the ops and run the fused scan. Returns (ctx holding the
+        failures, scannable, plan, results); results is None when nothing
+        scanned or the scan failed (its failure then maps onto every
+        participating analyzer, reference L320-323)."""
         ctx = AnalyzerContext.empty()
-        ops = []
-        scannable = []
-        for analyzer in analyzers:
-            try:
-                op = analyzer.scan_op(data)
-            except Exception as e:  # noqa: BLE001 — failure is data
-                ctx.metric_map[analyzer] = analyzer.to_failure_metric(
-                    wrap_if_necessary(e)
-                )
-                continue
-            ops.append(op)
-            scannable.append(analyzer)
+        ops, scannable, op_failures = AnalysisRunner._build_scan_ops(data, analyzers)
+        for analyzer, err in op_failures.items():
+            ctx.metric_map[analyzer] = analyzer.to_failure_metric(err)
         if not scannable:
-            return ctx
+            return ctx, [], [], None
         exec_ops, plan = AnalysisRunner._coalesce_scan_ops(ops)
         try:
             results = run_scan(data, exec_ops, device)
-        except Exception as e:  # noqa: BLE001 — a failure inside the shared
-            # scan maps onto every participating analyzer (reference L320-323)
+        except Exception as e:  # noqa: BLE001 — failure is data
             wrapped = wrap_if_necessary(e)
             for a in scannable:
                 ctx.metric_map[a] = a.to_failure_metric(wrapped)
-            return ctx
+            return ctx, [], [], None
+        return ctx, scannable, plan, results
+
+    @staticmethod
+    def _finalize_scanning_analyzers(
+        ctx: AnalyzerContext, scannable, plan, results,
+        aggregate_with=None, save_states_with=None,
+    ) -> AnalyzerContext:
+        """States from the scan's results, merged and saved as asked, then
+        metrics."""
         for analyzer, (exec_idx, extract) in zip(scannable, plan):
             try:
                 result = results[exec_idx]
@@ -181,8 +253,28 @@ class AnalysisRunner:
                     wrap_if_necessary(e)
                 )
                 continue
-            ctx.metric_map[analyzer] = analyzer.calculate_metric(state)
+            ctx.metric_map[analyzer] = analyzer.calculate_metric(
+                state, aggregate_with, save_states_with
+            )
         return ctx
+
+    @staticmethod
+    def _run_scanning_analyzers(
+        data: ColumnarTable,
+        analyzers: Sequence[ScanShareableAnalyzer],
+        device,
+        aggregate_with=None,
+        save_states_with=None,
+    ) -> AnalyzerContext:
+        """One fused scan for ``analyzers``, then their metrics."""
+        ctx, scannable, plan, results = AnalysisRunner._dispatch_scanning_analyzers(
+            data, analyzers, device
+        )
+        if results is None:
+            return ctx
+        return AnalysisRunner._finalize_scanning_analyzers(
+            ctx, scannable, plan, results, aggregate_with, save_states_with
+        )
 
     @staticmethod
     def _coalesce_scan_ops(ops):
@@ -225,11 +317,18 @@ class AnalysisRunner:
         grouping_columns: List[str],
         analyzers: Sequence[FrequencyBasedAnalyzer],
         device,
+        aggregate_with=None,
+        save_states_with=None,
     ) -> AnalyzerContext:
-        """The count statistics when every analyzer of the set is a
-        function of the count distribution (group values never decode),
-        else the frequency table (reference L1266-1331)."""
-        count_stats = all(_count_stats_capable(a) for a in analyzers)
+        """The count statistics when no state is loaded or saved and every
+        analyzer of the set is a function of the count distribution (group
+        values never decode), else the frequency table, merged and saved
+        as asked (reference L1266-1331)."""
+        count_stats = (
+            aggregate_with is None
+            and save_states_with is None
+            and all(_count_stats_capable(a) for a in analyzers)
+        )
         try:
             if count_stats:
                 stats = group_count_stats(data, grouping_columns, device)
@@ -244,6 +343,42 @@ class AnalysisRunner:
             return AnalyzerContext(
                 {a: a.metric_from_count_stats(stats) for a in analyzers}
             )
-        return AnalyzerContext(
-            {a: a.calculate_metric(state) for a in analyzers}
-        )
+        return AnalyzerContext({
+            a: a.calculate_metric(state, aggregate_with, save_states_with)
+            for a in analyzers
+        })
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema: Schema,
+        analyzers: Sequence[Analyzer],
+        state_loaders: Sequence,
+        save_states_with=None,
+    ) -> AnalyzerContext:
+        """Metrics from saved states alone, with no scan: each analyzer's
+        states merge across ``state_loaders`` in order (reference
+        AnalysisRunner.scala:385-460); ``save_states_with`` keeps the
+        merged states."""
+        if not analyzers or not state_loaders:
+            return AnalyzerContext.empty()
+        passed: List[Analyzer] = []
+        ctx = AnalyzerContext.empty()
+        for analyzer in analyzers:
+            exc = find_first_failing(schema, analyzer.preconditions())
+            if exc is None:
+                passed.append(analyzer)
+            else:
+                ctx.metric_map[analyzer] = analyzer.to_failure_metric(exc)
+        for analyzer in passed:
+            merged: Optional[State] = None
+            try:
+                for loader in state_loaders:
+                    merged = merge_states(merged, loader.load(analyzer))
+                if save_states_with is not None and merged is not None:
+                    save_states_with.persist(analyzer, merged)
+                ctx.metric_map[analyzer] = analyzer.compute_metric_from(merged)
+            except Exception as e:  # noqa: BLE001
+                ctx.metric_map[analyzer] = analyzer.to_failure_metric(
+                    wrap_if_necessary(e)
+                )
+        return ctx

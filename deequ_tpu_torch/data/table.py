@@ -403,5 +403,34 @@ class ColumnarTable:
         idx = np.arange(min(n, self.num_rows))
         return ColumnarTable([c.take(idx) for c in self.columns.values()])
 
+    def concat(self, other: "ColumnarTable") -> "ColumnarTable":
+        """Row-wise union (the incremental-against-batch comparisons). A
+        string column's dictionary becomes the sorted union of both, its
+        codes remapped onto it."""
+        if set(self.column_names) != set(other.column_names):
+            raise ValueError("schema mismatch in concat")
+        cols = []
+        for name in self.column_names:
+            a, b = self.columns[name], other.columns[name]
+            if a.dtype != b.dtype:
+                raise ValueError(f"dtype mismatch for {name}")
+            if a.dtype == DType.STRING:
+                both = np.concatenate([np.asarray(a.dictionary, dtype=str),
+                                       np.asarray(b.dictionary, dtype=str)])
+                dictionary, inv = np.unique(both, return_inverse=True)
+                inv = inv.reshape(-1).astype(np.int32)
+                codes = np.full(a.codes.size + b.codes.size, -1, dtype=np.int32)
+                for part, remap, at in ((a.codes, inv[:len(a.dictionary)], 0),
+                                        (b.codes, inv[len(a.dictionary):], a.codes.size)):
+                    ok = part >= 0
+                    codes[at:at + part.size][ok] = remap[part[ok]]
+                cols.append(Column(name, DType.STRING, codes=codes,
+                                   dictionary=dictionary.astype(object)))
+            else:
+                cols.append(Column(name, a.dtype,
+                                   values=np.concatenate([a.values, b.values]),
+                                   mask=np.concatenate([a.mask, b.mask])))
+        return ColumnarTable(cols)
+
     def __repr__(self) -> str:
         return f"ColumnarTable({self.num_rows} rows, {self.schema})"

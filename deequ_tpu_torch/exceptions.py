@@ -55,6 +55,32 @@ class EmptyStateException(MetricCalculationRuntimeException):
     pass
 
 
+class CorruptStateException(MetricCalculationRuntimeException):
+    """Persisted bytes failed integrity validation (checksum mismatch,
+    torn write, undecodable payload) — raised instead of the raw struct
+    error, so a caller can tell a damaged file (recompute the state) from
+    a bug."""
+
+    def __init__(self, what: str, detail: str = ""):
+        msg = f"corrupt persisted state: {what}"
+        if detail:
+            msg += f" ({detail})"
+        super().__init__(msg)
+        self.what = what
+
+
+class RetryExhaustedException(MetricCalculationRuntimeException):
+    """A retried I/O operation kept failing past the RetryPolicy's attempt
+    budget or deadline. ``__cause__`` carries the last underlying error."""
+
+    def __init__(self, what: str, attempts: int, cause: BaseException):
+        super().__init__(
+            f"{what} still failing after {attempts} attempts: {cause}"
+        )
+        self.attempts = attempts
+        self.__cause__ = cause
+
+
 class NotYetPortedException(MetricCalculationException, NotImplementedError):
     """A constraint or analyzer of the reference package that this port
     does not carry yet. Raised when a check is BUILT with it, so a suite

@@ -1,10 +1,16 @@
 """Carrying data and state across from the reference package.
 
 This system's counterpart of carrying a model's weights across: its data
-is the table and its parameters are the analyzer states. Both functions
-take plain numpy arrays and numbers, never objects of ``deequ_tpu``, so
-the port stays free of the reference (the parity tests read the arrays
-off a ``deequ_tpu`` table or state and hand them over).
+is the table and its parameters are the analyzer states. These functions
+take plain numpy arrays, numbers and bytes, never objects of
+``deequ_tpu``, so the port stays free of the reference (the parity tests
+read the arrays off a ``deequ_tpu`` table or state and hand them over).
+
+A state crosses in either of two forms: its fields
+(:func:`state_from_fields`), or the bytes of the shared state format
+(:func:`state_from_bytes` / :func:`state_to_bytes`, ``states/serde.py``:
+the reference's ``DQTS`` envelope, byte for byte) — the form a state file
+of a ``FileSystemStateProvider`` holds inside its checksum envelope.
 """
 
 from __future__ import annotations
@@ -13,9 +19,11 @@ from typing import Iterable, Mapping
 
 import numpy as np
 
+from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
 from deequ_tpu_torch.analyzers.sketches import ApproxCountDistinctState, KLLState
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
+    DataTypeHistogram,
     MaxState,
     MeanState,
     MinState,
@@ -26,12 +34,13 @@ from deequ_tpu_torch.analyzers.states import (
 )
 from deequ_tpu_torch.data.table import Column, ColumnarTable, ColumnChunk, DType
 from deequ_tpu_torch.ops.kll import KLLSketchState
+from deequ_tpu_torch.states.serde import deserialize_state, serialize_state
 
 _STATES = {
     cls.__name__: cls
     for cls in (
         NumMatches, NumMatchesAndCount, MeanState, SumState, MinState,
-        MaxState, StandardDeviationState, CorrelationState,
+        MaxState, StandardDeviationState, CorrelationState, DataTypeHistogram,
     )
 }
 
@@ -49,7 +58,16 @@ def _kll_state(compactors, count, rng_count, sketch_size, shrinking_factor,
     return KLLState(sketch, float(global_min), float(global_max))
 
 
-_STATES.update({"ApproxCountDistinctState": _hll_state, "KLLState": _kll_state})
+def _freq_state(columns, key_values, key_nulls, counts, num_rows) -> FrequenciesAndNumRows:
+    return FrequenciesAndNumRows(
+        tuple(columns), tuple(np.array(v) for v in key_values),
+        tuple(np.array(m, dtype=bool) for m in key_nulls),
+        np.array(counts, dtype=np.int64), int(num_rows),
+    )
+
+
+_STATES.update({"ApproxCountDistinctState": _hll_state, "KLLState": _kll_state,
+                "FrequenciesAndNumRows": _freq_state})
 
 
 def table_from_arrays(columns: Iterable[Mapping]) -> ColumnarTable:
@@ -93,7 +111,10 @@ def state_from_fields(kind: str, fields: Mapping):
       and ``hash_version``;
     - ``"KLLState"``: the sketch's ``compactors`` (one array of items a
       level), ``count``, ``rng_count``, ``sketch_size`` and
-      ``shrinking_factor``, and ``global_min`` / ``global_max``."""
+      ``shrinking_factor``, and ``global_min`` / ``global_max``;
+    - ``"FrequenciesAndNumRows"``: ``columns``, ``key_values`` and
+      ``key_nulls`` (one array a grouping column), ``counts`` and
+      ``num_rows``."""
     try:
         cls = _STATES[kind]
     except KeyError:
@@ -101,3 +122,16 @@ def state_from_fields(kind: str, fields: Mapping):
             f"unknown state kind {kind!r}; one of {sorted(_STATES)}"
         ) from None
     return cls(**{k: v for k, v in fields.items()})
+
+
+def state_from_bytes(data: bytes):
+    """The port's state from the bytes of the shared state format — as
+    the reference's ``serialize_state`` writes them, or a state file's
+    payload."""
+    return deserialize_state(bytes(data))
+
+
+def state_to_bytes(state) -> bytes:
+    """A port state as the bytes of the shared state format, equal to
+    what the reference writes for the same fields."""
+    return serialize_state(state)

@@ -21,6 +21,12 @@ summaries take the radix select (``ops/scan_plan.py``,
 numeric column (``Column.encoding``) rides an int16 code plane, streamed
 or resident, and decodes on the device with one gather of its dictionary.
 
+Arriving batches of an incremental stream (``analyzers/incremental.py``)
+scan in groups (:func:`run_scan_group`): equal-size one-chunk batches of
+one packer layout are packed into one host buffer, copied to the card
+once, scanned batch by batch on views of that copy, and fetched once a
+group — each batch's results bit for bit those of its own ``run_scan``.
+
 The card has native f64, so the port computes in f64 and carries no
 counterpart of the reference's (hi, lo) f32 pairs (``ops/df32.py``).
 Moments are per-chunk (count, mean, M2) combined with the Chan merge by
@@ -168,6 +174,11 @@ class ScanStats:
         # device->host fetches of the most recent fused scan (the
         # one-fetch-per-scan contract: 1)
         self.last_scan_fetches = 0
+        # group scans of an incremental stream (run_scan_group; each also
+        # counts one scan pass) and the fetches their dispatch and drain
+        # made (the one-fetch-per-group contract: equal counts)
+        self.group_scan_passes = 0
+        self.group_fetches = 0
 
     def record_fetch(self, nbytes: int) -> None:
         with self._lock:
@@ -235,12 +246,26 @@ class _ChunkPacker:
             n for n in self.numeric_names if not bool(cols[n].mask.all())
         ]
 
-    def pack(self, start: int, stop: int) -> Tuple[np.ndarray, ...]:
+    #: each plane's dtype, in ``pack``'s order
+    PLANE_DTYPES = (np.float64, np.bool_, np.int32, np.int16)
+
+    def layout(self) -> Tuple[Tuple[str, ...], ...]:
+        """The planes' row names: two tables whose packers have one layout
+        pack into planes of the same shapes and meanings."""
+        return (tuple(self.numeric_names), tuple(self.masked_names),
+                tuple(self.string_names), tuple(self.enc_names))
+
+    def plane_rows(self) -> Tuple[int, ...]:
+        return tuple(len(names) for names in self.layout())
+
+    def pack(self, start: int, stop: int, out=None) -> Tuple[np.ndarray, ...]:
+        """Rows [start, stop) as the four planes (values, masks, codes,
+        enc); into ``out`` (four arrays of those shapes) when given."""
         n = stop - start
-        values = np.empty((len(self.numeric_names), n), dtype=np.float64)
-        masks = np.empty((len(self.masked_names), n), dtype=np.bool_)
-        codes = np.empty((len(self.string_names), n), dtype=np.int32)
-        enc = np.empty((len(self.enc_names), n), dtype=np.int16)
+        if out is None:
+            out = tuple(np.empty((rows, n), dtype=dt)
+                        for rows, dt in zip(self.plane_rows(), self.PLANE_DTYPES))
+        values, masks, codes, enc = out
         for i, name in enumerate(self.numeric_names):
             values[i] = self.cols[name].values[start:stop]
         for i, name in enumerate(self.masked_names):
@@ -369,21 +394,33 @@ class _DeviceFoldPlan:
         )
         self._filled = 0
 
+    def _merged(self, acc: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+        new = flat[self._elem_src]
+        return torch.where(
+            self._is_sum,
+            acc + new,
+            torch.where(self._is_min, torch.minimum(acc, new), torch.maximum(acc, new)),
+        )
+
     def merge(self, flat: torch.Tensor) -> None:
         """Fold one chunk's flat vector into the accumulator."""
         if self.elem_size:
-            new = flat[self._elem_src]
-            acc = self._acc
-            self._acc = torch.where(
-                self._is_sum,
-                acc + new,
-                torch.where(
-                    self._is_min, torch.minimum(acc, new), torch.maximum(acc, new)
-                ),
-            )
+            self._acc = self._merged(self._acc, flat)
         if self.gather_size:
             self._gathered[self._filled] = flat[self._gather_src]
         self._filled += 1
+
+    @property
+    def single_size(self) -> int:
+        return self.elem_size + self.gather_size
+
+    def single(self, flat: torch.Tensor) -> torch.Tensor:
+        """The vector a scan of ONE chunk with this flat vector fetches:
+        the same merge from the identities, then its gather leaves —
+        bit for bit what :meth:`merge` and :meth:`fetch_unflatten` give a
+        one-chunk table."""
+        elem = self._merged(self._acc, flat) if self.elem_size else self._acc
+        return torch.cat([elem, flat[self._gather_src]])
 
     def fetch_unflatten(self) -> List[Dict[str, np.ndarray]]:
         """The scan's one device->host fetch, unpacked into per-op dicts of
@@ -391,16 +428,21 @@ class _DeviceFoldPlan:
         (host,) = fetch(
             torch.cat([self._acc, self._gathered[: self._filled].reshape(-1)])
         )
+        return self.unflatten(host, self._filled)
+
+    def unflatten(self, host: np.ndarray, filled: int) -> List[Dict[str, np.ndarray]]:
+        """A fetched vector of ``filled`` chunks as per-op dicts of numpy
+        leaves."""
         elem = host[: self.elem_size]
-        gathered = host[self.elem_size:].reshape(self._filled, self.gather_size)
+        gathered = host[self.elem_size:].reshape(filled, self.gather_size)
         out = []
         for leaves in self._layout:
             result = {}
             for key, tag, off, size, shape, is_int in leaves:
                 if tag == "gather":
-                    leaf = gathered[:, off:off + size].reshape((self._filled,) + shape)
+                    leaf = gathered[:, off:off + size].reshape((filled,) + shape)
                     if not shape:
-                        leaf = leaf.reshape(self._filled)
+                        leaf = leaf.reshape(filled)
                 else:
                     leaf = elem[off:off + size].reshape(shape)
                 result[key] = leaf.astype(np.int64) if is_int else leaf
@@ -611,6 +653,184 @@ def run_scan(
     results = fold.fetch_unflatten()
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results
+
+
+# -- micro-batched group scan (incremental streams) --------------------------
+
+#: byte alignment of every batch's slot in a group's stacked buffer: a
+#: batch's planes then sit at the alignment a fresh allocation has, so its
+#: reductions take the same vectorised paths (and bits) as its own scan's
+_SLOT_ALIGN = 512
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _SLOT_ALIGN) * _SLOT_ALIGN
+
+
+class DeferredGroupScan:
+    """K batches scanned from one stacked copy, fetched ONCE: ``results()``
+    drains the (K, S) device tensor and returns one list of per-op leaf
+    dicts a batch, each equal to that batch's own ``run_scan``."""
+
+    def __init__(self, device_out: torch.Tensor, fold: "_DeviceFoldPlan",
+                 dispatch_fetches: int):
+        self._device_out = device_out
+        self._fold = fold
+        self._results: Optional[list] = None
+        SCAN_STATS.group_fetches += dispatch_fetches
+
+    def results(self) -> list:
+        if self._results is None:
+            before = SCAN_STATS.device_fetches
+            (host,) = fetch(self._device_out)
+            SCAN_STATS.group_fetches += SCAN_STATS.device_fetches - before
+            self._results = [self._fold.unflatten(row, 1) for row in host]
+            self._device_out = None
+        return self._results
+
+
+def group_scannable(tables, ops):
+    """The shared packer layout (truthy) when :func:`run_scan_group` can
+    take these batches, else False: equal non-zero sizes, each within one
+    chunk of the serial scan's rule, none persisted, one dtype a needed
+    column and one packer layout (the reference's rule,
+    ``deequ_tpu/ops/scan_engine.py:group_scannable``). A bigger batch would
+    scan in several chunks and merge them — another association than the
+    group's, which the bit-for-bit contract forbids — and a union layout
+    would pack some batch otherwise than its own scan does. The port needs
+    no rule against dictionary-baked ops: an op reads each batch's own
+    dictionary and lookup tables when it runs."""
+    needed = sorted({c for op in ops for c in op.columns})
+    first = tables[0]
+    if any(n not in first for n in needed):
+        return False
+    sig = [(n, first[n].dtype) for n in needed]
+    n_rows = first.num_rows
+    if n_rows == 0 or n_rows > _auto_chunk_rows({n: first[n] for n in needed}):
+        return False
+    layout0 = None
+    for t in tables:
+        if t.num_rows != n_rows or getattr(t, "is_persisted", False):
+            return False
+        if any(n not in t for n in needed) or [(n, t[n].dtype) for n in needed] != sig:
+            return False
+        layout = _ChunkPacker({n: t[n] for n in needed}).layout()
+        if layout0 is None:
+            layout0 = layout
+        elif layout != layout0:
+            return False
+    return layout0
+
+
+def _stack_luts(ops, tables) -> List[Tuple[str, str, np.ndarray]]:
+    """Each op lookup table of each batch, padded along its last axis to
+    the group's largest power of two (a gather never reaches the padding:
+    a code stays below its own dictionary's size): (column, key, (K, ...,
+    L) host array)."""
+    from deequ_tpu_torch.ops.lut_cache import dictionary_lut
+
+    specs = {}
+    for op in ops:
+        for col, key, build in op.luts:
+            specs.setdefault((col, key), build)
+    out = []
+    for (col, key), build in specs.items():
+        per_table = [np.asarray(dictionary_lut(t[col].dictionary, key, build))
+                     for t in tables]
+        target = 1
+        while target < max(a.shape[-1] for a in per_table):
+            target <<= 1
+        stacked = np.zeros((len(tables),) + per_table[0].shape[:-1] + (target,),
+                           dtype=per_table[0].dtype)
+        for k, a in enumerate(per_table):
+            stacked[k, ..., : a.shape[-1]] = a
+        out.append((col, key, stacked))
+    return out
+
+
+def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> DeferredGroupScan:
+    """One pass over K batches that :func:`group_scannable` admitted: every
+    batch's planes (and its op lookup tables) packed into ONE host buffer,
+    each batch in a slot of its own, and copied to ``device`` once; each
+    batch's ``op.update`` then runs on views of its slot — the shapes its
+    own ``run_scan`` gives it — and writes its folded vector into row k
+    of one (K, S) tensor, fetched once by ``results()``. No reduction runs
+    across batches: a stacked (K, n) reduction would associate otherwise
+    than the 1-D one and break the bit-for-bit contract."""
+    device = torch.device(device)
+    K = len(tables)
+    n = tables[0].num_rows
+    if any(t.num_rows != n for t in tables):
+        raise ValueError("run_scan_group needs equal-size batches (group_scannable)")
+    needed = sorted({c for op in ops for c in op.columns})
+    packers = [_ChunkPacker({name: t[name] for name in needed}) for t in tables]
+    if layout is not None and packers[0].layout() != layout:
+        raise ValueError("run_scan_group: the batches' layout is not the admitted one")
+    plan = plan_scan_ops(ops, packers[0], False, None, n)
+    ops = plan.ops
+    fetches_before = SCAN_STATS.device_fetches
+
+    # one host buffer: per plane (then per lookup table), K aligned slots
+    shapes = [((rows, n), np.dtype(dt))
+              for rows, dt in zip(packers[0].plane_rows(), _ChunkPacker.PLANE_DTYPES)]
+    luts = _stack_luts(ops, tables)
+    shapes += [(arr.shape[1:], arr.dtype) for _, _, arr in luts]
+    slots, total = [], 0
+    for shape, dt in shapes:
+        size = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        slots.append((total, _aligned(size), size))
+        total += K * _aligned(size)
+    host = np.empty(total, dtype=np.uint8)
+
+    def host_view(i, k):
+        base, step, size = slots[i]
+        off = base + k * step
+        shape, dt = shapes[i]
+        return host[off:off + size].view(dt).reshape(shape)
+
+    for k, packer in enumerate(packers):
+        packer.pack(0, n, out=tuple(host_view(i, k) for i in range(4)))
+    for j, (_, _, arr) in enumerate(luts):
+        for k in range(K):
+            host_view(4 + j, k)[...] = arr[k]
+    SCAN_STATS.bytes_packed += host.nbytes
+    with device_boundary("transfer"):
+        dev = torch.from_numpy(host).to(device)
+
+    def dev_view(i, k):
+        base, step, size = slots[i]
+        shape, dt = shapes[i]
+        tdt = torch.from_numpy(np.empty(0, dtype=dt)).dtype
+        if size == 0:
+            return torch.empty(shape, dtype=tdt, device=device)
+        off = base + k * step
+        return dev[off:off + size].view(tdt).reshape(shape)
+
+    SCAN_STATS.scan_passes += 1
+    SCAN_STATS.group_scan_passes += 1
+    SCAN_STATS.rows_scanned += K * n
+    SCAN_STATS.device_sort_passes += plan.sort_ops * K
+    if plan.encoded_columns:
+        SCAN_STATS.encoded_scan_passes += 1
+    fold: Optional[_DeviceFoldPlan] = None
+    out: Optional[torch.Tensor] = None
+    with device_boundary("execute"):
+        row_valid = torch.ones(n, dtype=torch.bool, device=device)
+        for k, packer in enumerate(packers):
+            op_luts: Dict[str, Dict[str, torch.Tensor]] = {}
+            for j, (col, key, _) in enumerate(luts):
+                op_luts.setdefault(col, {})[key] = dev_view(4 + j, k)
+            planes = [dev_view(i, k) for i in range(4)]
+            vals = packer.unpack_vals(*planes, row_valid, op_luts,
+                                      packer.enc_luts(device), needed)
+            partials = [op.update(vals, row_valid, n, n) for op in ops]
+            if fold is None:
+                fold = _DeviceFoldPlan(ops, partials, 1, device)
+                out = torch.empty((K, fold.single_size), dtype=torch.float64,
+                                  device=device)
+            out[k] = fold.single(_flatten(partials))
+            SCAN_STATS.chunks_processed += 1
+    return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before)
 
 
 # -- per-chunk reductions (the f64 counterparts of ops/df32.py) -------------

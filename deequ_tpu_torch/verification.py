@@ -16,13 +16,14 @@ no CUDA device and no such request, ``run()`` raises
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
 from deequ_tpu_torch.checks import Check, CheckResult, CheckStatus
-from deequ_tpu_torch.data.table import ColumnarTable
+from deequ_tpu_torch.data.table import ColumnarTable, Schema
 from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.metrics import Metric
 
@@ -45,6 +46,22 @@ class VerificationResult:
     scan_stats: Dict[str, object] = field(default_factory=dict)
 
     @staticmethod
+    def success_metrics_as_rows(
+        result: "VerificationResult",
+        for_analyzers: Optional[Sequence[Analyzer]] = None,
+    ) -> List[dict]:
+        return AnalyzerContext.success_metrics_as_rows(
+            AnalyzerContext(result.metrics), for_analyzers
+        )
+
+    @staticmethod
+    def success_metrics_as_json(
+        result: "VerificationResult",
+        for_analyzers: Optional[Sequence[Analyzer]] = None,
+    ) -> str:
+        return json.dumps(VerificationResult.success_metrics_as_rows(result, for_analyzers))
+
+    @staticmethod
     def check_results_as_rows(result: "VerificationResult") -> List[dict]:
         rows = []
         for check, check_result in result.check_results.items():
@@ -61,6 +78,10 @@ class VerificationResult:
                 )
         return rows
 
+    @staticmethod
+    def check_results_as_json(result: "VerificationResult") -> str:
+        return json.dumps(VerificationResult.check_results_as_rows(result))
+
 
 _STAT_KEYS = (
     "scan_passes",
@@ -71,6 +92,15 @@ _STAT_KEYS = (
     "hist_plain_dispatches",
     "hist_host_dispatches",
 )
+
+
+def _required(checks: Sequence[Check], required_analyzers) -> List[Analyzer]:
+    """The analyzers a run needs: the required ones, then each check's,
+    de-duplicated."""
+    analyzers = list(required_analyzers)
+    for check in checks:
+        analyzers.extend(check.required_analyzers())
+    return _dedup_analyzers(analyzers)
 
 
 def _dedup_analyzers(analyzers: Sequence[Analyzer]) -> List[Analyzer]:
@@ -108,16 +138,19 @@ class VerificationSuite:
         checks: Sequence[Check],
         required_analyzers: Sequence[Analyzer] = (),
         device=None,
+        aggregate_with=None,
+        save_states_with=None,
     ) -> VerificationResult:
+        """One verification run; ``aggregate_with`` (a StateLoader) merges
+        saved states into this run's, ``save_states_with`` (a
+        StatePersister) saves the merged states."""
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
         dev = resolve_device(device)
-        analyzers = list(required_analyzers)
-        for check in checks:
-            analyzers.extend(check.required_analyzers())
         before = {k: getattr(SCAN_STATS, k) for k in _STAT_KEYS}
         context = AnalysisRunner.do_analysis_run(
-            data, _dedup_analyzers(analyzers), device=dev
+            data, _required(checks, required_analyzers), dev,
+            aggregate_with=aggregate_with, save_states_with=save_states_with,
         )
         result = VerificationSuite._evaluate(checks, context)
         result.device = str(dev)
@@ -125,6 +158,23 @@ class VerificationSuite:
             k: getattr(SCAN_STATS, k) - v for k, v in before.items()
         }
         return result
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema: Schema,
+        checks: Sequence[Check],
+        state_loaders: Sequence,
+        required_analyzers: Sequence[Analyzer] = (),
+        save_states_with=None,
+    ) -> VerificationResult:
+        """Verification from saved states alone, with no scan: each
+        analyzer's states merge across ``state_loaders`` (reference
+        VerificationSuite.scala:208-229)."""
+        ctx = AnalysisRunner.run_on_aggregated_states(
+            schema, _required(checks, required_analyzers), state_loaders,
+            save_states_with=save_states_with,
+        )
+        return VerificationSuite._evaluate(checks, ctx)
 
     @staticmethod
     def _evaluate(
@@ -144,6 +194,62 @@ class VerificationSuite:
         )
 
 
+class IncrementalVerificationStream:
+    """Pipelined incremental verification (reference
+    VerificationSuite.scala:208-229: per arriving batch, merge states and
+    evaluate the checks) over the micro-batched scan of
+    ``analyzers/incremental.py``. Checks are evaluated at drain time in
+    submission order, so each batch's result is the serial loop's::
+
+        stream = IncrementalVerificationStream(
+            checks=[check], aggregate_with=states, save_states_with=states,
+        )
+        for key, batch in arriving:
+            for done_key, result in stream.submit(batch, result_key=key):
+                ...
+        for done_key, result in stream.close():
+            ...
+
+    (The metrics-repository append waits for the repository's slice.)"""
+
+    def __init__(
+        self,
+        checks: Sequence[Check],
+        required_analyzers: Sequence[Analyzer] = (),
+        aggregate_with=None,
+        save_states_with=None,
+        window: int = 8,
+        device=None,
+    ):
+        from deequ_tpu_torch.analyzers.incremental import IncrementalAnalysisStream
+
+        self.checks = list(checks)
+        self._stream = IncrementalAnalysisStream(
+            _required(self.checks, required_analyzers),
+            aggregate_with=aggregate_with,
+            save_states_with=save_states_with,
+            window=window,
+            device=device,
+        )
+
+    def _finalize(self, drained):
+        out = []
+        for result_key, ctx in drained:
+            result = VerificationSuite._evaluate(self.checks, ctx)
+            result.device = str(self._stream.device)
+            out.append((result_key, result))
+        return out
+
+    def submit(self, data: ColumnarTable, result_key=None):
+        """Buffer one batch; returns the (result_key, VerificationResult)
+        pairs of batches drained now."""
+        return self._finalize(self._stream.submit(data, tag=result_key))
+
+    def close(self):
+        """Drain everything still in flight (FIFO)."""
+        return self._finalize(self._stream.close())
+
+
 class VerificationRunBuilder:
     """Fluent configuration (reference VerificationRunBuilder.scala:28-182)."""
 
@@ -152,6 +258,8 @@ class VerificationRunBuilder:
         self._device = device
         self._checks: List[Check] = []
         self._required_analyzers: List[Analyzer] = []
+        self._aggregate_with = None
+        self._save_states_with = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -169,7 +277,17 @@ class VerificationRunBuilder:
         self._required_analyzers.extend(analyzers)
         return self
 
+    def aggregate_with(self, state_loader) -> "VerificationRunBuilder":
+        self._aggregate_with = state_loader
+        return self
+
+    def save_states_with(self, state_persister) -> "VerificationRunBuilder":
+        self._save_states_with = state_persister
+        return self
+
     def run(self) -> VerificationResult:
         return VerificationSuite.do_verification_run(
-            self._data, self._checks, self._required_analyzers, self._device
+            self._data, self._checks, self._required_analyzers, self._device,
+            aggregate_with=self._aggregate_with,
+            save_states_with=self._save_states_with,
         )

@@ -147,6 +147,31 @@ def test_basic_example_parity(parity_env):
     assert port_result.device == "cpu"
 
 
+def test_result_rows_and_json_parity(parity_env):
+    """success_metrics_as_rows / _as_json and check_results_as_json agree
+    between the packages on the basic example (the port's run saving its
+    states on the way)."""
+    import json
+
+    from deequ_tpu_torch.states import InMemoryStateProvider
+
+    ref_table = deequ_tpu.ColumnarTable.from_pydict(BASIC_DATA)
+    ref_result = deequ_tpu.VerificationSuite.on_data(ref_table).add_check(
+        _basic_check(deequ_tpu)).run()
+    port_result = (
+        deequ_tpu_torch.VerificationSuite.on_data(port_table(ref_table), device="cpu")
+        .add_check(_basic_check(deequ_tpu_torch))
+        .save_states_with(InMemoryStateProvider())
+        .run()
+    )
+    assert PortResult.success_metrics_as_rows(port_result) == RefResult.success_metrics_as_rows(
+        ref_result)
+    assert json.loads(PortResult.success_metrics_as_json(port_result)) == json.loads(
+        RefResult.success_metrics_as_json(ref_result))
+    assert PortResult.check_results_as_json(port_result) == RefResult.check_results_as_json(
+        ref_result)
+
+
 def test_basic_example_from_pydict_builds_the_same_table():
     ref = deequ_tpu.ColumnarTable.from_pydict(BASIC_DATA)
     port = deequ_tpu_torch.ColumnarTable.from_pydict(BASIC_DATA)
@@ -204,7 +229,7 @@ def test_state_from_fields_finalizes_to_reference_metric(kind, spec):
 
 def test_state_from_fields_rejects_unknown_kind():
     with pytest.raises(ValueError):
-        state_from_fields("FrequenciesAndNumRows", {})
+        state_from_fields("SpilledFrequencies", {})
 
 
 def test_import_isolation():
@@ -212,7 +237,11 @@ def test_import_isolation():
     code = (
         "import sys, deequ_tpu_torch, deequ_tpu_torch.verification, "
         "deequ_tpu_torch.interop, deequ_tpu_torch.ops.segment, "
-        "deequ_tpu_torch.native, deequ_tpu_torch.ops.lut_cache\n"
+        "deequ_tpu_torch.native, deequ_tpu_torch.ops.lut_cache, "
+        "deequ_tpu_torch.states, deequ_tpu_torch.states.serde, "
+        "deequ_tpu_torch.data.fs, deequ_tpu_torch.data.cast, "
+        "deequ_tpu_torch.resilience, deequ_tpu_torch.analyzers.incremental, "
+        "deequ_tpu_torch.analyzers.analysis, deequ_tpu_torch.analyzers.builder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deequ_tpu' or m.startswith('deequ_tpu.'))\n"
         "print(bad)\n"
