@@ -133,6 +133,39 @@ Phases, each printed as one JSON line on stdout:
    identical; 4 groups, one fetch a group, the host-to-device copies a
    group scan makes, both walls, K2 one launch a batch, every K5 and K2
    launch against its plain version;
+15. ``repository_path`` (after ``stream_path``, over the main path's
+   table) — the metrics repository, anomaly checks and the monitor, in
+   three parts. First the Holt-Winters fit (K9, ``csrc/holt_winters.cu``):
+   the plain autograd fit of 13 series on the host's CPU (spawned worker
+   processes, all shut down after), the kernel within 1e-12 of each with
+   the same flagged points (a weekly series at 2p, 28, 36, 365 and 730
+   points, a monthly one at 24, 28, 36, 365 and 730, a constant series
+   and one near 10^9), a 10-step fit against the plain version on the
+   card, and a ``kernel_timing`` line (the kernel alone at 365 and 730
+   points, a wrapper call, the plain version's 10 steps on the card
+   scaled to 300, the bound). ``daily_run``: a year of tenant-0's history
+   (Size, Completeness(f1) with a weekly pattern, Mean(f0)) in a
+   ``FileSystemMetricsRepository`` under a temporary directory the phase
+   removes, then today's ``run()`` (the main check, CountDistinct and
+   ApproxCountDistinct(customer_id)) saving under ResultKey(365) with
+   three anomaly checks — OnlineNormal on Size, RelativeRateOfChange on
+   Mean(f0) (scripted to fire), Holt-Winters on Completeness(f1): every
+   metric against numpy, each check's status against the strategy
+   recomputed here (Holt-Winters with the plain fit on the host's CPU),
+   one K9 launch, no torch op on a CPU tensor, today's result read back
+   through a fresh repository, and a second run reusing today's key with
+   no scan and no launch. ``fleet_history``: 100 tables × 365 days × the
+   main run's 113 scalar metrics and Completeness(f1), 4,161,000 history
+   rows, seeded by ``save()`` into a ``ColumnarMetricsRepository`` that a
+   ``QualityMonitor`` watches (Holt-Winters on tenant-0's Completeness(f1),
+   armed by one K9 launch on the card; OnlineNormal on its Size, one
+   scripted drop: exactly one alert), ``compact()``-ed, then two queries
+   on the card (cross-tenant Completeness(f1) over days 30–330, and every
+   row): one fetch each, count/min/max exact and sum/mean within 1e-12,
+   stddev within 1e-10 of numpy, bit for bit the decoded query and the
+   loader-side baseline, the encoded query staging at most half the
+   decoded one's bytes; the save, compact, history-build, query and
+   loader-side walls;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
@@ -154,7 +187,7 @@ import time
 
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
-KERNELS = ("bincount", "hll", "select")
+KERNELS = ("bincount", "hll", "select", "holt_winters")
 
 # memory rate of each H100 part (NVIDIA data sheets), bytes/s
 _HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -2448,18 +2481,20 @@ class HllPlainCheck:
 
 
 def kernel_counts_zero() -> None:
-    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops import histogram_device, hll, holt_winters
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
+    holt_winters.LAUNCHES = 0
 
 
 def kernel_counts() -> dict:
-    from deequ_tpu_torch.ops import histogram_device, hll
+    from deequ_tpu_torch.ops import histogram_device, hll, holt_winters
 
-    return {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES}
+    return {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+            "holt_winters": holt_winters.LAUNCHES}
 
 
 def slice_rows(table, start: int, stop: int):
@@ -2887,6 +2922,581 @@ def stream_path(seed: int, device) -> dict:
     }
 
 
+# -- phase 15: the metrics repository, anomaly checks and the monitor --------
+
+#: the daily history one table keeps before today's run, and the fleet
+HISTORY_DAYS = 365
+FLEET_TABLES = 100
+TENANT = {"tenant": "tenant-0"}
+#: the Holt-Winters parity lengths: 2p (the monitor's warmup), then 28,
+#: 36 (the milk series' training span), a year and two years
+HW_PARITY_LENGTHS = (0, 28, 36, 365, 730)
+#: kernel against plain version: the fitted parameters' bound (both take
+#: exact gradients; the roundings differ in the last bits)
+HW_TOL = 1e-12
+
+
+def _plain_fit_job(job):
+    """One plain (autograd) fit on the host's CPU, in a worker process."""
+    series, p, steps = job
+    import torch
+
+    from deequ_tpu_torch.ops import holt_winters
+
+    torch.set_num_threads(1)
+    return holt_winters.fit_plain(torch.tensor(series, dtype=torch.float64), p, steps).tolist()
+
+
+def plain_fits_on_host(jobs: dict) -> dict:
+    """{name: (alpha, beta, gamma)} of the plain fit of every job
+    {name: (series, p, steps)}, on the host's CPU, one worker process a
+    core (spawned, so none shares this process's CUDA context), all shut
+    down before returning."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        # longest first, so the two-year fits do not start last
+        order = sorted(jobs, key=lambda k: -len(jobs[k][0]))
+        futures = {name: pool.submit(_plain_fit_job, jobs[name]) for name in order}
+        return {name: tuple(f.result()) for name, f in futures.items()}
+
+
+def hw_series(kind: str, n: int, seed: int):
+    """The parity series: ``weekly`` (a completeness-like ratio with a
+    weekly pattern and noise), ``monthly`` (a level with a yearly pattern
+    and a trend), ``constant`` (1.0) and ``big`` (values near 10^9, the
+    scale of test_anomaly.py's BIG)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, n, len(kind)])
+    t = np.arange(n)
+    if kind == "weekly":
+        return 0.97 + 0.01 * np.sin(2 * np.pi * t / 7) + 0.002 * rng.standard_normal(n)
+    if kind == "monthly":
+        return 1000 + 50 * np.sin(2 * np.pi * t / 12) + 3 * t + 5 * rng.standard_normal(n)
+    if kind == "big":
+        return 1e9 + 1e6 * np.sin(2 * np.pi * t / 7) + 1e5 * rng.standard_normal(n)
+    return np.ones(n)
+
+
+def hw_flags(series, n: int, p: int, abg) -> list:
+    """Indices in [n, len(series)) that Holt-Winters with parameters abg,
+    trained on series[:n], flags (seasonal.py's rule, host numpy)."""
+    import numpy as np
+
+    from deequ_tpu_torch.anomaly.seasonal import additive_holt_winters
+
+    test = series[n:]
+    forecasts, residuals = additive_holt_winters(series[:n], p, len(test), *abg)
+    sd = float(np.abs(residuals).std(ddof=1))
+    return [n + i for i, (o, f) in enumerate(zip(test, forecasts)) if abs(o - f) > 1.96 * sd]
+
+
+def hw_parity_cases(seed: int) -> dict:
+    """{name: (series of n + p points, n, p)}: the kernel's parity cases."""
+    cases = {}
+    for kind, p in (("weekly", 7), ("monthly", 12)):
+        for n in HW_PARITY_LENGTHS:
+            n = n or 2 * p
+            cases[f"{kind}_n{n}"] = (hw_series(kind, n + p, seed), n, p)
+    cases["constant_n14"] = (hw_series("constant", 21, seed), 14, 7)
+    cases["big_n365"] = (hw_series("big", 372, seed), 365, 7)
+    return cases
+
+
+def daily_history(seed: int) -> dict:
+    """Tenant-0's 365 days before today: Size near 10^7, Completeness(f1)
+    with a weekly pattern (today, day 365, at the pattern's middle),
+    Mean(f0) near 10 (today's table has mean 5: a halving)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 365])
+    d = np.arange(HISTORY_DAYS)
+    return {
+        "size": 1e7 + rng.integers(-5000, 5001, HISTORY_DAYS).astype(np.float64),
+        "completeness_f1": (0.99 + 0.001 * np.sin(2 * np.pi * (d - 1) / 7)
+                            + 0.0002 * rng.standard_normal(HISTORY_DAYS)),
+        "mean_f0": 10.0 + 0.01 * rng.standard_normal(HISTORY_DAYS),
+    }
+
+
+def online_normal_flags(series, start: int, factor: float = 3.0, skip: float = 0.1) -> list:
+    """OnlineNormal's flagged indices from ``start`` on, written here from
+    its definition (a Welford running mean and variance including the
+    point, the first ``skip`` share of the series ignored, a flagged point
+    kept out of the running statistics)."""
+    mean = var_sum = 0.0
+    flagged = []
+    for i, x in enumerate(series):
+        last = (mean, var_sum)
+        mean = x if i == 0 else mean + (x - mean) / (i + 1)
+        var_sum += (x - last[0]) * (x - mean)
+        std = math.sqrt(var_sum / (i + 1))
+        if i >= max(start, len(series) * skip) and \
+                not (mean - factor * std <= x <= mean + factor * std):
+            flagged.append(i)
+            mean, var_sum = last
+    return flagged
+
+
+def _record_fits():
+    """Wrap the port's Holt-Winters fit to record each (n, p, abg, device)."""
+    from deequ_tpu_torch.anomaly import seasonal
+    from deequ_tpu_torch.device import resolve_device
+
+    seen = []
+    orig = seasonal._fit_parameters
+
+    def recording(series, p, device=None):
+        abg = orig(series, p, device)
+        seen.append((len(series), p, abg, str(resolve_device(device))))
+        return abg
+
+    seasonal._fit_parameters = recording
+    return seen, lambda: setattr(seasonal, "_fit_parameters", orig)
+
+
+def daily_run(table, history: dict, hw_plain, seed: int, device) -> dict:
+    """Part ``daily_run`` of ``repository_path`` (module doc)."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import CheckLevel
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, Completeness, Mean, Size
+    from deequ_tpu_torch.anomaly import (
+        HoltWinters,
+        MetricInterval,
+        OnlineNormalStrategy,
+        RelativeRateOfChangeStrategy,
+        SeriesSeasonality,
+    )
+    from deequ_tpu_torch.analyzers.runner import AnalyzerContext
+    from deequ_tpu_torch.metrics import DoubleMetric, Entity
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.repository import AnalysisResult, FileSystemMetricsRepository, ResultKey
+    from deequ_tpu_torch.tryresult import Success
+    from deequ_tpu_torch.verification import AnomalyCheckConfig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_repo_")
+    try:
+        path = os.path.join(root, "metrics.json")
+        repo = FileSystemMetricsRepository(path)
+        t0 = time.perf_counter()
+        for day in range(HISTORY_DAYS):
+            repo.save(AnalysisResult(ResultKey(day, TENANT), AnalyzerContext({
+                Size(): DoubleMetric(Entity.DATASET, "Size", "*",
+                                     Success(float(history["size"][day]))),
+                Completeness("f1"): DoubleMetric(Entity.COLUMN, "Completeness", "f1",
+                                                 Success(float(history["completeness_f1"][day]))),
+                Mean("f0"): DoubleMetric(Entity.COLUMN, "Mean", "f0",
+                                         Success(float(history["mean_f0"][day]))),
+            })))
+        seed_s = time.perf_counter() - t0
+
+        today = ResultKey(HISTORY_DAYS, TENANT)
+        strategies = {
+            "online_normal_size": (OnlineNormalStrategy(), Size()),
+            "relative_rate_mean_f0": (
+                RelativeRateOfChangeStrategy(max_rate_decrease=0.9, max_rate_increase=1.1),
+                Mean("f0")),
+            "holt_winters_completeness_f1": (
+                HoltWinters(MetricInterval.DAILY, SeriesSeasonality.WEEKLY), Completeness("f1")),
+        }
+        suite = (build_suite(table).add_required_analyzer(ApproxCountDistinct("customer_id"))
+                 .use_repository(repo).save_or_append_result(today))
+        for name, (strategy, analyzer) in strategies.items():
+            suite = suite.add_anomaly_check(strategy, analyzer, AnomalyCheckConfig(
+                CheckLevel.WARNING, name, with_tag_values=dict(TENANT)))
+
+        fits, restore = _record_fits()
+        kernel_counts_zero()
+        watch = watch_cpu_ops()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with watch:
+                result = suite.run()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        run_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        stats = SCAN_STATS.snapshot()
+        if watch.cpu_ops:
+            fail(f"daily_run: torch operations computed on CPU tensors: {watch.cpu_ops}")
+        if launches["holt_winters"] != 1 or len(fits) != 1 or fits[0][3] != str(device):
+            fail(f"daily_run: {launches['holt_winters']} K9 launches and fits {fits}, "
+                 f"want one fit on {device}")
+        if launches["bincount"] < 3 or launches["hll"] < 1:
+            fail(f"daily_run: kernel launches {launches}")
+
+        # every metric against numpy
+        expected = expected_metrics(table)
+        f1 = table["f1"]
+        expected[("Completeness", "f1")] = float(f1.mask.sum()) / table.num_rows
+        acd = [m for a, m in result.metrics.items() if isinstance(a, ApproxCountDistinct)]
+        cu = table["customer_id"]
+        exact = len(np.unique(cu.values[cu.mask]))
+        estimate = acd[0].value.get()
+        if abs(estimate - exact) > 0.2 * exact:
+            fail(f"daily_run: ApproxCountDistinct {estimate} vs {exact} distinct")
+
+        worst = check_metrics(SimpleNamespace(metrics={
+            a: m for a, m in result.metrics.items() if not isinstance(a, ApproxCountDistinct)
+        }), expected)
+
+        # each anomaly check against the strategy recomputed here
+        n = table.num_rows
+        mean_f0 = float(table["f0"].values[table["f0"].mask].mean())
+        sizes = list(history["size"]) + [float(n)]
+        ratio = result.metrics[Mean("f0")].value.get() / history["mean_f0"][-1]
+        (n_fit, p_fit, abg_kernel, _), = fits
+        abg_err = max(abs(a - b) for a, b in zip(abg_kernel, hw_plain))
+        if (n_fit, p_fit) != (HISTORY_DAYS, 7) or abg_err > HW_TOL:
+            fail(f"daily_run: kernel fit {abg_kernel} vs plain {hw_plain} (err {abg_err})")
+        completeness = np.append(history["completeness_f1"], expected[("Completeness", "f1")])
+        hw_kernel = hw_flags(completeness, HISTORY_DAYS, 7, abg_kernel)
+        hw_plain_flags = hw_flags(completeness, HISTORY_DAYS, 7, hw_plain)
+        if hw_kernel != hw_plain_flags:
+            fail(f"daily_run: Holt-Winters flags {hw_kernel} (kernel fit) vs "
+                 f"{hw_plain_flags} (plain fit)")
+        want = {
+            "online_normal_size": HISTORY_DAYS in online_normal_flags(sizes, HISTORY_DAYS),
+            "relative_rate_mean_f0": not (0.9 <= ratio <= 1.1),
+            "holt_winters_completeness_f1": bool(hw_plain_flags),
+        }
+        got = {check.description: r.status.value for check, r in result.check_results.items()}
+        for name, anomalous in want.items():
+            if got[name] != ("Warning" if anomalous else "Success"):
+                fail(f"daily_run: {name} is {got[name]}, numpy says anomalous={anomalous}")
+        if not want["relative_rate_mean_f0"]:
+            fail(f"daily_run: today's Mean(f0) {mean_f0} was scripted to be anomalous")
+
+        # a fresh repository on the same file reads back today's result
+        stored = FileSystemMetricsRepository(path).load_by_key(today)
+        if stored is None:
+            fail("daily_run: today's result was not saved")
+        back = stored.analyzer_context.metric_map
+        if set(back) != set(result.metrics):
+            fail("daily_run: the saved result's analyzers differ from the run's")
+        for analyzer, metric in result.metrics.items():
+            if back[analyzer].value.get() != metric.value.get():
+                fail(f"daily_run: read back {analyzer}: {back[analyzer].value.get()!r} "
+                     f"!= {metric.value.get()!r}")
+
+        # a second run reusing today's key computes nothing
+        reuse = (build_suite(table).add_required_analyzer(ApproxCountDistinct("customer_id"))
+                 .use_repository(repo).reuse_existing_results_for_key(today, True))
+        kernel_counts_zero()
+        t0 = time.perf_counter()
+        again = reuse.run()
+        reuse_s = time.perf_counter() - t0
+        reuse_launches = kernel_counts()
+        if SCAN_STATS.scan_passes or SCAN_STATS.grouping_passes or any(reuse_launches.values()):
+            fail(f"daily_run: the reusing run scanned ({SCAN_STATS.scan_passes} passes) or "
+                 f"launched {reuse_launches}")
+        for analyzer, metric in again.metrics.items():
+            if metric.value.get() != result.metrics[analyzer].value.get():
+                fail(f"daily_run: reused {analyzer} differs")
+        return {
+            "part": "daily_run",
+            "history_days": HISTORY_DAYS,
+            "history_seed_s": seed_s,
+            "run_wall_s": run_s,
+            "reuse_run_wall_s": reuse_s,
+            "metrics_checked": len(expected) + 1,
+            "worst_rel_err": worst,
+            "anomaly_status": got,
+            "relative_rate_mean_f0": ratio,
+            "holt_winters_fit": {"kernel": abg_kernel, "plain_cpu": list(hw_plain),
+                                 "max_abs_err": abg_err, "flags": hw_kernel},
+            "status": result.status.value,
+            "kernel_launches": launches,
+            "reuse_kernel_launches": reuse_launches,
+            "scan_stats": stats,
+            "read_back_metrics": len(back),
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_values(series: list, seed: int):
+    """(tables, days, series) values: each series' base times 1 + k·10^-4,
+    k uniform in [-50, 50] (a daily wobble of at most 0.5% on a grid, so
+    the history's value plane takes a dictionary); tenant-0's
+    Completeness(f1) is 1.0 every day, its Size halves on day 250."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, FLEET_TABLES])
+    base = np.array([b for *_, b in series])
+    k = rng.integers(-50, 51, size=(FLEET_TABLES, HISTORY_DAYS, len(series)))
+    values = base[None, None, :] * (1.0 + k * 1e-4)
+    names = [(a, name) for a, _, name, _, _ in series]
+    f1 = next(i for i, (a, n) in enumerate(names) if repr(a) == "Completeness(column='f1', where=None)")
+    size = next(i for i, (a, n) in enumerate(names) if n == "Size")
+    values[0, :, f1] = 1.0
+    values[0, 250, size] = 0.5 * base[size]
+    return values, f1, size
+
+
+def fleet_history(main_result, seed: int, device) -> dict:
+    """Part ``fleet_history`` of ``repository_path`` (module doc)."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import use_device
+    from deequ_tpu_torch.analyzers import Completeness, Size
+    from deequ_tpu_torch.analyzers.runner import AnalyzerContext
+    from deequ_tpu_torch.anomaly import (
+        HoltWinters,
+        MetricInterval,
+        OnlineNormalStrategy,
+        SeriesSeasonality,
+    )
+    from deequ_tpu_torch.metrics import DoubleMetric, Entity
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.repository import (
+        AnalysisResult,
+        ColumnarMetricsRepository,
+        QualityMonitor,
+        RepositoryQuery,
+        ResultKey,
+    )
+    from deequ_tpu_torch.repository.query import loader_side_aggregates, run_repository_query
+    from deequ_tpu_torch.tryresult import Success
+
+    series = [(a, m.entity, m.name, m.instance, m.value.get())
+              for a, m in main_result.metrics.items()
+              if isinstance(m, DoubleMetric) and m.value.is_success]
+    series.append((Completeness("f1"), Entity.COLUMN, "Completeness", "f1", 0.99))
+    values, f1_idx, size_idx = fleet_values(series, seed)
+
+    monitor = QualityMonitor()
+    monitor.watch(HoltWinters(MetricInterval.DAILY, SeriesSeasonality.WEEKLY),
+                  analyzer=Completeness("f1"), tags=TENANT, name="hw_completeness_f1")
+    monitor.watch(OnlineNormalStrategy(), analyzer=Size(), tags=TENANT,
+                  name="online_normal_size", warmup=30)
+    repo = ColumnarMetricsRepository(monitor=monitor)
+    tags = [{"tenant": f"tenant-{t}"} for t in range(FLEET_TABLES)]
+    kernel_counts_zero()
+    t0 = time.perf_counter()
+    with use_device(device):  # where the monitor's Holt-Winters series arm
+        for day in range(HISTORY_DAYS):
+            for t in range(FLEET_TABLES):
+                row = values[t, day].tolist()
+                repo.save(AnalysisResult(ResultKey(day, tags[t]), AnalyzerContext({
+                    a: DoubleMetric(entity, name, inst, Success(v))
+                    for (a, entity, name, inst, _), v in zip(series, row)
+                })))
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    alerts = [(a.rule, a.time) for a in monitor.alerts]
+    if alerts != [("online_normal_size", 250)]:
+        fail(f"fleet_history: monitor alerts {alerts}, want one at day 250 on Size")
+    if launches["holt_winters"] != 1:
+        fail(f"fleet_history: {launches['holt_winters']} K9 launches arming the monitor, want 1")
+    t0 = time.perf_counter()
+    dropped = repo.compact()
+    compact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    history = repo.history_table()
+    build_s = time.perf_counter() - t0
+    rows = history.num_rows
+    if rows != values.size or dropped:
+        fail(f"fleet_history: {rows} history rows (want {values.size}), {dropped} dropped")
+
+    queries = {
+        "cross_tenant_completeness_f1": (
+            RepositoryQuery(metric_name="Completeness", instance="f1", after=30, before=330,
+                            aggregates=("count", "mean", "min", "max", "sum", "stddev")),
+            values[:, 30:331, f1_idx].ravel()),
+        "all_rows": (RepositoryQuery(aggregates=("count", "mean", "min", "max")),
+                     values.ravel()),
+    }
+    bounds = {"count": 0.0, "min": 0.0, "max": 0.0, "sum": 1e-12, "mean": 1e-12,
+              "stddev": 1e-10}
+    out = {}
+    for name, (query, want_rows) in queries.items():
+        want = {"count": float(len(want_rows)), "mean": float(want_rows.mean()),
+                "min": float(want_rows.min()), "max": float(want_rows.max()),
+                "sum": float(want_rows.sum()), "stddev": float(want_rows.std())}
+        kernel_counts_zero()
+        t0 = time.perf_counter()
+        enc = run_repository_query(repo, query, device=device)
+        enc_s = time.perf_counter() - t0
+        enc_stats = SCAN_STATS.snapshot()
+        kernel_counts_zero()
+        t0 = time.perf_counter()
+        dec = run_repository_query(repo, query, encoded_ingest=False, device=device)
+        dec_s = time.perf_counter() - t0
+        dec_stats = SCAN_STATS.snapshot()
+        t0 = time.perf_counter()
+        loader = loader_side_aggregates(repo, query, device=device)
+        loader_s = time.perf_counter() - t0
+        if enc_stats["device_fetches"] != 1 or dec_stats["device_fetches"] != 1:
+            fail(f"fleet_history: {name}: {enc_stats['device_fetches']} / "
+                 f"{dec_stats['device_fetches']} fetches, want one each")
+        if enc_stats["encoded_scan_passes"] != 1 or \
+                2 * enc_stats["bytes_packed"] > dec_stats["bytes_packed"]:
+            fail(f"fleet_history: {name}: encoded query staged {enc_stats['bytes_packed']} "
+                 f"bytes, decoded {dec_stats['bytes_packed']}")
+        if enc.rows != len(want_rows) or set(enc.aggregates) != set(query.aggregates):
+            fail(f"fleet_history: {name}: {enc.rows} rows, aggregates {enc.aggregates}")
+        for agg, value in enc.aggregates.items():
+            for other, label in ((dec, "decoded"), (loader, "loader-side")):
+                if struct_bits(other.aggregates[agg]) != struct_bits(value):
+                    fail(f"fleet_history: {name}.{agg}: {value!r} != {label} "
+                         f"{other.aggregates[agg]!r}")
+            err = abs(value - want[agg]) / max(abs(want[agg]), 1e-300)
+            if err > bounds[agg]:
+                fail(f"fleet_history: {name}.{agg}: {value!r} vs numpy {want[agg]!r}")
+        out[name] = {"rows": enc.rows, "aggregates": enc.aggregates,
+                     "query_wall_s": enc_s, "decoded_query_wall_s": dec_s,
+                     "loader_side_wall_s": loader_s,
+                     "bytes_packed": enc_stats["bytes_packed"],
+                     "decoded_bytes_packed": dec_stats["bytes_packed"]}
+    return {
+        "part": "fleet_history",
+        "tables": FLEET_TABLES, "days": HISTORY_DAYS, "series": len(series),
+        "history_rows": rows,
+        "save_wall_s": save_s, "saves": FLEET_TABLES * HISTORY_DAYS,
+        "compact_wall_s": compact_s, "segments": repo.num_segments,
+        "history_build_wall_s": build_s,
+        "monitor_alerts": alerts,
+        "kernel_launches": launches,
+        "queries": out,
+    }
+
+
+def struct_bits(x: float) -> bytes:
+    import struct
+
+    return struct.pack("<d", float(x))
+
+
+def holt_winters_parity(cases: dict, plain: dict, device) -> dict:
+    """Part ``holt_winters_parity`` (module doc): the kernel against the
+    plain fit on the host's CPU, and a 10-step fit against the plain
+    version on the card."""
+    import torch
+
+    from deequ_tpu_torch.ops import holt_winters
+
+    rows, worst = [], 0.0
+    for name, (series, n, p) in cases.items():
+        got = holt_winters.fit(torch.tensor(series[:n], device=device), p).tolist()
+        err = max(abs(a - b) for a, b in zip(got, plain[name]))
+        flags = hw_flags(series, n, p, got)
+        plain_flags = hw_flags(series, n, p, plain[name])
+        if err > HW_TOL or flags != plain_flags:
+            fail(f"holt_winters_parity: {name}: kernel {got} vs plain {plain[name]} "
+                 f"(err {err}), flags {flags} vs {plain_flags}")
+        worst = max(worst, err)
+        rows.append({"case": name, "n": n, "p": p, "max_abs_err": err, "flags": flags})
+    for name in sorted(cases, key=lambda k: cases[k][1])[-2:]:  # the two longest
+        series, n, p = cases[name]
+        x = torch.tensor(series[:n], device=device)
+        got = holt_winters.fit(x, p, steps=10)
+        want = holt_winters.fit_plain(x, p, steps=10)
+        err = (got - want).abs().max().item()
+        if err > HW_TOL:
+            fail(f"holt_winters_parity: {name}, 10 steps: kernel {got.tolist()} vs plain "
+                 f"on the card {want.tolist()}")
+        worst = max(worst, err)
+        rows.append({"case": f"{name}_10_steps_plain_on_card", "n": n, "p": p,
+                     "max_abs_err": err})
+    return {"cases": rows, "max_abs_err": worst}
+
+
+def holt_winters_timing(cases: dict, device) -> list:
+    """K9 at n = 365 and 730 (p = 7): the kernel alone (CUDA events, the
+    median of 5 after a warm launch), one wrapper call with its fetch, the
+    plain version's 10 steps on the card scaled to 300, and the bound: the
+    dependent chain of five f64 operations a point (module doc of
+    csrc/holt_winters.cu) at the f64 FMA latency measured here and the
+    card's top SM clock."""
+    import torch
+
+    from deequ_tpu_torch.ops import holt_winters
+
+    cycles = holt_winters.dfma_cycles(device)
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0]) * 1e6
+    out = []
+    for name in ("weekly_n365", "weekly_n730"):
+        series, n, p = cases[name]
+        x = torch.tensor(series[:n], device=device)
+        buf = torch.empty(3, dtype=torch.float64, device=device)
+        kernel_ms = time_cuda(lambda: holt_winters._launch(x, p, holt_winters.STEPS, buf),
+                              reps=5, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        holt_winters.fit(x, p).cpu()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        holt_winters.fit_plain(x, p, steps=10)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 * holt_winters.STEPS / 10
+        bound_ms = 5 * n * holt_winters.STEPS * cycles / clock_hz * 1e3
+        out.append({"column": name, "n": n, "p": p, "steps": holt_winters.STEPS,
+                    "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                    "plain_ms_from": "10 steps on the card, x 30",
+                    "bound_ms": bound_ms, "bound_by": "operations",
+                    "bound_share": bound_ms / kernel_ms,
+                    "dfma_latency_cycles": cycles, "sm_clock_max_hz": clock_hz,
+                    "library_ms": None})
+    return out
+
+
+def repository_path(table, main_result, seed: int, device) -> dict:
+    """Phase ``repository_path`` (module doc): the plain Holt-Winters fits
+    on the host's CPU first (the parity cases and the daily run's), then
+    the kernel held against them and timed, then the daily run, then the
+    fleet's repository."""
+    from deequ_tpu_torch.ops import holt_winters
+
+    history = daily_history(seed)
+    cases = hw_parity_cases(seed)
+    jobs = {name: (list(s[:n]), p, holt_winters.STEPS) for name, (s, n, p) in cases.items()}
+    jobs["daily_run"] = (list(history["completeness_f1"]), 7, holt_winters.STEPS)
+    t0 = time.perf_counter()
+    plain = plain_fits_on_host(jobs)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = holt_winters_parity(cases, plain, device)
+    timing = holt_winters_timing(cases, device)
+    hw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    daily = daily_run(table, history, plain["daily_run"], seed, device)
+    daily["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = fleet_history(main_result, seed, device)
+    fleet["seconds"] = time.perf_counter() - t0
+    return {
+        "phase": "repository_path",
+        "holt_winters_parity": {**parity, "plain_cpu_fits": len(jobs),
+                                "plain_cpu_wall_s": plain_s, "kernel_side_s": hw_s},
+        "daily_run": daily,
+        "fleet_history": fleet,
+        "kernel_launches": {
+            "holt_winters": (daily["kernel_launches"]["holt_winters"]
+                             + fleet["kernel_launches"]["holt_winters"]),
+            "bincount": daily["kernel_launches"]["bincount"],
+            "hll": daily["kernel_launches"]["hll"],
+        },
+    }, timing
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2962,16 +3572,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     res_main = resident_main(table, device, main_result, report)
     emit({**res_main, "seconds": time.perf_counter() - t0})
-    del main_result
 
     t0 = time.perf_counter()
     part = partition_path(table, args.seed, device)
     emit({**part, "card": smi, "seconds": time.perf_counter() - t0})
-    del table
 
     t0 = time.perf_counter()
     stream = stream_path(args.seed, device)
     emit({**stream, "card": smi, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    repo, hw_time = repository_path(table, main_result, args.seed, device)
+    emit({**repo, "card": smi, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernel_timing", "kernel": "holt_winters (K9)", "card": smi,
+          "shapes": hw_time})
+    del table, main_result
 
     t0 = time.perf_counter()
     sketch, table, streamed = sketch_path(args.rows, args.seed, device)
@@ -3019,13 +3634,15 @@ def main(argv=None) -> int:
                 "resident_path": sum(r["kernel_launches"]["bincount"]
                                      for r in (res_main, res_sketch, res_freq)),
                 "partition_path": part["kernel_launches"]["bincount"],
-                "stream_path": stream["kernel_launches"]["bincount"]}
+                "stream_path": stream["kernel_launches"]["bincount"],
+                "repository_path": repo["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
                                          for r in (res_main, res_sketch, res_freq)),
                     "partition_path": part["kernel_launches"]["hll"],
-                    "stream_path": stream["kernel_launches"]["hll"]}
+                    "stream_path": stream["kernel_launches"]["hll"],
+                    "repository_path": repo["kernel_launches"]["hll"]}
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -3081,6 +3698,27 @@ def main(argv=None) -> int:
         "parity": "exact",
         "shapes": [select],
         "routing_shapes": sshapes["cells"],
+    }, {
+        "name": "holt_winters",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/holt_winters.cu",
+        "replaces": "deequ_tpu/anomaly/seasonal.py:77",
+        "launches": repo["kernel_launches"]["holt_winters"],
+        "launches_by_path": {
+            "repository_path/daily_run": repo["daily_run"]["kernel_launches"]["holt_winters"],
+            "repository_path/fleet_history":
+                repo["fleet_history"]["kernel_launches"]["holt_winters"],
+        },
+        "headline_shape": hw_time[0]["column"],
+        "max_abs_err": repo["holt_winters_parity"]["max_abs_err"],
+        "ms": hw_time[0]["kernel_ms"],
+        "plain_ms": hw_time[0]["plain_ms"],
+        "bound_ms": hw_time[0]["bound_ms"],
+        "bound_by": hw_time[0]["bound_by"],
+        "library_ms": None,
+        "library_call": None,
+        "parity": f"alpha, beta, gamma within {HW_TOL} of the plain fit, same flags",
+        "shapes": hw_time,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

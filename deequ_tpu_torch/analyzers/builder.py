@@ -1,7 +1,6 @@
 """AnalysisRunBuilder — fluent raw-metric runs (reference analyzers/
 runners/AnalysisRunBuilder.scala:25-186; the port's copy of
-``deequ_tpu/analyzers/builder.py`` without ``use_repository``, which comes
-with the metrics repository)."""
+``deequ_tpu/analyzers/builder.py``)."""
 
 from __future__ import annotations
 
@@ -20,6 +19,10 @@ class AnalysisRunBuilder:
         self._analyzers: List[Analyzer] = []
         self._aggregate_with = None
         self._save_states_with = None
+        self._metrics_repository = None
+        self._reuse_key = None
+        self._fail_if_results_missing = False
+        self._save_key = None
         self._success_metrics_path: Optional[str] = None
         self._overwrite_output_files = False
 
@@ -39,6 +42,9 @@ class AnalysisRunBuilder:
         self._save_states_with = state_persister
         return self
 
+    def use_repository(self, repository) -> "AnalysisRunBuilderWithRepository":
+        return AnalysisRunBuilderWithRepository(self, repository)
+
     def save_success_metrics_json_to_path(self, path: str) -> "AnalysisRunBuilder":
         self._success_metrics_path = path
         return self
@@ -52,6 +58,10 @@ class AnalysisRunBuilder:
             self._data, self._analyzers, self._device,
             aggregate_with=self._aggregate_with,
             save_states_with=self._save_states_with,
+            metrics_repository=self._metrics_repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
         )
         if self._success_metrics_path is not None and (
             self._overwrite_output_files
@@ -60,3 +70,21 @@ class AnalysisRunBuilder:
             with open(self._success_metrics_path, "w") as f:
                 f.write(AnalyzerContext.success_metrics_as_json(ctx))
         return ctx
+
+
+class AnalysisRunBuilderWithRepository(AnalysisRunBuilder):
+    def __init__(self, base: AnalysisRunBuilder, repository):
+        super().__init__(base._data, base._device)
+        self.__dict__.update(base.__dict__)
+        self._metrics_repository = repository
+
+    def reuse_existing_results_for_key(
+        self, result_key, fail_if_results_missing: bool = False
+    ) -> "AnalysisRunBuilderWithRepository":
+        self._reuse_key = result_key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, result_key) -> "AnalysisRunBuilderWithRepository":
+        self._save_key = result_key
+        return self

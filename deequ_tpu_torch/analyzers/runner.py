@@ -25,8 +25,13 @@ States: on every route (the fused scan, own-pass Histogram, grouping)
 materialises its frequency table (the count-statistics shortcut holds no
 mergeable state). ``run_on_aggregated_states`` computes metrics from
 saved states alone, with no scan. The pipelined stream of arriving
-batches is ``analyzers/incremental.py``; metrics repositories wait for a
-later slice.
+batches is ``analyzers/incremental.py``.
+
+Metrics repositories (reference L116-134, L192-202): with
+``reuse_existing_results_for_key`` the metrics the repository holds for
+that key are taken as they are and only the rest are computed (all of
+them present: no scan at all); ``save_or_append_results_with_key``
+appends the run's metrics to the repository's entry for that key.
 """
 
 from __future__ import annotations
@@ -49,7 +54,10 @@ from deequ_tpu_torch.analyzers.grouping import (
 )
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
 from deequ_tpu_torch.device import resolve_device
-from deequ_tpu_torch.exceptions import wrap_if_necessary
+from deequ_tpu_torch.exceptions import (
+    ReusingNotPossibleResultsMissingException,
+    wrap_if_necessary,
+)
 from deequ_tpu_torch.metrics import Metric
 from deequ_tpu_torch.ops.scan_engine import run_scan
 from deequ_tpu_torch.ops.segment import group_count_stats, group_counts_state
@@ -127,6 +135,18 @@ class AnalyzerContext:
         )
 
 
+def _save_or_append_result(metrics_repository, result_key, ctx) -> None:
+    """Append ctx's metrics to the repository's entry for result_key: the
+    one load-combine-save sequence every runner path shares."""
+    if metrics_repository is None or result_key is None:
+        return
+    from deequ_tpu_torch.repository import AnalysisResult
+
+    existing = metrics_repository.load_by_key(result_key)
+    combined = (existing.analyzer_context + ctx) if existing is not None else ctx
+    metrics_repository.save(AnalysisResult(result_key, combined))
+
+
 class AnalysisRunner:
     """Entry point for computing metrics (reference AnalysisRunner.scala)."""
 
@@ -143,44 +163,70 @@ class AnalysisRunner:
         device=None,
         aggregate_with=None,
         save_states_with=None,
+        metrics_repository=None,
+        reuse_existing_results_for_key=None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key=None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
         DeviceUnavailableException when that device is not there).
         ``aggregate_with`` (a StateLoader) merges each analyzer's saved
         state into the one computed here; ``save_states_with`` (a
-        StatePersister) saves the result."""
+        StatePersister) saves the result. With ``metrics_repository``:
+        ``reuse_existing_results_for_key`` takes the metrics stored under
+        that key instead of computing them (``fail_if_results_missing``
+        raises when some are not there), and
+        ``save_or_append_results_with_key`` appends the run's metrics to
+        that key's entry."""
         dev = resolve_device(device)
         if not analyzers:
             return AnalyzerContext.empty()
 
-        # (1) precondition partition (reference L137-145)
+        # (1) repository reuse (reference L116-134)
+        results_loaded = AnalyzerContext.empty()
+        if metrics_repository is not None and reuse_existing_results_for_key is not None:
+            existing = metrics_repository.load_by_key(reuse_existing_results_for_key)
+            if existing is not None:
+                results_loaded = AnalyzerContext({
+                    a: m for a, m in existing.analyzer_context.metric_map.items()
+                    if a in analyzers
+                })
+        remaining = [a for a in analyzers if a not in results_loaded.metric_map]
+        if fail_if_results_missing and remaining:
+            raise ReusingNotPossibleResultsMissingException(
+                "Could not find all necessary results in the MetricsRepository, "
+                f"the calculation of the metrics for these analyzers would be "
+                f"needed: {', '.join(str(a) for a in remaining)}"
+            )
+
+        # (2) precondition partition (reference L137-145)
         passed: List[Analyzer] = []
         failure_ctx = AnalyzerContext.empty()
-        for analyzer in analyzers:
+        for analyzer in remaining:
             exc = find_first_failing(data.schema, analyzer.preconditions())
             if exc is None:
                 passed.append(analyzer)
             else:
                 failure_ctx.metric_map[analyzer] = analyzer.to_failure_metric(exc)
 
-        # (2) split (reference L148-153)
+        # (3) split (reference L148-153)
         grouping = [a for a in passed if _is_grouping_shared(a)]
         scanning = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
         own_pass = [a for a in passed if a not in grouping and a not in scanning]
 
-        # (3) one fused scan for all shareable analyzers (reference L289-336)
+        # (4) one fused scan for all shareable analyzers (reference L289-336)
         scan_ctx = AnalysisRunner._run_scanning_analyzers(
             data, scanning, dev, aggregate_with, save_states_with
         )
 
-        # (4) own-pass analyzers (reference L155-160)
+        # (5) own-pass analyzers (reference L155-160)
         own_ctx = AnalyzerContext({
             a: a.calculate(data, dev, aggregate_with, save_states_with)
             for a in own_pass
         })
 
-        # (5) one computation per distinct sorted grouping-column set
+        # (6) one computation per distinct sorted grouping-column set
         # (reference L175-190)
         by_grouping: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
         for analyzer in grouping:
@@ -192,7 +238,13 @@ class AnalysisRunner:
                 data, list(group_key), group_analyzers, dev,
                 aggregate_with, save_states_with,
             )
-        return failure_ctx + scan_ctx + own_ctx + group_ctx
+        result = results_loaded + failure_ctx + scan_ctx + own_ctx + group_ctx
+
+        # (7) save to the repository (reference L192-202)
+        _save_or_append_result(
+            metrics_repository, save_or_append_results_with_key, result
+        )
+        return result
 
     @staticmethod
     def _build_scan_ops(data: ColumnarTable, analyzers):
@@ -354,11 +406,14 @@ class AnalysisRunner:
         analyzers: Sequence[Analyzer],
         state_loaders: Sequence,
         save_states_with=None,
+        metrics_repository=None,
+        save_or_append_results_with_key=None,
     ) -> AnalyzerContext:
         """Metrics from saved states alone, with no scan: each analyzer's
         states merge across ``state_loaders`` in order (reference
         AnalysisRunner.scala:385-460); ``save_states_with`` keeps the
-        merged states."""
+        merged states, ``save_or_append_results_with_key`` appends the
+        metrics to ``metrics_repository``."""
         if not analyzers or not state_loaders:
             return AnalyzerContext.empty()
         passed: List[Analyzer] = []
@@ -381,4 +436,7 @@ class AnalysisRunner:
                 ctx.metric_map[analyzer] = analyzer.to_failure_metric(
                     wrap_if_necessary(e)
                 )
+        _save_or_append_result(
+            metrics_repository, save_or_append_results_with_key, ctx
+        )
         return ctx

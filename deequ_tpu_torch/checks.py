@@ -6,9 +6,9 @@ return a CheckWithLastConstraintFilterable whose ``.where(...)`` rebuilds the
 last-added constraint with the filter
 (reference checks/CheckWithLastConstraintFilterable.scala:22-53).
 
-The one method whose machinery the port does not carry yet, the anomaly
-check (it needs a metrics repository), raises NotYetPortedException when
-the check is built.
+The anomaly check (``is_newest_point_non_anomalous``) holds the newest
+metric against its history in a metrics repository, through an anomaly
+detection strategy.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from deequ_tpu_torch.constraints import (
     ConstraintDecorator,
     ConstraintResult,
     ConstraintStatus,
+    anomaly_constraint,
     approx_count_distinct_constraint,
     approx_quantile_constraint,
     completeness_constraint,
@@ -50,7 +51,6 @@ from deequ_tpu_torch.constraints import (
     unique_value_ratio_constraint,
     uniqueness_constraint,
 )
-from deequ_tpu_torch.exceptions import NotYetPortedException
 from deequ_tpu_torch.metrics import Metric
 
 
@@ -436,7 +436,17 @@ class Check:
         after_date: Optional[int] = None,
         before_date: Optional[int] = None,
     ) -> "Check":
-        raise NotYetPortedException("Check.is_newest_point_non_anomalous")
+        """Anomaly constraint over the repository history of this analyzer's
+        metric (reference checks/Check.scala:998-1055)."""
+        assertion = _is_newest_point_non_anomalous_assertion(
+            metrics_repository,
+            anomaly_detection_strategy,
+            analyzer,
+            with_tag_values or {},
+            after_date,
+            before_date,
+        )
+        return self.add_constraint(anomaly_constraint(analyzer, assertion))
 
     # -- evaluation ----------------------------------------------------------
 
@@ -485,3 +495,37 @@ class CheckWithLastConstraintFilterable(Check):
             self.constraints[:-1] + (self._creation_fn(filter_expr),),
         )
 
+
+def _is_newest_point_non_anomalous_assertion(
+    metrics_repository,
+    anomaly_detection_strategy,
+    analyzer,
+    with_tag_values: dict,
+    after_date: Optional[int],
+    before_date: Optional[int],
+) -> Callable[[float], bool]:
+    """The assertion closure reading the repository history (reference
+    checks/Check.scala:998-1055): the history comes through the loader
+    alone (``anomaly.history.history_from_loader``), so every backend
+    yields the same data points."""
+
+    def assertion(current_metric_value: float) -> bool:
+        from deequ_tpu_torch.anomaly import AnomalyDetector
+        from deequ_tpu_torch.anomaly.history import DataPoint, history_from_loader
+
+        loader = metrics_repository.load()
+        if with_tag_values:
+            loader = loader.with_tag_values(with_tag_values)
+        if after_date is not None:
+            loader = loader.after(after_date)
+        if before_date is not None:
+            loader = loader.before(before_date)
+        data_points = history_from_loader(loader, analyzer)
+        detector = AnomalyDetector(anomaly_detection_strategy)
+        test_time = max((p.time for p in data_points), default=0) + 1
+        result = detector.is_new_point_anomalous(
+            data_points, DataPoint(test_time, float(current_metric_value))
+        )
+        return len(result.anomalies) == 0
+
+    return assertion

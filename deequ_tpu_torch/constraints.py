@@ -6,9 +6,8 @@ value (optionally through a value picker). Evaluation distinguishes
 missing-analysis, metric-failure, picker-failure, and assertion-failure —
 all reported as data, never raised.
 
-The factories below cover the analyzers the port carries; ``checks.py``
-refuses the anomaly check, which needs a metrics repository, when a check
-is built.
+The factories below cover the analyzers the port carries, the anomaly
+constraint over a metrics repository's history included.
 """
 
 from __future__ import annotations
@@ -448,4 +447,13 @@ def data_type_constraint(
             analyzer, assertion, value_picker=pickers[data_type], hint=hint
         ),
         f"DataTypeConstraint({analyzer!r})",
+    )
+
+
+def anomaly_constraint(analyzer, anomaly_assertion, hint=None) -> Constraint:
+    """Constraint whose assertion closes over a repository history
+    (reference Constraint.scala anomalyConstraint)."""
+    return _named(
+        AnalysisBasedConstraint(analyzer, anomaly_assertion, hint=hint),
+        f"AnomalyConstraint({analyzer!r})",
     )

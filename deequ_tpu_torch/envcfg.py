@@ -1,0 +1,141 @@
+"""The ``DEEQU_TORCH_*`` environment-variable registry — one validated
+parser for every switch of the port (the counterpart of
+``deequ_tpu/envcfg.py``, under the port's own prefix).
+
+- :class:`EnvVar` — one registered variable: name, kind, default,
+  constraints and a one-line doc;
+- :func:`env_value` — the one parse and validation path. A malformed value
+  raises :class:`~deequ_tpu_torch.exceptions.EnvConfigError` (a
+  ``ValueError``) naming the variable, the value and what is accepted;
+- :func:`registry_snapshot` — {name: {raw, value or error, doc}} for every
+  registered variable.
+
+Kinds: ``flag01`` (``'' | '0' | '1'`` strictly), ``int`` and ``float``
+(an optional ``minimum``; ``zero_disables`` maps 0 and below to None) and
+``choice``. Only the switches a ported module reads are registered; the
+others come with their modules.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+from deequ_tpu_torch.exceptions import EnvConfigError
+
+_KINDS = ("flag01", "int", "float", "choice")
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    """One registered DEEQU_TORCH_* variable (module doc for the kinds)."""
+
+    name: str
+    kind: str
+    default: Any = None
+    minimum: Optional[float] = None
+    zero_disables: bool = False
+    choices: Tuple[str, ...] = ()
+    doc: str = ""
+
+    def __post_init__(self):
+        if self.kind not in _KINDS:
+            raise ValueError(f"unknown EnvVar kind {self.kind!r}")
+        if self.kind == "choice" and not self.choices:
+            raise ValueError(f"{self.name}: choice kind needs choices")
+
+
+_REGISTRY: Dict[str, EnvVar] = {}
+
+
+def register(var: EnvVar) -> EnvVar:
+    """Add one variable to the registry (idempotent for an identical spec;
+    a conflicting re-registration is a programming error)."""
+    existing = _REGISTRY.get(var.name)
+    if existing is not None and existing != var:
+        raise ValueError(f"conflicting registration for {var.name}: {existing} vs {var}")
+    _REGISTRY[var.name] = var
+    return var
+
+
+def _parse(var: EnvVar, raw: str) -> Any:
+    if var.kind == "flag01":
+        if raw not in ("0", "1"):
+            raise EnvConfigError(var.name, raw, "'' (default), '0' (off) or '1' (on)")
+        return raw != "0"
+    if var.kind == "int":
+        try:
+            val = int(raw)
+        except ValueError:
+            raise EnvConfigError(var.name, raw, "an integer") from None
+        return _bound(var, val)
+    if var.kind == "float":
+        try:
+            val = float(raw)
+        except ValueError:
+            raise EnvConfigError(var.name, raw, "a number") from None
+        return _bound(var, val)
+    if raw not in var.choices:
+        raise EnvConfigError(var.name, raw, f"one of {list(var.choices)}")
+    return raw
+
+
+def _bound(var: EnvVar, val):
+    if var.zero_disables and val <= 0:
+        return None
+    if var.minimum is not None and val < var.minimum:
+        raise EnvConfigError(var.name, str(val), f"a value >= {var.minimum:g}")
+    return val
+
+
+def env_value(name: str) -> Any:
+    """Parse and validate one registered variable from the environment:
+    unset or empty gives the registered default, a malformed value raises
+    :class:`EnvConfigError`."""
+    var = _REGISTRY.get(name)
+    if var is None:
+        raise KeyError(f"{name} is not a registered DEEQU_TORCH env var")
+    raw = os.environ.get(name, "").strip()
+    if raw == "":
+        return var.default
+    return _parse(var, raw)
+
+
+def registry_snapshot() -> Dict[str, dict]:
+    """{name: {raw, value | error, doc, kind}} for every registered
+    variable: what this process is configured as."""
+    out: Dict[str, dict] = {}
+    for name, var in sorted(_REGISTRY.items()):
+        row = {"raw": os.environ.get(name), "doc": var.doc, "kind": var.kind}
+        try:
+            row["value"] = env_value(name)
+        except EnvConfigError as e:
+            row["error"] = str(e)
+        out[name] = row
+    return out
+
+
+# -- the registered variables (one declaration point) ------------------------
+
+ENCODED_INGEST = register(EnvVar(
+    "DEEQU_TORCH_ENCODED_INGEST", "flag01", default=True,
+    doc="0 packs every column decoded: scans and persist() ignore "
+        "dictionary encodings (the A/B switch)",
+))
+REPO_SEGMENT_ROWS = register(EnvVar(
+    "DEEQU_TORCH_REPO_SEGMENT_ROWS", "int", default=4096, minimum=1,
+    doc="target scalar-metric rows per compacted columnar-repository "
+        "segment (repository/columnar.py)",
+))
+REPO_TTL = register(EnvVar(
+    "DEEQU_TORCH_REPO_TTL", "float", default=None, zero_disables=True,
+    doc="retention of the columnar metrics repository in dataset-date "
+        "units: compaction drops results older than (newest live date - "
+        "TTL); unset or 0 keeps everything",
+))
+MONITOR = register(EnvVar(
+    "DEEQU_TORCH_MONITOR", "flag01", default=True,
+    doc="0 disables QualityMonitor observation process-wide (saves are "
+        "unaffected; alerts stop)",
+))

@@ -16,6 +16,19 @@ import contextlib
 from typing import Optional
 
 
+class EnvConfigError(ValueError):
+    """A malformed ``DEEQU_TORCH_*`` environment variable (envcfg.py, the
+    one registry every switch of the port parses through). A ``ValueError``
+    carrying the variable's name, the offending raw value and what would
+    have been accepted."""
+
+    def __init__(self, name: str, raw: str, expected: str):
+        super().__init__(f"{name} must be {expected}, got {raw!r}")
+        self.name = name
+        self.raw = raw
+        self.expected = expected
+
+
 class MetricCalculationException(Exception):
     """Base class for anything that goes wrong while computing a metric."""
 
@@ -79,6 +92,13 @@ class RetryExhaustedException(MetricCalculationRuntimeException):
         )
         self.attempts = attempts
         self.__cause__ = cause
+
+
+class ReusingNotPossibleResultsMissingException(
+    MetricCalculationRuntimeException, RuntimeError
+):
+    """``fail_if_results_missing`` is set and the metrics repository lacks
+    some requested analyzer results (reference AnalysisRunner.scala:552)."""
 
 
 class NotYetPortedException(MetricCalculationException, NotImplementedError):

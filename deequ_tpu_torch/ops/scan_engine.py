@@ -47,7 +47,7 @@ from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
 from deequ_tpu_torch.expr.eval import Val
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
-from deequ_tpu_torch.ops.scan_plan import plan_scan_ops
+from deequ_tpu_torch.ops.scan_plan import encoded_ingest_enabled, plan_scan_ops
 
 DEFAULT_CHUNK_BYTES = 512 << 20
 MAX_CHUNK_ROWS = 1 << 23
@@ -533,7 +533,8 @@ def persist_table(
     as every entry point resolves it: ``cuda`` unless the caller asks for
     the CPU) once, into chunks of the reference's resident size; attach
     the cache as ``table._device_cache``. Encoded columns stay encoded
-    unless ``encode=False``. Persisting a persisted table replaces its
+    unless ``encode=False`` (None: ``scan_plan.encoded_ingest_enabled``,
+    on unless ``DEEQU_TORCH_ENCODED_INGEST=0``). Persisting a persisted table replaces its
     chunks. Raises MemoryError, leaving the table not persisted, when the
     combined resident bytes on ``device`` would pass ``max_bytes``
     (:func:`resident_budget` by default)."""
@@ -549,7 +550,7 @@ def persist_table(
         _auto_chunk_rows(cols, RESIDENT_CHUNK_BYTES, RESIDENT_MAX_CHUNK_ROWS),
         max(n_rows, 1),
     )
-    packer = _ChunkPacker(cols, encode=True if encode is None else bool(encode))
+    packer = _ChunkPacker(cols, encode=encoded_ingest_enabled(encode))
     base = total_resident_bytes(device)
     device_chunks = []
     nbytes = 0
@@ -600,21 +601,27 @@ def run_scan(
     device,
     chunk_rows: Optional[int] = None,
     select_kernel: Optional[bool] = None,
+    encoded_ingest: Optional[bool] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
     device->host fetch. A table persisted on ``device`` is read from its
     resident chunks (no packing, no copy), and its KLL summaries take the
     radix select unless ``select_kernel`` is False
-    (``ops/scan_plan.py``)."""
+    (``ops/scan_plan.py``). ``encoded_ingest`` (None:
+    ``scan_plan.encoded_ingest_enabled``) False packs every column decoded;
+    a table persisted with encoded columns is then streamed."""
     device = torch.device(device)
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
+    encode = encoded_ingest_enabled(encoded_ingest)
     cache = _resident_cache(table, device, needed, chunk_rows)
+    if cache is not None and cache.packer.enc_names and not encode:
+        cache = None
     if cache is not None:
         packer, chunk = cache.packer, cache.chunk
     else:
-        packer = _ChunkPacker({name: table[name] for name in needed})
+        packer = _ChunkPacker({name: table[name] for name in needed}, encode=encode)
         chunk = chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1))
     bounds = _chunk_bounds(n_rows, chunk)
     plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, chunk)
@@ -714,7 +721,8 @@ def group_scannable(tables, ops):
             return False
         if any(n not in t for n in needed) or [(n, t[n].dtype) for n in needed] != sig:
             return False
-        layout = _ChunkPacker({n: t[n] for n in needed}).layout()
+        layout = _ChunkPacker({n: t[n] for n in needed},
+                              encode=encoded_ingest_enabled()).layout()
         if layout0 is None:
             layout0 = layout
         elif layout != layout0:
@@ -763,7 +771,9 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
     if any(t.num_rows != n for t in tables):
         raise ValueError("run_scan_group needs equal-size batches (group_scannable)")
     needed = sorted({c for op in ops for c in op.columns})
-    packers = [_ChunkPacker({name: t[name] for name in needed}) for t in tables]
+    encode = encoded_ingest_enabled()
+    packers = [_ChunkPacker({name: t[name] for name in needed}, encode=encode)
+               for t in tables]
     if layout is not None and packers[0].layout() != layout:
         raise ValueError("run_scan_group: the batches' layout is not the admitted one")
     plan = plan_scan_ops(ops, packers[0], False, None, n)

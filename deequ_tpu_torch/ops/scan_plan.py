@@ -44,6 +44,21 @@ def select_beats_sort(rows: int, sketch_size: int) -> bool:
         rows >= SELECT_MIN_ROWS_PER_TARGET * (sketch_size + 2))
 
 
+def encoded_ingest_enabled(param: Optional[bool] = None) -> bool:
+    """The encoded-ingest switch (the reference's ``scan_plan.py:52-67``):
+    an explicit True/False wins, then ``DEEQU_TORCH_ENCODED_INGEST`` ('0'
+    turns it off, through the ``envcfg`` registry), then on. On, a column
+    carrying a dictionary encoding rides the int16 code plane; off, every
+    column packs decoded."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    if param is not None:
+        if not isinstance(param, (bool, int)) or param not in (0, 1):
+            raise ValueError(f"encoded_ingest must be True/False, got {param!r}")
+        return bool(param)
+    return env_value("DEEQU_TORCH_ENCODED_INGEST")
+
+
 def select_kernel_enabled(param: Optional[bool] = None) -> bool:
     """The select switch: an explicit True/False wins; None means on. (The
     reference also reads ``DEEQU_TPU_SELECT_KERNEL``; the port reads no

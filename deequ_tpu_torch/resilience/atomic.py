@@ -80,6 +80,18 @@ def _fsync_if_possible(handle) -> None:
     os.fsync(fd)
 
 
+def quarantine_path(fs, path: str, suffix: str = ".corrupt") -> str:
+    """The first unused quarantine name for ``path`` on ``fs``: ``path +
+    suffix``, then ``.corrupt.1``, ``.corrupt.2``, ..., so a second
+    recovery in one directory never overwrites the first one's evidence."""
+    candidate = path + suffix
+    n = 0
+    while fs.exists(candidate):
+        n += 1
+        candidate = f"{path}{suffix}.{n}"
+    return candidate
+
+
 def atomic_write_bytes(
     fs, path: str, data: bytes, retry=None, what: Optional[str] = None
 ) -> None:

@@ -11,7 +11,18 @@ VerificationResult.scala; the counterpart of ``deequ_tpu/verification.py``).
 The run executes on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"`` here, or the ``deequ_tpu_torch.use_device`` scope); with
 no CUDA device and no such request, ``run()`` raises
-``DeviceUnavailableException``.
+``DeviceUnavailableException``. The checks are evaluated on the run's
+device too: a Holt-Winters anomaly check fits on it.
+
+With a metrics repository (``use_repository``), a run reuses the results
+stored under a key, appends its own under another, and holds metrics
+against their history (``add_anomaly_check``)::
+
+    result = (VerificationSuite.on_data(table)
+              .use_repository(repo)
+              .save_or_append_result(ResultKey(day, {"tenant": "t0"}))
+              .add_anomaly_check(OnlineNormalStrategy(), Size())
+              .run())
 """
 
 from __future__ import annotations
@@ -21,10 +32,14 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
-from deequ_tpu_torch.analyzers.runner import AnalysisRunner, AnalyzerContext
-from deequ_tpu_torch.checks import Check, CheckResult, CheckStatus
+from deequ_tpu_torch.analyzers.runner import (
+    AnalysisRunner,
+    AnalyzerContext,
+    _save_or_append_result,
+)
+from deequ_tpu_torch.checks import Check, CheckLevel, CheckResult, CheckStatus
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
-from deequ_tpu_torch.device import resolve_device
+from deequ_tpu_torch.device import resolve_device, use_device
 from deequ_tpu_torch.metrics import Metric
 
 
@@ -140,10 +155,21 @@ class VerificationSuite:
         device=None,
         aggregate_with=None,
         save_states_with=None,
+        metrics_repository=None,
+        reuse_existing_results_for_key=None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key=None,
     ) -> VerificationResult:
         """One verification run; ``aggregate_with`` (a StateLoader) merges
         saved states into this run's, ``save_states_with`` (a
-        StatePersister) saves the merged states."""
+        StatePersister) saves the merged states. With
+        ``metrics_repository``: ``reuse_existing_results_for_key`` takes
+        the metrics stored under that key instead of computing them, and
+        ``save_or_append_results_with_key`` appends the run's metrics under
+        that key after the checks are evaluated, so an anomaly check never
+        sees its own run in the history (reference
+        VerificationSuite.scala: evaluation at L263-281, the save at
+        L174-193)."""
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
         dev = resolve_device(device)
@@ -151,8 +177,15 @@ class VerificationSuite:
         context = AnalysisRunner.do_analysis_run(
             data, _required(checks, required_analyzers), dev,
             aggregate_with=aggregate_with, save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            reuse_existing_results_for_key=reuse_existing_results_for_key,
+            fail_if_results_missing=fail_if_results_missing,
         )
-        result = VerificationSuite._evaluate(checks, context)
+        with use_device(dev):
+            result = VerificationSuite._evaluate(checks, context)
+            _save_or_append_result(
+                metrics_repository, save_or_append_results_with_key, context
+            )
         result.device = str(dev)
         result.scan_stats = {
             k: getattr(SCAN_STATS, k) - v for k, v in before.items()
@@ -166,6 +199,8 @@ class VerificationSuite:
         state_loaders: Sequence,
         required_analyzers: Sequence[Analyzer] = (),
         save_states_with=None,
+        metrics_repository=None,
+        save_or_append_results_with_key=None,
     ) -> VerificationResult:
         """Verification from saved states alone, with no scan: each
         analyzer's states merge across ``state_loaders`` (reference
@@ -173,6 +208,8 @@ class VerificationSuite:
         ctx = AnalysisRunner.run_on_aggregated_states(
             schema, _required(checks, required_analyzers), state_loaders,
             save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            save_or_append_results_with_key=save_or_append_results_with_key,
         )
         return VerificationSuite._evaluate(checks, ctx)
 
@@ -210,7 +247,9 @@ class IncrementalVerificationStream:
         for done_key, result in stream.close():
             ...
 
-    (The metrics-repository append waits for the repository's slice.)"""
+    With ``metrics_repository``, each batch's metrics are appended under
+    its ``result_key`` after its checks are evaluated (reference
+    ordering: an anomaly check never sees its own batch)."""
 
     def __init__(
         self,
@@ -218,12 +257,14 @@ class IncrementalVerificationStream:
         required_analyzers: Sequence[Analyzer] = (),
         aggregate_with=None,
         save_states_with=None,
+        metrics_repository=None,
         window: int = 8,
         device=None,
     ):
         from deequ_tpu_torch.analyzers.incremental import IncrementalAnalysisStream
 
         self.checks = list(checks)
+        self.metrics_repository = metrics_repository
         self._stream = IncrementalAnalysisStream(
             _required(self.checks, required_analyzers),
             aggregate_with=aggregate_with,
@@ -234,10 +275,12 @@ class IncrementalVerificationStream:
 
     def _finalize(self, drained):
         out = []
-        for result_key, ctx in drained:
-            result = VerificationSuite._evaluate(self.checks, ctx)
-            result.device = str(self._stream.device)
-            out.append((result_key, result))
+        with use_device(self._stream.device):
+            for result_key, ctx in drained:
+                result = VerificationSuite._evaluate(self.checks, ctx)
+                _save_or_append_result(self.metrics_repository, result_key, ctx)
+                result.device = str(self._stream.device)
+                out.append((result_key, result))
         return out
 
     def submit(self, data: ColumnarTable, result_key=None):
@@ -250,6 +293,17 @@ class IncrementalVerificationStream:
         return self._finalize(self._stream.close())
 
 
+@dataclass(frozen=True)
+class AnomalyCheckConfig:
+    """(reference VerificationRunBuilder.scala:336-341)"""
+
+    level: CheckLevel
+    description: str
+    with_tag_values: dict = field(default_factory=dict)
+    after_date: Optional[int] = None
+    before_date: Optional[int] = None
+
+
 class VerificationRunBuilder:
     """Fluent configuration (reference VerificationRunBuilder.scala:28-182)."""
 
@@ -260,6 +314,10 @@ class VerificationRunBuilder:
         self._required_analyzers: List[Analyzer] = []
         self._aggregate_with = None
         self._save_states_with = None
+        self._metrics_repository = None
+        self._reuse_key = None
+        self._fail_if_results_missing = False
+        self._save_key = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -285,9 +343,58 @@ class VerificationRunBuilder:
         self._save_states_with = state_persister
         return self
 
+    def use_repository(self, repository) -> "VerificationRunBuilderWithRepository":
+        return VerificationRunBuilderWithRepository(self, repository)
+
     def run(self) -> VerificationResult:
         return VerificationSuite.do_verification_run(
             self._data, self._checks, self._required_analyzers, self._device,
             aggregate_with=self._aggregate_with,
             save_states_with=self._save_states_with,
+            metrics_repository=self._metrics_repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
         )
+
+
+class VerificationRunBuilderWithRepository(VerificationRunBuilder):
+    """(reference VerificationRunBuilder.scala:184-244)"""
+
+    def __init__(self, base: VerificationRunBuilder, repository):
+        super().__init__(base._data, base._device)
+        self.__dict__.update(base.__dict__)
+        self._metrics_repository = repository
+
+    def reuse_existing_results_for_key(
+        self, result_key, fail_if_results_missing: bool = False
+    ) -> "VerificationRunBuilderWithRepository":
+        self._reuse_key = result_key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, result_key) -> "VerificationRunBuilderWithRepository":
+        self._save_key = result_key
+        return self
+
+    def add_anomaly_check(
+        self,
+        anomaly_detection_strategy,
+        analyzer: Analyzer,
+        anomaly_check_config: Optional[AnomalyCheckConfig] = None,
+    ) -> "VerificationRunBuilderWithRepository":
+        """(reference VerificationRunBuilder.scala:227-243)"""
+        config = anomaly_check_config or AnomalyCheckConfig(
+            CheckLevel.WARNING,
+            f"Anomaly check for {analyzer!r}",
+        )
+        check = Check(config.level, config.description).is_newest_point_non_anomalous(
+            self._metrics_repository,
+            anomaly_detection_strategy,
+            analyzer,
+            config.with_tag_values,
+            config.after_date,
+            config.before_date,
+        )
+        self._checks.append(check)
+        return self

@@ -241,7 +241,11 @@ def test_import_isolation():
         "deequ_tpu_torch.states, deequ_tpu_torch.states.serde, "
         "deequ_tpu_torch.data.fs, deequ_tpu_torch.data.cast, "
         "deequ_tpu_torch.resilience, deequ_tpu_torch.analyzers.incremental, "
-        "deequ_tpu_torch.analyzers.analysis, deequ_tpu_torch.analyzers.builder\n"
+        "deequ_tpu_torch.analyzers.analysis, deequ_tpu_torch.analyzers.builder, "
+        "deequ_tpu_torch.envcfg, deequ_tpu_torch.repository, "
+        "deequ_tpu_torch.repository.query, deequ_tpu_torch.repository.monitor, "
+        "deequ_tpu_torch.anomaly, deequ_tpu_torch.anomaly.seasonal, "
+        "deequ_tpu_torch.ops.holt_winters\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deequ_tpu' or m.startswith('deequ_tpu.'))\n"
         "print(bad)\n"
@@ -269,11 +273,37 @@ def test_run_without_cuda_raises_device_unavailable(monkeypatch):
 
 
 def test_unported_checks_are_refused_when_built():
-    """Only the anomaly check (it needs a metrics repository) is refused;
-    the frequency-table and string-analyzer methods build."""
+    """No in-memory check method is refused any more: the anomaly check
+    builds and evaluates against an in-memory metrics repository (its
+    history of Size 6 passes a new Size 6 and flags a Size 1), and the
+    frequency-table and string-analyzer methods build."""
+    from deequ_tpu_torch.analyzers import Size
+    from deequ_tpu_torch.analyzers.runner import AnalyzerContext
+    from deequ_tpu_torch.anomaly import RelativeRateOfChangeStrategy
+    from deequ_tpu_torch.metrics import DoubleMetric, Entity
+    from deequ_tpu_torch.repository import (
+        AnalysisResult,
+        InMemoryMetricsRepository,
+        ResultKey,
+    )
+    from deequ_tpu_torch.tryresult import Success
+
+    repo = InMemoryMetricsRepository()
+    for day in range(1, 5):
+        metric = DoubleMetric(Entity.DATASET, "Size", "*", Success(6.0))
+        repo.save(AnalysisResult(ResultKey(day), AnalyzerContext({Size(): metric})))
     check = deequ_tpu_torch.Check(deequ_tpu_torch.CheckLevel.ERROR, "x")
-    with pytest.raises(deequ_tpu_torch.NotYetPortedException):
-        check.is_newest_point_non_anomalous(None, None, None, None, None)
+    anomaly = check.is_newest_point_non_anomalous(
+        repo, RelativeRateOfChangeStrategy(max_rate_decrease=0.5, max_rate_increase=2.0),
+        Size(), None, None, None,
+    )
+    assert len(anomaly.constraints) == 1
+    assert anomaly.required_analyzers() == [Size()]
+    for size, status in ((6, "Success"), (1, "Error")):
+        table = deequ_tpu_torch.ColumnarTable.from_pydict({"x": list(range(size))})
+        result = deequ_tpu_torch.VerificationSuite.on_data(table, device="cpu") \
+            .add_check(anomaly).run()
+        assert result.status.value == status
     for build in (
         lambda: check.has_pattern("s", r"\d+"),
         lambda: check.has_number_of_distinct_values("s", lambda n: n > 1),
