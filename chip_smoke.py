@@ -136,7 +136,7 @@ Phases, each printed as one JSON line on stdout:
 15. ``repository_path`` (after ``stream_path``, over the main path's
    table) — the metrics repository, anomaly checks and the monitor, in
    three parts. First the Holt-Winters fit (K9, ``csrc/holt_winters.cu``):
-   the plain autograd fit of 13 series on the host's CPU (spawned worker
+   the plain autograd fit of 14 series on the host's CPU (spawned worker
    processes, all shut down after), the kernel within 1e-12 of each with
    the same flagged points (a weekly series at 2p, 28, 36, 365 and 730
    points, a monthly one at 24, 28, 36, 365 and 730, a constant series
@@ -158,8 +158,11 @@ Phases, each printed as one JSON line on stdout:
    main run's 113 scalar metrics and Completeness(f1), 4,161,000 history
    rows, seeded by ``save()`` into a ``ColumnarMetricsRepository`` that a
    ``QualityMonitor`` watches (Holt-Winters on tenant-0's Completeness(f1),
-   armed by one K9 launch on the card; OnlineNormal on its Size, one
-   scripted drop: exactly one alert), ``compact()``-ed, then two queries
+   a weekly pattern that steps after its first week, armed by one K9
+   launch on the card within 1e-12 of the plain fit on the host's CPU,
+   one scripted drop on the last day; OnlineNormal on its Size, one
+   scripted drop on day 250: exactly one alert each), ``compact()``-ed,
+   then two queries
    on the card (cross-tenant Completeness(f1) over days 30–330, and every
    row): one fetch each, count/min/max exact and sum/mean within 1e-12,
    stddev within 1e-10 of numpy, bit for bit the decoded query and the
@@ -3227,11 +3230,27 @@ def daily_run(table, history: dict, hw_plain, seed: int, device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def fleet_completeness_f1():
+    """Tenant-0's Completeness(f1) in ``fleet_history``: a weekly pattern
+    0.985 + 0.002·sin(2πd/7), 5·10^-4 higher in the first week (the step
+    gives the monitor's two-week warmup fit a real gradient and leaves
+    the envelope room; with no step or with noise the 1.96-sigma rule
+    fires on other days), and a drop of 0.01 on the last day."""
+    import numpy as np
+
+    d = np.arange(HISTORY_DAYS)
+    values = 0.985 + 0.002 * np.sin(2 * np.pi * d / 7)
+    values[:7] += 5e-4
+    values[-1] -= 0.01
+    return values
+
+
 def fleet_values(series: list, seed: int):
     """(tables, days, series) values: each series' base times 1 + k·10^-4,
     k uniform in [-50, 50] (a daily wobble of at most 0.5% on a grid, so
     the history's value plane takes a dictionary); tenant-0's
-    Completeness(f1) is 1.0 every day, its Size halves on day 250."""
+    Completeness(f1) is :func:`fleet_completeness_f1`, its Size halves on
+    day 250."""
     import numpy as np
 
     rng = np.random.default_rng([seed, FLEET_TABLES])
@@ -3241,13 +3260,15 @@ def fleet_values(series: list, seed: int):
     names = [(a, name) for a, _, name, _, _ in series]
     f1 = next(i for i, (a, n) in enumerate(names) if repr(a) == "Completeness(column='f1', where=None)")
     size = next(i for i, (a, n) in enumerate(names) if n == "Size")
-    values[0, :, f1] = 1.0
+    values[0, :, f1] = fleet_completeness_f1()
     values[0, 250, size] = 0.5 * base[size]
     return values, f1, size
 
 
-def fleet_history(main_result, seed: int, device) -> dict:
-    """Part ``fleet_history`` of ``repository_path`` (module doc)."""
+def fleet_history(main_result, hw_plain, seed: int, device) -> dict:
+    """Part ``fleet_history`` of ``repository_path`` (module doc);
+    ``hw_plain`` is the plain fit of the monitor's warmup on the host's
+    CPU."""
     import numpy as np
     import torch
 
@@ -3299,10 +3320,18 @@ def fleet_history(main_result, seed: int, device) -> dict:
     save_s = time.perf_counter() - t0
     launches = kernel_counts()
     alerts = [(a.rule, a.time) for a in monitor.alerts]
-    if alerts != [("online_normal_size", 250)]:
-        fail(f"fleet_history: monitor alerts {alerts}, want one at day 250 on Size")
+    if alerts != [("online_normal_size", 250), ("hw_completeness_f1", HISTORY_DAYS - 1)]:
+        fail(f"fleet_history: monitor alerts {alerts}, want one at day 250 on Size and "
+             f"one at day {HISTORY_DAYS - 1} on Completeness(f1)")
     if launches["holt_winters"] != 1:
         fail(f"fleet_history: {launches['holt_winters']} K9 launches arming the monitor, want 1")
+    hw_state, = [entry["blob"] for key, entry in monitor.state_blob()["states"].items()
+                 if key.startswith("hw_completeness_f1\x00")]
+    abg_armed = [float.fromhex(v) for v in hw_state["abg"]]
+    abg_err = max(abs(a - b) for a, b in zip(abg_armed, hw_plain))
+    if abg_err > HW_TOL:
+        fail(f"fleet_history: the monitor armed with {abg_armed}, the plain fit on the "
+             f"host's CPU gives {list(hw_plain)} (err {abg_err})")
     t0 = time.perf_counter()
     dropped = repo.compact()
     compact_s = time.perf_counter() - t0
@@ -3371,6 +3400,8 @@ def fleet_history(main_result, seed: int, device) -> dict:
         "compact_wall_s": compact_s, "segments": repo.num_segments,
         "history_build_wall_s": build_s,
         "monitor_alerts": alerts,
+        "monitor_fit": {"kernel": abg_armed, "plain_cpu": list(hw_plain),
+                        "max_abs_err": abg_err},
         "kernel_launches": launches,
         "queries": out,
     }
@@ -3420,9 +3451,9 @@ def holt_winters_timing(cases: dict, device) -> list:
     """K9 at n = 365 and 730 (p = 7): the kernel alone (CUDA events, the
     median of 5 after a warm launch), one wrapper call with its fetch, the
     plain version's 10 steps on the card scaled to 300, and the bound: the
-    dependent chain of five f64 operations a point (module doc of
-    csrc/holt_winters.cu) at the f64 FMA latency measured here and the
-    card's top SM clock."""
+    recursion's shortest loop-carried chain, one dependent f64 FMA a point
+    and step (csrc/holt_winters.cu derives it), at the f64 FMA latency
+    measured here and the card's top SM clock."""
     import torch
 
     from deequ_tpu_torch.ops import holt_winters
@@ -3447,7 +3478,7 @@ def holt_winters_timing(cases: dict, device) -> list:
         holt_winters.fit_plain(x, p, steps=10)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3 * holt_winters.STEPS / 10
-        bound_ms = 5 * n * holt_winters.STEPS * cycles / clock_hz * 1e3
+        bound_ms = n * holt_winters.STEPS * cycles / clock_hz * 1e3
         out.append({"column": name, "n": n, "p": p, "steps": holt_winters.STEPS,
                     "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
                     "plain_ms_from": "10 steps on the card, x 30",
@@ -3469,6 +3500,7 @@ def repository_path(table, main_result, seed: int, device) -> dict:
     cases = hw_parity_cases(seed)
     jobs = {name: (list(s[:n]), p, holt_winters.STEPS) for name, (s, n, p) in cases.items()}
     jobs["daily_run"] = (list(history["completeness_f1"]), 7, holt_winters.STEPS)
+    jobs["fleet_monitor"] = (list(fleet_completeness_f1()[:14]), 7, holt_winters.STEPS)
     t0 = time.perf_counter()
     plain = plain_fits_on_host(jobs)
     plain_s = time.perf_counter() - t0
@@ -3480,7 +3512,7 @@ def repository_path(table, main_result, seed: int, device) -> dict:
     daily = daily_run(table, history, plain["daily_run"], seed, device)
     daily["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fleet = fleet_history(main_result, seed, device)
+    fleet = fleet_history(main_result, plain["fleet_monitor"], seed, device)
     fleet["seconds"] = time.perf_counter() - t0
     return {
         "phase": "repository_path",

@@ -27,6 +27,13 @@
 // through the sigmoid, exact in exact arithmetic like the reference's
 // autodiff; the roundings differ in the last bits only.
 //
+// The fit runs on the series less its first point, in the kernel as in
+// fit_plain. The recursion is translation-equivariant (level and
+// forecasts shift, residuals and RSS do not), but a series near 10^9
+// whose residuals are near 10^5 loses nine digits to cancellation in
+// r = y - (L + T + S) and in the sensitivities, so forward and reverse
+// mode then land ~1e-12 apart; centred, they agree within ~1e-14.
+//
 // Layout: one block of one warp a fit. Lanes 0, 1 and 2 each own one logit:
 // its Adam moments, and the sensitivity lane of the recursion for it. The
 // sensitivities read the values (L, T, S, L') every step, so each of the
@@ -36,16 +43,28 @@
 // and no exchange sits between the steps. After each pass over the series
 // the three logits are exchanged with three warp shuffles. The value and
 // sensitivity season rings live in shared memory, one slot per lane and
-// phase ([phase][lane], so the lanes hit different banks); the series is
-// staged into shared memory once when it fits (else it is read from global
-// memory through L1).
+// phase ([phase][kRingStride], so the lanes hit different banks): 64 p
+// bytes, within the default 48 KB for p up to 768 (a larger p fails the
+// launch, and the wrapper raises). The series is read from global memory
+// through the read-only cache, a point ahead, so its load sits off the
+// dependency chain.
 //
 // What bounds it: latency. The work is ~60 f64 operations per series point
 // and lane and the bytes are the series once, both far below the card's
-// rates; but step t + 1 needs L and T of step t, a chain of five dependent
-// f64 operations (L + T, (1 - a)(L + T), the fma of L', L' - L, the fma of
-// T'), so one fit takes at least 5 x n x steps f64 latencies.
-// deequ_hw_dfma_cycles measures that latency on the card for the bound.
+// rates; but point k + 1 needs the state of point k. Written in lt = L + T,
+// the value recursion is a second-order linear recurrence,
+//   lt_{k+1} = ((1 + b)(1 - a) + (1 - b)) lt_k - (1 - a) lt_{k-1}
+//              + (1 + b) u_k - u_{k-1},        u_k = a (y_k - S_k),
+// whose loop-carried chain is one f64 FMA a point: lt_{k-1}'s term and
+// the season (which feeds back only p points later) are ready before
+// lt_k is, for p >= 4; the sensitivities' recurrence has the same form,
+// on their own lanes. So a point-by-point evaluation takes at least
+// n x steps f64 FMA latencies, and that is the bound chip_smoke.py prints;
+// deequ_hw_dfma_cycles measures the latency on the card. A blocked
+// (look-ahead) or parallel-prefix evaluation of this linear recurrence
+// could go below it, with more operations and other roundings. (The form written
+// below, kept close to the reference's, has a longer chain per point: the
+// ring's shared-memory load and the level and trend updates.)
 //
 // Built without --use_fast_math. Plain C interface for ctypes; every entry
 // returns the launch's cudaGetLastError().
@@ -56,32 +75,29 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kParams = 3;  // alpha, beta, gamma: lanes 0, 1, 2
+constexpr int kRingStride = 4;  // ring slots a phase (lanes 0-2, padded)
 
 __device__ __forceinline__ double sigmoid(double x) {
   return 1.0 / (1.0 + exp(-x));
 }
 
 __global__ void __launch_bounds__(kWarp)
-hw_fit_kernel(const double* __restrict__ series, int n, int p, int steps,
-              int stage, double theta_a, double theta_bg, double lr,
-              double beta1, double beta2, double eps, double* __restrict__ out) {
+hw_fit_kernel(const double* __restrict__ y, int n, int p, int steps,
+              double theta_a, double theta_bg, double lr, double beta1,
+              double beta2, double eps, double* __restrict__ out) {
   extern __shared__ double smem[];
   const int lane = threadIdx.x;
-  double* ring_s = smem;               // [p][32] season values
-  double* ring_d = smem + p * kWarp;   // [p][32] season sensitivities
-  const double* y = series;
-  if (stage) {
-    double* y_sh = smem + 2 * p * kWarp;
-    for (int t = lane; t < n; t += kWarp) y_sh[t] = series[t];
-    __syncwarp();
-    y = y_sh;
-  }
   if (lane >= kParams) return;
+  double* ring_s = smem;                     // [p][kRingStride] season values
+  double* ring_d = smem + p * kRingStride;   // [p][kRingStride] sensitivities
 
+  // the series centred on its first point, as fit_plain centres it: the
+  // recursion shifts with it and its residuals do not (see above)
+  const double y0 = __ldg(y);
   // the initial state, as seasonal.py:88-91 builds it
   double s1 = 0.0, s2 = 0.0;
-  for (int j = 0; j < p; ++j) s1 += y[j];
-  for (int j = p; j < 2 * p; ++j) s2 += y[j];
+  for (int j = 0; j < p; ++j) s1 += __ldg(y + j) - y0;
+  for (int j = p; j < 2 * p; ++j) s2 += __ldg(y + j) - y0;
   const double level0 = s1 / p;
   const double trend0 = (s2 - s1) / (double)(p * p);
 
@@ -100,13 +116,15 @@ hw_fit_kernel(const double* __restrict__ series, int n, int p, int steps,
     const double ca = 1.0 - a, cb = 1.0 - b, cg = 1.0 - g;
 
     for (int j = 0; j < p; ++j) {
-      ring_s[j * kWarp + lane] = y[j] - level0;
-      ring_d[j * kWarp + lane] = 0.0;
+      ring_s[j * kRingStride + lane] = (__ldg(y + j) - y0) - level0;
+      ring_d[j * kRingStride + lane] = 0.0;
     }
     double L = level0, T = trend0, dL = 0.0, dT = 0.0, dR = 0.0;
     int slot = lane;  // this lane's slot of phase t mod p: [phase][lane]
+    double y_next = y0;  // loaded a point ahead, centred when used
     for (int t = 0; t < n; ++t) {
-      const double yt = y[t];
+      const double yt = y_next - y0;
+      if (t + 1 < n) y_next = __ldg(y + t + 1);
       const double st = ring_s[slot];
       const double dst = ring_d[slot];
       const double lt = L + T;
@@ -121,8 +139,8 @@ hw_fit_kernel(const double* __restrict__ series, int n, int p, int steps,
       ring_s[slot] = g * x + cg * st;
       ring_d[slot] = eg * (x - st) - g * dlt + cg * dst;
       L = nL; T = nT; dL = dnL; dT = dnT;
-      slot += kWarp;
-      if (slot >= p * kWarp) slot = lane;
+      slot += kRingStride;
+      if (slot >= p * kRingStride) slot = lane;
     }
     // Adam on this lane's logit (seasonal.py:120-128)
     m = beta1 * m + (1.0 - beta1) * dR;
@@ -149,35 +167,15 @@ __global__ void dfma_chain_kernel(double x0, double mul, double add, int chain,
 
 extern "C" {
 
-// Shared memory of one fit: the two rings, plus the series when staged.
-long long deequ_hw_smem_bytes(int n, int p, int stage) {
-  return (long long)(2 * p * kWarp + (stage ? n : 0)) * (long long)sizeof(double);
-}
-
-// The largest dynamic shared memory a block may take on the current device.
-long long deequ_hw_smem_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
-      != cudaSuccess) return -1;
-  return limit;
-}
-
 // Fit (alpha, beta, gamma) to series[0:n] with periodicity p in `steps` Adam
 // steps from the logits (theta_a, theta_bg, theta_bg); writes the three
-// values to out. stage: 1 to copy the series into shared memory
-// (deequ_hw_smem_bytes(n, p, 1) must be within the limit).
-int deequ_hw_fit(const double* series, int n, int p, int steps, int stage,
-                 double theta_a, double theta_bg, double lr, double beta1,
-                 double beta2, double eps, double* out, void* stream) {
-  const long long smem = deequ_hw_smem_bytes(n, p, stage);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        hw_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  hw_fit_kernel<<<1, kWarp, (size_t)smem, (cudaStream_t)stream>>>(
-      series, n, p, steps, stage, theta_a, theta_bg, lr, beta1, beta2, eps, out);
+// values to out.
+int deequ_hw_fit(const double* series, int n, int p, int steps, double theta_a,
+                 double theta_bg, double lr, double beta1, double beta2,
+                 double eps, double* out, void* stream) {
+  const size_t smem = (size_t)2 * p * kRingStride * sizeof(double);
+  hw_fit_kernel<<<1, kWarp, smem, (cudaStream_t)stream>>>(
+      series, n, p, steps, theta_a, theta_bg, lr, beta1, beta2, eps, out);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,13 @@ logits of (0.3, 0.1, 0.1). One formulation per device:
   ``backward()`` for the gradient, and the same Adam loop. The tests and
   ``chip_smoke.py`` hold the kernel against it.
 
+Both fit the series less its first point. The fit does not change in
+exact arithmetic (the recursion shifts with the series; its residuals do
+not), but a large offset costs digits to cancellation in every residual
+and sensitivity, enough on a series near 10^9 to put the forward-mode
+kernel and the reverse-mode plain version ~1e-12 apart; centred they
+agree within ~1e-14.
+
 The kernel is compiled from the source in the checkout at first use and
 bound with ``ctypes`` (``ops/cuda_build.py``).
 """
@@ -60,6 +67,7 @@ def fit_plain(series: torch.Tensor, periodicity: int, steps: int = STEPS) -> tor
     the fit in torch autograd (module doc)."""
     _check_args(series, periodicity, steps)
     p = int(periodicity)
+    series = series - series[0]  # centred, as the kernel is (module doc)
     ys = series.tolist()
     level0 = series[:p].sum() / p
     trend0 = (series[p:2 * p].sum() - series[:p].sum()) / (p * p)
@@ -113,15 +121,11 @@ def fit(series: torch.Tensor, periodicity: int, steps: int = STEPS) -> torch.Ten
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.deequ_hw_fit.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.deequ_hw_fit.restype = ctypes.c_int
-    lib.deequ_hw_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.deequ_hw_smem_bytes.restype = ctypes.c_longlong
-    lib.deequ_hw_smem_limit.argtypes = []
-    lib.deequ_hw_smem_limit.restype = ctypes.c_longlong
     lib.deequ_hw_dfma_cycles.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
@@ -135,10 +139,9 @@ def _launch(series: torch.Tensor, periodicity: int, steps: int, out: torch.Tenso
     lib = cuda_build.library("holt_winters", _bind)
     n = series.numel()
     with torch.cuda.device(series.device):
-        stage = int(lib.deequ_hw_smem_bytes(n, periodicity, 1) <= lib.deequ_hw_smem_limit())
         stream = torch.cuda.current_stream(series.device).cuda_stream
         rc = lib.deequ_hw_fit(
-            series.data_ptr(), n, periodicity, steps, stage,
+            series.data_ptr(), n, periodicity, steps,
             INITIAL_LOGITS[0], INITIAL_LOGITS[1], LR, BETA1, BETA2, EPS,
             out.data_ptr(), stream,
         )
@@ -151,7 +154,8 @@ def _launch(series: torch.Tensor, periodicity: int, steps: int, out: torch.Tenso
 
 def dfma_cycles(device, chain: int = 1 << 16) -> float:
     """Cycles of one dependent float64 FMA on ``device``, measured on one
-    thread over a chain of ``chain`` (the latency the fit's bound counts)."""
+    thread over a chain of ``chain`` (the latency the fit's bound counts:
+    one a point and step, csrc/holt_winters.cu says why)."""
     lib = cuda_build.library("holt_winters", _bind)
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
     sink = torch.zeros(1, dtype=torch.float64, device=device)
