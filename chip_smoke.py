@@ -83,8 +83,11 @@ Phases, each printed as one JSON line on stdout:
    ``unpersist()`` dropping ``torch.cuda.memory_allocated()`` by at least
    the resident bytes): ``main`` (after phase 5) — every metric equal to
    the streaming run's (exact, or within PERF.md §2's bounds), no bytes
-   packed, ``status`` and ``region`` counted from resident codes by K5;
-   and, inside it, ``encoded`` — two low-cardinality numeric columns made
+   packed, ``status`` and ``region`` counted from resident codes by K5,
+   and ``k1_fused_scan``: the fused scan's device kernels under
+   torch.profiler, the reductions (K1's counterpart, plain torch f64)
+   apart, beside the resident planes read once at the card's memory
+   rate; and, inside it, ``encoded`` — two low-cardinality numeric columns made
    from the main table, encoded and persisted, bit-identical to their
    decoded twin with at most half its resident bytes; ``sketch`` (after
    phase 8) — the select (K4) in place of every sort
@@ -136,15 +139,20 @@ Phases, each printed as one JSON line on stdout:
 15. ``repository_path`` (after ``stream_path``, over the main path's
    table) — the metrics repository, anomaly checks and the monitor, in
    three parts. First the Holt-Winters fit (K9, ``csrc/holt_winters.cu``):
-   the plain autograd fit of 14 series on the host's CPU (spawned worker
+   the plain autograd fit of 17 series on the host's CPU (spawned worker
    processes, all shut down after), the kernel within 1e-12 of each with
    the same flagged points (a weekly series at 2p, 28, 36, 365 and 730
-   points, a monthly one at 24, 28, 36, 365 and 730, a constant series
-   and one near 10^9), a 10-step fit against the plain version on the
-   card, and a ``kernel_timing`` line (the kernel alone at 365 and 730
-   points, a wrapper call, the plain version's 10 steps on the card
-   scaled to 300, the bound). ``daily_run``: a year of tenant-0's history
-   (Size, Completeness(f1) with a weekly pattern, Mean(f0)) in a
+   points, a monthly one at 24, 28, 36, 365 and 730, the block edges
+   2p + 1 at both periodicities and 358 weekly points, a constant series
+   and one near 10^9), the kernel at forced block lengths (one block to
+   the default) on the weekly 365 and monthly 730 points against the
+   same plain fits, a 10-step fit against the plain version on the card,
+   and a ``kernel_timing`` line (the kernel alone at 365 and 730 weekly
+   and 730 monthly points with its blocks and stage cycles, a wrapper
+   call, the plain version's 10 steps on the card scaled to 300, the
+   bound and the point-by-point chain). ``daily_run``: a year of
+   tenant-0's history (Size, Completeness(f1) with a weekly pattern,
+   Mean(f0)) in a
    ``FileSystemMetricsRepository`` under a temporary directory the phase
    removes, then today's ``run()`` (the main check, CountDistinct and
    ApproxCountDistinct(customer_id)) saving under ResultKey(365) with
@@ -1986,14 +1994,67 @@ def build_encoded_check():
             .has_uniqueness(["cbucket"], yes).has_entropy("status", yes))
 
 
+def fused_scan_timing(table, device, nbytes: int, rate: float) -> dict:
+    """K1's counterpart on the card: the fused scan of the main check's
+    scan-shareable analyzers over the persisted table, one pass after a
+    warm one, under torch.profiler: every device kernel's time and count,
+    the reductions' (torch's reduce kernels) apart, the pass's wall, and
+    the bound: the resident planes (``nbytes``) read once over the card's
+    memory rate. The port computes these reductions in plain torch f64,
+    so there is no kernel of its own to time beside them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+
+    scanning = list(dict.fromkeys(
+        a for a in build_check().required_analyzers()
+        if isinstance(a, ScanShareableAnalyzer)
+    ))
+    AnalysisRunner._run_scanning_analyzers(table, scanning, device)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        AnalysisRunner._run_scanning_analyzers(table, scanning, device)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    total_us = reduce_us = 0.0
+    launches = reduce_launches = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+        if us <= 0 or ev.key.startswith(("Memcpy", "Memset")) or ev.key.startswith("aten::"):
+            continue
+        total_us += us
+        launches += ev.count
+        if "reduce" in ev.key.lower():
+            reduce_us += us
+            reduce_launches += ev.count
+    if launches == 0:
+        fail("fused_scan_timing: the profiler showed no device kernel in the fused scan")
+    bound_ms = nbytes / rate * 1e3
+    return {"analyzers": len(scanning), "chunks": len(table._device_cache.device_chunks),
+            "resident_bytes": nbytes, "device_kernels": launches,
+            "device_ms": total_us / 1e3, "reduce_kernels": reduce_launches,
+            "reduce_ms": reduce_us / 1e3, "pass_wall_ms": wall_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share_of_reduce_ms": bound_ms / (reduce_us / 1e3) if reduce_us else None,
+            "bound_share_of_device_ms": bound_ms / (total_us / 1e3)}
+
+
 def resident_main(table, device, streamed_result, streamed_report) -> dict:
-    """(a) the main path over its persisted table and (d) encoded columns."""
+    """(a) the main path over its persisted table, with K1's counterpart
+    (the fused scan's reductions) profiled, and (d) encoded columns."""
+    import torch
+
     from deequ_tpu_torch import VerificationSuite
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     cache, persist_s = persist_timed(table, device)
     n_chunks = len(cache.device_chunks)
     runs = resident_runs(build_suite(table), table, device, "resident main")
+    k1 = fused_scan_timing(table, device, cache.nbytes,
+                           hbm_rate(torch.cuda.get_device_name(device)))
     result = runs.pop("result")
     worst = compare_runs(metric_values(streamed_result), metric_values(result), "resident main")
     stats = runs["scan_stats"]
@@ -2043,6 +2104,7 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
         "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
         "worst_rel_err_vs_streaming": worst,
         **runs,
+        "k1_fused_scan": k1,
         "encoded": encoded,
     }
 
@@ -2934,6 +2996,17 @@ TENANT = {"tenant": "tenant-0"}
 #: the Holt-Winters parity lengths: 2p (the monitor's warmup), then 28,
 #: 36 (the milk series' training span), a year and two years
 HW_PARITY_LENGTHS = (0, 28, 36, 365, 730)
+#: block edges of K9's blocked evaluation, (kind, p, n): 2p + 1 (two
+#: blocks of p and a last block of one point), and 358 = 17 x 21 + 1 (one
+#: point past a multiple of the default block length at p = 7)
+HW_BLOCK_EDGES = (("weekly", 7, 15), ("monthly", 12, 25), ("weekly", 7, 358))
+#: K9 at forced block lengths, held to the plain fit: {case: lengths},
+#: B from the default down to one block (the last lengths leave a last
+#: block of one point, then none)
+HW_BLOCK_SWEEP = {"weekly_n365": (21, 49, 98, 182, 364, 371),
+                  "monthly_n730": (48, 96, 240, 372, 732)}
+#: the shapes K9 is timed at
+HW_TIMED = ("weekly_n365", "weekly_n730", "monthly_n730")
 #: kernel against plain version: the fitted parameters' bound (both take
 #: exact gradients; the roundings differ in the last bits)
 HW_TOL = 1e-12
@@ -3005,6 +3078,8 @@ def hw_parity_cases(seed: int) -> dict:
         for n in HW_PARITY_LENGTHS:
             n = n or 2 * p
             cases[f"{kind}_n{n}"] = (hw_series(kind, n + p, seed), n, p)
+    for kind, p, n in HW_BLOCK_EDGES:
+        cases[f"{kind}_n{n}"] = (hw_series(kind, n + p, seed), n, p)
     cases["constant_n14"] = (hw_series("constant", 21, seed), 14, 7)
     cases["big_n365"] = (hw_series("big", 372, seed), 365, 7)
     return cases
@@ -3415,7 +3490,8 @@ def struct_bits(x: float) -> bytes:
 
 def holt_winters_parity(cases: dict, plain: dict, device) -> dict:
     """Part ``holt_winters_parity`` (module doc): the kernel against the
-    plain fit on the host's CPU, and a 10-step fit against the plain
+    plain fit on the host's CPU, at its default blocks and at the forced
+    block lengths of HW_BLOCK_SWEEP, and a 10-step fit against the plain
     version on the card."""
     import torch
 
@@ -3431,7 +3507,22 @@ def holt_winters_parity(cases: dict, plain: dict, device) -> dict:
             fail(f"holt_winters_parity: {name}: kernel {got} vs plain {plain[name]} "
                  f"(err {err}), flags {flags} vs {plain_flags}")
         worst = max(worst, err)
-        rows.append({"case": name, "n": n, "p": p, "max_abs_err": err, "flags": flags})
+        rows.append({"case": name, "n": n, "p": p, "blocks": holt_winters.blocking(n, p),
+                     "max_abs_err": err, "flags": flags})
+    for name, lengths in HW_BLOCK_SWEEP.items():
+        series, n, p = cases[name]
+        x = torch.tensor(series[:n], device=device)
+        out = torch.empty(3, dtype=torch.float64, device=device)
+        for block_len in lengths:
+            holt_winters._launch(x, p, holt_winters.STEPS, out, block_len)
+            got = out.tolist()
+            err = max(abs(a - b) for a, b in zip(got, plain[name]))
+            if err > HW_TOL:
+                fail(f"holt_winters_parity: {name} in blocks of {block_len}: kernel {got} vs "
+                     f"plain {plain[name]} (err {err})")
+            worst = max(worst, err)
+            rows.append({"case": f"{name}_blocks_of_{block_len}", "n": n, "p": p,
+                         "blocks": holt_winters.blocking(n, p, block_len), "max_abs_err": err})
     for name in sorted(cases, key=lambda k: cases[k][1])[-2:]:  # the two longest
         series, n, p = cases[name]
         x = torch.tensor(series[:n], device=device)
@@ -3448,27 +3539,34 @@ def holt_winters_parity(cases: dict, plain: dict, device) -> dict:
 
 
 def holt_winters_timing(cases: dict, device) -> list:
-    """K9 at n = 365 and 730 (p = 7): the kernel alone (CUDA events, the
-    median of 5 after a warm launch), one wrapper call with its fetch, the
-    plain version's 10 steps on the card scaled to 300, and the bound: the
-    recursion's shortest loop-carried chain, one dependent f64 FMA a point
-    and step (csrc/holt_winters.cu derives it), at the f64 FMA latency
-    measured here and the card's top SM clock."""
+    """K9 at HW_TIMED's shapes: the kernel alone (CUDA events, the median of
+    25 after a warm launch) at its default blocks, its stages (clock64,
+    cycles a step), one wrapper call with its fetch, the plain version's 10
+    steps on the card scaled to 300, and two chains at the f64 latencies
+    measured here and the card's top SM clock: ``bound_ms``, the least any
+    evaluation needs (per step, ceil(log2 n) dependent operations to
+    combine the n points into the last state, one to join its residual
+    term to the gradient, and the update's sqrt, divide and exp;
+    csrc/holt_winters.cu), and ``serial_chain_ms``, a point-by-point
+    evaluation's (one dependent FMA a point and step). Fails if the kernel
+    beats its bound."""
     import torch
 
     from deequ_tpu_torch.ops import holt_winters
 
-    cycles = holt_winters.dfma_cycles(device)
+    cycles = holt_winters.op_cycles(device)
     clock_hz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60).stdout.split()[0]) * 1e6
+    card = nvidia_smi_line()
+    steps = holt_winters.STEPS
     out = []
-    for name in ("weekly_n365", "weekly_n730"):
+    for name in HW_TIMED:
         series, n, p = cases[name]
         x = torch.tensor(series[:n], device=device)
         buf = torch.empty(3, dtype=torch.float64, device=device)
-        kernel_ms = time_cuda(lambda: holt_winters._launch(x, p, holt_winters.STEPS, buf),
-                              reps=5, warmup=1)
+        kernel_ms = time_cuda(lambda: holt_winters._launch(x, p, steps, buf), reps=25, warmup=1)
+        stages = holt_winters.stage_cycles(x, p)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         holt_winters.fit(x, p).cpu()
@@ -3477,15 +3575,27 @@ def holt_winters_timing(cases: dict, device) -> list:
         t0 = time.perf_counter()
         holt_winters.fit_plain(x, p, steps=10)
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3 * holt_winters.STEPS / 10
-        bound_ms = n * holt_winters.STEPS * cycles / clock_hz * 1e3
-        out.append({"column": name, "n": n, "p": p, "steps": holt_winters.STEPS,
+        plain_ms = (time.perf_counter() - t0) * 1e3 * steps / 10
+        step_cycles = ((math.ceil(math.log2(n)) + 1) * cycles["fma"]
+                       + cycles["sqrt"] + cycles["div"] + cycles["exp"])
+        bound_ms = steps * step_cycles / clock_hz * 1e3
+        serial_chain_ms = n * steps * cycles["fma"] / clock_hz * 1e3
+        if bound_ms > kernel_ms:
+            fail(f"holt_winters_timing: {name}: the kernel ({kernel_ms} ms) beats its "
+                 f"bound ({bound_ms} ms): the bound is wrong")
+        block_len, blocks = holt_winters.blocking(n, p)
+        out.append({"column": name, "n": n, "p": p, "steps": steps,
+                    "block_len": block_len, "blocks": blocks,
                     "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
                     "plain_ms_from": "10 steps on the card, x 30",
+                    "stage_cycles_a_step": stages,
                     "bound_ms": bound_ms, "bound_by": "operations",
                     "bound_share": bound_ms / kernel_ms,
-                    "dfma_latency_cycles": cycles, "sm_clock_max_hz": clock_hz,
-                    "library_ms": None})
+                    "bound_cycles_a_step": step_cycles,
+                    "serial_chain_ms": serial_chain_ms,
+                    "kernel_over_serial_chain": kernel_ms / serial_chain_ms,
+                    "latency_cycles": cycles, "sm_clock_max_hz": clock_hz,
+                    "card": card, "library_ms": None})
     return out
 
 
@@ -3747,6 +3857,8 @@ def main(argv=None) -> int:
         "plain_ms": hw_time[0]["plain_ms"],
         "bound_ms": hw_time[0]["bound_ms"],
         "bound_by": hw_time[0]["bound_by"],
+        "bound_share": hw_time[0]["bound_share"],
+        "serial_chain_ms": hw_time[0]["serial_chain_ms"],
         "library_ms": None,
         "library_call": None,
         "parity": f"alpha, beta, gamma within {HW_TOL} of the plain fit, same flags",

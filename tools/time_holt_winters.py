@@ -3,20 +3,29 @@ commits on the same card within one call.
 
     git archive <parent> | tar -x -C build/parent     # build/ is ignored
     for t in build/parent . . build/parent; do python3 tools/time_holt_winters.py $t; done
+    python3 tools/time_holt_winters.py . --sweep      # every blocking, held to the plain fit
 
 Builds the checkout's kernel and times it alone as ``chip_smoke.py``'s
 ``holt_winters_timing`` does (CUDA events, the median of 5 after a warm
-launch; here also over 25) on the weekly parity series at n = 365 and
-730 (p = 7, 300 steps, seed 0), and prints one JSON line with the
-fitted (alpha, beta, gamma).
+launch; here also over 25) on the parity series at n = 365 and 730
+(weekly, p = 7) and n = 730 (monthly, p = 12), 300 steps, seed 0, and
+prints one JSON line with the fitted (alpha, beta, gamma), the card's
+``nvidia-smi`` name and power limit, and, where the checkout's kernel
+evaluates in blocks, the blocks it chose, its stage cycles and the f64
+latencies its bound counts. With ``--sweep`` (a checkout with blocks) it
+also times every block length the kernel takes at each shape (the
+median of 5) and holds each one's 10-step fit against the plain
+version's 10 steps on the card (``max_abs_err``).
 """
 
 import json
 import os
 import sys
 
+CASES = ("weekly_n365", "weekly_n730", "monthly_n730")
 
-def main(tree: str) -> None:
+
+def main(tree: str, sweep: bool = False) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -28,8 +37,11 @@ def main(tree: str) -> None:
     cuda_build.build("holt_winters")
     device = torch.device("cuda", 0)
     cases = cs.hw_parity_cases(0)
+    blocking = getattr(holt_winters, "blocking", None)
     out = {"tree": tree, "card": cs.nvidia_smi_line()}
-    for name in ("weekly_n365", "weekly_n730"):
+    if hasattr(holt_winters, "op_cycles"):
+        out["op_cycles"] = holt_winters.op_cycles(device)
+    for name in CASES:
         series, n, p = cases[name]
         x = torch.tensor(series[:n], device=device)
         buf = torch.empty(3, dtype=torch.float64, device=device)
@@ -37,11 +49,39 @@ def main(tree: str) -> None:
         def launch():
             holt_winters._launch(x, p, holt_winters.STEPS, buf)
 
-        out[name] = {"kernel_ms_median_of_5": cs.time_cuda(launch, reps=5, warmup=1),
-                     "kernel_ms_median_of_25": cs.time_cuda(launch, reps=25, warmup=1),
-                     "abg": buf.tolist()}
+        row = {"kernel_ms_median_of_5": cs.time_cuda(launch, reps=5, warmup=1),
+               "kernel_ms_median_of_25": cs.time_cuda(launch, reps=25, warmup=1),
+               "abg": buf.tolist()}
+        if blocking is not None:
+            row["block_len"], row["blocks"] = blocking(n, p)
+        if hasattr(holt_winters, "stage_cycles"):
+            row["stage_cycles"] = holt_winters.stage_cycles(x, p)
+        if sweep:
+            row["sweep"] = sweep_blocks(holt_winters, cs, x, p)
+        out[name] = row
     print(json.dumps(out))
 
 
+def sweep_blocks(holt_winters, cs, x, p: int) -> list:
+    """Every block length the kernel takes at this shape: kernel ms (the
+    median of 5) and the 10-step fit's distance from the plain one's."""
+    import torch
+
+    n = x.numel()
+    want = holt_winters.fit_plain(x, p, steps=10)
+    buf = torch.empty(3, dtype=torch.float64, device=x.device)
+    rows = []
+    for block_len in range(p, n + p, p):
+        if -(-n // block_len) > holt_winters.max_blocks(p):
+            continue
+        holt_winters._launch(x, p, 10, buf, block_len)
+        err = (buf - want).abs().max().item()
+        ms = cs.time_cuda(lambda: holt_winters._launch(x, p, holt_winters.STEPS, buf, block_len),
+                          reps=5, warmup=1)
+        rows.append({"block_len": block_len, "blocks": -(-n // block_len), "kernel_ms": ms,
+                     "max_abs_err_10_steps": err})
+    return rows
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], "--sweep" in sys.argv[2:])
