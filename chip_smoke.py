@@ -86,8 +86,9 @@ Phases, each printed as one JSON line on stdout:
    packed, ``status`` and ``region`` counted from resident codes by K5,
    and ``k1_fused_scan``: the fused scan's device kernels under
    torch.profiler, the reductions (K1's counterpart, plain torch f64)
-   apart, beside the resident planes read once at the card's memory
-   rate; and, inside it, ``encoded`` — two low-cardinality numeric columns made
+   apart, beside the bound of the whole pass: the resident planes of
+   the columns it reads, read once at the card's memory rate; and,
+   inside it, ``encoded`` — two low-cardinality numeric columns made
    from the main table, encoded and persisted, bit-identical to their
    decoded twin with at most half its resident bytes; ``sketch`` (after
    phase 8) — the select (K4) in place of every sort
@@ -148,7 +149,7 @@ Phases, each printed as one JSON line on stdout:
    the default) on the weekly 365 and monthly 730 points against the
    same plain fits, a 10-step fit against the plain version on the card,
    and a ``kernel_timing`` line (the kernel alone at 365 and 730 weekly
-   and 730 monthly points with its blocks and stage cycles, a wrapper
+   and 730 monthly points with its blocks, a wrapper
    call, the plain version's 10 steps on the card scaled to 300, the
    bound and the point-by-point chain). ``daily_run``: a year of
    tenant-0's history (Size, Completeness(f1) with a weekly pattern,
@@ -1994,14 +1995,28 @@ def build_encoded_check():
             .has_uniqueness(["cbucket"], yes).has_entropy("status", yes))
 
 
-def fused_scan_timing(table, device, nbytes: int, rate: float) -> dict:
+def planes_read_bytes(cache, columns) -> int:
+    """The bytes of a persisted table's resident planes that a scan of
+    ``columns`` reads: each column's row of the values, masks, codes and
+    encoded planes, in every chunk."""
+    total = 0
+    for planes in cache.device_chunks:
+        for names, plane in zip(cache.packer.layout(), planes):
+            rows = sum(1 for name in names if name in columns)
+            total += rows * plane.shape[1] * plane.element_size()
+    return total
+
+
+def fused_scan_timing(table, device, rate: float) -> dict:
     """K1's counterpart on the card: the fused scan of the main check's
     scan-shareable analyzers over the persisted table, one pass after a
     warm one, under torch.profiler: every device kernel's time and count,
     the reductions' (torch's reduce kernels) apart, the pass's wall, and
-    the bound: the resident planes (``nbytes``) read once over the card's
-    memory rate. The port computes these reductions in plain torch f64,
-    so there is no kernel of its own to time beside them."""
+    the bound of the whole pass: the resident planes of the columns the
+    analyzers read (:func:`planes_read_bytes`), read once over the card's
+    memory rate, held against the device time of all its kernels. The
+    port computes these reductions in plain torch f64, so there is no
+    kernel of its own to time beside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2012,6 +2027,8 @@ def fused_scan_timing(table, device, nbytes: int, rate: float) -> dict:
         a for a in build_check().required_analyzers()
         if isinstance(a, ScanShareableAnalyzer)
     ))
+    columns = sorted({c for a in scanning for c in a.scan_op(table).columns})
+    nbytes = planes_read_bytes(table._device_cache, columns)
     AnalysisRunner._run_scanning_analyzers(table, scanning, device)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2034,11 +2051,11 @@ def fused_scan_timing(table, device, nbytes: int, rate: float) -> dict:
         fail("fused_scan_timing: the profiler showed no device kernel in the fused scan")
     bound_ms = nbytes / rate * 1e3
     return {"analyzers": len(scanning), "chunks": len(table._device_cache.device_chunks),
-            "resident_bytes": nbytes, "device_kernels": launches,
+            "columns_read": len(columns), "bytes_read": nbytes,
+            "resident_bytes": table._device_cache.nbytes, "device_kernels": launches,
             "device_ms": total_us / 1e3, "reduce_kernels": reduce_launches,
             "reduce_ms": reduce_us / 1e3, "pass_wall_ms": wall_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "bound_share_of_reduce_ms": bound_ms / (reduce_us / 1e3) if reduce_us else None,
             "bound_share_of_device_ms": bound_ms / (total_us / 1e3)}
 
 
@@ -2053,8 +2070,7 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
     cache, persist_s = persist_timed(table, device)
     n_chunks = len(cache.device_chunks)
     runs = resident_runs(build_suite(table), table, device, "resident main")
-    k1 = fused_scan_timing(table, device, cache.nbytes,
-                           hbm_rate(torch.cuda.get_device_name(device)))
+    k1 = fused_scan_timing(table, device, hbm_rate(torch.cuda.get_device_name(device)))
     result = runs.pop("result")
     worst = compare_runs(metric_values(streamed_result), metric_values(result), "resident main")
     stats = runs["scan_stats"]
@@ -3007,6 +3023,9 @@ HW_BLOCK_SWEEP = {"weekly_n365": (21, 49, 98, 182, 364, 371),
                   "monthly_n730": (48, 96, 240, 372, 732)}
 #: the shapes K9 is timed at
 HW_TIMED = ("weekly_n365", "weekly_n730", "monthly_n730")
+#: K9's computed chain figures (the point-by-point chain, the bound's
+#: cycles): printed on its kernel_timing line only, not on the kernels line
+HW_CHAIN_KEYS = ("serial_chain_ms", "kernel_over_serial_chain", "bound_cycles_a_step")
 #: kernel against plain version: the fitted parameters' bound (both take
 #: exact gradients; the roundings differ in the last bits)
 HW_TOL = 1e-12
@@ -3540,9 +3559,9 @@ def holt_winters_parity(cases: dict, plain: dict, device) -> dict:
 
 def holt_winters_timing(cases: dict, device) -> list:
     """K9 at HW_TIMED's shapes: the kernel alone (CUDA events, the median of
-    25 after a warm launch) at its default blocks, its stages (clock64,
-    cycles a step), one wrapper call with its fetch, the plain version's 10
-    steps on the card scaled to 300, and two chains at the f64 latencies
+    25 after a warm launch) at its default blocks, one wrapper call with
+    its fetch, the plain version's 10 steps on the card scaled to 300,
+    and two chains at the f64 latencies
     measured here and the card's top SM clock: ``bound_ms``, the least any
     evaluation needs (per step, ceil(log2 n) dependent operations to
     combine the n points into the last state, one to join its residual
@@ -3566,7 +3585,6 @@ def holt_winters_timing(cases: dict, device) -> list:
         x = torch.tensor(series[:n], device=device)
         buf = torch.empty(3, dtype=torch.float64, device=device)
         kernel_ms = time_cuda(lambda: holt_winters._launch(x, p, steps, buf), reps=25, warmup=1)
-        stages = holt_winters.stage_cycles(x, p)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         holt_winters.fit(x, p).cpu()
@@ -3588,7 +3606,6 @@ def holt_winters_timing(cases: dict, device) -> list:
                     "block_len": block_len, "blocks": blocks,
                     "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
                     "plain_ms_from": "10 steps on the card, x 30",
-                    "stage_cycles_a_step": stages,
                     "bound_ms": bound_ms, "bound_by": "operations",
                     "bound_share": bound_ms / kernel_ms,
                     "bound_cycles_a_step": step_cycles,
@@ -3858,11 +3875,11 @@ def main(argv=None) -> int:
         "bound_ms": hw_time[0]["bound_ms"],
         "bound_by": hw_time[0]["bound_by"],
         "bound_share": hw_time[0]["bound_share"],
-        "serial_chain_ms": hw_time[0]["serial_chain_ms"],
         "library_ms": None,
         "library_call": None,
         "parity": f"alpha, beta, gamma within {HW_TOL} of the plain fit, same flags",
-        "shapes": hw_time,
+        "shapes": [{k: v for k, v in row.items() if k not in HW_CHAIN_KEYS}
+                   for row in hw_time],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

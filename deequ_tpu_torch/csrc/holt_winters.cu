@@ -78,9 +78,9 @@
 // ~55 cycles a point on the card; a join is a shared-memory round trip and
 // 2 (p + 2) FMAs in four partial sums, ~170 cycles at p = 7; the update's
 // chain of three divides, a sqrt and an exp ~830 cycles a step (PERF.md,
-// from stage_cycles' clock64 reads). So a step costs about 2 Lb points and
-// B - 2 joins, and the wrapper takes Lb near sqrt(n), the measured best
-// where the lanes allow it.
+// from the stage-clock probe build below). So a step costs about 2 Lb
+// points and B - 2 joins, and the wrapper takes Lb near sqrt(n), the
+// measured best where the lanes allow it.
 // No evaluation can beat, per step, ceil(log2 n) dependent f64 operations
 // (the state at the last point combines n inputs), one more to join its
 // residual term to the gradient, and the update's sqrt, divide and the
@@ -91,7 +91,11 @@
 // instructions a point from one warp, or ~16 from each of three.
 //
 // Built without --use_fast_math. Plain C interface for ctypes; every entry
-// returns the launch's cudaGetLastError().
+// returns the launch's cudaGetLastError(). Built with
+// -DDEEQU_HW_STAGE_CLOCK (a probe build: tools/time_holt_winters.py), the
+// kernel also reads clock64 at its warp synchronisation points and the
+// library exports deequ_hw_fit_stage_clock; the package's library has
+// neither.
 
 #include <cuda_runtime.h>
 
@@ -102,10 +106,15 @@ constexpr int kParams = 3;   // alpha, beta, gamma: warps 0, 1, 2
 constexpr int kThreads = kParams * kWarp;
 constexpr int kCoef = 8;     // doubles a coefficient buffer: s_k, then e_k
 constexpr int kStages = 5;   // drive, join, replay, reduce, update
+#ifdef DEEQU_HW_STAGE_CLOCK
+constexpr bool kStageClock = true;
+#else
+constexpr bool kStageClock = false;
+#endif
 
 // Cycles of each stage of a step, summed over the steps on lane 0 of each
-// warp (clock64 at the warp's synchronisation points), when kOn; nothing
-// otherwise.
+// warp (clock64 at the warp's synchronisation points), in the probe build;
+// nothing otherwise.
 template <bool kOn>
 struct StageClock {
   long long last = 0, sum[kStages] = {};
@@ -231,7 +240,7 @@ __device__ __forceinline__ double run(State<P>& z, const Coef& c, const double* 
   return acc;
 }
 
-template <int P, bool kClock>
+template <int P>
 __global__ void __launch_bounds__(kThreads)
 hw_fit_kernel(const double* __restrict__ y, int n, int steps, int block_len, int blocks,
               const double* __restrict__ bias, double theta_a, double theta_bg, double lr,
@@ -273,7 +282,7 @@ hw_fit_kernel(const double* __restrict__ y, int n, int steps, int block_len, int
   const int own_len = lane < blocks ? min(block_len, n - lane * block_len) : 0;
 #pragma unroll
   for (int j = 0; j < P; ++j) yfirst[j] = j < own_len ? __ldg(y + lane * block_len + j) : y0;
-  StageClock<kClock> clock;
+  StageClock<kStageClock> clock;
   clock.start();
   for (int i = 1; i <= steps; ++i) {
     double d1 = 0.0, d2 = 0.0;
@@ -380,7 +389,7 @@ hw_fit_kernel(const double* __restrict__ y, int n, int steps, int block_len, int
   }
   if (lane == 0) {
     out[k] = coef[((steps + 1) & 1) * kCoef + k];
-    if (kClock) {
+    if (kStageClock) {
 #pragma unroll
       for (int st = 0; st < kStages; ++st) clocks[k * kStages + st] = clock.sum[st];
     }
@@ -419,16 +428,32 @@ int launch_fit(const double* series, int n, int steps, int block_len, int blocks
                const double* bias, double theta_a, double theta_bg, double lr, double beta1,
                double beta2, double eps, double* out, long long* clocks, size_t smem,
                cudaStream_t stream) {
-  if (clocks == nullptr) {
-    hw_fit_kernel<P, false><<<1, kThreads, smem, stream>>>(
-        series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr, beta1, beta2, eps,
-        out, clocks);
-  } else {
-    hw_fit_kernel<P, true><<<1, kThreads, smem, stream>>>(
-        series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr, beta1, beta2, eps,
-        out, clocks);
-  }
+  hw_fit_kernel<P><<<1, kThreads, smem, stream>>>(series, n, steps, block_len, blocks, bias,
+                                                  theta_a, theta_bg, lr, beta1, beta2, eps,
+                                                  out, clocks);
   return (int)cudaGetLastError();
+}
+
+int fit(const double* series, int n, int p, int steps, int block_len, int blocks,
+        const double* bias, double theta_a, double theta_bg, double lr, double beta1,
+        double beta2, double eps, double* out, long long* clocks, cudaStream_t stream) {
+  if (block_len <= 0 || block_len % p != 0 || blocks < 1 || blocks > 31 - p ||
+      (long long)(blocks - 1) * block_len >= n || (long long)blocks * block_len < n ||
+      n < 2 * p) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(double) * (2 * kCoef + (size_t)kParams * (blocks + p + 2) *
+                                                        2 * (p + 2));
+  switch (p) {
+    case 7:
+      return launch_fit<7>(series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr,
+                           beta1, beta2, eps, out, clocks, smem, stream);
+    case 12:
+      return launch_fit<12>(series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr,
+                            beta1, beta2, eps, out, clocks, smem, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -439,33 +464,26 @@ extern "C" {
 // `steps` Adam steps from the logits (theta_a, theta_bg, theta_bg), in
 // `blocks` blocks of `block_len` points (a multiple of p; blocks <= 31 - p;
 // the last block holds the rest); bias holds 1 - beta1^i then 1 - beta2^i
-// for i = 1 .. steps. Writes the three values to out. clocks: NULL, or
-// 3 x kStages int64 that receive each warp's cycles in each stage, summed
-// over the steps (the same kernel with clock64 reads at its warp
-// synchronisation points). Returns the launch's error, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// for i = 1 .. steps. Writes the three values to out. Returns the launch's
+// error, or cudaErrorInvalidValue for arguments the kernel does not take.
 int deequ_hw_fit(const double* series, int n, int p, int steps, int block_len, int blocks,
                  const double* bias, double theta_a, double theta_bg, double lr, double beta1,
-                 double beta2, double eps, double* out, long long* clocks, void* stream) {
-  if (block_len <= 0 || block_len % p != 0 || blocks < 1 || blocks > 31 - p ||
-      (long long)(blocks - 1) * block_len >= n || (long long)blocks * block_len < n ||
-      n < 2 * p) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = sizeof(double) * (2 * kCoef + (size_t)kParams * (blocks + p + 2) *
-                                                        2 * (p + 2));
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p) {
-    case 7:
-      return launch_fit<7>(series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr,
-                           beta1, beta2, eps, out, clocks, smem, s);
-    case 12:
-      return launch_fit<12>(series, n, steps, block_len, blocks, bias, theta_a, theta_bg, lr,
-                            beta1, beta2, eps, out, clocks, smem, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                 double beta2, double eps, double* out, void* stream) {
+  return fit(series, n, p, steps, block_len, blocks, bias, theta_a, theta_bg, lr, beta1, beta2,
+             eps, out, nullptr, (cudaStream_t)stream);
 }
+
+#ifdef DEEQU_HW_STAGE_CLOCK
+// deequ_hw_fit, and each warp's cycles in each stage summed over the
+// steps into clocks (3 x kStages int64).
+int deequ_hw_fit_stage_clock(const double* series, int n, int p, int steps, int block_len,
+                             int blocks, const double* bias, double theta_a, double theta_bg,
+                             double lr, double beta1, double beta2, double eps, double* out,
+                             long long* clocks, void* stream) {
+  return fit(series, n, p, steps, block_len, blocks, bias, theta_a, theta_bg, lr, beta1, beta2,
+             eps, out, clocks, (cudaStream_t)stream);
+}
+#endif
 
 // Cycles of a chain of `chain` dependent f64 operations on one thread,
 // written to cycles[0] (sink[0] keeps the chain alive): op 0 an FMA, 1 a

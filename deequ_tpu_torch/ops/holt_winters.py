@@ -91,8 +91,9 @@ def blocking(n: int, periodicity: int, block_len: int | None = None) -> tuple:
     ``block_len`` points, a multiple of p (so every block starts at ring
     slot 0), the last holding the rest. By default about sqrt(n) points a
     block, lengthened until at most :func:`max_blocks` blocks remain. A
-    ``block_len`` given must be a positive multiple of p that leaves at
-    most that many blocks."""
+    ``block_len`` given (the checks' forced blockings, :func:`_launch`)
+    must be a positive multiple of p that leaves at most that many
+    blocks."""
     p = int(periodicity)
     limit = max_blocks(p)
     if block_len is None:
@@ -214,7 +215,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_void_p,
         ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
     ]
     lib.deequ_hw_fit.restype = ctypes.c_int
     lib.deequ_hw_op_cycles.argtypes = [
@@ -224,13 +224,14 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _launch(series: torch.Tensor, periodicity: int, steps: int, out: torch.Tensor,
-            block_len: int | None = None, clocks: torch.Tensor | None = None) -> None:
+            block_len: int | None = None) -> None:
     """Enqueue one fit on the current stream into ``out`` ((3,) float64),
-    in :func:`blocking`'s blocks (``block_len`` overrides the default), with
-    no allocation after a first fit of ``steps`` on the device: :func:`fit`
-    calls it once; ``chip_smoke.py`` times it alone. ``clocks`` ((3,
-    len(STAGES)) int64 on the device) receives each warp's cycles a stage
-    (:func:`stage_cycles`). Raises if the launch was refused."""
+    in :func:`blocking`'s blocks, with no allocation after a first fit of
+    ``steps`` on the device: :func:`fit` calls it once; ``chip_smoke.py``
+    times it alone. ``block_len`` is for the checks alone (the tests and
+    ``chip_smoke.py`` hold the kernel at forced blockings against the plain
+    fit, ``tools/time_holt_winters.py --sweep`` times them); :func:`fit`
+    never passes it. Raises if the launch was refused."""
     check_kernel_periodicity(periodicity)
     lib = cuda_build.library("holt_winters", _bind)
     n = series.numel()
@@ -241,32 +242,13 @@ def _launch(series: torch.Tensor, periodicity: int, steps: int, out: torch.Tenso
         rc = lib.deequ_hw_fit(
             series.data_ptr(), n, periodicity, steps, block_len, blocks, bias.data_ptr(),
             INITIAL_LOGITS[0], INITIAL_LOGITS[1], LR, BETA1, BETA2, EPS,
-            out.data_ptr(), None if clocks is None else clocks.data_ptr(), stream,
+            out.data_ptr(), stream,
         )
     if rc != 0:
         raise DeviceException(
             f"holt_winters kernel launch failed: CUDA error {rc} "
             f"(n={n}, p={periodicity}, steps={steps}, blocks={blocks} of {block_len})"
         )
-
-
-#: the stages of a step, as the kernel's clock64 reads cut them: block 0,
-#: the driven responses and Phi's columns; the join; the replay; the
-#: gradient's warp reduction; the Adam update, the sigmoid and the barrier
-STAGES = ("drive", "join", "replay", "reduce", "update")
-
-
-def stage_cycles(series: torch.Tensor, periodicity: int, steps: int = STEPS,
-                 block_len: int | None = None) -> dict:
-    """{stage: cycles a step} of one fit on ``series``' card (the mean over
-    the three warps of each warp's cycles in the stage, over ``steps``),
-    from the kernel built with clock64 reads at its warp synchronisation
-    points; waits for the stream."""
-    out = torch.empty(3, dtype=torch.float64, device=series.device)
-    clocks = torch.zeros(3, len(STAGES), dtype=torch.int64, device=series.device)
-    _launch(series.contiguous(), int(periodicity), int(steps), out, block_len, clocks)
-    per_step = clocks.double().mean(dim=0) / max(steps, 1)
-    return dict(zip(STAGES, per_step.tolist()))
 
 
 #: the operations whose latency the bound counts, by their code in

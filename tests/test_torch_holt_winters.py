@@ -35,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-import deequ_tpu.anomaly.seasonal as ref_seasonal
 from deequ_tpu_torch.ops import holt_winters
 
 pytestmark = pytest.mark.torch_port
@@ -235,6 +234,10 @@ def test_blocked_gradient_matches_autograd(kind, n, p, choice, at):
 def test_blocked_fit_matches_reference(kind, n, p):
     """The kernel's whole fit, emulated, within 1e-12 of the reference's
     jitted-autodiff fit."""
+    # imported here, not at the top, so that the cuda-marked test runs on a
+    # card whose Python has no JAX (pytest --noconftest)
+    import deequ_tpu.anomaly.seasonal as ref_seasonal
+
     series = _series(kind, n)
     want = ref_seasonal._fit_parameters_jax(np.asarray(series), p)
     got = blocked_fit(series, p)
@@ -305,17 +308,29 @@ def test_bias_table_holds_fit_plains_divisors():
         assert table[300 + i - 1] == 1 - 0.999 ** i
 
 
+#: forced block lengths the kernel takes at n = 365, p = 7: its default's
+#: 18 blocks of 21, then 11, 8, 3 (the last of 1 point), 2 (the last of
+#: 1 point) and one block of the whole series
+CUDA_BLOCK_LENGTHS = [None, 21, 35, 49, 182, 364, 371]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_len", [None, 7, 14, 21, 35, 364])
+@pytest.mark.parametrize("block_len", CUDA_BLOCK_LENGTHS)
 def test_kernel_blocks_against_plain_on_cuda(block_len):
-    """The kernel at several blockings, one block to 24, within 1e-12 of
-    the plain fit (the card has no CPU mode: skips without one)."""
+    """The kernel at several blockings, from its default's 18 blocks to
+    one, within 1e-12 of the plain fit (the card has no CPU mode: skips
+    without one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Holt-Winters kernel has no CPU mode")
     series = torch.tensor(_series("weekly", 365), dtype=torch.float64)
     want = holt_winters.fit_plain(series, 7, steps=20)
-    if block_len == 364:
-        block_len = 371  # one block holding the whole series
     out = torch.empty(3, dtype=torch.float64, device="cuda")
     holt_winters._launch(series.cuda(), 7, 20, out, block_len)
     assert (out.cpu() - want).abs().max().item() <= FIT_TOL
+
+
+def test_cuda_block_lengths_are_ones_the_kernel_takes():
+    """Every forced length of the cuda-marked test is a blocking the kernel
+    takes at n = 365, p = 7, and together they run from 18 blocks to one."""
+    got = [holt_winters.blocking(365, 7, b) for b in CUDA_BLOCK_LENGTHS]
+    assert [blocks for _, blocks in got] == [18, 18, 11, 8, 3, 2, 1]
