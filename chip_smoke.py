@@ -178,6 +178,31 @@ Phases, each printed as one JSON line on stdout:
    loader-side baseline, the encoded query staging at most half the
    decoded one's bytes; the save, compact, history-build, query and
    loader-side walls;
+16. ``profile_path`` (after ``repository_path``, over the main path's
+   table with one more column, ``zip``: 10^7 five-digit numeric strings
+   from 40,000 codes, 1% null; BASELINE.md config 2's ColumnProfiler
+   workload, 25 columns) — ``ColumnProfilerRunner.on_data(table)
+   .with_kll_profiling().run()``, counts set to 0 just before and read
+   just after, watched for CPU ops: every profile field against numpy
+   (size, completeness, type counts, min/max and the histogram of
+   ``status`` exact; sum and mean within 1e-12, standard deviation
+   within 1e-10; ``zip`` inferred Integral), both passes' scans resident
+   with no bytes packed and pass 3's histogram counted from resident
+   codes, K2, K4 and K5 launched, the table and its cast twin persisted
+   and freed (``torch.cuda.memory_allocated`` falling by at least their
+   resident bytes); then three timed profiles (each pass and each
+   ``persist()`` timed), every ApproxCountDistinct bit for bit a streaming
+   ``do_analysis_run``'s and every KLL profile bit for bit a streaming
+   scan (K3) of the cast table cut at the resident chunk's rows. Then
+   ``ConstraintSuggestionRunner`` (``Rules.DEFAULT`` and
+   UniqueIfApproximatelyUniqueRule, a held-out tenth): the suggestions,
+   their code and the held-out statuses over the first 10^6 rows on the
+   card equal to the port's run on the CPU, then two timed runs over all
+   10^7; ``RowLevelSchemaValidator`` over a 10^5-row raw string table
+   with its valid rows verified on the card against numpy;
+   ``Applicability`` of the main check, the card's verdict the CPU's;
+   and the ``deequ_migration_example.py`` flow (a legacy repository JSON
+   imported, an anomaly check reading it, once quiet and once firing);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path), the nvidia-smi line, and the result line
@@ -3656,6 +3681,469 @@ def repository_path(table, main_result, seed: int, device) -> dict:
     }, timing
 
 
+# -- phase 16: profile_path --------------------------------------------------
+
+#: zip codes of the profile's table: five-digit numeric strings
+PROFILE_ZIPS = 40_000
+#: rows of the suggestion run held against the CPU's
+SUGGEST_CPU_ROWS = 1_000_000
+SUGGEST_TEST_RATIO = 0.1
+SCHEMA_ROWS = 100_000
+#: relative bounds of the profile's floating fields (PERF.md §2)
+_PROFILE_REL = {"sum": 1e-12, "mean": 1e-12, "std_dev": 1e-10}
+
+
+def with_zip_column(table, seed: int):
+    """The main table with ``zip``: five-digit numeric strings from a
+    dictionary of 40,000 codes, 1% null, which the profile infers
+    integral and casts."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import Column, DType
+
+    rng = np.random.default_rng(seed + 10)
+    zips = np.sort(rng.choice(100_000, PROFILE_ZIPS, replace=False))
+    codes = rng.integers(0, PROFILE_ZIPS, size=table.num_rows).astype(np.int32)
+    codes[rng.random(table.num_rows) < 0.01] = -1
+    return table.with_column(Column("zip", DType.STRING, codes=codes, dictionary=np.array(
+        [f"{z:05d}" for z in zips], dtype=object)))
+
+
+def profile_numpy(table) -> dict:
+    """What the profile must hold, computed with numpy: {column: fields}."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import DType
+
+    n = table.num_rows
+    out = {}
+    for name in table.column_names:
+        col = table[name]
+        want = {"completeness": float(col.mask.sum()) / n}
+        if col.dtype == DType.STRING:
+            valid = col.codes >= 0
+            if name == "zip":
+                lut = np.array([float(v) for v in col.dictionary])
+                v = lut[col.codes[valid]]
+                want["type_counts"] = {"Unknown": int((~valid).sum()), "Fractional": 0,
+                                       "Integral": int(valid.sum()), "Boolean": 0,
+                                       "String": 0}
+            else:
+                v = None
+                want["type_counts"] = {"Unknown": int((~valid).sum()), "Fractional": 0,
+                                       "Integral": 0, "Boolean": 0,
+                                       "String": int(valid.sum())}
+            if name == "status":
+                counts = np.bincount(col.codes[valid], minlength=len(col.dictionary))
+                want["histogram"] = {str(col.dictionary[i]): (int(c), int(c) / n)
+                                     for i, c in enumerate(counts) if c}
+                if not valid.all():
+                    want["histogram"]["NullValue"] = (int((~valid).sum()),
+                                                      int((~valid).sum()) / n)
+        else:
+            v = col.values[col.mask].astype(np.float64)
+        if v is not None:
+            want.update(minimum=float(v.min()), maximum=float(v.max()), sum=float(v.sum()),
+                        mean=float(v.mean()), std_dev=float(v.std()))
+        out[name] = want
+    return out
+
+
+def check_profile(profiles, want: dict) -> float:
+    """The profile against numpy (module doc); returns the worst relative
+    error of the toleranced fields."""
+    from deequ_tpu_torch.profiles import NumericColumnProfile
+
+    if set(profiles.profiles) != set(want):
+        fail(f"profile_path: profiled {sorted(profiles.profiles)}")
+    worst = 0.0
+    for name, w in want.items():
+        p = profiles.profiles[name]
+        if p.completeness != w["completeness"]:
+            fail(f"profile_path: {name} completeness {p.completeness} != {w['completeness']}")
+        if "type_counts" in w and p.type_counts != w["type_counts"]:
+            fail(f"profile_path: {name} type counts {p.type_counts} != {w['type_counts']}")
+        hist = None if p.histogram is None else {
+            k: (v.absolute, v.ratio) for k, v in p.histogram.values.items()}
+        if hist != w.get("histogram"):
+            fail(f"profile_path: {name} histogram {hist} != numpy {w.get('histogram')}")
+        numeric = "minimum" in w
+        if numeric != isinstance(p, NumericColumnProfile):
+            fail(f"profile_path: {name} profiled as {type(p).__name__}")
+        if not numeric:
+            continue
+        if (p.minimum, p.maximum) != (w["minimum"], w["maximum"]):
+            fail(f"profile_path: {name} min/max {p.minimum}, {p.maximum} != numpy "
+                 f"{w['minimum']}, {w['maximum']}")
+        for field, bound in _PROFILE_REL.items():
+            have, exp = getattr(p, field), w[field]
+            rel = abs(have - exp) / max(abs(exp), 1e-300)
+            worst = max(worst, rel)
+            if not rel <= bound:
+                fail(f"profile_path: {name} {field} {have!r} vs numpy {exp!r}, rel {rel:.3g}")
+        if p.kll is None or len(p.approx_percentiles) != 100:
+            fail(f"profile_path: {name} has no KLL profile")
+    zip_type = profiles.profiles["zip"].data_type.value
+    if zip_type != "Integral" or not profiles.profiles["zip"].is_data_type_inferred:
+        fail(f"profile_path: zip inferred {zip_type}, want Integral")
+    return worst
+
+
+class PersistSpy:
+    """While active, times every ``persist_table`` (wall to a device
+    synchronisation, resident bytes, chunk rows) and measures what each
+    eviction frees (``torch.cuda.memory_allocated`` before and after)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.persists = []
+        self.evictions = []
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import scan_engine
+
+        self._persist, self._evict = scan_engine.persist_table, scan_engine._evict_device_cache
+
+        def persist(table, device=None, **kwargs):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = self._persist(table, device, **kwargs)
+            self.persists.append({"wall_s": time.perf_counter() - t0, "bytes": cache.nbytes,
+                                  "chunk_rows": cache.chunk,
+                                  "chunks": len(cache.device_chunks)})
+            return cache
+
+        def evict(table):
+            import torch
+
+            if not table.is_persisted:
+                return self._evict(table)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(self.device)
+            nbytes = self._evict(table)
+            torch.cuda.synchronize()
+            self.evictions.append({"bytes": nbytes, "freed_bytes":
+                                   before - torch.cuda.memory_allocated(self.device)})
+            return nbytes
+
+        scan_engine.persist_table, scan_engine._evict_device_cache = persist, evict
+        return self
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import scan_engine
+
+        scan_engine.persist_table, scan_engine._evict_device_cache = self._persist, self._evict
+
+
+class TimedRuns:
+    """The profiler's default pass executor, each pass timed to a device
+    synchronisation and its AnalyzerContext kept."""
+
+    def __init__(self, device):
+        from deequ_tpu_torch.profiles import OfflineProfileRuns
+
+        self.inner = OfflineProfileRuns({"device": device})
+        self.walls = []
+        self.contexts = []
+
+    def run(self, table, analyzers):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx = self.inner.run(table, analyzers)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        self.contexts.append(ctx)
+        return ctx
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(x, np.float64).view(np.uint64),
+                              np.asarray(y, np.float64).view(np.uint64))
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def profile_sketches_vs_streaming(table, profiles, pass1, resident_chunk: int, device) -> dict:
+    """Every ApproxCountDistinct of the profile bit for bit a streaming
+    ``do_analysis_run`` of the same analyzers, and every KLL profile bit
+    for bit a streaming scan (K3, the sort) of the cast table cut at the
+    resident chunk's rows."""
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, KLLSketch
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.data.cast import cast_string_column
+    from deequ_tpu_torch.data.table import DType
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, run_scan
+
+    acd = [ApproxCountDistinct(c) for c in table.column_names]
+    SCAN_STATS.reset()
+    streamed = AnalysisRunner.do_analysis_run(table, acd, device)
+    if SCAN_STATS.resident_passes or table.is_persisted:
+        fail("profile_path: the streaming comparison read resident chunks")
+    for a in acd:
+        want = streamed.metric_map[a].value.get()
+        have = pass1.metric_map[a].value.get()
+        if have != want or profiles.profiles[a.column].approximate_num_distinct_values != int(
+                round(want)):
+            fail(f"profile_path: {a!r} {have!r} != streamed {want!r}")
+    casted = table.with_column(cast_string_column(table["zip"], DType.INTEGRAL))
+    kll = [KLLSketch(c) for c, p in profiles.profiles.items() if getattr(p, "kll", None)]
+    exec_ops, plan = AnalysisRunner._coalesce_scan_ops([a.scan_op(casted) for a in kll])
+    SCAN_STATS.reset()
+    results = run_scan(casted, exec_ops, device, chunk_rows=resident_chunk)
+    if SCAN_STATS.resident_passes or SCAN_STATS.device_select_passes:
+        fail("profile_path: the K3 comparison did not stream and sort")
+    for a, (i, ex) in zip(kll, plan):
+        want = a.compute_metric_from(
+            a.state_from_scan_result(ex(results[i]) if ex else results[i])).value.get()
+        have = profiles.profiles[a.column].kll
+        same = (have.parameters == want.parameters and _same_bits(have.data, want.data)
+                and [(b.low_value, b.high_value, b.count) for b in have.buckets]
+                == [(b.low_value, b.high_value, b.count) for b in want.buckets])
+        if not same:
+            fail(f"profile_path: the KLL profile of {a.column} (K4, resident) != K3 streamed")
+    return {"approx_count_distinct_checked": len(acd), "kll_checked": len(kll),
+            "kll_sort_chunk_rows": resident_chunk}
+
+
+def suggest(table, device, seed: int):
+    from deequ_tpu_torch.suggestions import (
+        ConstraintSuggestionRunner,
+        Rules,
+        UniqueIfApproximatelyUniqueRule,
+    )
+
+    return (ConstraintSuggestionRunner.on_data(table, device)
+            .add_constraint_rules(Rules.DEFAULT)
+            .add_constraint_rule(UniqueIfApproximatelyUniqueRule())
+            .use_train_test_split_with_test_set_ratio(SUGGEST_TEST_RATIO, seed)
+            .run())
+
+
+def suggestion_runs(table, seed: int, device) -> dict:
+    """Suggestions over the table's first 10^6 rows on the card, equal as
+    text to the port's own run on the CPU (suggestions, code and the
+    held-out statuses), then over the whole table, timed."""
+    import torch
+
+    head = slice_rows(table, 0, min(SUGGEST_CPU_ROWS, table.num_rows))
+    t0 = time.perf_counter()
+    card = suggest(head, device, seed)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = suggest(head, "cpu", seed)
+    cpu_s = time.perf_counter() - t0
+    if (card.suggestions_as_json(), card.evaluation_as_json()) != (
+            cpu.suggestions_as_json(), cpu.evaluation_as_json()):
+        fail("suggestions: the card's run at 10^6 rows != the CPU's")
+    if card.verification_result.device != str(device) or not card.all_suggestions:
+        fail("suggestions: the held-out run did not run on the card")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = suggest(table, device, seed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    statuses = json.loads(full.evaluation_as_json())["constraint_suggestions"]
+    return {
+        "cpu_check_rows": head.num_rows, "card_equals_cpu": True,
+        "suggestions_at_cpu_check_rows": len(card.all_suggestions),
+        "card_wall_s_at_cpu_check_rows": card_s, "cpu_wall_s": cpu_s,
+        "rows": table.num_rows, "suggestions": len(full.all_suggestions),
+        "codes": [s.code_for_constraint for s in full.all_suggestions],
+        "held_out_statuses": {k: sum(s["evaluation_status"] == k for s in statuses)
+                              for k in ("Success", "Failure")},
+        "suggest_wall_s": walls,
+    }
+
+
+def schema_flow(seed: int, device) -> dict:
+    """A 10^5-row raw string table through ``RowLevelSchemaValidator``;
+    the valid rows verified on the card against numpy."""
+    import numpy as np
+
+    from deequ_tpu_torch import Check, CheckLevel, CheckStatus, VerificationSuite
+    from deequ_tpu_torch.data.table import ColumnarTable
+    from deequ_tpu_torch.schema import RowLevelSchema, RowLevelSchemaValidator
+
+    rng = np.random.default_rng(seed + 20)
+    n = SCHEMA_ROWS
+    ids = rng.integers(-50, 5000, size=n).astype(str).astype(object)
+    ids[rng.random(n) < 0.03] = "n/a"
+    ids[rng.random(n) < 0.01] = None
+    amounts = np.char.mod("%.3f", rng.normal(100, 80, size=n)).astype(object)
+    days = np.char.add(np.char.add("2024-", np.char.zfill(
+        rng.integers(1, 13, size=n).astype(str), 2)), np.char.add("-", np.char.zfill(
+            rng.integers(1, 32, size=n).astype(str), 2))).astype(object)
+    raw = ColumnarTable.from_pydict({"id": list(ids), "amount": list(amounts),
+                                     "day": list(days)})
+    schema = (RowLevelSchema()
+              .with_int_column("id", is_nullable=False, min_value=0, max_value=4000)
+              .with_decimal_column("amount", precision=6, scale=3)
+              .with_timestamp_column("day", mask="yyyy-MM-dd"))
+    t0 = time.perf_counter()
+    split = RowLevelSchemaValidator.validate(raw, schema)
+    validate_s = time.perf_counter() - t0
+    valid = split.valid_rows
+    if split.num_valid_rows + split.num_invalid_rows != n or not 0 < split.num_valid_rows < n:
+        fail(f"schema: {split.num_valid_rows} valid and {split.num_invalid_rows} invalid rows")
+    v = valid["id"].values
+    check = (Check(CheckLevel.ERROR, "quarantined")
+             .has_size(lambda s: s == valid.num_rows).is_complete("id")
+             .has_min("id", lambda m: m == float(v.min()))
+             .has_max("id", lambda m: m == float(v.max()))
+             .has_sum("amount", lambda s: abs(s - float(valid["amount"].values.sum()))
+                      <= 1e-12 * abs(float(valid["amount"].values.sum()))))
+    result = VerificationSuite.on_data(valid, device).add_check(check).run()
+    if result.device != str(device) or result.status != CheckStatus.SUCCESS:
+        fail(f"schema: the valid rows' check ran on {result.device}: {result.status}")
+    return {"rows": n, "valid_rows": split.num_valid_rows, "validate_s": validate_s}
+
+
+def applicability_flow(table, device) -> dict:
+    """``Applicability`` on the main check over random data of the main
+    table's schema: on the card, the same verdict, failures and
+    constraint verdicts as on the CPU."""
+    from deequ_tpu_torch import VerificationSuite
+
+    from deequ_tpu_torch import use_device
+
+    got = {}
+    for dev in (device, "cpu"):
+        with use_device(dev):
+            res = VerificationSuite.is_check_applicable_to_data(build_check(), table.schema)
+        got[str(dev)] = (res.is_applicable, [(a, type(e).__name__) for a, e in res.failures],
+                         res.constraint_applicabilities)
+    card, cpu = got[str(device)], got["cpu"]
+    if card != cpu:
+        fail(f"applicability: the card's verdict {card[:2]} != the CPU's {cpu[:2]}")
+    return {"is_applicable": card[0], "failures": card[1],
+            "constraints": len(card[2]), "applicable_constraints": sum(card[2].values())}
+
+
+def migration_flow(device) -> dict:
+    """examples/deequ_migration_example.py on the card: a legacy
+    repository JSON imported, a run whose anomaly check reads it."""
+    import numpy as np
+
+    from deequ_tpu_torch import CheckLevel, CheckStatus, VerificationSuite
+    from deequ_tpu_torch.analyzers import Size
+    from deequ_tpu_torch.anomaly import RelativeRateOfChangeStrategy
+    from deequ_tpu_torch.data.table import ColumnarTable
+    from deequ_tpu_torch.interop import import_repository_json
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+    from deequ_tpu_torch.verification import AnomalyCheckConfig
+
+    legacy = [{"resultKey": {"dataSetDate": day, "tags": {"dataset": "orders"}},
+               "analyzerContext": {"metricMap": [{
+                   "analyzer": {"analyzerName": "Size", "where": None},
+                   "metric": {"metricName": "DoubleMetric", "entity": "Dataset",
+                              "instance": "*", "name": "Size", "value": 1000.0 + day}}]}}
+              for day in range(1, 5)]
+    repository = InMemoryMetricsRepository()
+    imported = import_repository_json(json.dumps(legacy), repository)
+    statuses = {}
+    for rows, label in ((1005, "continuous"), (10, "collapsed")):
+        result = (VerificationSuite.on_data(
+            ColumnarTable.from_pydict({"v": list(np.arange(float(rows)))}), device)
+            .use_repository(repository)
+            .add_anomaly_check(RelativeRateOfChangeStrategy(max_rate_decrease=0.5,
+                                                            max_rate_increase=2.0),
+                               Size(), AnomalyCheckConfig(CheckLevel.WARNING, "size"))
+            .run())
+        if result.device != str(device):
+            fail(f"migration: ran on {result.device}")
+        statuses[label] = result.status.value
+    if imported != 4 or statuses != {"continuous": CheckStatus.SUCCESS.value,
+                                     "collapsed": CheckStatus.WARNING.value}:
+        fail(f"migration: {imported} results imported, statuses {statuses}")
+    return {"imported_results": imported, "anomaly_status": statuses}
+
+
+def profile_path(table, seed: int, device) -> dict:
+    """Phase ``profile_path`` (module doc): the column profiler over the
+    main table with ``zip``, then the suggestions and the small flows."""
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device, hll, select_device
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, total_resident_bytes
+    from deequ_tpu_torch.profiles import ColumnProfilerRunner
+
+    t0 = time.perf_counter()
+    ptable = with_zip_column(table, seed)
+    want = profile_numpy(ptable)
+    numpy_s = time.perf_counter() - t0
+
+    # the checked profile: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats(device)
+    SCAN_STATS.reset()
+    histogram_device.LAUNCHES = hll.LAUNCHES = select_device.LAUNCHES = 0
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watch, PersistSpy(device) as persist, ResidentSpy() as resident_counts:
+        profiles = ColumnProfilerRunner.on_data(ptable, device).with_kll_profiling().run()
+    first_s = time.perf_counter() - t0
+    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+                "select": select_device.LAUNCHES}
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    if watch.cpu_ops:
+        fail(f"profile_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if stats["scan_passes"] != 2 or stats["resident_passes"] != 2 or stats["bytes_packed"]:
+        fail(f"profile_path: {stats['resident_passes']} of {stats['scan_passes']} scans "
+             f"resident, {stats['bytes_packed']} bytes packed (want 2 of 2 and 0)")
+    if resident_counts.calls < 1:
+        fail("profile_path: pass 3's histogram did not count from resident codes")
+    if min(launches.values()) < 1:
+        fail(f"profile_path: a kernel of the path did not launch: {launches}")
+    if len(persist.persists) != 2 or len(persist.evictions) != 2 or any(
+            e["freed_bytes"] < e["bytes"] for e in persist.evictions) or (
+            total_resident_bytes() != 0 or ptable.is_persisted):
+        fail(f"profile_path: persisted {persist.persists}, freed {persist.evictions}")
+    worst = check_profile(profiles, want)
+
+    walls, pass_walls, persist_walls = [], [], []
+    for _ in range(3):
+        runs = TimedRuns(device)
+        with PersistSpy(device) as spy:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = (ColumnProfilerRunner.on_data(ptable, device).with_kll_profiling()
+                     .with_runs(runs).run())
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        pass_walls.append(runs.walls)
+        persist_walls.append([p["wall_s"] for p in spy.persists])
+    if again.to_json() != profiles.to_json():
+        fail("profile_path: a later profile differs from the checked one")
+    sketches = profile_sketches_vs_streaming(ptable, profiles, runs.contexts[0],
+                                             persist.persists[1]["chunk_rows"], device)
+    t0 = time.perf_counter()
+    suggestions = suggestion_runs(ptable, seed, device)
+    suggestions["seconds"] = time.perf_counter() - t0
+    return {
+        "phase": "profile_path", "rows": ptable.num_rows, "columns": len(ptable.column_names),
+        "numeric_profiles": sum(bool(getattr(p, "kll", None))
+                                for p in profiles.profiles.values()),
+        "histograms": sorted(k for k, p in profiles.profiles.items() if p.histogram),
+        "worst_rel_err": worst, "kernel_launches": launches, "scan_stats": stats,
+        "resident_string_counts": resident_counts.calls,
+        "persist": persist.persists, "unpersist": persist.evictions,
+        "peak_device_bytes": peak, "first_profile_s_watched": first_s,
+        "profile_wall_s_median_of_3": statistics.median(walls), "profile_wall_s": walls,
+        "pass_wall_s": pass_walls, "persist_wall_s": persist_walls,
+        "sketches_vs_streaming": sketches, "numpy_reference_s": numpy_s,
+        "suggestions": suggestions, "schema": schema_flow(seed, device),
+        "applicability": applicability_flow(table, device),
+        "migration": migration_flow(device),
+    }
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3745,6 +4233,10 @@ def main(argv=None) -> int:
     emit({**repo, "card": smi, "seconds": time.perf_counter() - t0})
     emit({"phase": "kernel_timing", "kernel": "holt_winters (K9)", "card": smi,
           "shapes": hw_time})
+
+    t0 = time.perf_counter()
+    prof = profile_path(table, args.seed, device)
+    emit({**prof, "card": smi, "seconds": time.perf_counter() - t0})
     del table, main_result
 
     t0 = time.perf_counter()
@@ -3794,14 +4286,18 @@ def main(argv=None) -> int:
                                      for r in (res_main, res_sketch, res_freq)),
                 "partition_path": part["kernel_launches"]["bincount"],
                 "stream_path": stream["kernel_launches"]["bincount"],
-                "repository_path": repo["kernel_launches"]["bincount"]}
+                "repository_path": repo["kernel_launches"]["bincount"],
+                "profile_path": prof["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
                                          for r in (res_main, res_sketch, res_freq)),
                     "partition_path": part["kernel_launches"]["hll"],
                     "stream_path": stream["kernel_launches"]["hll"],
-                    "repository_path": repo["kernel_launches"]["hll"]}
+                    "repository_path": repo["kernel_launches"]["hll"],
+                    "profile_path": prof["kernel_launches"]["hll"]}
+    select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
+                       "profile_path": prof["kernel_launches"]["select"]}
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -3844,8 +4340,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/select.cu",
         "replaces": "deequ_tpu/ops/select_device.py:149",
-        "launches": res_sketch["kernel_launches"]["select"],
-        "launches_by_path": {"resident_path": res_sketch["kernel_launches"]["select"]},
+        "launches": sum(select_launches.values()),
+        "launches_by_path": select_launches,
         "max_abs_err": 0,
         "ms": select["kernel_ms"],
         "plain_ms": select["plain_ms"],

@@ -29,6 +29,12 @@ format byte for byte, in-memory and filesystem providers;
 ``aggregate_with``/``save_states_with`` on every run,
 ``run_on_aggregated_states``), and ``IncrementalVerificationStream`` runs
 deequ's incremental workflow over arriving batches.
+
+Around the runs: the column profiler (``profiles/``), constraint
+suggestion (``suggestions/``), row-level schemas (``schema/``),
+applicability (``applicability.py``), distribution distances
+(``analyzers/distance.py``), the table readers (``data/io.py``) and the
+import of deequ's own repository JSON and states (``interop/``).
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus

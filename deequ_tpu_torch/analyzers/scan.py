@@ -647,3 +647,30 @@ def to_distribution(hist: DataTypeHistogram) -> Distribution:
         for k, v in counts.items()
     }
     return Distribution(values, number_of_bins=5)
+
+
+def determine_type(dist: Distribution) -> DataTypeInstances:
+    """The type a DataType histogram decides (reference DataType.scala:
+    116-143): Unknown when every value is null; String when any value is
+    a string, or booleans mix with numbers; then Boolean, Fractional,
+    Integral."""
+
+    def ratio_of(key: DataTypeInstances) -> float:
+        dv = dist.values.get(key.value)
+        return dv.ratio if dv else 0.0
+
+    if ratio_of(DataTypeInstances.UNKNOWN) == 1.0:
+        return DataTypeInstances.UNKNOWN
+    if ratio_of(DataTypeInstances.STRING) > 0.0 or (
+        ratio_of(DataTypeInstances.BOOLEAN) > 0.0
+        and (
+            ratio_of(DataTypeInstances.INTEGRAL) > 0.0
+            or ratio_of(DataTypeInstances.FRACTIONAL) > 0.0
+        )
+    ):
+        return DataTypeInstances.STRING
+    if ratio_of(DataTypeInstances.BOOLEAN) > 0.0:
+        return DataTypeInstances.BOOLEAN
+    if ratio_of(DataTypeInstances.FRACTIONAL) > 0.0:
+        return DataTypeInstances.FRACTIONAL
+    return DataTypeInstances.INTEGRAL

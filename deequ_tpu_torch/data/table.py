@@ -93,6 +93,17 @@ class ColumnChunk:
     validity: Optional[np.ndarray]
     num_rows: int
 
+    @property
+    def cardinality(self) -> int:
+        return len(self.dictionary)
+
+    @property
+    def nbytes(self) -> int:
+        return (
+            self.codes.nbytes + self.dictionary.nbytes
+            + (self.validity.nbytes if self.validity is not None else 0)
+        )
+
     def mask(self) -> np.ndarray:
         """The validity bitmap as a bool row mask."""
         if self.validity is None:
@@ -115,6 +126,32 @@ class ColumnChunk:
         return ColumnChunk(
             codes, self.dictionary,
             None if bool(valid.all()) else np.packbits(valid), len(codes),
+        )
+
+    @staticmethod
+    def from_codes(
+        codes: np.ndarray,
+        dictionary: np.ndarray,
+        mask: Optional[np.ndarray] = None,
+    ) -> "ColumnChunk":
+        """Build from raw (possibly wider) codes and a dictionary, the
+        shape of an Arrow DictionaryArray. A row masked invalid, with a
+        negative code, or pointing at a NaN dictionary entry (NaN is null
+        at ingest, ``data/io.py``) gets code -1; NaN entries become 0."""
+        codes = np.asarray(codes)
+        valid = codes >= 0
+        if mask is not None:
+            valid &= np.asarray(mask, dtype=np.bool_)
+        dictionary = np.asarray(dictionary)
+        if np.issubdtype(dictionary.dtype, np.floating):
+            nan_slots = np.isnan(dictionary)
+            if nan_slots.any():
+                valid &= ~nan_slots[np.where(valid, codes, 0)]
+                dictionary = np.where(nan_slots, 0.0, dictionary)
+        out = np.where(valid, codes, -1).astype(np.int16)
+        return ColumnChunk(
+            out, dictionary,
+            None if bool(valid.all()) else np.packbits(valid), len(out),
         )
 
     @staticmethod
@@ -398,6 +435,24 @@ class ColumnarTable:
     def filter_rows(self, keep: np.ndarray) -> "ColumnarTable":
         idx = np.nonzero(np.asarray(keep, dtype=bool))[0]
         return ColumnarTable([c.take(idx) for c in self.columns.values()])
+
+    def with_column(self, column: Column) -> "ColumnarTable":
+        """A new table: this one's columns (shared, not copied) with
+        ``column`` replacing the one of its name, or appended."""
+        cols = [c for c in self.columns.values() if c.name != column.name]
+        cols.append(column)
+        return ColumnarTable(cols)
+
+    def random_split(
+        self, fractions: Tuple[float, float], seed: int = 0
+    ) -> Tuple["ColumnarTable", "ColumnarTable"]:
+        """Two tables of this one's rows, in order: a row goes to the
+        first when its uniform draw from ``np.random.default_rng(seed)``
+        falls below ``fractions[0]`` of the total, as in the reference, so
+        both packages split a table into the same rows."""
+        u = np.random.default_rng(seed).random(self.num_rows)
+        cut = fractions[0] / (fractions[0] + fractions[1])
+        return self.filter_rows(u < cut), self.filter_rows(u >= cut)
 
     def head(self, n: int) -> "ColumnarTable":
         idx = np.arange(min(n, self.num_rows))

@@ -11,6 +11,14 @@ A state crosses in either of two forms: its fields
 (:func:`state_from_bytes` / :func:`state_to_bytes`, ``states/serde.py``:
 the reference's ``DQTS`` envelope, byte for byte) — the form a state file
 of a ``FileSystemStateProvider`` holds inside its checksum envelope.
+
+The artifacts of deequ itself (Scala/Spark) come in through
+``interop/deequ_import.py``: its metrics-repository JSON
+(:func:`import_repository_json`, :func:`import_analysis_results`) and
+the portable binary states of its ``HdfsStateProvider``
+(:func:`load_reference_state`: counts, min/max, moments, the DataType
+histogram, frequency tables in Parquet). Its sketch states (HLL words,
+the percentile digest) refuse: their algebra differs by design.
 """
 
 from __future__ import annotations
@@ -33,6 +41,14 @@ from deequ_tpu_torch.analyzers.states import (
     SumState,
 )
 from deequ_tpu_torch.data.table import Column, ColumnarTable, ColumnChunk, DType
+from deequ_tpu_torch.interop.deequ_import import (
+    import_analysis_results,
+    import_repository_json,
+    load_reference_state,
+    murmur3_x86_32,
+    reference_state_identifier,
+    scala_murmur3_string_hash,
+)
 from deequ_tpu_torch.ops.kll import KLLSketchState
 from deequ_tpu_torch.states.serde import deserialize_state, serialize_state
 

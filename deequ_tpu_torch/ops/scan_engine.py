@@ -510,11 +510,17 @@ def total_resident_bytes(device=None) -> int:
     return sum(c.nbytes for c in _ACTIVE_CACHES if c.device == device)
 
 
+def has_resident_budget(device) -> bool:
+    """Whether ``device`` has a default resident budget: a card has one;
+    the CPU, where a host table needs no copy, has none."""
+    return torch.device(device).type == "cuda"
+
+
 def resident_budget(device) -> int:
     """The default cap on resident bytes: :data:`RESIDENT_FRACTION` of the
     card's memory. The CPU has none; its callers pass ``max_bytes``."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if not has_resident_budget(device):
         raise ValueError(
             "persist on the CPU needs max_bytes: the resident budget is a "
             "share of a card's memory"

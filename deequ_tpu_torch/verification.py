@@ -214,6 +214,21 @@ class VerificationSuite:
         return VerificationSuite._evaluate(checks, ctx)
 
     @staticmethod
+    def is_check_applicable_to_data(check: Check, schema: Schema):
+        """Dry-run a check over random data of the schema
+        (reference VerificationSuite.scala:238-248; ``applicability.py``)."""
+        from deequ_tpu_torch.applicability import Applicability
+
+        return Applicability.is_check_applicable(check, schema)
+
+    @staticmethod
+    def are_analyzers_applicable_to_data(analyzers: Sequence[Analyzer], schema: Schema):
+        """(reference VerificationSuite.scala:251-261)"""
+        from deequ_tpu_torch.applicability import Applicability
+
+        return Applicability.are_analyzers_applicable(analyzers, schema)
+
+    @staticmethod
     def _evaluate(
         checks: Sequence[Check], analysis_context: AnalyzerContext
     ) -> VerificationResult:

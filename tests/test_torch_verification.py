@@ -245,7 +245,10 @@ def test_import_isolation():
         "deequ_tpu_torch.envcfg, deequ_tpu_torch.repository, "
         "deequ_tpu_torch.repository.query, deequ_tpu_torch.repository.monitor, "
         "deequ_tpu_torch.anomaly, deequ_tpu_torch.anomaly.seasonal, "
-        "deequ_tpu_torch.ops.holt_winters\n"
+        "deequ_tpu_torch.ops.holt_winters, deequ_tpu_torch.profiles, "
+        "deequ_tpu_torch.suggestions, deequ_tpu_torch.schema, "
+        "deequ_tpu_torch.applicability, deequ_tpu_torch.analyzers.distance, "
+        "deequ_tpu_torch.data.io, deequ_tpu_torch.interop.deequ_import\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deequ_tpu' or m.startswith('deequ_tpu.'))\n"
         "print(bad)\n"
