@@ -16,6 +16,16 @@ Phases, each printed as one JSON line on stdout:
    bit-exact, over edge cases, both sides of each regime boundary, 10^7
    Zipf and single-hot-bin ids in every regime that can take their width,
    and weights whose per-block partial sums leave int32;
+3b. ``k1_parity`` — K1, the fused scan's masked reductions
+   (``csrc/masked_reduce.cu``), against its plain versions on the card:
+   counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
+   m2 and the co-moments within 1e-12 relative (ck of sqrt(x_mk · y_mk)),
+   each centred sum plus its means' rounding floor; over ±inf, NaN, -0.0
+   and subnormals, all-masked tasks, one row, a constant column, sizes on
+   both sides of a warp's, a block's and a tile's rows, one to three masks
+   and int32 lengths, and 10^7 rows; the same bits for a column at another
+   alignment and a batch in another order; the fold merge bit for bit
+   (every task of the main check's resident chunk is held in phase 12);
 4. ``main_path`` — ``VerificationSuite.on_data(table).add_check(check).run()``
    on a 10^7-row table (20 float64 columns with 1% nulls, the repo's
    profiling config 2 in BASELINE.md, plus an all-distinct int64 id, a
@@ -84,10 +94,14 @@ Phases, each printed as one JSON line on stdout:
    the resident bytes): ``main`` (after phase 5) — every metric equal to
    the streaming run's (exact, or within PERF.md §2's bounds), no bytes
    packed, ``status`` and ``region`` counted from resident codes by K5,
-   and ``k1_fused_scan``: the fused scan's device kernels under
-   torch.profiler, the reductions (K1's counterpart, plain torch f64)
-   apart, beside the bound of the whole pass: the resident planes of
-   the columns it reads, read once at the card's memory rate; and,
+   ``trace`` (one whole resident ``run()`` under torch.profiler: the
+   device's busy and idle share of its window, its kernels, the host
+   time between launches), and ``k1_fused_scan``: the fused scan's
+   device kernels under torch.profiler, K1's and any torch reduce kernel
+   left apart, every K1 task of the resident chunk against its plain
+   version, K1 alone on that batch (kernel, wrapper call, plain and
+   library times, its bound), beside the old bound of the whole pass: the
+   resident planes of the columns it reads, read once; and,
    inside it, ``encoded`` — two low-cardinality numeric columns made
    from the main table, encoded and persisted, bit-identical to their
    decoded twin with at most half its resident bytes; ``sketch`` (after
@@ -205,7 +219,7 @@ Phases, each printed as one JSON line on stdout:
    imported, an anomaly check reading it, once quiet and once firing);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
-paths, and by path), the nvidia-smi line, and the result line
+paths, and by path; K1's and its fold merge's by path too), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -224,7 +238,7 @@ import time
 
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
-KERNELS = ("bincount", "hll", "select", "holt_winters")
+KERNELS = ("bincount", "hll", "select", "holt_winters", "masked_reduce")
 
 # memory rate of each H100 part (NVIDIA data sheets), bytes/s
 _HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -388,6 +402,254 @@ def kernel_parity(device) -> dict:
             check(seg, m, weights, regimes=takers(m))
     return {"cases": cases, "max_abs_err": max_err, "boundaries": boundaries,
             "skew_widths": {m: takers(m) for m in skew_widths}}
+
+
+# -- phase 3b: K1, the fused scan's masked reductions ------------------------
+
+#: csrc/masked_reduce.cu's rows a block (kTileRows) and threads a block
+K1_TILE = 16384
+K1_THREADS = 256
+#: f64 operations a task does a valid row (kernel's pass 1 and pass 2)
+K1_OPS = {"count": 0, "sum": 1, "min": 1, "max": 1, "moments": 4, "comoments": 10}
+#: the card's f64 rate outside the tensor cores (H100 SXM data sheet)
+F64_RATE = 34e12
+#: the two-pass centred sums' rounding floor: the kernel's mean and the
+#: plain version's come from sums of ~100 dependent adds (64 a thread, the
+#: block's and the tiles' trees) in two orders, so they may round up to
+#: 128 ulps of the largest |x| apart (10 were seen on a constant column of
+#: 10^6 rows, whose plain m2 is 0); the centred sums then differ by
+#: n times that offset squared
+K1_MEAN_ULPS = 128 * 2.0 ** -52
+
+
+def k1_zero() -> None:
+    from deequ_tpu_torch.ops import masked_reduce
+
+    masked_reduce.LAUNCHES = masked_reduce.MERGE_LAUNCHES = 0
+
+
+def k1_counts() -> dict:
+    from deequ_tpu_torch.ops import masked_reduce
+
+    return {"k1": masked_reduce.LAUNCHES, "k1_merge": masked_reduce.MERGE_LAUNCHES}
+
+
+def k1_require(launches: dict, label: str) -> None:
+    """Fails unless K1 and its fold merge launched in the path's run."""
+    if launches["k1"] < 1 or launches["k1_merge"] < 1:
+        fail(f"{label}: K1 launched {launches['k1']} times and its merge "
+             f"{launches['k1_merge']} (want both >= 1)")
+
+
+class K1Spy:
+    """Records every batch ``masked_reduce.reduce_into`` is called with
+    (``batches``: (flat, tasks, offsets)), launching as usual."""
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import masked_reduce
+
+        self._mod = masked_reduce
+        self._orig = masked_reduce.reduce_into
+        self.batches = []
+
+        def spy(flat, tasks, offsets):
+            self.batches.append((flat, list(tasks), [tuple(o) for o in offsets]))
+            return self._orig(flat, tasks, offsets)
+
+        masked_reduce.reduce_into = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.reduce_into = self._orig
+
+
+def k1_offsets(tasks):
+    offsets, off = [], 0
+    for t in tasks:
+        offsets.append(tuple(range(off, off + t.n_outputs)))
+        off += t.n_outputs
+    return offsets, off
+
+
+def k1_hold(tasks, label: str) -> dict:
+    """K1 over ``tasks`` against their plain versions on the same card
+    tensors: counts, min and max exact (NaN equal to NaN); sums and means
+    within 1e-13 · Σ|x|; m2, x_mk and y_mk within 1e-12 relative and ck
+    within 1e-12 · sqrt(x_mk · y_mk), each plus the centred sums' floor
+    n · (128 ulp · max|x|)^2 (:data:`K1_MEAN_ULPS`: the kernel's means and
+    the plain version's round apart). Fails on any other result; returns the worst errors."""
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce
+
+    offsets, size = k1_offsets(tasks)
+    flat = torch.full((size,), float("nan"), dtype=torch.float64, device=tasks[0].device)
+    masked_reduce.reduce_into(flat, tasks, offsets)
+    torch.cuda.synchronize()
+    got = flat.cpu().tolist()
+    worst = {"sum": 0.0, "centred": 0.0, "ck": 0.0}  # the largest err / bound
+    max_abs = 0.0
+
+    def same(a, b):
+        return a == b or (a != a and b != b)
+
+    for t, offs in zip(tasks, offsets):
+        want = [float(v) for v in t.plain()]
+        have = [got[o] for o in offs]
+        names = masked_reduce.OUTPUTS[t.kind]
+        ok = None
+        for m in t.masks:
+            ok = m if ok is None else ok & m
+        if ok is None:
+            ok = torch.ones(t.n, dtype=torch.bool, device=t.device)
+        stats = []
+        for x in t.data:
+            x = x.to(torch.float64)
+            fin = ok & torch.isfinite(x)
+            stats.append((float(torch.where(ok, x.abs(), 0.0).sum()),
+                          float(torch.where(fin, x.abs(), 0.0).amax()) if t.n else 0.0))
+        n = max(float(ok.sum()), 1.0)
+        for name, h, w in zip(names, have, want):
+            if name in ("n", "value") or not (math.isfinite(h) and math.isfinite(w)):
+                if not same(h, w):
+                    fail(f"k1_parity {label}: {t.kind} {name} kernel {h!r} plain {w!r}")
+                continue
+            err = abs(h - w)
+            max_abs = max(max_abs, err)
+            if name in ("sum", "mean", "x_avg", "y_avg"):
+                sx = stats[1 if name == "y_avg" else 0][0]
+                bound, kind = 1e-13 * sx / (1.0 if name == "sum" else n), "sum"
+            else:
+                mx = [s[1] for s in stats]
+                ulps = K1_MEAN_ULPS * max(mx)
+                floor = n * ulps * ulps
+                if name == "ck":
+                    bound, kind = 1e-12 * math.sqrt(abs(want[4] * want[5])) + floor, "ck"
+                else:
+                    bound, kind = 1e-12 * abs(w) + floor, "centred"
+            if err:
+                worst[kind] = max(worst[kind], err / bound if bound else math.inf)
+            if err > bound:
+                fail(f"k1_parity {label}: {t.kind} {name} kernel {h!r} plain {w!r}, "
+                     f"err {err:.3g} > {bound:.3g}")
+    return {"tasks": len(tasks), "worst_share_of_bound": worst, "max_abs_err": max_abs}
+
+
+def k1_tasks_over(x, y, masks, lengths=None):
+    """Every kind over one column (and a second for the co-moments), under
+    each prefix of ``masks``."""
+    from deequ_tpu_torch.ops import masked_reduce as k1
+
+    tasks = []
+    for j in range(len(masks) + 1):
+        ms = masks[:j]
+        tasks += [k1.count(*ms, n=x.numel(), device=x.device), k1.total(x, *ms),
+                  k1.extremum(x, "min", *ms), k1.extremum(x, "max", *ms),
+                  k1.moments(x, *ms), k1.comoments(x, y, *ms)]
+        if lengths is not None:
+            tasks += [k1.extremum(lengths, "min", *ms), k1.extremum(lengths, "max", *ms)]
+    return tasks
+
+
+def k1_parity(device) -> dict:
+    """K1 against its plain version on the card (:func:`k1_hold`): ±inf,
+    NaN, -0.0 and subnormals; all-masked tasks, one row, a constant
+    column; sizes on both sides of a warp's, a block's and a tile's rows;
+    one, two and three masks and int32 lengths; 10^7 rows. The bits of a
+    result depend on the task's rows alone: the same column at another
+    alignment and the batch reversed give the same bits. The fold merge
+    bit for bit against its plain version. (The main check's resident
+    chunk, every task, is held in ``resident_path``.)"""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce as k1
+
+    rng = np.random.default_rng(11)
+    cases = {}
+
+    def column(n, kind="normal"):
+        if kind == "edges":
+            x = rng.normal(0.0, 1.0, n)
+            special = np.array([np.inf, -np.inf, np.nan, -0.0, 0.0, 5e-324, -1e-310,
+                                2.2e-308, np.nan, 1e10])
+            idx = rng.choice(n, size=min(n, 4 * len(special)), replace=False)
+            x[idx] = np.resize(special, idx.size)
+            return torch.from_numpy(x).to(device)
+        if kind == "constant":
+            return torch.full((n,), 3.7, dtype=torch.float64, device=device)
+        return torch.from_numpy(rng.normal(10.0, 3.0, n)).to(device)
+
+    def masks(n, k=3, p=0.1):
+        return [torch.from_numpy(rng.random(n) >= p).to(device) for _ in range(k)]
+
+    def lengths(n):
+        return torch.from_numpy(rng.integers(0, 200, n).astype(np.int32)).to(device)
+
+    n = 100_003
+    cases["edges"] = k1_hold(
+        k1_tasks_over(column(n, "edges"), column(n), masks(n), lengths(n)), "edges")
+    # NaN that a mask drops must not count; a column of NaN gives NaN
+    nan = torch.full((1000,), float("nan"), dtype=torch.float64, device=device)
+    some = torch.from_numpy(rng.random(1000) < 0.5).to(device)
+    cases["nan"] = k1_hold(k1_tasks_over(nan, column(1000), [some]) +
+                           k1_tasks_over(torch.where(some, nan, 1.0), column(1000),
+                                         [~some]), "nan")
+    cases["all_masked"] = k1_hold(
+        k1_tasks_over(column(5000), column(5000),
+                      [torch.zeros(5000, dtype=torch.bool, device=device)]), "all_masked")
+    cases["one_row"] = k1_hold(
+        k1_tasks_over(column(1), column(1), masks(1, p=0.0), lengths(1)), "one_row")
+    cases["constant"] = k1_hold(
+        k1_tasks_over(column(1_000_000, "constant"), column(1_000_000), masks(1_000_000)),
+        "constant")
+    edges, edge_err = [], 0.0
+    for m in (31, 32, 33, K1_THREADS - 1, K1_THREADS, K1_THREADS + 1,
+              K1_TILE - 1, K1_TILE, K1_TILE + 1, 2 * K1_TILE - 1, 2 * K1_TILE,
+              2 * K1_TILE + 1):
+        held = k1_hold(k1_tasks_over(column(m, "edges"), column(m), masks(m), lengths(m)),
+                       f"rows {m}")
+        edges.append(m)
+        edge_err = max(edge_err, held["max_abs_err"])
+    cases["tile_edges"] = {"rows": edges, "max_abs_err": edge_err}
+    max_abs = max(c["max_abs_err"] for c in cases.values() if isinstance(c, dict))
+    big = 10_000_000
+    x, y, ms, ln = column(big), column(big), masks(big, p=0.01), lengths(big)
+    cases["rows_1e7"] = k1_hold(k1_tasks_over(x, y, ms, ln), "1e7 rows")
+    max_abs = max(max_abs, cases["rows_1e7"]["max_abs_err"])
+
+    # bits depend on a task's rows alone: another alignment, another order
+    tasks = k1_tasks_over(x, y, ms[:2], ln)
+    offsets, size = k1_offsets(tasks)
+    first = torch.empty(size, dtype=torch.float64, device=device)
+    k1.reduce_into(first, tasks, offsets)
+    shifted = torch.empty(big + 3, dtype=torch.float64, device=device)[3:]
+    shifted.copy_(x)
+    moved = [k1.Reduction(t.kind, [shifted if d is x else d for d in t.data], t.masks,
+                          t.n, t.device) for t in tasks]
+    again = torch.empty(size, dtype=torch.float64, device=device)
+    k1.reduce_into(again, moved[::-1], offsets[::-1])
+    if not torch.equal(first.view(torch.int64), again.view(torch.int64)):
+        fail("k1_parity: the bits moved with the data's alignment or the batch's order")
+    cases["bits_alignment_and_order"] = len(tasks)
+
+    # the fold merge, bit for bit (NaN payloads, signed zeros, infinities)
+    m = 100_000
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, 1.0, -1.0])
+    pick = rng.random(m) < 0.5
+    acc = torch.from_numpy(np.where(pick, rng.choice(special, m), rng.normal(size=m))).to(device)
+    flat = torch.from_numpy(np.where(rng.random(m + 7) < 0.5, rng.choice(special, m + 7),
+                                     rng.normal(size=m + 7))).to(device)
+    tag = rng.integers(0, 3, m)
+    is_sum = torch.from_numpy(tag == 0).to(device)
+    is_min = torch.from_numpy(tag == 1).to(device)
+    src = torch.from_numpy(rng.permutation(m + 7)[:m]).to(device)
+    got = k1.merge_tags(is_sum, is_min, acc, flat, src)
+    want = k1.merge_tags_plain(is_sum, is_min, acc, flat, src)
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        fail("k1_parity: the fold merge differs from its plain version in its bits")
+    cases["merge_bits"] = m
+    return {"cases": cases, "max_abs_err": max_abs}
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -565,10 +827,13 @@ def watch_cpu_ops():
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
+    # schema names (no overload): an allocation computes nothing, so
+    # "aten::empty" (K1's pinned staging of its descriptor table) is
+    # transport too
     transport = {
         "aten::_to_copy", "aten::copy_", "aten::_local_scalar_dense",
         "aten::lift_fresh", "aten::lift_fresh_copy", "aten::detach",
-        "aten::alias", "aten::empty.memory_format", "aten::empty_strided",
+        "aten::alias", "aten::empty", "aten::empty_strided",
     }
 
     class Watch(TorchDispatchMode):
@@ -623,12 +888,15 @@ def main_path(rows: int, seed: int, device) -> dict:
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
+    k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch:
         result = suite.run()
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
+    k1_launches = k1_counts()
+    k1_require(k1_launches, "main_path")
     if hll.LAUNCHES:
         fail(f"the main path has no sketch, yet the hll kernel launched {hll.LAUNCHES} times")
     stats = SCAN_STATS.snapshot()
@@ -664,6 +932,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         "metrics_checked": len(expected),
         "worst_rel_err": worst,
         "kernel_launches": launches,
+        "k1_launches": k1_launches,
         "scan_stats": stats,
         "first_run_s_watched": t_first,
         "warm_run_s": walls[0],
@@ -1229,12 +1498,14 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
     SCAN_STATS.reset()
     hll.LAUNCHES = 0
     histogram_device.LAUNCHES = 0
+    k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch:
         result = suite.run()
     t_first = time.perf_counter() - t0
-    launches = {"hll": hll.LAUNCHES, "bincount": histogram_device.LAUNCHES}
+    launches = {"hll": hll.LAUNCHES, "bincount": histogram_device.LAUNCHES, **k1_counts()}
+    k1_require(launches, "sketch_path")
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -1478,6 +1749,7 @@ def check_api_path(table, device) -> dict:
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
+    k1_zero()
     builds = lut_cache.BUILDS
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
@@ -1485,6 +1757,8 @@ def check_api_path(table, device) -> dict:
         result = suite.run()
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
+    k1_launches = k1_counts()
+    k1_require(k1_launches, "check_api_path")
     stats = SCAN_STATS.snapshot()
     builds = lut_cache.BUILDS - builds
     if watch.cpu_ops:
@@ -1544,6 +1818,7 @@ def check_api_path(table, device) -> dict:
         "metrics_checked": checked,
         "worst_mi_rel_err": worst_mi,
         "kernel_launches": launches,
+        "k1_launches": k1_launches,
         "lut_builds": builds,
         "scan_stats": stats,
         "first_run_s_watched": t_first,
@@ -1675,12 +1950,14 @@ def frequency_path(rows: int, seed: int, device) -> dict:
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
+    k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch:
         result = suite.run()
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
+    k1_launches = k1_counts()
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -1729,6 +2006,7 @@ def frequency_path(rows: int, seed: int, device) -> dict:
         "reduced": {"rows": "BASELINE config 4's 10^8 rows cut to 10^7 for the "
                             "script's time limit"},
         "kernel_launches": launches,
+        "k1_launches": k1_launches,
         "hll_launches": stats["chunks_processed"],
         "number_of_bins": want_hist[1],
         "boundary_count": boundary,
@@ -1897,13 +2175,14 @@ def resident_runs(suite, table, device, label: str) -> dict:
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
     select_device.LAUNCHES = 0
+    k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch, ResidentSpy() as spy:
         result = suite.run()
     t_first = time.perf_counter() - t0
     launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
-                "select": select_device.LAUNCHES}
+                "select": select_device.LAUNCHES, **k1_counts()}
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -2032,21 +2311,73 @@ def planes_read_bytes(cache, columns) -> int:
     return total
 
 
+def k1_valid_rows(task) -> int:
+    ok = None
+    for m in task.masks:
+        ok = m if ok is None else ok & m
+    return task.n if ok is None else int(ok.sum())
+
+
+def k1_bound(tasks, offsets, rate: float) -> dict:
+    """The least time the card could take for a batch: the distinct
+    tensors its tasks read (by pointer), each read once, and its outputs
+    written once, over the memory rate; the f64 operations of its valid
+    rows (:data:`K1_OPS`) over the card's f64 rate; the larger of the two."""
+    seen = {}
+    for t in tasks:
+        for x in t.data + t.masks:
+            seen[x.data_ptr()] = x.numel() * x.element_size()
+    nbytes = sum(seen.values()) + 8 * sum(1 for offs in offsets for o in offs if o >= 0)
+    ops = sum(K1_OPS[t.kind] * k1_valid_rows(t) for t in tasks)
+    bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F64_RATE * 1e3
+    return {"bytes": nbytes, "distinct_tensors": len(seen), "f64_ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def k1_library(tasks) -> None:
+    """One torch.sum / amin / amax a task over its column (a count's first
+    mask, any other task's first data column), with no mask applied."""
+    import torch
+
+    for t in tasks:
+        col = t.data[0] if t.data else (t.masks[0] if t.masks else None)
+        if col is None:
+            continue
+        if t.kind == "min":
+            torch.amin(col)
+        elif t.kind == "max":
+            torch.amax(col)
+        else:
+            torch.sum(col)
+
+
 def fused_scan_timing(table, device, rate: float) -> dict:
-    """K1's counterpart on the card: the fused scan of the main check's
-    scan-shareable analyzers over the persisted table, one pass after a
-    warm one, under torch.profiler: every device kernel's time and count,
-    the reductions' (torch's reduce kernels) apart, the pass's wall, and
-    the bound of the whole pass: the resident planes of the columns the
-    analyzers read (:func:`planes_read_bytes`), read once over the card's
-    memory rate, held against the device time of all its kernels. The
-    port computes these reductions in plain torch f64, so there is no
-    kernel of its own to time beside them."""
+    """K1 in the fused scan of the main check's scan-shareable analyzers
+    over the persisted table.
+
+    - The pass (one after a warm one) under torch.profiler: every device
+      kernel's time and count, K1's own kernels apart, and torch's reduce
+      kernels apart (the scan ops' reductions are K1's tasks now: any
+      left is named), the pass's wall and K1's launches in it.
+    - Every task of the pass's batch (its one resident chunk) held against
+      its plain version (:func:`k1_hold`).
+    - K1 alone on that batch: ``kernel_ms`` (CUDA events around 20
+      queued calls behind a device spin: its kernels and the descriptor
+      table's copy), one wrapper call as a caller pays it (``call_ms``),
+      the plain versions of the same tasks on the card (``plain_ms``), and
+      ``library_ms``: one torch.sum / amin / amax a task over its column,
+      summed (:func:`k1_library`: the reductions as single library calls,
+      no mask applied).
+    - The bound (:func:`k1_bound`) of the batch, and the old bound of the
+      whole pass: the resident planes of the columns the analyzers read
+      (:func:`planes_read_bytes`), read once at the memory rate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
     from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.ops import masked_reduce
 
     scanning = list(dict.fromkeys(
         a for a in build_check().required_analyzers()
@@ -2054,34 +2385,138 @@ def fused_scan_timing(table, device, rate: float) -> dict:
     ))
     columns = sorted({c for a in scanning for c in a.scan_op(table).columns})
     nbytes = planes_read_bytes(table._device_cache, columns)
-    AnalysisRunner._run_scanning_analyzers(table, scanning, device)  # warm
+    with K1Spy() as spy:
+        AnalysisRunner._run_scanning_analyzers(table, scanning, device)  # warm
     torch.cuda.synchronize()
+    if len(spy.batches) != len(table._device_cache.device_chunks):
+        fail(f"fused_scan_timing: {len(spy.batches)} K1 batches over "
+             f"{len(table._device_cache.device_chunks)} chunks, want one a chunk")
+    k1_zero()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         AnalysisRunner._run_scanning_analyzers(table, scanning, device)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    total_us = reduce_us = 0.0
-    launches = reduce_launches = 0
+    pass_launches = k1_counts()
+    total_us = reduce_us = k1_us = 0.0
+    launches = reduce_launches = k1_kernels = 0
+    reduce_names = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
         if us <= 0 or ev.key.startswith(("Memcpy", "Memset")) or ev.key.startswith("aten::"):
             continue
         total_us += us
         launches += ev.count
-        if "reduce" in ev.key.lower():
+        if "k1_" in ev.key:
+            k1_us += us
+            k1_kernels += ev.count
+        elif "reduce" in ev.key.lower():
             reduce_us += us
             reduce_launches += ev.count
+            reduce_names.append(ev.key[:120])
     if launches == 0:
         fail("fused_scan_timing: the profiler showed no device kernel in the fused scan")
-    bound_ms = nbytes / rate * 1e3
+
+    _, tasks, offsets = spy.batches[0]
+    held = k1_hold(tasks, "main chunk")
+    out = torch.empty(sum(t.n_outputs for t in tasks), dtype=torch.float64, device=device)
+    kernel_ms = time_queued(lambda i: masked_reduce.reduce_into(out, tasks, offsets), reps=20)
+    calls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        masked_reduce.reduce_into(out, tasks, offsets)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t1) * 1e3)
+    plain_ms = time_cuda(lambda: [t.plain() for t in tasks], reps=5, warmup=1)
+    library_ms = time_cuda(lambda: k1_library(tasks), reps=5, warmup=1)
+    bound = k1_bound(tasks, offsets, rate)
+    pass_bound_ms = nbytes / rate * 1e3
+    kinds = {}
+    for t in tasks:
+        kinds[t.kind] = kinds.get(t.kind, 0) + 1
     return {"analyzers": len(scanning), "chunks": len(table._device_cache.device_chunks),
             "columns_read": len(columns), "bytes_read": nbytes,
             "resident_bytes": table._device_cache.nbytes, "device_kernels": launches,
             "device_ms": total_us / 1e3, "reduce_kernels": reduce_launches,
-            "reduce_ms": reduce_us / 1e3, "pass_wall_ms": wall_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "bound_share_of_device_ms": bound_ms / (total_us / 1e3)}
+            "reduce_ms": reduce_us / 1e3, "reduce_kernel_names": reduce_names,
+            "pass_wall_ms": wall_ms, "pass_bound_ms": pass_bound_ms, "pass_bound_by": "bytes",
+            "pass_bound_share_of_device_ms": pass_bound_ms / (total_us / 1e3),
+            "k1": {"tasks": len(tasks), "kinds": kinds, "batches_a_pass": pass_launches["k1"],
+                   "merges_a_pass": pass_launches["k1_merge"],
+                   "kernel_launches_a_pass": k1_kernels, "profiler_ms": k1_us / 1e3,
+                   "kernel_ms": kernel_ms, "call_ms": statistics.median(calls),
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_call": "one torch.sum / amin / amax a task over its column, "
+                                   "summed (no mask)",
+                   **bound, "bound_share": bound["bound_ms"] / kernel_ms,
+                   "vs_plain": held}}
+
+
+#: host-side calls that put work on the card's stream
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
+def trace_run(fn) -> dict:
+    """One call of ``fn`` (a whole run) under torch.profiler, ended by a
+    device synchronisation: the device's busy share of the window (the
+    union of every kernel's, copy's and set's interval on the card, over
+    the span from the first host event to the last event of either side)
+    and its idle share, the device kernels and their busy ms, the host's
+    launch calls and the host time between consecutive ones (median and
+    mean), the window beside the host-clock wall around it (the
+    profiler's own cost is in both), and the eight kernels that kept the
+    card busiest (``top_kernels``: name, launches, device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, host, starts = [], [], []
+    kernels = 0
+    by_name = {}
+    for ev in prof.events():
+        lo, hi = float(ev.time_range.start), float(ev.time_range.end)
+        if ev.device_type == DeviceType.CUDA:
+            spans.append((lo, hi))
+            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+            name = ev.name[:100]
+            count, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (count + 1, us + hi - lo)
+        else:
+            host.append((lo, hi))
+            if ev.name in LAUNCH_CALLS:
+                starts.append(lo)
+    if not spans:
+        return {"device_busy_share": "not measured (the profiler showed no device event)",
+                "traced_wall_s": wall}
+    window_lo = min(lo for lo, _ in host + spans)
+    window_hi = max(hi for _, hi in host + spans)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi in sorted(spans):
+        if cur_hi is None or lo > cur_hi:
+            busy += 0.0 if cur_hi is None else cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy += cur_hi - cur_lo
+    window = window_hi - window_lo
+    starts.sort()
+    gaps = [b - a for a, b in zip(starts, starts[1:])]
+    return {"window_ms": window / 1e3, "traced_wall_s": wall,
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / window,
+            "device_idle_share": 1.0 - busy / window, "device_kernels": kernels,
+            "device_events": len(spans), "launch_calls": len(starts),
+            "host_gap_median_us": statistics.median(gaps) if gaps else None,
+            "host_gap_mean_us": statistics.mean(gaps) if gaps else None,
+            "top_kernels": [[name, count, us / 1e3] for name, (count, us) in
+                            sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]]}
 
 
 def resident_main(table, device, streamed_result, streamed_report) -> dict:
@@ -2094,7 +2529,10 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
 
     cache, persist_s = persist_timed(table, device)
     n_chunks = len(cache.device_chunks)
-    runs = resident_runs(build_suite(table), table, device, "resident main")
+    suite = build_suite(table)
+    runs = resident_runs(suite, table, device, "resident main")
+    k1_require(runs["kernel_launches"], "resident main")
+    trace = trace_run(suite.run)
     k1 = fused_scan_timing(table, device, hbm_rate(torch.cuda.get_device_name(device)))
     result = runs.pop("result")
     worst = compare_runs(metric_values(streamed_result), metric_values(result), "resident main")
@@ -2145,6 +2583,7 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
         "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
         "worst_rel_err_vs_streaming": worst,
         **runs,
+        "trace": trace,
         "k1_fused_scan": k1,
         "encoded": encoded,
     }
@@ -2232,6 +2671,7 @@ def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
     runs = resident_runs(VerificationSuite.on_data(table).add_check(check), table,
                          device, "resident sketch")
     result = runs.pop("result")
+    k1_require(runs["kernel_launches"], "resident sketch")
     stats = runs["scan_stats"]
     if stats["device_select_passes"] <= 0 or stats["device_sort_passes"] != 0 or (
             stats["kll_sort_passes"] != 0):
@@ -2594,13 +3034,14 @@ def kernel_counts_zero() -> None:
     histogram_device.LAUNCHES = 0
     hll.LAUNCHES = 0
     holt_winters.LAUNCHES = 0
+    k1_zero()
 
 
 def kernel_counts() -> dict:
     from deequ_tpu_torch.ops import histogram_device, hll, holt_winters
 
     return {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
-            "holt_winters": holt_winters.LAUNCHES}
+            "holt_winters": holt_winters.LAUNCHES, **k1_counts()}
 
 
 def slice_rows(table, start: int, stop: int):
@@ -2815,6 +3256,7 @@ def partition_path(table, seed: int, device) -> dict:
         with watch:
             watched = [run_partition(part, prov, device) for part, prov in zip(parts, providers)]
         launches = kernel_counts()
+        k1_require(launches, "partition_path")
         peak = torch.cuda.max_memory_allocated(device)
         # the walls: the same runs again, unwatched (each rewrites its files)
         walls = [run_partition(part, prov, device) for part, prov in zip(parts, providers)]
@@ -2960,6 +3402,7 @@ def stream_path(seed: int, device) -> dict:
     finally:
         scan_engine.run_scan_group = orig_group
     launches = kernel_counts()
+    k1_require(launches, "stream_path")
     stats = SCAN_STATS.snapshot()
     if watch.cpu_ops:
         fail(f"stream_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
@@ -3250,6 +3693,7 @@ def daily_run(table, history: dict, hw_plain, seed: int, device) -> dict:
             restore()
         run_s = time.perf_counter() - t0
         launches = kernel_counts()
+        k1_require(launches, "repository_path daily_run")
         stats = SCAN_STATS.snapshot()
         if watch.cpu_ops:
             fail(f"daily_run: torch operations computed on CPU tensors: {watch.cpu_ops}")
@@ -3677,6 +4121,8 @@ def repository_path(table, main_result, seed: int, device) -> dict:
                              + fleet["kernel_launches"]["holt_winters"]),
             "bincount": daily["kernel_launches"]["bincount"],
             "hll": daily["kernel_launches"]["hll"],
+            **{k: daily["kernel_launches"][k] + fleet["kernel_launches"][k]
+               for k in ("k1", "k1_merge")},
         },
     }, timing
 
@@ -4083,13 +4529,15 @@ def profile_path(table, seed: int, device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = hll.LAUNCHES = select_device.LAUNCHES = 0
+    k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch, PersistSpy(device) as persist, ResidentSpy() as resident_counts:
         profiles = ColumnProfilerRunner.on_data(ptable, device).with_kll_profiling().run()
     first_s = time.perf_counter() - t0
     launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
-                "select": select_device.LAUNCHES}
+                "select": select_device.LAUNCHES, **k1_counts()}
+    k1_require(launches, "profile_path")
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -4191,6 +4639,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parity = kernel_parity(device)
     emit({"phase": "kernel_parity", "kernel": "bincount", **parity,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    kparity = k1_parity(device)
+    emit({"phase": "k1_parity", "kernel": "masked_reduce (K1)", **kparity,
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -4298,6 +4751,19 @@ def main(argv=None) -> int:
                     "profile_path": prof["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
+    by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
+               "sketch_path": sketch["kernel_launches"],
+               "frequency_path": freq["k1_launches"],
+               "resident_path/main": res_main["kernel_launches"],
+               "resident_path/sketch": res_sketch["kernel_launches"],
+               "resident_path/frequency": res_freq["kernel_launches"],
+               "partition_path": part["kernel_launches"],
+               "stream_path": stream["kernel_launches"],
+               "repository_path": repo["kernel_launches"],
+               "profile_path": prof["kernel_launches"]}
+    k1_launches = {path: c["k1"] for path, c in by_path.items()}
+    k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
+    k1_time = res_main["k1_fused_scan"]["k1"]
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -4376,6 +4842,33 @@ def main(argv=None) -> int:
         "parity": f"alpha, beta, gamma within {HW_TOL} of the plain fit, same flags",
         "shapes": [{k: v for k, v in row.items() if k not in HW_CHAIN_KEYS}
                    for row in hw_time],
+    }, {
+        "name": "masked_reduce",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/masked_reduce.cu",
+        "replaces": "deequ_tpu/ops/df32.py:187",
+        "replaces_also": ["deequ_tpu/ops/df32.py:166 merge_tags_f64",
+                          "deequ_tpu/ops/df32.py:197 masked_count",
+                          "deequ_tpu/ops/df32.py:202 masked_extremum",
+                          "deequ_tpu/ops/df32.py:260 masked_moments",
+                          "deequ_tpu/ops/df32.py:275 masked_comoments"],
+        "launches": sum(k1_launches.values()),
+        "launches_by_path": k1_launches,
+        "merge_launches": sum(k1_merges.values()),
+        "merge_launches_by_path": k1_merges,
+        "headline_shape": (f"the resident main chunk: {k1_time['tasks']} tasks over "
+                           f"{k1_time['distinct_tensors']} tensors of {args.rows} rows"),
+        "max_abs_err": max(kparity["max_abs_err"], k1_time["vs_plain"]["max_abs_err"]),
+        "ms": k1_time["kernel_ms"],
+        "plain_ms": k1_time["plain_ms"],
+        "bound_ms": k1_time["bound_ms"],
+        "bound_by": k1_time["bound_by"],
+        "library_ms": k1_time["library_ms"],
+        "library_call": k1_time["library_call"],
+        "parity": ("counts, min and max exact; sums within 1e-13 sum|x|; m2, x_mk, y_mk "
+                   "within 1e-12 relative, ck within 1e-12 sqrt(x_mk y_mk), each plus "
+                   "n (128 ulp max|x|)^2; the fold merge bit for bit"),
+        "shapes": [{k: v for k, v in k1_time.items() if k != "vs_plain"}],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -62,14 +62,8 @@ from deequ_tpu_torch.metrics import (
     HistogramMetric,
 )
 from deequ_tpu_torch.tryresult import Failure, Success
-from deequ_tpu_torch.ops.scan_engine import (
-    ScanOp,
-    masked_comoments,
-    masked_count,
-    masked_extremum,
-    masked_moments,
-    masked_sum,
-)
+from deequ_tpu_torch.ops import masked_reduce as k1
+from deequ_tpu_torch.ops.scan_engine import ScanOp
 
 
 def _compile_where(where: Optional[str]):
@@ -148,7 +142,7 @@ class Size(StandardScanAnalyzer):
         pred, cols = _compile_where(self.where)
 
         def update(vals, row_valid, n, capacity):
-            return {"n": masked_count(_rows(vals, row_valid, n, pred))}
+            return {"n": k1.count(_rows(vals, row_valid, n, pred))}
 
         return ScanOp(tuple(sorted(cols)), update, {"n": "sum"})
 
@@ -175,8 +169,8 @@ class Completeness(StandardScanAnalyzer):
         def update(vals, row_valid, n, capacity):
             rows = _rows(vals, row_valid, n, pred)
             return {
-                "matches": masked_count(rows & _col_mask(vals[col])),
-                "count": masked_count(rows),
+                "matches": k1.count(rows, _col_mask(vals[col])),
+                "count": k1.count(rows),
             }
 
         return ScanOp(
@@ -210,8 +204,8 @@ class Compliance(StandardScanAnalyzer):
         def update(vals, row_valid, n, capacity):
             rows = _rows(vals, row_valid, n, pred)
             return {
-                "matches": masked_count(rows & crit(vals, n, row_valid.device)),
-                "count": masked_count(rows),
+                "matches": k1.count(rows, crit(vals, n, row_valid.device)),
+                "count": k1.count(rows),
             }
 
         return ScanOp(
@@ -282,10 +276,10 @@ class PatternMatch(StandardScanAnalyzer):
         def update(vals, row_valid, n, capacity):
             rows = _rows(vals, row_valid, n, pred)
             v = vals[col]
-            hit = v.lut(lut_kind)[v.data.clamp(min=0).long()] & (v.data >= 0)
+            hit = v.lut(lut_kind)[v.data.clamp(min=0).long()]
             return {
-                "matches": masked_count(rows & hit),
-                "count": masked_count(rows),
+                "matches": k1.count(rows, hit, v.data >= 0),
+                "count": k1.count(rows),
             }
 
         return ScanOp(
@@ -313,10 +307,10 @@ class _ExtremumAnalyzer(StandardScanAnalyzer):
 
         def update(vals, row_valid, n, capacity):
             v = vals[col]
-            ok = _rows(vals, row_valid, n, pred) & v.mask
+            rows = _rows(vals, row_valid, n, pred)
             return {
-                "value": masked_extremum(v.data, ok, tag),
-                "n": masked_count(ok),
+                "value": k1.extremum(v.data, tag, rows, v.mask),
+                "n": k1.count(rows, v.mask),
             }
 
         return ScanOp(
@@ -358,8 +352,8 @@ class _SumAnalyzer(StandardScanAnalyzer):
 
         def update(vals, row_valid, n, capacity):
             v = vals[col]
-            ok = _rows(vals, row_valid, n, pred) & v.mask
-            return {"sum": masked_sum(v.data, ok), "n": masked_count(ok)}
+            rows = _rows(vals, row_valid, n, pred)
+            return {"sum": k1.total(v.data, rows, v.mask), "n": k1.count(rows, v.mask)}
 
         return ScanOp(
             tuple(sorted(wcols | {col})), update, {"sum": "sum", "n": "sum"}
@@ -413,9 +407,8 @@ class StandardDeviation(StandardScanAnalyzer):
 
         def update(vals, row_valid, n, capacity):
             v = vals[col]
-            ok = _rows(vals, row_valid, n, pred) & v.mask
-            cnt, mean, m2 = masked_moments(v.data, ok)
-            return {"n": cnt, "avg": mean, "m2": m2}
+            r = k1.moments(v.data, _rows(vals, row_valid, n, pred), v.mask)
+            return {"n": r[0], "avg": r[1], "m2": r[2]}
 
         return ScanOp(
             tuple(sorted(wcols | {col})), update,
@@ -467,8 +460,9 @@ class Correlation(StandardScanAnalyzer):
 
         def update(vals, row_valid, n, capacity):
             va, vb = vals[ca], vals[cb]
-            ok = _rows(vals, row_valid, n, pred) & va.mask & vb.mask
-            return dict(zip(self._FIELDS, masked_comoments(va.data, vb.data, ok)))
+            r = k1.comoments(va.data, vb.data, _rows(vals, row_valid, n, pred),
+                             va.mask, vb.mask)
+            return {f: r[i] for i, f in enumerate(self._FIELDS)}
 
         return ScanOp(
             tuple(sorted(wcols | {ca, cb})), update,
@@ -487,8 +481,8 @@ class Correlation(StandardScanAnalyzer):
 
 def _utf8_length_lut(dictionary) -> np.ndarray:
     """Length of each dictionary value in code points (native batch), as
-    f32: exact for lengths below 2^24."""
-    return native.utf8_lengths(dictionary).astype(np.float32)
+    int32, which K1 reads and widens to f64 exactly."""
+    return native.utf8_lengths(dictionary).astype(np.int32)
 
 
 class _LengthAnalyzer(StandardScanAnalyzer):
@@ -508,11 +502,11 @@ class _LengthAnalyzer(StandardScanAnalyzer):
 
         def update(vals, row_valid, n, capacity):
             v = vals[col]
-            ok = _rows(vals, row_valid, n, pred) & (v.data >= 0)
+            rows, valid = _rows(vals, row_valid, n, pred), v.data >= 0
             lengths = v.lut("utf8len")[v.data.clamp(min=0).long()]
             return {
-                "value": masked_extremum(lengths, ok, tag).to(torch.float64),
-                "n": masked_count(ok),
+                "value": k1.extremum(lengths, tag, rows, valid),
+                "n": k1.count(rows, valid),
             }
 
         return ScanOp(
@@ -604,8 +598,7 @@ class DataType(ScanShareableAnalyzer):
             else:
                 const = {DType.FRACTIONAL: 1, DType.INTEGRAL: 2, DType.BOOLEAN: 3}[dtype]
                 classes = torch.where(v.mask, const, 0)
-            counts = torch.stack([masked_count(rows & (classes == k)) for k in range(5)])
-            return {"counts": counts}
+            return {"counts": [k1.count(rows, classes == k) for k in range(5)]}
 
         luts = (
             ((col, "datatype", _classify_dictionary),)

@@ -7,7 +7,10 @@ One pass over the table runs every scan-shareable analyzer of a run:
 - ``_ChunkPacker`` packs each chunk into one f64 value plane, one
   validity-mask plane and one string-code plane, and moves each plane to
   the card in one copy;
-- one step per chunk evaluates every op's ``update`` on those tensors;
+- one step per chunk evaluates every op's ``update`` on those tensors; an
+  op's masked reductions come back as K1 tasks
+  (``ops/masked_reduce.py``), which the engine resolves together, one
+  kernel batch a chunk on a card, into the chunk's flat state vector;
 - ``_DeviceFoldPlan`` folds the chunk partials on the device by tag —
   ``sum``/``min``/``max`` elementwise in chunk order, ``gather`` leaves
   (Welford moments) appended per chunk — and the scan fetches the whole
@@ -28,7 +31,8 @@ once, scanned batch by batch on views of that copy, and fetched once a
 group — each batch's results bit for bit those of its own ``run_scan``.
 
 The card has native f64, so the port computes in f64 and carries no
-counterpart of the reference's (hi, lo) f32 pairs (``ops/df32.py``).
+counterpart of the reference's (hi, lo) f32 pairs; ``ops/masked_reduce.py``
+is the counterpart of ``ops/df32.py``'s reductions.
 Moments are per-chunk (count, mean, M2) combined with the Chan merge by
 the analyzers' states, never a raw sum of squares.
 """
@@ -46,6 +50,7 @@ import torch
 from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
 from deequ_tpu_torch.expr.eval import Val
+from deequ_tpu_torch.ops import masked_reduce
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 from deequ_tpu_torch.ops.scan_plan import encoded_ingest_enabled, plan_scan_ops
 
@@ -102,8 +107,10 @@ class ScanOp:
     ``update(vals, row_valid, n, capacity)`` maps one chunk's column Vals
     (device tensors), its row-validity mask, its row count and the scan's
     chunk capacity (the rows of every chunk but a shorter last one: what
-    fixes a partial's static width) to a dict of partial-state tensors;
-    ``tags`` names each leaf's fold tag (:data:`FOLD_TAGS`).
+    fixes a partial's static width) to a dict of partial-state leaves: a
+    tensor, a K1 task (``masked_reduce.Reduction``) or one output of one,
+    or a list of task outputs (a vector), which the engine resolves once a
+    chunk; ``tags`` names each leaf's fold tag (:data:`FOLD_TAGS`).
 
     ``luts``: ``(column, key, build)`` host lookup tables over a string
     column's dictionary, built and moved to the device once per dictionary
@@ -118,7 +125,7 @@ class ScanOp:
     (``ops/scan_plan.py``), and ``select_size`` its sketch size."""
 
     columns: Tuple[str, ...]
-    update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, torch.Tensor]]
+    update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, Any]]
     tags: Dict[str, str]
     luts: Tuple[Tuple[str, str, Callable], ...] = ()
     batch_hint: Optional[Tuple] = None
@@ -334,35 +341,43 @@ class _DeviceFoldPlan:
     """Folds per-chunk flat state vectors on the device so a scan fetches
     once (the reference's ``_DeviceFoldPlan``).
 
+    - :meth:`flatten` lays one chunk's partials out as ONE f64 vector (ops,
+      then keys): tensor leaves are copied (cast) into their slots, and
+      the chunk's K1 tasks (``ops/masked_reduce.py``: a leaf that is a
+      ``Reduction`` or its outputs) are resolved at once, each output
+      written at its slot — by the kernel on a card, by the plain versions
+      on the CPU;
     - sum/min/max leaves live in one elementwise f64 accumulator and merge
-      with plain f64 add/minimum/maximum in chunk order, starting from the
-      monoid identity (0, +inf, -inf) — the same operations, in the same
-      order, as the reference's fold;
+      with plain f64 add/minimum/maximum in chunk order
+      (``masked_reduce.merge_tags``), starting from the monoid identity
+      (0, +inf, -inf) — the same operations, in the same order, as the
+      reference's fold;
     - 'gather' leaves (per-chunk Welford moments) are written into row
       ``ci`` of a (chunks, width) buffer — the device equivalent of the
       host concatenation, order preserved.
 
     Leaves are f64 on the device (counts are exact below 2^53); integer
-    leaves come back as int64 at :meth:`unflatten_host`.
+    leaves come back as int64 at :meth:`unflatten`. A leaf's size and
+    whether it is an integer come from the tensor, or from its task.
     """
 
     def __init__(self, ops: Sequence[ScanOp], partials, n_chunks: int, device):
         self._layout = []  # per op: [(key, tag, region_offset, size, shape, is_int)]
+        self._slots = []  # per op: [(flat offset, size)]
         elem_src, gather_src = [], []
         sum_mask, min_mask, init = [], [], []
         src = elem_off = gather_off = 0
         for op, part in zip(ops, partials):
-            leaves = []
+            leaves, slots = [], []
             for key, leaf in part.items():
                 tag = op.tags[key]
                 if tag not in FOLD_TAGS:
                     raise ValueError(f"unknown fold tag {tag!r}")
-                size = leaf.numel()
-                is_int = not (leaf.is_floating_point() or leaf.is_complex())
+                size, shape, is_int = _leaf_shape(leaf)
                 idx = np.arange(src, src + size)
                 if tag == "gather":
                     gather_src.append(idx)
-                    leaves.append((key, tag, gather_off, size, tuple(leaf.shape), is_int))
+                    leaves.append((key, tag, gather_off, size, shape, is_int))
                     gather_off += size
                 else:
                     elem_src.append(idx)
@@ -370,10 +385,12 @@ class _DeviceFoldPlan:
                     min_mask.append(np.full(size, tag == "min"))
                     ident = {"sum": 0.0, "min": np.inf, "max": -np.inf}[tag]
                     init.append(np.full(size, ident))
-                    leaves.append((key, tag, elem_off, size, tuple(leaf.shape), is_int))
+                    leaves.append((key, tag, elem_off, size, shape, is_int))
                     elem_off += size
+                slots.append((src, size))
                 src += size
             self._layout.append(leaves)
+            self._slots.append(slots)
 
         def cat(parts, dtype):
             return np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
@@ -381,6 +398,8 @@ class _DeviceFoldPlan:
         def dev(a):
             return torch.from_numpy(a).to(device)
 
+        self.device = torch.device(device)
+        self.flat_size = src
         self.elem_size = elem_off
         self.gather_size = gather_off
         self.n_chunks = n_chunks
@@ -394,13 +413,32 @@ class _DeviceFoldPlan:
         )
         self._filled = 0
 
+    def flatten(self, partials, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One chunk's partials as its flat f64 vector. ``row_valid`` is
+        the chunk's row-validity mask, which the engine builds all-true: a
+        task drops it (``Reduction.without``) and reads no such mask."""
+        flat = torch.empty(self.flat_size, dtype=torch.float64, device=self.device)
+        tasks: Dict[int, Tuple[masked_reduce.Reduction, List[int]]] = {}
+        for part, slots in zip(partials, self._slots):
+            for leaf, (off, size) in zip(part.values(), slots):
+                outs = masked_reduce.outputs_of(leaf)
+                if outs is None:
+                    flat[off:off + size].copy_(leaf.reshape(-1))
+                    continue
+                for j, (task, index) in enumerate(outs):
+                    entry = tasks.setdefault(id(task), (task, [-1] * task.n_outputs))
+                    if entry[1][index] != -1:
+                        raise ValueError("a task output is placed in two scan leaves")
+                    entry[1][index] = off + j
+        if tasks:
+            masked_reduce.reduce_into(
+                flat, [task.without(row_valid) for task, _ in tasks.values()],
+                [offs for _, offs in tasks.values()],
+            )
+        return flat
+
     def _merged(self, acc: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-        new = flat[self._elem_src]
-        return torch.where(
-            self._is_sum,
-            acc + new,
-            torch.where(self._is_min, torch.minimum(acc, new), torch.maximum(acc, new)),
-        )
+        return masked_reduce.merge_tags(self._is_sum, self._is_min, acc, flat, self._elem_src)
 
     def merge(self, flat: torch.Tensor) -> None:
         """Fold one chunk's flat vector into the accumulator."""
@@ -450,11 +488,19 @@ class _DeviceFoldPlan:
         return out
 
 
-def _flatten(partials: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
-    """Every op's partial leaves as ONE f64 vector (order: ops, then keys)."""
-    return torch.cat(
-        [leaf.reshape(-1).to(torch.float64) for part in partials for leaf in part.values()]
-    )
+def _leaf_shape(leaf) -> Tuple[int, Tuple[int, ...], bool]:
+    """(size, shape, is_int) of a partial leaf: a tensor, one K1 task
+    output (a scalar) or a list of them (a vector)."""
+    outs = masked_reduce.outputs_of(leaf)
+    if outs is None:
+        return leaf.numel(), tuple(leaf.shape), not (leaf.is_floating_point()
+                                                     or leaf.is_complex())
+    ints = {task.is_int(index) for task, index in outs}
+    if len(ints) != 1:
+        raise ValueError("a vector leaf mixes integer and float task outputs")
+    shape = () if isinstance(leaf, (masked_reduce.Reduction, masked_reduce.Output)) \
+        else (len(outs),)
+    return len(outs), shape, ints.pop()
 
 
 def _device_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], device):
@@ -661,7 +707,7 @@ def run_scan(
             partials = [op.update(vals, row_valid, n, chunk) for op in ops]
             if fold is None:
                 fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
-            fold.merge(_flatten(partials))
+            fold.merge(fold.flatten(partials, row_valid))
         SCAN_STATS.chunks_processed += 1
     results = fold.fetch_unflatten()
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
@@ -844,48 +890,6 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
                 fold = _DeviceFoldPlan(ops, partials, 1, device)
                 out = torch.empty((K, fold.single_size), dtype=torch.float64,
                                   device=device)
-            out[k] = fold.single(_flatten(partials))
+            out[k] = fold.single(fold.flatten(partials, row_valid))
             SCAN_STATS.chunks_processed += 1
     return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before)
-
-
-# -- per-chunk reductions (the f64 counterparts of ops/df32.py) -------------
-
-
-def masked_count(ok: torch.Tensor) -> torch.Tensor:
-    return ok.sum(dtype=torch.int64)
-
-
-def masked_sum(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    return torch.where(ok, x, 0.0).sum()
-
-
-def masked_extremum(x: torch.Tensor, ok: torch.Tensor, mode: str) -> torch.Tensor:
-    """Min/max of x where ok; the identity (+inf / -inf) when nothing is
-    valid — callers guard on the separate count."""
-    ident = np.inf if mode == "min" else -np.inf
-    if x.numel() == 0:
-        return torch.tensor(ident, dtype=torch.float64, device=x.device)
-    guarded = torch.where(ok, x, ident)
-    return guarded.amin() if mode == "min" else guarded.amax()
-
-
-def masked_moments(x: torch.Tensor, ok: torch.Tensor):
-    """(count, mean, m2) of x where ok — the chunk's Welford state, with
-    m2 a centred two-pass sum (reference df32.masked_moments)."""
-    cnt = masked_count(ok)
-    mean = masked_sum(x, ok) / cnt.clamp(min=1)
-    d = torch.where(ok, x - mean, 0.0)
-    return cnt, mean, (d * d).sum()
-
-
-def masked_comoments(a: torch.Tensor, b: torch.Tensor, ok: torch.Tensor):
-    """(n, x_avg, y_avg, ck, x_mk, y_mk) chunk co-moment state
-    (reference df32.masked_comoments, Correlation.scala:37-52)."""
-    cnt = masked_count(ok)
-    denom = cnt.clamp(min=1)
-    ma = masked_sum(a, ok) / denom
-    mb = masked_sum(b, ok) / denom
-    da = torch.where(ok, a - ma, 0.0)
-    db = torch.where(ok, b - mb, 0.0)
-    return cnt, ma, mb, (da * db).sum(), (da * da).sum(), (db * db).sum()

@@ -1,11 +1,14 @@
 """Port twins of the reference's Check-method tests
-(tests/test_check_methods.py) for the methods that build on frequency
-tables and the string analyzers: has_number_of_distinct_values,
-has_histogram_values, has_mutual_information, has_min_length,
-has_max_length, has_pattern, the four contains_* methods and
-has_data_type. Each runs a VerificationSuite of the port on the CPU over
-the reference's fixture tables (tests/fixtures.py, the same arrays) and
-asserts the same outcome the reference test asserts."""
+(tests/test_check_methods.py), one test a Check method: the methods that
+build on frequency tables and the string analyzers
+(has_number_of_distinct_values, has_histogram_values,
+has_mutual_information, has_min_length, has_max_length, has_pattern, the
+four contains_* methods, has_data_type), and below them the scan, grouping,
+sketch, predicate and anomaly methods (has_size ...
+is_newest_point_non_anomalous, is_primary_key among them). Each runs a
+VerificationSuite of the port on the CPU over the reference's fixture
+tables (tests/fixtures.py, the same arrays) and asserts the same outcome
+the reference test asserts."""
 
 import math
 import re
@@ -24,7 +27,11 @@ from deequ_tpu_torch.analyzers import Patterns
 from fixtures import (
     ref_df_complete_incomplete,
     ref_df_full,
+    ref_df_missing,
     ref_df_variable_string_lengths,
+    ref_df_with_distinct_values,
+    ref_df_with_numeric_values,
+    ref_df_with_unique_columns,
 )
 from torch_parity import port_table
 
@@ -44,8 +51,12 @@ def assert_pass(table, check):
     assert result.status == CheckStatus.SUCCESS, failing
 
 
+def status_of(table, check) -> CheckStatus:
+    return run(table, check).status
+
+
 def assert_fail(table, check):
-    assert run(table, check).status == CheckStatus.ERROR
+    assert status_of(table, check) == CheckStatus.ERROR
 
 
 def C(desc="c"):
@@ -154,3 +165,204 @@ def test_contains_email_rfc5322_edge_cases():
     assert rx.fullmatch("user@[192.168.0.1]")
     t = ColumnarTable.from_pydict({"col": fixtures})
     assert_pass(t, C().contains_email("col", lambda f: f == hits / len(fixtures)))
+
+
+# -- the scan, grouping, sketch, predicate and anomaly methods ------------
+
+
+def test_has_size():
+    assert_pass(port_table(ref_df_full()), C().has_size(lambda n: n == 4))
+    assert_fail(port_table(ref_df_full()), C().has_size(lambda n: n == 5))
+
+
+def test_is_complete():
+    assert_pass(port_table(ref_df_complete_incomplete()), C().is_complete("att1"))
+    assert_fail(port_table(ref_df_complete_incomplete()), C().is_complete("att2"))
+
+
+def test_has_completeness():
+    assert_pass(port_table(ref_df_missing()), C().has_completeness("att2", lambda c: c == 0.75))
+    assert_fail(port_table(ref_df_missing()), C().has_completeness("att2", lambda c: c > 0.9))
+
+
+def test_is_unique():
+    assert_pass(port_table(ref_df_with_unique_columns()), C().is_unique("unique"))
+    assert_fail(port_table(ref_df_with_unique_columns()), C().is_unique("nonUnique"))
+
+
+def test_is_primary_key():
+    assert_pass(port_table(ref_df_with_unique_columns()), C().is_primary_key("unique"))
+    # the reference's isPrimaryKey "currently only checks uniqueness"
+    # (Check.scala:152-158): null rows drop out of grouping, so
+    # uniqueWithNulls PASSES; a genuinely non-unique column fails
+    assert_pass(port_table(ref_df_with_unique_columns()), C().is_primary_key("uniqueWithNulls"))
+    assert_fail(port_table(ref_df_with_unique_columns()), C().is_primary_key("nonUnique"))
+
+
+def test_has_uniqueness():
+    assert_pass(
+        port_table(ref_df_with_unique_columns()),
+        C().has_uniqueness(("unique", "nonUnique"), lambda u: u == 1.0),
+    )
+    assert_fail(
+        port_table(ref_df_with_unique_columns()),
+        C().has_uniqueness(("nonUnique",), lambda u: u == 1.0),
+    )
+
+
+def test_has_distinctness():
+    assert_pass(
+        port_table(ref_df_with_distinct_values()),
+        C().has_distinctness(("att1",), lambda d: d == 3.0 / 5),
+    )
+    assert_fail(
+        port_table(ref_df_with_distinct_values()),
+        C().has_distinctness(("att2",), lambda d: d == 1.0),
+    )
+
+
+def test_has_unique_value_ratio():
+    assert_pass(
+        port_table(ref_df_with_distinct_values()),
+        C().has_unique_value_ratio(("att1",), lambda r: r == 1.0 / 3),
+    )
+
+
+def test_kll_sketch_satisfies():
+    assert_pass(
+        port_table(ref_df_with_numeric_values()),
+        C().kll_sketch_satisfies(
+            "att1", lambda dist: dist.buckets[0].low_value == 1.0
+        ),
+    )
+
+
+def test_has_entropy():
+    import math
+
+    expected = -(0.75 * math.log(0.75) + 0.25 * math.log(0.25))
+    assert_pass(
+        port_table(ref_df_full()),
+        C().has_entropy("att1", lambda e: abs(e - expected) < 1e-12),
+    )
+
+
+def test_has_approx_quantile():
+    assert_pass(
+        port_table(ref_df_with_numeric_values()),
+        C().has_approx_quantile("att1", 0.5, lambda v: v in (3.0, 4.0)),
+    )
+
+
+def test_has_min():
+    assert_pass(port_table(ref_df_with_numeric_values()), C().has_min("att1", lambda v: v == 1.0))
+
+
+def test_has_max():
+    assert_pass(port_table(ref_df_with_numeric_values()), C().has_max("att1", lambda v: v == 6.0))
+
+
+def test_has_mean():
+    assert_pass(port_table(ref_df_with_numeric_values()), C().has_mean("att1", lambda v: v == 3.5))
+
+
+def test_has_sum():
+    assert_pass(port_table(ref_df_with_numeric_values()), C().has_sum("att1", lambda v: v == 21.0))
+
+
+def test_has_standard_deviation():
+    assert_pass(
+        port_table(ref_df_with_numeric_values()),
+        C().has_standard_deviation(
+            "att1", lambda v: abs(v - 1.707825127659933) < 1e-12
+        ),
+    )
+
+
+def test_has_approx_count_distinct():
+    assert_pass(
+        port_table(ref_df_with_unique_columns()),
+        C().has_approx_count_distinct("uniqueWithNulls", lambda v: v == 5.0),
+    )
+
+
+def test_has_correlation():
+    t = ColumnarTable.from_pydict({"a": [1.0, 2.0, 3.0], "b": [4.0, 5.0, 6.0]})
+    assert_pass(t, C().has_correlation("a", "b", lambda r: abs(r - 1.0) < 1e-12))
+
+
+def test_satisfies():
+    assert_pass(
+        port_table(ref_df_with_numeric_values()),
+        C().satisfies("att1 > 0", "all positive", lambda f: f == 1.0),
+    )
+    assert_fail(
+        port_table(ref_df_with_numeric_values()),
+        C().satisfies("att1 > 3", "more than half", lambda f: f > 0.5),
+    )
+
+
+def test_is_non_negative_and_is_positive():
+    t = ColumnarTable.from_pydict({"p": [1, 2, 3], "z": [0, 1, 2], "n": [-1, 1, 2]})
+    assert_pass(t, C().is_non_negative("z"))
+    assert_fail(t, C().is_non_negative("n"))
+    assert_pass(t, C().is_positive("p"))
+    assert_fail(t, C().is_positive("z"))
+
+
+def test_inequality_checks():
+    df = port_table(ref_df_with_numeric_values())  # att3 <= att2 everywhere, equal on rows 1-3
+    assert_pass(df, C().is_less_than_or_equal_to("att3", "att2"))
+    assert_fail(df, C().is_less_than("att3", "att2"))  # equal on some rows
+    assert_pass(df, C().is_greater_than_or_equal_to("att2", "att3"))
+    assert_fail(df, C().is_greater_than("att2", "att3"))
+
+
+def test_is_contained_in():
+    assert_pass(port_table(ref_df_full()), C().is_contained_in("att1", ["a", "b"]))
+    assert_fail(port_table(ref_df_full()), C().is_contained_in("att1", ["a"]))
+
+
+def test_is_contained_in_numeric_range():
+    df = port_table(ref_df_with_numeric_values())
+    assert_pass(
+        df,
+        C().is_contained_in(
+            "att1", lower_bound=1.0, upper_bound=6.0
+        ),
+    )
+    assert_fail(
+        df,
+        C().is_contained_in("att1", lower_bound=2.0, upper_bound=6.0),
+    )
+
+
+def test_where_filter_on_last_constraint():
+    df = port_table(ref_df_missing())
+    # att1 is complete on items 1-2 only
+    check = C().is_complete("att1").where("item IN ('1', '2')")
+    assert_pass(df, check)
+
+
+def test_check_level_warning():
+    check = Check(CheckLevel.WARNING, "w").has_size(lambda n: n == 99)
+    assert status_of(port_table(ref_df_full()), check) == CheckStatus.WARNING
+
+
+def test_is_newest_point_non_anomalous():
+    from deequ_tpu_torch.analyzers import Size
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.anomaly import AbsoluteChangeStrategy
+    from deequ_tpu_torch.repository import AnalysisResult, ResultKey
+    from deequ_tpu_torch.repository.memory import InMemoryMetricsRepository
+
+    repo = InMemoryMetricsRepository()
+    t = port_table(ref_df_full())
+    for ts in range(3):
+        ctx = AnalysisRunner.do_analysis_run(t, [Size()], device="cpu")
+        repo.save(AnalysisResult(ResultKey(ts, {}), ctx))
+    check = C().is_newest_point_non_anomalous(
+        repo, AbsoluteChangeStrategy(max_rate_increase=1.0), Size(), {},
+        None, None,
+    )
+    assert_pass(t, check)

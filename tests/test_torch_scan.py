@@ -245,10 +245,17 @@ def test_scan_op_tensors_stay_on_requested_device(parity_env):
     planes = packer.to_device(packer.pack(0, 100), torch.device("cpu"))
     row_valid = torch.ones(100, dtype=torch.bool)
     out = op.update(packer.unpack_vals(*planes, row_valid), row_valid, 100, 100)
-    assert {k: v.dtype for k, v in out.items()} == {
+    # the leaves are the outputs of one K1 task, resolved by the engine
+    tasks = {id(leaf.task): leaf.task for leaf in out.values()}
+    assert len(tasks) == 1
+    (task,) = tasks.values()
+    assert {t.device for t in task.data + task.masks} == {torch.device("cpu")}
+    resolved = task.plain()
+    assert {k: resolved[leaf.index].dtype for k, leaf in out.items()} == {
         "n": torch.int64, "x_avg": torch.float64, "y_avg": torch.float64,
         "ck": torch.float64, "x_mk": torch.float64, "y_mk": torch.float64,
     }
+    assert {resolved[leaf.index].device for leaf in out.values()} == {torch.device("cpu")}
 
 
 @pytest.mark.parametrize(
