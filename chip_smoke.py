@@ -21,11 +21,15 @@ Phases, each printed as one JSON line on stdout:
    counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
    m2 and the co-moments within 1e-12 relative (ck of sqrt(x_mk · y_mk)),
    each centred sum plus its means' rounding floor; over ±inf, NaN, -0.0
-   and subnormals, all-masked tasks, one row, a constant column, sizes on
-   both sides of a warp's, a block's and a tile's rows, one to three masks
-   and int32 lengths, and 10^7 rows; the same bits for a column at another
-   alignment and a batch in another order; the fold merge bit for bit
-   (every task of the main check's resident chunk is held in phase 12);
+   and subnormals, all-masked tasks, one row, a constant column, a column
+   of mean 1e8 and spread 1e-3, sizes on both sides of a warp's, a
+   block's and a tile's rows (the kernel's ``deequ_k1_geometry``), one to
+   three masks and int32 lengths, a task of no rows among others, sources
+   past their caps of masks and combos, identical tasks, and 10^7 rows;
+   the same bits for a column at another alignment, a column and a mask
+   off a 16-byte boundary, a batch in another order and a task alone in
+   its batch; the fold merge bit for bit (every task of the main check's
+   resident chunk is held in phase 12);
 4. ``main_path`` — ``VerificationSuite.on_data(table).add_check(check).run()``
    on a 10^7-row table (20 float64 columns with 1% nulls, the repo's
    profiling config 2 in BASELINE.md, plus an all-distinct int64 id, a
@@ -99,8 +103,10 @@ Phases, each printed as one JSON line on stdout:
    time between launches), and ``k1_fused_scan``: the fused scan's
    device kernels under torch.profiler, K1's and any torch reduce kernel
    left apart, every K1 task of the resident chunk against its plain
-   version, K1 alone on that batch (kernel, wrapper call, plain and
-   library times, its bound), beside the old bound of the whole pass: the
+   version, K1 alone on that batch (its sources and combos, kernel,
+   wrapper call, plain and library times, its bound), its fold merge
+   alone on the pass's state vector (kernel and plain times, its bound,
+   bit for bit), beside the old bound of the whole pass: the
    resident planes of the columns it reads, read once; and,
    inside it, ``encoded`` — two low-cardinality numeric columns made
    from the main table, encoded and persisted, bit-identical to their
@@ -219,7 +225,7 @@ Phases, each printed as one JSON line on stdout:
    imported, an anomaly check reading it, once quiet and once firing);
 
 then the ``kernels`` summary line (each kernel's launches summed over the
-paths, and by path; K1's and its fold merge's by path too), the nvidia-smi line, and the result line
+paths, and by path; K1's fold merge its own entry), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -406,10 +412,8 @@ def kernel_parity(device) -> dict:
 
 # -- phase 3b: K1, the fused scan's masked reductions ------------------------
 
-#: csrc/masked_reduce.cu's rows a block (kTileRows) and threads a block
-K1_TILE = 16384
-K1_THREADS = 256
-#: f64 operations a task does a valid row (kernel's pass 1 and pass 2)
+#: f64 operations a task does a valid row (a sum, a compare, the
+#: deviations and their squares and products)
 K1_OPS = {"count": 0, "sum": 1, "min": 1, "max": 1, "moments": 4, "comoments": 10}
 #: the card's f64 rate outside the tensor cores (H100 SXM data sheet)
 F64_RATE = 34e12
@@ -443,24 +447,33 @@ def k1_require(launches: dict, label: str) -> None:
 
 class K1Spy:
     """Records every batch ``masked_reduce.reduce_into`` is called with
-    (``batches``: (flat, tasks, offsets)), launching as usual."""
+    (``batches``: (flat, tasks, offsets)) and every fold merge
+    (``merges``: ``merge_tags``' arguments), launching as usual."""
 
     def __enter__(self):
         from deequ_tpu_torch.ops import masked_reduce
 
         self._mod = masked_reduce
         self._orig = masked_reduce.reduce_into
+        self._orig_merge = masked_reduce.merge_tags
         self.batches = []
+        self.merges = []
 
         def spy(flat, tasks, offsets):
             self.batches.append((flat, list(tasks), [tuple(o) for o in offsets]))
             return self._orig(flat, tasks, offsets)
 
+        def spy_merge(*args):
+            self.merges.append(args)
+            return self._orig_merge(*args)
+
         masked_reduce.reduce_into = spy
+        masked_reduce.merge_tags = spy_merge
         return self
 
     def __exit__(self, *exc):
         self._mod.reduce_into = self._orig
+        self._mod.merge_tags = self._orig_merge
 
 
 def k1_offsets(tasks):
@@ -537,7 +550,8 @@ def k1_hold(tasks, label: str) -> dict:
 
 def k1_tasks_over(x, y, masks, lengths=None):
     """Every kind over one column (and a second for the co-moments), under
-    each prefix of ``masks``."""
+    each prefix of ``masks``; with ``lengths`` (int32), their min, max and
+    moments and their co-moments with ``x``."""
     from deequ_tpu_torch.ops import masked_reduce as k1
 
     tasks = []
@@ -547,19 +561,40 @@ def k1_tasks_over(x, y, masks, lengths=None):
                   k1.extremum(x, "min", *ms), k1.extremum(x, "max", *ms),
                   k1.moments(x, *ms), k1.comoments(x, y, *ms)]
         if lengths is not None:
-            tasks += [k1.extremum(lengths, "min", *ms), k1.extremum(lengths, "max", *ms)]
+            tasks += [k1.extremum(lengths, "min", *ms), k1.extremum(lengths, "max", *ms),
+                      k1.moments(lengths, *ms), k1.comoments(lengths, x, *ms)]
     return tasks
+
+
+def k1_bits(tasks, offsets=None):
+    """K1 over ``tasks`` (one batch) as int64 bits, one row a task's outputs."""
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce as k1
+
+    if offsets is None:
+        offsets, size = k1_offsets(tasks)
+    else:
+        size = 1 + max(o for offs in offsets for o in offs)
+    flat = torch.full((size,), float("nan"), dtype=torch.float64, device=tasks[0].device)
+    k1.reduce_into(flat, tasks, offsets)
+    bits = flat.view(torch.int64).cpu().tolist()
+    return [[bits[o] for o in offs] for offs in offsets]
 
 
 def k1_parity(device) -> dict:
     """K1 against its plain version on the card (:func:`k1_hold`): ±inf,
     NaN, -0.0 and subnormals; all-masked tasks, one row, a constant
-    column; sizes on both sides of a warp's, a block's and a tile's rows;
-    one, two and three masks and int32 lengths; 10^7 rows. The bits of a
-    result depend on the task's rows alone: the same column at another
-    alignment and the batch reversed give the same bits. The fold merge
-    bit for bit against its plain version. (The main check's resident
-    chunk, every task, is held in ``resident_path``.)"""
+    column, a column of mean 1e8 and spread 1e-3; sizes on both sides of a
+    warp's, a block's and a tile's rows (the kernel's own geometry); one,
+    two and three masks and int32 lengths; a task of no rows among others;
+    a source past its caps of masks and combos; identical tasks; 10^7
+    rows. The bits of a result depend on the task's rows alone: the same
+    column at another alignment, a column and a mask an odd number of
+    elements off a 16-byte boundary, the batch reversed, and each task
+    alone in a batch give the same bits. The fold merge bit for bit
+    against its plain version. (The main check's resident chunk, every
+    task, is held in ``resident_path``.)"""
     import numpy as np
     import torch
 
@@ -567,6 +602,8 @@ def k1_parity(device) -> dict:
 
     rng = np.random.default_rng(11)
     cases = {}
+    geometry = k1.geometry()
+    tile, threads = geometry["tile_rows"], geometry["threads"]
 
     def column(n, kind="normal"):
         if kind == "edges":
@@ -578,6 +615,8 @@ def k1_parity(device) -> dict:
             return torch.from_numpy(x).to(device)
         if kind == "constant":
             return torch.full((n,), 3.7, dtype=torch.float64, device=device)
+        if kind == "ill":
+            return torch.from_numpy(1e8 + 1e-3 * rng.standard_normal(n)).to(device)
         return torch.from_numpy(rng.normal(10.0, 3.0, n)).to(device)
 
     def masks(n, k=3, p=0.1):
@@ -603,35 +642,89 @@ def k1_parity(device) -> dict:
     cases["constant"] = k1_hold(
         k1_tasks_over(column(1_000_000, "constant"), column(1_000_000), masks(1_000_000)),
         "constant")
+    m = 1_000_003
+    ill_x = column(m, "ill")
+    ill_y = 0.5 * (ill_x - 1e8) - 3e7 + torch.from_numpy(1e-3 * rng.standard_normal(m)).to(device)
+    cases["ill_conditioned"] = k1_hold(k1_tasks_over(ill_x, ill_y, masks(m)), "ill-conditioned")
+    # a task of no rows, in a batch with others
+    empty = torch.zeros(0, dtype=torch.float64, device=device)
+    none = torch.zeros(0, dtype=torch.bool, device=device)
+    cases["no_rows"] = k1_hold(k1_tasks_over(empty, empty, [none]) +
+                               k1_tasks_over(column(3000), column(3000), masks(3000)),
+                               "no rows among others")
     edges, edge_err = [], 0.0
-    for m in (31, 32, 33, K1_THREADS - 1, K1_THREADS, K1_THREADS + 1,
-              K1_TILE - 1, K1_TILE, K1_TILE + 1, 2 * K1_TILE - 1, 2 * K1_TILE,
-              2 * K1_TILE + 1):
+    for m in (31, 32, 33, threads - 1, threads, threads + 1, tile - 1, tile, tile + 1,
+              2 * tile - 1, 2 * tile, 2 * tile + 1, 7 * tile + threads + 5):
         held = k1_hold(k1_tasks_over(column(m, "edges"), column(m), masks(m), lengths(m)),
                        f"rows {m}")
         edges.append(m)
         edge_err = max(edge_err, held["max_abs_err"])
-    cases["tile_edges"] = {"rows": edges, "max_abs_err": edge_err}
-    max_abs = max(c["max_abs_err"] for c in cases.values() if isinstance(c, dict))
+    cases["tile_edges"] = {"rows": edges, "tile_rows": tile, "threads": threads,
+                           "max_abs_err": edge_err}
+
+    # a source past its caps splits; identical tasks are one combo
+    m = 50_001
+    x, y, many = column(m, "edges"), column(m), masks(m, k=geometry["source_masks"] + 3)
+    past_masks = [k1.total(x, mk) for mk in many] + [k1.moments(x, mk) for mk in many]
+    pairs = [(i, j) for i in range(geometry["source_masks"])
+             for j in range(i + 1, geometry["source_masks"])]
+    past_combos = [k1.extremum(x, "max", many[i], many[j]) for i, j in pairs] + \
+        [k1.count(many[i], many[j], n=m, device=device) for i, j in pairs] + \
+        [k1.moments(y, many[i], many[j]) for i, j in pairs]
+    once = k1_tasks_over(x, y, many[:2])
+    twice = once + k1_tasks_over(x, y, many[:2])
+    split = {}
+    for label, tasks in (("masks", past_masks), ("combos", past_combos), ("identical", twice)):
+        batch = k1.group(tasks, k1_offsets(tasks)[0])
+        split[label] = {"tasks": len(tasks), "sources": len(batch.sources),
+                        "combos": len(batch.combos),
+                        "held": k1_hold(tasks, f"past the caps: {label}")["max_abs_err"]}
+    if split["masks"]["sources"] < 2 or split["combos"]["sources"] < 2:
+        fail(f"k1_parity: a source past its caps did not split: {split}")
+    half = len(twice) // 2
+    bits = k1_bits(twice)
+    if bits[:half] != bits[half:] or \
+            split["identical"]["combos"] != len(k1.group(once, k1_offsets(once)[0]).combos):
+        fail("k1_parity: identical tasks were not one combo with the same bits at each offset")
+    cases["caps_and_identical"] = split
+    max_abs = max(c["max_abs_err"] for c in cases.values() if "max_abs_err" in c)
+
     big = 10_000_000
     x, y, ms, ln = column(big), column(big), masks(big, p=0.01), lengths(big)
     cases["rows_1e7"] = k1_hold(k1_tasks_over(x, y, ms, ln), "1e7 rows")
     max_abs = max(max_abs, cases["rows_1e7"]["max_abs_err"])
 
-    # bits depend on a task's rows alone: another alignment, another order
+    # bits depend on a task's rows alone: another alignment, another order,
+    # the task alone in its batch
     tasks = k1_tasks_over(x, y, ms[:2], ln)
-    offsets, size = k1_offsets(tasks)
-    first = torch.empty(size, dtype=torch.float64, device=device)
-    k1.reduce_into(first, tasks, offsets)
+    first = k1_bits(tasks)
     shifted = torch.empty(big + 3, dtype=torch.float64, device=device)[3:]
     shifted.copy_(x)
     moved = [k1.Reduction(t.kind, [shifted if d is x else d for d in t.data], t.masks,
                           t.n, t.device) for t in tasks]
-    again = torch.empty(size, dtype=torch.float64, device=device)
-    k1.reduce_into(again, moved[::-1], offsets[::-1])
-    if not torch.equal(first.view(torch.int64), again.view(torch.int64)):
+    offsets, _ = k1_offsets(tasks)
+    again = k1_bits(moved[::-1], offsets[::-1])[::-1]
+    if first != again:
         fail("k1_parity: the bits moved with the data's alignment or the batch's order")
-    cases["bits_alignment_and_order"] = len(tasks)
+    # a column, a mask and int32 lengths an odd number of elements off a
+    # 16-byte boundary (8, 3 and 4 bytes)
+    odd_x = torch.empty(big + 1, dtype=torch.float64, device=device)[1:]
+    odd_x.copy_(x)
+    odd_m = torch.empty(big + 3, dtype=torch.bool, device=device)[3:]
+    odd_m.copy_(ms[0])
+    odd_l = torch.empty(big + 1, dtype=torch.int32, device=device)[1:]
+    odd_l.copy_(ln)
+    swap = {id(x): odd_x, id(ms[0]): odd_m, id(ln): odd_l}
+    odd = [k1.Reduction(t.kind, [swap.get(id(d), d) for d in t.data],
+                        [swap.get(id(mk), mk) for mk in t.masks], t.n, t.device) for t in tasks]
+    if k1_bits(odd) != first:
+        fail("k1_parity: the bits moved with a column and a mask off a 16-byte boundary")
+    alone = [k1_bits([t])[0] for t in tasks]
+    if alone != first:
+        fail("k1_parity: a task alone in its batch and the same task sharing its source "
+             "gave other bits")
+    cases["bits_alignment_order_alone"] = {
+        "tasks": len(tasks), "sources_in_batch": len(k1.group(tasks, offsets).sources)}
 
     # the fold merge, bit for bit (NaN payloads, signed zeros, infinities)
     m = 100_000
@@ -828,7 +921,7 @@ def watch_cpu_ops():
     from torch.utils._pytree import tree_flatten
 
     # schema names (no overload): an allocation computes nothing, so
-    # "aten::empty" (K1's pinned staging of its descriptor table) is
+    # "aten::empty" (K1's pinned staging of its source tables) is
     # transport too
     transport = {
         "aten::_to_copy", "aten::copy_", "aten::_local_scalar_dense",
@@ -2352,6 +2445,32 @@ def k1_library(tasks) -> None:
             torch.sum(col)
 
 
+def k1_merge_timing(args, rate: float) -> dict:
+    """The fold merge (``masked_reduce.merge_tags``) alone on the arguments
+    a pass gave it: ``kernel_ms`` (CUDA events around 100 queued calls),
+    the plain version's time, bit for bit its result, and the bound: its
+    tags, accumulator, gather indices and gathered entries read once and
+    its output written once, over the memory rate (a compare or an add a
+    state entry is far below the f64 rate)."""
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce
+
+    is_sum, is_min, acc, flat, src = args
+    got = masked_reduce.merge_tags(*args)
+    want = masked_reduce.merge_tags_plain(*args)
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        fail("k1_merge_timing: the fold merge differs from its plain version in its bits")
+    m = acc.numel()
+    nbytes = 2 * m + 8 * m + (0 if src is None else 8 * m) + 8 * m + 8 * m
+    bound_ms = nbytes / rate * 1e3
+    kernel_ms = time_queued(lambda i: masked_reduce.merge_tags(*args))
+    plain_ms = time_cuda(lambda: masked_reduce.merge_tags_plain(*args))
+    return {"entries": m, "flat_entries": flat.numel(), "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / kernel_ms, "max_abs_err": 0.0}
+
+
 def fused_scan_timing(table, device, rate: float) -> dict:
     """K1 in the fused scan of the main check's scan-shareable analyzers
     over the persisted table.
@@ -2363,8 +2482,8 @@ def fused_scan_timing(table, device, rate: float) -> dict:
     - Every task of the pass's batch (its one resident chunk) held against
       its plain version (:func:`k1_hold`).
     - K1 alone on that batch: ``kernel_ms`` (CUDA events around 20
-      queued calls behind a device spin: its kernels and the descriptor
-      table's copy), one wrapper call as a caller pays it (``call_ms``),
+      queued calls behind a device spin: its kernels and its tables'
+      copy), one wrapper call as a caller pays it (``call_ms``),
       the plain versions of the same tasks on the card (``plain_ms``), and
       ``library_ms``: one torch.sum / amin / amax a task over its column,
       summed (:func:`k1_library`: the reductions as single library calls,
@@ -2400,7 +2519,7 @@ def fused_scan_timing(table, device, rate: float) -> dict:
     pass_launches = k1_counts()
     total_us = reduce_us = k1_us = 0.0
     launches = reduce_launches = k1_kernels = 0
-    reduce_names = []
+    reduce_names, k1_by_kernel = [], {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
         if us <= 0 or ev.key.startswith(("Memcpy", "Memset")) or ev.key.startswith("aten::"):
@@ -2410,6 +2529,8 @@ def fused_scan_timing(table, device, rate: float) -> dict:
         if "k1_" in ev.key:
             k1_us += us
             k1_kernels += ev.count
+            name = next((k for k in ("k1_tiles", "k1_fold", "k1_merge") if k in ev.key), ev.key)
+            k1_by_kernel[name] = {"launches": ev.count, "ms": us / 1e3}
         elif "reduce" in ev.key.lower():
             reduce_us += us
             reduce_launches += ev.count
@@ -2418,6 +2539,7 @@ def fused_scan_timing(table, device, rate: float) -> dict:
         fail("fused_scan_timing: the profiler showed no device kernel in the fused scan")
 
     _, tasks, offsets = spy.batches[0]
+    batch = masked_reduce.group(tasks, offsets)
     held = k1_hold(tasks, "main chunk")
     out = torch.empty(sum(t.n_outputs for t in tasks), dtype=torch.float64, device=device)
     kernel_ms = time_queued(lambda i: masked_reduce.reduce_into(out, tasks, offsets), reps=20)
@@ -2431,6 +2553,7 @@ def fused_scan_timing(table, device, rate: float) -> dict:
     plain_ms = time_cuda(lambda: [t.plain() for t in tasks], reps=5, warmup=1)
     library_ms = time_cuda(lambda: k1_library(tasks), reps=5, warmup=1)
     bound = k1_bound(tasks, offsets, rate)
+    merge = k1_merge_timing(spy.merges[0], rate)
     pass_bound_ms = nbytes / rate * 1e3
     kinds = {}
     for t in tasks:
@@ -2442,15 +2565,21 @@ def fused_scan_timing(table, device, rate: float) -> dict:
             "reduce_ms": reduce_us / 1e3, "reduce_kernel_names": reduce_names,
             "pass_wall_ms": wall_ms, "pass_bound_ms": pass_bound_ms, "pass_bound_by": "bytes",
             "pass_bound_share_of_device_ms": pass_bound_ms / (total_us / 1e3),
-            "k1": {"tasks": len(tasks), "kinds": kinds, "batches_a_pass": pass_launches["k1"],
+            "k1": {"tasks": len(tasks), "kinds": kinds, "sources": len(batch.sources),
+                   "combos": len(batch.combos), "outputs": len(batch.outs),
+                   "stage_bytes": masked_reduce.stage_bytes(
+                       batch, masked_reduce.geometry()["tile_rows"]),
+                   "batches_a_pass": pass_launches["k1"],
                    "merges_a_pass": pass_launches["k1_merge"],
                    "kernel_launches_a_pass": k1_kernels, "profiler_ms": k1_us / 1e3,
+                   "profiler_by_kernel": k1_by_kernel,
                    "kernel_ms": kernel_ms, "call_ms": statistics.median(calls),
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "library_call": "one torch.sum / amin / amax a task over its column, "
                                    "summed (no mask)",
                    **bound, "bound_share": bound["bound_ms"] / kernel_ms,
-                   "vs_plain": held}}
+                   "vs_plain": held},
+            "k1_merge": merge}
 
 
 #: host-side calls that put work on the card's stream
@@ -4764,6 +4893,7 @@ def main(argv=None) -> int:
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
     k1_time = res_main["k1_fused_scan"]["k1"]
+    k1_merge = res_main["k1_fused_scan"]["k1_merge"]
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -4847,17 +4977,15 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "deequ_tpu_torch/csrc/masked_reduce.cu",
         "replaces": "deequ_tpu/ops/df32.py:187",
-        "replaces_also": ["deequ_tpu/ops/df32.py:166 merge_tags_f64",
-                          "deequ_tpu/ops/df32.py:197 masked_count",
+        "replaces_also": ["deequ_tpu/ops/df32.py:197 masked_count",
                           "deequ_tpu/ops/df32.py:202 masked_extremum",
                           "deequ_tpu/ops/df32.py:260 masked_moments",
                           "deequ_tpu/ops/df32.py:275 masked_comoments"],
         "launches": sum(k1_launches.values()),
         "launches_by_path": k1_launches,
-        "merge_launches": sum(k1_merges.values()),
-        "merge_launches_by_path": k1_merges,
         "headline_shape": (f"the resident main chunk: {k1_time['tasks']} tasks over "
-                           f"{k1_time['distinct_tensors']} tensors of {args.rows} rows"),
+                           f"{k1_time['distinct_tensors']} tensors of {args.rows} rows, "
+                           f"{k1_time['sources']} sources, {k1_time['combos']} combos"),
         "max_abs_err": max(kparity["max_abs_err"], k1_time["vs_plain"]["max_abs_err"]),
         "ms": k1_time["kernel_ms"],
         "plain_ms": k1_time["plain_ms"],
@@ -4869,6 +4997,24 @@ def main(argv=None) -> int:
                    "within 1e-12 relative, ck within 1e-12 sqrt(x_mk y_mk), each plus "
                    "n (128 ulp max|x|)^2; the fold merge bit for bit"),
         "shapes": [{k: v for k, v in k1_time.items() if k != "vs_plain"}],
+    }, {
+        "name": "masked_reduce_merge",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/masked_reduce.cu",
+        "replaces": "deequ_tpu/ops/df32.py:166",
+        "launches": sum(k1_merges.values()),
+        "launches_by_path": k1_merges,
+        "headline_shape": (f"the resident main chunk's fold: {k1_merge['entries']} state "
+                           f"entries from a flat vector of {k1_merge['flat_entries']}"),
+        "max_abs_err": k1_merge["max_abs_err"],
+        "ms": k1_merge["kernel_ms"],
+        "plain_ms": k1_merge["plain_ms"],
+        "bound_ms": k1_merge["bound_ms"],
+        "bound_by": k1_merge["bound_by"],
+        "library_ms": None,
+        "library_call": None,
+        "parity": "bit for bit",
+        "shapes": [k1_merge],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,16 +29,23 @@ Three layers:
   had a kernel; any other device raises. :func:`merge_tags` is the same
   for the tagged fold of a chunk's vector into the scan's accumulator.
 
+For the kernel, :func:`group` turns a batch into sources and combos: a
+source is a data plane (or a co-moment task's pair) with the masks its
+tasks use, and the kernel copies each of its tiles into shared memory
+once for all of them; a combo is one (plane, mask set) of a source, whose
+fold writes the fields of every task on it. Identical tasks are one.
+
 The kernel's min/max reads NaN as the plain version does (a valid NaN
 gives NaN) and orders -0.0 before +0.0, so its result never depends on the
 order in which it meets the rows. Its sums and moments associate
-otherwise than torch's reductions: within ``1e-13 · Σ|x|`` (sums) and
-``1e-12`` relative (m2 and the co-moments, plus ``n · (128 ulp ·
-max|x|)^2`` where the two means round apart) of the plain version on
-the card, as ``chip_smoke.py``'s ``k1_parity`` holds them. Its bits depend
+otherwise than torch's reductions (the moments are centred on each tile's
+mean and moved to the whole mean in the fold): within ``1e-13 · Σ|x|``
+(sums) and ``1e-12`` relative (m2 and the co-moments, plus ``n · (128 ulp
+· max|x|)^2`` where the centres round apart) of the plain version on the
+card, as ``chip_smoke.py``'s ``k1_parity`` holds them. Its bits depend
 only on a task's rows and ``n``, never on the pointers' alignment, the
-task's place in the batch or the other tasks, so a group scan stays bit
-for bit its serial loop.
+task's place in the batch or the other tasks on its source, so a group
+scan stays bit for bit its serial loop.
 
 The kernel is compiled from the source in the checkout at first use and
 bound with ``ctypes`` (``ops/cuda_build.py``).
@@ -56,8 +63,8 @@ from deequ_tpu_torch.exceptions import DeviceException
 from deequ_tpu_torch.ops import cuda_build
 
 #: calls of :func:`reduce_into` that launched the kernel (each one batch:
-#: two launches, four where the batch holds a moment task), and nowhere
-#: else (chip_smoke.py reads it around its paths)
+#: two launches, the tiles and the fold), and nowhere else (chip_smoke.py
+#: reads it around its paths)
 LAUNCHES = 0
 #: calls of :func:`merge_tags` that launched its kernel
 MERGE_LAUNCHES = 0
@@ -77,15 +84,46 @@ _DATA = {"count": 0, "sum": 1, "min": 1, "max": 1, "moments": 1, "comoments": 2}
 _DTYPES = {torch.float64: 0, torch.int32: 1}
 MAX_MASKS = 3
 
-#: one task of the kernel's descriptor table (``struct Task`` in
-#: csrc/masked_reduce.cu): data pointers, mask pointers (0: none), n,
-#: kind, data types, masks in use and each output's offset (-1: none)
-TASK_DTYPE = np.dtype({
-    "names": ["x", "y", "m", "n", "kind", "xtype", "ytype", "nmask", "out"],
-    "formats": ["<u8", "<u8", ("<u8", MAX_MASKS), "<i8", "<i4", "<i4", "<i4", "<i4",
-                ("<i4", 6)],
-    "offsets": [0, 8, 16, 40, 48, 52, 56, 60, 64],
-    "itemsize": 88,
+#: a source's caps on masks and combos (csrc/masked_reduce.cu's
+#: kSourceMasks and kSourceCombos; the library's ``deequ_k1_geometry``
+#: reports them, with its rows a tile and threads a block, and the binding
+#: refuses a library whose caps or records differ from these)
+SOURCE_MASKS = 7
+SOURCE_COMBOS = 16
+
+#: what a combo's fold writes (``enum Field`` in the source)
+FIELDS = ("n", "sum", "min", "max", "mean", "m2", "x_avg", "y_avg", "ck", "x_mk", "y_mk")
+_FIELD = {name: i for i, name in enumerate(FIELDS)}
+#: the planes a combo reads: none (a count), the source's x or y, or both
+PLANE_NONE, PLANE_X, PLANE_Y, PLANE_XY = -1, 0, 1, 2
+#: the statistics a combo needs beyond its count and sums
+FLAG_MIN, FLAG_MAX, FLAG_CENTRED = 1, 2, 4
+_FLAGS = {"count": 0, "sum": 0, "min": FLAG_MIN, "max": FLAG_MAX,
+          "moments": FLAG_CENTRED, "comoments": FLAG_CENTRED}
+
+#: one source (``struct Source``): its data planes (0: none), its masks
+#: (0: none), n, the planes' data types, planes and masks in use, and its
+#: combos' range in the combo table
+SOURCE_DTYPE = np.dtype({
+    "names": ["x", "y", "m", "n", "xtype", "ytype", "nplanes", "nmask", "combo0",
+              "ncombo"],
+    "formats": ["<u8", "<u8", ("<u8", SOURCE_MASKS), "<i8", "<i4", "<i4", "<i4", "<i4",
+                "<i4", "<i4"],
+    "offsets": [0, 8, 16, 72, 80, 84, 88, 92, 96, 100],
+    "itemsize": 104,
+})
+#: one combo (``struct Combo``): its source, the source's masks it needs
+#: (a bit each), the plane(s) it reads, its flags and its outputs' range
+COMBO_DTYPE = np.dtype({
+    "names": ["source", "need", "plane", "flags", "out0", "nout"],
+    "formats": ["<i4", "<u4", "<i4", "<i4", "<i4", "<i4"],
+    "offsets": [0, 4, 8, 12, 16, 20],
+    "itemsize": 24,
+})
+#: one output (``struct Out``): an offset of the flat vector and the field
+OUT_DTYPE = np.dtype({
+    "names": ["offset", "field"], "formats": ["<i4", "<i4"], "offsets": [0, 4],
+    "itemsize": 8,
 })
 
 
@@ -378,12 +416,21 @@ def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
     return out
 
 
+#: the geometry the library reports, in ``deequ_k1_geometry``'s order
+GEOMETRY_KEYS = ("tile_rows", "threads", "source_masks", "source_combos",
+                 "source_bytes", "combo_bytes", "out_bytes", "part_bytes")
+#: bytes of one tile's partial of a combo (``struct Part``)
+PART_BYTES = 64
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.deequ_k1_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    lib.deequ_k1_geometry.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.deequ_k1_geometry.restype = ctypes.c_int
+    lib.deequ_k1_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
     lib.deequ_k1_scratch_bytes.restype = ctypes.c_longlong
     lib.deequ_k1_reduce.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.deequ_k1_reduce.restype = ctypes.c_int
     lib.deequ_k1_merge.argtypes = [
@@ -391,50 +438,196 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.deequ_k1_merge.restype = ctypes.c_int
+    got = _geometry_of(lib)
+    want = {"source_masks": SOURCE_MASKS, "source_combos": SOURCE_COMBOS,
+            "source_bytes": SOURCE_DTYPE.itemsize, "combo_bytes": COMBO_DTYPE.itemsize,
+            "out_bytes": OUT_DTYPE.itemsize, "part_bytes": PART_BYTES}
+    if any(got[k] != v for k, v in want.items()):
+        raise DeviceException(f"K1: the library's geometry {got} does not match {want}")
+    lib.k1_geometry = got
 
 
-def describe(tasks: Sequence[Reduction], offsets: Sequence[Sequence[int]]):
-    """The kernel's descriptor table of a batch (:data:`TASK_DTYPE`, one
-    record a task) and the indices of its moment and co-moment tasks
-    (int32), which the kernel's centred pass walks."""
-    T = len(tasks)
-    table = np.zeros(T, dtype=TASK_DTYPE)
-    cols = {"x": [], "y": [], "m": [], "n": [], "kind": [], "xtype": [], "ytype": [],
-            "nmask": [], "out": []}
+def _geometry_of(lib: ctypes.CDLL) -> dict:
+    buf = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
+    if lib.deequ_k1_geometry(buf, len(GEOMETRY_KEYS)) != len(GEOMETRY_KEYS):
+        raise DeviceException("K1: deequ_k1_geometry reported another number of values")
+    return dict(zip(GEOMETRY_KEYS, (int(v) for v in buf)))
+
+
+def geometry() -> dict:
+    """The built kernel's rows a tile, threads a block, caps a source and
+    record sizes (builds the library; a card's machine only)."""
+    return dict(cuda_build.library("masked_reduce", _bind).k1_geometry)
+
+
+# -- the batch as sources and combos ---------------------------------------------
+
+
+class Batch(NamedTuple):
+    """A batch as the kernel reads it: its sources, combos and outputs
+    (:data:`SOURCE_DTYPE`, :data:`COMBO_DTYPE`, :data:`OUT_DTYPE`) and the
+    most rows of any source."""
+
+    sources: np.ndarray
+    combos: np.ndarray
+    outs: np.ndarray
+    max_n: int
+
+
+#: the most shared memory a launch asks for to hold two tiles of each
+#: one-plane source: two blocks of the kernel still fit an H100's SM
+DOUBLE_STAGE_CAP = 100_000
+
+
+def stage_bytes(batch: Batch, tile_rows: int) -> int:
+    """The shared memory a launch of ``batch`` asks for at ``tile_rows``
+    rows a tile. A source's tile takes a buffer of its rows for each plane
+    (f64 width) and mask, with 16 bytes for the copies' alignment. The
+    launch takes its largest tile, or two of its largest one-plane source's
+    where that is more and within :data:`DOUBLE_STAGE_CAP`: a source whose
+    two tiles fit copies its next tile while it works on one."""
+    src = batch.sources
+    one = src["nplanes"] * (tile_rows * 8 + 16) + src["nmask"] * (tile_rows + 16)
+    largest = int(one.max())
+    single = one[src["nplanes"] <= 1]
+    twice = 2 * int(single.max()) if single.size else 0
+    return max(largest, twice) if twice <= DOUBLE_STAGE_CAP else largest
+
+
+def _fields(task: Reduction) -> List[int]:
+    """The field of each output of ``task``."""
+    return [_FIELD[task.kind if name == "value" else name] for name in OUTPUTS[task.kind]]
+
+
+class _Source:
+    """A source being grouped: its planes ((pointer, data type) each), its
+    masks (pointers, in the order their bits take) and its combos, keyed by
+    (plane, mask set), each [flags, outputs]."""
+
+    __slots__ = ("n", "planes", "masks", "combos")
+
+    def __init__(self, n: int, planes: tuple):
+        self.n = n
+        self.planes = planes
+        self.masks: List[int] = []
+        self.combos: dict = {}
+
+    def takes(self, plane: int, masks: frozenset) -> bool:
+        return (plane, masks) in self.combos or (
+            len(self.combos) < SOURCE_COMBOS
+            and len(masks.union(self.masks)) <= SOURCE_MASKS)
+
+    def add(self, plane: int, masks: frozenset, flags: int, outs) -> None:
+        combo = self.combos.get((plane, masks))
+        if combo is None:
+            self.masks.extend(m for m in sorted(masks) if m not in self.masks)
+            combo = self.combos[(plane, masks)] = [0, []]
+        combo[0] |= flags
+        combo[1].extend(outs)
+
+
+def _place_data(sources: List[_Source], n: int, planes: tuple, masks: frozenset,
+                flags: int, outs) -> None:
+    """A sum, min, max, moments or co-moments task into the first source
+    that reads its plane(s) and has room; else into a new source of them
+    (a source past a cap splits: its planes are read by both)."""
+    for s in sources:
+        if s.n != n:
+            continue
+        if len(planes) == 2:
+            plane = PLANE_XY if s.planes == planes else None
+        else:
+            plane = s.planes.index(planes[0]) if planes[0] in s.planes else None
+        if plane is not None and s.takes(plane, masks):
+            s.add(plane, masks, flags, outs)
+            return
+    s = _Source(n, planes)
+    sources.append(s)
+    s.add(PLANE_XY if len(planes) == 2 else PLANE_X, masks, flags, outs)
+
+
+def _place_count(sources: List[_Source], n: int, masks: frozenset, outs) -> None:
+    """A count: the ``n`` output of a combo with its very mask set where
+    one exists; else a count-only combo in a source that reads all its
+    masks already; else in a source of masks alone."""
+    same = [s for s in sources if s.n == n]
+    for s in same:
+        for plane, ms in s.combos:
+            if ms == masks:
+                s.add(plane, masks, 0, outs)
+                return
+    for s in same:
+        if masks.issubset(s.masks) and s.takes(PLANE_NONE, masks):
+            s.add(PLANE_NONE, masks, 0, outs)
+            return
+    for s in same:
+        if not s.planes and s.takes(PLANE_NONE, masks):
+            s.add(PLANE_NONE, masks, 0, outs)
+            return
+    s = _Source(n, ())
+    sources.append(s)
+    s.add(PLANE_NONE, masks, 0, outs)
+
+
+def group(tasks: Sequence[Reduction], offsets: Sequence[Sequence[int]]) -> Batch:
+    """The batch as sources and combos.
+
+    Identical tasks (kind, tensors by pointer, mask set) are one. A source
+    is one data plane, or a co-moment task's pair, with the masks its
+    tasks use; a task on one plane of a pair joins the pair's source.
+    Within a source a combo is one (plane, mask set): each task maps to
+    fields of a combo, whose fold writes them at every offset of every
+    task on it. A count takes the count of a combo of its mask set, or
+    joins a source that reads its masks, or a source of masks alone. A
+    source holds at most :data:`SOURCE_MASKS` masks and
+    :data:`SOURCE_COMBOS` combos. Tasks are placed in an order of their
+    own (co-moments, other data tasks, counts; then by rows and
+    pointers), so the batch's order changes no source."""
+    merged: dict = {}
     for task, offs in zip(tasks, offsets):
-        data = list(task.data) + [None] * (2 - len(task.data))
-        masks = list(task.masks) + [None] * (MAX_MASKS - len(task.masks))
-        cols["x"].append(0 if data[0] is None else data[0].data_ptr())
-        cols["y"].append(0 if data[1] is None else data[1].data_ptr())
-        cols["m"].append([0 if m is None else m.data_ptr() for m in masks])
-        cols["n"].append(task.n)
-        cols["kind"].append(KINDS.index(task.kind))
-        cols["xtype"].append(0 if data[0] is None else _DTYPES[data[0].dtype])
-        cols["ytype"].append(0 if data[1] is None else _DTYPES[data[1].dtype])
-        cols["nmask"].append(len(task.masks))
-        cols["out"].append(list(offs) + [-1] * (6 - len(offs)))
-    for name, values in cols.items():
-        table[name] = np.asarray(values, dtype=table.dtype[name].base).reshape(
-            table[name].shape)
-    moment_ids = np.array([i for i, t in enumerate(tasks)
-                           if t.kind in ("moments", "comoments")], dtype=np.int32)
-    return table, moment_ids
+        data = tuple((d.data_ptr(), _DTYPES[d.dtype]) for d in task.data)
+        key = (task.n, task.kind, data, tuple(sorted({m.data_ptr() for m in task.masks})))
+        merged.setdefault(key, []).extend(
+            (off, field) for off, field in zip(offs, _fields(task)) if off >= 0)
+    rank = {"comoments": 0, "count": 2}
+    sources: List[_Source] = []
+    for key in sorted(merged, key=lambda k: (rank.get(k[1], 1), k[0], k[2], k[3], k[1])):
+        n, kind, data, masks = key
+        if kind == "count":
+            _place_count(sources, n, frozenset(masks), merged[key])
+        else:
+            _place_data(sources, n, data, frozenset(masks), _FLAGS[kind], merged[key])
+    src_rows, combo_rows, out_rows = [], [], []
+    for i, s in enumerate(sources):
+        planes = list(s.planes) + [(0, 0)] * (2 - len(s.planes))
+        src_rows.append((planes[0][0], planes[1][0], s.masks + [0] * (SOURCE_MASKS - len(s.masks)),
+                         s.n, planes[0][1], planes[1][1], len(s.planes), len(s.masks),
+                         len(combo_rows), len(s.combos)))
+        for (plane, masks), (flags, outs) in s.combos.items():
+            need = sum(1 << s.masks.index(m) for m in masks)
+            combo_rows.append((i, need, plane, flags, len(out_rows), len(outs)))
+            out_rows.extend(outs)
+    return Batch(
+        np.array(src_rows, dtype=SOURCE_DTYPE), np.array(combo_rows, dtype=COMBO_DTYPE),
+        np.array(out_rows, dtype=OUT_DTYPE),
+        max(s.n for s in sources),
+    )
 
 
 def _launch_reduce(flat, tasks, offsets) -> None:
-    """Enqueue the batch on the current stream: the descriptor table goes
-    to the card by a non-blocking copy from pinned memory (torch's host
-    allocator keeps that block until the copy has run), the scratch is
+    """Enqueue the batch on the current stream: its tables go to the card
+    by one non-blocking copy from pinned memory (torch's host allocator
+    keeps that block until the copy has run), the tiles' partials are
     allocated here. Raises if a launch was refused."""
     for task in tasks:
-        if not all(t.is_contiguous() for t in task.data + task.masks):
-            raise ValueError("masked_reduce: a task's tensors must be contiguous")
-    table, moment_ids = describe(tasks, offsets)
-    head = table.nbytes
-    blob = np.zeros(head + moment_ids.nbytes, dtype=np.uint8)
-    blob[:head] = table.view(np.uint8)
-    blob[head:] = moment_ids.view(np.uint8)
-    max_n = max(t.n for t in tasks)
+        for t in task.data + task.masks:
+            if not t.is_contiguous():
+                raise ValueError("masked_reduce: a task's tensors must be contiguous")
+            if t.data_ptr() % t.element_size():
+                raise ValueError("masked_reduce: a task's tensors must be aligned to their type")
+    batch = group(tasks, offsets)
+    blob = np.concatenate([batch.sources.view(np.uint8), batch.combos.view(np.uint8),
+                           batch.outs.view(np.uint8)])
     lib = cuda_build.library("masked_reduce", _bind)
     device = flat.device
     with torch.cuda.device(device):
@@ -442,15 +635,17 @@ def _launch_reduce(flat, tasks, offsets) -> None:
         staged.numpy()[:] = blob
         desc = staged.to(device, non_blocking=True)
         scratch = torch.empty(
-            int(lib.deequ_k1_scratch_bytes(len(tasks), len(moment_ids), max_n)),
+            int(lib.deequ_k1_scratch_bytes(len(batch.combos), batch.max_n)),
             dtype=torch.uint8, device=device,
         )
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.deequ_k1_reduce(
-            desc.data_ptr(), len(tasks), desc.data_ptr() + head, len(moment_ids), max_n,
-            scratch.data_ptr(), flat.data_ptr(), stream,
+            desc.data_ptr(), len(batch.sources), len(batch.combos), len(batch.outs),
+            batch.max_n, stage_bytes(batch, lib.k1_geometry["tile_rows"]), scratch.data_ptr(),
+            flat.data_ptr(), stream,
         )
     if rc != 0:
         raise DeviceException(
-            f"K1 kernel launch failed: CUDA error {rc} ({len(tasks)} tasks, n={max_n})"
+            f"K1 kernel launch failed: CUDA error {rc} ({len(tasks)} tasks, "
+            f"{len(batch.sources)} sources, {len(batch.combos)} combos, n={batch.max_n})"
         )

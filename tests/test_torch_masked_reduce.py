@@ -411,30 +411,366 @@ def test_outputs_of_leaves():
 
 
 def test_descriptor_table():
-    """The kernel's table: one 88-byte record a task, pointers, kinds,
-    data types, masks in use and offsets where csrc/masked_reduce.cu's
-    struct Task reads them; the moment tasks' indices beside it."""
+    """The kernel's tables: one 104-byte source record (planes, masks, n,
+    data types, planes and masks in use, its combos), one 24-byte combo
+    (source, mask bits, plane, flags, outputs) and one 8-byte output
+    (offset, field), where csrc/masked_reduce.cu's structs read them."""
     x = torch.arange(10, dtype=torch.float64)
     lengths = torch.arange(10, dtype=torch.int32)
     m1 = torch.ones(10, dtype=torch.bool)
     m2 = torch.zeros(10, dtype=torch.bool)
+    m3 = torch.ones(10, dtype=torch.bool)
     tasks = [k1.count(m1, m2), k1.extremum(lengths, "max", m2), k1.moments(x, m1),
-             k1.comoments(x, x, m1, m2, torch.ones(10, dtype=torch.bool)), k1.count(n=10)]
+             k1.comoments(x, x, m1, m2, m3), k1.count(n=10)]
     assert tasks[-1].device == torch.device("cpu")
     offsets = [(4,), (0,), (1, 2, 3), (5, 6, 7, 8, 9, 10), (11,)]
-    table, ids = k1.describe(tasks, offsets)
-    assert table.dtype.itemsize == 88 and table.nbytes == 88 * 5
-    raw = table.view(np.uint8).reshape(5, 88)
-    assert list(table["kind"]) == [0, 3, 4, 5, 0]
-    assert list(table["nmask"]) == [2, 1, 1, 3, 0]
-    assert list(table["xtype"]) == [0, 1, 0, 0, 0]
-    assert list(table["n"]) == [10] * 5
-    assert int(np.frombuffer(raw[2, 0:8].tobytes(), "<u8")[0]) == x.data_ptr()
-    assert int(np.frombuffer(raw[0, 24:32].tobytes(), "<u8")[0]) == m2.data_ptr()
-    assert list(np.frombuffer(raw[3, 64:88].tobytes(), "<i4")) == [5, 6, 7, 8, 9, 10]
-    assert list(np.frombuffer(raw[1, 64:88].tobytes(), "<i4")) == [0, -1, -1, -1, -1, -1]
-    assert int(np.frombuffer(raw[4, 16:40].tobytes(), "<u8").sum()) == 0
-    assert ids.tolist() == [2, 3]
+    b = k1.group(tasks, offsets)
+    assert (k1.SOURCE_DTYPE.itemsize, k1.COMBO_DTYPE.itemsize, k1.OUT_DTYPE.itemsize) == \
+        (104, 24, 8)
+    assert [k1.SOURCE_DTYPE.fields[f][1] for f in k1.SOURCE_DTYPE.names] == \
+        [0, 8, 16, 72, 80, 84, 88, 92, 96, 100]
+    # the pair (x, x) first, then the int32 lengths; the counts ride on them
+    assert len(b.sources) == 2 and b.max_n == 10
+    raw = b.sources.view(np.uint8).reshape(2, 104)
+    pair, lens = b.sources
+    assert int(np.frombuffer(raw[0, 0:8].tobytes(), "<u8")[0]) == x.data_ptr()
+    assert int(np.frombuffer(raw[0, 8:16].tobytes(), "<u8")[0]) == x.data_ptr()
+    assert int(np.frombuffer(raw[1, 0:8].tobytes(), "<u8")[0]) == lengths.data_ptr()
+    assert (pair["nplanes"], pair["nmask"], lens["nplanes"], lens["nmask"]) == (2, 3, 1, 1)
+    assert (lens["xtype"], pair["xtype"], pair["ytype"]) == (1, 0, 0)
+    masks = {int(p) for p in pair["m"][:3]}
+    assert masks == {m1.data_ptr(), m2.data_ptr(), m3.data_ptr()}
+    assert int(np.frombuffer(raw[1, 24:72].tobytes(), "<u8").sum()) == 0
+    assert list(np.frombuffer(raw[:, 72:80].tobytes(), "<i8")) == [10, 10]
+    # combos: the pair's co-moments, x's moments under m1, the counts of
+    # {m1, m2} and of no mask; the lengths' max under m2
+    rows = [tuple(int(v) for v in c) for c in b.combos]
+    assert [r[0] for r in rows] == [0] * int(pair["ncombo"]) + [1] * int(lens["ncombo"])
+    assert (pair["combo0"], lens["combo0"]) == (0, pair["ncombo"])
+    planes = {r[2] for r in rows if r[0] == 0}
+    assert planes == {k1.PLANE_XY, k1.PLANE_X, k1.PLANE_NONE}
+    comb = b.combos.view(np.uint8).reshape(-1, 24)
+    assert list(np.frombuffer(comb[:, 8:12].tobytes(), "<i4")) == [r[2] for r in rows]
+    # the launch's shared memory: the pair's tile (two planes, three masks),
+    # more than two tiles of the lengths (one plane, one mask)
+    assert k1.stage_bytes(b, 4096) == 2 * (4096 * 8 + 16) + 3 * (4096 + 16)
+    assert k1.stage_bytes(b, 64) == 2 * (64 * 8 + 16) + 3 * (64 + 16)
+    # one-plane sources alone: two tiles of the largest, within the cap
+    singles = k1.group(tasks[1:3], offsets[1:3])
+    assert k1.stage_bytes(singles, 4096) == 2 * (4096 * 8 + 16 + 4096 + 16)
+    many = k1.group([k1.total(x, *[torch.ones(10, dtype=torch.bool) for _ in range(3)]),
+                     k1.total(x, *[torch.ones(10, dtype=torch.bool) for _ in range(3)])],
+                    [(0,), (1,)])
+    assert k1.stage_bytes(many, 8192) == 8192 * 8 + 16 + 6 * (8192 + 16)
+    placed = {int(o["offset"]): k1.FIELDS[int(o["field"])] for o in b.outs}
+    assert placed == {0: "max", 1: "n", 2: "mean", 3: "m2", 4: "n", 5: "n", 6: "x_avg",
+                      7: "y_avg", 8: "ck", 9: "x_mk", 10: "y_mk", 11: "n"}
+    assert list(np.frombuffer(b.outs.view(np.uint8).reshape(-1, 8)[:, 0:4].tobytes(), "<i4")) \
+        == list(b.outs["offset"])
+
+
+# -- the grouping into sources and combos ------------------------------------------
+
+
+def _combo_of(batch):
+    """{offset: (source, combo index, field)} of a grouped batch."""
+    where = {}
+    for ci, c in enumerate(batch.combos):
+        for o in batch.outs[c["out0"]:c["out0"] + c["nout"]]:
+            assert int(o["offset"]) not in where, "an offset written twice"
+            where[int(o["offset"])] = (int(c["source"]), ci, k1.FIELDS[int(o["field"])])
+    return where
+
+
+def _batches():
+    """Batches of the scan's shapes: the engine's chunk, every kind under
+    each prefix of three masks over two columns, and a pair sharing its
+    planes with one-plane tasks."""
+    x, y, mx, my, pred, lengths = _chunk(5)
+    row_valid = torch.ones(x.numel(), dtype=torch.bool)
+    engine = [t.without(row_valid) for t in _leaf_tasks(
+        _task_update(x, y, mx, my, pred, lengths, row_valid))]
+    kinds = []
+    for j in range(4):
+        ms = [mx, my, pred][:j]
+        kinds += [k1.count(*ms, n=x.numel()), k1.total(x, *ms), k1.extremum(x, "min", *ms),
+                  k1.extremum(lengths, "max", *ms), k1.moments(y, *ms), k1.comoments(x, y, *ms)]
+    return {"engine": engine, "kinds": kinds}
+
+
+def _leaf_tasks(partials):
+    seen = {}
+    for part in partials:
+        for leaf in part.values():
+            outs = k1.outputs_of(leaf)
+            for task, _ in outs or ():
+                seen.setdefault(id(task), task)
+    return list(seen.values())
+
+
+def _offsets(tasks):
+    offsets, off = [], 0
+    for t in tasks:
+        offsets.append(tuple(range(off, off + t.n_outputs)))
+        off += t.n_outputs
+    return offsets, off
+
+
+@pytest.mark.parametrize("name", ["engine", "kinds"])
+def test_group_places_every_output_once(name):
+    tasks = _batches()[name]
+    offsets, size = _offsets(tasks)
+    # an output left out (-1) is written nowhere
+    offsets[0] = (-1,) * len(offsets[0])
+    b = k1.group(tasks, offsets)
+    where = _combo_of(b)
+    assert sorted(where) == sorted(o for offs in offsets for o in offs if o >= 0)
+    for t, offs in zip(tasks, offsets):
+        for off, field in zip(offs, k1._fields(t)):
+            if off >= 0:
+                source, ci, got = where[off]
+                assert got == k1.FIELDS[field]
+                src = b.sources[source]
+                combo = b.combos[ci]
+                # the combo reads the task's planes and exactly its masks
+                masks = {int(src["m"][j]) for j in range(int(src["nmask"]))
+                         if int(combo["need"]) >> j & 1}
+                assert masks == {m.data_ptr() for m in t.masks}
+                planes = [int(src["x"]), int(src["y"])]
+                if t.kind == "comoments":
+                    assert combo["plane"] == k1.PLANE_XY
+                    assert planes == [d.data_ptr() for d in t.data]
+                elif t.data:
+                    assert planes[int(combo["plane"])] == t.data[0].data_ptr()
+    # every source's records are consistent
+    assert int(b.sources["ncombo"].sum()) == len(b.combos)
+    assert int(b.combos["nout"].sum()) == len(b.outs)
+    assert (b.sources["nmask"] <= k1.SOURCE_MASKS).all()
+    assert (b.sources["ncombo"] <= k1.SOURCE_COMBOS).all()
+
+
+def test_group_identical_tasks_share_a_combo():
+    x = torch.arange(100, dtype=torch.float64)
+    m = torch.arange(100) % 3 > 0
+    p = torch.arange(100) % 5 > 0
+    tasks = [k1.count(m), k1.total(x, m), k1.count(m), k1.extremum(x, "min", m),
+             k1.count(m, p), k1.count(p, m), k1.total(x, m), k1.moments(x, m)]
+    offsets, _ = _offsets(tasks)
+    b = k1.group(tasks, offsets)
+    where = _combo_of(b)
+    # every task under m alone rides on one combo; {m, p} twice is one
+    under_m = {where[o][1] for o in (0, 1, 2, 3, 6, 7, 8)}
+    assert len(under_m) == 1
+    assert where[4][1] == where[5][1] != where[0][1]
+    # x's source reads m alone, so the count of {m, p} reads its masks alone
+    assert len(b.combos) == 2 and list(b.sources["nplanes"]) == [1, 0]
+    assert b.combos[where[0][1]]["flags"] == k1.FLAG_MIN | k1.FLAG_CENTRED
+
+
+def test_group_splits_a_source_past_its_caps():
+    n = 64
+    x = torch.arange(n, dtype=torch.float64)
+    masks = [torch.arange(n) % (k + 2) > 0 for k in range(k1.SOURCE_MASKS + 3)]
+    # more masks than a source takes, on one plane: two sources of x
+    tasks = [k1.total(x, m) for m in masks]
+    b = k1.group(tasks, _offsets(tasks)[0])
+    assert len(b.sources) == 2
+    assert list(b.sources["nmask"]) == [k1.SOURCE_MASKS, 3]
+    assert set(int(v) for v in b.sources["x"]) == {x.data_ptr()}
+    # more combos than a source takes: mask pairs over four masks on one plane
+    pairs = [(i, j) for i in range(k1.SOURCE_MASKS) for j in range(i + 1, k1.SOURCE_MASKS)]
+    tasks = [k1.total(x, masks[i], masks[j]) for i, j in pairs]
+    assert len(tasks) > k1.SOURCE_COMBOS
+    b = k1.group(tasks, _offsets(tasks)[0])
+    assert list(b.sources["ncombo"]) == [k1.SOURCE_COMBOS, len(tasks) - k1.SOURCE_COMBOS]
+    assert (b.sources["nmask"] <= k1.SOURCE_MASKS).all()
+    # counts of many masks: sources of masks alone, each within its caps
+    tasks = [k1.count(m) for m in masks] + [k1.count(masks[0], masks[-1])]
+    b = k1.group(tasks, _offsets(tasks)[0])
+    assert (b.sources["nplanes"] == 0).all() and len(b.sources) == 2
+    assert (b.sources["nmask"] <= k1.SOURCE_MASKS).all()
+    assert len(_combo_of(b)) == len(tasks)
+
+
+@pytest.mark.parametrize("name", ["engine", "kinds"])
+def test_group_reversed_batch_same_sources(name):
+    tasks = _batches()[name]
+    offsets, _ = _offsets(tasks)
+    a = k1.group(tasks, offsets)
+    b = k1.group(tasks[::-1], offsets[::-1])
+
+    def shape(batch):
+        out = set()
+        for s in batch.sources:
+            combos = batch.combos[s["combo0"]:s["combo0"] + s["ncombo"]]
+            out.add((int(s["x"]), int(s["y"]), frozenset(int(m) for m in s["m"]),
+                     int(s["n"]), frozenset(
+                         (int(c["plane"]), int(c["flags"]),
+                          frozenset(int(s["m"][j]) for j in range(7) if int(c["need"]) >> j & 1),
+                          frozenset((int(o["offset"]), int(o["field"]))
+                                    for o in batch.outs[c["out0"]:c["out0"] + c["nout"]]))
+                         for c in combos)))
+        return out
+
+    assert shape(a) == shape(b)
+    assert k1.stage_bytes(a, 4096) == k1.stage_bytes(b, 4096) and a.max_n == b.max_n
+
+
+# -- a numpy model of the kernel's arithmetic -------------------------------------
+
+
+#: rows a tile of the model (the kernel's tiles are larger; small tiles
+#: give the model's merge many tiles at small sizes)
+MODEL_TILE = 256
+
+
+def _model(batch, arrays, size: int, tile: int = MODEL_TILE) -> np.ndarray:
+    """What csrc/masked_reduce.cu computes, in numpy (a test helper, not a
+    path): per combo, per tile of ``tile`` rows, the count, sums,
+    extrema and the deviations from the tile's centre (its mean), S1 and
+    S2 (and the pair's cross sum); the fold takes the mean from the summed
+    sums and moves each tile's centred sums to it: S2 + e * (2 S1 + n e)."""
+    flat = np.full(size, np.nan)
+    for c in batch.combos:
+        src = batch.sources[c["source"]]
+        n = int(src["n"])
+        planes = [arrays[int(src[p])].astype(np.float64) if int(src["nplanes"]) > i else None
+                  for i, p in enumerate(("x", "y"))]
+        ok = np.ones(n, dtype=bool)
+        for j in range(int(src["nmask"])):
+            if int(c["need"]) >> j & 1:
+                ok &= arrays[int(src["m"][j])]
+        plane = int(c["plane"])
+        xs = planes[1] if plane == k1.PLANE_Y else planes[0]
+        ys = planes[1]
+        parts = []
+        for lo in range(0, max(n, 1), tile):
+            sl = slice(lo, min(lo + tile, n))
+            keep = ok[sl]
+            cnt = int(keep.sum())
+            part = {"cnt": cnt}
+            if plane != k1.PLANE_NONE:
+                xv = np.where(keep, xs[sl], 0.0)
+                part["s"] = float(xv.sum())
+                part["lo"] = float(np.where(keep, xs[sl], np.inf).min()) if n else np.inf
+                part["hi"] = float(np.where(keep, xs[sl], -np.inf).max()) if n else -np.inf
+                cx = part["s"] / max(cnt, 1)
+                dx = np.where(keep, xs[sl] - cx, 0.0)
+                part["a"], part["xx"] = float(dx.sum()), float((dx * dx).sum())
+                if plane == k1.PLANE_XY:
+                    part["t"] = float(np.where(keep, ys[sl], 0.0).sum())
+                    cy = part["t"] / max(cnt, 1)
+                    dy = np.where(keep, ys[sl] - cy, 0.0)
+                    part["b"], part["yy"] = float(dy.sum()), float((dy * dy).sum())
+                    part["xy"] = float((dx * dy).sum())
+            parts.append(part)
+        cnt = sum(p["cnt"] for p in parts)
+        vals = {"n": float(cnt)}
+        if plane != k1.PLANE_NONE:
+            s = math.fsum(p["s"] for p in parts)
+            mean = s / max(cnt, 1)
+            vals.update(sum=s, min=min(p["lo"] for p in parts), max=max(p["hi"] for p in parts),
+                        mean=mean, x_avg=mean)
+            mean_y = 0.0
+            if plane == k1.PLANE_XY:
+                mean_y = math.fsum(p["t"] for p in parts) / max(cnt, 1)
+                vals["y_avg"] = mean_y
+            xx = yy = xy = 0.0
+            for p in parts:
+                if not p["cnt"]:
+                    continue
+                ex = p["s"] / p["cnt"] - mean
+                xx += p["xx"] + ex * (2.0 * p["a"] + p["cnt"] * ex)
+                if plane == k1.PLANE_XY:
+                    ey = p["t"] / p["cnt"] - mean_y
+                    yy += p["yy"] + ey * (2.0 * p["b"] + p["cnt"] * ey)
+                    xy += p["xy"] + ex * p["b"] + ey * p["a"] + p["cnt"] * ex * ey
+            vals.update(m2=xx, x_mk=xx, y_mk=yy, ck=xy)
+        for o in batch.outs[c["out0"]:c["out0"] + c["nout"]]:
+            flat[int(o["offset"])] = vals[k1.FIELDS[int(o["field"])]]
+    return flat
+
+
+#: the centred sums' rounding floor of chip_smoke.py's k1_hold: the two
+#: versions' means round up to 128 ulps of the largest |x| apart
+MEAN_ULPS = 128 * 2.0 ** -52
+
+
+def _hold(tasks, offsets, flat) -> None:
+    """Each output against the plain version, under k1_hold's tolerances."""
+    for t, offs in zip(tasks, offsets):
+        want = [float(v) for v in t.plain()]
+        ok = np.ones(t.n, dtype=bool)
+        for m in t.masks:
+            ok &= m.numpy()
+        data = [d.numpy().astype(np.float64) for d in t.data]
+        sums = [float(np.abs(np.where(ok, d, 0.0)).sum()) for d in data]
+        big = max([float(np.abs(d[ok & np.isfinite(d)]).max(initial=0.0)) for d in data],
+                  default=0.0)
+        n = max(float(ok.sum()), 1.0)
+        floor = n * (MEAN_ULPS * big) ** 2
+        for name, off, w in zip(k1.OUTPUTS[t.kind], offs, want):
+            h = float(flat[off])
+            if name in ("n", "value") or not (math.isfinite(h) and math.isfinite(w)):
+                assert _same(h, w), (t.kind, name, h, w)
+            elif name in ("sum", "mean", "x_avg", "y_avg"):
+                sx = sums[1 if name == "y_avg" else 0]
+                assert abs(h - w) <= 1e-13 * sx / (1.0 if name == "sum" else n), (t.kind, name, h, w)
+            elif name == "ck":
+                assert abs(h - w) <= 1e-12 * math.sqrt(abs(want[4] * want[5])) + floor, (h, w)
+            else:
+                assert abs(h - w) <= 1e-12 * abs(w) + floor, (t.kind, name, h, w)
+
+
+def _model_hold(tasks):
+    offsets, size = _offsets(tasks)
+    arrays = {}
+    for t in tasks:
+        for d in t.data + t.masks:
+            arrays[d.data_ptr()] = d.numpy()
+    batch = k1.group(tasks, offsets)
+    _hold(tasks, offsets, _model(batch, arrays, size))
+
+
+def _kinds_over(x, y, masks):
+    tasks = []
+    for j in range(len(masks) + 1):
+        ms = masks[:j]
+        tasks += [k1.count(*ms, n=x.numel()), k1.total(x, *ms), k1.extremum(x, "min", *ms),
+                  k1.extremum(x, "max", *ms), k1.moments(x, *ms), k1.moments(y, *ms),
+                  k1.comoments(x, y, *ms)]
+    return tasks
+
+
+#: (kind, rows): mean 1e8 and sd 1e-3; a constant; ordinary; tile edges
+MODEL_CASES = [("ill", 48 * MODEL_TILE + 77), ("constant", 16 * MODEL_TILE),
+               ("normal", MODEL_TILE - 1), ("normal", MODEL_TILE + 1), ("ill", 1), ("normal", 0)]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=[f"{k}-{n}" for k, n in MODEL_CASES])
+def test_model_moments_against_two_pass(case):
+    kind, n = case
+    rng = np.random.default_rng(n)
+    if kind == "ill":
+        x = 1e8 + 1e-3 * rng.standard_normal(n)
+        y = -3e7 + 1e-3 * rng.standard_normal(n) + 0.5 * (x - 1e8)
+    elif kind == "constant":
+        x, y = np.full(n, 3.7), np.full(n, -1e8)
+    else:
+        x, y = rng.normal(5.0, 2.0, n), rng.normal(-1.0, 1.0, n)
+    masks = [torch.from_numpy(rng.random(n) >= p) for p in (0.1, 0.3)]
+    _model_hold(_kinds_over(torch.from_numpy(x), torch.from_numpy(y), masks))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_model_engine_chunk_against_plain(seed):
+    """The engine's chunk through the grouping and the model: every field
+    lands where the plain version puts it."""
+    x, y, mx, my, pred, lengths = _chunk(seed, n=3 * 4096 + 5)
+    row_valid = torch.ones(x.numel(), dtype=torch.bool)
+    tasks = [t.without(row_valid) for t in _leaf_tasks(
+        _task_update(x, y, mx, my, pred, lengths, row_valid))]
+    _model_hold(tasks)
 
 
 def test_engine_scan_on_cpu_counts_no_launch():

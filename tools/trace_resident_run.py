@@ -10,8 +10,11 @@ main table (seed 0) and ``persist()``s it, runs the suite once warm and
 three times timed (host clock ending in a device synchronisation), then
 once under torch.profiler through this checkout's
 ``chip_smoke.trace_run`` (the device's busy and idle share of the run's
-window, its kernels, the host time between launches), and prints one
-JSON line with the card's name and power limit.
+window, its kernels, the host time between launches), then the given
+checkout's own ``chip_smoke.fused_scan_timing`` (its K1 alone on the
+resident main chunk's batch, every task held against its plain version,
+its bound; the fused scan's device kernels), and prints one JSON line with
+the card's name and power limit.
 """
 
 import importlib.util
@@ -59,10 +62,12 @@ def main(tree: str, rows: int = 10_000_000) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     trace = tracer.trace_run(suite.run)
+    k1 = cs.fused_scan_timing(table, device, cs.hbm_rate(torch.cuda.get_device_name(device)))
     table.unpersist()
     print(json.dumps({"tree": tree, "card": tracer.nvidia_smi_line(), "rows": rows,
                       "resident_run_wall_s": walls,
-                      "median": statistics.median(walls), "trace": trace}), flush=True)
+                      "median": statistics.median(walls), "trace": trace,
+                      "k1_fused_scan": k1}), flush=True)
 
 
 if __name__ == "__main__":
