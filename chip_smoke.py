@@ -224,6 +224,41 @@ Phases, each printed as one JSON line on stdout:
    and the ``deequ_migration_example.py`` flow (a legacy repository JSON
    imported, an anomaly check reading it, once quiet and once firing);
 
+17. ``out_of_core_path`` (after ``profile_path``) — ``StreamingTable`` runs,
+   each part printed as a line of its own with the card's name and power
+   limit: ``config2_stream`` — the main suite over the main table as a
+   stream of 2^20-row batches (``stream_table``), every metric against
+   numpy and the in-memory run (PERF.md §2), and a stream cut at the
+   in-memory run's chunk rows bit for bit the in-memory run; one fetch of
+   the fused scan, the double buffer's issue order
+   (``ingest_overlap_frac``), no torch op on a CPU tensor; walls (median
+   of 3 after a warm run) streamed and in memory, peak device bytes, the
+   host RSS growth (``/proc/self/statm`` sampled on a thread), K1, K2 and
+   K5 launches, and one streamed run under torch.profiler (``trace``: the
+   card's busy share, and the share of the host-to-device copies' device
+   time during which a kernel ran too); ``config3_stream`` — BASELINE.md
+   config 3's check (the sketch path's, with size, completeness, min, max,
+   sum and mean of every numeric column) over 10^8 rows (ten times
+   ``--rows``) from a ``GeneratorBatchSource`` whose batch b of 2^17 rows
+   is made from (seed, b) on six threads and dropped after its use:
+   counts, completeness, min and max exact against numpy's answer
+   accumulated batch by batch, sums and means within 1e-12 (per-batch
+   sums folded by math.fsum), the correlation within 1e-10 (Chan's merge
+   of per-batch co-moments), each quantile's rank within relative_error
+   + 5/sqrt(n) under the generating distribution (exact counts for cust),
+   every ApproxCountDistinct's registers bit for bit those of K2's plain
+   version run on each batch on the card and max-merged, and its estimate
+   within 0.2 of the distinct count (a sanity check); one HLL launch a
+   column and chunk, two KLL sorts a chunk, the fold's drains with KLL
+   compaction there, and the host RSS growth under a tenth of the bytes
+   streamed; ``profile_stream`` — ``ColumnProfilerRunner`` with KLL over
+   the main table with ``zip`` as a stream: against numpy and the
+   in-memory profile, each KLL percentile's rank within 0.01, nothing
+   persisted; ``parquet`` — where pyarrow imports, the main table written
+   by ``write_parquet_stream`` (row groups of 2^20) to a temporary
+   directory and the main suite over ``stream_parquet`` bit for bit the
+   table's stream, else the line says it did not run;
+
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge its own entry), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
@@ -2448,7 +2483,8 @@ def k1_library(tasks) -> None:
 def k1_merge_timing(args, rate: float) -> dict:
     """The fold merge (``masked_reduce.merge_tags``) alone on the arguments
     a pass gave it: ``kernel_ms`` (CUDA events around 100 queued calls),
-    the plain version's time, bit for bit its result, and the bound: its
+    ``empty_launch_ms`` (an empty kernel, ``torch.cuda._sleep(0)``, timed
+    alike), the plain version's time, bit for bit its result, and the bound: its
     tags, accumulator, gather indices and gathered entries read once and
     its output written once, over the memory rate (a compare or an add a
     state entry is far below the f64 rate)."""
@@ -2465,9 +2501,11 @@ def k1_merge_timing(args, rate: float) -> dict:
     nbytes = 2 * m + 8 * m + (0 if src is None else 8 * m) + 8 * m + 8 * m
     bound_ms = nbytes / rate * 1e3
     kernel_ms = time_queued(lambda i: masked_reduce.merge_tags(*args))
+    # an empty launch timed alike: the floor a launch costs on the card
+    empty_launch_ms = time_queued(lambda i: torch.cuda._sleep(0))
     plain_ms = time_cuda(lambda: masked_reduce.merge_tags_plain(*args))
     return {"entries": m, "flat_entries": flat.numel(), "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "bound_ms": bound_ms,
+            "empty_launch_ms": empty_launch_ms, "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes, "bound_ms": bound_ms,
             "bound_by": "bytes", "bound_share": bound_ms / kernel_ms, "max_abs_err": 0.0}
 
 
@@ -2587,6 +2625,31 @@ LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"}
 
 
+def merged_spans(spans) -> list:
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def overlap_us(a, b) -> float:
+    """The length of the intersection of two unions of sorted disjoint
+    intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
 def trace_run(fn) -> dict:
     """One call of ``fn`` (a whole run) under torch.profiler, ended by a
     device synchronisation: the device's busy share of the window (the
@@ -2595,8 +2658,12 @@ def trace_run(fn) -> dict:
     and its idle share, the device kernels and their busy ms, the host's
     launch calls and the host time between consecutive ones (median and
     mean), the window beside the host-clock wall around it (the
-    profiler's own cost is in both), and the eight kernels that kept the
-    card busiest (``top_kernels``: name, launches, device ms)."""
+    profiler's own cost is in both), the eight kernels that kept the
+    card busiest (``top_kernels``: name, launches, device ms), and the
+    host-to-device copies from pinned memory (a stream's staging) with the
+    share of their device time during which a kernel also ran
+    (``pinned_h2d_under_kernels_share``: how far those copies overlapped
+    compute on the card)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2607,14 +2674,19 @@ def trace_run(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, host, starts = [], [], []
+    spans, host, starts, h2d, computing = [], [], [], [], []
     kernels = 0
     by_name = {}
     for ev in prof.events():
         lo, hi = float(ev.time_range.start), float(ev.time_range.end)
         if ev.device_type == DeviceType.CUDA:
             spans.append((lo, hi))
-            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+            kernel = not ev.name.startswith(("Memcpy", "Memset"))
+            kernels += kernel
+            if kernel:
+                computing.append((lo, hi))
+            elif ev.name.startswith("Memcpy HtoD (Pinned"):
+                h2d.append((lo, hi))
             name = ev.name[:100]
             count, us = by_name.get(name, (0, 0.0))
             by_name[name] = (count + 1, us + hi - lo)
@@ -2627,14 +2699,9 @@ def trace_run(fn) -> dict:
                 "traced_wall_s": wall}
     window_lo = min(lo for lo, _ in host + spans)
     window_hi = max(hi for _, hi in host + spans)
-    busy, cur_lo, cur_hi = 0.0, None, None
-    for lo, hi in sorted(spans):
-        if cur_hi is None or lo > cur_hi:
-            busy += 0.0 if cur_hi is None else cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-        else:
-            cur_hi = max(cur_hi, hi)
-    busy += cur_hi - cur_lo
+    busy = sum(hi - lo for lo, hi in merged_spans(spans))
+    copy_us = sum(hi - lo for lo, hi in merged_spans(h2d))
+    copy_under_us = overlap_us(merged_spans(h2d), merged_spans(computing))
     window = window_hi - window_lo
     starts.sort()
     gaps = [b - a for a, b in zip(starts, starts[1:])]
@@ -2644,6 +2711,8 @@ def trace_run(fn) -> dict:
             "device_events": len(spans), "launch_calls": len(starts),
             "host_gap_median_us": statistics.median(gaps) if gaps else None,
             "host_gap_mean_us": statistics.mean(gaps) if gaps else None,
+            "pinned_h2d_ms": copy_us / 1e3, "pinned_h2d_under_kernels_ms": copy_under_us / 1e3,
+            "pinned_h2d_under_kernels_share": copy_under_us / copy_us if copy_us else None,
             "top_kernels": [[name, count, us / 1e3] for name, (count, us) in
                             sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]]}
 
@@ -4324,43 +4393,43 @@ def profile_numpy(table) -> dict:
     return out
 
 
-def check_profile(profiles, want: dict) -> float:
+def check_profile(profiles, want: dict, label: str = "profile_path") -> float:
     """The profile against numpy (module doc); returns the worst relative
-    error of the toleranced fields."""
+    error of the toleranced fields. ``label`` names the phase in a failure."""
     from deequ_tpu_torch.profiles import NumericColumnProfile
 
     if set(profiles.profiles) != set(want):
-        fail(f"profile_path: profiled {sorted(profiles.profiles)}")
+        fail(f"{label}: profiled {sorted(profiles.profiles)}")
     worst = 0.0
     for name, w in want.items():
         p = profiles.profiles[name]
         if p.completeness != w["completeness"]:
-            fail(f"profile_path: {name} completeness {p.completeness} != {w['completeness']}")
+            fail(f"{label}: {name} completeness {p.completeness} != {w['completeness']}")
         if "type_counts" in w and p.type_counts != w["type_counts"]:
-            fail(f"profile_path: {name} type counts {p.type_counts} != {w['type_counts']}")
+            fail(f"{label}: {name} type counts {p.type_counts} != {w['type_counts']}")
         hist = None if p.histogram is None else {
             k: (v.absolute, v.ratio) for k, v in p.histogram.values.items()}
         if hist != w.get("histogram"):
-            fail(f"profile_path: {name} histogram {hist} != numpy {w.get('histogram')}")
+            fail(f"{label}: {name} histogram {hist} != numpy {w.get('histogram')}")
         numeric = "minimum" in w
         if numeric != isinstance(p, NumericColumnProfile):
-            fail(f"profile_path: {name} profiled as {type(p).__name__}")
+            fail(f"{label}: {name} profiled as {type(p).__name__}")
         if not numeric:
             continue
         if (p.minimum, p.maximum) != (w["minimum"], w["maximum"]):
-            fail(f"profile_path: {name} min/max {p.minimum}, {p.maximum} != numpy "
+            fail(f"{label}: {name} min/max {p.minimum}, {p.maximum} != numpy "
                  f"{w['minimum']}, {w['maximum']}")
         for field, bound in _PROFILE_REL.items():
             have, exp = getattr(p, field), w[field]
             rel = abs(have - exp) / max(abs(exp), 1e-300)
             worst = max(worst, rel)
             if not rel <= bound:
-                fail(f"profile_path: {name} {field} {have!r} vs numpy {exp!r}, rel {rel:.3g}")
+                fail(f"{label}: {name} {field} {have!r} vs numpy {exp!r}, rel {rel:.3g}")
         if p.kll is None or len(p.approx_percentiles) != 100:
-            fail(f"profile_path: {name} has no KLL profile")
+            fail(f"{label}: {name} has no KLL profile")
     zip_type = profiles.profiles["zip"].data_type.value
     if zip_type != "Integral" or not profiles.profiles["zip"].is_data_type_inferred:
-        fail(f"profile_path: zip inferred {zip_type}, want Integral")
+        fail(f"{label}: zip inferred {zip_type}, want Integral")
     return worst
 
 
@@ -4721,6 +4790,713 @@ def profile_path(table, seed: int, device) -> dict:
     }
 
 
+# -- phase 17: out_of_core_path ------------------------------------------------
+
+#: part 1's stream batch rows, and part 4's Parquet row groups
+OOC_BATCH_ROWS = 1 << 20
+#: part 2: BASELINE.md config 3's full rows, made a batch at a time
+SKETCH_STREAM_ROWS = 100_000_000
+SKETCH_STREAM_BATCH_ROWS = 1 << 17
+#: host threads making a generated batch's columns (numpy releases the
+#: interpreter lock while it draws and reduces)
+SKETCH_STREAM_THREADS = 6
+#: part 2's sampling allowance on a quantile's rank, in standard errors of
+#: an empirical CDF (5 / sqrt(valid rows))
+RANK_SAMPLING_SIGMAS = 5.0
+#: the host memory a stream may grow by: a tenth of the bytes it streams
+RSS_SHARE_OF_STREAM = 0.1
+
+
+class RssSampler:
+    """The host's resident set size, sampled from /proc/self/statm every
+    5 ms on a thread while active; ``growth`` is the peak less the size at
+    entry."""
+
+    def __enter__(self):
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _read(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._read())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._read())
+
+    @property
+    def growth(self) -> int:
+        return self.peak - self.base
+
+
+def bits_of(values: dict) -> dict:
+    """Each value of ``metric_values`` by its bits (a float) or its repr."""
+    import struct
+
+    return {k: struct.pack("<d", v) if isinstance(v, float) else repr(v)
+            for k, v in values.items()}
+
+
+def differing_bits(want: dict, have: dict) -> list:
+    """The metrics of two runs whose values differ in their bits."""
+    want, have = bits_of(want), bits_of(have)
+    return sorted(str(k) for k in set(want) | set(have) if want.get(k) != have.get(k))
+
+
+def scan_chunk_rows(table, analyzers) -> int:
+    """The chunk rows an in-memory run of ``analyzers`` cuts ``table`` at:
+    the engine's rule over the columns its fused scan reads."""
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.ops.scan_engine import _auto_chunk_rows
+
+    needed = set()
+    for a in analyzers:
+        if isinstance(a, ScanShareableAnalyzer):
+            needed |= set(a.scan_op(table).columns)
+    return min(_auto_chunk_rows({n: table[n] for n in needed}), table.num_rows)
+
+
+def timed_runs(suite, count: int = 4) -> list:
+    """Walls of ``count`` runs of ``suite`` (the first one warm), each to a
+    device synchronisation."""
+    import torch
+
+    walls = []
+    for _ in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        suite.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def ooc_config2(table, main_result, device, smi: str):
+    """Part 1: the main suite over config 2's table as a stream of 2^20-row
+    batches, against numpy and the in-memory run; a stream cut at the
+    in-memory run's chunk rows bit for bit that run. Returns (the part's
+    line, the streamed result)."""
+    import torch
+
+    from deequ_tpu_torch import stream_table
+    from deequ_tpu_torch.analyzers import CountDistinct
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    label = "out_of_core_path/config2_stream"
+    t0 = time.perf_counter()
+    expected = expected_metrics(table)
+    numpy_s = time.perf_counter() - t0
+    suite = build_suite(stream_table(table, batch_rows=OOC_BATCH_ROWS))
+
+    # the checked run: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats(device)
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watch, RssSampler() as rss:
+        result = suite.run()
+    first_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    k1_require(launches, label)
+    if launches["bincount"] < 1:
+        fail(f"{label}: the groupings' batch counts never launched K5")
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if result.device != str(device):
+        fail(f"{label}: ran on {result.device}, expected {device}")
+    chunks = -(-table.num_rows // OOC_BATCH_ROWS)
+    if stats["scan_passes"] != 1 or stats["last_scan_fetches"] != 1:
+        fail(f"{label}: {stats['scan_passes']} scans, {stats['last_scan_fetches']} fetches "
+             f"of the fused scan (want 1 and 1)")
+    if stats["chunks_staged"] != chunks or stats["ingest_overlap_frac"] != (chunks - 1) / chunks:
+        fail(f"{label}: {stats['chunks_staged']} chunks staged, overlap "
+             f"{stats['ingest_overlap_frac']} (want {chunks}, {(chunks - 1) / chunks})")
+    worst = check_metrics(result, expected)
+    worst_vs_memory = compare_runs(metric_values(main_result), metric_values(result),
+                                   f"{label} (the stream against the in-memory run)")
+
+    # bit for bit: a stream cut at the in-memory run's chunk rows
+    chunk = scan_chunk_rows(
+        table, [CountDistinct(["customer_id"])] + build_check().required_analyzers())
+    at_chunk = build_suite(stream_table(table, batch_rows=chunk)).run()
+    differ = differing_bits(metric_values(main_result), metric_values(at_chunk))
+    if differ:
+        fail(f"{label}: a stream at the in-memory chunk rows ({chunk}) differs from the "
+             f"in-memory run in the bits of {differ}")
+
+    stream_walls = timed_runs(suite)
+    memory_walls = timed_runs(build_suite(table))
+    # the double buffer on the card: whether chunk k+1's copy ran while
+    # chunk k's kernels did (ingest_overlap_frac counts only issue order)
+    trace = trace_run(suite.run)
+    return {
+        "part": "config2_stream", "card": smi, "rows": table.num_rows,
+        "batch_rows": OOC_BATCH_ROWS, "metrics_checked": len(expected),
+        "worst_rel_err_vs_numpy": worst, "worst_rel_err_vs_in_memory": worst_vs_memory,
+        "bit_for_bit_at_chunk_rows": {"chunk_rows": chunk, "metrics": len(expected)},
+        "kernel_launches": launches, "chunks": stats["chunks_staged"],
+        "fused_scan_fetches": stats["last_scan_fetches"],
+        "device_fetches": stats["device_fetches"],
+        "ingest_overlap_frac": stats["ingest_overlap_frac"],
+        "bytes_staged": stats["bytes_staged"], "peak_device_bytes": peak,
+        "host_rss_growth_bytes": rss.growth, "first_run_s_watched": first_s,
+        "stream_warm_run_s": stream_walls[0],
+        "stream_run_wall_s_median_of_3": statistics.median(stream_walls[1:]),
+        "stream_run_wall_s": stream_walls[1:],
+        "in_memory_warm_run_s": memory_walls[0],
+        "in_memory_run_wall_s_median_of_3": statistics.median(memory_walls[1:]),
+        "in_memory_run_wall_s": memory_walls[1:], "numpy_reference_s": numpy_s,
+        "trace": trace,
+    }, result
+
+
+def chan_merge(a, b):
+    """Chan's merge of two (n, mean_x, mean_y, m2x, m2y, cxy) co-moments."""
+    na, mxa, mya, m2xa, m2ya, ca = a
+    nb, mxb, myb, m2xb, m2yb, cb = b
+    n = na + nb
+    dx, dy = mxb - mxa, myb - mya
+    return (n, mxa + dx * nb / n, mya + dy * nb / n,
+            m2xa + m2xb + dx * dx * na * nb / n, m2ya + m2yb + dy * dy * na * nb / n,
+            ca + cb + dx * dy * na * nb / n)
+
+
+class SketchStream:
+    """BASELINE.md config 3's width (make_sketch_table's columns) at
+    ``rows`` rows from a GeneratorBatchSource: batch b is made from
+    (seed, b, column) by ``threads`` host threads and dropped after its use,
+    and numpy's answer accumulates as each batch passes — a column's f64
+    sum a batch (folded with math.fsum at the end), counts, minima and
+    maxima, the q0/q1 co-moments (Chan's merge), and exact counts of cust,
+    flag and region by a bincount a batch — beside the batches' bytes.
+    Each column's HLL registers also accumulate a batch, from K2's plain
+    version on the card (:meth:`_plain_registers`, max-merged: registers
+    are a max-monoid), so the run's registers can be held to them bit for
+    bit."""
+
+    #: numeric columns whose plain registers one scatter computes
+    PLAIN_GROUP = 10
+
+    N_CUST = 1_100_001
+
+    def __init__(self, rows: int, batch_rows: int, seed: int, threads: int, device):
+        import concurrent.futures
+        import threading
+
+        import numpy as np
+        import torch
+
+        from deequ_tpu_torch.ops import hll
+
+        self.rows, self.batch_rows, self.seed = rows, batch_rows, seed
+        self.device = device
+        self.pool = concurrent.futures.ThreadPoolExecutor(threads)
+        self._lock = threading.Lock()
+        # one scattering of the Zipf ranks over cust's keys for the stream
+        self.cust_keys = 1 + np.random.default_rng([seed, 1 << 20]).permutation(
+            self.N_CUST - 1)
+        self.region_dictionary = np.array([f"R{i:04d}" for i in range(5000)], dtype=object)
+        self.names = [f"q{j}" for j in range(48)] + ["cust", "wide", "flag", "region"]
+        self.numeric = self.names[:50]
+        self.count = dict.fromkeys(self.names, 0)
+        self.sums = {c: [] for c in self.numeric}
+        self.mins = dict.fromkeys(self.numeric, math.inf)
+        self.maxs = dict.fromkeys(self.numeric, -math.inf)
+        self.cust_counts = np.zeros(self.N_CUST, dtype=np.int64)
+        self.flag_counts = np.zeros(2, dtype=np.int64)
+        self.region_counts = np.zeros(5000, dtype=np.int64)
+        self.comoments = None  # (n, mean_x, mean_y, m2x, m2y, cxy) of q0, q1
+        self.hll_p = hll.precision_from_relative_sd()
+        self.hll_registers = {c: torch.zeros(1 << self.hll_p, dtype=torch.int32, device=device)
+                              for c in self.names}
+        # the plain version runs beside the scan, not queued behind it
+        self.plain_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.region_lut = torch.from_numpy(
+            hll.string_idx_rank_lut(self.region_dictionary, self.hll_p)).to(device)
+        self.stream_bytes = 0
+        self.batches_made = 0
+        # wall seconds the reader thread spent making batches, and running
+        # K2's plain version over them
+        self.make_seconds = 0.0
+        self.plain_seconds = 0.0
+
+    def source(self):
+        from deequ_tpu_torch.data.source import GeneratorBatchSource
+        from deequ_tpu_torch.data.table import DType, Field, Schema
+
+        types = [DType.FRACTIONAL] * 48 + [DType.INTEGRAL, DType.INTEGRAL, DType.BOOLEAN,
+                                           DType.STRING]
+        schema = Schema([Field(n, t) for n, t in zip(self.names, types)])
+        return GeneratorBatchSource(schema, self._batches, num_rows=self.rows)
+
+    def _batches(self):
+        for b, start in enumerate(range(0, self.rows, self.batch_rows)):
+            yield self._batch(b, min(self.batch_rows, self.rows - start))
+
+    def _plain_registers(self, cols) -> None:
+        """K2's plain version over one batch on the card, max-merged into
+        each column's registers. The numeric columns go as the scan packs
+        them (f64, their masks) in groups of :data:`PLAIN_GROUP`: one
+        ``hll.idx_rank`` over a group's rows and one
+        ``hll.registers_from_idx_rank`` with each column's indices moved
+        to a register file of its own — ``registers_plain``'s two steps,
+        a call a group instead of a column, because a call costs ~100
+        small launches whatever its rows; ``flag`` and ``region`` by
+        ``registers_plain`` itself."""
+        import contextlib
+
+        import numpy as np
+        import torch
+
+        from deequ_tpu_torch.ops import hll
+
+        p, dev, regs = self.hll_p, self.device, self.hll_registers
+        numeric = [c for c in cols if c.name in self.numeric]
+        other = {c.name: c for c in cols if c.name not in self.numeric}
+        on = (torch.cuda.stream(self.plain_stream) if self.plain_stream is not None
+              else contextlib.nullcontext())
+        with on:
+            for g in range(0, len(numeric), self.PLAIN_GROUP):
+                group = numeric[g:g + self.PLAIN_GROUP]
+                k, n = len(group), len(group[0].values)
+                x = torch.from_numpy(np.stack([c.values.astype(np.float64, copy=False)
+                                               for c in group])).to(dev)
+                valid = torch.from_numpy(np.stack([c.mask for c in group])).to(dev)
+                idx, rank, _ = hll.idx_rank(x.reshape(-1), p)
+                idx = idx + (torch.arange(k, device=dev) << p).repeat_interleave(n)
+                # a power-of-two register file with room for k columns
+                files = hll.registers_from_idx_rank(idx, rank, valid.reshape(-1),
+                                                    p + (k - 1).bit_length())
+                for j, c in enumerate(group):
+                    regs[c.name] = torch.maximum(regs[c.name], files[j << p:(j + 1) << p])
+            flag = other["flag"]
+            regs["flag"] = torch.maximum(regs["flag"], hll.registers_plain(
+                torch.from_numpy(flag.values).to(dev), torch.from_numpy(flag.mask).to(dev), p))
+            region = other["region"]
+            regs["region"] = torch.maximum(regs["region"], hll.registers_plain(
+                torch.from_numpy(region.codes).to(dev), None, p, self.region_lut))
+
+    def _column(self, j: int, b: int, n: int):
+        import numpy as np
+
+        from deequ_tpu_torch.data.table import Column, DType
+
+        name = self.names[j]
+        rng = np.random.default_rng([self.seed, b, j])
+        if name == "region":  # 0.5% null
+            codes = rng.integers(0, 5000, size=n, dtype=np.int32)
+            codes[rng.integers(0, 200, size=n, dtype=np.uint8) == 0] = -1
+            valid = codes >= 0
+            counts = np.bincount(codes[valid], minlength=5000)
+            with self._lock:
+                self.region_counts += counts
+                self.count[name] += int(valid.sum())
+                self.stream_bytes += codes.nbytes
+            return Column(name, DType.STRING, codes=codes, dictionary=self.region_dictionary)
+        mask = rng.integers(0, 100, size=n, dtype=np.uint8) != 0  # 1% null
+        if name == "flag":
+            values = rng.integers(0, 10, size=n, dtype=np.uint8) < 3
+            valid, ones = int(mask.sum()), int(np.count_nonzero(values & mask))
+            with self._lock:
+                self.flag_counts += [valid - ones, ones]
+                self.count[name] += valid
+                self.stream_bytes += values.nbytes + mask.nbytes
+            return Column(name, DType.BOOLEAN, values=values, mask=mask)
+        counts = None
+        if name == "cust":  # Zipf 0.7 ranks by inverse transform (zipf_ids)
+            top = (self.N_CUST - 1) ** 0.3
+            ranks = np.floor((rng.random(n) * (top - 1.0) + 1.0) ** (1.0 / 0.3)).astype(np.int64)
+            keys = self.cust_keys[np.clip(ranks, 1, self.N_CUST - 1) - 1]
+            values, dtype = 1000 + 3 * keys, DType.INTEGRAL
+            counts = np.bincount(keys[mask], minlength=self.N_CUST)
+        elif name == "wide":
+            values, dtype = rng.integers(-(2 ** 40), 2 ** 40, size=n), DType.INTEGRAL
+            mask = np.ones(n, dtype=bool)
+        else:
+            k = int(name[1:])
+            values = (1e6 + rng.standard_normal(n) if k == 47
+                      else rng.normal(10.0 * k + 5.0, 1.0 + k, size=n))
+            dtype = DType.FRACTIONAL
+        valid = values[mask]
+        total, lo, hi = float(valid.sum()), float(valid.min()), float(valid.max())
+        with self._lock:
+            self.sums[name].append(total)
+            self.mins[name] = min(self.mins[name], lo)
+            self.maxs[name] = max(self.maxs[name], hi)
+            self.count[name] += len(valid)
+            self.stream_bytes += values.nbytes + mask.nbytes
+            if counts is not None:
+                self.cust_counts += counts
+        return Column(name, dtype, values=values, mask=mask)
+
+    def _batch(self, b: int, n: int):
+        from deequ_tpu_torch.data.table import ColumnarTable
+
+        t0 = time.perf_counter()
+        cols = list(self.pool.map(lambda j: self._column(j, b, n), range(len(self.names))))
+        both = cols[0].mask & cols[1].mask
+        x, y = cols[0].values[both], cols[1].values[both]
+        dx, dy = x - x.mean(), y - y.mean()
+        part = (len(x), x.mean(), y.mean(), float(dx @ dx), float(dy @ dy), float(dx @ dy))
+        self.comoments = part if self.comoments is None else chan_merge(self.comoments, part)
+        self.batches_made += 1
+        self.make_seconds += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._plain_registers(cols)
+        self.plain_seconds += time.perf_counter() - t0
+        return ColumnarTable(cols)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+        if self.plain_stream is not None:
+            self.plain_stream.synchronize()
+
+    def quantile_rank(self, column: str, v: float):
+        """(low, high) of a value's rank share among the column's valid
+        values: under the generating distribution for the normal columns and
+        the uniform ``wide``, from the exact counts for ``cust``."""
+        import numpy as np
+
+        if column == "wide":
+            k = math.floor(v)
+            return (k + 2 ** 40) / 2 ** 41, (k + 1 + 2 ** 40) / 2 ** 41
+        if column == "cust":
+            cum = np.cumsum(self.cust_counts)
+            key = (v - 1000) / 3
+            k = math.floor(key)
+            below = int(cum[k - 1]) if k >= 1 else 0
+            upto = int(cum[k]) if key == k else below
+            return below / cum[-1], upto / cum[-1]
+        k = int(column[1:])
+        mu, sigma = (1e6, 1.0) if k == 47 else (10.0 * k + 5.0, 1.0 + k)
+        r = 0.5 * (1.0 + math.erf((v - mu) / (sigma * math.sqrt(2.0))))
+        return r, r
+
+
+def build_sketch_stream_check(table):
+    """The sketch path's check (quantiles of every numeric column, the
+    KLLSketch of q0, ApproxCountDistinct of every column, the correlation
+    of q0 and q1) with the size and, on every numeric column, its
+    completeness, min, max, sum and mean."""
+    check = build_sketch_check(table).has_size(lambda n: n > 0)
+    numeric, _ = sketch_columns(table)
+    for c in numeric:
+        check = (check.has_completeness(c, lambda v: v > 0.9).has_min(c, lambda v: True)
+                 .has_max(c, lambda v: True).has_sum(c, lambda v: True)
+                 .has_mean(c, lambda v: True))
+    return check
+
+
+def check_sketch_stream(stream: SketchStream, result, label: str) -> dict:
+    """The 10^8-row run against numpy's answer (module doc, part 2)."""
+    import numpy as np
+
+    got = {}
+    for analyzer, metric in result.metrics.items():
+        if not metric.value.is_success:
+            fail(f"{label}: metric failed: {metric}")
+        got[(metric.name, metric.instance, getattr(analyzer, "quantile", None))] = (
+            metric.value.get())
+    rows = stream.rows
+    if got[("Size", "*", None)] != float(rows):
+        fail(f"{label}: Size {got[('Size', '*', None)]} != {rows}")
+    worst_rel, worst_rank, worst_hll, worst_hll_column = 0.0, 0.0, 0.0, None
+    for c in stream.numeric:
+        m = stream.count[c]
+        exact = {("Completeness", c, None): m / rows, ("Minimum", c, None): stream.mins[c],
+                 ("Maximum", c, None): stream.maxs[c]}
+        for key, want in exact.items():
+            if got[key] != want:
+                fail(f"{label}: {key} {got[key]!r} != numpy {want!r}")
+        total = math.fsum(stream.sums[c])
+        for key, want in ((("Sum", c, None), total), (("Mean", c, None), total / m)):
+            rel = abs(got[key] - want) / max(abs(want), 1e-300)
+            worst_rel = max(worst_rel, rel)
+            if rel > 1e-12:
+                fail(f"{label}: {key} {got[key]!r} vs numpy {want!r}, rel {rel:.3g} > 1e-12")
+        allowance = SKETCH_RELATIVE_ERROR + RANK_SAMPLING_SIGMAS / math.sqrt(m)
+        for q in SKETCH_QUANTILES:
+            lo, hi = stream.quantile_rank(c, got[("ApproxQuantile", c, q)])
+            err = 0.0 if lo <= q <= hi else min(abs(lo - q), abs(hi - q))
+            worst_rank = max(worst_rank, err)
+            if err > allowance:
+                fail(f"{label}: ApproxQuantile({c}, {q}): rank {lo}..{hi}, error {err:.4g} "
+                     f"> {allowance:.4g}")
+    dist = got[("KLL", "q0", None)]
+    if sum(b.count for b in dist.buckets) != stream.count["q0"] or len(dist.buckets) != 100:
+        fail(f"{label}: KLLSketch(q0): buckets do not hold every valid row")
+    distinct = {c: stream.count[c] for c in stream.names[:48]}
+    # uniform draws over 2^41 integers: n^2 / 2^42 expected collisions
+    distinct["wide"] = stream.count["wide"] - stream.count["wide"] ** 2 / 2 ** 42
+    distinct["cust"] = int(np.count_nonzero(stream.cust_counts))
+    distinct["flag"] = int(np.count_nonzero(stream.flag_counts))
+    distinct["region"] = int(np.count_nonzero(stream.region_counts))
+    for c, want in distinct.items():
+        est = got[("ApproxCountDistinct", c, None)]
+        rel = abs(est - want) / want
+        if rel > worst_hll:
+            worst_hll, worst_hll_column = rel, c
+        if rel > 0.2:
+            fail(f"{label}: ApproxCountDistinct({c}) = {est} vs {want}: rel {rel:.3g} > 0.2")
+    _, _, _, m2x, m2y, cxy = stream.comoments
+    corr = cxy / math.sqrt(m2x * m2y)
+    corr_err = abs(got[("Correlation", "q0,q1", None)] - corr)
+    if corr_err > 1e-10:
+        fail(f"{label}: Correlation(q0, q1) {got[('Correlation', 'q0,q1', None)]!r} vs "
+             f"numpy {corr!r}: {corr_err:.3g} > 1e-10")
+    return {"metrics_checked": len(got), "worst_sum_mean_rel_err": worst_rel,
+            "worst_quantile_rank_err": worst_rank,
+            "quantile_rank_allowance": (f"relative_error {SKETCH_RELATIVE_ERROR} + "
+                                        f"{RANK_SAMPLING_SIGMAS} / sqrt(valid rows)"),
+            "worst_hll_rel_err": worst_hll, "worst_hll_column": worst_hll_column,
+            "correlation_abs_err": corr_err}
+
+
+def hold_sketch_registers(stream: SketchStream, result, states, label: str) -> int:
+    """Each ApproxCountDistinct's saved registers bit for bit the plain
+    version's, accumulated a batch by ``stream``; returns the columns held."""
+    import numpy as np
+
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+
+    held = 0
+    for analyzer in result.metrics:
+        if not isinstance(analyzer, ApproxCountDistinct):
+            continue
+        state = states.load(analyzer)
+        want = stream.hll_registers[analyzer.column].cpu().numpy().astype(np.int64)
+        got = None if state is None else np.asarray(state.registers, dtype=np.int64)
+        if got is None or not np.array_equal(got, want):
+            differ = None if got is None else int(np.count_nonzero(got != want))
+            fail(f"{label}: ApproxCountDistinct({analyzer.column})'s registers differ from "
+                 f"the plain version's a batch ({differ} of {want.size} registers)")
+        held += 1
+    if held != len(stream.names):
+        fail(f"{label}: {held} HLL register files held, want {len(stream.names)}")
+    return held
+
+
+def ooc_config3(seed: int, device, smi: str, rows: int = SKETCH_STREAM_ROWS) -> dict:
+    """Part 2: config 3's check at its full rows from a generator source;
+    the host never holds the table."""
+    import torch
+
+    from deequ_tpu_torch import StreamingTable, VerificationSuite
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, STREAM_FOLD_CAPACITY
+    from deequ_tpu_torch.states import InMemoryStateProvider
+
+    label = "out_of_core_path/config3_stream"
+    stream = SketchStream(rows, SKETCH_STREAM_BATCH_ROWS, seed, SKETCH_STREAM_THREADS, device)
+    table = StreamingTable(stream.source())
+    states = InMemoryStateProvider()
+    suite = (VerificationSuite.on_data(table).add_check(build_sketch_stream_check(table))
+             .save_states_with(states))
+    torch.cuda.reset_peak_memory_stats(device)
+    kernel_counts_zero()
+    try:
+        with RssSampler() as rss:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = suite.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        stream.close()
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    k1_require(launches, label)
+    chunks = -(-rows // SKETCH_STREAM_BATCH_ROWS)
+    if launches["hll"] != 52 * chunks:
+        fail(f"{label}: {launches['hll']} HLL launches, want 52 columns x {chunks} chunks")
+    if stats["kll_sort_passes"] != 2 * chunks:
+        fail(f"{label}: {stats['kll_sort_passes']} KLL sorts, want 2 a chunk")
+    drains = (chunks - 1) // STREAM_FOLD_CAPACITY
+    if stats["fold_drains"] != drains or stats["device_fetches"] != drains + 1:
+        fail(f"{label}: {stats['fold_drains']} drains, {stats['device_fetches']} fetches "
+             f"(want {drains} and {drains + 1})")
+    if drains and stats["kll_midscan_compactions"] < 1:
+        fail(f"{label}: no KLL compaction at the fold's drains")
+    if stream.batches_made != chunks or stats["rows_scanned"] != rows:
+        fail(f"{label}: {stream.batches_made} batches, {stats['rows_scanned']} rows scanned")
+    if rss.growth > RSS_SHARE_OF_STREAM * stream.stream_bytes:
+        fail(f"{label}: host RSS grew {rss.growth} bytes, more than a tenth of the "
+             f"{stream.stream_bytes} bytes streamed")
+    held = check_sketch_stream(stream, result, label)
+    held["hll_registers_bit_for_bit"] = hold_sketch_registers(stream, result, states, label)
+    return {
+        "part": "config3_stream", "card": smi, "rows": rows,
+        "batch_rows": SKETCH_STREAM_BATCH_ROWS, "columns": len(stream.names),
+        "generator_threads": SKETCH_STREAM_THREADS, **held,
+        "run_wall_s": wall, "rows_per_s": rows / wall,
+        "batch_making_s": stream.make_seconds, "plain_hll_s": stream.plain_seconds,
+        "stream_bytes": stream.stream_bytes, "host_rss_growth_bytes": rss.growth,
+        "host_rss_growth_share_of_stream": rss.growth / stream.stream_bytes,
+        "peak_device_bytes": peak, "chunks": stats["chunks_staged"],
+        "fold_capacity": STREAM_FOLD_CAPACITY, "fold_drains": stats["fold_drains"],
+        "kll_midscan_compactions": stats["kll_midscan_compactions"],
+        "kll_compactions": stats["kll_compactions"],
+        "device_fetches": stats["device_fetches"],
+        "ingest_overlap_frac": stats["ingest_overlap_frac"],
+        "bytes_staged": stats["bytes_staged"],
+        "kernel_launches": {**launches, "k3_kll_sorts": stats["kll_sort_passes"]},
+    }
+
+
+def ooc_profile(table, seed: int, device, smi: str) -> dict:
+    """Part 3: the profiler over config 2's table with ``zip`` as a stream,
+    against the in-memory profile and numpy, with nothing persisted."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import stream_table
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, total_resident_bytes
+    from deequ_tpu_torch.profiles import ColumnProfilerRunner
+
+    label = "out_of_core_path/profile_stream"
+    ptable = with_zip_column(table, seed)
+    want = profile_numpy(ptable)
+    in_memory = ColumnProfilerRunner.on_data(ptable, device).with_kll_profiling().run()
+    stream = stream_table(ptable, batch_rows=OOC_BATCH_ROWS)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernel_counts_zero()
+    with PersistSpy(device) as persist:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiles = ColumnProfilerRunner.on_data(stream, device).with_kll_profiling().run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    k1_require(launches, label)
+    if launches["hll"] < 1 or launches["bincount"] < 1:
+        fail(f"{label}: a kernel of the path did not launch: {launches}")
+    if persist.persists or total_resident_bytes() != 0 or stats["resident_passes"]:
+        fail(f"{label}: a stream was persisted: {persist.persists}, "
+             f"{total_resident_bytes()} resident bytes")
+    worst = check_profile(profiles, want, label)
+    for name, p in profiles.profiles.items():
+        m = in_memory.profiles[name]
+        if (p.data_type, p.completeness, p.approximate_num_distinct_values) != (
+                m.data_type, m.completeness, m.approximate_num_distinct_values):
+            fail(f"{label}: {name} differs from the in-memory profile in its type, "
+                 f"completeness or approximate distinct values")
+    # each KLL percentile's rank among numpy's values (sorted on the card)
+    worst_rank = 0.0
+    for name, p in profiles.profiles.items():
+        if not getattr(p, "kll", None):
+            continue
+        col = ptable[name]
+        if col.dtype.value == "string":
+            values = np.array([float(v) for v in col.dictionary])[col.codes[col.codes >= 0]]
+        else:
+            values = col.values[col.mask].astype(np.float64)
+        ordered = torch.sort(torch.from_numpy(values).to(device)).values
+        probe = torch.tensor(p.approx_percentiles, dtype=torch.float64, device=device)
+        lo = torch.searchsorted(ordered, probe).cpu().numpy() / len(values)
+        hi = torch.searchsorted(ordered, probe, right=True).cpu().numpy() / len(values)
+        qs = np.arange(1, len(lo) + 1) / 100.0
+        err = np.where((lo <= qs) & (qs <= hi), 0.0,
+                       np.minimum(np.abs(lo - qs), np.abs(hi - qs)))
+        worst_rank = max(worst_rank, float(err.max()))
+    if worst_rank > SKETCH_RELATIVE_ERROR:
+        fail(f"{label}: a KLL percentile's rank is {worst_rank:.4g} off, more than "
+             f"{SKETCH_RELATIVE_ERROR}")
+    return {"part": "profile_stream", "card": smi, "rows": ptable.num_rows,
+            "columns": len(ptable.column_names), "batch_rows": OOC_BATCH_ROWS,
+            "profile_wall_s": wall, "worst_rel_err_vs_numpy": worst,
+            "worst_kll_percentile_rank_err": worst_rank,
+            "kll_percentile_rank_bound": SKETCH_RELATIVE_ERROR,
+            "persists": len(persist.persists), "resident_bytes": total_resident_bytes(),
+            "kernel_launches": launches, "scan_passes": stats["scan_passes"],
+            "chunks_staged": stats["chunks_staged"], "peak_device_bytes": peak}
+
+
+def ooc_parquet(table, streamed_result, device, smi: str) -> dict:
+    """Part 4: config 2's table written by write_parquet_stream and read
+    back by stream_parquet, bit for bit part 1's stream — where this host
+    has pyarrow."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        return {"part": "parquet", "card": smi,
+                "parquet": "not run: no pyarrow on this machine"}
+    from deequ_tpu_torch import stream_table
+    from deequ_tpu_torch.data.io import stream_parquet, write_parquet_stream
+
+    label = "out_of_core_path/parquet"
+    root = tempfile.mkdtemp(prefix="ooc_parquet_")
+    try:
+        path = os.path.join(root, "config2.parquet")
+        t0 = time.perf_counter()
+        written = write_parquet_stream(stream_table(table, OOC_BATCH_ROWS).batches(), path)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        if written != table.num_rows:
+            fail(f"{label}: wrote {written} rows of {table.num_rows}")
+        kernel_counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = build_suite(stream_parquet(path, batch_rows=OOC_BATCH_ROWS)).run()
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    k1_require(launches, label)
+    differ = differing_bits(metric_values(streamed_result), metric_values(result))
+    if differ:
+        fail(f"{label}: the Parquet stream differs from the table's stream in {differ}")
+    return {"part": "parquet", "card": smi, "rows": written, "row_group_rows": OOC_BATCH_ROWS,
+            "file_bytes": file_bytes, "write_wall_s": write_s, "read_run_wall_s": read_s,
+            "bit_for_bit_metrics": len(metric_values(result)), "kernel_launches": launches}
+
+
+def out_of_core_path(table, main_result, seed: int, device, smi: str,
+                     sketch_rows: int = SKETCH_STREAM_ROWS) -> dict:
+    """Phase ``out_of_core_path`` (module doc): its four parts, each
+    printed as a line of its own, each with the launch counts set to 0
+    just before its checked run and read just after; returns the launches
+    summed over the parts and by part."""
+    parts = {}
+    t0 = time.perf_counter()
+    config2, streamed = ooc_config2(table, main_result, device, smi)
+    emit({"phase": "out_of_core_path", **config2, "seconds": time.perf_counter() - t0})
+    parts["config2_stream"] = config2
+    for name, run in (("config3_stream", lambda: ooc_config3(seed, device, smi, sketch_rows)),
+                      ("profile_stream", lambda: ooc_profile(table, seed, device, smi)),
+                      ("parquet", lambda: ooc_parquet(table, streamed, device, smi))):
+        t0 = time.perf_counter()
+        part = run()
+        emit({"phase": "out_of_core_path", **part, "seconds": time.perf_counter() - t0})
+        parts[name] = part
+    launches = {}
+    for part in parts.values():
+        for k, v in part.get("kernel_launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    return {"kernel_launches": launches,
+            "by_part": {k: p.get("kernel_launches") for k, p in parts.items()}}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4819,6 +5595,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     prof = profile_path(table, args.seed, device)
     emit({**prof, "card": smi, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    ooc = out_of_core_path(table, main_result, args.seed, device, smi, 10 * args.rows)
+    emit({"phase": "out_of_core_path", "card": smi, **ooc,
+          "seconds": time.perf_counter() - t0})
     del table, main_result
 
     t0 = time.perf_counter()
@@ -4869,7 +5650,8 @@ def main(argv=None) -> int:
                 "partition_path": part["kernel_launches"]["bincount"],
                 "stream_path": stream["kernel_launches"]["bincount"],
                 "repository_path": repo["kernel_launches"]["bincount"],
-                "profile_path": prof["kernel_launches"]["bincount"]}
+                "profile_path": prof["kernel_launches"]["bincount"],
+                "out_of_core_path": ooc["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -4877,7 +5659,8 @@ def main(argv=None) -> int:
                     "partition_path": part["kernel_launches"]["hll"],
                     "stream_path": stream["kernel_launches"]["hll"],
                     "repository_path": repo["kernel_launches"]["hll"],
-                    "profile_path": prof["kernel_launches"]["hll"]}
+                    "profile_path": prof["kernel_launches"]["hll"],
+                    "out_of_core_path": ooc["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
@@ -4889,7 +5672,8 @@ def main(argv=None) -> int:
                "partition_path": part["kernel_launches"],
                "stream_path": stream["kernel_launches"],
                "repository_path": repo["kernel_launches"],
-               "profile_path": prof["kernel_launches"]}
+               "profile_path": prof["kernel_launches"],
+               "out_of_core_path": ooc["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
     k1_time = res_main["k1_fused_scan"]["k1"]
@@ -5008,6 +5792,7 @@ def main(argv=None) -> int:
                            f"entries from a flat vector of {k1_merge['flat_entries']}"),
         "max_abs_err": k1_merge["max_abs_err"],
         "ms": k1_merge["kernel_ms"],
+        "empty_launch_ms": k1_merge["empty_launch_ms"],
         "plain_ms": k1_merge["plain_ms"],
         "bound_ms": k1_merge["bound_ms"],
         "bound_by": k1_merge["bound_by"],

@@ -35,10 +35,19 @@ suggestion (``suggestions/``), row-level schemas (``schema/``),
 applicability (``applicability.py``), distribution distances
 (``analyzers/distance.py``), the table readers (``data/io.py``) and the
 import of deequ's own repository JSON and states (``interop/``).
+
+Out of core: a ``StreamingTable`` (``data/streaming.py``; ``stream_table``
+over an in-memory table, ``data/io.py``'s ``stream_parquet`` and
+``stream_csv`` over files, any ``data/source.py`` BatchSource) runs
+through ``VerificationSuite``, ``AnalysisRunner``, the incremental stream
+and ``ColumnProfiler`` a batch at a time, never holding the table: the
+fused scan streams its chunks through the same kernels, and every other
+analyzer folds its state a batch.
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.constraints import ConstrainableDataTypes
+from deequ_tpu_torch.data.streaming import StreamingTable, stream_table
 from deequ_tpu_torch.data.table import ColumnarTable
 from deequ_tpu_torch.device import use_device
 from deequ_tpu_torch.exceptions import (
@@ -71,7 +80,9 @@ __all__ = [
     "IncrementalVerificationStream",
     "Metric",
     "NotYetPortedException",
+    "StreamingTable",
     "VerificationResult",
     "VerificationSuite",
+    "stream_table",
     "use_device",
 ]

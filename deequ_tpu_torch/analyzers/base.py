@@ -6,7 +6,10 @@ analyzers/Analyzer.scala:30-48) and every analyzer is
     map -> partial state per chunk,  merge across chunks,  finalize to metric.
 
 On the card that is one fused pass per scan with the chunk partials folded
-on the device (ops/scan_engine.py).
+on the device (ops/scan_engine.py). Over a StreamingTable the fused scan
+streams (``ops/scan_engine.py:_run_scan_stream``), and every other
+analyzer folds its state a batch at a time, as a tree
+(:class:`StreamStateFolder`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from deequ_tpu_torch.data.table import ColumnarTable, DType, Schema
 from deequ_tpu_torch.exceptions import (
     DeviceUnavailableException,
     NoColumnsSpecifiedException,
+    NotYetPortedException,
     NoSuchColumnException,
     NumberOfSpecifiedColumnsException,
     WrongColumnTypeException,
@@ -157,12 +161,30 @@ class Analyzer(ABC):
         if failing is not None:
             return self.to_failure_metric(failing)
         try:
-            state = self.compute_state_from(table, dev)
-        except DeviceUnavailableException:
+            if getattr(table, "is_streaming", False):
+                state = self.compute_state_from_stream(table, dev)
+            else:
+                state = self.compute_state_from(table, dev)
+        except (DeviceUnavailableException, NotYetPortedException):
             raise
         except Exception as e:  # noqa: BLE001 — failure is data
             return self.to_failure_metric(wrap_if_necessary(e))
         return self.calculate_metric(state, aggregate_with, save_states_with)
+
+    def compute_state_from_stream(self, stream, device) -> Optional[State]:
+        """The state of a StreamingTable: this analyzer's state a batch,
+        merged as a tree (:class:`StreamStateFolder`) — the merge used
+        across partitions and incremental runs, applied across batches.
+        Scan-shareable analyzers stream through the fused scan instead."""
+        folder = StreamStateFolder(group_budget(stream))
+        for batch in stream.batches(columns=self._stream_columns()):
+            folder.add(self.compute_state_from(batch, device))
+        return folder.result()
+
+    def _stream_columns(self) -> Optional[List[str]]:
+        """The columns a stream reads for this analyzer (None: all);
+        analyzers that know their columns prune the read."""
+        return None
 
     def calculate_metric(
         self, state: Optional[State], aggregate_with=None, save_states_with=None
@@ -207,6 +229,76 @@ def merge_states(a: Optional[State], b: Optional[State]) -> Optional[State]:
     return a if a is not None else b
 
 
+#: the share of a group memory budget at which the reference spills a
+#: grouping's frequency state to disk (its ``spill/store.py:SPILL_FRACTION``)
+SPILL_FRACTION = 0.5
+
+
+def group_budget(data) -> Optional[int]:
+    """The group memory budget a stream carries
+    (``StreamingTable.with_group_memory_budget``), else None."""
+    budget = getattr(data, "group_memory_budget", None)
+    return int(budget) if budget is not None else None
+
+
+def _frequency_bytes(state) -> int:
+    """The host bytes of a frequency state's arrays (the reference's
+    ``spill/store.py:state_nbytes``); 0 for any other state."""
+    counts = getattr(state, "counts", None)
+    if counts is None:
+        return 0
+    n = counts.nbytes
+    for values, nulls in zip(state.key_values, state.key_nulls):
+        n += values.nbytes + nulls.nbytes
+    return n
+
+
+class StreamStateFolder:
+    """Mergesort-style TREE fold of monoid states across stream batches.
+
+    A linear chain (``merged = merged.sum(batch_state)``) merges the whole
+    growing state again a batch — O(B · G log G) for frequency states.
+    The tree (a binary-counter stack of power-of-two partials) merges each
+    state O(log B) times instead, the streaming analogue of the
+    reference's treeReduce (KLLRunner.scala:104-112). States whose merge is
+    set-like (frequency tables, sorted by key at every merge) are the same
+    under any association; scalar float states differ at the ulp level
+    only, as any distributed fold's do.
+
+    ``budget_bytes``: a group memory budget. The reference spills the
+    frequency states it holds to disk once they pass ``SPILL_FRACTION`` of
+    it (slice 8b of the port); here such a fold raises
+    NotYetPortedException at that point instead of exceeding the budget
+    unannounced."""
+
+    def __init__(self, budget_bytes: Optional[int] = None):
+        self._stack: list = []  # (level, state); levels strictly decrease toward the top
+        self._budget = budget_bytes
+
+    def add(self, state: Optional[State]) -> None:
+        if state is None:  # an all-null batch contributes no state
+            return
+        level = 0
+        while self._stack and self._stack[-1][0] == level:
+            _, prev = self._stack.pop()
+            state = prev.sum(state)
+            level += 1
+        self._stack.append((level, state))
+        if self._budget is not None:
+            held = sum(_frequency_bytes(s) for _, s in self._stack)
+            if held >= self._budget * SPILL_FRACTION:
+                raise NotYetPortedException(
+                    f"spilling a grouping state of {held} bytes past its group "
+                    f"memory budget of {self._budget} bytes (slice 8b, spill)"
+                )
+
+    def result(self) -> Optional[State]:
+        merged: Optional[State] = None
+        for _, s in reversed(self._stack):
+            merged = s if merged is None else s.sum(merged)
+        return merged
+
+
 class ScanShareableAnalyzer(Analyzer):
     """An analyzer whose state computation can fuse into one shared scan.
 
@@ -229,6 +321,10 @@ class ScanShareableAnalyzer(Analyzer):
         op = self.scan_op(table)
         (result,) = run_scan(table, [op], device)
         return self.state_from_scan_result(result)
+
+    def compute_state_from_stream(self, stream, device) -> Optional[State]:
+        # the fused scan streams the batches itself, in one pass
+        return self.compute_state_from(stream, device)
 
 
 def metric_from_value(

@@ -10,7 +10,10 @@ is the device-computed :class:`~deequ_tpu_torch.ops.segment.CountStats`;
 otherwise (MutualInformation) it is the columnar frequency table,
 :class:`FrequenciesAndNumRows`, a mergeable monoid: merging two tables is
 a null-safe outer join adding counts (GroupingAnalyzers.scala:127-147).
-Histogram runs its own pass: its top-N is ranked on the card.
+Histogram runs its own pass: its top-N is ranked on the card. Over a
+stream every grouping folds a frequency table a batch, as a tree
+(``analyzers/base.py:StreamStateFolder``): the count statistics need the
+whole table's counts.
 """
 
 from __future__ import annotations
@@ -302,6 +305,11 @@ class FrequencyBasedAnalyzer(Analyzer):
         self, table: ColumnarTable, device
     ) -> Optional[FrequenciesAndNumRows]:
         return group_counts_state(table, self.group_columns, device)
+
+    def _stream_columns(self) -> List[str]:
+        # a stream folds one frequency state a batch
+        # (Analyzer.compute_state_from_stream), reading these columns alone
+        return list(self.group_columns)
 
 
 class ScanShareableFrequencyBasedAnalyzer(FrequencyBasedAnalyzer):
@@ -621,10 +629,12 @@ class Histogram(FrequencyBasedAnalyzer):
         are ranked on the card and only max_detail_bins (slot, count) pairs
         come back and decode — the engine-side top() of the reference
         (Histogram.scala:97-103). Ties at the truncation boundary keep the
-        lower slot (dictionary or value order). Otherwise the
-        frequency-table path runs: its state is the mergeable one."""
+        lower slot (dictionary or value order). Otherwise — and over a
+        stream, whose counts are only known once every batch is folded —
+        the frequency-table path runs: its state is the mergeable one."""
         if (self.binning_udf is not None or aggregate_with is not None
-                or save_states_with is not None):
+                or save_states_with is not None
+                or getattr(table, "is_streaming", False)):
             return super().calculate(table, device, aggregate_with, save_states_with)
         from deequ_tpu_torch.device import resolve_device
 

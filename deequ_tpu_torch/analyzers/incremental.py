@@ -11,7 +11,10 @@ batch by batch on views of that copy and fetch once
 (``ops/scan_engine.py:run_scan_group``) — each batch's results bit for
 bit those of its own scan. Batches the group path cannot take (unequal
 sizes, more than one chunk, packer layouts that differ, a persisted
-batch, a single batch) take the per-batch scan.
+batch, a single batch) take the per-batch scan; a batch that is itself a
+StreamingTable runs its streaming scan at once, when its group is
+dispatched (the reference's ``incremental.py:180-193``), and its results
+wait, like every batch's, to drain in submission order.
 
 State merges (``aggregate_with``/``save_states_with``) and metrics happen
 at drain time, in submission order, on the host, so the state chain is

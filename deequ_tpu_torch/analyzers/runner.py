@@ -27,6 +27,13 @@ mergeable state). ``run_on_aggregated_states`` computes metrics from
 saved states alone, with no scan. The pipelined stream of arriving
 batches is ``analyzers/incremental.py``.
 
+Over a StreamingTable (reference L625-712, L1229-1265): the fused scan
+streams; the own-pass analyzers share ONE read of the stream, each folding
+its state a batch; each grouping set folds one frequency table a batch
+(the count-statistics shortcut needs the whole table's counts). The
+reference's resilient stream loop (``checkpoint``, ``on_batch_error``,
+``on_device_error``) is slice 8c of the port and not here.
+
 Metrics repositories (reference L116-134, L192-202): with
 ``reuse_existing_results_for_key`` the metrics the repository holds for
 that key are taken as they are and only the rest are computed (all of
@@ -44,7 +51,9 @@ from deequ_tpu_torch.analyzers.base import (
     Analyzer,
     ScanShareableAnalyzer,
     State,
+    StreamStateFolder,
     find_first_failing,
+    group_budget,
     merge_states,
 )
 from deequ_tpu_torch.analyzers.grouping import (
@@ -55,6 +64,7 @@ from deequ_tpu_torch.analyzers.grouping import (
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
 from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.exceptions import (
+    NotYetPortedException,
     ReusingNotPossibleResultsMissingException,
     wrap_if_necessary,
 )
@@ -167,6 +177,7 @@ class AnalysisRunner:
         reuse_existing_results_for_key=None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key=None,
+        retry_policy=None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
@@ -178,10 +189,17 @@ class AnalysisRunner:
         that key instead of computing them (``fail_if_results_missing``
         raises when some are not there), and
         ``save_or_append_results_with_key`` appends the run's metrics to
-        that key's entry."""
+        that key's entry.
+
+        ``data`` may be a StreamingTable (module doc); ``retry_policy`` (a
+        ``resilience.retry.RetryPolicy``) then runs its batch reads under
+        that policy."""
         dev = resolve_device(device)
         if not analyzers:
             return AnalyzerContext.empty()
+        streaming = getattr(data, "is_streaming", False)
+        if retry_policy is not None and streaming:
+            data = data.with_retry(retry_policy)
 
         # (1) repository reuse (reference L116-134)
         results_loaded = AnalyzerContext.empty()
@@ -220,11 +238,17 @@ class AnalysisRunner:
             data, scanning, dev, aggregate_with, save_states_with
         )
 
-        # (5) own-pass analyzers (reference L155-160)
-        own_ctx = AnalyzerContext({
-            a: a.calculate(data, dev, aggregate_with, save_states_with)
-            for a in own_pass
-        })
+        # (5) own-pass analyzers (reference L155-160); on a stream they
+        # share one read
+        if streaming and own_pass:
+            own_ctx = AnalysisRunner._run_own_pass_streaming(
+                data, own_pass, dev, aggregate_with, save_states_with
+            )
+        else:
+            own_ctx = AnalyzerContext({
+                a: a.calculate(data, dev, aggregate_with, save_states_with)
+                for a in own_pass
+            })
 
         # (6) one computation per distinct sorted grouping-column set
         # (reference L175-190)
@@ -245,6 +269,54 @@ class AnalysisRunner:
             metrics_repository, save_or_append_results_with_key, result
         )
         return result
+
+    @staticmethod
+    def _run_own_pass_streaming(
+        data, analyzers: Sequence[Analyzer], device,
+        aggregate_with=None, save_states_with=None,
+    ) -> AnalyzerContext:
+        """Every own-pass analyzer's state folded over ONE read of the
+        stream (the columns any of them needs), not one read each
+        (reference L625-712). An analyzer whose batch state raises drops
+        out with a failure metric and the others go on; an error of the
+        read itself fails them all (the shared-scan rule)."""
+        columns: Optional[set] = set()
+        for a in analyzers:
+            cols = a._stream_columns()
+            if cols is None:
+                columns = None
+                break
+            columns.update(cols)
+        budget = group_budget(data)
+        folders = {a: StreamStateFolder(budget) for a in analyzers}
+        failed: Dict[Analyzer, Exception] = {}
+        try:
+            for batch in data.batches(
+                columns=sorted(columns) if columns is not None else None
+            ):
+                for a in analyzers:
+                    if a in failed:
+                        continue
+                    try:
+                        folders[a].add(a.compute_state_from(batch, device))
+                    except NotYetPortedException:
+                        raise
+                    except Exception as e:  # noqa: BLE001 — failure is data
+                        failed[a] = e
+        except NotYetPortedException:
+            raise
+        except Exception as e:  # noqa: BLE001 — the read failed every analyzer
+            wrapped = wrap_if_necessary(e)
+            return AnalyzerContext({a: a.to_failure_metric(wrapped) for a in analyzers})
+        ctx = AnalyzerContext.empty()
+        for a in analyzers:
+            if a in failed:
+                ctx.metric_map[a] = a.to_failure_metric(wrap_if_necessary(failed[a]))
+            else:
+                ctx.metric_map[a] = a.calculate_metric(
+                    folders[a].result(), aggregate_with, save_states_with
+                )
+        return ctx
 
     @staticmethod
     def _build_scan_ops(data: ColumnarTable, analyzers):
@@ -375,7 +447,24 @@ class AnalysisRunner:
         """The count statistics when no state is loaded or saved and every
         analyzer of the set is a function of the count distribution (group
         values never decode), else the frequency table, merged and saved
-        as asked (reference L1266-1331)."""
+        as asked (reference L1266-1331). Over a stream the frequency
+        table folds a batch at a time (reference L1229-1265): the count
+        statistics need the whole table's counts."""
+        if getattr(data, "is_streaming", False):
+            try:
+                folder = StreamStateFolder(group_budget(data))
+                for batch in data.batches(columns=grouping_columns):
+                    folder.add(group_counts_state(batch, grouping_columns, device))
+                merged = folder.result()
+            except NotYetPortedException:
+                raise
+            except Exception as e:  # noqa: BLE001 — failure is data
+                wrapped = wrap_if_necessary(e)
+                return AnalyzerContext({a: a.to_failure_metric(wrapped) for a in analyzers})
+            return AnalyzerContext({
+                a: a.calculate_metric(merged, aggregate_with, save_states_with)
+                for a in analyzers
+            })
         count_stats = (
             aggregate_with is None
             and save_states_with is None

@@ -10,6 +10,9 @@ hand-written kernel of ``csrc/hll.cu`` on the card (``ops/hll.py``).
 KLLSketch and ApproxQuantile(s) are scan-shareable: the sketch is built
 inside the same fused pass (per-chunk sort + deterministic strata
 compaction, ops/kll_device.py) and folded on the host from the one fetch.
+A stream whose fold drains mid-scan compacts the summaries gathered so
+far on the host there (:func:`_make_kll_compact`), so its gather stays
+bounded; an in-memory scan folds once.
 Where-free KLL ops of one sketch size are coalesced by the runner into one
 batched sort a chunk (:func:`_kll_multi_scan_op`). Each KLL op of a sketch
 size up to ``MAX_SELECT_SKETCH_SIZE`` also carries a ``select_update``
@@ -223,6 +226,53 @@ _KLL_TAGS = {
 }
 
 
+def _make_kll_compact(K: int, sketch_size: int):
+    """A stream's host compaction of gathered KLL summaries (the
+    reference's ``_make_kll_compact``): the weighted items gathered so far
+    fold into a ``KLLSketchState`` (:func:`fold_summaries` with
+    ``DEFAULT_SHRINKING_FACTOR`` — any valid parameterisation gives
+    power-of-two weighted items for the analyzer's own final fold) and its
+    weighted items come back in the gathered leaves' layout, bounded by the
+    sketch's capacity instead of growing a chunk at a time. The total
+    weight is kept exactly.
+
+    The port's layout: K == 1 gathers (chunks, T) leaves, a coalesced op
+    of K columns (chunks, K, T) with column j at ``[:, j]``
+    (:func:`_kll_multi_extract`). The compaction returns (blocks, T) and
+    (blocks, K, T): the same trailing shape, so later chunks still join
+    along the first axis. A column with no weight (all null) keeps no
+    block of padding."""
+
+    def compact(result):
+        items = np.asarray(result["items"], dtype=np.float64)
+        weights = np.asarray(result["weights"], dtype=np.float64)
+        T = items.shape[-1]
+        cols = items.reshape(items.shape[0], K, T) if K > 1 else items.reshape(-1, 1, T)
+        wcols = weights.reshape(cols.shape)
+        per_col = []
+        for j in range(K):
+            sk = fold_summaries(cols[:, j], wcols[:, j], sketch_size,
+                                DEFAULT_SHRINKING_FACTOR)
+            per_col.append(sk._weighted_items() if sk is not None
+                           else (np.empty(0), np.empty(0)))
+        longest = max(len(it) for it, _ in per_col)
+        blocks = -(-longest // T)
+        new_items = np.zeros((blocks, K, T))
+        new_weights = np.zeros((blocks, K, T))
+        for j, (it, wt) in enumerate(per_col):
+            flat_i = np.zeros(blocks * T)
+            flat_w = np.zeros(blocks * T)
+            flat_i[: len(it)] = it
+            flat_w[: len(wt)] = wt
+            new_items[:, j] = flat_i.reshape(blocks, T)
+            new_weights[:, j] = flat_w.reshape(blocks, T)
+        if K == 1:
+            new_items, new_weights = new_items[:, 0], new_weights[:, 0]
+        return {**result, "items": new_items, "weights": new_weights}
+
+    return compact
+
+
 def _kll_scan_op(column: str, sketch_size: int, where: Optional[str] = None) -> ScanOp:
     """Device KLL summary as a fused-scan op: sort the chunk, compact to
     strata midpoints + exact remainder (ops/kll_device.py), gather the
@@ -251,6 +301,7 @@ def _kll_scan_op(column: str, sketch_size: int, where: Optional[str] = None) -> 
         sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
         select_size=sketch_size,
+        compact=_make_kll_compact(1, sketch_size),
     )
 
 
@@ -275,6 +326,7 @@ def _kll_multi_scan_op(columns: Tuple[str, ...], sketch_size: int) -> ScanOp:
         tuple(sorted(set(columns))), update, dict(_KLL_TAGS), sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
         select_size=sketch_size,
+        compact=_make_kll_compact(len(columns), sketch_size),
     )
 
 

@@ -1,6 +1,6 @@
 """Reading and writing tables: CSV, Parquet, Arrow and pandas ->
-ColumnarTable (the port's copy of the in-memory half of
-``deequ_tpu/data/io.py``).
+ColumnarTable, and the streams of Parquet and CSV files (the port's copy
+of ``deequ_tpu/data/io.py``).
 
 A reader produces the columnar, dictionary-encoded table the scans
 consume, on the host; the scans move it to the device. CSV goes through
@@ -160,7 +160,12 @@ def to_arrow(table: ColumnarTable):
     for name in table.column_names:
         col = table[name]
         if col.dtype == DType.STRING:
-            arrays[name] = pa.array(col.to_pylist(), type=pa.string())
+            # decoded in Arrow from the codes and the dictionary, with no
+            # Python string a row
+            indices = pa.array(col.codes, mask=col.codes < 0)
+            values = pa.array(list(col.dictionary), type=pa.string())
+            arrays[name] = pa.DictionaryArray.from_arrays(
+                indices, values).dictionary_decode()
         elif col.mask.all():
             arrays[name] = pa.array(col.values)
         else:
@@ -173,6 +178,45 @@ def write_parquet(table: ColumnarTable, path: str, row_group_rows: int = 1 << 20
     import pyarrow.parquet as pq
 
     pq.write_table(to_arrow(table), path, row_group_size=row_group_rows)
+
+
+def write_parquet_stream(batches, path: str) -> int:
+    """Write an iterator of ColumnarTable batches to one Parquet file, a
+    row group a batch, never holding more than one batch. Returns the
+    rows written."""
+    import pyarrow.parquet as pq
+
+    writer = None
+    rows = 0
+    try:
+        for batch in batches:
+            arrow = to_arrow(batch)
+            if writer is None:
+                writer = pq.ParquetWriter(path, arrow.schema)
+            writer.write_table(arrow)
+            rows += batch.num_rows
+    finally:
+        if writer is not None:
+            writer.close()
+    return rows
+
+
+def stream_parquet(paths, columns=None, batch_rows=None):
+    """Parquet file(s) as a StreamingTable: analyses run over it in bounded
+    host memory."""
+    from deequ_tpu_torch.data.source import ParquetBatchSource
+    from deequ_tpu_torch.data.streaming import StreamingTable
+
+    return StreamingTable(ParquetBatchSource(paths, columns, batch_rows))
+
+
+def stream_csv(path, columns=None, batch_rows=None, delimiter=","):
+    """A CSV file as a StreamingTable (pyarrow's incremental parser; the
+    file is never materialised)."""
+    from deequ_tpu_torch.data.source import CSVBatchSource
+    from deequ_tpu_torch.data.streaming import StreamingTable
+
+    return StreamingTable(CSVBatchSource(path, columns, batch_rows, delimiter))
 
 
 def from_pandas(df) -> ColumnarTable:

@@ -32,6 +32,7 @@ from deequ_tpu_torch.expr.ast import (
     Lit,
     UnaryOp,
 )
+from deequ_tpu_torch.data.table import DType
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 
 
@@ -441,6 +442,35 @@ def predicate_row_mask(val: Val, n: int, device) -> torch.Tensor:
     return data & m
 
 
+def column_val(col, device) -> Val:
+    """A Val of one host column on ``device``: codes and the dictionary of
+    a string column, f64 values (bool for a boolean column) and the
+    validity mask of the others."""
+    if col.dtype == DType.STRING:
+        return Val("str", torch.as_tensor(col.codes, device=device), None,
+                   dictionary=col.dictionary)
+    mask = torch.as_tensor(col.mask, device=device)
+    if col.dtype == DType.BOOLEAN:
+        return Val("bool", torch.as_tensor(col.values, device=device), mask)
+    values = torch.as_tensor(np.asarray(col.values, dtype=np.float64), device=device)
+    return Val("num", values, mask)
+
+
+def eval_predicate_on_table(src_or_expr, table, device=None) -> np.ndarray:
+    """A predicate over a whole in-memory table -> its host bool row mask
+    (WHERE semantics: null is false), evaluated on ``device``, resolved as
+    the entry points resolve it (``deequ_tpu_torch.device``)."""
+    from deequ_tpu_torch.device import resolve_device
+    from deequ_tpu_torch.expr.parser import parse_expression
+
+    dev = resolve_device(device)
+    expr = src_or_expr if isinstance(src_or_expr, Expr) else parse_expression(src_or_expr)
+    ctx = EvalContext({name: column_val(table[name], dev)
+                       for name in expr.columns() if name in table}, dev)
+    mask = predicate_row_mask(eval_expression(expr, ctx), table.num_rows, dev)
+    return mask.cpu().numpy()
+
+
 def compile_predicate(src_or_expr):
     """Compile a predicate for evaluation inside a fused scan.
 
@@ -450,6 +480,14 @@ def compile_predicate(src_or_expr):
     device tensors. Dictionary lookup tables are built on the host at the
     first chunk that needs them and kept on the device
     (``ops/lut_cache.py``).
+
+    The reference marks the fractional columns a comparison reads
+    (``_mark_exact_compare_columns``), on the column or, for a stream, on
+    the stream, so its packer routes them over the exact f64 plane instead
+    of its (hi, lo) f32 pair, which moves a value ~1e-16 and flips
+    ``x == 0.1``. The port packs every numeric column as f64, in memory,
+    persisted and streamed alike, so every comparison is exact already
+    and the port carries no such mark.
     """
     from deequ_tpu_torch.expr.parser import parse_expression
 

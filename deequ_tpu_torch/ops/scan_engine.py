@@ -24,6 +24,16 @@ summaries take the radix select (``ops/scan_plan.py``,
 numeric column (``Column.encoding``) rides an int16 code plane, streamed
 or resident, and decodes on the device with one gather of its dictionary.
 
+A :class:`~deequ_tpu_torch.data.streaming.StreamingTable` — a table read
+a batch at a time from a source, never held whole — takes the streaming
+route (:func:`_run_scan_stream`): a reader thread decodes batches behind
+a bounded queue (:func:`_prefetch`), each batch is cut into chunks and
+packed as it comes, each chunk's copy to the card is issued from a
+pinned, double-buffered staging slot on a copy stream of its own before
+the previous chunk's step is queued on the compute stream, and the fold holds a fixed number of chunks' gather leaves
+(:data:`STREAM_FOLD_CAPACITY`), draining them to the host when full and
+compacting KLL summaries there; a stream of monoid ops fetches once.
+
 Arriving batches of an incremental stream (``analyzers/incremental.py``)
 scan in groups (:func:`run_scan_group`): equal-size one-chunk batches of
 one packer layout are packed into one host buffer, copied to the card
@@ -39,6 +49,8 @@ the analyzers' states, never a raw sum of squares.
 
 from __future__ import annotations
 
+import itertools
+import queue
 import threading
 import weakref
 from dataclasses import dataclass
@@ -66,6 +78,18 @@ RESIDENT_MAX_CHUNK_ROWS = 1 << 25
 #: the rest is the scans' working set (a batched KLL summary of 50 columns
 #: of a 2 GiB resident chunk peaks near 11 GB)
 RESIDENT_FRACTION = 0.5
+
+#: streaming chunks are smaller than in-memory ones: several copies of a
+#: chunk live at once (the decoded batch in the reader's queue, the packed
+#: staging slots, the chunk on the card), so host memory stays a few
+#: chunks' worth (the reference's rule, so both packages cut a stream alike)
+STREAM_CHUNK_BYTES = 128 << 20
+
+#: the chunks of gather leaves a stream's device fold holds (a stream's
+#: chunk count is unknown up front); when full they drain to the host in
+#: one fetch and the fold goes on — the elementwise accumulator never
+#: drains, so sums, minima and maxima fold in chunk order on the card
+STREAM_FOLD_CAPACITY = 512
 
 #: fold tags a ScanOp leaf may carry
 FOLD_TAGS = ("sum", "min", "max", "gather")
@@ -122,7 +146,13 @@ class ScanOp:
     ``sorts_chunk``: ``update`` sorts each chunk on the device (the KLL
     summary); ``select_update``: the same partials by the radix select,
     which a resident scan runs instead where the select is the faster
-    (``ops/scan_plan.py``), and ``select_size`` its sketch size."""
+    (``ops/scan_plan.py``), and ``select_size`` its sketch size.
+
+    ``compact``: a host compaction of the op's gathered leaves (a dict of
+    them, returned with the same keys and trailing shapes, fewer rows),
+    which a stream applies where a drain of its fold leaves more than
+    ``compact_threshold`` values in one gather leaf (the KLL summaries:
+    ``analyzers/sketches.py:_make_kll_compact``)."""
 
     columns: Tuple[str, ...]
     update: Callable[[Dict[str, Val], torch.Tensor, int, int], Dict[str, Any]]
@@ -132,6 +162,8 @@ class ScanOp:
     sorts_chunk: bool = False
     select_update: Optional[Callable] = None
     select_size: int = 0
+    compact: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None
+    compact_threshold: int = 1 << 20
 
 
 class ScanStats:
@@ -152,7 +184,19 @@ class ScanStats:
     ``device_sort_passes`` chunk sorts (a sorting KLL op a chunk, plus
     the grouping sorts of ``ops/segment.py``) and
     ``device_select_passes`` KLL ops a chunk that ran the radix select
-    instead."""
+    instead.
+
+    Streams: ``chunks_staged`` and ``bytes_staged`` count the chunks a
+    streaming scan copied to the device and their plane bytes;
+    ``ingest_overlap_frac`` is the share of them whose copy was issued
+    while the previous chunk was still staged and not yet scanned — the
+    double buffer's issue order, (n - 1) / n for n chunks by construction
+    and 0 for one; whether the card really copied while it computed shows
+    only in a trace of the copy and compute streams; ``fold_drains``
+    counts the fold's gather drains to the host before a stream's end,
+    ``kll_compactions`` the host compactions of gathered KLL summaries
+    (one an op and drain, the stream's end included) and
+    ``kll_midscan_compactions`` those made at a drain before the end."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -186,6 +230,28 @@ class ScanStats:
         # made (the one-fetch-per-group contract: equal counts)
         self.group_scan_passes = 0
         self.group_fetches = 0
+        # streaming scans (_run_scan_stream)
+        self.chunks_staged = 0
+        self.chunks_staged_overlapped = 0
+        self.bytes_staged = 0
+        self.fold_drains = 0
+        self.kll_compactions = 0
+        self.kll_midscan_compactions = 0
+
+    @property
+    def ingest_overlap_frac(self) -> float:
+        if not self.chunks_staged:
+            return 0.0
+        return self.chunks_staged_overlapped / self.chunks_staged
+
+    def record_staged(self, nbytes: int, overlapped: bool) -> None:
+        """One chunk copied to the device by a streaming scan;
+        ``overlapped``: its copy was issued while the previous chunk was
+        staged and not yet scanned."""
+        with self._lock:
+            self.chunks_staged += 1
+            self.chunks_staged_overlapped += int(overlapped)
+            self.bytes_staged += int(nbytes)
 
     def record_fetch(self, nbytes: int) -> None:
         with self._lock:
@@ -204,7 +270,9 @@ class ScanStats:
             setattr(self, name, getattr(self, name) + 1)
 
     def snapshot(self) -> Dict[str, Any]:
-        return {k: v for k, v in vars(self).items() if not k.startswith("_")}
+        snap = {k: v for k, v in vars(self).items() if not k.startswith("_")}
+        snap["ingest_overlap_frac"] = self.ingest_overlap_frac
+        return snap
 
 
 SCAN_STATS = ScanStats()
@@ -352,16 +420,24 @@ class _DeviceFoldPlan:
       (``masked_reduce.merge_tags``), starting from the monoid identity
       (0, +inf, -inf) — the same operations, in the same order, as the
       reference's fold;
-    - 'gather' leaves (per-chunk Welford moments) are written into row
-      ``ci`` of a (chunks, width) buffer — the device equivalent of the
-      host concatenation, order preserved.
+    - 'gather' leaves (per-chunk Welford moments, KLL summaries) are
+      written into row ``ci`` of a (capacity, width) buffer — the device
+      equivalent of the host concatenation, order preserved.
+
+    An in-memory scan sizes ``capacity`` to its chunk count. A stream
+    cannot know its chunk count, so its fold holds
+    :data:`STREAM_FOLD_CAPACITY` chunks: when that many are gathered
+    (:attr:`gather_full`), :meth:`drain_gathered` fetches them and empties
+    the buffer, while the elementwise accumulator keeps folding on the
+    device — a stream's sums fold in chunk order whatever its length, and
+    a stream with no gather leaf fetches once, at its end.
 
     Leaves are f64 on the device (counts are exact below 2^53); integer
     leaves come back as int64 at :meth:`unflatten`. A leaf's size and
     whether it is an integer come from the tensor, or from its task.
     """
 
-    def __init__(self, ops: Sequence[ScanOp], partials, n_chunks: int, device):
+    def __init__(self, ops: Sequence[ScanOp], partials, capacity: int, device):
         self._layout = []  # per op: [(key, tag, region_offset, size, shape, is_int)]
         self._slots = []  # per op: [(flat offset, size)]
         elem_src, gather_src = [], []
@@ -402,14 +478,14 @@ class _DeviceFoldPlan:
         self.flat_size = src
         self.elem_size = elem_off
         self.gather_size = gather_off
-        self.n_chunks = n_chunks
+        self.capacity = capacity
         self._elem_src = dev(cat(elem_src, np.int64))
         self._gather_src = dev(cat(gather_src, np.int64))
         self._is_sum = dev(cat(sum_mask, bool))
         self._is_min = dev(cat(min_mask, bool))
         self._acc = dev(cat(init, np.float64))
         self._gathered = torch.zeros(
-            (n_chunks, self.gather_size), dtype=torch.float64, device=device
+            (capacity, self.gather_size), dtype=torch.float64, device=device
         )
         self._filled = 0
 
@@ -442,11 +518,29 @@ class _DeviceFoldPlan:
 
     def merge(self, flat: torch.Tensor) -> None:
         """Fold one chunk's flat vector into the accumulator."""
+        if self.gather_full:
+            raise ValueError("the fold's gather buffer is full: drain it first")
         if self.elem_size:
             self._acc = self._merged(self._acc, flat)
         if self.gather_size:
             self._gathered[self._filled] = flat[self._gather_src]
         self._filled += 1
+
+    @property
+    def gather_full(self) -> bool:
+        """Whether the gather buffer holds ``capacity`` chunks (a fold
+        with no gather leaf never fills)."""
+        return bool(self.gather_size) and self._filled >= self.capacity
+
+    def drain_gathered(self) -> List[Dict[str, np.ndarray]]:
+        """Fetch the gathered chunks (one fetch) and empty the buffer:
+        per-op dicts of the gather leaves alone, stacked over the chunks
+        drained. The elementwise accumulator stays on the device."""
+        filled, self._filled = self._filled, 0
+        (host,) = fetch(self._gathered[:filled].reshape(-1))
+        # on the CPU the fetched array is a view of the buffer the next
+        # chunks overwrite
+        return self.unflatten(host.copy(), filled, gather_only=True)
 
     @property
     def single_size(self) -> int:
@@ -468,15 +562,19 @@ class _DeviceFoldPlan:
         )
         return self.unflatten(host, self._filled)
 
-    def unflatten(self, host: np.ndarray, filled: int) -> List[Dict[str, np.ndarray]]:
+    def unflatten(self, host: np.ndarray, filled: int,
+                  gather_only: bool = False) -> List[Dict[str, np.ndarray]]:
         """A fetched vector of ``filled`` chunks as per-op dicts of numpy
-        leaves."""
-        elem = host[: self.elem_size]
-        gathered = host[self.elem_size:].reshape(filled, self.gather_size)
+        leaves; with ``gather_only`` the vector holds the gathered chunks
+        alone, and so do the dicts."""
+        elem = host[: 0 if gather_only else self.elem_size]
+        gathered = host[len(elem):].reshape(filled, self.gather_size)
         out = []
         for leaves in self._layout:
             result = {}
             for key, tag, off, size, shape, is_int in leaves:
+                if gather_only and tag != "gather":
+                    continue
                 if tag == "gather":
                     leaf = gathered[:, off:off + size].reshape((filled,) + shape)
                     if not shape:
@@ -662,8 +760,17 @@ def run_scan(
     radix select unless ``select_kernel`` is False
     (``ops/scan_plan.py``). ``encoded_ingest`` (None:
     ``scan_plan.encoded_ingest_enabled``) False packs every column decoded;
-    a table persisted with encoded columns is then streamed."""
+    a table persisted with encoded columns is then streamed.
+
+    A StreamingTable takes the streaming route (:func:`_run_scan_stream`):
+    chunks of the source's batch rows (``chunk_rows`` when given), staged
+    through a double buffer behind a reader thread, the fold draining its
+    gather leaves to the host every :data:`STREAM_FOLD_CAPACITY` chunks —
+    one fetch for a stream of monoid ops. Its KLL ops sort, as every
+    non-resident scan's do."""
     device = torch.device(device)
+    if getattr(table, "is_streaming", False):
+        return _run_scan_stream(table, ops, device, chunk_rows, encoded_ingest)
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
     encode = encoded_ingest_enabled(encoded_ingest)
@@ -714,6 +821,292 @@ def run_scan(
     return results
 
 
+# -- the out-of-core streaming scan ----------------------------------------------
+
+
+def _prefetch(iterator, depth: int = 2):
+    """Run ``iterator`` on a reader thread behind a queue of ``depth``
+    items, so host decoding overlaps packing, copies and device work, and
+    memory stays bounded by ``depth`` items. An exception of the reader
+    reaches the consumer at its place in the stream, however long the
+    consumer takes to free a slot; a consumer that abandons the generator
+    stops the reader instead of leaving it blocked on a full queue."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+            put(done)
+        except BaseException as e:  # noqa: BLE001 — handed to the consumer, raised there
+            put(e)
+
+    reader = threading.Thread(target=run, daemon=True, name="deequ-torch-prefetch")
+    reader.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+class _StagingSlots:
+    """The double buffer of a stream's host-to-device copies. A chunk's
+    planes are packed into one staging slot (each plane at a 512-byte
+    boundary, as a fresh allocation would sit) and copied to the device in
+    one copy. On a card the slots are pinned and the copy is issued
+    ``non_blocking`` on a copy stream of its own, so the card copies chunk
+    k+1 while its compute stream scans chunk k, and the host packs the
+    chunk after. The copy's event orders the two streams
+    (:meth:`ready`, before the chunk's step) and guards its slot: a slot
+    is packed again only after the event has completed — refilling it
+    earlier would corrupt a chunk in flight. On the CPU each chunk packs
+    into a fresh array (the device tensor is a view of it)."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.copy_stream = torch.cuda.Stream(device) if self.pinned else None
+        self._slots: List[Optional[torch.Tensor]] = [None] * self.SLOTS
+        self._events: List[Optional[Any]] = [None] * self.SLOTS
+        self._next = 0
+
+    def _host_buffer(self, total: int):
+        """(host uint8 tensor, slot index or None) with room for ``total``."""
+        if not self.pinned:
+            return torch.from_numpy(np.empty(total, dtype=np.uint8)), None
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        if self._events[i] is not None:
+            self._events[i].synchronize()  # this slot's last copy is done
+            self._events[i] = None
+        buf = self._slots[i]
+        if buf is None or buf.numel() < total:
+            buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            self._slots[i] = buf
+        return buf, i
+
+    def stage(self, packer: "_ChunkPacker", start: int, stop: int):
+        """Rows [start, stop) packed and their copy to the device issued:
+        (the four device planes, their bytes, the copy's event or None).
+        The planes may be read only on a stream that waited on the event
+        (:meth:`ready`)."""
+        n = stop - start
+        shapes = [((rows, n), np.dtype(dt))
+                  for rows, dt in zip(packer.plane_rows(), _ChunkPacker.PLANE_DTYPES)]
+        offsets, total, nbytes = [], 0, 0
+        for shape, dt in shapes:
+            size = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            offsets.append((total, size))
+            total += _aligned(size)
+            nbytes += size
+        host, slot = self._host_buffer(max(total, 1))
+        host_np = host.numpy()
+        packer.pack(start, stop, out=tuple(
+            host_np[off:off + size].view(dt).reshape(shape)
+            for (off, size), (shape, dt) in zip(offsets, shapes)))
+        event = None
+        with device_boundary("transfer"):
+            if slot is None:
+                dev = host
+            else:
+                compute = torch.cuda.current_stream(self.device)
+                with torch.cuda.stream(self.copy_stream):
+                    dev = torch.empty(host.numel(), dtype=torch.uint8, device=self.device)
+                    dev.copy_(host, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self.copy_stream)
+                # the buffer belongs to the copy stream's pool: it must not
+                # be handed out again before the compute stream is done
+                dev.record_stream(compute)
+                self._events[slot] = event
+        planes = []
+        for (off, size), (shape, dt) in zip(offsets, shapes):
+            tdt = torch.from_numpy(np.empty(0, dtype=dt)).dtype
+            if size == 0:
+                planes.append(torch.empty(shape, dtype=tdt, device=self.device))
+            else:
+                planes.append(dev[off:off + size].view(tdt).reshape(shape))
+        return tuple(planes), nbytes, event
+
+    def ready(self, event) -> None:
+        """Order the compute stream after a chunk's copy (its event from
+        :meth:`stage`), just before the chunk's step is queued: waiting
+        any earlier would hold the previous chunk's step behind it."""
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+
+
+class _StreamGather:
+    """A stream's gather leaves on the host, across the fold's drains:
+    each drained block joins the earlier ones along the chunk axis, and
+    where a drain leaves more than ``op.compact_threshold`` values in one
+    of an op's gather leaves, ``op.compact`` folds them (the KLL
+    summaries). A stream whose gather fits one fold — every stream of at
+    most :data:`STREAM_FOLD_CAPACITY` chunks — is never compacted, so it
+    gives an in-memory scan's bits."""
+
+    def __init__(self, ops: Sequence[ScanOp]):
+        self.ops = ops
+        self.blocks: Optional[List[Dict[str, np.ndarray]]] = None
+        self.drains = 0
+
+    def add(self, parts: List[Dict[str, np.ndarray]], final: bool) -> None:
+        """Join one drain's per-op leaves (their gather leaves are kept);
+        ``final``: the fetch at the stream's end, which compacts only where
+        an earlier drain did come."""
+        compact = not final or self.drains > 0
+        parts = [{key: leaf for key, leaf in part.items() if op.tags[key] == "gather"}
+                 for op, part in zip(self.ops, parts)]
+        if self.blocks is None:
+            self.blocks = parts
+        else:
+            self.blocks = [
+                {key: np.concatenate([old[key], new[key]]) for key in new}
+                for old, new in zip(self.blocks, parts)
+            ]
+        self.drains += 1
+        if not compact:
+            return
+        for i, op in enumerate(self.ops):
+            block = self.blocks[i]
+            if op.compact is None or not block:
+                continue
+            if max(leaf.size for leaf in block.values()) > op.compact_threshold:
+                self.blocks[i] = op.compact(block)
+                SCAN_STATS.kll_compactions += 1
+                SCAN_STATS.kll_midscan_compactions += int(not final)
+
+
+def _run_scan_stream(
+    stream,
+    ops: Sequence[ScanOp],
+    device: torch.device,
+    chunk_rows: Optional[int] = None,
+    encoded_ingest: Optional[bool] = None,
+) -> List[Dict[str, np.ndarray]]:
+    """One fused pass over a StreamingTable (the reference's
+    ``_run_scan_stream``): batches come off the source on a reader thread
+    (:func:`_prefetch`), each is cut into chunks of ``chunk`` rows and
+    packed as it comes — a batch's own packer, so a column that gains
+    nulls or loses its encoding partway through the stream simply packs
+    otherwise from then on, while every chunk's partials keep one flat
+    layout — and each chunk's copy is issued from a staging slot
+    (:class:`_StagingSlots`) before the previous chunk's step runs. The
+    fold drains its gather leaves every :data:`STREAM_FOLD_CAPACITY`
+    chunks (:class:`_StreamGather`, with KLL compaction there) and
+    fetches the rest, and the accumulator, once at the end.
+
+    ``chunk``: ``chunk_rows``, else the batch rows the source states, else
+    the reference's rule at :data:`STREAM_CHUNK_BYTES` — capped, for a
+    source that states none (a generator's), by its first batch's rows —
+    and bounded by the source's row count when its metadata knows it. A
+    stream that needs no
+    column reads one, to keep its row count; an empty stream folds one
+    empty chunk. There is no fallback: on a card every kernel of the step
+    runs there, or the scan raises."""
+    from deequ_tpu_torch.data.streaming import empty_columns
+
+    encode = encoded_ingest_enabled(encoded_ingest)
+    schema = stream.schema
+    needed = sorted({c for op in ops for c in op.columns})
+    if not needed and schema.column_names:
+        # a lone Size() prunes the read to no column, and a batch of no
+        # column cannot carry its row count
+        needed = [schema.column_names[0]]
+    rule = _auto_chunk_rows({name: stream[name] for name in needed}, STREAM_CHUNK_BYTES)
+    stated = chunk_rows or getattr(stream, "preferred_batch_rows", None)
+    batches = _prefetch(stream.batches(columns=needed, batch_rows=stated or rule))
+    first = next(batches, None)
+    chunk = stated or min(rule, first.num_rows if first is not None and first.num_rows else rule)
+    known_rows = getattr(getattr(stream, "source", None), "num_rows", None)
+    if known_rows:
+        chunk = min(chunk, known_rows)
+    chunk = max(int(chunk), 1)
+    # a stream's chunks are never resident: its KLL ops sort
+    plan = plan_scan_ops(ops, None, False, None, chunk)
+    ops = plan.ops
+    SCAN_STATS.scan_passes += 1
+    fetches_before = SCAN_STATS.device_fetches
+    staging = _StagingSlots(device)
+    host_gather = _StreamGather(ops)
+    fold: Optional[_DeviceFoldPlan] = None
+    staged: Optional[Tuple] = None  # the chunk copied and not yet scanned
+    encoded_counted = False
+
+    def scan_staged(entry) -> None:
+        nonlocal fold
+        packer, planes, event, n, op_luts, enc_luts = entry
+        staging.ready(event)
+        with device_boundary("execute"):
+            row_valid = torch.ones(n, dtype=torch.bool, device=device)
+            vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
+            partials = [op.update(vals, row_valid, n, chunk) for op in ops]
+            if fold is None:
+                fold = _DeviceFoldPlan(ops, partials, STREAM_FOLD_CAPACITY, device)
+            flat = fold.flatten(partials, row_valid)
+        if fold.gather_full:
+            host_gather.add(fold.drain_gathered(), final=False)
+            SCAN_STATS.fold_drains += 1
+        with device_boundary("execute"):
+            fold.merge(flat)
+        SCAN_STATS.chunks_processed += 1
+        SCAN_STATS.device_sort_passes += plan.sort_ops
+
+    def scan_batch(cols: Dict[str, Column], n: int) -> None:
+        nonlocal staged, encoded_counted
+        packer = _ChunkPacker(cols, encode=encode)
+        if packer.enc_names and not encoded_counted:
+            encoded_counted = True
+            SCAN_STATS.encoded_scan_passes += 1
+        op_luts = _device_luts(ops, cols, device)
+        enc_luts = packer.enc_luts(device)
+        for start, stop in _chunk_bounds(n, chunk):
+            planes, nbytes, event = staging.stage(packer, start, stop)
+            SCAN_STATS.bytes_packed += nbytes
+            SCAN_STATS.record_staged(nbytes, overlapped=staged is not None)
+            previous, staged = staged, (packer, planes, event, stop - start, op_luts,
+                                        enc_luts)
+            if previous is not None:
+                scan_staged(previous)
+
+    try:
+        for batch in itertools.chain([first] if first is not None else [], batches):
+            SCAN_STATS.rows_scanned += batch.num_rows
+            scan_batch({name: batch[name] for name in needed}, batch.num_rows)
+    finally:
+        batches.close()
+    if first is None:
+        scan_batch({c.name: c for c in empty_columns(schema, needed)}, 0)
+    scan_staged(staged)  # the last chunk has no successor to overlap
+
+    results = fold.fetch_unflatten()
+    host_gather.add(results, final=True)
+    for result, gathered in zip(results, host_gather.blocks):
+        result.update(gathered)
+    SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
+    return results
+
+
 # -- micro-batched group scan (incremental streams) --------------------------
 
 #: byte alignment of every batch's slot in a group's stacked buffer: a
@@ -751,7 +1144,7 @@ class DeferredGroupScan:
 def group_scannable(tables, ops):
     """The shared packer layout (truthy) when :func:`run_scan_group` can
     take these batches, else False: equal non-zero sizes, each within one
-    chunk of the serial scan's rule, none persisted, one dtype a needed
+    chunk of the serial scan's rule, none persisted or streaming, one dtype a needed
     column and one packer layout (the reference's rule,
     ``deequ_tpu/ops/scan_engine.py:group_scannable``). A bigger batch would
     scan in several chunks and merge them — another association than the
@@ -760,6 +1153,8 @@ def group_scannable(tables, ops):
     no rule against dictionary-baked ops: an op reads each batch's own
     dictionary and lookup tables when it runs."""
     needed = sorted({c for op in ops for c in op.columns})
+    if any(getattr(t, "is_streaming", False) for t in tables):
+        return False  # a stream's batches scan through its own pipeline
     first = tables[0]
     if any(n not in first for n in needed):
         return False

@@ -25,6 +25,9 @@ and the cast table of pass 2 beside it, and frees both when it returns.
 Past the resident budget (``MemoryError``) or out of card memory, the
 passes stream on the same device; any other failure raises. The CPU has
 no resident budget (a host table needs no copy), so there they stream.
+A StreamingTable is never persisted: its passes read the source again,
+and pass 2 casts its numeric strings a batch at a time
+(``StreamingTable.with_casts``).
 """
 
 from __future__ import annotations
@@ -154,8 +157,9 @@ def _persist_for_passes(table: ColumnarTable, device: torch.device, persisted: l
     budget and the table is not resident already. Past the budget or out
     of card memory the passes stream on the same device; anything else
     raises."""
-    if table.is_persisted or not scan_engine.has_resident_budget(device):
-        return
+    if (table.is_persisted or getattr(table, "is_streaming", False)
+            or not scan_engine.has_resident_budget(device)):
+        return  # a stream is never persisted: it is unbounded by design
     try:
         table.persist(device)
     except (MemoryError, torch.cuda.OutOfMemoryError):
@@ -261,12 +265,20 @@ class ColumnProfiler:
                 inferred_type[name] = _NATIVE_TYPES[col_dtype]
                 is_inferred[name] = False
 
-        # cast the string columns inferred numeric (ColumnProfiler.scala:153-154)
+        # cast the string columns inferred numeric (ColumnProfiler.scala:153-154);
+        # a stream casts them lazily, a batch at a time
+        casts = {
+            name: (DType.INTEGRAL if inferred_type[name] == DataTypeInstances.INTEGRAL
+                   else DType.FRACTIONAL)
+            for name in relevant
+            if data[name].dtype == DType.STRING and inferred_type[name] in _NUMERIC
+        }
         casted = data
-        for name in relevant:
-            if data[name].dtype == DType.STRING and inferred_type[name] in _NUMERIC:
-                target = (DType.INTEGRAL if inferred_type[name] == DataTypeInstances.INTEGRAL
-                          else DType.FRACTIONAL)
+        if getattr(data, "is_streaming", False):
+            if casts:
+                casted = data.with_casts(casts)
+        else:
+            for name, target in casts.items():
                 casted = casted.with_column(cast_string_column(data[name], target))
 
         numeric_columns = [name for name in relevant if inferred_type[name] in _NUMERIC]

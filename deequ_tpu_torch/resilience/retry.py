@@ -1,8 +1,11 @@
 """RetryPolicy — exponential backoff, jitter and a deadline for transient
 I/O; the port's subset of ``deequ_tpu/resilience/retry.py``:
-``RetryPolicy``, ``retry_call`` and ``RetryingFileSystem`` (a FileSystem
+``RetryPolicy``, ``retry_call``, ``RetryingFileSystem`` (a FileSystem
 proxy whose every operation runs under the policy — the state providers'
-storage).
+storage), and the batch reads of a stream (``resilient_batches``,
+``RetryingBatchSource``). The reference's process default policy,
+``RetryTelemetry``, its run-budget charge and the quarantine of
+unreadable batches come with the resilient stream loop (slice 8c).
 
 Jitter draws from a policy-owned ``random.Random(seed)``, so identical
 failure sequences sleep identical schedules.
@@ -13,7 +16,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from random import Random
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 from deequ_tpu_torch.exceptions import RetryExhaustedException
 
@@ -121,3 +124,87 @@ class RetryingFileSystem:
 
     def join(self, *parts: str) -> str:
         return self.inner.join(*parts)
+
+
+# -- batch reads of a stream --------------------------------------------------
+
+
+def resilient_batches(
+    make_iter: Callable[[int], Iterator],
+    policy: Optional[RetryPolicy],
+    start: int = 0,
+) -> Iterator:
+    """The batches of ``make_iter``, each read under ``policy``.
+
+    ``make_iter(i)`` returns a fresh iterator positioned at batch index
+    ``i`` (``BatchSource.batches_from``): batch boundaries are fixed for a
+    fixed ``batch_rows``. On a retryable error the iterator reopens at the
+    failing index after a backoff, so a retried read yields the same
+    batches, in the same order, as a clean one; when the attempts or the
+    deadline run out, RetryExhaustedException. Any other error propagates
+    at once. (The reference's quarantine of unreadable batches is the
+    resilient stream loop's, slice 8c.)"""
+    cur = start
+    attempts = 0
+    t0 = time.monotonic()
+    while True:
+        it = make_iter(cur)
+        try:
+            for batch in it:
+                yield batch
+                cur += 1
+                attempts = 0
+                t0 = time.monotonic()
+            return
+        except Exception as e:  # noqa: BLE001 — filtered below, re-raised
+            # an inner retry layer already spent its attempts on this
+            # batch: do not multiply them
+            if (isinstance(e, RetryExhaustedException) or policy is None
+                    or not policy.is_retryable(e)):
+                raise
+            attempts += 1
+            out_of_budget = attempts >= policy.max_attempts or (
+                policy.deadline is not None and time.monotonic() - t0 >= policy.deadline
+            )
+            if out_of_budget:
+                raise RetryExhaustedException(f"batch {cur} read", attempts, e) from e
+            time.sleep(policy.delay_for(attempts - 1))
+
+
+class RetryingBatchSource:
+    """A BatchSource whose every batch read runs under a RetryPolicy
+    (reopen and fast-forward on a transient error). It plugs in wherever a
+    source does — the fused streaming scan, the grouping folds, the
+    profiler — because the retrying happens inside ``batches``."""
+
+    def __init__(self, inner, policy: Optional[RetryPolicy] = None):
+        self.inner = inner
+        self.policy = policy if policy is not None else DEFAULT_IO_RETRY
+
+    @property
+    def schema(self):
+        return self.inner.schema
+
+    @property
+    def num_rows(self):
+        return self.inner.num_rows
+
+    @property
+    def _batch_rows(self):
+        return getattr(self.inner, "_batch_rows", None)
+
+    def batches(self, columns=None, batch_rows=None):
+        yield from self.batches_from(0, columns=columns, batch_rows=batch_rows)
+
+    def _inner_from(self, start, columns, batch_rows):
+        if hasattr(self.inner, "batches_from"):
+            return self.inner.batches_from(start, columns=columns, batch_rows=batch_rows)
+        from deequ_tpu_torch.data.source import BatchSource
+
+        return BatchSource.batches_from(self.inner, start, columns=columns,
+                                        batch_rows=batch_rows)
+
+    def batches_from(self, start: int = 0, columns=None, batch_rows=None):
+        yield from resilient_batches(
+            lambda i: self._inner_from(i, columns, batch_rows), self.policy, start=start
+        )

@@ -331,7 +331,7 @@ def deserialize_state(data: bytes) -> State:
     if tag == SPILLED_FREQUENCIES_TAG:
         raise NotYetPortedException(
             "a spilled frequency state (state type tag 13, the reference's "
-            "spill/store.py SpilledFrequencies)"
+            "spill/store.py SpilledFrequencies; it lands with slice 8b, spill)"
         )
     _, by_tag = _ensure_registry()
     entry = by_tag.get(tag)

@@ -106,6 +106,10 @@ _STAT_KEYS = (
     "hist_kernel_dispatches",
     "hist_plain_dispatches",
     "hist_host_dispatches",
+    "chunks_staged",
+    "bytes_staged",
+    "fold_drains",
+    "kll_compactions",
 )
 
 
@@ -134,6 +138,8 @@ class VerificationSuite:
 
     @staticmethod
     def on_data(data: ColumnarTable, device=None) -> "VerificationRunBuilder":
+        """A run over ``data``: a ColumnarTable (persisted or not) or a
+        StreamingTable, which the run reads a batch at a time."""
         return VerificationRunBuilder(data, device)
 
     @staticmethod

@@ -7,8 +7,9 @@ reference on the CPU.
   == the serial loop bit for bit (with string columns, with an outlier
   batch that falls back, with batches the group path refuses), the
   multi-chunk refusal and the group path engaging (one scan pass a
-  group). The port has no streaming table: the twin of the
-  streaming-and-mixed-schema test keeps its mixed-schema half.
+  group). The streaming-and-mixed-schema test's two halves are twinned
+  apart: batches that are StreamingTables (their scans run at once when
+  their group dispatches, never in the group scan) and mixed schemas.
 - Across packages: states the reference saves to a
   ``FileSystemStateProvider`` directory merge into the port's run over
   the next batch (and the reverse) to the reference's all-data metrics
@@ -271,6 +272,63 @@ def test_pipelined_stream_mixed_schemas_falls_back():
                 assert got.get() == want.get(), (b, a)
             else:
                 assert str(got.exception) == str(want.exception), (b, a)
+
+
+def _string_batches(seed: int, count: int):
+    rng = np.random.default_rng(seed)
+    return [
+        ColumnarTable([
+            Column("v", DType.FRACTIONAL, values=rng.normal(10.0 + b, 1.0, 3000)),
+            Column("s", DType.STRING, codes=rng.integers(0, 6, 3000).astype(np.int32),
+                   dictionary=np.array(list("abcdef"), dtype=object)),
+        ])
+        for b in range(count)
+    ]
+
+
+def test_pipelined_stream_streaming_batches():
+    """The streaming half of the reference's streaming-and-mixed-schema
+    test: batches that are StreamingTables (each of 3 batches of 1,000
+    rows) equal the serial loop of their own runs, states carried."""
+    from deequ_tpu_torch.data.streaming import stream_table
+
+    tables = _string_batches(4, 5)
+    analyzers = [Size(), Mean("v"), Completeness("s")]
+    serial, serial_states = _run_serial(
+        [stream_table(t, batch_rows=1000) for t in tables], analyzers)
+    piped, piped_states = _run_stream(
+        [stream_table(t, batch_rows=1000) for t in tables], analyzers, window=2)
+    _assert_bit_identical(serial, piped, analyzers)
+    for a in analyzers:
+        assert piped_states.load(a) == serial_states.load(a)
+
+
+def test_streaming_batch_scans_when_its_group_dispatches():
+    """A StreamingTable batch never enters the group scan: its streaming
+    scan runs at once when its window fills (the reference's
+    incremental.py:180-193), and its metrics drain in submission order."""
+    from deequ_tpu_torch.data.streaming import stream_table
+
+    tables = _string_batches(6, 4)
+    analyzers = [Size(), Mean("v"), StandardDeviation("v")]
+    ops = [a.scan_op(tables[0]) for a in analyzers]
+    streams = [stream_table(t, batch_rows=1000) for t in tables]
+    assert not group_scannable(streams[:2], ops)
+    stream = IncrementalAnalysisStream(analyzers, window=2)
+    SCAN_STATS.reset()
+    assert stream.submit(streams[0], tag=0) == []
+    assert SCAN_STATS.scan_passes == 0  # buffered until the window fills
+    assert stream.submit(streams[1], tag=1) == []
+    assert SCAN_STATS.scan_passes == 2 and SCAN_STATS.chunks_staged == 6
+    assert SCAN_STATS.group_scan_passes == 0
+    done = dict(stream.submit(streams[2], tag=2))
+    done.update(stream.submit(streams[3], tag=3))
+    done.update(stream.close())
+    assert sorted(done) == [0, 1, 2, 3]
+    for b, t in enumerate(tables):
+        alone = AnalysisRunner.do_analysis_run(stream_table(t, batch_rows=1000), analyzers)
+        for a in analyzers:
+            assert done[b].metric_map[a].value.get() == alone.metric_map[a].value.get()
 
 
 def test_pipelined_stream_outlier_batch_falls_back_bit_exact():

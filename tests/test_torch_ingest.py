@@ -1,7 +1,12 @@
 """Encoded numeric columns in the port — ``ColumnChunk``, ``Column.encode``
 and ``ColumnarTable.encode``, the scan's int16 code plane, decoded on the
 device by a gather of the dictionary — on the CPU. Twins of the
-reference's ``tests/test_ingest.py``.
+reference's ``tests/test_ingest.py``, its streaming cases among them: the
+Parquet and CSV sources' encoding detection (file metadata, the first
+block's cardinality), the density rule that keeps near-unique columns
+plain, an encoded CSV stream, the double buffer's overlap with encoded
+and decoded streams bit for bit, and an encoding lost partway through a
+stream.
 
 Bounds: an encoded column decodes on the device to the very f64 values
 its decoded plane would hold, and both layouts cut the table at the same
@@ -269,3 +274,194 @@ def test_encoded_table_parity_with_reference_encode(parity_env, monkeypatch, res
         else:
             assert_metric_parity(want, got)
             assert not math.isnan(got.value.get())
+
+
+# -- encoded columns on a stream (twins of tests/test_ingest.py's streaming cases) --
+
+
+def test_batch_rows_sized_by_encoded_bytes():
+    from deequ_tpu_torch.data.source import batch_rows_for_schema
+    from deequ_tpu_torch.data.table import Field, Schema
+
+    schema = Schema([Field("a", DType.FRACTIONAL), Field("b", DType.FRACTIONAL)])
+    plain = batch_rows_for_schema(schema, target_bytes=4 << 20)
+    enc = batch_rows_for_schema(schema, target_bytes=4 << 20, encoded=("a", "b"))
+    # 9 bytes a row decoded against 2 encoded: ~4.5x the rows a batch
+    assert enc > 4 * plain
+
+
+def _concat(batches):
+    merged = batches[0]
+    for b in batches[1:]:
+        merged = merged.concat(b)
+    return merged
+
+
+def test_parquet_source_detects_and_carries_encoding(tmp_path):
+    from deequ_tpu_torch.data.io import write_parquet
+    from deequ_tpu_torch.data.source import ParquetBatchSource
+
+    t = _dict_heavy(8000)
+    path = str(tmp_path / "enc.parquet")
+    write_parquet(t, path)
+    src = ParquetBatchSource(path)
+    assert {"f", "i"} <= set(src.encoded_column_names)
+    batches = list(src.batches(batch_rows=2048))
+    assert all(b["f"].encoding is not None for b in batches)
+    assert all(b["i"].encoding is not None for b in batches)
+    merged = _concat(batches)
+    assert np.array_equal(merged["f"].mask, t["f"].mask & ~np.isnan(t["f"].values))
+    assert np.array_equal(merged["i"].values, t["i"].values)
+
+
+def test_parquet_near_unique_column_stays_plain(tmp_path):
+    """The density rule: a column the writer dictionary-encoded whose
+    cardinality is near its rows decodes to the plain path."""
+    from deequ_tpu_torch.data.io import write_parquet
+    from deequ_tpu_torch.data.source import ParquetBatchSource
+
+    rng = np.random.default_rng(7)
+    t = ColumnarTable([Column("u", DType.FRACTIONAL, values=rng.normal(size=4000))])
+    path = str(tmp_path / "uniq.parquet")
+    write_parquet(t, path)
+    batches = list(ParquetBatchSource(path).batches())
+    assert all(b["u"].encoding is None for b in batches)
+    assert np.array_equal(batches[0]["u"].values[:10], t["u"].values[:10])
+
+
+def _write_csv(path, n=4000, card=13):
+    """Low-cardinality int and float columns, a near-unique float, a string
+    column, and an empty-cell null every 53rd row."""
+    with open(path, "w") as f:
+        f.write("i,f,u,s\n")
+        for k in range(n):
+            i = "" if k % 53 == 0 else str(k % card)
+            f.write(f"{i},{(k % card) / 2},{k * 1.5},s{k % 5}\n")
+
+
+def test_csv_source_sniffs_and_carries_encoding(tmp_path):
+    """CSV has no encoding metadata: the source sniffs the first block's
+    cardinality and carries the qualifying numeric columns encoded."""
+    from deequ_tpu_torch.data.io import read_csv
+    from deequ_tpu_torch.data.source import CSVBatchSource
+
+    path = str(tmp_path / "enc.csv")
+    _write_csv(path)
+    src = CSVBatchSource(path)
+    assert src.encoded_column_names == frozenset({"i", "f"})
+    batches = list(src.batches(batch_rows=1024))
+    assert all(b["i"].encoding is not None for b in batches)
+    assert all(b["f"].encoding is not None for b in batches)
+    assert all(b["u"].encoding is None for b in batches)
+    merged, ref = _concat(batches), read_csv(path)
+    assert merged.num_rows == ref.num_rows
+    for name in ("i", "f", "u"):
+        assert np.array_equal(merged[name].values, ref[name].values)
+        assert np.array_equal(merged[name].mask, ref[name].mask)
+
+
+def test_csv_density_rule_keeps_near_unique_plain(tmp_path):
+    from deequ_tpu_torch.data.source import CSVBatchSource
+
+    path = str(tmp_path / "uniq.csv")
+    _write_csv(path)
+    src = CSVBatchSource(path)
+    assert "u" not in src.encoded_column_names  # near-unique: fails the density rule
+    assert "s" not in src.encoded_column_names  # strings have their own plane
+    empty = str(tmp_path / "empty.csv")
+    with open(empty, "w") as f:
+        f.write("a,b\n")
+    assert CSVBatchSource(empty).encoded_column_names == frozenset()
+
+
+def test_csv_encoded_stream_metrics_match_decoded(tmp_path):
+    """An encoded CSV stream gives the in-memory decoded run's metrics bit
+    for bit (one batch of the stream is one chunk of the in-memory run
+    here: 4,000 rows)."""
+    from deequ_tpu_torch.data.io import read_csv, stream_csv
+
+    path = str(tmp_path / "m.csv")
+    _write_csv(path)
+    analyzers = [port_analyzers.Size(), port_analyzers.Completeness("i"),
+                 port_analyzers.Mean("f"), port_analyzers.Minimum("f"),
+                 port_analyzers.Maximum("f"), port_analyzers.Sum("i")]
+    with use_device("cpu"):
+        ref = PortRunner.do_analysis_run(read_csv(path), analyzers)
+        SCAN_STATS.reset()
+        got = PortRunner.do_analysis_run(stream_csv(path, batch_rows=4000), analyzers)
+        assert SCAN_STATS.encoded_scan_passes == 1
+    assert _metrics(got, analyzers) == _metrics(ref, analyzers)
+
+
+def test_stream_overlap_and_bit_identity(monkeypatch):
+    """The streaming loop double-buffers: every chunk's copy after the
+    first is issued while the previous chunk is staged and not yet scanned,
+    ingest_overlap_frac = (n - 1) / n; the encoded and decoded streams agree
+    bit for bit, the encoded one staging at most half the bytes, and a
+    stream of monoid ops fetches once."""
+    from deequ_tpu_torch.data.streaming import stream_table
+
+    monoid = [port_analyzers.Size(), port_analyzers.Completeness("f"),
+              port_analyzers.Mean("f"), port_analyzers.Minimum("f"),
+              port_analyzers.Maximum("f")]
+
+    def stream(encode):
+        t = _dict_heavy(16000)
+        if encode:
+            t.encode()
+        return stream_table(t, batch_rows=2048)
+
+    with use_device("cpu"):
+        monkeypatch.setenv("DEEQU_TORCH_ENCODED_INGEST", "0")
+        SCAN_STATS.reset()
+        ref = _metrics(PortRunner.do_analysis_run(stream(False), monoid), monoid)
+        raw_staged = SCAN_STATS.bytes_staged
+        assert SCAN_STATS.ingest_overlap_frac >= 0.5
+        monkeypatch.delenv("DEEQU_TORCH_ENCODED_INGEST")
+        SCAN_STATS.reset()
+        got = _metrics(PortRunner.do_analysis_run(stream(True), monoid), monoid)
+        snap = SCAN_STATS.snapshot()
+    assert got == ref
+    assert snap["chunks_staged"] == 8
+    assert snap["ingest_overlap_frac"] == 7 / 8
+    assert 0 < snap["bytes_staged"] * 2 <= raw_staged
+    assert snap["device_fetches"] == 1
+    assert snap["encoded_scan_passes"] == 1
+
+
+def test_stream_layout_demotes_encoding_lost_midstream():
+    """A source whose later batch loses the encoding (a high-cardinality
+    fallback mid-stream) packs that batch decoded; the metrics are those of
+    the whole data."""
+    from deequ_tpu_torch.data.streaming import StreamingTable
+    from deequ_tpu_torch.data.table import Field, Schema
+
+    rng = np.random.default_rng(21)
+    f1 = rng.integers(0, 10, 4000).astype(np.float64)
+    f2 = rng.normal(size=4000)  # not encodable
+    b1 = ColumnarTable([Column("f", DType.FRACTIONAL, values=f1)])
+    b1.encode()
+    b2 = ColumnarTable([Column("f", DType.FRACTIONAL, values=f2)])
+    assert b1["f"].encoding is not None and b2["f"].encoding is None
+
+    class TwoBatchSource:
+        schema = Schema([Field("f", DType.FRACTIONAL)])
+        num_rows = 8000
+        _batch_rows = 4000
+
+        def batches(self, columns=None, batch_rows=None):
+            yield b1
+            yield b2
+
+    analyzers = [port_analyzers.Size(), port_analyzers.Mean("f"), port_analyzers.Minimum("f")]
+    with use_device("cpu"):
+        SCAN_STATS.reset()
+        ctx = PortRunner.do_analysis_run(StreamingTable(TwoBatchSource()), analyzers)
+        assert SCAN_STATS.encoded_scan_passes == 1
+        whole = PortRunner.do_analysis_run(
+            ColumnarTable([Column("f", DType.FRACTIONAL, values=np.concatenate([f1, f2]))]),
+            analyzers)
+    assert ctx.metric(analyzers[0]).value.get() == 8000
+    assert ctx.metric(analyzers[2]).value.get() == np.concatenate([f1, f2]).min()
+    assert ctx.metric(analyzers[1]).value.get() == pytest.approx(
+        whole.metric(analyzers[1]).value.get(), rel=1e-12)
