@@ -258,6 +258,34 @@ Phases, each printed as one JSON line on stdout:
    by ``write_parquet_stream`` (row groups of 2^20) to a temporary
    directory and the main suite over ``stream_parquet`` bit for bit the
    table's stream, else the line says it did not run;
+18. ``spill_path`` (after ``out_of_core_path``) — group memory budgets,
+   checkpoints and quarantine, each part a line of its own with the
+   card's name and power limit: ``config4_spill`` — ``frequency_path``'s
+   config 4 table (``--rows`` rows) streamed in 2^20-row batches with
+   ``build_config4_check()`` under a quarter of the unbudgeted stream's
+   Histogram state bytes (``spill/store.py:state_nbytes``): at least 4
+   spill runs; the Histogram's 1,000 bins, Uniqueness and the state's row
+   count equal numpy's ``bincount`` of the codes; all three metrics bit
+   for bit the unbudgeted stream's and the in-memory run's; the HLL
+   registers K2's plain version's over the codes; the spill counters, the
+   spill directories' peak bytes (sampled every 20 ms), wall, rows/s,
+   host RSS growth, K5 and K2 launches; no spill directory left;
+   ``config2_spill`` — the main suite as a stream under a 32 MiB budget
+   (the id grouping's batch states spill) bit for bit
+   ``config2_stream``'s run, and the table in memory under that budget
+   with its states saved (the ``budget_batch_rows`` slices) bit for bit
+   the in-memory run; ``config2_resume`` — the main suite as a stream
+   checkpointed every 2 batches into a temporary directory: uninterrupted
+   (one fused scan a batch, its fetches at most the checkpoint boundaries
+   + 1, the save walls and file bytes), then a run whose source dies at
+   batch 7, then the resume, which must read from batch 6 and equal the
+   uninterrupted run bit for bit in every metric and leave no checkpoint;
+   ``config2_quarantine`` — the main suite through ``FlakyBatchSource``
+   with batches 3 and 8 unreadable past a 2-retry policy and transient
+   faults on 1, 5 and 9, ``on_batch_error="skip"``: ``skipped_batches``
+   exactly [3, 8], every metric against numpy over the rows that remain
+   (counts exact, sums within 1e-12), and the transient faults alone
+   retried to the uninterrupted run's bits;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge its own entry), the nvidia-smi line, and the result line
@@ -5475,8 +5503,8 @@ def out_of_core_path(table, main_result, seed: int, device, smi: str,
                      sketch_rows: int = SKETCH_STREAM_ROWS) -> dict:
     """Phase ``out_of_core_path`` (module doc): its four parts, each
     printed as a line of its own, each with the launch counts set to 0
-    just before its checked run and read just after; returns the launches
-    summed over the parts and by part."""
+    just before its checked run and read just after; returns (the launches
+    summed over the parts and by part, config2_stream's result)."""
     parts = {}
     t0 = time.perf_counter()
     config2, streamed = ooc_config2(table, main_result, device, smi)
@@ -5494,7 +5522,475 @@ def out_of_core_path(table, main_result, seed: int, device, smi: str,
         for k, v in part.get("kernel_launches", {}).items():
             launches[k] = launches.get(k, 0) + v
     return {"kernel_launches": launches,
-            "by_part": {k: p.get("kernel_launches") for k, p in parts.items()}}
+            "by_part": {k: p.get("kernel_launches") for k, p in parts.items()}}, streamed
+
+
+# -- phase 18: spill_path ----------------------------------------------------
+
+#: part 1: config 4's frequency_path table, streamed in batches of 2^20 rows
+SPILL_BATCH_ROWS = 1 << 20
+#: part 2: the group memory budget config 2 streams under (past its half,
+#: the id grouping set's 2^20-group batch states spill at once)
+CONFIG2_BUDGET = 32 << 20
+#: parts 3 and 4: a checkpoint every 2 batches, a kill at batch 7
+RESUME_EVERY = 2
+RESUME_KILL_AT = 7
+#: part 4: batches that stay unreadable past a 2-retry policy, and
+#: transient faults (reads that fail this many times, then succeed)
+QUARANTINED = (3, 8)
+TRANSIENT = {1: 1, 5: 2, 9: 2}
+
+
+class SpillDirSampler:
+    """The bytes of the spill directories (``deequ_spill_*`` under the
+    temporary directory) that are new since entry, sampled every 20 ms on
+    a thread: ``peak`` their largest total; ``left`` the directories new
+    since entry that are still there at exit."""
+
+    def __enter__(self):
+        import tempfile
+        import threading
+
+        self.root = tempfile.gettempdir()
+        self.before = set(self._dirs())
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _dirs(self):
+        try:
+            return [n for n in os.listdir(self.root) if n.startswith("deequ_spill_")]
+        except OSError:
+            return []
+
+    def _bytes(self) -> int:
+        total = 0
+        for name in self._dirs():
+            if name in self.before:
+                continue
+            path = os.path.join(self.root, name)
+            try:
+                for entry in os.scandir(path):
+                    total += entry.stat().st_size
+            except OSError:
+                pass  # a directory removed while it was read
+        return total
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._bytes())
+
+    def left(self) -> list:
+        import gc
+
+        gc.collect()
+        return sorted(set(self._dirs()) - self.before)
+
+
+def spill_counters() -> dict:
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    return {k: getattr(SCAN_STATS, k) for k in (
+        "spill_runs", "spill_bytes_written", "spill_bytes_read", "spill_merge_passes",
+        "peak_group_state_bytes")}
+
+
+def spill_config4(seed: int, device, smi: str, rows: int) -> dict:
+    """Part 1, ``config4_spill`` (module doc)."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import VerificationSuite, stream_table
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, Histogram
+    from deequ_tpu_torch.ops import hll
+    from deequ_tpu_torch.spill.store import state_nbytes
+    from deequ_tpu_torch.states import InMemoryStateProvider
+
+    label = "spill_path/config4_spill"
+    table = make_config4_table(rows, seed)
+    col = table["key"]
+    counts = np.bincount(col.codes + 1, minlength=len(col.dictionary) + 1)
+    want_hist = numpy_histogram(
+        counts, lambda i: "NullValue" if i == 0 else col.dictionary[i - 1], 1000, rows)
+    want_unique = float((counts == 1).sum()) / rows
+    check = build_config4_check()
+    in_memory = metric_values(VerificationSuite.on_data(table).add_check(check).run())
+
+    plain_states = InMemoryStateProvider()
+    t0 = time.perf_counter()
+    unbudgeted = (VerificationSuite.on_data(stream_table(table, batch_rows=SPILL_BATCH_ROWS))
+                  .add_check(check).save_states_with(plain_states).run())
+    unbudgeted_s = time.perf_counter() - t0
+    hist_bytes = state_nbytes(plain_states.load(Histogram("key", max_detail_bins=1000)))
+    del plain_states
+    budget = hist_bytes // 4
+
+    states = InMemoryStateProvider()
+    suite = (VerificationSuite.on_data(stream_table(table, batch_rows=SPILL_BATCH_ROWS))
+             .add_check(check).save_states_with(states).with_group_memory_budget(budget))
+    kernel_counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RssSampler() as rss, SpillDirSampler() as disk:
+        result = suite.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        spill = spill_counters()
+        got = {m.name: m for m in result.metrics.values()}
+        if distribution_of(got["Histogram"]) != want_hist:
+            fail(f"{label}: the Histogram's 1,000 bins differ from numpy's bincount")
+        if got["Uniqueness"].value.get() != want_unique:
+            fail(f"{label}: Uniqueness {got['Uniqueness'].value.get()} != {want_unique}")
+        num_rows = states.load(Histogram("key", max_detail_bins=1000)).num_rows
+        if num_rows != rows:
+            fail(f"{label}: the spilled Histogram state counts {num_rows} rows, not {rows}")
+        differ = differing_bits(metric_values(unbudgeted), metric_values(result))
+        differ += differing_bits(in_memory, metric_values(result))
+        if differ:
+            fail(f"{label}: the budgeted stream differs from the unbudgeted stream or the "
+                 f"in-memory run in the bits of {sorted(set(differ))}")
+        lut = torch.from_numpy(hll.string_idx_rank_lut(col.dictionary, 9)).to(device)
+        codes = torch.from_numpy(col.codes).to(device)
+        plain = hll.registers_plain(codes, None, 9, lut).cpu().numpy().astype(np.int64)
+        registers = np.asarray(states.load(ApproxCountDistinct("key")).registers, np.int64)
+        if not np.array_equal(registers, plain):
+            fail(f"{label}: the HLL registers differ from K2's plain version")
+        del states, suite, result, got  # the saved spilled states go with them
+    left = disk.left()
+    if left:
+        fail(f"{label}: spill directories left behind: {left}")
+    if spill["spill_runs"] < 4:
+        fail(f"{label}: {spill['spill_runs']} spill runs under a budget of {budget} bytes "
+             f"(a quarter of the Histogram state's {hist_bytes}; want >= 4)")
+    if launches["bincount"] < 1 or launches["hll"] < 1:
+        fail(f"{label}: K5 launched {launches['bincount']} times, K2 {launches['hll']} "
+             f"(want both >= 1)")
+    return {
+        "part": "config4_spill", "card": smi, "rows": rows,
+        "cardinality": len(col.dictionary), "batch_rows": SPILL_BATCH_ROWS,
+        "reduced": {"rows": "BASELINE config 4's 10^8 rows cut to 10^7, as "
+                            "frequency_path (tools/run_spill.py streams all 10^8)"},
+        "histogram_state_bytes_unbudgeted": hist_bytes, "budget_bytes": budget,
+        **spill, "spill_dir_peak_bytes": disk.peak, "spill_dirs_left": 0,
+        "holds": ["Histogram 1,000 bins, Uniqueness, num_rows == numpy bincount",
+                  "3 metrics bit for bit the unbudgeted stream and the in-memory run",
+                  "HLL registers == K2's plain version"],
+        "kernel_launches": launches, "run_wall_s": wall, "rows_per_s": rows / wall,
+        "unbudgeted_stream_wall_s": unbudgeted_s, "host_rss_growth_bytes": rss.growth,
+    }
+
+
+def spill_config2(table, main_result, streamed, device, smi: str) -> dict:
+    """Part 2, ``config2_spill`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import stream_table
+    from deequ_tpu_torch.states import InMemoryStateProvider
+
+    label = "spill_path/config2_spill"
+    stream_suite = (build_suite(stream_table(table, batch_rows=OOC_BATCH_ROWS))
+                    .with_group_memory_budget(CONFIG2_BUDGET))
+    kernel_counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RssSampler() as rss, SpillDirSampler() as disk:
+        result = stream_suite.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        spill = spill_counters()
+        if spill["spill_runs"] < 1:
+            fail(f"{label}: nothing spilled under a budget of {CONFIG2_BUDGET} bytes")
+        differ = differing_bits(metric_values(streamed), metric_values(result))
+        if differ:
+            fail(f"{label}: the budgeted stream differs from config2_stream's run in "
+                 f"the bits of {differ}")
+        del result
+    if disk.left():
+        fail(f"{label}: spill directories left behind: {disk.left()}")
+    k1_require(launches, label)
+    if launches["bincount"] < 1:
+        fail(f"{label}: the groupings' batch counts never launched K5")
+
+    # in memory under the same budget: saving the states takes the
+    # frequency-table route, cut into budget_batch_rows slices
+    kernel_counts_zero()
+    t0 = time.perf_counter()
+    with SpillDirSampler() as disk_mem:
+        mem = (build_suite(table).with_group_memory_budget(CONFIG2_BUDGET)
+               .save_states_with(InMemoryStateProvider()).run())
+        torch.cuda.synchronize()
+        mem_wall = time.perf_counter() - t0
+        mem_launches = kernel_counts()
+        mem_spill = spill_counters()
+        differ = differing_bits(metric_values(main_result), metric_values(mem))
+        if differ:
+            fail(f"{label}: the budgeted in-memory run differs from the in-memory run in "
+                 f"the bits of {differ}")
+        del mem
+    if disk_mem.left():
+        fail(f"{label}: spill directories left behind: {disk_mem.left()}")
+    if mem_spill["spill_runs"] < 1:
+        fail(f"{label}: the budgeted in-memory run spilled nothing")
+    from deequ_tpu_torch.spill import budget_batch_rows
+
+    return {
+        "part": "config2_spill", "card": smi, "rows": table.num_rows,
+        "batch_rows": OOC_BATCH_ROWS, "budget_bytes": CONFIG2_BUDGET,
+        "stream": {**spill, "spill_dir_peak_bytes": disk.peak, "run_wall_s": wall,
+                   "rows_per_s": table.num_rows / wall, "host_rss_growth_bytes": rss.growth,
+                   "bit_for_bit": "config2_stream's 113 metrics"},
+        "in_memory": {**mem_spill, "slice_rows": budget_batch_rows(CONFIG2_BUDGET),
+                      "spill_dir_peak_bytes": disk_mem.peak, "run_wall_s": mem_wall,
+                      "kernel_launches": mem_launches,
+                      "bit_for_bit": "main_path's in-memory 113 metrics"},
+        "kernel_launches": {k: launches[k] + mem_launches[k] for k in launches},
+    }
+
+
+class _Killed(BaseException):
+    """The kill of a run midway: not an Exception, so no failure-as-data
+    layer turns it into metrics."""
+
+
+class KillingSource:
+    """A batch source that dies at batch ``kill_at`` (None: never) and
+    records where every read started."""
+
+    def __init__(self, inner, kill_at=None):
+        self.inner = inner
+        self.kill_at = kill_at
+        self.starts = []
+
+    @property
+    def schema(self):
+        return self.inner.schema
+
+    @property
+    def num_rows(self):
+        return self.inner.num_rows
+
+    @property
+    def _batch_rows(self):
+        return self.inner._batch_rows
+
+    def batches(self, columns=None, batch_rows=None):
+        yield from self.batches_from(0, columns=columns, batch_rows=batch_rows)
+
+    def batches_from(self, start=0, columns=None, batch_rows=None):
+        self.starts.append(start)
+        for idx, batch in enumerate(self.inner.batches_from(start, columns, batch_rows), start):
+            if idx == self.kill_at:
+                raise _Killed(f"killed at batch {idx}")
+            yield batch
+
+
+def timed_checkpointer(directory: str):
+    """A StreamCheckpointer that records each save's wall and file bytes."""
+    from deequ_tpu_torch.resilience import StreamCheckpointer
+
+    class Timed(StreamCheckpointer):
+        def save(self, fingerprint, ckpt):
+            t0 = time.perf_counter()
+            ok = super().save(fingerprint, ckpt)
+            self.walls.append(time.perf_counter() - t0)
+            path = self._path(ckpt.batch_index)
+            self.file_bytes.append(os.path.getsize(path) if ok else 0)
+            return ok
+
+    ck = Timed(directory, every_batches=RESUME_EVERY)
+    ck.walls, ck.file_bytes = [], []
+    return ck
+
+
+def spill_resume(table, device, smi: str, root: str) -> tuple:
+    """Part 3, ``config2_resume`` (module doc). Returns (the part's line,
+    the uninterrupted run's metric values)."""
+    import torch
+
+    from deequ_tpu_torch import StreamingTable
+    from deequ_tpu_torch.data.source import TableBatchSource
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    label = "spill_path/config2_resume"
+    batches = -(-table.num_rows // OOC_BATCH_ROWS)
+    boundaries = batches // RESUME_EVERY
+
+    def stream(kill_at=None):
+        source = KillingSource(TableBatchSource(table, OOC_BATCH_ROWS), kill_at)
+        return source, StreamingTable(source)
+
+    # the uninterrupted checkpointed run (the counts read over this run)
+    ck = timed_checkpointer(os.path.join(root, "uninterrupted"))
+    _, data = stream()
+    kernel_counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RssSampler() as rss:
+        full = build_suite(data).with_checkpoint(ck).run()
+        torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    fetches = SCAN_STATS.deferred_fetches
+    scans = SCAN_STATS.scan_passes
+    k1_require(launches, label)
+    if launches["bincount"] < 1:
+        fail(f"{label}: the groupings' batch counts never launched K5")
+    if ck.saves != boundaries or ck.save_failures:
+        fail(f"{label}: {ck.saves} checkpoints saved, {ck.save_failures} failed "
+             f"(want {boundaries} and 0)")
+    if scans != batches or fetches > boundaries + 1:
+        fail(f"{label}: {scans} fused scans and {fetches} fetches of them over {batches} "
+             f"batches (want {batches} scans, at most {boundaries + 1} fetches)")
+    if os.listdir(ck.directory):
+        fail(f"{label}: a completed run left checkpoints: {os.listdir(ck.directory)}")
+
+    # killed at batch RESUME_KILL_AT, then resumed from the same directory
+    directory = os.path.join(root, "killed")
+    _, data = stream(RESUME_KILL_AT)
+    t0 = time.perf_counter()
+    try:
+        build_suite(data).with_checkpoint(directory, every_batches=RESUME_EVERY).run()
+        fail(f"{label}: the run meant to die at batch {RESUME_KILL_AT} completed")
+    except _Killed:
+        pass
+    killed_wall = time.perf_counter() - t0
+    kept = sorted(os.listdir(directory))
+    source, data = stream()
+    t0 = time.perf_counter()
+    resumed = build_suite(data).with_checkpoint(directory, every_batches=RESUME_EVERY).run()
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    want_start = (RESUME_KILL_AT // RESUME_EVERY) * RESUME_EVERY
+    if source.starts != [want_start]:
+        fail(f"{label}: the resumed run read from batches {source.starts}, want "
+             f"[{want_start}] (the last checkpoint before the kill)")
+    full_values = metric_values(full)
+    differ = differing_bits(full_values, metric_values(resumed))
+    if differ:
+        fail(f"{label}: the resumed run differs from the uninterrupted one in the bits "
+             f"of {differ}")
+    if os.listdir(directory):
+        fail(f"{label}: the resumed run left checkpoints: {os.listdir(directory)}")
+    return {
+        "part": "config2_resume", "card": smi, "rows": table.num_rows,
+        "batches": batches, "every_batches": RESUME_EVERY, "killed_at": RESUME_KILL_AT,
+        "checkpoints_left_by_the_kill": kept, "resumed_from": want_start,
+        "bit_for_bit": f"{len(full_values)} metrics",
+        "checkpoint_file_bytes": ck.file_bytes, "save_wall_s": ck.walls,
+        "fused_scans": scans, "fused_scan_fetches": fetches,
+        "fetch_bound": boundaries + 1, "kernel_launches": launches,
+        "uninterrupted_run_wall_s": full_wall, "killed_run_wall_s": killed_wall,
+        "resumed_run_wall_s": resume_wall, "host_rss_growth_bytes": rss.growth,
+    }, full_values
+
+
+def spill_quarantine(table, clean: dict, device, smi: str) -> dict:
+    """Part 4, ``config2_quarantine`` (module doc): ``clean`` is part 3's
+    uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch import StreamingTable
+    from deequ_tpu_torch.data.source import TableBatchSource
+    from deequ_tpu_torch.data.table import ColumnarTable
+    from deequ_tpu_torch.resilience import FaultSchedule, FlakyBatchSource, RetryPolicy
+
+    label = "spill_path/config2_quarantine"
+    policy = RetryPolicy(max_attempts=3, base_delay=0.001, max_delay=0.01, jitter=0.0)
+    fail_at = {("batch", b): FaultSchedule.PERMANENT for b in QUARANTINED}
+    fail_at.update({("batch", b): n for b, n in TRANSIENT.items()})
+    schedule = FaultSchedule(fail=fail_at)
+    data = StreamingTable(FlakyBatchSource(TableBatchSource(table, OOC_BATCH_ROWS), schedule))
+    kernel_counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = build_suite(data).with_retry_policy(policy).on_batch_error("skip").run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    k1_require(launches, label)
+    if result.skipped_batches != list(QUARANTINED):
+        fail(f"{label}: skipped batches {result.skipped_batches}, want {list(QUARANTINED)}")
+    injected = [k for kind, k, _ in schedule.injected if kind == "ioerror"]
+    for b, n in TRANSIENT.items():
+        if injected.count(("batch", b)) != n:
+            fail(f"{label}: batch {b} failed {injected.count(('batch', b))} times, want {n}")
+    keep = np.ones(table.num_rows, dtype=bool)
+    for b in QUARANTINED:
+        keep[b * OOC_BATCH_ROWS:(b + 1) * OOC_BATCH_ROWS] = False
+    idx = np.nonzero(keep)[0]
+    remaining = ColumnarTable([c.take(idx) for c in table.columns.values()])
+    worst = check_metrics(result, expected_metrics(remaining))
+    del remaining
+
+    # transient faults alone retry to the clean checkpointed run's bits
+    schedule = FaultSchedule(fail={("batch", b): n for b, n in TRANSIENT.items()})
+    data = StreamingTable(FlakyBatchSource(TableBatchSource(table, OOC_BATCH_ROWS), schedule))
+    t0 = time.perf_counter()
+    retried = build_suite(data).with_retry_policy(policy).on_batch_error("skip").run()
+    retried_wall = time.perf_counter() - t0
+    if retried.skipped_batches:
+        fail(f"{label}: transient faults quarantined {retried.skipped_batches}")
+    differ = differing_bits(clean, metric_values(retried))
+    if differ:
+        fail(f"{label}: the retried run differs from the clean run in the bits of {differ}")
+    return {
+        "part": "config2_quarantine", "card": smi, "rows": table.num_rows,
+        "skipped_batches": result.skipped_batches, "transient_failures": TRANSIENT,
+        "retry_policy_attempts": policy.max_attempts,
+        "rows_verified": int(keep.sum()), "worst_rel_err_vs_numpy": worst,
+        "retried_bit_for_bit": f"{len(clean)} metrics", "kernel_launches": launches,
+        "quarantine_run_wall_s": wall, "retried_run_wall_s": retried_wall,
+    }
+
+
+def spill_path(table, main_result, streamed, seed: int, device, smi: str,
+               config4_rows: int) -> dict:
+    """Phase ``spill_path`` (module doc): its four parts, each printed as a
+    line of its own, the launch counts set to 0 just before each part's
+    checked run and read just after; returns the launches summed over the
+    parts and by part."""
+    import tempfile
+
+    parts = {}
+    runs = (
+        ("config4_spill", lambda: spill_config4(seed, device, smi, config4_rows)),
+        ("config2_spill", lambda: spill_config2(table, main_result, streamed, device, smi)),
+    )
+    for name, run in runs:
+        t0 = time.perf_counter()
+        part = run()
+        emit({"phase": "spill_path", **part, "seconds": time.perf_counter() - t0})
+        parts[name] = part
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        part, clean = spill_resume(table, device, smi, root)
+        emit({"phase": "spill_path", **part, "seconds": time.perf_counter() - t0})
+        parts["config2_resume"] = part
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    part = spill_quarantine(table, clean, device, smi)
+    emit({"phase": "spill_path", **part, "seconds": time.perf_counter() - t0})
+    parts["config2_quarantine"] = part
+    launches = {}
+    for part in parts.values():
+        for k, v in part["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"kernel_launches": launches,
+            "by_part": {k: p["kernel_launches"] for k, p in parts.items()}}
 
 
 def nvidia_smi_line() -> str:
@@ -5597,10 +6093,16 @@ def main(argv=None) -> int:
     emit({**prof, "card": smi, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    ooc = out_of_core_path(table, main_result, args.seed, device, smi, 10 * args.rows)
+    ooc, streamed = out_of_core_path(table, main_result, args.seed, device, smi,
+                                     10 * args.rows)
     emit({"phase": "out_of_core_path", "card": smi, **ooc,
           "seconds": time.perf_counter() - t0})
-    del table, main_result
+
+    t0 = time.perf_counter()
+    spill = spill_path(table, main_result, streamed, args.seed, device, smi, args.rows)
+    emit({"phase": "spill_path", "card": smi, **spill,
+          "seconds": time.perf_counter() - t0})
+    del table, main_result, streamed
 
     t0 = time.perf_counter()
     sketch, table, streamed = sketch_path(args.rows, args.seed, device)
@@ -5651,7 +6153,8 @@ def main(argv=None) -> int:
                 "stream_path": stream["kernel_launches"]["bincount"],
                 "repository_path": repo["kernel_launches"]["bincount"],
                 "profile_path": prof["kernel_launches"]["bincount"],
-                "out_of_core_path": ooc["kernel_launches"]["bincount"]}
+                "out_of_core_path": ooc["kernel_launches"]["bincount"],
+                "spill_path": spill["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -5660,7 +6163,8 @@ def main(argv=None) -> int:
                     "stream_path": stream["kernel_launches"]["hll"],
                     "repository_path": repo["kernel_launches"]["hll"],
                     "profile_path": prof["kernel_launches"]["hll"],
-                    "out_of_core_path": ooc["kernel_launches"]["hll"]}
+                    "out_of_core_path": ooc["kernel_launches"]["hll"],
+                    "spill_path": spill["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
@@ -5673,7 +6177,8 @@ def main(argv=None) -> int:
                "stream_path": stream["kernel_launches"],
                "repository_path": repo["kernel_launches"],
                "profile_path": prof["kernel_launches"],
-               "out_of_core_path": ooc["kernel_launches"]}
+               "out_of_core_path": ooc["kernel_launches"],
+               "spill_path": spill["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
     k1_time = res_main["k1_fused_scan"]["k1"]

@@ -176,7 +176,7 @@ class Analyzer(ABC):
         merged as a tree (:class:`StreamStateFolder`) — the merge used
         across partitions and incremental runs, applied across batches.
         Scan-shareable analyzers stream through the fused scan instead."""
-        folder = StreamStateFolder(group_budget(stream))
+        folder = StreamStateFolder()
         for batch in stream.batches(columns=self._stream_columns()):
             folder.add(self.compute_state_from(batch, device))
         return folder.result()
@@ -229,30 +229,6 @@ def merge_states(a: Optional[State], b: Optional[State]) -> Optional[State]:
     return a if a is not None else b
 
 
-#: the share of a group memory budget at which the reference spills a
-#: grouping's frequency state to disk (its ``spill/store.py:SPILL_FRACTION``)
-SPILL_FRACTION = 0.5
-
-
-def group_budget(data) -> Optional[int]:
-    """The group memory budget a stream carries
-    (``StreamingTable.with_group_memory_budget``), else None."""
-    budget = getattr(data, "group_memory_budget", None)
-    return int(budget) if budget is not None else None
-
-
-def _frequency_bytes(state) -> int:
-    """The host bytes of a frequency state's arrays (the reference's
-    ``spill/store.py:state_nbytes``); 0 for any other state."""
-    counts = getattr(state, "counts", None)
-    if counts is None:
-        return 0
-    n = counts.nbytes
-    for values, nulls in zip(state.key_values, state.key_nulls):
-        n += values.nbytes + nulls.nbytes
-    return n
-
-
 class StreamStateFolder:
     """Mergesort-style TREE fold of monoid states across stream batches.
 
@@ -265,18 +241,24 @@ class StreamStateFolder:
     under any association; scalar float states differ at the ulp level
     only, as any distributed fold's do.
 
-    ``budget_bytes``: a group memory budget. The reference spills the
-    frequency states it holds to disk once they pass ``SPILL_FRACTION`` of
-    it (slice 8b of the port); here such a fold raises
-    NotYetPortedException at that point instead of exceeding the budget
-    unannounced."""
+    With ``spill_store`` set (a ``spill.SpillingFrequencyStore``) states
+    route into the store instead: it runs its own tree fold under a byte
+    budget and spills sorted runs to disk past it, so the fold's host
+    memory stays bounded when the merged state is not (high-cardinality
+    frequency tables). ``assume_canonical`` says every added state is
+    already in canonical key order, which the store verifies before it
+    skips a flush's re-sort."""
 
-    def __init__(self, budget_bytes: Optional[int] = None):
+    def __init__(self, spill_store=None, assume_canonical: bool = False):
         self._stack: list = []  # (level, state); levels strictly decrease toward the top
-        self._budget = budget_bytes
+        self._spill_store = spill_store
+        self._assume_canonical = assume_canonical
 
     def add(self, state: Optional[State]) -> None:
         if state is None:  # an all-null batch contributes no state
+            return
+        if self._spill_store is not None:
+            self._spill_store.add(state, canonical=self._assume_canonical)
             return
         level = 0
         while self._stack and self._stack[-1][0] == level:
@@ -284,15 +266,10 @@ class StreamStateFolder:
             state = prev.sum(state)
             level += 1
         self._stack.append((level, state))
-        if self._budget is not None:
-            held = sum(_frequency_bytes(s) for _, s in self._stack)
-            if held >= self._budget * SPILL_FRACTION:
-                raise NotYetPortedException(
-                    f"spilling a grouping state of {held} bytes past its group "
-                    f"memory budget of {self._budget} bytes (slice 8b, spill)"
-                )
 
     def result(self) -> Optional[State]:
+        if self._spill_store is not None:
+            return self._spill_store.result()
         merged: Optional[State] = None
         for _, s in reversed(self._stack):
             merged = s if merged is None else s.sum(merged)

@@ -25,6 +25,7 @@ class AnalysisRunBuilder:
         self._save_key = None
         self._success_metrics_path: Optional[str] = None
         self._overwrite_output_files = False
+        self._group_memory_budget: Optional[int] = None
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -40,6 +41,12 @@ class AnalysisRunBuilder:
 
     def save_states_with(self, state_persister) -> "AnalysisRunBuilder":
         self._save_states_with = state_persister
+        return self
+
+    def with_group_memory_budget(self, budget_bytes: int) -> "AnalysisRunBuilder":
+        """Past ``budget_bytes`` of host memory the grouping states spill
+        to disk as sorted runs and stream back at finalize (``spill/``)."""
+        self._group_memory_budget = int(budget_bytes)
         return self
 
     def use_repository(self, repository) -> "AnalysisRunBuilderWithRepository":
@@ -62,6 +69,7 @@ class AnalysisRunBuilder:
             reuse_existing_results_for_key=self._reuse_key,
             fail_if_results_missing=self._fail_if_results_missing,
             save_or_append_results_with_key=self._save_key,
+            group_memory_budget=self._group_memory_budget,
         )
         if self._success_metrics_path is not None and (
             self._overwrite_output_files

@@ -26,6 +26,7 @@ import numpy as np
 from deequ_tpu_torch.analyzers.base import (
     Analyzer,
     State,
+    StreamStateFolder,
     at_least_one,
     entity_from,
     exactly_n_columns,
@@ -104,6 +105,14 @@ def _column_from_cells(cells: list):
 # single NaN object shared by every canonicalized NaN key: dict lookup
 # succeeds via the identity fast path even though nan != nan
 _CANONICAL_NAN = float("nan")
+
+
+def _is_spilled(state) -> bool:
+    """A disk-backed frequency state (``spill/store.py``)? Imported late:
+    the spill store imports this module for FrequenciesAndNumRows."""
+    from deequ_tpu_torch.spill.store import SpilledFrequencies
+
+    return isinstance(state, SpilledFrequencies)
 
 
 class FrequenciesAndNumRows(State):
@@ -198,6 +207,11 @@ class FrequenciesAndNumRows(State):
         return codes
 
     def sum(self, other: "FrequenciesAndNumRows") -> "FrequenciesAndNumRows":
+        if _is_spilled(other):
+            # the monoid commutes, and SpilledFrequencies.sum takes both
+            # orders without touching arrays a disk-backed state never
+            # materialises
+            return other.sum(self)
         if self.columns != other.columns:
             raise ValueError(
                 f"cannot merge frequency states over different columns: "
@@ -306,9 +320,38 @@ class FrequencyBasedAnalyzer(Analyzer):
     ) -> Optional[FrequenciesAndNumRows]:
         return group_counts_state(table, self.group_columns, device)
 
+    def compute_state_from_stream(self, stream, device):
+        """The frequency state folded a batch. Under a group memory budget
+        (``StreamingTable.with_group_memory_budget``, or the
+        ``DEEQU_TORCH_GROUP_MEMORY_BUDGET`` variable) each batch's state is
+        a canonical sorted delta folded into a ``SpillingFrequencyStore``:
+        host memory stays within max(budget, one batch's delta) whatever
+        the number of distinct groups."""
+        from deequ_tpu_torch.spill import SpillingFrequencyStore, resolve_group_budget
+
+        budget = resolve_group_budget(stream)
+        store = (
+            SpillingFrequencyStore(tuple(self.group_columns), budget)
+            if budget is not None else None
+        )
+        folder = StreamStateFolder(spill_store=store, assume_canonical=store is not None)
+        try:
+            for batch in stream.batches(columns=self._stream_columns()):
+                folder.add(self._batch_state(batch, device, canonicalize=store is not None))
+            return folder.result()
+        except BaseException:
+            if store is not None:
+                store.release()  # a failed fold's runs must not outlive it
+            raise
+
+    def _batch_state(self, batch: ColumnarTable, device, canonicalize: bool = False):
+        return group_counts_state(
+            batch, self.group_columns, device, canonicalize=canonicalize
+        )
+
     def _stream_columns(self) -> List[str]:
-        # a stream folds one frequency state a batch
-        # (Analyzer.compute_state_from_stream), reading these columns alone
+        # a stream folds one frequency state a batch, reading these
+        # columns alone
         return list(self.group_columns)
 
 
@@ -340,6 +383,18 @@ class ScanShareableFrequencyBasedAnalyzer(FrequencyBasedAnalyzer):
             return self.to_failure_metric(
                 EmptyStateException(f"Empty state for analyzer {self!r}.")
             )
+        if _is_spilled(state):
+            # a disk-backed state: a function of the count distribution
+            # reads the CountStats streamed off the merged runs (one disk
+            # pass, cached, shared by a grouping's analyzers); a subclass
+            # that implements compute_from_frequencies alone gets the
+            # materialised table
+            if (
+                type(self).compute_from_count_stats
+                is not ScanShareableFrequencyBasedAnalyzer.compute_from_count_stats
+            ):
+                return self.metric_from_count_stats(state.count_stats())
+            state = state.to_frequencies()
         try:
             value = self.compute_from_frequencies(state)
         except Exception as e:  # noqa: BLE001 — failure is data
@@ -495,6 +550,12 @@ class MutualInformation(FrequencyBasedAnalyzer):
             return self.to_failure_metric(
                 EmptyStateException(f"Empty state for analyzer {self!r}.")
             )
+        if _is_spilled(state):
+            try:
+                mi = self._mi_from_blocks(state)
+            except Exception as e:  # noqa: BLE001 — failure is data
+                return self.to_failure_metric(e)
+            return metric_from_value(mi, "MutualInformation", self.instance, Entity.MULTICOLUMN)
         # marginals by bincount over the factorized key columns, then one
         # fused log expression over the valid joint groups
         total = state.num_rows
@@ -508,6 +569,48 @@ class MutualInformation(FrequencyBasedAnalyzer):
         py = marginal_b[code_b[valid]] / total
         mi = float(np.sum(pxy * np.log(pxy / (px * py))))
         return metric_from_value(mi, "MutualInformation", self.instance, Entity.MULTICOLUMN)
+
+    @staticmethod
+    def _mi_from_blocks(state) -> float:
+        """MI over a spilled joint table in two streaming passes: the first
+        sums each column's marginal counts (a dict of distinct value ->
+        count, O(|A| + |B|) memory; the joint's groups never
+        materialise), the second sums pxy · log(pxy / (px · py)) a block.
+        The float sum associates by blocks, so the value is the in-memory
+        one to within ulps."""
+        total = state.num_rows
+        marginals: List[Dict[object, int]] = [{}, {}]
+        for kv, kn, counts in state.blocks():
+            for side in (0, 1):
+                valid = ~kn[side]
+                if not valid.any():
+                    continue
+                vals = kv[side][valid]
+                if vals.dtype.kind == "f":
+                    uniq, inv = np.unique(vals, return_inverse=True, equal_nan=True)
+                else:
+                    uniq, inv = np.unique(vals, return_inverse=True)
+                sums = np.bincount(inv.reshape(-1), weights=counts[valid].astype(np.float64))
+                m = marginals[side]
+                for v, c in zip(uniq.tolist(), sums.tolist()):
+                    if isinstance(v, float) and v != v:
+                        v = _CANONICAL_NAN  # nan != nan breaks dict keys
+                    m[v] = m.get(v, 0) + int(c)
+        mi = 0.0
+        for kv, kn, counts in state.blocks():
+            valid = ~(kn[0] | kn[1])
+            if not valid.any():
+                continue
+            cells = [
+                [_CANONICAL_NAN if isinstance(v, float) and v != v else v
+                 for v in kv[side][valid].tolist()]
+                for side in (0, 1)
+            ]
+            px = np.array([marginals[0][v] for v in cells[0]], np.float64) / total
+            py = np.array([marginals[1][v] for v in cells[1]], np.float64) / total
+            pxy = counts[valid].astype(np.float64) / total
+            mi += float(np.sum(pxy * np.log(pxy / (px * py))))
+        return mi
 
     def to_failure_metric(self, exception: Exception) -> DoubleMetric:
         return metric_from_failure(
@@ -621,6 +724,11 @@ class Histogram(FrequencyBasedAnalyzer):
             counts, table.num_rows,
         )
 
+    def _batch_state(self, batch: ColumnarTable, device, canonicalize: bool = False):
+        # the state's labels are np.unique-sorted strings with no null:
+        # canonical order already, so a spill folds it without a re-sort
+        return self.compute_state_from(batch, device)
+
     def calculate(
         self, table: ColumnarTable, device=None, aggregate_with=None,
         save_states_with=None,
@@ -668,6 +776,8 @@ class Histogram(FrequencyBasedAnalyzer):
             return self.to_failure_metric(
                 EmptyStateException(f"Empty state for analyzer {self!r}.")
             )
+        if _is_spilled(state):
+            return self._metric_from_blocks(state)
 
         def build() -> Distribution:
             # top-N by count over the counts vector; only the selected
@@ -698,6 +808,42 @@ class Histogram(FrequencyBasedAnalyzer):
                     int(counts[g]), int(counts[g]) / state.num_rows
                 )
             return Distribution(details, number_of_bins=state.num_groups)
+
+        return HistogramMetric(self.column, Try.of(build))
+
+    def _metric_from_blocks(self, state) -> HistogramMetric:
+        """Top-N over a spilled state's streamed blocks. Truncating a
+        stream under the total order (count descending, stringified key
+        ascending) is exact — the top N of a union is the top N of its
+        parts' top Ns — and it selects the bins the in-memory state path
+        selects (every group above the boundary count, boundary ties by
+        stringified key), so the Distribution is the same."""
+
+        def build() -> Distribution:
+            k = self.max_detail_bins
+            best = None  # (counts, string keys, values, nulls), at most k
+            total_bins = 0
+            for kv, kn, counts in state.blocks():
+                total_bins += len(counts)
+                # the str(cell) order of the in-memory tie-break (numpy's
+                # float repr is Python's str)
+                strk = np.where(kn[0], "None", kv[0].astype(np.str_))
+                cand = (counts, strk, kv[0], kn[0])
+                if best is not None:
+                    cand = tuple(np.concatenate([b, c]) for b, c in zip(best, cand))
+                # np.lexsort sorts by its LAST key first: count descending,
+                # then key ascending
+                order = np.lexsort((cand[1], -cand[0]))[:k]
+                best = tuple(a[order] for a in cand)
+            details = {}
+            if best is not None:
+                counts, _strk, values, nulls = best
+                for g in range(len(counts)):
+                    cell = _cell_to_python(values[g], bool(nulls[g]))
+                    details[cell] = DistributionValue(
+                        int(counts[g]), int(counts[g]) / state.num_rows
+                    )
+            return Distribution(details, number_of_bins=total_bins)
 
         return HistogramMetric(self.column, Try.of(build))
 

@@ -30,9 +30,23 @@ batches is ``analyzers/incremental.py``.
 Over a StreamingTable (reference L625-712, L1229-1265): the fused scan
 streams; the own-pass analyzers share ONE read of the stream, each folding
 its state a batch; each grouping set folds one frequency table a batch
-(the count-statistics shortcut needs the whole table's counts). The
-reference's resilient stream loop (``checkpoint``, ``on_batch_error``,
-``on_device_error``) is slice 8c of the port and not here.
+(the count-statistics shortcut needs the whole table's counts).
+
+Under a group memory budget (``group_memory_budget=``, the stream's
+``with_group_memory_budget``, or ``DEEQU_TORCH_GROUP_MEMORY_BUDGET``) those
+frequency folds go through a ``spill.SpillingFrequencyStore``: past the
+budget they spill sorted runs to disk and stream them back merged at
+finalize. A budgeted in-memory table whose grouping would build its
+frequency table is cut into ``budget_batch_rows`` slices and takes the
+same fold; the count-statistics route is not affected by a budget.
+
+With ``checkpoint=`` or ``on_batch_error="skip"`` a stream takes the
+resilient loop (``_run_streaming_resilient``, reference L716-1150): one
+read for every analyzer, the fused scan a batch deferred and fetched at
+checkpoint boundaries, host fold stacks checkpointed and resumed, and
+batches that cannot be read quarantined and reported on
+``AnalyzerContext.skipped_batches``. ``on_device_error`` takes "fail"
+only here: the reference's device fault ladder is slice 8c.
 
 Metrics repositories (reference L116-134, L192-202): with
 ``reuse_existing_results_for_key`` the metrics the repository holds for
@@ -53,7 +67,6 @@ from deequ_tpu_torch.analyzers.base import (
     State,
     StreamStateFolder,
     find_first_failing,
-    group_budget,
     merge_states,
 )
 from deequ_tpu_torch.analyzers.grouping import (
@@ -64,6 +77,8 @@ from deequ_tpu_torch.analyzers.grouping import (
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
 from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.exceptions import (
+    GroupBudgetIgnoredWarning,
+    MetricCalculationRuntimeException,
     NotYetPortedException,
     ReusingNotPossibleResultsMissingException,
     wrap_if_necessary,
@@ -96,18 +111,29 @@ def _count_stats_capable(analyzer: Analyzer) -> bool:
 
 @dataclass
 class AnalyzerContext:
-    """Result map Analyzer -> Metric (reference AnalyzerContext.scala:29-105)."""
+    """Result map Analyzer -> Metric (reference AnalyzerContext.scala:29-105).
+
+    ``skipped_batches``: the stream batch indices the resilient loop
+    quarantined (``on_batch_error="skip"``) — skipped data is reported
+    (``VerificationResult.skipped_batches``), never dropped silently."""
 
     metric_map: Dict[Analyzer, Metric] = field(default_factory=dict)
+    skipped_batches: List[int] = field(default_factory=list)
 
     @staticmethod
     def empty() -> "AnalyzerContext":
         return AnalyzerContext({})
 
+    def all_metrics(self) -> List[Metric]:
+        return list(self.metric_map.values())
+
     def __add__(self, other: "AnalyzerContext") -> "AnalyzerContext":
         merged = dict(self.metric_map)
         merged.update(other.metric_map)
-        return AnalyzerContext(merged)
+        skipped = list(self.skipped_batches)
+        seen = set(skipped)
+        skipped += [i for i in other.skipped_batches if i not in seen]
+        return AnalyzerContext(merged, skipped)
 
     def metric(self, analyzer: Analyzer) -> Optional[Metric]:
         return self.metric_map.get(analyzer)
@@ -145,6 +171,27 @@ class AnalyzerContext:
         )
 
 
+def _release_spill(folder) -> None:
+    """Free a fold's spill directory when its ``result()`` will never run
+    (a failed fold, an aborted pass)."""
+    store = getattr(folder, "_spill_store", None)
+    if store is not None:
+        store.release()
+
+
+def _spilling_folder(columns, budget: Optional[int]) -> StreamStateFolder:
+    """A fold of frequency states over ``columns``: through a spill store
+    under ``budget`` (its states canonical deltas), else in memory."""
+    if budget is None:
+        return StreamStateFolder()
+    from deequ_tpu_torch.spill import SpillingFrequencyStore
+
+    return StreamStateFolder(
+        spill_store=SpillingFrequencyStore(tuple(columns), budget),
+        assume_canonical=True,
+    )
+
+
 def _save_or_append_result(metrics_repository, result_key, ctx) -> None:
     """Append ctx's metrics to the repository's entry for result_key: the
     one load-combine-save sequence every runner path shares."""
@@ -178,6 +225,10 @@ class AnalysisRunner:
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key=None,
         retry_policy=None,
+        group_memory_budget: Optional[int] = None,
+        checkpoint=None,
+        on_batch_error: str = "fail",
+        on_device_error: str = "fail",
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
@@ -193,7 +244,31 @@ class AnalysisRunner:
 
         ``data`` may be a StreamingTable (module doc); ``retry_policy`` (a
         ``resilience.retry.RetryPolicy``) then runs its batch reads under
-        that policy."""
+        that policy.
+
+        ``group_memory_budget`` (bytes; also the table's
+        ``group_memory_budget`` or ``DEEQU_TORCH_GROUP_MEMORY_BUDGET``)
+        bounds the host memory of grouping states: past it frequency
+        states spill to disk as sorted runs and merge back streamed at
+        finalize (``spill/``). None: unbounded.
+
+        On a stream: ``checkpoint`` (a ``resilience.StreamCheckpointer`` or
+        a directory) persists the fold states every ``every_batches``
+        batches, and a run killed midway resumes from its last checkpoint
+        with the metrics an uninterrupted checkpointed run gives, bit for
+        bit; ``on_batch_error="skip"`` quarantines batches whose reads keep
+        failing past the retries (reported on ``skipped_batches``) instead
+        of failing the run. ``on_device_error`` other than "fail" raises
+        NotYetPortedException (the device fault ladder, slice 8c)."""
+        if on_device_error != "fail":
+            raise NotYetPortedException(
+                f"on_device_error={on_device_error!r} (the device fault ladder: "
+                f"a CPU fallback, deadlines and retries of device faults; slice 8c)"
+            )
+        if on_batch_error not in ("fail", "skip"):
+            raise ValueError(
+                f"on_batch_error must be 'fail' or 'skip', got {on_batch_error!r}"
+            )
         dev = resolve_device(device)
         if not analyzers:
             return AnalyzerContext.empty()
@@ -228,10 +303,35 @@ class AnalysisRunner:
             else:
                 failure_ctx.metric_map[analyzer] = analyzer.to_failure_metric(exc)
 
-        # (3) split (reference L148-153)
+        # (3) split (reference L148-153); the grouping analyzers share one
+        # computation per distinct sorted grouping-column set (L175-190)
         grouping = [a for a in passed if _is_grouping_shared(a)]
         scanning = [a for a in passed if isinstance(a, ScanShareableAnalyzer)]
         own_pass = [a for a in passed if a not in grouping and a not in scanning]
+        by_grouping: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
+        for analyzer in grouping:
+            key = tuple(sorted(analyzer.group_columns))
+            by_grouping.setdefault(key, []).append(analyzer)
+
+        from deequ_tpu_torch.spill import budget_batch_rows, resolve_group_budget
+
+        budget = resolve_group_budget(data, group_memory_budget)
+
+        # the resilient stream loop: checkpoints and quarantine need the
+        # fold states of every analyzer on the host, so all of them share
+        # one batch loop (reference L319-341)
+        if streaming and (checkpoint is not None or on_batch_error != "fail"):
+            resilient_ctx = AnalysisRunner._run_streaming_resilient(
+                data, scanning, own_pass, by_grouping, dev,
+                aggregate_with, save_states_with, budget=budget,
+                checkpoint=checkpoint, on_batch_error=on_batch_error,
+                retry_policy=retry_policy,
+            )
+            result = results_loaded + failure_ctx + resilient_ctx
+            _save_or_append_result(
+                metrics_repository, save_or_append_results_with_key, result
+            )
+            return result
 
         # (4) one fused scan for all shareable analyzers (reference L289-336)
         scan_ctx = AnalysisRunner._run_scanning_analyzers(
@@ -239,28 +339,37 @@ class AnalysisRunner:
         )
 
         # (5) own-pass analyzers (reference L155-160); on a stream they
-        # share one read
+        # share one read. A budgeted in-memory table cuts its frequency-
+        # shaped own-pass states (Histogram) into budget-sized slices and
+        # takes the spilling stream fold, as the grouping sets do.
+        own_ctx = AnalyzerContext.empty()
         if streaming and own_pass:
-            own_ctx = AnalysisRunner._run_own_pass_streaming(
-                data, own_pass, dev, aggregate_with, save_states_with
+            own_ctx += AnalysisRunner._run_own_pass_streaming(
+                data, own_pass, dev, aggregate_with, save_states_with, budget
             )
-        else:
-            own_ctx = AnalyzerContext({
-                a: a.calculate(data, dev, aggregate_with, save_states_with)
-                for a in own_pass
-            })
+        elif own_pass:
+            spillable: List[Analyzer] = []
+            if budget is not None and data.num_rows > budget_batch_rows(budget):
+                spillable = [a for a in own_pass if isinstance(a, FrequencyBasedAnalyzer)]
+            if spillable:
+                from deequ_tpu_torch.data.streaming import stream_table
 
-        # (6) one computation per distinct sorted grouping-column set
-        # (reference L175-190)
-        by_grouping: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
-        for analyzer in grouping:
-            key = tuple(sorted(analyzer.group_columns))
-            by_grouping.setdefault(key, []).append(analyzer)
+                own_ctx += AnalysisRunner._run_own_pass_streaming(
+                    stream_table(data, budget_batch_rows(budget)), spillable, dev,
+                    aggregate_with, save_states_with, budget,
+                )
+            for a in own_pass:
+                if a not in spillable:
+                    own_ctx.metric_map[a] = a.calculate(
+                        data, dev, aggregate_with, save_states_with
+                    )
+
+        # (6) one computation per grouping set
         group_ctx = AnalyzerContext.empty()
         for group_key, group_analyzers in by_grouping.items():
             group_ctx += AnalysisRunner._run_grouping_analyzers(
                 data, list(group_key), group_analyzers, dev,
-                aggregate_with, save_states_with,
+                aggregate_with, save_states_with, budget,
             )
         result = results_loaded + failure_ctx + scan_ctx + own_ctx + group_ctx
 
@@ -273,13 +382,15 @@ class AnalysisRunner:
     @staticmethod
     def _run_own_pass_streaming(
         data, analyzers: Sequence[Analyzer], device,
-        aggregate_with=None, save_states_with=None,
+        aggregate_with=None, save_states_with=None, budget: Optional[int] = None,
     ) -> AnalyzerContext:
         """Every own-pass analyzer's state folded over ONE read of the
         stream (the columns any of them needs), not one read each
         (reference L625-712). An analyzer whose batch state raises drops
         out with a failure metric and the others go on; an error of the
-        read itself fails them all (the shared-scan rule)."""
+        read itself fails them all (the shared-scan rule). Under
+        ``budget`` a frequency-shaped state (Histogram, whose states are
+        sorted labels: canonical) folds through a spill store."""
         columns: Optional[set] = set()
         for a in analyzers:
             cols = a._stream_columns()
@@ -287,8 +398,11 @@ class AnalysisRunner:
                 columns = None
                 break
             columns.update(cols)
-        budget = group_budget(data)
-        folders = {a: StreamStateFolder(budget) for a in analyzers}
+        folders = {
+            a: _spilling_folder(a.group_columns, budget)
+            if isinstance(a, FrequencyBasedAnalyzer) else StreamStateFolder()
+            for a in analyzers
+        }
         failed: Dict[Analyzer, Exception] = {}
         try:
             for batch in data.batches(
@@ -303,15 +417,19 @@ class AnalysisRunner:
                         raise
                     except Exception as e:  # noqa: BLE001 — failure is data
                         failed[a] = e
-        except NotYetPortedException:
-            raise
-        except Exception as e:  # noqa: BLE001 — the read failed every analyzer
-            wrapped = wrap_if_necessary(e)
+        except BaseException as e:
+            # spill directories must not outlive the pass
+            for f in folders.values():
+                _release_spill(f)
+            if isinstance(e, NotYetPortedException) or not isinstance(e, Exception):
+                raise
+            wrapped = wrap_if_necessary(e)  # the read failed every analyzer
             return AnalyzerContext({a: a.to_failure_metric(wrapped) for a in analyzers})
         ctx = AnalyzerContext.empty()
         for a in analyzers:
             if a in failed:
                 ctx.metric_map[a] = a.to_failure_metric(wrap_if_necessary(failed[a]))
+                _release_spill(folders[a])  # its result() never runs
             else:
                 ctx.metric_map[a] = a.calculate_metric(
                     folders[a].result(), aggregate_with, save_states_with
@@ -338,11 +456,13 @@ class AnalysisRunner:
         data: ColumnarTable,
         analyzers: Sequence[ScanShareableAnalyzer],
         device,
+        defer: bool = False,
     ):
         """Build the ops and run the fused scan. Returns (ctx holding the
         failures, scannable, plan, results); results is None when nothing
         scanned or the scan failed (its failure then maps onto every
-        participating analyzer, reference L320-323)."""
+        participating analyzer, reference L320-323). ``defer``: results is
+        a ``scan_engine.DeferredScan``, not yet fetched."""
         ctx = AnalyzerContext.empty()
         ops, scannable, op_failures = AnalysisRunner._build_scan_ops(data, analyzers)
         for analyzer, err in op_failures.items():
@@ -351,7 +471,7 @@ class AnalysisRunner:
             return ctx, [], [], None
         exec_ops, plan = AnalysisRunner._coalesce_scan_ops(ops)
         try:
-            results = run_scan(data, exec_ops, device)
+            results = run_scan(data, exec_ops, device, defer=defer)
         except Exception as e:  # noqa: BLE001 — failure is data
             wrapped = wrap_if_necessary(e)
             for a in scannable:
@@ -436,6 +556,306 @@ class AnalysisRunner:
         return exec_ops, plan
 
     @staticmethod
+    def _run_streaming_resilient(
+        data,
+        scanning: Sequence[ScanShareableAnalyzer],
+        own_pass: Sequence[Analyzer],
+        by_grouping: Dict[Tuple[str, ...], List],
+        device,
+        aggregate_with=None,
+        save_states_with=None,
+        budget: Optional[int] = None,
+        checkpoint=None,
+        on_batch_error: str = "fail",
+        retry_policy=None,
+    ) -> AnalyzerContext:
+        """One resilient loop over the stream for every kind of analyzer
+        (scan-shareable, own pass, grouping), with the fold states on the
+        host so they can be checkpointed (reference L716-1150):
+
+        - batch reads run through ``resilient_batches``: a transient error
+          retries with a backoff and a reopen at the batch; past the
+          retries the pass fails (the shared-scan rule) or, with
+          ``on_batch_error="skip"``, the batch index is quarantined;
+        - the scan-shareable analyzers share one fused scan a batch; it is
+          deferred, and the batches' scans since the last boundary are
+          fetched together (``fetch_deferred``) at each checkpoint
+          boundary, or every 8 batches without checkpoints — their states
+          fold on the host in batch order;
+        - every ``checkpoint.every_batches`` batches the fold stacks are
+          saved, atomic and checksummed; a run starts from the newest
+          valid checkpoint of its fingerprint and resumes at its batch
+          index. The stacks are the fold state, so a resumed run gives an
+          uninterrupted checkpointed run's metrics bit for bit.
+
+        Under ``budget`` the frequency folds spill, except in a
+        checkpointed run: a spill store's runs are not checkpointed, so
+        the budget is ignored there with a GroupBudgetIgnoredWarning."""
+        from deequ_tpu_torch.data.source import TableBatchSource
+        from deequ_tpu_torch.ops.scan_engine import fetch_deferred
+        from deequ_tpu_torch.resilience.checkpoint import (
+            StreamCheckpoint,
+            StreamCheckpointer,
+            run_fingerprint,
+        )
+        from deequ_tpu_torch.resilience.retry import resilient_batches, resolve_retry_policy
+
+        if isinstance(checkpoint, str):
+            checkpoint = StreamCheckpointer(checkpoint)
+        policy = resolve_retry_policy(data, retry_policy)
+
+        # equal analyzers fold once (their fold keys are equal)
+        scanning = list(dict.fromkeys(scanning))
+        own_pass = list(dict.fromkeys(own_pass))
+        by_grouping = {g: list(dict.fromkeys(a)) for g, a in by_grouping.items()}
+        per_analyzer = scanning + own_pass
+
+        if budget is not None and checkpoint is not None:
+            import warnings
+
+            warnings.warn(
+                "group_memory_budget is ignored for checkpointed streaming runs: "
+                "spilled frequency state cannot be checkpointed; frequency folds "
+                "stay in host RAM",
+                GroupBudgetIgnoredWarning,
+                stacklevel=3,
+            )
+            budget = None
+
+        keys = {a: f"analyzer::{a!r}" for a in per_analyzer}
+        group_keys = {g: "group::" + ",".join(g) for g in by_grouping}
+        folders: Dict[str, StreamStateFolder] = {}
+        for a in scanning:
+            folders[keys[a]] = StreamStateFolder()
+        for a in own_pass:
+            folders[keys[a]] = (
+                _spilling_folder(a.group_columns, budget)
+                if isinstance(a, FrequencyBasedAnalyzer) else StreamStateFolder()
+            )
+        for g in by_grouping:
+            folders[group_keys[g]] = _spilling_folder(g, budget)
+
+        # column pruning: the union of every fold's columns (None: all)
+        columns: Optional[set] = set()
+        for a in per_analyzer:
+            cols = a._stream_columns()
+            if cols is None:
+                columns = None
+                break
+            columns.update(cols)
+        if columns is not None:
+            for g in by_grouping:
+                columns.update(g)
+            if not columns and len(data.schema.column_names):
+                # a lone Size() prunes to no column, and a batch of no
+                # column cannot carry its row count: read one
+                columns.add(data.schema.column_names[0])
+        read_cols = sorted(columns) if columns is not None else None
+
+        # the fingerprint: fold keys, batch geometry and the identity the
+        # source shows (file paths, its row count), looked up through
+        # wrappers (``.inner``) — a checkpoint of other data must not
+        # resume this run
+        batch_rows = getattr(data, "preferred_batch_rows", None)
+        src = getattr(data, "source", None)
+        src_id = None
+        probe, depth = src, 0
+        while probe is not None and src_id is None and depth < 8:
+            src_id = getattr(probe, "paths", None) or getattr(probe, "path", None)
+            probe = getattr(probe, "inner", None)
+            depth += 1
+        try:
+            known_rows = src.num_rows if src is not None else None
+        except Exception:  # noqa: BLE001 — identity is best effort
+            known_rows = None
+        fingerprint = run_fingerprint(sorted(folders), (batch_rows, src_id, known_rows))
+
+        # the exact batch count where it is knowable (a source cut by
+        # rows): it tells an unreadable batch from a failing probe of the
+        # stream's end
+        innermost, depth = src, 0
+        while hasattr(innermost, "inner") and depth < 8:
+            innermost = innermost.inner
+            depth += 1
+        max_batches = None
+        if isinstance(innermost, TableBatchSource) and known_rows is not None and batch_rows:
+            max_batches = max((known_rows + batch_rows - 1) // batch_rows, 1)
+
+        start = 0
+        skipped: List[int] = []
+        failed: Dict[Analyzer, Metric] = {}
+        failed_groups: Dict[Tuple[str, ...], Exception] = {}
+        if checkpoint is not None:
+            recovered = checkpoint.load_latest(fingerprint)
+            if recovered is not None:
+                start = recovered.batch_index
+                skipped = list(recovered.skipped)
+                for key, stack in recovered.stacks.items():
+                    if key in folders:
+                        folders[key]._stack = list(stack)
+                # failures stay failed on resume: a success metric over a
+                # gap of batches would be wrong
+                key_to_analyzer = {k: a for a, k in keys.items()}
+                key_to_group = {k: g for g, k in group_keys.items()}
+                for key, msg in recovered.failed.items():
+                    exc = MetricCalculationRuntimeException(
+                        f"{msg} (failed before the checkpoint at batch "
+                        f"{recovered.batch_index}; kept failed on resume)"
+                    )
+                    if key in key_to_analyzer:
+                        a = key_to_analyzer[key]
+                        failed[a] = a.to_failure_metric(exc)
+                    elif key in key_to_group:
+                        failed_groups[key_to_group[key]] = exc
+
+        drain_every = checkpoint.every_batches if checkpoint is not None else 8
+        pending: List[Tuple] = []  # (scannable, plan, DeferredScan)
+
+        def fail_scan(scannable, err) -> None:
+            wrapped = wrap_if_necessary(err)
+            for a in scannable:
+                if a not in failed:
+                    failed[a] = a.to_failure_metric(wrapped)
+
+        def drain_pending() -> None:
+            """One fetch of every pending batch scan, folded in batch order;
+            a scan that fails fails its analyzers (sticky), the others and
+            later batches go on."""
+            if not pending:
+                return
+            entries = list(pending)
+            pending.clear()
+            try:
+                fetch_deferred([scan for _, _, scan in entries])
+            except Exception as e:  # noqa: BLE001 — scoped to these scans
+                for scannable, _, _ in entries:
+                    fail_scan(scannable, e)
+                return
+            for scannable, plan, scan in entries:
+                try:
+                    results = scan.result()
+                except Exception as e:  # noqa: BLE001
+                    fail_scan(scannable, e)
+                    continue
+                for a, (exec_idx, extract) in zip(scannable, plan):
+                    if a in failed:
+                        continue
+                    try:
+                        r = results[exec_idx]
+                        if extract is not None:
+                            r = extract(r)
+                        folders[keys[a]].add(a.state_from_scan_result(r))
+                    except Exception as e:  # noqa: BLE001
+                        failed[a] = a.to_failure_metric(wrap_if_necessary(e))
+
+        def fold_batch(batch) -> None:
+            alive = [a for a in scanning if a not in failed]
+            if alive:
+                sctx, scannable, plan, scan = AnalysisRunner._dispatch_scanning_analyzers(
+                    batch, alive, device, defer=True
+                )
+                failed.update(sctx.metric_map)
+                if scan is not None:
+                    pending.append((scannable, plan, scan))
+            for a in own_pass:
+                if a in failed:
+                    continue
+                try:
+                    folders[keys[a]].add(a.compute_state_from(batch, device))
+                except NotYetPortedException:
+                    raise
+                except Exception as e:  # noqa: BLE001 — failure is data
+                    failed[a] = a.to_failure_metric(wrap_if_necessary(e))
+            for g in by_grouping:
+                if g in failed_groups:
+                    continue
+                folder = folders[group_keys[g]]
+                try:
+                    folder.add(group_counts_state(
+                        batch, list(g), device,
+                        canonicalize=folder._spill_store is not None,
+                    ))
+                except Exception as e:  # noqa: BLE001 — failure is data
+                    failed_groups[g] = wrap_if_necessary(e)
+
+        got_any = start > 0
+        try:
+            for idx, batch in resilient_batches(
+                lambda i: data.batches_from(i, columns=read_cols),
+                policy,
+                on_batch_error=on_batch_error,
+                quarantined=skipped,
+                start=start,
+                max_batches=max_batches,
+            ):
+                got_any = True
+                fold_batch(batch)
+                n_done = idx + 1
+                due = checkpoint is not None and checkpoint.due(n_done)
+                if due or len(pending) >= drain_every:
+                    drain_pending()
+                if due:
+                    failed_msgs = {
+                        keys[a]: str(getattr(m.value, "exception", m.value))
+                        for a, m in failed.items()
+                    }
+                    failed_msgs.update({group_keys[g]: str(e) for g, e in failed_groups.items()})
+                    checkpoint.save(fingerprint, StreamCheckpoint(
+                        n_done, list(skipped),
+                        {k: list(f._stack) for k, f in folders.items()}, failed_msgs,
+                    ))
+            if not got_any and not skipped:
+                # an empty stream: fold one empty batch so counting
+                # analyzers give their identity metrics (Size = 0)
+                from deequ_tpu_torch.data.streaming import empty_table
+
+                schema = data.schema if read_cols is None else Schema(
+                    [data.schema[c] for c in read_cols]
+                )
+                fold_batch(empty_table(schema))
+            drain_pending()  # the batches since the last boundary
+        except BaseException as e:
+            # spill directories must not outlive the run; checkpoints
+            # written so far stay for the resume
+            for f in folders.values():
+                _release_spill(f)
+            if isinstance(e, NotYetPortedException) or not isinstance(e, Exception):
+                raise
+            wrapped = wrap_if_necessary(e)  # the read failed every analyzer
+            ctx = AnalyzerContext({a: a.to_failure_metric(wrapped) for a in per_analyzer})
+            for group_analyzers in by_grouping.values():
+                for a in group_analyzers:
+                    ctx.metric_map[a] = a.to_failure_metric(wrapped)
+            ctx.skipped_batches = list(skipped)
+            return ctx
+
+        ctx = AnalyzerContext.empty()
+        for a in per_analyzer:
+            if a in failed:
+                ctx.metric_map[a] = failed[a]
+                _release_spill(folders[keys[a]])  # its result() never runs
+            else:
+                ctx.metric_map[a] = a.calculate_metric(
+                    folders[keys[a]].result(), aggregate_with, save_states_with
+                )
+        for g, group_analyzers in by_grouping.items():
+            if g in failed_groups:
+                for a in group_analyzers:
+                    ctx.metric_map[a] = a.to_failure_metric(failed_groups[g])
+                _release_spill(folders[group_keys[g]])
+            else:
+                merged = folders[group_keys[g]].result()
+                for a in group_analyzers:
+                    ctx.metric_map[a] = a.calculate_metric(
+                        merged, aggregate_with, save_states_with
+                    )
+        ctx.skipped_batches = list(skipped)
+        if checkpoint is not None:
+            # the run completed: a later run of this directory starts fresh
+            checkpoint.clear()
+        return ctx
+
+    @staticmethod
     def _run_grouping_analyzers(
         data: ColumnarTable,
         grouping_columns: List[str],
@@ -443,22 +863,30 @@ class AnalysisRunner:
         device,
         aggregate_with=None,
         save_states_with=None,
+        budget: Optional[int] = None,
     ) -> AnalyzerContext:
         """The count statistics when no state is loaded or saved and every
         analyzer of the set is a function of the count distribution (group
         values never decode), else the frequency table, merged and saved
         as asked (reference L1266-1331). Over a stream the frequency
         table folds a batch at a time (reference L1229-1265): the count
-        statistics need the whole table's counts."""
+        statistics need the whole table's counts. Under ``budget`` that
+        fold spills (each batch's state a canonical delta), and an
+        in-memory table that would build its frequency table is cut into
+        ``budget_batch_rows`` slices and takes it; the count statistics
+        are not affected by a budget."""
         if getattr(data, "is_streaming", False):
+            folder = _spilling_folder(grouping_columns, budget)
             try:
-                folder = StreamStateFolder(group_budget(data))
                 for batch in data.batches(columns=grouping_columns):
-                    folder.add(group_counts_state(batch, grouping_columns, device))
+                    folder.add(group_counts_state(
+                        batch, grouping_columns, device, canonicalize=budget is not None
+                    ))
                 merged = folder.result()
-            except NotYetPortedException:
-                raise
-            except Exception as e:  # noqa: BLE001 — failure is data
+            except BaseException as e:
+                _release_spill(folder)  # a failed fold must not leak its runs
+                if isinstance(e, NotYetPortedException) or not isinstance(e, Exception):
+                    raise
                 wrapped = wrap_if_necessary(e)
                 return AnalyzerContext({a: a.to_failure_metric(wrapped) for a in analyzers})
             return AnalyzerContext({
@@ -470,6 +898,16 @@ class AnalysisRunner:
             and save_states_with is None
             and all(_count_stats_capable(a) for a in analyzers)
         )
+        if not count_stats and budget is not None:
+            from deequ_tpu_torch.data.streaming import stream_table
+            from deequ_tpu_torch.spill import budget_batch_rows
+
+            batch_rows = budget_batch_rows(budget)
+            if data.num_rows > batch_rows:
+                return AnalysisRunner._run_grouping_analyzers(
+                    stream_table(data, batch_rows), grouping_columns, analyzers,
+                    device, aggregate_with, save_states_with, budget,
+                )
         try:
             if count_stats:
                 stats = group_count_stats(data, grouping_columns, device)

@@ -65,12 +65,11 @@ class StreamingTable:
         self.source = source
         self._transforms = list(transforms or [])
         self._schema = schema_override or source.schema
-        # the host bytes a grouping's frequency state may hold before the
-        # reference spills it to disk (slice 8b); a run that would spill
-        # raises NotYetPortedException (analyzers/base.py:StreamStateFolder)
+        # the host bytes a grouping's frequency state may hold before it
+        # spills sorted runs to disk (spill/store.py)
         self.group_memory_budget = group_memory_budget
         # the batch-read retry policy a with_retry handle reads under (the
-        # reference's resilient stream loop also reads it: slice 8c)
+        # resilient stream loop reads it too: resolve_retry_policy)
         self.retry_policy = retry_policy
 
     # -- the schema surface (everything the planner touches) ----------------
@@ -184,10 +183,9 @@ class StreamingTable:
         )
 
     def with_group_memory_budget(self, budget_bytes: int) -> "StreamingTable":
-        """A new handle carrying a host budget for grouping states. The
-        reference spills frequency states to disk past it; the port keeps
-        them in memory and raises NotYetPortedException (slice 8b) where a
-        run would spill."""
+        """A new handle whose grouping analyses spill frequency states to
+        disk past ``budget_bytes`` of host memory (``spill/``): host memory
+        stays bounded whatever the number of distinct groups."""
         return StreamingTable(
             self.source,
             self._transforms,

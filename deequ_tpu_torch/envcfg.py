@@ -139,3 +139,8 @@ MONITOR = register(EnvVar(
     doc="0 disables QualityMonitor observation process-wide (saves are "
         "unaffected; alerts stop)",
 ))
+GROUP_MEMORY_BUDGET = register(EnvVar(
+    "DEEQU_TORCH_GROUP_MEMORY_BUDGET", "int", default=None, minimum=1,
+    doc="host bytes a grouping's frequency state may hold before it "
+        "spills sorted runs to disk (spill/store.py)",
+))

@@ -101,6 +101,14 @@ class ReusingNotPossibleResultsMissingException(
     some requested analyzer results (reference AnalysisRunner.scala:552)."""
 
 
+class GroupBudgetIgnoredWarning(UserWarning):
+    """``group_memory_budget`` was configured together with checkpointing:
+    a spill store's runs are not checkpointed, so spill is disabled and
+    frequency folds stay in host RAM. Emitted once a run, never a batch;
+    the category lets a deployment silence or escalate it through the
+    warnings filters."""
+
+
 class NotYetPortedException(MetricCalculationException, NotImplementedError):
     """A constraint or analyzer of the reference package that this port
     does not carry yet. Raised when a check is BUILT with it, so a suite

@@ -196,7 +196,16 @@ class ScanStats:
     counts the fold's gather drains to the host before a stream's end,
     ``kll_compactions`` the host compactions of gathered KLL summaries
     (one an op and drain, the stream's end included) and
-    ``kll_midscan_compactions`` those made at a drain before the end."""
+    ``kll_midscan_compactions`` those made at a drain before the end.
+
+    Spill (``spill/``, the reference's meanings): ``spill_runs`` sorted
+    runs written, ``spill_bytes_written`` / ``spill_bytes_read`` their
+    bytes to and from disk, ``spill_merge_passes`` the merge cascade's
+    disk passes, ``peak_group_state_bytes`` the largest in-memory
+    grouping tail a spill store held (what a group memory budget bounds).
+    ``deferred_fetches`` counts the fetches of :func:`fetch_deferred`,
+    each draining the deferred scans of a resilient stream's batches
+    since the last checkpoint boundary."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -237,6 +246,14 @@ class ScanStats:
         self.fold_drains = 0
         self.kll_compactions = 0
         self.kll_midscan_compactions = 0
+        # the spill engine (spill/)
+        self.spill_runs = 0
+        self.spill_bytes_written = 0
+        self.spill_bytes_read = 0
+        self.spill_merge_passes = 0
+        self.peak_group_state_bytes = 0
+        # deferred scans (run_scan(defer=True), fetch_deferred)
+        self.deferred_fetches = 0
 
     @property
     def ingest_overlap_frac(self) -> float:
@@ -554,12 +571,15 @@ class _DeviceFoldPlan:
         elem = self._merged(self._acc, flat) if self.elem_size else self._acc
         return torch.cat([elem, flat[self._gather_src]])
 
+    def flat_result(self) -> torch.Tensor:
+        """The fold's result as one new device vector: the accumulator,
+        then the gathered chunks."""
+        return torch.cat([self._acc, self._gathered[: self._filled].reshape(-1)])
+
     def fetch_unflatten(self) -> List[Dict[str, np.ndarray]]:
         """The scan's one device->host fetch, unpacked into per-op dicts of
         numpy leaves (gather leaves stacked over chunks)."""
-        (host,) = fetch(
-            torch.cat([self._acc, self._gathered[: self._filled].reshape(-1)])
-        )
+        (host,) = fetch(self.flat_result())
         return self.unflatten(host, self._filled)
 
     def unflatten(self, host: np.ndarray, filled: int,
@@ -745,6 +765,58 @@ def _resident_cache(table, device, needed, chunk_rows) -> Optional[DeviceTableCa
     return cache
 
 
+class DeferredScan:
+    """A fused scan of an in-memory table whose kernels are queued and
+    whose fold is not fetched yet (``run_scan(defer=True)``): it holds the
+    scan's flat vector on the device, a tensor of its own (never a view of
+    a buffer that is refilled). :func:`fetch_deferred` fetches several at
+    once; :meth:`result` gives this one's leaves (fetching it alone if no
+    one did), or raises what went wrong when they were unpacked."""
+
+    def __init__(self, fold: "_DeviceFoldPlan", vector: torch.Tensor, filled: int):
+        self._fold = fold
+        self._vector = vector
+        self._filled = filled
+        self._results: Optional[List[Dict[str, np.ndarray]]] = None
+        self._error: Optional[BaseException] = None
+
+    @property
+    def done(self) -> bool:
+        return self._vector is None
+
+    def _settle(self, host: np.ndarray) -> None:
+        self._vector = None
+        try:
+            self._results = self._fold.unflatten(host, self._filled)
+        except Exception as e:  # noqa: BLE001 — kept for result()
+            self._error = e
+
+    def result(self) -> List[Dict[str, np.ndarray]]:
+        if not self.done:
+            fetch_deferred([self])
+        if self._error is not None:
+            raise self._error
+        return self._results
+
+
+def fetch_deferred(scans: Sequence[DeferredScan]) -> None:
+    """Fetch every pending scan of ``scans`` in ONE device->host copy: their
+    vectors are concatenated on the device, and each slice is unpacked
+    into its scan's leaves in order. A scan whose unpacking fails keeps
+    its error for :meth:`DeferredScan.result`; the others are not
+    touched by it."""
+    pending = [s for s in scans if not s.done]
+    if not pending:
+        return
+    sizes = [int(s._vector.numel()) for s in pending]
+    (host,) = fetch(torch.cat([s._vector for s in pending]))
+    SCAN_STATS.deferred_fetches += 1
+    off = 0
+    for scan, size in zip(pending, sizes):
+        scan._settle(host[off:off + size])
+        off += size
+
+
 def run_scan(
     table,
     ops: Sequence[ScanOp],
@@ -752,7 +824,8 @@ def run_scan(
     chunk_rows: Optional[int] = None,
     select_kernel: Optional[bool] = None,
     encoded_ingest: Optional[bool] = None,
-) -> List[Dict[str, np.ndarray]]:
+    defer: bool = False,
+):
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
     device->host fetch. A table persisted on ``device`` is read from its
@@ -767,9 +840,15 @@ def run_scan(
     through a double buffer behind a reader thread, the fold draining its
     gather leaves to the host every :data:`STREAM_FOLD_CAPACITY` chunks —
     one fetch for a stream of monoid ops. Its KLL ops sort, as every
-    non-resident scan's do."""
+    non-resident scan's do.
+
+    ``defer=True`` (an in-memory table) queues the scan and returns a
+    :class:`DeferredScan` instead of fetching: the resilient stream loop
+    fetches its batches' scans together at a checkpoint boundary."""
     device = torch.device(device)
     if getattr(table, "is_streaming", False):
+        if defer:
+            raise ValueError("run_scan(defer=True) takes an in-memory table")
         return _run_scan_stream(table, ops, device, chunk_rows, encoded_ingest)
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
@@ -816,6 +895,8 @@ def run_scan(
                 fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
             fold.merge(fold.flatten(partials, row_valid))
         SCAN_STATS.chunks_processed += 1
+    if defer:
+        return DeferredScan(fold, fold.flat_result(), fold._filled)
     results = fold.fetch_unflatten()
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results

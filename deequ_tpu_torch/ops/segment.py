@@ -411,10 +411,13 @@ def _freq_state_from_digits(
     group_counts_vec: np.ndarray,
     value_arrays: List[np.ndarray],
     num_rows: int,
+    canonicalize: bool = False,
 ):
     """Digit codes + counts -> columnar ``FrequenciesAndNumRows``: each
     column's group values decode by one gather into its typed distinct
-    array (digit 0 = null)."""
+    array (digit 0 = null). ``canonicalize``: the rows come out in
+    canonical key order (``spill/order.py``), checked in O(G) and sorted
+    on the host only where the check fails."""
     from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
 
     key_values = []
@@ -425,6 +428,14 @@ def _freq_state_from_digits(
         else:
             key_values.append(np.zeros(len(digits), dtype=values.dtype))
         key_nulls.append(digits == 0)
+    if canonicalize:
+        from deequ_tpu_torch.spill.order import is_strictly_ascending, merge_add_sorted
+
+        if not is_strictly_ascending(key_values, key_nulls):
+            kv, kn, group_counts_vec = merge_add_sorted(
+                [(tuple(key_values), tuple(key_nulls), group_counts_vec)]
+            )
+            key_values, key_nulls = list(kv), list(kn)
     return FrequenciesAndNumRows(
         tuple(columns), tuple(key_values), tuple(key_nulls),
         group_counts_vec, num_rows,
@@ -473,14 +484,23 @@ def group_counts_state(
     columns: Sequence[str],
     device,
     require_any_non_null: bool = True,
+    canonicalize: bool = False,
 ):
     """The frequency table of a grouping as a columnar
-    ``FrequenciesAndNumRows`` (reference ``group_counts_state`` with
-    ``canonicalize=False``; GroupingAnalyzers.scala:53-79): dense key
-    spaces count on the card (the CUDA histogram) and decode the present
-    slots by mixed-radix digits; sparse ones take the device run-length
-    route. Group values decode by vectorized gathers — no per-group
-    Python loop."""
+    ``FrequenciesAndNumRows`` (reference ``group_counts_state``;
+    GroupingAnalyzers.scala:53-79): dense key spaces count on the card
+    (the CUDA histogram) and decode the present slots by mixed-radix
+    digits; sparse ones take the device run-length route. Group values
+    decode by vectorized gathers — no per-group Python loop.
+
+    ``canonicalize=True`` emits the state as a sorted delta in canonical
+    key order (first column most significant, nulls first, values
+    ascending, NaN last: the order ``FrequenciesAndNumRows.sum``
+    produces), which the spill store folds into runs without a re-sort.
+    Numeric columns come off both routes in that order already (a digit
+    is a value-ascending rank); a string column's codes follow its
+    dictionary, whose order is arbitrary, so the delta is checked in O(G)
+    and sorted on the host only where the check fails."""
     SCAN_STATS.grouping_passes += 1
     SCAN_STATS.rows_scanned += table.num_rows
 
@@ -499,8 +519,16 @@ def group_counts_state(
         )
         groups_mat, group_counts_vec = _device_matrix_rle(matrix, valid, device)
         digit_cols = list(groups_mat)
+        if canonicalize and len(digit_cols) > 1:
+            # the run-length route sorts the last column most significant;
+            # the digits are canonical ranks, so order them first-column
+            # major on the host (O(G))
+            order = np.lexsort(tuple(reversed(digit_cols)))
+            digit_cols = [d[order] for d in digit_cols]
+            group_counts_vec = group_counts_vec[order]
     return _freq_state_from_digits(
-        columns, digit_cols, group_counts_vec, prep.value_arrays, prep.num_rows
+        columns, digit_cols, group_counts_vec, prep.value_arrays, prep.num_rows,
+        canonicalize,
     )
 
 

@@ -97,7 +97,7 @@ def atomic_write_bytes(
 ) -> None:
     """Write ``data`` to ``path`` by temp file + fsync + rename on ``fs``:
     readers see the old complete file or the new one, never a prefix.
-    Runs under ``retry`` (a RetryPolicy; DEFAULT_IO_RETRY when None)."""
+    Runs under ``retry`` (a RetryPolicy; the process default when None)."""
     from deequ_tpu_torch.resilience.retry import retry_call
 
     what = what or f"write {path}"

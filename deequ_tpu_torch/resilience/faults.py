@@ -1,0 +1,231 @@
+"""Deterministic fault injection — the test double for unreliable storage
+(the port's copy of the I/O half of ``deequ_tpu/resilience/faults.py``;
+its device half, ``InjectedDeviceError`` and ``FaultInjectingScanHook``,
+belongs to the device fault ladder, slice 8c of the port).
+
+The resilience layer's claims (retry exhaustion, checksum detection,
+quarantine, checkpoint and resume) are testable only if faults can be
+produced on schedule. ``FaultSchedule`` decides an operation at a time —
+explicitly (``fail={key: n_failures}``) or pseudo-randomly from a seed by
+a pure hash, so two schedules with the same seed and the same sequence of
+operations inject the same faults. ``FaultInjectingFileSystem`` wraps any
+FileSystem (register it for a scheme with
+``data.fs.register_filesystem``); ``FlakyBatchSource`` wraps any
+BatchSource with faults a batch index.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+from deequ_tpu_torch.data.fs import FileSystem
+from deequ_tpu_torch.data.source import BatchSource
+
+FaultKey = Tuple  # e.g. ("batch", 3) or ("open", "fault://dir/metrics.json")
+
+
+class InjectedIOError(IOError):
+    """Marker subclass so tests can tell injected faults from real ones."""
+
+
+class FaultSchedule:
+    """Seeded, reproducible decisions about which operations fail.
+
+    - ``fail``: explicit map FaultKey -> how many first attempts raise
+      (``math.inf`` = permanent fault).
+    - ``torn``: explicit map FaultKey -> fraction of the payload a write
+      actually persists (0.5 tears the file in half).
+    - ``error_rate`` / ``torn_rate``: pseudo-random injection; the
+      decision is a pure function of (seed, key, attempt) so replays are
+      bit-identical.
+    - ``delay_seconds`` (+ optional ``delay_rate``): slow reads.
+
+    Every injection is appended to ``injected`` (kind, key, attempt) —
+    the reproducibility assertions compare these logs.
+    """
+
+    def __init__(
+        self,
+        seed: int = 0,
+        fail: Optional[Dict[FaultKey, float]] = None,
+        torn: Optional[Dict[FaultKey, float]] = None,
+        error_rate: float = 0.0,
+        torn_rate: float = 0.0,
+        delay_seconds: float = 0.0,
+        delay_rate: float = 1.0,
+    ):
+        self.seed = seed
+        self.fail = dict(fail or {})
+        self.torn = dict(torn or {})
+        self.error_rate = float(error_rate)
+        self.torn_rate = float(torn_rate)
+        self.delay_seconds = float(delay_seconds)
+        self.delay_rate = float(delay_rate)
+        self.injected: List[Tuple[str, FaultKey, int]] = []
+        self._attempts: Dict[FaultKey, int] = {}
+
+    def _prf(self, salt: str, key: FaultKey, attempt: int) -> float:
+        raw = repr((self.seed, salt, key, attempt)).encode()
+        h = hashlib.sha1(raw).digest()
+        return int.from_bytes(h[:8], "little") / 2.0 ** 64
+
+    def check(self, key: FaultKey) -> None:
+        """One operation attempt on ``key``: maybe sleep, maybe raise."""
+        attempt = self._attempts.get(key, 0)
+        self._attempts[key] = attempt + 1
+        if self.delay_seconds and self._prf("delay", key, attempt) < self.delay_rate:
+            self.injected.append(("delay", key, attempt))
+            time.sleep(self.delay_seconds)
+        explicit = self.fail.get(key)
+        if explicit is not None and attempt < explicit:
+            self.injected.append(("ioerror", key, attempt))
+            raise InjectedIOError(f"injected fault: {key} attempt {attempt}")
+        if self.error_rate and self._prf("fail", key, attempt) < self.error_rate:
+            self.injected.append(("ioerror", key, attempt))
+            raise InjectedIOError(f"injected fault: {key} attempt {attempt}")
+
+    def torn_fraction(self, key: FaultKey) -> Optional[float]:
+        """Non-None when this write should tear; counts its own attempt."""
+        attempt = self._attempts.get(key, 0)
+        self._attempts[key] = attempt + 1
+        explicit = self.torn.get(key)
+        if explicit is not None:
+            del self.torn[key]  # explicit tears fire once
+            self.injected.append(("torn", key, attempt))
+            return float(explicit)
+        if self.torn_rate and self._prf("torn", key, attempt) < self.torn_rate:
+            self.injected.append(("torn", key, attempt))
+            return 0.5
+        return None
+
+    PERMANENT = math.inf
+
+
+class _TornWriter:
+    """File-handle proxy that persists only a prefix of what was written —
+    the observable effect of a crash mid-write without atomic rename."""
+
+    def __init__(self, inner, fraction: float, binary: bool):
+        self._inner = inner
+        self._fraction = fraction
+        self._buf: list = []
+        self._binary = binary
+
+    def write(self, data) -> int:
+        self._buf.append(data)
+        return len(data)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        joined = (b"" if self._binary else "").join(self._buf)
+        keep = int(len(joined) * self._fraction)
+        self._inner.write(joined[:keep])
+        self._inner.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class FaultInjectingFileSystem(FileSystem):
+    """Wraps an inner FileSystem, injecting the schedule's faults on each
+    operation. Register for a scheme to aim it at any persistence layer::
+
+        fs = FaultInjectingFileSystem(InMemoryFileSystem(), schedule)
+        register_filesystem("fault", lambda path: fs)
+        repo = FileSystemMetricsRepository("fault://metrics.json")
+
+    Fault keys: ("open", path), ("write", path) for tears, ("exists"|
+    "listdir"|"delete"|"rename"|"makedirs", path).
+    """
+
+    def __init__(self, inner: FileSystem, schedule: FaultSchedule):
+        self.inner = inner
+        self.schedule = schedule
+
+    def open(self, path: str, mode: str = "rb"):
+        self.schedule.check(("open", path))
+        handle = self.inner.open(path, mode)
+        if "w" in mode or "a" in mode:
+            fraction = self.schedule.torn_fraction(("write", path))
+            if fraction is not None:
+                return _TornWriter(handle, fraction, binary="b" in mode)
+        return handle
+
+    def exists(self, path: str) -> bool:
+        self.schedule.check(("exists", path))
+        return self.inner.exists(path)
+
+    def makedirs(self, path: str) -> None:
+        self.schedule.check(("makedirs", path))
+        self.inner.makedirs(path)
+
+    def listdir(self, path: str) -> List[str]:
+        self.schedule.check(("listdir", path))
+        return self.inner.listdir(path)
+
+    def delete(self, path: str) -> None:
+        self.schedule.check(("delete", path))
+        self.inner.delete(path)
+
+    def rename(self, src: str, dst: str) -> None:
+        self.schedule.check(("rename", dst))
+        self.inner.rename(src, dst)
+
+    def join(self, *parts: str) -> str:
+        return self.inner.join(*parts)
+
+
+class FlakyBatchSource(BatchSource):
+    """BatchSource wrapper injecting faults per absolute batch index.
+
+    The fault fires BEFORE the underlying batch is consumed, so a retry
+    (reopen at the same index) re-reads the real data — exactly the shape
+    of a transient storage error. Fault keys are ``("batch", index)``;
+    pair with ``FaultSchedule(fail={("batch", 3): 2})`` for 'batch 3
+    fails twice then reads fine' or ``FaultSchedule.PERMANENT`` for a
+    poisoned batch only quarantine can get past.
+    """
+
+    def __init__(self, inner: BatchSource, schedule: FaultSchedule):
+        self.inner = inner
+        self.schedule = schedule
+
+    @property
+    def schema(self):
+        return self.inner.schema
+
+    @property
+    def num_rows(self):
+        return self.inner.num_rows
+
+    @property
+    def _batch_rows(self):
+        return getattr(self.inner, "_batch_rows", None)
+
+    def batches(self, columns=None, batch_rows=None):
+        yield from self.batches_from(0, columns=columns, batch_rows=batch_rows)
+
+    def batches_from(self, start: int = 0, columns=None, batch_rows=None):
+        idx = start
+        inner_it = None
+        while True:
+            self.schedule.check(("batch", idx))
+            if inner_it is None:
+                inner_it = self.inner.batches_from(
+                    idx, columns=columns, batch_rows=batch_rows
+                )
+            try:
+                batch = next(inner_it)
+            except StopIteration:
+                return
+            yield batch
+            idx += 1

@@ -1,11 +1,14 @@
 """RetryPolicy — exponential backoff, jitter and a deadline for transient
 I/O; the port's subset of ``deequ_tpu/resilience/retry.py``:
-``RetryPolicy``, ``retry_call``, ``RetryingFileSystem`` (a FileSystem
-proxy whose every operation runs under the policy — the state providers'
-storage), and the batch reads of a stream (``resilient_batches``,
-``RetryingBatchSource``). The reference's process default policy,
-``RetryTelemetry``, its run-budget charge and the quarantine of
-unreadable batches come with the resilient stream loop (slice 8c).
+``RetryPolicy``, ``retry_call`` (one-shot I/O: filesystem and spill-run
+opens), the process default policy (``default_retry_policy``,
+``set_default_retry_policy``, ``resolve_retry_policy``),
+``RetryingFileSystem`` (a FileSystem proxy whose every operation runs
+under the policy — the state providers' storage), and the batch reads of
+a stream (``resilient_batches`` with the quarantine of unreadable batches
+the resilient stream loop uses, ``RetryingBatchSource``). The reference's
+``RetryTelemetry`` and its run-budget charge belong to its device fault
+ladder (slice 8c of the port) and are not here.
 
 Jitter draws from a policy-owned ``random.Random(seed)``, so identical
 failure sequences sleep identical schedules.
@@ -79,11 +82,59 @@ class RetryPolicy:
 # the storage layer's default: quick, bounded, and free on healthy storage
 DEFAULT_IO_RETRY = RetryPolicy(max_attempts=3, base_delay=0.02, max_delay=0.5)
 
+# the process default (a deployment may turn retrying off, say under a
+# fault-injection harness testing the unretried paths)
+_default_policy: Optional[RetryPolicy] = DEFAULT_IO_RETRY
+
+
+def default_retry_policy() -> Optional[RetryPolicy]:
+    return _default_policy
+
+
+def set_default_retry_policy(policy: Optional[RetryPolicy]) -> None:
+    """Install the process-wide storage retry policy (None disables)."""
+    global _default_policy
+    _default_policy = policy
+
 
 def retry_call(fn: Callable, policy: Optional[RetryPolicy] = None,
                what: str = "operation"):
-    """``fn()`` under ``policy`` (DEFAULT_IO_RETRY when None)."""
-    return (policy or DEFAULT_IO_RETRY).call(fn, what=what)
+    """``fn()`` under ``policy`` (or the process default; with no policy at
+    all, one plain call)."""
+    policy = policy if policy is not None else _default_policy
+    if policy is None:
+        return fn()
+    return policy.call(fn, what=what)
+
+
+def resolve_retry_policy(data=None, explicit: Optional[RetryPolicy] = None):
+    """The policy of a stream's batch reads: the explicit argument, else
+    the table's (``StreamingTable.with_retry``), else the process
+    default."""
+    if explicit is not None:
+        return explicit
+    attr = getattr(data, "retry_policy", None)
+    if attr is not None:
+        return attr
+    return _default_policy
+
+
+def _quarantinable(exc: BaseException) -> bool:
+    """Errors that mean "this batch cannot be read or decoded", which
+    ``on_batch_error="skip"`` may quarantine: I/O errors, typed corruption
+    and the Arrow readers' decoding errors. Any other exception is a bug
+    and propagates."""
+    if isinstance(exc, DEFAULT_RETRY_ON):
+        return True
+    from deequ_tpu_torch.exceptions import CorruptStateException
+
+    if isinstance(exc, CorruptStateException):
+        return True
+    try:  # decoding errors of the Arrow readers (torn or corrupt pages)
+        import pyarrow as pa
+    except ImportError:
+        return False
+    return isinstance(exc, pa.lib.ArrowException)
 
 
 class RetryingFileSystem:
@@ -132,43 +183,82 @@ class RetryingFileSystem:
 def resilient_batches(
     make_iter: Callable[[int], Iterator],
     policy: Optional[RetryPolicy],
+    on_batch_error: str = "fail",
+    quarantined: Optional[List[int]] = None,
     start: int = 0,
-) -> Iterator:
-    """The batches of ``make_iter``, each read under ``policy``.
+    max_consecutive_skips: int = 16,
+    max_batches: Optional[int] = None,
+) -> Iterator[Tuple[int, object]]:
+    """``(index, batch)`` of ``make_iter``, each read under ``policy``.
 
     ``make_iter(i)`` returns a fresh iterator positioned at batch index
     ``i`` (``BatchSource.batches_from``): batch boundaries are fixed for a
     fixed ``batch_rows``. On a retryable error the iterator reopens at the
     failing index after a backoff, so a retried read yields the same
-    batches, in the same order, as a clean one; when the attempts or the
-    deadline run out, RetryExhaustedException. Any other error propagates
-    at once. (The reference's quarantine of unreadable batches is the
-    resilient stream loop's, slice 8c.)"""
+    batches, in the same order, as a clean one. When the attempts or the
+    deadline run out: ``on_batch_error="fail"`` raises
+    RetryExhaustedException; ``"skip"`` records the index in
+    ``quarantined`` and goes on at the next one — a poisoned batch costs
+    its rows, not the run. An error the policy does not retry quarantines
+    at once when it is quarantinable (``_quarantinable``), else it
+    propagates; a RetryExhaustedException of an inner retry layer counts
+    as exhausted here (its attempts are not multiplied).
+
+    ``max_consecutive_skips`` bounds the optimism: a source that is dead
+    fails every index, and skipping forever would never reach its end,
+    so past that many quarantines in a row with no read between them the
+    pass fails. ``max_batches`` (when the caller knows the batch count)
+    tells an unreadable batch from an error of the end-of-stream probe:
+    an error at an index past the last real batch ends the iteration."""
+    if on_batch_error not in ("fail", "skip"):
+        raise ValueError(
+            f"on_batch_error must be 'fail' or 'skip', got {on_batch_error!r}"
+        )
     cur = start
     attempts = 0
+    consecutive_skips = 0
     t0 = time.monotonic()
     while True:
         it = make_iter(cur)
         try:
             for batch in it:
-                yield batch
+                yield cur, batch
                 cur += 1
                 attempts = 0
+                consecutive_skips = 0
                 t0 = time.monotonic()
             return
         except Exception as e:  # noqa: BLE001 — filtered below, re-raised
-            # an inner retry layer already spent its attempts on this
-            # batch: do not multiply them
-            if (isinstance(e, RetryExhaustedException) or policy is None
-                    or not policy.is_retryable(e)):
+            if max_batches is not None and cur >= max_batches:
+                return  # every real batch was read: the probe of the end failed
+            exhausted = isinstance(e, RetryExhaustedException)
+            retryable = not exhausted and policy is not None and policy.is_retryable(e)
+            skippable = on_batch_error == "skip" and (exhausted or _quarantinable(e))
+            if not retryable and not skippable:
                 raise
             attempts += 1
-            out_of_budget = attempts >= policy.max_attempts or (
-                policy.deadline is not None and time.monotonic() - t0 >= policy.deadline
-            )
-            if out_of_budget:
+            out_of_budget = exhausted or not retryable or attempts >= policy.max_attempts
+            if policy is not None and policy.deadline is not None:
+                out_of_budget = out_of_budget or time.monotonic() - t0 >= policy.deadline
+            if not out_of_budget:
+                time.sleep(policy.delay_for(attempts - 1))
+                continue
+            if on_batch_error != "skip":
                 raise RetryExhaustedException(f"batch {cur} read", attempts, e) from e
-            time.sleep(policy.delay_for(attempts - 1))
+            consecutive_skips += 1
+            if consecutive_skips > max_consecutive_skips:
+                raise RetryExhaustedException(
+                    f"{consecutive_skips} consecutive batches unreadable (through "
+                    f"batch {cur}) — the source looks permanently dead, not "
+                    f"patchily flaky",
+                    attempts,
+                    e,
+                ) from e
+            if quarantined is not None:
+                quarantined.append(cur)
+            cur += 1
+            attempts = 0
+            t0 = time.monotonic()
 
 
 class RetryingBatchSource:
@@ -205,6 +295,7 @@ class RetryingBatchSource:
                                         batch_rows=batch_rows)
 
     def batches_from(self, start: int = 0, columns=None, batch_rows=None):
-        yield from resilient_batches(
+        for _idx, batch in resilient_batches(
             lambda i: self._inner_from(i, columns, batch_rows), self.policy, start=start
-        )
+        ):
+            yield batch

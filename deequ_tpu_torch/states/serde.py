@@ -11,9 +11,9 @@ v2 appends the KLL compaction-RNG position (``rng_count``, 0 in v1
 blobs); v3 encodes FrequenciesAndNumRows as columnar blocks (one typed
 array a grouping column plus a counts vector; v1/v2 per-cell payloads
 still decode); v4 appends the HLL ``hash_version`` (1 in older blobs).
-Tag 13, the reference's disk-backed ``SpilledFrequencies``, belongs to
-its spill engine, which the port does not carry yet: decoding it raises
-NotYetPortedException.
+Tag 13 is the disk-backed ``SpilledFrequencies`` (``spill/store.py``):
+its payload streams run blocks in and out and never builds the whole
+table.
 """
 
 from __future__ import annotations
@@ -24,12 +24,11 @@ from typing import Callable, Dict, Tuple, Type
 import numpy as np
 
 from deequ_tpu_torch.analyzers.base import State
-from deequ_tpu_torch.exceptions import NotYetPortedException
 
 MAGIC = b"DQTS"
 VERSION = 4
 
-#: the reference's tag of its spilled frequency state (spill/store.py)
+#: the tag of the spilled frequency state (spill/store.py)
 SPILLED_FREQUENCIES_TAG = 13
 
 _u16 = struct.Struct("<H")
@@ -262,6 +261,57 @@ def _dec_freq(buf: bytes, version: int):
     )
 
 
+def _enc_spilled(state) -> bytes:
+    """Tag-13 payload: a SpilledFrequencies streams out as a header
+    (columns, num_rows, budget) and length-prefixed sorted blocks in the
+    run-block codec, so encoding never materialises the table; a -1
+    length ends the block list."""
+    from deequ_tpu_torch.spill.runs import encode_block
+
+    out = [_i64.pack(len(state.columns))]
+    for c in state.columns:
+        out.append(_pack_str(c))
+    out.append(_i64.pack(state.num_rows))
+    out.append(_i64.pack(state._store.budget_bytes))
+    for kv, kn, counts in state.blocks():
+        payload = encode_block(kv, kn, counts)
+        out.append(_i64.pack(len(payload)))
+        out.append(payload)
+    out.append(_i64.pack(-1))
+    return b"".join(out)
+
+
+def _dec_spilled(buf: bytes, version: int):
+    """A disk-backed state again: the blocks decode straight into a fresh
+    store's run file (they are globally sorted and key-unique), so the
+    loaded state keeps the bounded-memory contract."""
+    from deequ_tpu_torch.spill.runs import decode_block
+    from deequ_tpu_torch.spill.store import SpilledFrequencies, SpillingFrequencyStore
+
+    off = 0
+    (n_cols,) = _i64.unpack_from(buf, off); off += 8
+    columns = []
+    for _ in range(n_cols):
+        c, off = _unpack_str(buf, off)
+        columns.append(c)
+    (num_rows,) = _i64.unpack_from(buf, off); off += 8
+    (budget,) = _i64.unpack_from(buf, off); off += 8
+    store = SpillingFrequencyStore(tuple(columns), budget)
+
+    def block_iter():
+        nonlocal off
+        while True:
+            (nbytes,) = _i64.unpack_from(buf, off)
+            off += 8
+            if nbytes < 0:
+                return
+            yield decode_block(buf[off:off + nbytes], n_cols)
+            off += nbytes
+
+    store._adopt_sorted_blocks(block_iter(), num_rows)
+    return SpilledFrequencies(store)
+
+
 def _registry() -> Dict[Type[State], Tuple[int, Callable, Callable]]:
     from deequ_tpu_torch.analyzers import grouping, sketches, states
 
@@ -283,6 +333,9 @@ def _registry() -> Dict[Type[State], Tuple[int, Callable, Callable]]:
     add(10, sketches.ApproxCountDistinctState, _enc_hll, _dec_hll)
     add(11, sketches.KLLState, _enc_kll, _dec_kll)
     add(12, grouping.FrequenciesAndNumRows, _enc_freq, _dec_freq)
+    from deequ_tpu_torch.spill.store import SpilledFrequencies
+
+    add(SPILLED_FREQUENCIES_TAG, SpilledFrequencies, _enc_spilled, _dec_spilled)
     return reg
 
 
@@ -312,8 +365,7 @@ def serialize_state(state: State) -> bytes:
 
 def deserialize_state(data: bytes) -> State:
     """Versioned bytes -> State. Refuses a pickle file, a bad magic, a
-    version newer than :data:`VERSION` and an unknown tag (ValueError),
-    and tag 13 (NotYetPortedException)."""
+    version newer than :data:`VERSION` and an unknown tag (ValueError)."""
     if data[:4] != MAGIC:
         if data[:1] == b"\x80":  # pickle protocol header
             raise ValueError(
@@ -328,11 +380,6 @@ def deserialize_state(data: bytes) -> State:
             f"state file version {version} is newer than supported {VERSION}"
         )
     (tag,) = _u16.unpack_from(data, 6)
-    if tag == SPILLED_FREQUENCIES_TAG:
-        raise NotYetPortedException(
-            "a spilled frequency state (state type tag 13, the reference's "
-            "spill/store.py SpilledFrequencies; it lands with slice 8b, spill)"
-        )
     _, by_tag = _ensure_registry()
     entry = by_tag.get(tag)
     if entry is None:

@@ -52,11 +52,16 @@ class VerificationResult:
     ``device_fetches``, ``bytes_fetched``, ``grouping_passes``,
     ``hist_kernel_dispatches``, ``hist_plain_dispatches``,
     ``hist_host_dispatches``): the observable for the one-fetch-per-scan
-    contract and for the dense grouping counts going through the kernel."""
+    contract and for the dense grouping counts going through the kernel;
+    over a stream also the stream's and the spill engine's counters.
+    ``skipped_batches``: the stream batch indices a run with
+    ``on_batch_error="skip"`` quarantined (reference
+    VerificationResult.skipped_batches)."""
 
     status: CheckStatus
     check_results: Dict[Check, CheckResult]
     metrics: Dict[Analyzer, Metric]
+    skipped_batches: List[int] = field(default_factory=list)
     device: str = ""
     scan_stats: Dict[str, object] = field(default_factory=dict)
 
@@ -110,6 +115,11 @@ _STAT_KEYS = (
     "bytes_staged",
     "fold_drains",
     "kll_compactions",
+    "spill_runs",
+    "spill_bytes_written",
+    "spill_bytes_read",
+    "spill_merge_passes",
+    "deferred_fetches",
 )
 
 
@@ -165,6 +175,11 @@ class VerificationSuite:
         reuse_existing_results_for_key=None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key=None,
+        group_memory_budget: Optional[int] = None,
+        checkpoint=None,
+        on_batch_error: str = "fail",
+        retry_policy=None,
+        on_device_error: str = "fail",
     ) -> VerificationResult:
         """One verification run; ``aggregate_with`` (a StateLoader) merges
         saved states into this run's, ``save_states_with`` (a
@@ -175,7 +190,15 @@ class VerificationSuite:
         that key after the checks are evaluated, so an anomaly check never
         sees its own run in the history (reference
         VerificationSuite.scala: evaluation at L263-281, the save at
-        L174-193)."""
+        L174-193).
+
+        ``group_memory_budget`` bounds the host bytes of grouping states
+        (past it they spill to disk); on a stream ``checkpoint`` makes the
+        run resumable, ``on_batch_error="skip"`` quarantines unreadable
+        batches (``skipped_batches``) and ``retry_policy`` overrides the
+        batch reads' RetryPolicy (``AnalysisRunner.do_analysis_run``).
+        ``on_device_error`` other than "fail" raises NotYetPortedException
+        (slice 8c)."""
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
         dev = resolve_device(device)
@@ -186,6 +209,11 @@ class VerificationSuite:
             metrics_repository=metrics_repository,
             reuse_existing_results_for_key=reuse_existing_results_for_key,
             fail_if_results_missing=fail_if_results_missing,
+            retry_policy=retry_policy,
+            group_memory_budget=group_memory_budget,
+            checkpoint=checkpoint,
+            on_batch_error=on_batch_error,
+            on_device_error=on_device_error,
         )
         with use_device(dev):
             result = VerificationSuite._evaluate(checks, context)
@@ -248,7 +276,8 @@ class VerificationSuite:
                 key=lambda s: s.severity,
             )
         return VerificationResult(
-            status, check_results, dict(analysis_context.metric_map)
+            status, check_results, dict(analysis_context.metric_map),
+            list(analysis_context.skipped_batches),
         )
 
 
@@ -339,6 +368,10 @@ class VerificationRunBuilder:
         self._reuse_key = None
         self._fail_if_results_missing = False
         self._save_key = None
+        self._group_memory_budget: Optional[int] = None
+        self._checkpoint = None
+        self._on_batch_error = "fail"
+        self._retry_policy = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -364,6 +397,47 @@ class VerificationRunBuilder:
         self._save_states_with = state_persister
         return self
 
+    def with_group_memory_budget(self, budget_bytes: int) -> "VerificationRunBuilder":
+        """Bound the host bytes of grouping states: past the budget,
+        frequency tables spill to disk as sorted runs and stream back at
+        finalize (``spill/``), so a uniqueness check of a high-cardinality
+        column costs disk bandwidth instead of memory
+        (``scan_stats``: ``spill_runs``, ``spill_bytes_written``)."""
+        self._group_memory_budget = int(budget_bytes)
+        return self
+
+    def with_checkpoint(self, checkpoint, every_batches: Optional[int] = None
+                        ) -> "VerificationRunBuilder":
+        """Make a streaming run resumable: every ``every_batches`` batches
+        the fold states are saved (atomic, checksummed) to ``checkpoint``
+        (a ``resilience.StreamCheckpointer`` or a directory); a run again
+        after a crash resumes from the last valid checkpoint with the
+        same metrics, bit for bit."""
+        from deequ_tpu_torch.resilience.checkpoint import StreamCheckpointer
+
+        if isinstance(checkpoint, str):
+            checkpoint = StreamCheckpointer(checkpoint, every_batches=every_batches or 8)
+        elif every_batches is not None:
+            checkpoint.every_batches = int(every_batches)
+        self._checkpoint = checkpoint
+        return self
+
+    def on_batch_error(self, policy: str) -> "VerificationRunBuilder":
+        """A stream's policy for a batch whose reads keep failing: "fail"
+        (the default: the run's analyzers fail) or "skip" (the batch is
+        quarantined and its index lands on
+        ``VerificationResult.skipped_batches``)."""
+        if policy not in ("fail", "skip"):
+            raise ValueError(f"on_batch_error must be 'fail' or 'skip', got {policy!r}")
+        self._on_batch_error = policy
+        return self
+
+    def with_retry_policy(self, policy) -> "VerificationRunBuilder":
+        """The RetryPolicy of this run's batch reads (default: the table's,
+        else the process default)."""
+        self._retry_policy = policy
+        return self
+
     def use_repository(self, repository) -> "VerificationRunBuilderWithRepository":
         return VerificationRunBuilderWithRepository(self, repository)
 
@@ -376,6 +450,10 @@ class VerificationRunBuilder:
             reuse_existing_results_for_key=self._reuse_key,
             fail_if_results_missing=self._fail_if_results_missing,
             save_or_append_results_with_key=self._save_key,
+            group_memory_budget=self._group_memory_budget,
+            checkpoint=self._checkpoint,
+            on_batch_error=self._on_batch_error,
+            retry_policy=self._retry_policy,
         )
 
 

@@ -10,8 +10,8 @@ reference's (``deequ_tpu/states/serde.py``), byte for byte:
   equal fields — frequency tables over str, int, float and bool keys with
   nulls, NaN and -0.0 keys; KLL's rng_count and HLL's hash_version ride;
 - bad magic, a newer version and a pickle header fail as the reference
-  fails; tag 13 (the reference's spilled frequencies) raises
-  NotYetPortedException;
+  fails; tag 13 (the spilled frequencies) decodes to a disk-backed state
+  (its cross-package parity is in tests/test_torch_spill.py);
 - state files: checksummed and atomic; a truncated file raises
   CorruptStateException in both packages, whichever wrote it.
 """
@@ -32,7 +32,7 @@ import deequ_tpu_torch.states as port_provider
 import deequ_tpu_torch.states.serde as port_serde
 from deequ_tpu.exceptions import CorruptStateException as RefCorrupt
 from deequ_tpu.ops.kll import KLLSketchState as RefSketch
-from deequ_tpu_torch.exceptions import CorruptStateException, NotYetPortedException
+from deequ_tpu_torch.exceptions import CorruptStateException
 from deequ_tpu_torch.interop import state_from_bytes, state_from_fields, state_to_bytes
 
 pytestmark = pytest.mark.torch_port
@@ -284,9 +284,16 @@ def test_refusals_match_the_reference(blob):
 
 
 def test_spilled_frequencies_tag_is_not_yet_ported():
-    blob = b"DQTS" + struct.pack("<HH", 4, 13) + struct.pack("<q", 0) * 3
-    with pytest.raises(NotYetPortedException, match="tag 13"):
-        port_serde.deserialize_state(blob)
+    """Tag 13 is ported: a blob of no column, no row and no block decodes
+    to an empty disk-backed state that encodes back to the same bytes."""
+    from deequ_tpu_torch.spill import SpilledFrequencies
+
+    blob = (b"DQTS" + struct.pack("<HH", 4, 13) + struct.pack("<q", 0) * 2
+            + struct.pack("<q", 1 << 20) + struct.pack("<q", -1))
+    state = port_serde.deserialize_state(blob)
+    assert isinstance(state, SpilledFrequencies)
+    assert state.num_rows == 0 and state.columns == ()
+    assert port_serde.serialize_state(state) == blob
 
 
 def test_unknown_state_type_raises():

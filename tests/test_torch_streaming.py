@@ -7,10 +7,10 @@ the CPU.
   metrics (the monoid fold across batches is the fold across partitions);
   Parquet and CSV streams, the CSV schema inference, the reader thread, the
   KLL compaction in the port's gathered layout ((chunks, T) and
-  (chunks, K, T)), the tree fold, Histogram on a stream. The resilient
-  stream loop of the reference's ``on_batch_error="skip"`` is slice 8c of
-  the port, so the twin of the Size-only test reads the stream through a
-  retrying handle instead; the 1B-row proof harness becomes its scaled
+  (chunks, K, T)), the tree fold, Histogram on a stream. The twin of the
+  Size-only test reads the stream through a retrying handle as well as
+  through the resilient loop (``on_batch_error="skip"``, whose own twins
+  are tests/test_torch_resilience.py); the 1B-row proof harness becomes its scaled
   port-side check (segmented incremental runs == one streaming pass) and
   imports nothing under ``benchmarks/``.
 - Port-only: a stream cut at the in-memory run's chunk rows gives its bits
@@ -20,8 +20,9 @@ the CPU.
   there; a column that gains nulls partway through a stream; a retried
   read gives a clean read's batches, and a read that keeps failing, or
   fails otherwise, raises; a generator source's chunks follow its first
-  batch; ``persist()`` raises TypeError; a spilling group budget (slice
-  8b) raises NotYetPortedException.
+  batch; ``persist()`` raises TypeError; a group budget that spills gives
+  the metrics of the run without one (the spill twins are
+  tests/test_torch_spill.py).
 - Parity with the reference: one Parquet and one CSV file written from a
   numpy seed, streamed through both packages' runners (the reference on
   one device, ``use_mesh(None)``): counts, completeness, min/max, HLL
@@ -45,7 +46,6 @@ from deequ_tpu.parallel.mesh import use_mesh
 from deequ_tpu_torch import (
     Check,
     CheckLevel,
-    NotYetPortedException,
     StreamingTable,
     VerificationSuite,
     stream_table,
@@ -287,13 +287,14 @@ def test_empty_stream():
 
 def test_size_only_stream_counts_rows():
     """A lone Size() prunes the read to no column, and a batch of no column
-    cannot carry its row count: the streaming scan reads one column. The
-    reference's resilient loop (on_batch_error="skip") is slice 8c here, so
-    the second read goes through a retrying handle."""
+    cannot carry its row count: the streaming scan reads one column, and so
+    does the resilient loop (on_batch_error="skip"); a retrying handle too."""
     t = ColumnarTable.from_pydict({"x": [float(i) for i in range(97)]})
     ctx = AnalysisRunner.do_analysis_run(stream_table(t, 25), [Size()])
     assert ctx.metric_map[Size()].value.get() == 97.0
     ctx = AnalysisRunner.do_analysis_run(stream_table(t, 25).with_retry(), [Size()])
+    assert ctx.metric_map[Size()].value.get() == 97.0
+    ctx = AnalysisRunner.do_analysis_run(stream_table(t, 25), [Size()], on_batch_error="skip")
     assert ctx.metric_map[Size()].value.get() == 97.0
 
 
@@ -786,18 +787,25 @@ def test_persist_of_a_stream_raises_type_error(mixed_table):
 
 
 def test_spilling_group_budget_raises_not_yet_ported(mixed_table):
-    """A grouping state that would pass its group memory budget's spill
-    threshold raises (slice 8b); one that stays below folds in memory."""
+    """Spill is ported (the name is kept from when it was not): a grouping
+    state that passes its group memory budget's spill threshold spills
+    sorted runs and gives the unbudgeted metrics; one that stays below
+    folds in memory and spills nothing."""
     stream = stream_table(mixed_table, 5_000)
     small = stream.with_group_memory_budget(64 << 10)
-    with pytest.raises(NotYetPortedException, match="slice 8b"):
-        AnalysisRunner.do_analysis_run(small, [Uniqueness(["id"])])
-    with pytest.raises(NotYetPortedException, match="slice 8b"):
-        Histogram("id").calculate(small)
+    want = AnalysisRunner.do_analysis_run(stream, [Uniqueness(["id"])])
+    SCAN_STATS.reset()
+    got = AnalysisRunner.do_analysis_run(small, [Uniqueness(["id"])])
+    assert SCAN_STATS.spill_runs >= 2
+    assert got.metric(Uniqueness(["id"])).value.get() == want.metric(Uniqueness(["id"])).value.get()
+    hist = Histogram("id")
+    assert hist.calculate(small).value.get() == hist.calculate(stream).value.get()
     roomy = stream.with_group_memory_budget(64 << 20)
+    SCAN_STATS.reset()
     ctx = AnalysisRunner.do_analysis_run(roomy, [Uniqueness(["id"]), CountDistinct(["cat"])])
     assert ctx.metric(Uniqueness(["id"])).value.get() == 1.0
     assert ctx.metric(CountDistinct(["cat"])).value.get() == 13.0
+    assert SCAN_STATS.spill_runs == 0
 
 
 class _BrokenSource(_FlakySource):

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     main_result = cs.build_suite(table).run()
     t0 = time.perf_counter()
     sketch_rows = args.sketch_rows or 10 * args.rows
-    ooc = cs.out_of_core_path(table, main_result, args.seed, device, smi, sketch_rows)
+    ooc, _ = cs.out_of_core_path(table, main_result, args.seed, device, smi, sketch_rows)
     cs.emit({"phase": "out_of_core_path", "card": smi, "rows": args.rows,
              "sketch_rows": sketch_rows, "build_s": build_s, **ooc,
              "seconds": time.perf_counter() - t0})
