@@ -286,6 +286,44 @@ Phases, each printed as one JSON line on stdout:
    exactly [3, 8], every metric against numpy over the rows that remain
    (counts exact, sums within 1e-12), and the transient faults alone
    retried to the uninterrupted run's bits;
+19. ``device_fault_path`` (after ``spill_path``, over the main path's
+   table) — the device fault ladder and run governance, each part a line
+   of its own with the card's name and power limit, every part's checked
+   run watched for CPU ops (on the watchdog's worker threads too):
+   ``real_oom`` — the table persisted and the main suite run clean (its
+   and the fused scan's working sets measured), then a ballast tensor
+   sized from ``torch.cuda.mem_get_info`` and pieces of ballast down to
+   1 MiB take the card's free memory and the allocator's free blocks, and
+   the suite runs again: at least one
+   ``oom_bisect`` caused by a real ``torch.cuda.OutOfMemoryError``, the
+   first evicting the residency (``evicted_bytes`` from
+   ``torch.cuda.memory_allocated``), every metric against numpy and bit
+   for bit a clean run at the final chunk rows; the ballast freed, a
+   clean run gives main_path's bits; ``injected_oom_mid_fold`` — the suite
+   at 2^21-row chunks with chunk 3 of attempt 0 OOMing: one bisection, the
+   fused scan's one fetch and the run's fetches a clean run's at 2^20,
+   every metric and fused-scan leaf bit for bit that clean run's; a
+   persistent OOM on a 2^16-row slice down to the 64-row floor, failing
+   the fused-scan analyzers with ``DeviceOOMException`` under "fail" and
+   ``DeviceFallbackRefusedException`` under "fallback"; ``hang`` — a host
+   stall of 3.5 s at the execute seam under a 2 s ``device_deadline``: the
+   fused-scan analyzers fail with ``DeviceHangException`` (deadline 2 s),
+   and once the stalled worker wakes, no K1 launch and no fetch of it
+   (the run's fetches a clean run's less one); the next run main_path's
+   bits; under "fallback" three such hangs open ``DEVICE_HEALTH``, the
+   next suite is refused ("unhealthy_backend") with no step and no K1
+   launch, and the half-open probe runs on the card against numpy; a
+   0.5 s ``run_deadline`` and no hook abandons the fused scan's attempt
+   in its host packing: the fused-scan analyzers fail with
+   ``DeviceHangException``, and once the pack in flight returns the
+   worker steps no chunk, launches no kernel and counts no fetch; the
+   main run's wall with the deadline armed and not, five each in turns;
+   ``budget_degrade`` — the main suite streamed in 2^20-row batches with a
+   persistent injected OOM from batch 6 and ``max_total_attempts=4``,
+   ``on_budget_exhausted="degrade"``: ``unverified_row_ranges`` exactly
+   [(6 · 2^20, rows)], the ledger five bisections and exhausted, every
+   metric against numpy over the rows before, ``retry_stats`` reported;
+   under "raise" a ``RunBudgetExhaustedException``;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge its own entry), the nvidia-smi line, and the result line
@@ -308,6 +346,11 @@ import time
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
 KERNELS = ("bincount", "hll", "select", "holt_winters", "masked_reduce")
+
+#: timed runs after a warm one of the sketch, check-API, stream, profile
+#: and streamed config 2 walls (three until device_fault_path joined the
+#: script; one keeps it inside its time, main_path keeps three)
+TIMED_REPEATS = 1
 
 # memory rate of each H100 part (NVIDIA data sheets), bytes/s
 _HBM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -1687,13 +1730,7 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
     checked = check_sketch_metrics(table, result, sorted_cols)
     t_numpy = time.perf_counter() - t0
 
-    walls = []
-    for _ in range(4):  # one warm run, then three timed
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        suite.run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = timed_runs(suite, 1 + TIMED_REPEATS)
     pieces = sketch_pieces(table, device, check)
     registers_checked = registers_against_plain(table, device, result)
     kll_card_cpu = kll_states_card_vs_cpu(table, device)
@@ -1713,7 +1750,7 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
         "kll_card_equals_cpu": kll_card_cpu,
         "first_run_s_watched": t_first,
         "warm_run_s": walls[0],
-        "run_wall_s_median_of_3": statistics.median(walls[1:]),
+        "run_wall_s_median": statistics.median(walls[1:]),
         "run_wall_s": walls[1:],
         "piece_s": pieces,
         "peak_device_bytes": peak,
@@ -1961,13 +1998,7 @@ def check_api_path(table, device) -> dict:
     if checked != len(expected):
         fail(f"check api path: {checked} metrics, numpy has {len(expected)}")
 
-    walls = []
-    for _ in range(4):  # one warm run, then three timed
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        suite.run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = timed_runs(suite, 1 + TIMED_REPEATS)
     return {
         "phase": "check_api_path",
         "rows": table.num_rows,
@@ -1979,7 +2010,7 @@ def check_api_path(table, device) -> dict:
         "scan_stats": stats,
         "first_run_s_watched": t_first,
         "warm_run_s": walls[0],
-        "run_wall_s_median_of_3": statistics.median(walls[1:]),
+        "run_wall_s_median": statistics.median(walls[1:]),
         "run_wall_s": walls[1:],
         "numpy_reference_s": t_numpy,
     }
@@ -2918,7 +2949,7 @@ def resident_sketch(table, device, streamed: dict, streamed_report) -> dict:
         "phase": "resident_path", "part": "sketch",
         "rows": table.num_rows, "chunks": len(cache.device_chunks), "chunk_rows": cache.chunk,
         "persist_s": persist_s, "resident_bytes": cache.nbytes,
-        "streaming_run_wall_s_median_of_3": streamed_report["run_wall_s_median_of_3"],
+        "streaming_run_wall_s_median": streamed_report["run_wall_s_median"],
         **checked, "kll_select_equals_sort": select_vs_sort,
         **runs,
         "piece_s": resident_sketch_pieces(table, device, check),
@@ -3650,9 +3681,9 @@ def stream_path(seed: int, device) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # the walls, unwatched, the two alternating: three each
+    # the walls, unwatched, the two alternating
     walls = {"stream": [], "serial": []}
-    for _ in range(3):
+    for _ in range(TIMED_REPEATS):
         walls["stream"].append(timed(run_stream))
         walls["serial"].append(timed(serial_loop))
 
@@ -3686,8 +3717,8 @@ def stream_path(seed: int, device) -> dict:
         "fetches_a_group": stats["group_fetches"] / groups,
         "h2d_copies_a_group_in_group_scan": watch.h2d_marked / groups,
         "h2d_copies_stream_total": watch.h2d_copies,
-        "stream_wall_s_median_of_3": statistics.median(walls["stream"]),
-        "serial_loop_wall_s_median_of_3": statistics.median(walls["serial"]),
+        "stream_wall_s_median": statistics.median(walls["stream"]),
+        "serial_loop_wall_s_median": statistics.median(walls["serial"]),
         "stream_wall_s": walls["stream"], "serial_loop_wall_s": walls["serial"],
         "metrics_bit_identical": compared,
         "states_bytes_identical": len(serial_states.saved),
@@ -4782,7 +4813,7 @@ def profile_path(table, seed: int, device) -> dict:
     worst = check_profile(profiles, want)
 
     walls, pass_walls, persist_walls = [], [], []
-    for _ in range(3):
+    for _ in range(TIMED_REPEATS):
         runs = TimedRuns(device)
         with PersistSpy(device) as spy:
             torch.cuda.synchronize()
@@ -4809,7 +4840,7 @@ def profile_path(table, seed: int, device) -> dict:
         "resident_string_counts": resident_counts.calls,
         "persist": persist.persists, "unpersist": persist.evictions,
         "peak_device_bytes": peak, "first_profile_s_watched": first_s,
-        "profile_wall_s_median_of_3": statistics.median(walls), "profile_wall_s": walls,
+        "profile_wall_s_median": statistics.median(walls), "profile_wall_s": walls,
         "pass_wall_s": pass_walls, "persist_wall_s": persist_walls,
         "sketches_vs_streaming": sketches, "numpy_reference_s": numpy_s,
         "suggestions": suggestions, "schema": schema_flow(seed, device),
@@ -4965,8 +4996,8 @@ def ooc_config2(table, main_result, device, smi: str):
         fail(f"{label}: a stream at the in-memory chunk rows ({chunk}) differs from the "
              f"in-memory run in the bits of {differ}")
 
-    stream_walls = timed_runs(suite)
-    memory_walls = timed_runs(build_suite(table))
+    stream_walls = timed_runs(suite, 1 + TIMED_REPEATS)
+    memory_walls = timed_runs(build_suite(table), 1 + TIMED_REPEATS)
     # the double buffer on the card: whether chunk k+1's copy ran while
     # chunk k's kernels did (ingest_overlap_frac counts only issue order)
     trace = trace_run(suite.run)
@@ -4982,10 +5013,10 @@ def ooc_config2(table, main_result, device, smi: str):
         "bytes_staged": stats["bytes_staged"], "peak_device_bytes": peak,
         "host_rss_growth_bytes": rss.growth, "first_run_s_watched": first_s,
         "stream_warm_run_s": stream_walls[0],
-        "stream_run_wall_s_median_of_3": statistics.median(stream_walls[1:]),
+        "stream_run_wall_s_median": statistics.median(stream_walls[1:]),
         "stream_run_wall_s": stream_walls[1:],
         "in_memory_warm_run_s": memory_walls[0],
-        "in_memory_run_wall_s_median_of_3": statistics.median(memory_walls[1:]),
+        "in_memory_run_wall_s_median": statistics.median(memory_walls[1:]),
         "in_memory_run_wall_s": memory_walls[1:], "numpy_reference_s": numpy_s,
         "trace": trace,
     }, result
@@ -5993,6 +6024,614 @@ def spill_path(table, main_result, streamed, seed: int, device, smi: str,
             "by_part": {k: p["kernel_launches"] for k, p in parts.items()}}
 
 
+#: device_fault_path: the watchdog's deadline in the hang part and the host
+#: stall the hook injects past it; the fixed chunk rows of the injected
+#: mid-fold OOM (the main table in five chunks: chunk 3 finds a fold of
+#: three); the slice a persistent OOM bisects down to the floor; the batch
+#: from which a budgeted stream OOMs for good, and its attempt budget
+FAULT_DEADLINE_S = 2.0
+FAULT_STALL_S = 3.5
+FAULT_CHUNK_ROWS = 1 << 21
+FAULT_SLICE_ROWS = 1 << 16
+FAULT_FROM_BATCH = 6
+FAULT_ATTEMPTS = 4
+FAULT_TIMED_RUNS = 5
+#: the run budget's wall in ``hang``'s abandoned attempt: less than the
+#: host packing of the main table's chunks
+FAULT_RUN_DEADLINE_S = 0.5
+#: what the first ballast tensor of ``real_oom`` leaves free on the card
+#: (the allocator rounds a request up; pieces of ballast then take the rest)
+FAULT_OOM_MARGIN = 64 << 20
+
+
+class scan_hook:
+    """The scan engine's fault hook installed for the block."""
+
+    def __init__(self, hook):
+        self.hook = hook
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops.scan_engine import install_scan_fault_hook
+
+        self._prev = install_scan_fault_hook(self.hook)
+        return self.hook
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops.scan_engine import install_scan_fault_hook
+
+        install_scan_fault_hook(self._prev)
+
+
+class forced_chunk_rows:
+    """In-memory scans cut at ``rows`` for the block: the engine's chunk
+    rule (``scan_engine._auto_chunk_rows``) answers ``rows``."""
+
+    def __init__(self, rows: int):
+        self.rows = rows
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import scan_engine
+
+        self._orig = scan_engine._auto_chunk_rows
+        scan_engine._auto_chunk_rows = lambda *args, **kwargs: self.rows
+        return self
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import scan_engine
+
+        scan_engine._auto_chunk_rows = self._orig
+
+
+class watched_workers:
+    """``watch`` (``watch_cpu_ops``) carried onto the watchdog's worker
+    threads: torch's dispatch modes are per thread, and an armed deadline
+    runs each chunk's step on a worker. Each worker call runs under a
+    watch of its own, merged into ``watch`` when it ends."""
+
+    def __init__(self, watch):
+        self.watch = watch
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import device_policy
+
+        self._orig = orig = device_policy.on_callers_stream
+        outer = self.watch
+
+        def on_stream_watched(fn, device):
+            inner = orig(fn, device)
+
+            def watched():
+                w = watch_cpu_ops()
+                try:
+                    with w:
+                        return inner()
+                finally:
+                    for name, count in w.cpu_ops.items():
+                        outer.cpu_ops[name] = outer.cpu_ops.get(name, 0) + count
+                    outer.h2d_copies += w.h2d_copies
+
+            return watched
+
+        device_policy.on_callers_stream = on_stream_watched
+        return self.watch
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import device_policy
+
+        device_policy.on_callers_stream = self._orig
+
+
+def suite_scan_ops(table):
+    """The main suite's fused-scan ops over ``table``, built and coalesced
+    as the runner builds them."""
+    from deequ_tpu_torch.analyzers import CountDistinct
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.runner import AnalysisRunner
+    from deequ_tpu_torch.verification import _required
+
+    analyzers = _required([build_check()], [CountDistinct(["customer_id"])])
+    scanning = [a for a in analyzers if isinstance(a, ScanShareableAnalyzer)]
+    ops, _, failures = AnalysisRunner._build_scan_ops(table, scanning)
+    if failures:
+        fail(f"suite_scan_ops: ops failed to build: {failures}")
+    exec_ops, _ = AnalysisRunner._coalesce_scan_ops(ops)
+    return exec_ops, len(scanning)
+
+
+def leaves_bit_equal(got, want) -> bool:
+    """Two fused scans' leaves, every leaf the same dtype, shape and bytes."""
+    import numpy as np
+
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            return False
+        for key in w:
+            a, b = np.ascontiguousarray(g[key]), np.ascontiguousarray(w[key])
+            if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+                return False
+    return True
+
+
+def scan_failures(result, scanned: int, kind, label: str) -> list:
+    """The run's failed metrics: exactly the ``scanned`` fused-scan
+    analyzers', each failing with ``kind``; the others succeeded."""
+    failed = [m for m in result.metrics.values() if m.value.is_failure]
+    if len(failed) != scanned:
+        fail(f"{label}: {len(failed)} failed metrics, want the {scanned} fused-scan ones")
+    for m in failed:
+        if not isinstance(m.value.exception, kind):
+            fail(f"{label}: {m.name}({m.instance}) failed with "
+                 f"{type(m.value.exception).__name__}, want {kind.__name__}")
+    return [m.value.exception for m in failed]
+
+
+def fault_real_oom(table, expected: dict, main_result, device, smi: str) -> dict:
+    """Part 1, ``real_oom`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import scan_execution_report
+    from deequ_tpu_torch.ops.device_policy import current_scan_fault_hook
+    from deequ_tpu_torch.ops.scan_engine import run_scan
+
+    label = "device_fault_path/real_oom"
+    if current_scan_fault_hook() is not None:
+        fail(f"{label}: a fault hook is installed; the OOM must be the allocator's")
+    suite = build_suite(table)
+    t0 = time.perf_counter()
+    table.persist()
+    torch.cuda.synchronize()
+    persist_s = time.perf_counter() - t0
+    resident = table._device_cache.nbytes
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    clean = suite.run()
+    torch.cuda.synchronize()
+    suite_peak = torch.cuda.max_memory_allocated(device) - base
+    check_metrics(clean, expected)
+    exec_ops, scanned = suite_scan_ops(table)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    run_scan(table, exec_ops, device)
+    torch.cuda.synchronize()
+    scan_peak = torch.cuda.max_memory_allocated(device) - base
+    del exec_ops
+
+    # other work takes the card: a ballast leaves it FAULT_OOM_MARGIN free,
+    # and pieces of ballast, halving from 256 MiB to 1 MiB, take that and
+    # the free blocks the allocator keeps inside its live segments
+    # (``slack``, which it would hand the scan without asking the card):
+    # the resident scan's first large tensor fails; evicting the residency
+    # leaves a bisected attempt room
+    torch.cuda.empty_cache()
+    slack = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    free_before, total = torch.cuda.mem_get_info(device)
+    ballast = [torch.empty(free_before - FAULT_OOM_MARGIN, dtype=torch.uint8, device=device)]
+    piece = 256 << 20
+    while piece >= 1 << 20:
+        try:
+            ballast.append(torch.empty(piece, dtype=torch.uint8, device=device))
+        except torch.cuda.OutOfMemoryError:
+            piece //= 2
+    ballast_bytes = sum(b.numel() for b in ballast)
+    free_with_ballast = torch.cuda.mem_get_info(device)[0]
+    reserved_with_ballast = torch.cuda.memory_reserved(device)
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    torch.cuda.reset_peak_memory_stats(device)
+    ooms_before = torch.cuda.memory_stats(device).get("num_ooms", 0)
+    t0 = time.perf_counter()
+    try:
+        with watch:
+            result = suite.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        report = scan_execution_report()
+        allocator = {
+            "num_ooms": torch.cuda.memory_stats(device).get("num_ooms", 0) - ooms_before,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(device),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device),
+            "reserved_with_ballast_bytes": reserved_with_ballast,
+            "ballast_bytes": ballast_bytes,
+        }
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    bisects = [e for e in report["degradation_events"] if e["kind"] == "oom_bisect"]
+    real = [e for e in bisects
+            if "OutOfMemoryError: CUDA out of memory" in e["error"] and "injected" not in e["error"]]
+    if not real:
+        failed = [(m.name, m.instance, str(m.value.exception)[:200])
+                  for m in result.metrics.values() if m.value.is_failure]
+        fail(f"{label}: no oom_bisect from a real torch.cuda.OutOfMemoryError "
+             f"(events {report['degradation_events']}; resident {resident}, scan working "
+             f"set {scan_peak}, suite working set {suite_peak}, slack {slack}, free "
+             f"{free_before} -> {free_with_ballast} of {total}; allocator {allocator}; "
+             f"failed metrics {len(failed)}: {failed[:3]})")
+    if bisects[0]["evicted_bytes"] <= 0:
+        fail(f"{label}: the first OOM evicted {bisects[0]['evicted_bytes']} bytes")
+    if table._device_cache is not None:
+        fail(f"{label}: the residency survived the OOM")
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    k1_require(launches, label)
+    worst = check_metrics(result, expected)
+    final_chunk = bisects[-1]["chunk_to"]
+    with forced_chunk_rows(final_chunk):
+        at_final = suite.run()
+    differ = differing_bits(metric_values(at_final), metric_values(result))
+    if differ:
+        fail(f"{label}: the bisected run differs from a clean run at chunk {final_chunk} "
+             f"in the bits of {differ}")
+    # the ballast gone, the card is usable: main_path's metrics, bit for bit
+    after = suite.run()
+    check_metrics(after, expected)
+    differ = differing_bits(metric_values(main_result), metric_values(after))
+    if differ:
+        fail(f"{label}: the run after the OOM differs from main_path in {differ}")
+    return {
+        "part": "real_oom", "card": smi, "rows": table.num_rows,
+        "resident_bytes": resident, "persist_s": persist_s,
+        "suite_working_set_bytes": suite_peak, "scan_working_set_bytes": scan_peak,
+        "allocator_slack_bytes": slack, "card_free_bytes_before_ballast": free_before,
+        "card_free_bytes_with_ballast": free_with_ballast, "card_total_bytes": total,
+        "oom_bisects": [{k: e[k] for k in ("chunk_from", "chunk_to", "depth", "evicted_bytes")}
+                        for e in bisects],
+        "first_oom_error": real[0]["error"][:240],
+        "final_chunk_rows": final_chunk, "device_faults": report["device_faults"],
+        "worst_rel_err_vs_numpy": worst,
+        "bit_for_bit": f"a clean run at chunk {final_chunk}; after it, main_path",
+        "allocator": allocator, "oom_run_wall_s": wall, "kernel_launches": launches,
+    }
+
+
+def fault_mid_fold(table, expected: dict, device, smi: str) -> dict:
+    """Part 2, ``injected_oom_mid_fold`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import scan_execution_report
+    from deequ_tpu_torch.exceptions import DeviceFallbackRefusedException, DeviceOOMException
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, run_scan
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook
+
+    label = "device_fault_path/injected_oom_mid_fold"
+    suite = build_suite(table)
+    halved = FAULT_CHUNK_ROWS // 2
+    exec_ops, scanned = suite_scan_ops(table)
+    with forced_chunk_rows(halved):
+        kernel_counts_zero()
+        clean = suite.run()
+        clean_fetches = scan_execution_report()["device_fetches"]
+        clean_leaves = run_scan(table, exec_ops, device)
+
+    def at_chunk_3(hook_obj):
+        return lambda boundary, ctx: (
+            hook_obj(boundary, ctx) if ctx.get("chunk_index") == 3 else None)
+
+    hook_obj = FaultInjectingScanHook(faults={0: ("oom", 1)})
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with forced_chunk_rows(FAULT_CHUNK_ROWS), scan_hook(at_chunk_3(hook_obj)), watch:
+        result = suite.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    report = scan_execution_report()
+    if hook_obj.injected != [("oom", 0, 0)]:
+        fail(f"{label}: injected {hook_obj.injected}")
+    if report["oom_bisections"] != 1:
+        fail(f"{label}: {report['oom_bisections']} bisections, want 1")
+    (event,) = [e for e in report["degradation_events"] if e["kind"] == "oom_bisect"]
+    if (event["chunk_from"], event["chunk_to"]) != (FAULT_CHUNK_ROWS, halved):
+        fail(f"{label}: bisected {event['chunk_from']} -> {event['chunk_to']}")
+    if report["last_scan_fetches"] != 1 or report["device_fetches"] != clean_fetches:
+        fail(f"{label}: fused scan {report['last_scan_fetches']} fetches, the run "
+             f"{report['device_fetches']} (a clean run at chunk {halved}: {clean_fetches})")
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    k1_require(launches, label)
+    worst = check_metrics(result, expected)
+    differ = differing_bits(metric_values(clean), metric_values(result))
+    if differ:
+        fail(f"{label}: differs from a clean run at chunk {halved} in {differ}")
+    SCAN_STATS.reset()
+    with scan_hook(at_chunk_3(FaultInjectingScanHook(faults={0: ("oom", 1)}))):
+        leaves = run_scan(table, exec_ops, device, chunk_rows=FAULT_CHUNK_ROWS)
+    if not leaves_bit_equal(leaves, clean_leaves):
+        fail(f"{label}: a leaf of the bisected fused scan differs from the clean scan's "
+             f"at chunk {halved}")
+
+    # a persistent OOM on a slice bottoms out at the 64-row floor (each
+    # policy on a closed breaker: the first run's faults would open it)
+    part = slice_rows(table, 0, min(FAULT_SLICE_ROWS, table.num_rows))
+    floor = {}
+    for policy, kind in (("fail", DeviceOOMException),
+                         ("fallback", DeviceFallbackRefusedException)):
+        DEVICE_HEALTH.reset()
+        SCAN_STATS.reset()
+        with scan_hook(FaultInjectingScanHook(faults={0: ("oom", math.inf)})):
+            res = build_suite(part).on_device_error(policy).run()
+        errors = scan_failures(res, scanned, kind, f"{label}/floor/{policy}")
+        rep = scan_execution_report()
+        last = [e for e in rep["degradation_events"] if e["kind"] == "oom_bisect"][-1]
+        if last["chunk_to"] != 64:
+            fail(f"{label}/floor/{policy}: the last bisection reached {last['chunk_to']}")
+        if policy == "fallback" and not isinstance(errors[0].__cause__, DeviceOOMException):
+            fail(f"{label}/floor: the refusal's cause is {type(errors[0].__cause__).__name__}")
+        floor[policy] = {"bisections": rep["oom_bisections"], "raised": kind.__name__,
+                         "fallback_refused": rep["fallback_refused"]}
+    DEVICE_HEALTH.reset()
+    return {
+        "part": "injected_oom_mid_fold", "card": smi, "chunk_rows": FAULT_CHUNK_ROWS,
+        "halved_chunk_rows": halved, "oom_bisections": report["oom_bisections"],
+        "fused_scan_fetches": report["last_scan_fetches"],
+        "run_fetches": report["device_fetches"], "worst_rel_err_vs_numpy": worst,
+        "bit_for_bit": f"every metric and fused-scan leaf of a clean run at chunk {halved}",
+        "floor": {"rows": part.num_rows, **floor}, "run_wall_s": wall,
+        "kernel_launches": launches,
+    }
+
+
+def fault_hang(table, expected: dict, main_result, device, smi: str) -> dict:
+    """Part 3, ``hang`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import scan_execution_report
+    from deequ_tpu_torch.exceptions import (
+        DeviceFallbackRefusedException,
+        DeviceHangException,
+    )
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH
+    from deequ_tpu_torch.ops.scan_engine import run_scan
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook
+
+    label = "device_fault_path/hang"
+    suite = build_suite(table)
+    exec_ops, scanned = suite_scan_ops(table)
+    kernel_counts_zero()
+    suite.run()
+    clean_launches = kernel_counts()
+    clean_fetches = scan_execution_report()["device_fetches"]
+
+    def stall():
+        return FaultInjectingScanHook(faults={0: ("hang", 1)}, hang_seconds=FAULT_STALL_S)
+
+    DEVICE_HEALTH.reset()
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with scan_hook(stall()), watched_workers(watch), watch:
+        hung = build_suite(table).with_device_deadline(FAULT_DEADLINE_S).run()
+    hung_wall = time.perf_counter() - t0
+    # the stalled worker wakes, finds itself abandoned, and launches nothing
+    time.sleep(FAULT_STALL_S - FAULT_DEADLINE_S + 0.25)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    report = scan_execution_report()
+    errors = scan_failures(hung, scanned, DeviceHangException, label)
+    if errors[0].deadline != FAULT_DEADLINE_S:
+        fail(f"{label}: the hang's deadline {errors[0].deadline}")
+    if launches["k1"] or launches["k1_merge"]:
+        fail(f"{label}: the abandoned scan launched K1 {launches['k1']} and its merge "
+             f"{launches['k1_merge']} times")
+    if report["device_fetches"] != clean_fetches - 1 or report["watchdog_timeouts"] != 1:
+        fail(f"{label}: {report['device_fetches']} fetches (a clean run "
+             f"{clean_fetches}, less the fused scan's one), "
+             f"{report['watchdog_timeouts']} watchdog timeouts")
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    nxt = suite.run()
+    check_metrics(nxt, expected)
+    differ = differing_bits(metric_values(main_result), metric_values(nxt))
+    if differ:
+        fail(f"{label}: the run after the hang differs from main_path in {differ}")
+
+    # under "fallback": three hangs open the breaker
+    for i in range(DEVICE_HEALTH.threshold):
+        with scan_hook(stall()):
+            run = (build_suite(table).on_device_error("fallback")
+                   .with_device_deadline(FAULT_DEADLINE_S).run())
+        for err in scan_failures(run, scanned, DeviceFallbackRefusedException,
+                                 f"{label}/fallback {i}"):
+            if not isinstance(err.__cause__, DeviceHangException):
+                fail(f"{label}/fallback {i}: refused for {type(err.__cause__).__name__}")
+    time.sleep(FAULT_STALL_S - FAULT_DEADLINE_S + 0.25)
+    kernel_counts_zero()
+    with scan_hook(FaultInjectingScanHook()) as watcher:
+        refused = build_suite(table).on_device_error("fallback").run()
+    refused_launches = kernel_counts()
+    for err in scan_failures(refused, scanned, DeviceFallbackRefusedException, label):
+        if err.reason != "unhealthy_backend":
+            fail(f"{label}: the open breaker refused for {err.reason!r}")
+    if watcher.calls or refused_launches["k1"]:
+        fail(f"{label}: the refused scan stepped {len(watcher.calls)} chunks, "
+             f"K1 {refused_launches['k1']} launches")
+    for _ in range(DEVICE_HEALTH.probe_interval - 2):
+        try:
+            run_scan(table, exec_ops, device, on_device_error="fallback")
+            fail(f"{label}: the breaker let a scan through before its probe")
+        except DeviceFallbackRefusedException:
+            pass
+    kernel_counts_zero()
+    probe_watch = watch_cpu_ops()
+    with probe_watch:
+        probe = build_suite(table).on_device_error("fallback").run()
+    probe_launches = kernel_counts()
+    k1_require(probe_launches, f"{label}/probe")
+    check_metrics(probe, expected)
+    if probe_watch.cpu_ops or DEVICE_HEALTH.consecutive_faults:
+        fail(f"{label}/probe: CPU ops {probe_watch.cpu_ops}, "
+             f"{DEVICE_HEALTH.consecutive_faults} faults left on the breaker")
+
+    # a run deadline and no hook: the run budget's watchdog abandons the
+    # fused scan's attempt in its host packing (the table is not resident
+    # here, so its chunks are packed and copied); when the pack in flight
+    # returns, the worker steps no further chunk, launches nothing and
+    # counts no fetch
+    if table._device_cache is not None:
+        fail(f"{label}/run_deadline: the table is resident, its scan would not pack")
+    kernel_counts_zero()
+    gov_watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with watched_workers(gov_watch), gov_watch:
+        governed = build_suite(table).with_run_budget(run_deadline=FAULT_RUN_DEADLINE_S).run()
+    governed_wall = time.perf_counter() - t0
+    at_return = (kernel_counts(), scan_execution_report())
+    time.sleep(FAULT_STALL_S - FAULT_DEADLINE_S)  # several chunks' packing
+    torch.cuda.synchronize()
+    after = (kernel_counts(), scan_execution_report())
+    scan_failures(governed, scanned, DeviceHangException, f"{label}/run_deadline")
+    moved = {k: (at_return[1][k], after[1][k])
+             for k in ("chunks_processed", "device_fetches")
+             if at_return[1][k] != after[1][k]}
+    if after[0] != at_return[0] or moved:
+        fail(f"{label}/run_deadline: the abandoned attempt went on after the run "
+             f"returned: launches {at_return[0]} -> {after[0]}, {moved}")
+    if at_return[1]["watchdog_timeouts"] != 1:
+        fail(f"{label}/run_deadline: {at_return[1]['watchdog_timeouts']} watchdog timeouts")
+    if gov_watch.cpu_ops:
+        fail(f"{label}/run_deadline: torch operations computed on CPU tensors: "
+             f"{gov_watch.cpu_ops}")
+    governed_part = {"run_deadline_s": FAULT_RUN_DEADLINE_S, "run_wall_s": governed_wall,
+                     "chunks_stepped": at_return[1]["chunks_processed"],
+                     "bytes_packed": at_return[1]["bytes_packed"],
+                     "launches_at_return": at_return[0]}
+
+    # the main run's wall, the deadline armed and not, in turns; an armed
+    # run steps its chunks on watchdog workers, on the caller's stream: its
+    # metrics are main_path's bits
+    unarmed, armed = [], []
+    timed = (build_suite(table), build_suite(table).with_device_deadline(FAULT_DEADLINE_S))
+    for _ in range(FAULT_TIMED_RUNS):
+        for suite_i, walls in zip(timed, (unarmed, armed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = suite_i.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    differ = differing_bits(metric_values(main_result), metric_values(last))
+    if differ:
+        fail(f"{label}: an armed run differs from main_path in {differ}")
+    launches_all = {k: launches[k] + refused_launches[k] + probe_launches[k]
+                    + at_return[0][k] for k in launches}
+    return {
+        "part": "hang", "card": smi, "deadline_s": FAULT_DEADLINE_S, "stall_s": FAULT_STALL_S,
+        "hung_run_wall_s": hung_wall, "clean_launches": clean_launches,
+        "hung_launches_after_wake": launches, "run_fetches_after_wake": report["device_fetches"],
+        "clean_run_fetches": clean_fetches,
+        "breaker": {"threshold": DEVICE_HEALTH.threshold,
+                    "probe_interval": DEVICE_HEALTH.probe_interval,
+                    "refused_launches": refused_launches, "probe_launches": probe_launches},
+        "abandoned_attempt": governed_part,
+        "run_wall_s_unarmed_median_of_5": statistics.median(unarmed),
+        "run_wall_s_armed_median_of_5": statistics.median(armed),
+        "run_wall_s_unarmed": unarmed, "run_wall_s_armed": armed,
+        "kernel_launches": launches_all,
+    }
+
+
+def fault_budget(table, device, smi: str) -> dict:
+    """Part 4, ``budget_degrade`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch import stream_table
+    from deequ_tpu_torch.exceptions import RunBudgetExhaustedException
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook, FaultSchedule
+
+    label = "device_fault_path/budget_degrade"
+    n = table.num_rows
+    n_batches = -(-n // OOC_BATCH_ROWS)
+    if n_batches < 2:
+        fail(f"{label}: {n} rows make one batch; the part needs two")
+    first_bad = min(FAULT_FROM_BATCH, n_batches - 1)
+    boundary = first_bad * OOC_BATCH_ROWS
+
+    def dead_from_batch():
+        return FaultInjectingScanHook(
+            faults={b: ("oom", FaultSchedule.PERMANENT) for b in range(first_bad, n_batches)})
+
+    def budgeted(mode):
+        return (build_suite(stream_table(table, batch_rows=OOC_BATCH_ROWS))
+                .on_batch_error("skip")
+                .with_run_budget(max_total_attempts=FAULT_ATTEMPTS, on_budget_exhausted=mode))
+
+    DEVICE_HEALTH.reset()
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    t0 = time.perf_counter()
+    with scan_hook(dead_from_batch()), watch:
+        result = budgeted("degrade").run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    k1_require(launches, label)
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if result.unverified_row_ranges != [(boundary, n)]:
+        fail(f"{label}: unverified {result.unverified_row_ranges}, want {[(boundary, n)]}")
+    ledger = result.run_budget
+    if ledger.get("exhausted") != "max_total_attempts" or ledger.get("charges") != {
+            "oom_bisect": FAULT_ATTEMPTS + 1}:
+        fail(f"{label}: the budget's ledger {ledger}")
+    if set(result.retry_stats) < {"invocations", "attempts", "retries", "exhausted"}:
+        fail(f"{label}: retry_stats {result.retry_stats}")
+    prefix = slice_rows(table, 0, boundary)
+    worst = check_metrics(result, expected_metrics(prefix))
+    del prefix
+    DEVICE_HEALTH.reset()
+    t0 = time.perf_counter()
+    try:
+        with scan_hook(dead_from_batch()):
+            budgeted("raise").run()
+        fail(f"{label}: on_budget_exhausted='raise' did not raise")
+    except RunBudgetExhaustedException as e:
+        raised = {"reason": e.reason, "degraded": e.degraded, "charges": e.ledger["charges"]}
+    raise_wall = time.perf_counter() - t0
+    DEVICE_HEALTH.reset()
+    return {
+        "part": "budget_degrade", "card": smi, "rows": n, "batch_rows": OOC_BATCH_ROWS,
+        "first_dead_batch": first_bad, "max_total_attempts": FAULT_ATTEMPTS,
+        "unverified_row_ranges": result.unverified_row_ranges, "run_budget": ledger,
+        "retry_stats": result.retry_stats, "rows_verified": boundary,
+        "worst_rel_err_vs_numpy": worst, "raise_mode": raised,
+        "degrade_run_wall_s": wall, "raise_run_wall_s": raise_wall,
+        "device_events": len(result.device_events), "kernel_launches": launches,
+    }
+
+
+def device_fault_path(table, main_result, device, smi: str) -> dict:
+    """Phase ``device_fault_path`` (module doc): its four parts, each printed
+    as a line of its own, the launch counts set to 0 just before each
+    part's checked run and read just after; returns the launches summed
+    over the parts and by part."""
+    t0 = time.perf_counter()
+    expected = expected_metrics(table)
+    numpy_s = time.perf_counter() - t0
+    parts = {}
+    runs = (
+        ("real_oom", lambda: fault_real_oom(table, expected, main_result, device, smi)),
+        ("injected_oom_mid_fold", lambda: fault_mid_fold(table, expected, device, smi)),
+        ("hang", lambda: fault_hang(table, expected, main_result, device, smi)),
+        ("budget_degrade", lambda: fault_budget(table, device, smi)),
+    )
+    for name, run in runs:
+        t0 = time.perf_counter()
+        part = run()
+        emit({"phase": "device_fault_path", **part, "seconds": time.perf_counter() - t0})
+        parts[name] = part
+    launches = {}
+    for part in parts.values():
+        for k, v in part["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"kernel_launches": launches, "numpy_reference_s": numpy_s,
+            "by_part": {k: p["kernel_launches"] for k, p in parts.items()}}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6102,7 +6741,13 @@ def main(argv=None) -> int:
     spill = spill_path(table, main_result, streamed, args.seed, device, smi, args.rows)
     emit({"phase": "spill_path", "card": smi, **spill,
           "seconds": time.perf_counter() - t0})
-    del table, main_result, streamed
+    del streamed
+
+    t0 = time.perf_counter()
+    faults = device_fault_path(table, main_result, device, smi)
+    emit({"phase": "device_fault_path", "card": smi, **faults,
+          "seconds": time.perf_counter() - t0})
+    del table, main_result
 
     t0 = time.perf_counter()
     sketch, table, streamed = sketch_path(args.rows, args.seed, device)
@@ -6154,7 +6799,8 @@ def main(argv=None) -> int:
                 "repository_path": repo["kernel_launches"]["bincount"],
                 "profile_path": prof["kernel_launches"]["bincount"],
                 "out_of_core_path": ooc["kernel_launches"]["bincount"],
-                "spill_path": spill["kernel_launches"]["bincount"]}
+                "spill_path": spill["kernel_launches"]["bincount"],
+                "device_fault_path": faults["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -6164,7 +6810,8 @@ def main(argv=None) -> int:
                     "repository_path": repo["kernel_launches"]["hll"],
                     "profile_path": prof["kernel_launches"]["hll"],
                     "out_of_core_path": ooc["kernel_launches"]["hll"],
-                    "spill_path": spill["kernel_launches"]["hll"]}
+                    "spill_path": spill["kernel_launches"]["hll"],
+                    "device_fault_path": faults["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
@@ -6178,7 +6825,8 @@ def main(argv=None) -> int:
                "repository_path": repo["kernel_launches"],
                "profile_path": prof["kernel_launches"],
                "out_of_core_path": ooc["kernel_launches"],
-               "spill_path": spill["kernel_launches"]}
+               "spill_path": spill["kernel_launches"],
+               "device_fault_path": faults["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
     k1_time = res_main["k1_fused_scan"]["k1"]

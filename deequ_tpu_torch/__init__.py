@@ -43,6 +43,18 @@ through ``VerificationSuite``, ``AnalysisRunner``, the incremental stream
 and ``ColumnProfiler`` a batch at a time, never holding the table: the
 fused scan streams its chunks through the same kernels, and every other
 analyzer folds its state a batch.
+
+Faults and governance: a fused scan survives an OOM of the card by
+evicting residency, demoting an encoded layout and bisecting its chunk
+(``ops/scan_executors.py``); a watchdog (``device_deadline``) turns a hung
+call into ``DeviceHangException``; a lost device or a kernel that will
+not build fails the scan's analyzers typed, and ``on_device_error=
+"fallback"`` — where the reference re-runs on its CPU — raises
+``DeviceFallbackRefusedException``. One run budget
+(``with_run_budget``, ``resilience/governance.py``) bounds every rung of a
+run, and its exhaustion degrades to a partial result with exact
+``unverified_row_ranges``. :func:`scan_execution_report` is the engine's
+counters as one flat dict.
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
@@ -51,10 +63,15 @@ from deequ_tpu_torch.data.streaming import StreamingTable, stream_table
 from deequ_tpu_torch.data.table import ColumnarTable
 from deequ_tpu_torch.device import use_device
 from deequ_tpu_torch.exceptions import (
+    DeviceCompileException,
     DeviceException,
+    DeviceFallbackRefusedException,
+    DeviceHangException,
+    DeviceLostException,
     DeviceOOMException,
     DeviceUnavailableException,
     NotYetPortedException,
+    RunBudgetExhaustedException,
 )
 from deequ_tpu_torch.metrics import DoubleMetric, Entity, HistogramMetric, Metric
 from deequ_tpu_torch.verification import (
@@ -63,7 +80,26 @@ from deequ_tpu_torch.verification import (
     VerificationSuite,
 )
 
+from deequ_tpu_torch.resilience.governance import (
+    RunBudget,
+    RunPolicy,
+    fault_state_scope,
+    run_budget_scope,
+)
+
 __version__ = "0.1.0"
+
+
+def scan_execution_report() -> dict:
+    """The scan engine's counters (``ops/scan_engine.py:ScanStats``) as one
+    flat dict, read under its lock: passes, fetches, the device fault
+    counters (``device_faults``, ``oom_bisections``, ``bisection_depth``,
+    ``watchdog_timeouts``, ``fallback_refused``), copies of
+    ``degradation_events`` and ``unverified_row_ranges``, the budget's
+    charges."""
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    return SCAN_STATS.snapshot()
 
 __all__ = [
     "Check",
@@ -71,7 +107,11 @@ __all__ = [
     "CheckStatus",
     "ColumnarTable",
     "ConstrainableDataTypes",
+    "DeviceCompileException",
     "DeviceException",
+    "DeviceFallbackRefusedException",
+    "DeviceHangException",
+    "DeviceLostException",
     "DeviceOOMException",
     "DeviceUnavailableException",
     "DoubleMetric",
@@ -80,9 +120,15 @@ __all__ = [
     "IncrementalVerificationStream",
     "Metric",
     "NotYetPortedException",
+    "RunBudget",
+    "RunBudgetExhaustedException",
+    "RunPolicy",
     "StreamingTable",
     "VerificationResult",
     "VerificationSuite",
+    "fault_state_scope",
+    "run_budget_scope",
+    "scan_execution_report",
     "stream_table",
     "use_device",
 ]

@@ -45,8 +45,16 @@ resilient loop (``_run_streaming_resilient``, reference L716-1150): one
 read for every analyzer, the fused scan a batch deferred and fetched at
 checkpoint boundaries, host fold stacks checkpointed and resumed, and
 batches that cannot be read quarantined and reported on
-``AnalyzerContext.skipped_batches``. ``on_device_error`` takes "fail"
-only here: the reference's device fault ladder is slice 8c.
+``AnalyzerContext.skipped_batches``; ``on_device_error="fallback"`` takes
+it too, so each batch's scan gets the whole device fault ladder.
+
+Device faults and governance: each fused scan runs the fault ladder of
+``ops/scan_executors.py`` (``on_device_error``, ``device_deadline``); a run
+budget (``resilience/governance.py``, armed here from the environment when
+no caller armed one) spans every scan of the analysis, and its exhaustion
+under ``on_budget_exhausted="degrade"`` becomes a partial result: failure
+metrics for the analyzers whose scan could not finish and the exact rows
+never verified on ``SCAN_STATS.unverified_row_ranges``.
 
 Metrics repositories (reference L116-134, L192-202): with
 ``reuse_existing_results_for_key`` the metrics the repository holds for
@@ -81,6 +89,7 @@ from deequ_tpu_torch.exceptions import (
     MetricCalculationRuntimeException,
     NotYetPortedException,
     ReusingNotPossibleResultsMissingException,
+    RunBudgetExhaustedException,
     wrap_if_necessary,
 )
 from deequ_tpu_torch.metrics import Metric
@@ -229,6 +238,7 @@ class AnalysisRunner:
         checkpoint=None,
         on_batch_error: str = "fail",
         on_device_error: str = "fail",
+        device_deadline: Optional[float] = None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
@@ -258,12 +268,24 @@ class AnalysisRunner:
         with the metrics an uninterrupted checkpointed run gives, bit for
         bit; ``on_batch_error="skip"`` quarantines batches whose reads keep
         failing past the retries (reported on ``skipped_batches``) instead
-        of failing the run. ``on_device_error`` other than "fail" raises
-        NotYetPortedException (the device fault ladder, slice 8c)."""
-        if on_device_error != "fail":
-            raise NotYetPortedException(
-                f"on_device_error={on_device_error!r} (the device fault ladder: "
-                f"a CPU fallback, deadlines and retries of device faults; slice 8c)"
+        of failing the run.
+
+        Device faults (``ops/scan_executors.py``): a fused scan's OOM evicts
+        residency, demotes an encoded layout and bisects the chunk under
+        either policy; past that, or on a lost device, a kernel that will
+        not build or a hang, ``on_device_error="fail"`` fails the scan's
+        analyzers with the typed fault (the shared-scan rule) and
+        ``"fallback"`` — where the reference re-runs on its CPU — with
+        ``DeviceFallbackRefusedException``. On a stream ``"fallback"`` takes
+        the resilient loop, so each batch's scan has the ladder.
+        ``device_deadline`` (seconds) arms the watchdog on each chunk's step
+        and fetch. A run budget armed from the
+        environment (``DEEQU_TORCH_RUN_DEADLINE`` /
+        ``DEEQU_TORCH_RUN_ATTEMPTS``), when the caller armed none, spans
+        the whole analysis."""
+        if on_device_error not in ("fail", "fallback"):
+            raise ValueError(
+                f"on_device_error must be 'fail' or 'fallback', got {on_device_error!r}"
             )
         if on_batch_error not in ("fail", "skip"):
             raise ValueError(
@@ -272,6 +294,35 @@ class AnalysisRunner:
         dev = resolve_device(device)
         if not analyzers:
             return AnalyzerContext.empty()
+
+        # a budget the environment arms spans the whole analysis: without
+        # it every per-batch scan of a stream would arm a fresh one and the
+        # stream would pay per batch again
+        from deequ_tpu_torch.resilience.governance import (
+            current_run_budget,
+            resolve_run_policy,
+            run_budget_scope,
+        )
+
+        if current_run_budget() is None:
+            policy = resolve_run_policy()
+            if policy is not None:
+                with run_budget_scope(policy.arm()):
+                    return AnalysisRunner.do_analysis_run(
+                        data, analyzers, dev,
+                        aggregate_with=aggregate_with,
+                        save_states_with=save_states_with,
+                        metrics_repository=metrics_repository,
+                        reuse_existing_results_for_key=reuse_existing_results_for_key,
+                        fail_if_results_missing=fail_if_results_missing,
+                        save_or_append_results_with_key=save_or_append_results_with_key,
+                        retry_policy=retry_policy,
+                        group_memory_budget=group_memory_budget,
+                        checkpoint=checkpoint,
+                        on_batch_error=on_batch_error,
+                        on_device_error=on_device_error,
+                        device_deadline=device_deadline,
+                    )
         streaming = getattr(data, "is_streaming", False)
         if retry_policy is not None and streaming:
             data = data.with_retry(retry_policy)
@@ -320,12 +371,14 @@ class AnalysisRunner:
         # the resilient stream loop: checkpoints and quarantine need the
         # fold states of every analyzer on the host, so all of them share
         # one batch loop (reference L319-341)
-        if streaming and (checkpoint is not None or on_batch_error != "fail"):
+        if streaming and (checkpoint is not None or on_batch_error != "fail"
+                          or on_device_error != "fail"):
             resilient_ctx = AnalysisRunner._run_streaming_resilient(
                 data, scanning, own_pass, by_grouping, dev,
                 aggregate_with, save_states_with, budget=budget,
                 checkpoint=checkpoint, on_batch_error=on_batch_error,
-                retry_policy=retry_policy,
+                retry_policy=retry_policy, on_device_error=on_device_error,
+                device_deadline=device_deadline,
             )
             result = results_loaded + failure_ctx + resilient_ctx
             _save_or_append_result(
@@ -335,7 +388,8 @@ class AnalysisRunner:
 
         # (4) one fused scan for all shareable analyzers (reference L289-336)
         scan_ctx = AnalysisRunner._run_scanning_analyzers(
-            data, scanning, dev, aggregate_with, save_states_with
+            data, scanning, dev, aggregate_with, save_states_with,
+            on_device_error=on_device_error, device_deadline=device_deadline,
         )
 
         # (5) own-pass analyzers (reference L155-160); on a stream they
@@ -457,12 +511,16 @@ class AnalysisRunner:
         analyzers: Sequence[ScanShareableAnalyzer],
         device,
         defer: bool = False,
+        on_device_error: str = "fail",
+        device_deadline: Optional[float] = None,
     ):
         """Build the ops and run the fused scan. Returns (ctx holding the
         failures, scannable, plan, results); results is None when nothing
         scanned or the scan failed (its failure then maps onto every
         participating analyzer, reference L320-323). ``defer``: results is
-        a ``scan_engine.DeferredScan``, not yet fetched."""
+        a ``scan_engine.DeferredScan``, not yet fetched. An exhausted run
+        budget is the run's outcome, not the analyzers': it propagates, for
+        the caller to degrade or raise."""
         ctx = AnalyzerContext.empty()
         ops, scannable, op_failures = AnalysisRunner._build_scan_ops(data, analyzers)
         for analyzer, err in op_failures.items():
@@ -471,7 +529,11 @@ class AnalysisRunner:
             return ctx, [], [], None
         exec_ops, plan = AnalysisRunner._coalesce_scan_ops(ops)
         try:
-            results = run_scan(data, exec_ops, device, defer=defer)
+            results = run_scan(data, exec_ops, device, defer=defer,
+                               on_device_error=on_device_error,
+                               device_deadline=device_deadline)
+        except RunBudgetExhaustedException:
+            raise
         except Exception as e:  # noqa: BLE001 — failure is data
             wrapped = wrap_if_necessary(e)
             for a in scannable:
@@ -509,11 +571,32 @@ class AnalysisRunner:
         device,
         aggregate_with=None,
         save_states_with=None,
+        on_device_error: str = "fail",
+        device_deadline: Optional[float] = None,
     ) -> AnalyzerContext:
-        """One fused scan for ``analyzers``, then their metrics."""
-        ctx, scannable, plan, results = AnalysisRunner._dispatch_scanning_analyzers(
-            data, analyzers, device
-        )
+        """One fused scan for ``analyzers``, then their metrics. A run
+        budget exhausted by the scan under ``on_budget_exhausted="degrade"``
+        leaves every row of this pass unverified: the range is recorded and
+        the analyzers fail with the typed exhaustion (failure is data)."""
+        from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+        try:
+            ctx, scannable, plan, results = AnalysisRunner._dispatch_scanning_analyzers(
+                data, analyzers, device, on_device_error=on_device_error,
+                device_deadline=device_deadline,
+            )
+        except RunBudgetExhaustedException as e:
+            if not e.degraded:
+                raise
+            try:
+                total = int(data.num_rows or 0)
+            except Exception:  # noqa: BLE001 — a source that does not know its rows
+                total = 0
+            if total > 0:
+                SCAN_STATS.record_unverified(0, total, reason=str(e))
+            else:
+                SCAN_STATS.record_degradation("budget_exhausted", reason=str(e))
+            return AnalyzerContext({a: a.to_failure_metric(e) for a in analyzers})
         if results is None:
             return ctx
         return AnalysisRunner._finalize_scanning_analyzers(
@@ -568,6 +651,8 @@ class AnalysisRunner:
         checkpoint=None,
         on_batch_error: str = "fail",
         retry_policy=None,
+        on_device_error: str = "fail",
+        device_deadline: Optional[float] = None,
     ) -> AnalyzerContext:
         """One resilient loop over the stream for every kind of analyzer
         (scan-shareable, own pass, grouping), with the fold states on the
@@ -590,7 +675,16 @@ class AnalysisRunner:
 
         Under ``budget`` the frequency folds spill, except in a
         checkpointed run: a spill store's runs are not checkpointed, so
-        the budget is ignored there with a GroupBudgetIgnoredWarning."""
+        the budget is ignored there with a GroupBudgetIgnoredWarning.
+
+        Each batch's scan runs the device fault ladder under
+        ``on_device_error``. A run budget that runs out mid-stream under
+        ``on_budget_exhausted="degrade"`` ends the loop with a partial
+        result: the scans already dispatched are fetched (or, if that
+        fails, dropped with their analyzers failed), the fold stacks
+        finalize over every batch verified so far, and the rows from the
+        first batch not verified to the stream's end are recorded as
+        unverified (``SCAN_STATS.unverified_row_ranges``)."""
         from deequ_tpu_torch.data.source import TableBatchSource
         from deequ_tpu_torch.ops.scan_engine import fetch_deferred
         from deequ_tpu_torch.resilience.checkpoint import (
@@ -752,7 +846,8 @@ class AnalysisRunner:
             alive = [a for a in scanning if a not in failed]
             if alive:
                 sctx, scannable, plan, scan = AnalysisRunner._dispatch_scanning_analyzers(
-                    batch, alive, device, defer=True
+                    batch, alive, device, defer=True, on_device_error=on_device_error,
+                    device_deadline=device_deadline,
                 )
                 failed.update(sctx.metric_map)
                 if scan is not None:
@@ -762,8 +857,8 @@ class AnalysisRunner:
                     continue
                 try:
                     folders[keys[a]].add(a.compute_state_from(batch, device))
-                except NotYetPortedException:
-                    raise
+                except (NotYetPortedException, RunBudgetExhaustedException):
+                    raise  # the run's outcome, not this analyzer's
                 except Exception as e:  # noqa: BLE001 — failure is data
                     failed[a] = a.to_failure_metric(wrap_if_necessary(e))
             for g in by_grouping:
@@ -775,10 +870,13 @@ class AnalysisRunner:
                         batch, list(g), device,
                         canonicalize=folder._spill_store is not None,
                     ))
+                except RunBudgetExhaustedException:
+                    raise
                 except Exception as e:  # noqa: BLE001 — failure is data
                     failed_groups[g] = wrap_if_necessary(e)
 
         got_any = start > 0
+        last_seen = start - 1
         try:
             for idx, batch in resilient_batches(
                 lambda i: data.batches_from(i, columns=read_cols),
@@ -789,7 +887,11 @@ class AnalysisRunner:
                 max_batches=max_batches,
             ):
                 got_any = True
+                # counted after the fold: a batch whose scan exhausts the
+                # run budget is not verified, and the degraded range
+                # starts at it
                 fold_batch(batch)
+                last_seen = idx
                 n_done = idx + 1
                 due = checkpoint is not None and checkpoint.due(n_done)
                 if due or len(pending) >= drain_every:
@@ -814,6 +916,26 @@ class AnalysisRunner:
                 )
                 fold_batch(empty_table(schema))
             drain_pending()  # the batches since the last boundary
+        except RunBudgetExhaustedException as e:
+            if not e.degraded:
+                for f in folders.values():
+                    _release_spill(f)
+                raise
+            from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+            # the scans dispatched before the budget ran out are fetched with
+            # no new rung (a failure there fails their analyzers)
+            drain_pending()
+            boundary = max([last_seen] + list(skipped)) + 1
+            first_row = None
+            if batch_rows and known_rows is not None:
+                first_row = min(boundary * int(batch_rows), int(known_rows))
+            if first_row is not None and first_row < int(known_rows):
+                SCAN_STATS.record_unverified(first_row, int(known_rows), reason=str(e))
+            else:
+                SCAN_STATS.record_degradation(
+                    "budget_exhausted", reason=str(e), batches_verified=boundary,
+                )
         except BaseException as e:
             # spill directories must not outlive the run; checkpoints
             # written so far stay for the resume

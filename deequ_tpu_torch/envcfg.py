@@ -144,3 +144,24 @@ GROUP_MEMORY_BUDGET = register(EnvVar(
     doc="host bytes a grouping's frequency state may hold before it "
         "spills sorted runs to disk (spill/store.py)",
 ))
+DEVICE_DEADLINE = register(EnvVar(
+    "DEEQU_TORCH_DEVICE_DEADLINE", "float", default=None, zero_disables=True,
+    doc="watchdog deadline (s) on each device call of a scan (a chunk's "
+        "step, a fetch); unset or 0 disarms it (ops/device_policy.py)",
+))
+RUN_DEADLINE = register(EnvVar(
+    "DEEQU_TORCH_RUN_DEADLINE", "float", default=None, zero_disables=True,
+    doc="run-level wall budget (s) for the composed fault ladder "
+        "(resilience/governance.py); unset or 0 disables it",
+))
+RUN_ATTEMPTS = register(EnvVar(
+    "DEEQU_TORCH_RUN_ATTEMPTS", "int", default=None, zero_disables=True,
+    doc="run-level budget of failure-driven attempts for the composed "
+        "fault ladder; unset or 0 disables it",
+))
+ON_BUDGET_EXHAUSTED = register(EnvVar(
+    "DEEQU_TORCH_ON_BUDGET_EXHAUSTED", "choice", default="degrade",
+    choices=("degrade", "raise"),
+    doc="what an exhausted run budget does: a partial result with exact "
+        "unverified row ranges (degrade) or a typed raise",
+))

@@ -13,6 +13,7 @@ runtime errors) into the typed ``Device*Exception`` family below.
 from __future__ import annotations
 
 import contextlib
+import re
 from typing import Optional
 
 
@@ -122,11 +123,38 @@ class NotYetPortedException(MetricCalculationException, NotImplementedError):
         self.what = what
 
 
+class RunBudgetExhaustedException(MetricCalculationRuntimeException):
+    """The run-level fault budget (``resilience/governance.py``) ran out
+    mid-ladder: the composed retry ladder — I/O retries, OOM bisections,
+    encoded demotions, refused CPU rungs — charged more attempts than
+    ``max_total_attempts`` allows, or the wall clock passed
+    ``run_deadline``. Raised by ``RunBudget.charge`` at the first charge
+    past the budget, so no rung keeps spending once the run is over it.
+
+    ``reason`` is ``"max_total_attempts"`` or ``"run_deadline"``;
+    ``ledger`` the budget's charge snapshot; ``degraded`` is True under
+    ``on_budget_exhausted="degrade"``, where the verification layers turn
+    it into a partial result (failure metrics for the analyzers the scan
+    could not finish, exact ``unverified_row_ranges`` for the rows never
+    verified); under ``"raise"`` it reaches the caller typed."""
+
+    def __init__(self, reason: str, ledger: Optional[dict] = None,
+                 degraded: bool = True, detail: str = ""):
+        msg = f"run budget exhausted ({reason})"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+        self.reason = reason
+        self.ledger = dict(ledger or {})
+        self.degraded = bool(degraded)
+
+
 class DeviceException(MetricCalculationRuntimeException):
     """A classified device-layer (CUDA) failure. ``boundary`` names where
-    it surfaced: ``"transfer"`` (host->device copy), ``"execute"`` (a
-    kernel launch or a torch op on the card) or ``"fetch"`` (the
-    device->host result copy, where asynchronous faults surface)."""
+    it surfaced: ``"transfer"`` (a host->device copy, or packing for one),
+    ``"trace"`` (a kernel's build or load), ``"execute"`` (a kernel launch
+    or a torch op on the card) or ``"fetch"`` (the device->host result
+    copy, where asynchronous faults surface)."""
 
     def __init__(self, message: str, boundary: str = "execute"):
         super().__init__(message)
@@ -134,12 +162,50 @@ class DeviceException(MetricCalculationRuntimeException):
 
 
 class DeviceOOMException(DeviceException):
-    """Device memory exhausted (``torch.cuda.OutOfMemoryError``)."""
+    """Device memory exhausted (``torch.cuda.OutOfMemoryError``, a CUDA
+    allocation failure, or a host ``MemoryError`` while packing a chunk).
+    Recoverable by scanning in smaller chunks (the scan's chunk
+    bisection)."""
+
+
+class DeviceCompileException(DeviceException):
+    """A kernel could not be built or loaded for the card: ``nvcc`` or
+    ``ptxas`` failed, its library did not load, or the card has no image
+    for it. Retrying the same kernel on the same card cannot help."""
 
 
 class DeviceLostException(DeviceException):
-    """A CUDA runtime error the run cannot recover from on this device:
-    an illegal address, a launch failure, a device that fell off the bus."""
+    """A CUDA error the run cannot recover from on this device: an illegal
+    address, a launch failure, a device-side assert, an uncorrectable ECC
+    error, a device that fell off the bus. Such an error is sticky — it
+    leaves the process's CUDA context unusable — so no rung retries it on
+    the card."""
+
+
+class DeviceHangException(DeviceException):
+    """A device call exceeded the watchdog's wall-clock ``deadline``: a
+    hung call converted into a typed, catchable failure (the thread
+    blocked in it is abandoned; it cannot be cancelled)."""
+
+    def __init__(self, message: str, boundary: str = "execute",
+                 deadline: Optional[float] = None):
+        super().__init__(message, boundary)
+        self.deadline = deadline
+
+
+class DeviceFallbackRefusedException(DeviceException):
+    """A scan under ``on_device_error="fallback"`` reached the rung where
+    the reference re-runs it on the host's CPU — the fault ladder ran out
+    on the card, or the device's circuit breaker is open
+    (``ops/device_policy.py:DeviceHealth``) — and the port refused: it
+    never moves a CUDA run onto the CPU quietly. ``__cause__`` is the
+    fault that ended the ladder (for an open breaker, the last fault that
+    opened it); ``reason`` names the rung ("oom_at_bisection_floor", the
+    fault's type name, or "unhealthy_backend")."""
+
+    def __init__(self, message: str, boundary: str = "execute", reason: str = ""):
+        super().__init__(message, boundary)
+        self.reason = reason
 
 
 class DeviceUnavailableException(DeviceException):
@@ -152,36 +218,121 @@ class DeviceUnavailableException(DeviceException):
         super().__init__(message, boundary="transfer")
 
 
+# message patterns per class, checked in order: OOM first (an allocation
+# failing inside a launch is still memory pressure that smaller chunks
+# relieve), then a kernel's build or load, then the sticky CUDA errors
+_OOM_RE = re.compile(
+    r"CUDA out of memory|cudaErrorMemoryAllocation|CUDA error: out of memory|"
+    r"[Oo]ut of memory|[Ff]ailed to allocate|[Aa]llocation.*(failed|exceeds)|"
+    r"RESOURCE_EXHAUSTED",
+    re.DOTALL,
+)
+_COMPILE_RE = re.compile(
+    r"nvcc|ptxas|NVRTC|no kernel image is available|cudaErrorNoKernelImageForDevice|"
+    r"cudaErrorInvalidPtx|invalid PTX|cudaErrorInvalidKernelImage|"
+    r"cannot open shared object|undefined symbol|[Cc]ompilation (failure|error)|"
+    r"[Ff]ailed to compile",
+    re.DOTALL,
+)
+_LOST_RE = re.compile(
+    r"illegal memory access|illegal address|illegal instruction|"
+    r"unspecified launch failure|launch failure|device-side assert|"
+    r"misaligned address|ECC error|fallen off the bus|"
+    r"cudaErrorLaunchFailure|cudaErrorIllegalAddress|cudaErrorAssert|"
+    r"cudaErrorECCUncorrectable|[Dd]evice.*(lost|halt|reset)|"
+    r"CUDA driver initialization failed|no CUDA-capable device|CUDA error",
+    re.DOTALL,
+)
+
+#: torch's own CUDA error types: device-shaped by type, not only by text
+_STRONG_TYPES = ("OutOfMemoryError", "AcceleratorError", "CudaError", "DeferredCudaCallError")
+
+
+def _device_error_strength(exception: BaseException) -> Optional[str]:
+    """``"strong"`` when the exception's TYPE is one of torch's CUDA error
+    types (checked by class name, so a test double of the same name
+    classifies alike); ``"weak"`` for a plain RuntimeError or MemoryError,
+    which classifies only on an unambiguous message; None otherwise."""
+    for klass in type(exception).__mro__:
+        if klass.__name__ in _STRONG_TYPES:
+            return "strong"
+    if isinstance(exception, (RuntimeError, MemoryError)):
+        return "weak"
+    return None
+
+
 def classify_device_error(
     exception: BaseException, boundary: str = "execute"
 ) -> Optional[DeviceException]:
     """Map a raw torch/CUDA error to its typed DeviceException, or None
     when the error is not device-shaped (logic errors propagate
-    untouched). Already-classified exceptions pass through unchanged."""
+    untouched). Already-classified exceptions pass through unchanged.
+
+    ``torch.cuda.OutOfMemoryError`` and a ``MemoryError`` are OOM by type;
+    otherwise the message decides: CUDA out-of-memory text, then a
+    kernel's build or load (compile), then the sticky CUDA errors and any
+    other ``CUDA error`` (lost). A plain RuntimeError with no such text
+    stays unclassified at every boundary — an application bug inside an
+    op's update surfaces as itself — while one of torch's CUDA error
+    types with no recognisable text is a compile failure at the
+    ``"trace"`` boundary (the kernel never ran)."""
     if isinstance(exception, DeviceException):
         return exception
-    import torch
-
-    if isinstance(exception, torch.cuda.OutOfMemoryError):
-        klass = DeviceOOMException
-    elif isinstance(exception, RuntimeError) and "CUDA error" in str(exception):
-        klass = DeviceLostException
-    else:
+    strength = _device_error_strength(exception)
+    if strength is None:
         return None
-    typed = klass(f"[{boundary}] {type(exception).__name__}: {exception}",
-                  boundary=boundary)
+    text = f"{type(exception).__name__}: {exception}"
+    klass = None
+    if (isinstance(exception, MemoryError)
+            or type(exception).__name__ == "OutOfMemoryError"
+            or _OOM_RE.search(text)):
+        klass = DeviceOOMException
+    elif _COMPILE_RE.search(text):
+        klass = DeviceCompileException
+    elif _LOST_RE.search(text):
+        klass = DeviceLostException
+    elif boundary == "trace" and strength == "strong":
+        klass = DeviceCompileException
+    if klass is None:
+        return None
+    typed = klass(f"[{boundary}] {text}", boundary=boundary)
     typed.__cause__ = exception
     return typed
 
 
+#: the CUDA runtime's names of the error codes a kernel's C entry returns
+_CUDA_ERROR_NAMES = {
+    1: "cudaErrorInvalidValue",
+    2: "cudaErrorMemoryAllocation",
+    98: "cudaErrorInvalidDeviceFunction",
+    209: "cudaErrorNoKernelImageForDevice",
+    214: "cudaErrorECCUncorrectable",
+    218: "cudaErrorInvalidPtx",
+    700: "cudaErrorIllegalAddress",
+    701: "cudaErrorLaunchOutOfResources",
+    710: "cudaErrorAssert",
+    719: "cudaErrorLaunchFailure",
+}
+
+
+def launch_error(what: str, rc: int) -> DeviceException:
+    """The typed exception of a hand-written kernel whose C entry returned
+    CUDA error ``rc``: named as the runtime names it, so an allocation the
+    launch could not make classifies as OOM and a sticky error as lost."""
+    name = _CUDA_ERROR_NAMES.get(rc, "unknown")
+    message = f"{what}: CUDA error {rc} ({name})"
+    return classify_device_error(RuntimeError(message)) or DeviceException(message)
+
+
 @contextlib.contextmanager
 def device_boundary(boundary: str):
-    """Raise the CUDA errors of the block as their typed DeviceException
-    (``boundary``: "transfer", "execute" or "fetch"); any other error
-    passes through untouched."""
+    """Raise the CUDA errors of the block (and a host ``MemoryError``, an
+    OOM) as their typed DeviceException (``boundary``: "transfer",
+    "trace", "execute" or "fetch"); any other error passes through
+    untouched."""
     try:
         yield
-    except RuntimeError as e:
+    except (RuntimeError, MemoryError) as e:
         typed = classify_device_error(e, boundary)
         if typed is None:
             raise

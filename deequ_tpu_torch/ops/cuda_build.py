@@ -5,7 +5,8 @@ C interface. At first use it is compiled with ``nvcc`` for ``sm_90a``
 into ``build/deequ_tpu_torch/lib<name>_<hash>.so`` (the hash is the
 source's, so an edited source builds anew) and loaded with ``ctypes``.
 :func:`build` compiles several sources at once, one ``nvcc`` process
-each, all started together. A failed build raises.
+each, all started together. A failed build or load raises
+``DeviceCompileException`` (boundary ``"trace"``).
 
 No ``--use_fast_math`` and no ``-ftz=true``: the HLL hash reads the bits
 of float32 subnormals, which either flag would flush, and K4's select
@@ -24,7 +25,7 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict
 
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import DeviceCompileException
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deequ_tpu_torch"
@@ -44,9 +45,10 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise DeviceException(
+    raise DeviceCompileException(
         "nvcc not found (PATH, $CUDA_HOME/bin): the port's kernels are built "
-        "from deequ_tpu_torch/csrc/*.cu at first use"
+        "from deequ_tpu_torch/csrc/*.cu at first use",
+        boundary="trace",
     )
 
 
@@ -87,7 +89,7 @@ def build(*names: str, verbose: bool = False) -> Dict[str, Path]:
             print(out, flush=True)
         os.replace(tmp, todo[name])
     if failed:
-        raise DeviceException("\n".join(failed))
+        raise DeviceCompileException("\n".join(failed), boundary="trace")
     return targets
 
 
@@ -97,7 +99,13 @@ def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)[name]))
+            path = build(name)[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise DeviceCompileException(
+                    f"loading {path.name} failed: {e}", boundary="trace"
+                ) from e
             bind(lib)
             _LIBS[name] = lib
         return lib

@@ -1,0 +1,290 @@
+"""Device-fault policy for the scan engine — boundary classification, the
+compute watchdog, the fault-injection seam and the device's health (the
+port of ``deequ_tpu/ops/device_policy.py`` for one device).
+
+- :func:`device_call` wraps one device-boundary call of a scan
+  (``transfer`` / ``execute`` / ``fetch``): a raw torch or CUDA error
+  re-raises as its typed ``Device*Exception`` (``exceptions.py``), and with
+  a wall-clock ``deadline`` the call runs on a watchdog worker thread, so a
+  hung call becomes a typed ``DeviceHangException`` instead of a frozen
+  run. CUDA runs asynchronously: a fault or a stall of the card surfaces
+  at the next synchronising call, the scan's fetch, so the watchdog and
+  the classification are armed there as well as around each chunk's step;
+- :func:`install_scan_fault_hook` is the deterministic injection seam the
+  fault tests drive (``resilience/faults.py:FaultInjectingScanHook``); it
+  fires inside the watchdog, so an injected stall is converted like a real
+  one;
+- :class:`DeviceHealth` counts classified faults, so a device that faults
+  again and again opens a circuit breaker: scans under
+  ``on_device_error="fallback"`` are then refused up front
+  (``DeviceFallbackRefusedException``), with a half-open probe on the card
+  every ``probe_interval``-th scan.
+
+A worker abandoned by the watchdog may wake up long after its caller
+moved on. :func:`current_watchdog_call_abandoned` tells code running on
+such a worker (or on a worker that worker started) that its call was
+given up: it must launch nothing more on the card and count nothing
+(``ScanStats.record_fetch`` drops its fetch). The degradation policies
+themselves (bisection, eviction, demotion, refusal) live in
+``ops/scan_executors.py``; this module only decides *what* failed and
+*whether* the device is still trusted. ``MeshHealth`` and the per-shard
+deadline of a multi-card mesh come with the mesh.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Dict, Optional
+
+from deequ_tpu_torch.exceptions import (
+    DeviceException,
+    DeviceHangException,
+    device_boundary,
+)
+
+# -- fault-injection seam ----------------------------------------------------
+
+# The installed hook is called as hook(boundary, ctx) just before the
+# wrapped device call runs (inside the watchdog). ctx carries {"scan_id",
+# "attempt", "chunk_index"} — see FaultInjectingScanHook.
+_SCAN_FAULT_HOOK: Optional[Callable[[str, Dict[str, Any]], None]] = None
+
+
+def install_scan_fault_hook(hook) -> Optional[Callable]:
+    """Install (or, with None, remove) the scan engine's fault hook;
+    returns the hook installed before, so a caller can restore it."""
+    global _SCAN_FAULT_HOOK
+    previous = _SCAN_FAULT_HOOK
+    _SCAN_FAULT_HOOK = hook
+    return previous
+
+
+def current_scan_fault_hook():
+    return _SCAN_FAULT_HOOK
+
+
+# -- compute watchdog ----------------------------------------------------------
+
+
+def default_device_deadline() -> Optional[float]:
+    """The process-wide watchdog deadline (seconds) from
+    ``DEEQU_TORCH_DEVICE_DEADLINE``; unset, empty or 0 disarms it, a
+    malformed value raises ``EnvConfigError``."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    return env_value("DEEQU_TORCH_DEVICE_DEADLINE")
+
+
+#: the watchdog call a worker thread is running: {"abandoned", "parent"},
+#: where "parent" is the call state of the thread that started it
+_WATCHDOG_TLS = threading.local()
+
+
+class WatchdogAbandoned(Exception):
+    """Raised on a watchdog worker whose call was abandoned, where it would
+    otherwise launch on the card; its caller has raised
+    ``DeviceHangException`` already and reads nothing of it."""
+
+
+def current_watchdog_call_abandoned() -> bool:
+    """True when the calling thread runs a watchdog call that timed out and
+    was abandoned — or runs inside one (a call started by such a call): its
+    launches and its telemetry must not land on a later run."""
+    state = getattr(_WATCHDOG_TLS, "state", None)
+    while state is not None:
+        if state["abandoned"]:
+            return True
+        state = state["parent"]
+    return False
+
+
+def check_not_abandoned() -> None:
+    """Raise :class:`WatchdogAbandoned` on an abandoned watchdog call (see
+    :func:`current_watchdog_call_abandoned`); a no-op elsewhere."""
+    if current_watchdog_call_abandoned():
+        raise WatchdogAbandoned("the watchdog abandoned this call")
+
+
+class _WatchdogPool:
+    """Reusable daemon workers for deadline-bounded calls.
+
+    A worker parks on an inbox of its own between calls, so a call costs a
+    queue handoff, not a thread start. A worker whose call timed out is
+    abandoned (a hung device call cannot be cancelled from Python, only
+    detected): it never returns to the idle stack and exits when its call
+    ends, if ever. The pool holds as many workers as calls were ever armed
+    at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._idle: list = []
+
+    def _spawn(self):
+        inbox: "queue.SimpleQueue" = queue.SimpleQueue()
+
+        def loop():
+            while True:
+                fn, box, done, state = inbox.get()
+                # the call's state is visible from inside the call, so its
+                # telemetry (record_fetch) can tell whether it was abandoned
+                _WATCHDOG_TLS.state = state
+                try:
+                    box["value"] = fn()
+                except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+                    box["error"] = e
+                finally:
+                    _WATCHDOG_TLS.state = None
+                done.set()
+                # drop the job before parking: an idle worker must not pin
+                # the last call's closure (chunk planes, a fold) or result
+                fn = box = done = None
+                with self._lock:
+                    abandoned, state = state["abandoned"], None
+                    if abandoned:
+                        return
+                    self._idle.append(inbox)
+
+        threading.Thread(target=loop, daemon=True, name="deequ-torch-watchdog").start()
+        return inbox
+
+    def call(self, fn: Callable, deadline: float, what: str, boundary: str):
+        with self._lock:
+            inbox = self._idle.pop() if self._idle else None
+        if inbox is None:
+            inbox = self._spawn()
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+        state = {"abandoned": False, "parent": getattr(_WATCHDOG_TLS, "state", None)}
+        inbox.put((fn, box, done, state))
+        if not done.wait(deadline):
+            with self._lock:
+                # the call may have ended at the wire: abandon (and raise)
+                # only if it is still in flight — the lock orders this
+                # against the worker's decision to park again
+                if not done.is_set():
+                    state["abandoned"] = True
+            if state["abandoned"]:
+                raise DeviceHangException(
+                    f"[{boundary}] {what} exceeded the {deadline:g}s watchdog "
+                    "deadline — treating the device as hung",
+                    boundary=boundary,
+                    deadline=deadline,
+                )
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+
+_WATCHDOG_POOL = _WatchdogPool()
+
+
+def on_callers_stream(fn: Callable, device) -> Callable:
+    """``fn`` wrapped to run, on another thread, on the calling thread's
+    CUDA device and current stream (torch keeps both per thread): a chunk's
+    launches then queue behind the work the caller queued, and the copy
+    events it waits on are those the caller recorded. ``fn`` itself on the
+    CPU."""
+    import torch
+
+    if device is None or torch.device(device).type != "cuda":
+        return fn
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device)
+
+    def on_stream():
+        torch.cuda.set_device(device)
+        with torch.cuda.stream(stream):
+            return fn()
+
+    return on_stream
+
+
+def call_with_deadline(fn: Callable, deadline: float, what: str, boundary: str,
+                       device=None):
+    """Run ``fn`` on a pooled watchdog worker (on the caller's device and
+    stream); past ``deadline`` seconds raise DeviceHangException and
+    abandon the worker."""
+    return _WATCHDOG_POOL.call(on_callers_stream(fn, device), deadline, what, boundary)
+
+
+def device_call(
+    fn: Callable,
+    boundary: str,
+    what: str = "device call",
+    deadline: Optional[float] = None,
+    hook_ctx: Optional[Dict[str, Any]] = None,
+    device=None,
+):
+    """Run one device-boundary call under classification, with an optional
+    watchdog and an optional injected fault.
+
+    A raw torch or CUDA failure re-raises as its typed DeviceException
+    (``__cause__`` kept); any other error propagates untouched. The fault
+    hook fires only where ``hook_ctx`` is passed (a chunk's step). With
+    ``deadline`` the call runs on a watchdog worker, on ``device``'s
+    current stream of the calling thread. A call made on a watchdog worker
+    whose call was abandoned — before it starts, or while in the hook —
+    raises ``WatchdogAbandoned`` instead of running ``fn``: it launches
+    nothing on the card."""
+    hook = _SCAN_FAULT_HOOK if hook_ctx is not None else None
+
+    def body():
+        check_not_abandoned()
+        if hook is not None:
+            hook(boundary, hook_ctx)
+            check_not_abandoned()
+        return fn()
+
+    with device_boundary(boundary):
+        if deadline is not None:
+            return call_with_deadline(body, deadline, what, boundary, device)
+        return body()
+
+
+# -- the device's health ---------------------------------------------------------
+
+
+class DeviceHealth:
+    """Consecutive-fault counter of the card: a circuit breaker.
+
+    After ``threshold`` consecutive classified faults with no successful
+    scan between them, ``should_force_fallback()`` turns true and scans
+    under ``on_device_error="fallback"`` are refused up front (the
+    reference sends them to its CPU backend; the port never falls back).
+    Every ``probe_interval``-th such decision is a half-open probe instead:
+    the scan runs on the card, and one success resets the counter.
+    ``last_fault`` is the newest fault recorded, the ``__cause__`` of an
+    up-front refusal."""
+
+    def __init__(self, threshold: int = 3, probe_interval: int = 8):
+        self.threshold = int(threshold)
+        self.probe_interval = int(probe_interval)
+        self.reset()
+
+    def reset(self) -> None:
+        self.consecutive_faults = 0
+        self.total_faults = 0
+        self.last_fault: Optional[DeviceException] = None
+        self._forced = 0
+
+    def record_fault(self, exc: DeviceException) -> None:
+        self.consecutive_faults += 1
+        self.total_faults += 1
+        self.last_fault = exc
+
+    def record_success(self) -> None:
+        self.consecutive_faults = 0
+        self._forced = 0
+
+    def should_force_fallback(self) -> bool:
+        if self.consecutive_faults < self.threshold:
+            return False
+        self._forced += 1
+        if self.probe_interval and self._forced % self.probe_interval == 0:
+            return False  # half-open probe: try the card this once
+        return True
+
+
+#: the process-wide health of the card, read by run_scan's refusal policy
+DEVICE_HEALTH = DeviceHealth()

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import DeviceException, launch_error
 from deequ_tpu_torch.ops import cuda_build
 
 #: kernel launches since the last reset: one per launch of the CUDA
@@ -198,7 +198,7 @@ def _launch(seg, num_segments: int, weights, scratch, out, regime_name=None) -> 
             out.data_ptr(), stream,
         )
     if rc != 0:
-        raise DeviceException(
-            f"bincount kernel launch failed: CUDA error {rc} "
-            f"(n={n}, num_segments={num_segments}, regime={name})"
+        raise launch_error(
+            f"bincount kernel launch failed (n={n}, num_segments={num_segments}, "
+            f"regime={name})", rc,
         )

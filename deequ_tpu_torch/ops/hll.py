@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from deequ_tpu_torch import native
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import launch_error
 from deequ_tpu_torch.ops import cuda_build
 
 DEFAULT_RELATIVE_SD = 0.05
@@ -423,6 +423,6 @@ def _launch(x, valid, p: int, lut, out) -> None:
             x.numel(), p, out.data_ptr(), stream,
         )
     if rc != 0:
-        raise DeviceException(
-            f"hll kernel launch failed: CUDA error {rc} (n={x.numel()}, mode={mode}, p={p})"
+        raise launch_error(
+            f"hll kernel launch failed (n={x.numel()}, mode={mode}, p={p})", rc
         )

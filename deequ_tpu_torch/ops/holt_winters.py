@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import DeviceException, launch_error
 from deequ_tpu_torch.ops import cuda_build
 
 #: kernel launches since the last reset: one per launch of the CUDA
@@ -245,9 +245,9 @@ def _launch(series: torch.Tensor, periodicity: int, steps: int, out: torch.Tenso
             out.data_ptr(), stream,
         )
     if rc != 0:
-        raise DeviceException(
-            f"holt_winters kernel launch failed: CUDA error {rc} "
-            f"(n={n}, p={periodicity}, steps={steps}, blocks={blocks} of {block_len})"
+        raise launch_error(
+            f"holt_winters kernel launch failed (n={n}, p={periodicity}, steps={steps}, "
+            f"blocks={blocks} of {block_len})", rc,
         )
 
 

@@ -59,7 +59,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import DeviceException, launch_error
 from deequ_tpu_torch.ops import cuda_build
 
 #: calls of :func:`reduce_into` that launched the kernel (each one batch:
@@ -411,7 +411,7 @@ def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
             None if src is None else src.data_ptr(), out.data_ptr(), m, stream,
         )
     if rc != 0:
-        raise DeviceException(f"K1 merge kernel launch failed: CUDA error {rc} (n={m})")
+        raise launch_error(f"K1 merge kernel launch failed (n={m})", rc)
     MERGE_LAUNCHES += 1
     return out
 
@@ -645,7 +645,7 @@ def _launch_reduce(flat, tasks, offsets) -> None:
             flat.data_ptr(), stream,
         )
     if rc != 0:
-        raise DeviceException(
-            f"K1 kernel launch failed: CUDA error {rc} ({len(tasks)} tasks, "
-            f"{len(batch.sources)} sources, {len(batch.combos)} combos, n={batch.max_n})"
+        raise launch_error(
+            f"K1 kernel launch failed ({len(tasks)} tasks, {len(batch.sources)} sources, "
+            f"{len(batch.combos)} combos, n={batch.max_n})", rc,
         )

@@ -40,6 +40,14 @@ one packer layout are packed into one host buffer, copied to the card
 once, scanned batch by batch on views of that copy, and fetched once a
 group — each batch's results bit for bit those of its own ``run_scan``.
 
+Every scan resolves its switches, deadline and run budget once
+(:func:`run_scan`) and runs under an executor of ``ops/scan_executors.py``:
+an in-memory scan's attempts (:func:`_run_scan_once`) climb the device
+fault ladder — eviction, encoded->decoded demotion, chunk bisection, then
+a typed raise or the refused CPU rung — each chunk's transfer and step
+and the fetch a device boundary (``ops/device_policy.py:device_call``:
+classification, the watchdog, the fault hook).
+
 The card has native f64, so the port computes in f64 and carries no
 counterpart of the reference's (hi, lo) f32 pairs; ``ops/masked_reduce.py``
 is the counterpart of ``ops/df32.py``'s reductions.
@@ -61,6 +69,15 @@ import torch
 
 from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
+from deequ_tpu_torch.ops.device_policy import (  # noqa: F401 — the engine's fault seam
+    DEVICE_HEALTH,
+    call_with_deadline,
+    check_not_abandoned,
+    current_watchdog_call_abandoned,
+    default_device_deadline,
+    device_call,
+    install_scan_fault_hook,
+)
 from deequ_tpu_torch.expr.eval import Val
 from deequ_tpu_torch.ops import masked_reduce
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
@@ -205,7 +222,21 @@ class ScanStats:
     grouping tail a spill store held (what a group memory budget bounds).
     ``deferred_fetches`` counts the fetches of :func:`fetch_deferred`,
     each draining the deferred scans of a resilient stream's batches
-    since the last checkpoint boundary."""
+    since the last checkpoint boundary.
+
+    Device faults (``ops/scan_executors.py``, the reference's meanings):
+    ``device_faults`` classified faults a scan attempt met,
+    ``oom_bisections`` OOM-driven chunk halvings and ``bisection_depth``
+    the deepest any scan needed, ``encoded_demotions`` encoded attempts
+    moved to the decoded layout, ``watchdog_timeouts`` hung calls the
+    watchdog converted, ``fallback_refused`` scans that reached the
+    reference's CPU rung and were refused (where the reference counts
+    ``fallback_scans``), ``degradation_events`` one dict a rung taken
+    (:meth:`record_degradation`) and ``unverified_row_ranges`` the
+    [start, stop) rows a degraded run finished without verifying
+    (:meth:`record_unverified`). Run governance: ``budget_charges``
+    attempts charged to a run budget, ``budget_exhaustions`` budgets that
+    ran out."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -254,6 +285,17 @@ class ScanStats:
         self.peak_group_state_bytes = 0
         # deferred scans (run_scan(defer=True), fetch_deferred)
         self.deferred_fetches = 0
+        # the device fault ladder and run governance
+        self.device_faults = 0
+        self.oom_bisections = 0
+        self.bisection_depth = 0
+        self.encoded_demotions = 0
+        self.watchdog_timeouts = 0
+        self.fallback_refused = 0
+        self.degradation_events: List[Dict[str, Any]] = []
+        self.unverified_row_ranges: List[Tuple[int, int]] = []
+        self.budget_charges = 0
+        self.budget_exhaustions = 0
 
     @property
     def ingest_overlap_frac(self) -> float:
@@ -271,9 +313,43 @@ class ScanStats:
             self.bytes_staged += int(nbytes)
 
     def record_fetch(self, nbytes: int) -> None:
+        """One device->host fetch and its bytes. A fetch made by a watchdog
+        call that was abandoned is dropped: its scan already failed typed
+        and the ladder moved on, so its late count would land on whatever
+        run is active when the call wakes."""
+        if current_watchdog_call_abandoned():
+            return
         with self._lock:
             self.device_fetches += 1
             self.bytes_fetched += int(nbytes)
+
+    def record_degradation(self, kind: str, **detail) -> Dict[str, Any]:
+        """Append one rung taken (kind: 'oom_bisect', 'encoded_demote',
+        'watchdog_timeout', 'cpu_fallback_refused', 'budget_exhausted')
+        for ``scan_execution_report`` and
+        ``VerificationResult.device_events``."""
+        event = {"kind": kind, **detail}
+        with self._lock:
+            self.degradation_events.append(event)
+        return event
+
+    def record_unverified(self, start: int, stop: int, reason: str,
+                          kind: str = "budget_exhausted") -> Dict[str, Any]:
+        """Mark rows [start, stop) unverified: a budget-exhausted run
+        finished without them. The omission is reported, never silent
+        (``VerificationResult.unverified_row_ranges``)."""
+        with self._lock:
+            self.unverified_row_ranges.append((int(start), int(stop)))
+        return self.record_degradation(kind, start=int(start), stop=int(stop), reason=reason)
+
+    def record_budget_charge(self, exhausted: bool = False) -> None:
+        """One charge to a run budget, or (``exhausted``) a budget that ran
+        out."""
+        with self._lock:
+            if exhausted:
+                self.budget_exhaustions += 1
+            else:
+                self.budget_charges += 1
 
     def record_kll_sort(self, columns: int) -> None:
         with self._lock:
@@ -287,7 +363,12 @@ class ScanStats:
             setattr(self, name, getattr(self, name) + 1)
 
     def snapshot(self) -> Dict[str, Any]:
-        snap = {k: v for k, v in vars(self).items() if not k.startswith("_")}
+        """Every counter, read under the lock; the event and range lists
+        are copies, not live views."""
+        with self._lock:
+            snap = {k: v for k, v in vars(self).items() if not k.startswith("_")}
+            snap["degradation_events"] = [dict(e) for e in self.degradation_events]
+            snap["unverified_row_ranges"] = [tuple(r) for r in self.unverified_row_ranges]
         snap["ingest_overlap_frac"] = self.ingest_overlap_frac
         return snap
 
@@ -742,16 +823,22 @@ def persist_table(
 
 def _evict_device_cache(table) -> int:
     """Drop the table's resident chunks now and take them off the budget;
-    returns the bytes freed."""
+    returns the bytes freed: on a card, what ``torch.cuda.memory_allocated``
+    fell by (nothing while another reference still holds the chunks), on
+    the CPU the chunks' bytes."""
     cache = getattr(table, "_device_cache", None)
     if cache is None:
         return 0
-    freed = cache.nbytes
+    on_card = cache.device.type == "cuda"
+    before = torch.cuda.memory_allocated(cache.device) if on_card else 0
+    nbytes = cache.nbytes
     cache.device_chunks = []
     cache.nbytes = 0
     _ACTIVE_CACHES.discard(cache)
     table._device_cache = None
-    return freed
+    if not on_card:
+        return nbytes
+    return max(before - torch.cuda.memory_allocated(cache.device), 0)
 
 
 def _resident_cache(table, device, needed, chunk_rows) -> Optional[DeviceTableCache]:
@@ -773,10 +860,12 @@ class DeferredScan:
     once; :meth:`result` gives this one's leaves (fetching it alone if no
     one did), or raises what went wrong when they were unpacked."""
 
-    def __init__(self, fold: "_DeviceFoldPlan", vector: torch.Tensor, filled: int):
+    def __init__(self, fold: "_DeviceFoldPlan", vector: torch.Tensor, filled: int,
+                 deadline: Optional[float] = None):
         self._fold = fold
         self._vector = vector
         self._filled = filled
+        self._deadline = deadline
         self._results: Optional[List[Dict[str, np.ndarray]]] = None
         self._error: Optional[BaseException] = None
 
@@ -804,17 +893,62 @@ def fetch_deferred(scans: Sequence[DeferredScan]) -> None:
     vectors are concatenated on the device, and each slice is unpacked
     into its scan's leaves in order. A scan whose unpacking fails keeps
     its error for :meth:`DeferredScan.result`; the others are not
-    touched by it."""
+    touched by it. The fetch is a device boundary like any other: a fault
+    surfacing there raises typed, under the scans' watchdog deadline."""
     pending = [s for s in scans if not s.done]
     if not pending:
         return
     sizes = [int(s._vector.numel()) for s in pending]
-    (host,) = fetch(torch.cat([s._vector for s in pending]))
+    deadline = next((s._deadline for s in pending if s._deadline is not None), None)
+    (host,) = device_call(
+        lambda: fetch(torch.cat([s._vector for s in pending])),
+        "fetch", what="deferred scan fetch", deadline=deadline,
+        device=pending[0]._vector.device,
+    )
     SCAN_STATS.deferred_fetches += 1
     off = 0
     for scan, size in zip(pending, sizes):
         scan._settle(host[off:off + size])
         off += size
+
+
+#: the smallest chunk the OOM bisection tries before giving up: below it
+#: an OOM is no longer about the chunk's size (something else holds the
+#: card's memory), and log2(RESIDENT_MAX_CHUNK_ROWS / 64) = 19 bounds the
+#: halvings of one scan
+MIN_BISECT_CHUNK_ROWS = 64
+
+#: the least watchdog a governed attempt gets, however little of the run
+#: budget's wall is left: a 0-second watchdog would turn every healthy
+#: call into a hang; the budget's own wall check ends the run typed after
+MIN_BUDGET_WATCHDOG_SECONDS = 0.05
+
+# one id a logical run_scan call, the same across its retries: the key the
+# deterministic fault hook scripts against
+_SCAN_IDS = itertools.count()
+
+
+def _governed_attempt(budget, fn: Callable, what: str, device):
+    """Run one WHOLE scan attempt under the run budget's wall watchdog (one
+    worker a governed attempt, never one a device call): a hang anywhere
+    in the attempt becomes a typed ``DeviceHangException`` at the budget
+    left, so a run ends within its ``run_deadline``. Without a budget, or
+    a budget without a deadline, ``fn`` runs inline. The ambient budget is
+    thread-local, so the worker re-enters its scope: charge sites inside
+    the attempt draw on this run's ledger, and a worker abandoned after a
+    timeout can charge only its own (exhausted) budget."""
+    wall_left = budget.remaining_seconds() if budget is not None else None
+    if wall_left is None:
+        return fn()
+    from deequ_tpu_torch.resilience.governance import run_budget_scope
+
+    def governed_fn():
+        with run_budget_scope(budget):
+            return fn()
+
+    return call_with_deadline(
+        governed_fn, max(wall_left, MIN_BUDGET_WATCHDOG_SECONDS), what, "execute", device,
+    )
 
 
 def run_scan(
@@ -825,6 +959,11 @@ def run_scan(
     select_kernel: Optional[bool] = None,
     encoded_ingest: Optional[bool] = None,
     defer: bool = False,
+    on_device_error: str = "fail",
+    device_deadline: Optional[float] = None,
+    run_deadline: Optional[float] = None,
+    max_total_attempts: Optional[int] = None,
+    on_budget_exhausted: Optional[str] = None,
 ):
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
@@ -844,25 +983,117 @@ def run_scan(
 
     ``defer=True`` (an in-memory table) queues the scan and returns a
     :class:`DeferredScan` instead of fetching: the resilient stream loop
-    fetches its batches' scans together at a checkpoint boundary."""
+    fetches its batches' scans together at a checkpoint boundary.
+
+    Device faults (``ops/device_policy.py``, ``ops/scan_executors.py``):
+
+    - raw torch and CUDA failures at a chunk's transfer, its step and the
+      fetch raise as typed ``Device*Exception``s;
+    - a ``DeviceOOMException`` evicts the table's residency and frees the
+      allocator's cache, then demotes an encoded attempt to the decoded
+      layout at the same chunk, else halves the chunk and retries — down
+      to :data:`MIN_BISECT_CHUNK_ROWS` — each rung a recorded degradation
+      event; a bisected attempt starts a fresh fold;
+    - ``device_deadline`` (seconds; default ``DEEQU_TORCH_DEVICE_DEADLINE``)
+      arms the watchdog on each chunk's step and on the fetch: a call past
+      it raises ``DeviceHangException``;
+    - a lost device, a kernel that will not build, a hang, or an OOM at the
+      bisection floor ends the ladder: ``on_device_error="fail"`` (the
+      default) raises the typed fault; ``"fallback"``, where the reference
+      re-runs the scan on the CPU, raises ``DeviceFallbackRefusedException``
+      with the fault as its ``__cause__``, as it does up front while the
+      device's circuit breaker is open (``DEVICE_HEALTH``); the port never
+      moves a CUDA run onto the CPU.
+
+    Run governance (``resilience/governance.py``): ``run_deadline`` /
+    ``max_total_attempts`` (defaults ``DEEQU_TORCH_RUN_DEADLINE`` /
+    ``DEEQU_TORCH_RUN_ATTEMPTS``) arm one budget for this scan that every
+    rung charges before it is spent; a scan under an ambient budget (one
+    verification run's) charges that one instead. The first charge past it
+    raises a typed ``RunBudgetExhaustedException``; with a wall deadline
+    each whole attempt runs under one watchdog armed with the budget
+    left."""
+    from deequ_tpu_torch.ops import scan_executors
+    from deequ_tpu_torch.ops.scan_plan import select_kernel_enabled
+    from deequ_tpu_torch.resilience.governance import (
+        current_run_budget,
+        resolve_run_policy,
+        run_budget_scope,
+    )
+
+    if on_device_error not in ("fail", "fallback"):
+        raise ValueError(
+            f"on_device_error must be 'fail' or 'fallback', got {on_device_error!r}"
+        )
     device = torch.device(device)
-    if getattr(table, "is_streaming", False):
-        if defer:
-            raise ValueError("run_scan(defer=True) takes an in-memory table")
-        return _run_scan_stream(table, ops, device, chunk_rows, encoded_ingest)
+    budget = current_run_budget()
+    if budget is None:
+        policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
+        if policy is not None:
+            # a scan-local budget, ambient for every charge site inside
+            with run_budget_scope(policy.arm()):
+                return run_scan(table, ops, device, chunk_rows, select_kernel,
+                                encoded_ingest, defer, on_device_error, device_deadline)
+    # the switches resolve once a run, so every rung plans alike; the
+    # encoded switch is also the ladder's demotion state
+    select_kernel = select_kernel_enabled(select_kernel)
+    encoded = encoded_ingest_enabled(encoded_ingest)
+    if device_deadline is None:
+        device_deadline = default_device_deadline()
+    scan_id = next(_SCAN_IDS)
+    if scan_executors.classify(table) == "streaming":
+        return scan_executors.run_streaming_scan(
+            table, ops, device=device, chunk_rows=chunk_rows, defer=defer,
+            device_deadline=device_deadline, encoded_ingest=encoded,
+            budget=budget, scan_id=scan_id,
+        )
+    # "fallback" alone asks the breaker: its question advances the
+    # half-open probe's count
+    if on_device_error == "fallback" and DEVICE_HEALTH.should_force_fallback():
+        scan_executors.refuse_cpu_rung(
+            table, scan_id, "unhealthy_backend", DEVICE_HEALTH.last_fault, budget,
+            consecutive_faults=DEVICE_HEALTH.consecutive_faults,
+        )
+    return scan_executors.run_laddered_scan(
+        table, ops, device=device, chunk_rows=chunk_rows, defer=defer,
+        on_device_error=on_device_error, device_deadline=device_deadline,
+        select_kernel=select_kernel, encoded_ingest=encoded, budget=budget,
+        scan_id=scan_id,
+    )
+
+
+def _run_scan_once(
+    table,
+    ops: Sequence[ScanOp],
+    device: torch.device,
+    chunk_rows: Optional[int],
+    defer: bool,
+    device_deadline: Optional[float],
+    scan_ctx: Dict[str, Any],
+    report: Dict[str, Any],
+    select_kernel: bool = True,
+    encoded: bool = True,
+):
+    """One attempt of the fused in-memory scan, each chunk's transfer, each
+    chunk's step (the fault hook's seam, ``scan_ctx`` plus its
+    ``chunk_index``) and the fetch a device boundary (``device_call``).
+    ``report`` returns the chunk rows the attempt used and whether it read
+    an encoded layout, for the ladder's next rung. Every attempt starts a
+    fresh fold sized for its own chunk count."""
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
-    encode = encoded_ingest_enabled(encoded_ingest)
     cache = _resident_cache(table, device, needed, chunk_rows)
-    if cache is not None and cache.packer.enc_names and not encode:
+    if cache is not None and cache.packer.enc_names and not encoded:
         cache = None
     if cache is not None:
         packer, chunk = cache.packer, cache.chunk
     else:
-        packer = _ChunkPacker({name: table[name] for name in needed}, encode=encode)
+        packer = _ChunkPacker({name: table[name] for name in needed}, encode=encoded)
         chunk = chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1))
+    report["chunk"] = chunk
     bounds = _chunk_bounds(n_rows, chunk)
     plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, chunk)
+    report["encoded"] = bool(plan.encoded_columns)
     ops = plan.ops
     n_chunks = len(bounds)
     op_luts = _device_luts(ops, packer.cols, device)
@@ -877,27 +1108,44 @@ def run_scan(
         SCAN_STATS.resident_passes += 1
         SCAN_STATS.bytes_resident += cache.nbytes
     fetches_before = SCAN_STATS.device_fetches
-
     fold: Optional[_DeviceFoldPlan] = None
+
+    def transfer(start: int, stop: int):
+        host = packer.pack(start, stop)
+        return packer.to_device(host, device), sum(p.nbytes for p in host)
+
+    def step(planes, n: int) -> None:
+        nonlocal fold
+        row_valid = torch.ones(n, dtype=torch.bool, device=device)
+        vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
+        partials = [op.update(vals, row_valid, n, chunk) for op in ops]
+        if fold is None:
+            fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
+        fold.merge(fold.flatten(partials, row_valid))
+
     for ci, (start, stop) in enumerate(bounds):
-        n = stop - start
+        # an attempt abandoned by its run-budget watchdog steps no further
+        check_not_abandoned()
         if cache is not None:
             planes = cache.device_chunks[ci]
         else:
-            host = packer.pack(start, stop)
-            SCAN_STATS.bytes_packed += sum(p.nbytes for p in host)
-            planes = packer.to_device(host, device)
-        with device_boundary("execute"):
-            row_valid = torch.ones(n, dtype=torch.bool, device=device)
-            vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
-            partials = [op.update(vals, row_valid, n, chunk) for op in ops]
-            if fold is None:
-                fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
-            fold.merge(fold.flatten(partials, row_valid))
+            planes, nbytes = device_call(
+                lambda: transfer(start, stop), "transfer", what=f"chunk {ci} transfer",
+                deadline=device_deadline, device=device,
+            )
+            SCAN_STATS.bytes_packed += nbytes
+        device_call(
+            lambda: step(planes, stop - start), "execute", what=f"chunk {ci} step",
+            deadline=device_deadline, hook_ctx={**scan_ctx, "chunk_index": ci},
+            device=device,
+        )
         SCAN_STATS.chunks_processed += 1
     if defer:
-        return DeferredScan(fold, fold.flat_result(), fold._filled)
-    results = fold.fetch_unflatten()
+        return DeferredScan(fold, fold.flat_result(), fold._filled, device_deadline)
+    # CUDA runs asynchronously: a fault or a stall of the card surfaces at
+    # this synchronising copy, so the watchdog and classification hold here
+    results = device_call(fold.fetch_unflatten, "fetch", what="scan fetch",
+                          deadline=device_deadline, device=device)
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results
 
@@ -911,10 +1159,15 @@ def _prefetch(iterator, depth: int = 2):
     memory stays bounded by ``depth`` items. An exception of the reader
     reaches the consumer at its place in the stream, however long the
     consumer takes to free a slot; a consumer that abandons the generator
-    stops the reader instead of leaving it blocked on a full queue."""
+    stops the reader instead of leaving it blocked on a full queue. The
+    reader re-enters the caller's run budget (thread-local): the read
+    retries a source makes there charge this run's ledger."""
+    from deequ_tpu_torch.resilience.governance import current_run_budget, run_budget_scope
+
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     stop = threading.Event()
+    budget = current_run_budget()
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -927,9 +1180,10 @@ def _prefetch(iterator, depth: int = 2):
 
     def run():
         try:
-            for item in iterator:
-                if not put(item):
-                    return
+            with run_budget_scope(budget):
+                for item in iterator:
+                    if not put(item):
+                        return
             put(done)
         except BaseException as e:  # noqa: BLE001 — handed to the consumer, raised there
             put(e)
@@ -1084,6 +1338,8 @@ def _run_scan_stream(
     device: torch.device,
     chunk_rows: Optional[int] = None,
     encoded_ingest: Optional[bool] = None,
+    scan_id: int = -1,
+    device_deadline: Optional[float] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """One fused pass over a StreamingTable (the reference's
     ``_run_scan_stream``): batches come off the source on a reader thread
@@ -1132,24 +1388,34 @@ def _run_scan_stream(
     host_gather = _StreamGather(ops)
     fold: Optional[_DeviceFoldPlan] = None
     staged: Optional[Tuple] = None  # the chunk copied and not yet scanned
+    chunk_ids = itertools.count()
     encoded_counted = False
 
     def scan_staged(entry) -> None:
-        nonlocal fold
-        packer, planes, event, n, op_luts, enc_luts = entry
-        staging.ready(event)
-        with device_boundary("execute"):
+        packer, planes, event, n, op_luts, enc_luts, idx = entry
+
+        def step() -> torch.Tensor:
+            nonlocal fold
+            staging.ready(event)
             row_valid = torch.ones(n, dtype=torch.bool, device=device)
             vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
             partials = [op.update(vals, row_valid, n, chunk) for op in ops]
             if fold is None:
                 fold = _DeviceFoldPlan(ops, partials, STREAM_FOLD_CAPACITY, device)
-            flat = fold.flatten(partials, row_valid)
+            return fold.flatten(partials, row_valid)
+
+        flat = device_call(
+            step, "execute", what=f"stream chunk {idx} step", deadline=device_deadline,
+            hook_ctx={"scan_id": scan_id, "attempt": 0, "chunk_index": idx},
+            device=device,
+        )
         if fold.gather_full:
-            host_gather.add(fold.drain_gathered(), final=False)
+            host_gather.add(device_call(fold.drain_gathered, "fetch", what="stream fold drain",
+                                        deadline=device_deadline, device=device),
+                            final=False)
             SCAN_STATS.fold_drains += 1
-        with device_boundary("execute"):
-            fold.merge(flat)
+        device_call(lambda: fold.merge(flat), "execute", what=f"stream chunk {idx} fold",
+                    deadline=device_deadline, device=device)
         SCAN_STATS.chunks_processed += 1
         SCAN_STATS.device_sort_passes += plan.sort_ops
 
@@ -1162,11 +1428,12 @@ def _run_scan_stream(
         op_luts = _device_luts(ops, cols, device)
         enc_luts = packer.enc_luts(device)
         for start, stop in _chunk_bounds(n, chunk):
+            check_not_abandoned()
             planes, nbytes, event = staging.stage(packer, start, stop)
             SCAN_STATS.bytes_packed += nbytes
             SCAN_STATS.record_staged(nbytes, overlapped=staged is not None)
             previous, staged = staged, (packer, planes, event, stop - start, op_luts,
-                                        enc_luts)
+                                        enc_luts, next(chunk_ids))
             if previous is not None:
                 scan_staged(previous)
 
@@ -1180,7 +1447,8 @@ def _run_scan_stream(
         scan_batch({c.name: c for c in empty_columns(schema, needed)}, 0)
     scan_staged(staged)  # the last chunk has no successor to overlap
 
-    results = fold.fetch_unflatten()
+    results = device_call(fold.fetch_unflatten, "fetch", what="stream fetch",
+                          deadline=device_deadline, device=device)
     host_gather.add(results, final=True)
     for result, gathered in zip(results, host_gather.blocks):
         result.update(gathered)
@@ -1206,16 +1474,19 @@ class DeferredGroupScan:
     dicts a batch, each equal to that batch's own ``run_scan``."""
 
     def __init__(self, device_out: torch.Tensor, fold: "_DeviceFoldPlan",
-                 dispatch_fetches: int):
+                 dispatch_fetches: int, deadline: Optional[float] = None):
         self._device_out = device_out
         self._fold = fold
+        self._deadline = deadline
         self._results: Optional[list] = None
         SCAN_STATS.group_fetches += dispatch_fetches
 
     def results(self) -> list:
         if self._results is None:
             before = SCAN_STATS.device_fetches
-            (host,) = fetch(self._device_out)
+            (host,) = device_call(lambda: fetch(self._device_out), "fetch",
+                                  what="group scan fetch", deadline=self._deadline,
+                                  device=self._device_out.device)
             SCAN_STATS.group_fetches += SCAN_STATS.device_fetches - before
             self._results = [self._fold.unflatten(row, 1) for row in host]
             self._device_out = None
@@ -1350,9 +1621,11 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
     SCAN_STATS.device_sort_passes += plan.sort_ops * K
     if plan.encoded_columns:
         SCAN_STATS.encoded_scan_passes += 1
-    fold: Optional[_DeviceFoldPlan] = None
-    out: Optional[torch.Tensor] = None
-    with device_boundary("execute"):
+    deadline = default_device_deadline()
+
+    def step():
+        fold: Optional[_DeviceFoldPlan] = None
+        out: Optional[torch.Tensor] = None
         row_valid = torch.ones(n, dtype=torch.bool, device=device)
         for k, packer in enumerate(packers):
             op_luts: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -1368,4 +1641,10 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
                                   device=device)
             out[k] = fold.single(fold.flatten(partials, row_valid))
             SCAN_STATS.chunks_processed += 1
-    return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before)
+        return out, fold
+
+    # a device boundary under the process deadline, like a scan's step; a
+    # group scan has no ladder (the reference's has none either)
+    out, fold = device_call(step, "execute", what=f"group scan of {K} batches",
+                            deadline=deadline, device=device)
+    return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before, deadline)

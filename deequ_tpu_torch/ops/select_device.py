@@ -67,7 +67,7 @@ from typing import Optional
 
 import torch
 
-from deequ_tpu_torch.exceptions import DeviceException
+from deequ_tpu_torch.exceptions import launch_error
 from deequ_tpu_torch.ops import cuda_build
 from deequ_tpu_torch.ops.histogram_device import bincount
 from deequ_tpu_torch.ops.kll_device import strata_capacity, strata_weight
@@ -376,8 +376,7 @@ def launch_summary(X: torch.Tensor, M: torch.Tensor, sketch_size: int, bufs: dic
             stream, ctypes.cast(times, ctypes.c_void_p) if stage_ms else None,
         )
     if rc != 0:
-        raise DeviceException(f"select kernel launch failed: CUDA error {rc} "
-                              f"(K={K}, n={n}, k={k}, W={W})")
+        raise launch_error(f"select kernel launch failed (K={K}, n={n}, k={k}, W={W})", rc)
     return dict(zip(STAGES, times)) if stage_ms else None
 
 
@@ -428,8 +427,7 @@ def select_ranks(X: torch.Tensor, M: torch.Tensor, ranks: torch.Tensor, trace: b
                 scratch.data_ptr(), stream,
             )
         if rc != 0:
-            raise DeviceException(f"select kernel launch failed: CUDA error {rc} "
-                                  f"(K={K}, n={n}, R={R})")
+            raise launch_error(f"select kernel launch failed (K={K}, n={n}, R={R})", rc)
         LAUNCHES += 1
     return (keys, tie, steps) if trace else (keys, tie)
 

@@ -1,7 +1,5 @@
-"""Deterministic fault injection — the test double for unreliable storage
-(the port's copy of the I/O half of ``deequ_tpu/resilience/faults.py``;
-its device half, ``InjectedDeviceError`` and ``FaultInjectingScanHook``,
-belongs to the device fault ladder, slice 8c of the port).
+"""Deterministic fault injection — the test doubles for unreliable storage
+and an unreliable card (the port of ``deequ_tpu/resilience/faults.py``).
 
 The resilience layer's claims (retry exhaustion, checksum detection,
 quarantine, checkpoint and resume) are testable only if faults can be
@@ -11,7 +9,9 @@ a pure hash, so two schedules with the same seed and the same sequence of
 operations inject the same faults. ``FaultInjectingFileSystem`` wraps any
 FileSystem (register it for a scheme with
 ``data.fs.register_filesystem``); ``FlakyBatchSource`` wraps any
-BatchSource with faults a batch index.
+BatchSource with faults a batch index; ``FaultInjectingScanHook`` injects
+device faults (OOM, a kernel that will not build, a lost device, a hang)
+at the scan engine's execute seam (``ops/device_policy.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import hashlib
 import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from deequ_tpu_torch.data.fs import FileSystem
 from deequ_tpu_torch.data.source import BatchSource
@@ -29,6 +29,14 @@ FaultKey = Tuple  # e.g. ("batch", 3) or ("open", "fault://dir/metrics.json")
 
 class InjectedIOError(IOError):
     """Marker subclass so tests can tell injected faults from real ones."""
+
+
+class InjectedDeviceError(RuntimeError):
+    """Stand-in for the RuntimeError torch raises on a CUDA fault, raised
+    by FaultInjectingScanHook with the messages torch and the CUDA runtime
+    print, so ``exceptions.classify_device_error`` classifies it exactly as
+    it would the real error: the engine sees what a real device fault
+    looks like, not a pre-typed exception."""
 
 
 class FaultSchedule:
@@ -229,3 +237,101 @@ class FlakyBatchSource(BatchSource):
                 return
             yield batch
             idx += 1
+
+
+# -- device-fault injection --------------------------------------------------
+
+# the messages torch and the CUDA runtime print for each kind, so the
+# classifier runs on the strings a real fault carries
+_DEVICE_FAULT_MESSAGES = {
+    "oom": (
+        "CUDA out of memory. Tried to allocate {nbytes} bytes. "
+        "[injected scan_id={scan_id} attempt={attempt}]"
+    ),
+    "compile": (
+        "CUDA error: no kernel image is available for execution on the "
+        "device [injected scan_id={scan_id} attempt={attempt}]"
+    ),
+    "lost": (
+        "CUDA error: an illegal memory access was encountered "
+        "[injected scan_id={scan_id} attempt={attempt}]"
+    ),
+}
+
+
+class FaultInjectingScanHook:
+    """Seeded, scripted device faults at the scan engine's execute seam.
+
+    Install with ``ops.scan_engine.install_scan_fault_hook(hook)``. The
+    engine calls the hook just before each chunk's step with ``(boundary,
+    ctx)``, ctx = {scan_id, attempt, chunk_index}:
+
+    - ``scan_id`` numbers logical ``run_scan`` calls process-wide and stays
+      the same across the retries of one scan — in a resilient stream each
+      batch is one scan, so scripting by scan id is scripting by batch;
+    - ``attempt`` counts the engine's retries of that scan, so
+      ``faults={k: ("oom", 1)}`` means scan k OOMs once and succeeds on the
+      first bisected retry, and ``("lost", FaultSchedule.PERMANENT)`` is a
+      dead card.
+
+    Kinds: ``"oom"`` / ``"compile"`` / ``"lost"`` raise an
+    ``InjectedDeviceError`` carrying the message torch prints for such a
+    fault (classified as the real one); ``"hang"`` sleeps ``hang_seconds``
+    inside the watchdog-wrapped call — a stall on the host at the execute
+    seam, so an armed ``device_deadline`` converts it into a
+    ``DeviceHangException`` (a kernel spinning on the card could not be
+    cancelled and would leave the CUDA context unusable) — and returns.
+
+    ``faults`` keys are scan ids; with ``relative=True`` they count from
+    the first scan this hook observes. Every injection appends ``(kind,
+    scan_id, attempt)`` to ``injected`` and every observation ``(boundary,
+    scan_id, attempt, chunk_index)`` to ``calls``, so replays compare. The
+    reference's spared CPU-fallback attempts (the port has none), its
+    lost-device release of a hang and its mesh-targeted 3-tuple specs are
+    not carried."""
+
+    def __init__(
+        self,
+        faults: Optional[Dict[int, Union[str, Tuple]]] = None,
+        hang_seconds: float = 30.0,
+        relative: bool = True,
+    ):
+        self.faults: Dict[int, Tuple[str, float]] = {}
+        for scan, spec in (faults or {}).items():
+            if isinstance(spec, str):
+                spec = (spec, 1)
+            if len(spec) != 2:
+                raise ValueError(
+                    f"a device fault is (kind, times), got {spec!r} (targeted "
+                    "faults come with the multi-card mesh)"
+                )
+            kind, times = spec
+            if kind not in ("oom", "compile", "lost", "hang"):
+                raise ValueError(f"unknown device fault kind {kind!r}")
+            self.faults[int(scan)] = (kind, float(times))
+        self.hang_seconds = float(hang_seconds)
+        self.relative = bool(relative)
+        self._base_scan_id: Optional[int] = None
+        self.injected: List[Tuple] = []
+        self.calls: List[Tuple[str, int, int, int]] = []
+
+    def __call__(self, boundary: str, ctx: Dict) -> None:
+        scan_id = int(ctx.get("scan_id", -1))
+        if self.relative:
+            if self._base_scan_id is None:
+                self._base_scan_id = scan_id
+            scan_id -= self._base_scan_id
+        attempt = int(ctx.get("attempt", 0))
+        self.calls.append((boundary, scan_id, attempt, int(ctx.get("chunk_index", -1))))
+        spec = self.faults.get(scan_id)
+        if spec is None:
+            return
+        kind, times = spec
+        if attempt >= times:
+            return
+        self.injected.append((kind, scan_id, attempt))
+        if kind == "hang":
+            time.sleep(self.hang_seconds)
+            return
+        raise InjectedDeviceError(_DEVICE_FAULT_MESSAGES[kind].format(
+            nbytes=8 << 30, scan_id=scan_id, attempt=attempt))

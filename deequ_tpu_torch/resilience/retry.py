@@ -1,14 +1,16 @@
 """RetryPolicy — exponential backoff, jitter and a deadline for transient
-I/O; the port's subset of ``deequ_tpu/resilience/retry.py``:
+I/O; the port of ``deequ_tpu/resilience/retry.py``:
 ``RetryPolicy``, ``retry_call`` (one-shot I/O: filesystem and spill-run
 opens), the process default policy (``default_retry_policy``,
 ``set_default_retry_policy``, ``resolve_retry_policy``),
 ``RetryingFileSystem`` (a FileSystem proxy whose every operation runs
 under the policy — the state providers' storage), and the batch reads of
 a stream (``resilient_batches`` with the quarantine of unreadable batches
-the resilient stream loop uses, ``RetryingBatchSource``). The reference's
-``RetryTelemetry`` and its run-budget charge belong to its device fault
-ladder (slice 8c of the port) and are not here.
+the resilient stream loop uses, ``RetryingBatchSource``), and
+``RetryTelemetry``: every failed try is counted (``RETRY_TELEMETRY``,
+reported per run as ``VerificationResult.retry_stats``) and charged to the
+ambient run budget (``resilience/governance.py``), whose wall deadline
+also caps each backoff sleep.
 
 Jitter draws from a policy-owned ``random.Random(seed)``, so identical
 failure sequences sleep identical schedules.
@@ -22,6 +24,82 @@ from random import Random
 from typing import Callable, Iterator, List, Optional, Tuple
 
 from deequ_tpu_torch.exceptions import RetryExhaustedException
+
+class RetryTelemetry:
+    """Process-wide retry accounting: every RetryPolicy invocation records
+    its failed tries, its backoff sleep and the last exception seen;
+    ``VerificationSuite`` reports the delta of a run as
+    ``VerificationResult.retry_stats``.
+
+    One meaning across both producers (``RetryPolicy.call`` and
+    ``resilient_batches``): ``invocations`` retried-operation contexts
+    entered; ``attempts`` FAILED tries (a clean first try is not one);
+    ``retries`` failed tries followed by a backoff sleep; ``exhausted``
+    operations abandoned past the attempt or deadline budget."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.invocations = 0
+        self.attempts = 0
+        self.retries = 0
+        self.backoff_seconds = 0.0
+        self.exhausted = 0
+        self.last_exception: Optional[str] = None
+
+    def record_attempt(self) -> None:
+        self.attempts += 1
+
+    def record_retry(self, slept: float, exc: BaseException) -> None:
+        self.retries += 1
+        self.backoff_seconds += slept
+        self.last_exception = f"{type(exc).__name__}: {exc}"
+
+    def record_exhausted(self, exc: BaseException) -> None:
+        self.exhausted += 1
+        self.last_exception = f"{type(exc).__name__}: {exc}"
+
+    def snapshot(self) -> dict:
+        return {
+            "invocations": self.invocations,
+            "attempts": self.attempts,
+            "retries": self.retries,
+            "backoff_seconds": self.backoff_seconds,
+            "exhausted": self.exhausted,
+            "last_exception": self.last_exception,
+        }
+
+    def delta_since(self, before: dict) -> dict:
+        now = self.snapshot()
+        out = {
+            key: (round(now[key] - before[key], 6) if isinstance(now[key], float)
+                  else now[key] - before[key])
+            for key in now if key != "last_exception"
+        }
+        # the last exception means something only if a try failed since
+        out["last_exception"] = (
+            now["last_exception"] if (out["retries"] or out["exhausted"]) else None
+        )
+        return out
+
+
+RETRY_TELEMETRY = RetryTelemetry()
+
+
+def _backoff(policy: "RetryPolicy", failed: int, exc: BaseException) -> None:
+    """Sleep the policy's delay after ``failed`` failed tries, never past
+    the run budget's wall deadline (the next charge would exhaust it, but
+    the sleep itself must not overshoot the promised deadline)."""
+    from deequ_tpu_torch.resilience.governance import run_budget_remaining
+
+    delay = policy.delay_for(failed - 1)
+    wall_left = run_budget_remaining()
+    if wall_left is not None:
+        delay = min(delay, wall_left)
+    RETRY_TELEMETRY.record_retry(delay, exc)
+    time.sleep(delay)
+
 
 # errors worth retrying by default: the OS and network layer, not logic
 DEFAULT_RETRY_ON = (OSError, TimeoutError)
@@ -60,9 +138,14 @@ class RetryPolicy:
 
     def call(self, fn: Callable, *args, what: str = "operation", **kwargs):
         """Run ``fn`` under the policy; RetryExhaustedException when the
-        attempt budget or the deadline runs out."""
+        attempt budget or the deadline runs out. Every failed try is
+        counted in RETRY_TELEMETRY and charged to the ambient run budget,
+        which raises typed from here once it is exhausted."""
+        from deequ_tpu_torch.resilience.governance import charge_run_budget
+
         start = time.monotonic()
         attempt = 0
+        RETRY_TELEMETRY.invocations += 1
         while True:
             try:
                 return fn(*args, **kwargs)
@@ -70,13 +153,16 @@ class RetryPolicy:
                 if not self.is_retryable(e):
                     raise
                 attempt += 1
+                RETRY_TELEMETRY.record_attempt()
+                charge_run_budget("io_retry", what=what)
                 out_of_time = (
                     self.deadline is not None
                     and time.monotonic() - start >= self.deadline
                 )
                 if attempt >= self.max_attempts or out_of_time:
+                    RETRY_TELEMETRY.record_exhausted(e)
                     raise RetryExhaustedException(what, attempt, e) from e
-                time.sleep(self.delay_for(attempt - 1))
+                _backoff(self, attempt, e)
 
 
 # the storage layer's default: quick, bounded, and free on healthy storage
@@ -209,7 +295,13 @@ def resilient_batches(
     so past that many quarantines in a row with no read between them the
     pass fails. ``max_batches`` (when the caller knows the batch count)
     tells an unreadable batch from an error of the end-of-stream probe:
-    an error at an index past the last real batch ends the iteration."""
+    an error at an index past the last real batch ends the iteration.
+
+    Every failed read is counted in RETRY_TELEMETRY and charged to the
+    ambient run budget: a stream of N batches retries against ONE
+    ``max_total_attempts``, not N budgets."""
+    from deequ_tpu_torch.resilience.governance import charge_run_budget
+
     if on_batch_error not in ("fail", "skip"):
         raise ValueError(
             f"on_batch_error must be 'fail' or 'skip', got {on_batch_error!r}"
@@ -218,6 +310,7 @@ def resilient_batches(
     attempts = 0
     consecutive_skips = 0
     t0 = time.monotonic()
+    RETRY_TELEMETRY.invocations += 1
     while True:
         it = make_iter(cur)
         try:
@@ -237,16 +330,20 @@ def resilient_batches(
             if not retryable and not skippable:
                 raise
             attempts += 1
+            RETRY_TELEMETRY.record_attempt()
+            charge_run_budget("io_retry", batch=cur)
             out_of_budget = exhausted or not retryable or attempts >= policy.max_attempts
             if policy is not None and policy.deadline is not None:
                 out_of_budget = out_of_budget or time.monotonic() - t0 >= policy.deadline
             if not out_of_budget:
-                time.sleep(policy.delay_for(attempts - 1))
+                _backoff(policy, attempts, e)
                 continue
             if on_batch_error != "skip":
+                RETRY_TELEMETRY.record_exhausted(e)
                 raise RetryExhaustedException(f"batch {cur} read", attempts, e) from e
             consecutive_skips += 1
             if consecutive_skips > max_consecutive_skips:
+                RETRY_TELEMETRY.record_exhausted(e)
                 raise RetryExhaustedException(
                     f"{consecutive_skips} consecutive batches unreadable (through "
                     f"batch {cur}) — the source looks permanently dead, not "

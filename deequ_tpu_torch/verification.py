@@ -27,6 +27,7 @@ against their history (``add_anomaly_check``)::
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -56,7 +57,18 @@ class VerificationResult:
     over a stream also the stream's and the spill engine's counters.
     ``skipped_batches``: the stream batch indices a run with
     ``on_batch_error="skip"`` quarantined (reference
-    VerificationResult.skipped_batches)."""
+    VerificationResult.skipped_batches).
+
+    Faults and governance (the reference's fields): ``device_events`` the
+    rungs the run's scans took (``ScanStats.degradation_events`` of the
+    run: ``oom_bisect``, ``encoded_demote``, ``watchdog_timeout``,
+    ``cpu_fallback_refused``, ``budget_exhausted``); ``retry_stats`` the
+    run's retry telemetry (``resilience/retry.py:RETRY_TELEMETRY``:
+    invocations, failed attempts, retries, backoff seconds, exhausted, the
+    last exception); ``unverified_row_ranges`` the [start, stop) rows the
+    run finished without verifying — non-empty means the metrics cover a
+    strict subset of the data; ``run_budget`` the armed run budget's
+    ledger (empty when the run was ungoverned)."""
 
     status: CheckStatus
     check_results: Dict[Check, CheckResult]
@@ -64,6 +76,10 @@ class VerificationResult:
     skipped_batches: List[int] = field(default_factory=list)
     device: str = ""
     scan_stats: Dict[str, object] = field(default_factory=dict)
+    device_events: List[dict] = field(default_factory=list)
+    retry_stats: Dict[str, object] = field(default_factory=dict)
+    unverified_row_ranges: List[tuple] = field(default_factory=list)
+    run_budget: Dict[str, object] = field(default_factory=dict)
 
     @staticmethod
     def success_metrics_as_rows(
@@ -120,6 +136,13 @@ _STAT_KEYS = (
     "spill_bytes_read",
     "spill_merge_passes",
     "deferred_fetches",
+    "device_faults",
+    "oom_bisections",
+    "encoded_demotions",
+    "watchdog_timeouts",
+    "fallback_refused",
+    "budget_charges",
+    "budget_exhaustions",
 )
 
 
@@ -180,6 +203,10 @@ class VerificationSuite:
         on_batch_error: str = "fail",
         retry_policy=None,
         on_device_error: str = "fail",
+        device_deadline: Optional[float] = None,
+        run_deadline: Optional[float] = None,
+        max_total_attempts: Optional[int] = None,
+        on_budget_exhausted: Optional[str] = None,
     ) -> VerificationResult:
         """One verification run; ``aggregate_with`` (a StateLoader) merges
         saved states into this run's, ``save_states_with`` (a
@@ -197,24 +224,61 @@ class VerificationSuite:
         run resumable, ``on_batch_error="skip"`` quarantines unreadable
         batches (``skipped_batches``) and ``retry_policy`` overrides the
         batch reads' RetryPolicy (``AnalysisRunner.do_analysis_run``).
-        ``on_device_error`` other than "fail" raises NotYetPortedException
-        (slice 8c)."""
+
+        Device faults (``ops/scan_executors.py``): an OOM in a fused scan
+        evicts residency, demotes an encoded layout and bisects the chunk;
+        past the ladder ``on_device_error="fail"`` fails the scan's
+        analyzers with the typed fault, and ``"fallback"`` — where the
+        reference re-runs on its CPU — with
+        ``DeviceFallbackRefusedException`` (the port never runs a CUDA run on
+        the CPU). ``device_deadline`` (seconds) arms the watchdog on each
+        chunk's step and fetch.
+
+        Run governance (``resilience/governance.py``): ``run_deadline`` /
+        ``max_total_attempts`` arm ONE fault budget for the whole run, which
+        every rung of every scan charges (a stream's per-batch scans and
+        read retries included). On exhaustion ``on_budget_exhausted=
+        "degrade"`` (the default) completes with a partial result — failure
+        metrics for the analyzers that could not finish and exact
+        ``unverified_row_ranges`` — and ``"raise"`` raises a typed
+        ``RunBudgetExhaustedException``. The ledger lands on
+        ``run_budget``, the rungs on ``device_events``, the retries on
+        ``retry_stats``."""
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+        from deequ_tpu_torch.resilience.governance import (
+            current_run_budget,
+            resolve_run_policy,
+            run_budget_scope,
+        )
+        from deequ_tpu_torch.resilience.retry import RETRY_TELEMETRY
 
         dev = resolve_device(device)
         before = {k: getattr(SCAN_STATS, k) for k in _STAT_KEYS}
-        context = AnalysisRunner.do_analysis_run(
-            data, _required(checks, required_analyzers), dev,
-            aggregate_with=aggregate_with, save_states_with=save_states_with,
-            metrics_repository=metrics_repository,
-            reuse_existing_results_for_key=reuse_existing_results_for_key,
-            fail_if_results_missing=fail_if_results_missing,
-            retry_policy=retry_policy,
-            group_memory_budget=group_memory_budget,
-            checkpoint=checkpoint,
-            on_batch_error=on_batch_error,
-            on_device_error=on_device_error,
-        )
+        events_before = len(SCAN_STATS.degradation_events)
+        unverified_before = len(SCAN_STATS.unverified_row_ranges)
+        retry_before = RETRY_TELEMETRY.snapshot()
+        # ONE budget for the whole run (unless the caller's scope holds
+        # one): every charge site of every scan draws on it
+        budget = current_run_budget()
+        armed_here = None
+        if budget is None:
+            policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
+            if policy is not None:
+                budget = armed_here = policy.arm()
+        with run_budget_scope(budget) if armed_here is not None else contextlib.nullcontext():
+            context = AnalysisRunner.do_analysis_run(
+                data, _required(checks, required_analyzers), dev,
+                aggregate_with=aggregate_with, save_states_with=save_states_with,
+                metrics_repository=metrics_repository,
+                reuse_existing_results_for_key=reuse_existing_results_for_key,
+                fail_if_results_missing=fail_if_results_missing,
+                retry_policy=retry_policy,
+                group_memory_budget=group_memory_budget,
+                checkpoint=checkpoint,
+                on_batch_error=on_batch_error,
+                on_device_error=on_device_error,
+                device_deadline=device_deadline,
+            )
         with use_device(dev):
             result = VerificationSuite._evaluate(checks, context)
             _save_or_append_result(
@@ -224,6 +288,13 @@ class VerificationSuite:
         result.scan_stats = {
             k: getattr(SCAN_STATS, k) - v for k, v in before.items()
         }
+        result.device_events = [dict(e) for e in SCAN_STATS.degradation_events[events_before:]]
+        result.unverified_row_ranges = [
+            tuple(r) for r in SCAN_STATS.unverified_row_ranges[unverified_before:]
+        ]
+        result.retry_stats = RETRY_TELEMETRY.delta_since(retry_before)
+        if budget is not None:
+            result.run_budget = budget.snapshot()
         return result
 
     @staticmethod
@@ -372,6 +443,11 @@ class VerificationRunBuilder:
         self._checkpoint = None
         self._on_batch_error = "fail"
         self._retry_policy = None
+        self._on_device_error = "fail"
+        self._device_deadline: Optional[float] = None
+        self._run_deadline: Optional[float] = None
+        self._max_total_attempts: Optional[int] = None
+        self._on_budget_exhausted: Optional[str] = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -438,6 +514,56 @@ class VerificationRunBuilder:
         self._retry_policy = policy
         return self
 
+    def on_device_error(self, policy: str) -> "VerificationRunBuilder":
+        """The device-fault policy of this run's fused scans: "fail" (the
+        default: a scan the card cannot finish fails its analyzers with the
+        typed ``Device*Exception``) or "fallback" (where the reference
+        re-runs the scan on its CPU, the port fails them with
+        ``DeviceFallbackRefusedException``; a stream takes the resilient
+        loop, so each batch gets the ladder). An OOM evicts, demotes and
+        bisects under either policy. The rungs land on
+        ``VerificationResult.device_events``."""
+        if policy not in ("fail", "fallback"):
+            raise ValueError(f"on_device_error must be 'fail' or 'fallback', got {policy!r}")
+        self._on_device_error = policy
+        return self
+
+    def with_device_deadline(self, seconds: float) -> "VerificationRunBuilder":
+        """Arm the watchdog: a chunk's step or a fetch of this run that
+        takes longer than ``seconds`` raises a typed
+        ``DeviceHangException`` instead of hanging the run (also
+        ``DEEQU_TORCH_DEVICE_DEADLINE``)."""
+        self._device_deadline = float(seconds)
+        return self
+
+    def with_run_budget(
+        self,
+        run_deadline: Optional[float] = None,
+        max_total_attempts: Optional[int] = None,
+        on_budget_exhausted: str = "degrade",
+    ) -> "VerificationRunBuilder":
+        """Arm ONE fault budget for this run (``resilience/governance.py``):
+        ``run_deadline`` bounds its wall clock, ``max_total_attempts`` the
+        failure-driven attempts of every rung of every scan (I/O retries,
+        OOM bisections, encoded demotions, refused CPU rungs). On
+        exhaustion "degrade" completes with a partial result (failure
+        metrics and exact ``unverified_row_ranges``), "raise" raises a
+        typed ``RunBudgetExhaustedException``. Also
+        ``DEEQU_TORCH_RUN_DEADLINE`` / ``DEEQU_TORCH_RUN_ATTEMPTS``; the
+        ledger lands on ``VerificationResult.run_budget``."""
+        if run_deadline is None and max_total_attempts is None:
+            raise ValueError("with_run_budget needs run_deadline and/or max_total_attempts")
+        if on_budget_exhausted not in ("degrade", "raise"):
+            raise ValueError(
+                f"on_budget_exhausted must be 'degrade' or 'raise', got {on_budget_exhausted!r}"
+            )
+        self._run_deadline = float(run_deadline) if run_deadline is not None else None
+        self._max_total_attempts = (
+            int(max_total_attempts) if max_total_attempts is not None else None
+        )
+        self._on_budget_exhausted = on_budget_exhausted
+        return self
+
     def use_repository(self, repository) -> "VerificationRunBuilderWithRepository":
         return VerificationRunBuilderWithRepository(self, repository)
 
@@ -454,6 +580,11 @@ class VerificationRunBuilder:
             checkpoint=self._checkpoint,
             on_batch_error=self._on_batch_error,
             retry_policy=self._retry_policy,
+            on_device_error=self._on_device_error,
+            device_deadline=self._device_deadline,
+            run_deadline=self._run_deadline,
+            max_total_attempts=self._max_total_attempts,
+            on_budget_exhausted=self._on_budget_exhausted,
         )
 
 

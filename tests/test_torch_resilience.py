@@ -11,8 +11,9 @@ scan sabotaged at its drain breaks the port's ``DeferredScan`` unpacking
 instead of the reference's partial folder.
 
 Port-only: a checkpoint written by either package resumes the other's
-run (same fingerprint, same fold stacks); ``on_device_error`` other than
-"fail" raises NotYetPortedException naming slice 8c; quarantine and
+run (same fingerprint, same fold stacks); ``on_device_error="fallback"``
+takes the resilient loop on a stream and any value but "fail" and
+"fallback" raises ValueError; quarantine and
 retries over a stream of fused scans, grouping sets and Histogram equal
 numpy over the rows that remain; a resumed run under a group budget
 warns once and still gives the uninterrupted run's bits.
@@ -1420,19 +1421,30 @@ def test_checkpoint_files_cross_packages(tmp_path, writer):
 
 
 def test_on_device_error_other_than_fail_is_not_yet_ported():
+    """The device fault ladder is ported: "fallback" is accepted on a
+    stream (it takes the resilient loop, each batch's scan laddered) and
+    gives a healthy stream's metrics; any other value raises ValueError,
+    as in the reference."""
     from deequ_tpu_torch.analyzers import Size
     from deequ_tpu_torch.analyzers.runner import AnalysisRunner
-    from deequ_tpu_torch.exceptions import NotYetPortedException
 
     stream = stream_table(small_table(200), batch_rows=100)
-    with pytest.raises(NotYetPortedException, match="slice 8c"):
-        AnalysisRunner.do_analysis_run(stream, [Size()], on_device_error="fallback")
-    with pytest.raises(NotYetPortedException, match="slice 8c"):
-        VerificationSuite.do_verification_run(
-            stream, [checks_for(200)], on_device_error="fallback")
+    ctx = AnalysisRunner.do_analysis_run(stream, [Size()], on_device_error="fallback")
+    assert [m.value.get() for m in ctx.all_metrics()] == [200.0]
+    fallback = VerificationSuite.do_verification_run(
+        stream, [checks_for(200)], on_device_error="fallback")
     ok = VerificationSuite.do_verification_run(
         stream, [checks_for(200)], on_device_error="fail")
-    assert ok.status == CheckStatus.SUCCESS
+    assert fallback.status == ok.status == CheckStatus.SUCCESS
+    assert {repr(a): m.value.get() for a, m in fallback.metrics.items()} == {
+        repr(a): m.value.get() for a, m in ok.metrics.items()}
+    assert fallback.device_events == []
+    for bogus in ("retry", "cpu"):
+        with pytest.raises(ValueError, match="on_device_error"):
+            AnalysisRunner.do_analysis_run(stream, [Size()], on_device_error=bogus)
+        with pytest.raises(ValueError, match="on_device_error"):
+            VerificationSuite.do_verification_run(
+                stream, [checks_for(200)], on_device_error=bogus)
 
 
 def _mixed_table(n: int, seed: int):
