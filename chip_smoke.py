@@ -15,7 +15,15 @@ Phases, each printed as one JSON line on stdout:
 3. ``kernel_parity`` — every kernel against its plain version on the card,
    bit-exact, over edge cases, both sides of each regime boundary, 10^7
    Zipf and single-hot-bin ids in every regime that can take their width,
-   and weights whose per-block partial sums leave int32;
+   and weights whose per-block partial sums leave int32; and K7, the
+   kernel's multi-input entry (``fused_bincount``, the counterpart of the
+   reference's cross-set grouping fusion), against ``fused_bincount_plain``
+   bit for bit: K = 1–4 inputs on both sides of the shared/partition
+   boundary, the partition regime's narrow and wide inputs alone and
+   together, 70 inputs, inputs of one row and of none, a wholly dropped
+   input, ids past their own keyspace, the main path's shape (10^7 Zipf ids
+   over each of 1,078,737, 9 and 5,001 bins), and a refusal past the
+   partition regime's width;
 3b. ``k1_parity`` — K1, the fused scan's masked reductions
    (``csrc/masked_reduce.cu``), against its plain versions on the card:
    counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
@@ -36,7 +44,30 @@ Phases, each printed as one JSON line on stdout:
    Zipf-skewed int64 customer id with ~10^6 distinct values, and string
    columns of 8 and 5,000 values), every metric checked against numpy;
    the kernel launch counts are read around the run and the run is
-   watched for any torch operation computing on a CPU tensor;
+   watched for any torch operation computing on a CPU tensor; the dense
+   grouping sets customer_id, status and region fuse into one K7 launch
+   and no K5 launch (``id`` is sparse and takes its own pass): three fused
+   passes among the four grouping passes;
+4b. ``fusion_path`` (after ``resident_path``'s ``main`` part, over the main
+   path's table in memory) — cross-set grouping fusion: the main suite with
+   fusion on and with ``DEEQU_TORCH_PLAN_FUSION=0``, each checked once
+   (counts set to 0 just before, read just after, watched for CPU ops,
+   every K5 and K7 launch held against its plain version): one K7 launch
+   and no K5 launch fused, three K5 launches and no K7 launch unfused, the
+   same grouping passes, the same 113 metrics bit for bit; then each side
+   timed three times in turns, the first side alternating (the checked
+   runs warm them), every run the same bits;
+   an injected ``DeviceOOMException`` at the fused dispatch demotes the
+   group (one ``fusion_demote`` event: 3 passes, the summed keyspace) to
+   three K5 launches with the same bits; the resident main run made no
+   fused pass (status and region count from resident codes, customer_id
+   is alone in its group); the sparse ``id`` set's preparation, which the
+   fused pre-pass drops and its own pass makes again, timed; and
+   ``kernel_timing`` of K7 at the fused group's shape (the kernel alone,
+   torch.profiler's time by kernel, a wrapper call, its plain version,
+   ``torch.bincount`` over the host-concatenated keys, the three K5
+   launches it replaces, its bound, and the grouping layer's one fused
+   dispatch against three, keys copied and counts fetched);
 5. ``kernel_timing`` — each kernel at the shapes the main path gave it:
    the kernel alone (``kernel_ms``: 100 queued launches into preallocated
    buffers, CUDA events; the same in every other regime that can take the
@@ -73,12 +104,14 @@ Phases, each printed as one JSON line on stdout:
    ``run()`` of one check holding the check methods of the frequency
    tables and the string analyzers: has_histogram_values(status),
    has_number_of_distinct_values(region) with a binning UDF,
-   has_mutual_information(status, region) (dense, 9 x 5,001 slots) and
+   has_mutual_information(status, region) (dense, 9 x 5,001 slots: the
+   one dense grouping set, so nothing fuses) and
    (customer_id, status) (about 9.7M slots: the sparse device route),
    has_min_length / has_max_length / has_pattern / contains_email(region),
    has_data_type(status) and a Histogram of the float64 f0; every metric
    against numpy (exact; MutualInformation relative 1e-12), four K5
-   launches, one fused scan with one fetch, no torch op on a CPU tensor;
+   launches and no K7 launch, one fused scan with one fetch, no torch op
+   on a CPU tensor;
 10. ``frequency_path`` — BASELINE config 4 (benchmarks/run_configs.py:
    config4) at 10^7 rows: ApproxCountDistinct, Histogram (1,000 detail
    bins) and Uniqueness over one string column of 3,333,333 distinct
@@ -143,8 +176,9 @@ Phases, each printed as one JSON line on stdout:
    and entropy within 1e-10; each quantile's rank within relative_error
    · n); then partition 3 regenerated from ``seed + 1``, rerun alone and
    aggregated again against a whole-table run over the updated table;
-   every K5 and K2 launch of the partition runs held against its plain
-   version; a subnormal column cut into partitions and aggregated,
+   each partition run's four grouping sets (``id`` is dense at 10^6 rows)
+   fused into one K7 launch and no K5 launch; every K5, K7 and K2 launch
+   of the partition runs held against its plain version; a subnormal column cut into partitions and aggregated,
    against numpy. Prints the partition and aggregate walls, the state
    bytes written and the largest state file, the launches, the peak
    device bytes and the CPU-op watch;
@@ -181,7 +215,8 @@ Phases, each printed as one JSON line on stdout:
    Mean(f0) (scripted to fire), Holt-Winters on Completeness(f1): every
    metric against numpy, each check's status against the strategy
    recomputed here (Holt-Winters with the plain fit on the host's CPU),
-   one K9 launch, no torch op on a CPU tensor, today's result read back
+   one K9 launch, one K7 launch and no K5 launch (the main suite's
+   fused sets), no torch op on a CPU tensor, today's result read back
    through a fresh repository, and a second run reusing today's key with
    no scan and no launch. ``fleet_history``: 100 tables × 365 days × the
    main run's 113 scalar metrics and Completeness(f1), 4,161,000 history
@@ -326,7 +361,8 @@ Phases, each printed as one JSON line on stdout:
    under "raise" a ``RunBudgetExhaustedException``;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
-paths, and by path; K1's fold merge its own entry), the nvidia-smi line, and the result line
+paths, and by path; K1's fold merge and K7, the fused group counts, each
+their own entry), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -513,7 +549,90 @@ def kernel_parity(device) -> dict:
         for weights in (inside, beyond):
             check(seg, m, weights, regimes=takers(m))
     return {"cases": cases, "max_abs_err": max_err, "boundaries": boundaries,
-            "skew_widths": {m: takers(m) for m in skew_widths}}
+            "skew_widths": {m: takers(m) for m in skew_widths},
+            "fused": fused_parity(device, rng, boundaries)}
+
+
+def fused_parity(device, rng, boundaries: dict) -> dict:
+    """K7, the kernel's multi-input entry (``fused_bincount``), against
+    ``fused_bincount_plain``, bit for bit: K = 1–4 inputs on both sides of
+    the shared/partition boundary, narrow and wide inputs of the partition
+    regime alone and together, 70 inputs (past one launch's 64), inputs of
+    one row and of none, a wholly dropped input, ids past their own
+    keyspace, and the main path's shape (10^7 Zipf ids over 1,078,737
+    bins beside 10^7 ids over 9 and over 5,001); past the partition
+    regime's width the entry refuses."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.histogram_device import (
+        fused_bincount,
+        fused_bincount_plain,
+        regime,
+    )
+
+    cases, seen = 0, {}
+
+    def check(keys_np, spaces, label):
+        nonlocal cases
+        keys = [torch.from_numpy(np.asarray(k, dtype=np.int64)).to(device) for k in keys_np]
+        before = histogram_device.FUSED_LAUNCHES
+        got = fused_bincount(keys, spaces)
+        want = fused_bincount_plain(keys, spaces)
+        torch.cuda.synchronize()
+        if histogram_device.FUSED_LAUNCHES != before + 1:
+            fail(f"K7 {label}: {histogram_device.FUSED_LAUNCHES - before} launches, want 1")
+        if not torch.equal(got, want):
+            err = int((got - want).abs().max())
+            fail(f"K7 != plain ({label}: rows {[len(k) for k in keys_np]}, keyspaces "
+                 f"{list(spaces)}, regime {regime(sum(spaces))}): max err {err}")
+        name = regime(sum(spaces))
+        seen[name] = seen.get(name, 0) + 1
+        cases += 1
+
+    def split(total, k):
+        cuts = np.sort(rng.choice(np.arange(1, total), size=k - 1, replace=False))
+        return [int(x) for x in np.diff(np.concatenate([[0], cuts, [total]]))]
+
+    def ids(n, space):
+        # -1 drops a row; ids up to space + 1 land past the input's own bins
+        return rng.integers(-1, space + 2, size=n)
+
+    shared = boundaries["shared"]
+    for total in (shared, shared + 1):
+        for k in (1, 2, 3, 4):
+            spaces = split(total, k)
+            check([ids(int(rng.integers(1, 300_000)), sp) for sp in spaces], spaces,
+                  f"K={k}, {total} bins")
+    # the partition regime's routes: wide alone, narrow alone, both
+    check([ids(2_000_000, 1_000_001)], [1_000_001], "one wide input")
+    check([ids(500_000, 40_000), ids(500_000, 40_000)], [40_000, 40_000],
+          "two narrow inputs past the shared width together")
+    check([ids(1, 9), ids(2_000_000, 1_000_001), np.zeros(0, np.int64), ids(1, 1)],
+          [9, 1_000_001, 7, 1], "one-row and empty inputs beside a wide one")
+    check([np.full(300_000, -1), ids(300_000, 70_000), np.full(5, -3)], [12, 70_000, 5],
+          "wholly dropped inputs")
+    many = [int(x) for x in rng.integers(1, 3_000, 70)]
+    check([ids(int(rng.integers(0, 20_000)), sp) for sp in many], many, "70 inputs")
+    # the main path's shape
+    rows = 10_000_000
+    check([zipf_ids(rng, rows, 1_078_737), zipf_ids(rng, rows, 9), zipf_ids(rng, rows, 5001)],
+          [1_078_737, 9, 5001], "the main path's shape, 10^7 Zipf ids each")
+    # past the partition regime's width: refused, no launch
+    before = histogram_device.FUSED_LAUNCHES
+    wide = boundaries["partition"] + 1
+    try:
+        fused_bincount([torch.zeros(4, dtype=torch.int64, device=device)] * 2,
+                       [wide - 1, 1])
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    if not refused or histogram_device.FUSED_LAUNCHES != before:
+        fail(f"K7 took {wide} bins, past the partition regime's width")
+    return {"cases": cases, "by_regime": seen, "max_abs_err": 0,
+            "refused_past_partition": wide}
 
 
 # -- phase 3b: K1, the fused scan's masked reductions ------------------------
@@ -1068,6 +1187,23 @@ def watch_cpu_ops():
     return Watch()
 
 
+#: the main suite's dense grouping sets, which fuse into one K7 launch
+#: (``id`` is sparse at 10^7 rows and takes its own pass)
+FUSED_SETS = ("customer_id", "status", "region")
+
+
+def hold_fused_main(k5: int, k7: int, stats: dict, label: str) -> None:
+    """The main suite over its table in memory with fusion on: one K7
+    launch for customer_id, status and region, no K5 launch, three fused
+    passes among the four grouping passes, one kernel dispatch."""
+    want = (0, 1, len(FUSED_SETS), 4, 1)
+    got = (k5, k7, stats["fused_group_passes"], stats["grouping_passes"],
+           stats["hist_kernel_dispatches"])
+    if got != want:
+        fail(f"{label}: K5 {k5}, K7 {k7}, fused passes {got[2]}, grouping passes "
+             f"{got[3]}, kernel dispatches {got[4]}; want {want}")
+
+
 def main_path(rows: int, seed: int, device) -> dict:
     import torch
 
@@ -1085,7 +1221,7 @@ def main_path(rows: int, seed: int, device) -> dict:
     # the checked run: counts set to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     hll.LAUNCHES = 0
     k1_zero()
     watch = watch_cpu_ops()
@@ -1094,6 +1230,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         result = suite.run()
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
+    fused_launches = histogram_device.FUSED_LAUNCHES
     k1_launches = k1_counts()
     k1_require(k1_launches, "main_path")
     if hll.LAUNCHES:
@@ -1105,8 +1242,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         fail(f"run executed on {result.device}, expected {device}")
     if watch.cpu_ops:
         fail(f"torch operations computed on CPU tensors during run(): {watch.cpu_ops}")
-    if launches < 3:
-        fail(f"bincount kernel launched {launches} times in run(), expected >= 3")
+    hold_fused_main(launches, fused_launches, stats, "main_path")
     if stats["scan_passes"] != 1 or stats["last_scan_fetches"] != 1:
         fail(f"fused scan: {stats['scan_passes']} passes, "
              f"{stats['last_scan_fetches']} fetches (want 1 and 1)")
@@ -1131,6 +1267,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         "metrics_checked": len(expected),
         "worst_rel_err": worst,
         "kernel_launches": launches,
+        "fused_launches": fused_launches,
         "k1_launches": k1_launches,
         "scan_stats": stats,
         "first_run_s_watched": t_first,
@@ -1165,25 +1302,270 @@ def phase_times(table, device) -> dict:
     return out
 
 
+# -- phase 4b: fusion_path ----------------------------------------------------
+
+#: timed runs a side in fusion_path's A/B (fused and unfused in turns,
+#: the checked runs before them the warm ones)
+FUSION_TIMED = 3
+
+
+class plan_fusion:
+    """Sets ``DEEQU_TORCH_PLAN_FUSION`` for the block, restoring it after."""
+
+    def __init__(self, on: bool):
+        self.value = "1" if on else "0"
+
+    def __enter__(self):
+        self.saved = os.environ.get("DEEQU_TORCH_PLAN_FUSION")
+        os.environ["DEEQU_TORCH_PLAN_FUSION"] = self.value
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("DEEQU_TORCH_PLAN_FUSION", None)
+        else:
+            os.environ["DEEQU_TORCH_PLAN_FUSION"] = self.saved
+
+
+def fusion_checked_run(suite, want: dict, label: str, fused: bool) -> tuple:
+    """One run of the main suite with fusion on or off, counts set to 0
+    just before and read just after, watched for CPU ops, every K5 and K7
+    launch held against its plain version; its metrics must be ``want``'s
+    bits. Returns (launches, scan stats, the result)."""
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    with plan_fusion(fused), watch, PlainCheck(label) as plain:
+        result = suite.run()
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if (sum(x["calls"] for x in plain.shapes), plain.fused_calls) != (
+            launches["bincount"], launches["fused_bincount"]):
+        fail(f"{label}: {plain.shapes} / {plain.fused_calls} launches held against plain, "
+             f"the run made {launches}")
+    differ = differing_bits(want, metric_values(result))
+    if differ:
+        fail(f"{label}: the metrics differ from main_path's in the bits of {differ}")
+    return launches, stats, result
+
+
+def fused_dispatch_timing(table, device, rate: float, reps: int = 20) -> dict:
+    """K7 at the main path's shape — the keys of customer_id, status and
+    region as ``_prepare_grouping`` makes them, 3·10^7 int64 ids over their
+    summed keyspace — the kernel alone (fresh buffers a launch, as
+    ``fused_bincount`` allocates them), torch.profiler's time by kernel, one
+    wrapper call, the plain version, ``torch.bincount`` over the vector the
+    reference concatenates on the host (the library call), the three K5
+    launches it replaces (alone, in one window), and the bound: each key
+    read once and each count written once, over the card's memory rate.
+    Then the grouping layer's two dispatches as a caller pays them (keys
+    copied to the card, counted, fetched): ``_fused_device_bincount`` once
+    against ``_device_bincount`` three times, in turns."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device as hd
+    from deequ_tpu_torch.ops import segment
+
+    preps = [segment._prepare_grouping(table, [c], device) for c in FUSED_SETS]
+    spaces = [p.keyspace for p in preps]
+    total = sum(spaces)
+    keys = [torch.from_numpy(p.keys).to(device) for p in preps]
+    saved = (hd.LAUNCHES, hd.FUSED_LAUNCHES)
+    name = hd.regime(total)
+    bufs = [hd._fused_buffers(keys, spaces, name) for _ in range(reps)]
+    launch = lambda i: hd._fused_launch(keys, spaces, *bufs[i % reps], name)  # noqa: E731
+    kernel_ms = time_queued(launch, reps)
+    prof = profiled_ms(launch, reps=reps)
+    del bufs
+    call_ms = time_cuda(lambda: hd.fused_bincount(keys, spaces))
+    plain_ms = time_queued(lambda i: hd.fused_bincount_plain(keys, spaces), reps)
+    offsets = np.cumsum([0] + spaces[:-1])
+    combined = np.concatenate([np.where(p.keys >= 0, p.keys + off, -1)
+                               for p, off in zip(preps, offsets)])
+    slots = torch.from_numpy(np.where(combined >= 0, combined, total)).to(device)
+    library_ms = time_queued(lambda i: torch.bincount(slots, minlength=total + 1), reps,
+                             waits=True)
+    k5_bufs = [[hd._buffers(k, sp) for k, sp in zip(keys, spaces)] for _ in range(reps)]
+
+    def three_k5(i):
+        for k, sp, b in zip(keys, spaces, k5_bufs[i % reps]):
+            hd._launch(k, sp, None, *b)
+
+    k5_ms = time_queued(three_k5, reps)
+    del k5_bufs
+    got = hd.fused_bincount(keys, spaces)
+    want = hd.fused_bincount_plain(keys, spaces)
+    per_set = torch.cat([hd.bincount(k, sp) for k, sp in zip(keys, spaces)])
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want) or not torch.equal(got, per_set):
+        fail(f"K7 at the main path's shape differs from its plain version (max err {err}) "
+             "or from the three K5 counts")
+    host_keys = [p.keys for p in preps]
+    fused_s, unfused_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segment._fused_device_bincount(host_keys, spaces, device)
+        fused_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for k, sp in zip(host_keys, spaces):
+            segment._device_bincount(k, sp, device)
+        unfused_s.append(time.perf_counter() - t0)
+    hd.LAUNCHES, hd.FUSED_LAUNCHES = saved  # timing launches are not the path's
+    n = sum(k.numel() for k in keys)
+    bound_ms = (n * 8 + total * 8) / rate * 1e3
+    return {
+        "column": "customer_id+status+region",
+        "rows_per_input": [k.numel() for k in keys],
+        "keyspaces": spaces,
+        "num_segments": total,
+        "regime": name,
+        "kernel_ms": kernel_ms,
+        "profiler_ms": prof if prof is not None else "no device time",
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library_call": "torch.bincount of the host-offset, concatenated keys",
+        "three_k5_ms": k5_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "bound_share": bound_ms / kernel_ms,
+        "max_abs_err": err,
+        "fused_dispatch_s": fused_s,
+        "three_dispatches_s": unfused_s,
+    }
+
+
+def fusion_path(table, main_result, res_main: dict, device, smi: str, rate: float) -> dict:
+    """Phase ``fusion_path`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch.exceptions import DeviceOOMException
+    from deequ_tpu_torch.ops import segment
+
+    label = "fusion_path"
+    suite = build_suite(table)
+    want = metric_values(main_result)
+
+    # fused and unfused, checked: one K7 launch against three K5 launches
+    launches, stats, _ = fusion_checked_run(suite, want, f"{label}/fused", True)
+    hold_fused_main(launches["bincount"], launches["fused_bincount"], stats, label)
+    off_launches, off_stats, _ = fusion_checked_run(suite, want, f"{label}/unfused", False)
+    got = (off_launches["bincount"], off_launches["fused_bincount"],
+           off_stats["fused_group_passes"], off_stats["grouping_passes"],
+           off_stats["hist_kernel_dispatches"])
+    if got != (len(FUSED_SETS), 0, 0, 4, len(FUSED_SETS)):
+        fail(f"{label}/unfused: K5, K7, fused passes, grouping passes, kernel dispatches "
+             f"{got}; want (3, 0, 0, 4, 3)")
+
+    # the walls, in turns, the checked runs above being the warm ones; the
+    # side that goes first alternates, as the walls drift down run by run
+    walls = {"fused": [], "unfused": []}
+    for turn in range(FUSION_TIMED):
+        for side in (("fused", "unfused") if turn % 2 == 0 else ("unfused", "fused")):
+            with plan_fusion(side == "fused"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = suite.run()
+                torch.cuda.synchronize()
+                walls[side].append(time.perf_counter() - t0)
+            differ = differing_bits(want, metric_values(result))
+            if differ:
+                fail(f"{label}: a timed {side} run differs in the bits of {differ}")
+
+    timing = fused_dispatch_timing(table, device, rate)
+
+    # the demotion rung: an OOM at the fused dispatch
+    def oom(keys, keyspaces):
+        raise DeviceOOMException("injected at the fused dispatch")
+
+    real = segment.fused_bincount
+    segment.fused_bincount = oom
+    try:
+        kernel_counts_zero()
+        with plan_fusion(True):
+            demoted = suite.run()
+        demote_launches = kernel_counts()
+        events = [e for e in demoted.device_events if e["kind"] == "fusion_demote"]
+        demote_stats = segment.SCAN_STATS.snapshot()
+    finally:
+        segment.fused_bincount = real
+    differ = differing_bits(want, metric_values(demoted))
+    if (len(events) != 1 or events[0]["passes"] != len(FUSED_SETS)
+            or events[0]["keyspace"] != timing["num_segments"]
+            or "injected at the fused dispatch" not in events[0]["reason"]):
+        fail(f"{label}/demotion: events {demoted.device_events}")
+    if ((demote_launches["bincount"], demote_launches["fused_bincount"],
+         demote_stats["fused_group_passes"], demote_stats["grouping_passes"])
+            != (len(FUSED_SETS), 0, 0, 4) or differ):
+        fail(f"{label}/demotion: launches {demote_launches}, fused passes "
+             f"{demote_stats['fused_group_passes']}, differing bits {differ}")
+
+    # the resident run (resident_main): status and region count from their
+    # resident codes, customer_id is alone in its group
+    resident = {"fused_launches": res_main["kernel_launches"]["fused_bincount"],
+                "k5_launches": res_main["kernel_launches"]["bincount"],
+                "fused_group_passes": res_main["scan_stats"]["fused_group_passes"]}
+    if resident["fused_launches"] or resident["fused_group_passes"]:
+        fail(f"{label}: the resident main run fused {resident}")
+
+    # what the sparse id set's dropped preparation costs (prepared again by
+    # its own pass, as in the reference)
+    prepare_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        segment._prepare_grouping(table, ["id"], device)
+        prepare_s.append(time.perf_counter() - t0)
+    return {
+        "phase": label, "card": smi, "rows": table.num_rows,
+        "metrics_bit_identical": len(want),
+        "fused": {"kernel_launches": launches, "scan_stats_grouping": {
+            k: stats[k] for k in ("grouping_passes", "fused_group_passes",
+                                  "hist_kernel_dispatches", "device_fetches",
+                                  "device_sort_passes")}},
+        "unfused": {"kernel_launches": off_launches, "scan_stats_grouping": {
+            k: off_stats[k] for k in ("grouping_passes", "fused_group_passes",
+                                      "hist_kernel_dispatches", "device_fetches",
+                                      "device_sort_passes")}},
+        "run_wall_s_fused": walls["fused"],
+        "run_wall_s_unfused": walls["unfused"],
+        "run_wall_s_median_fused": statistics.median(walls["fused"]),
+        "run_wall_s_median_unfused": statistics.median(walls["unfused"]),
+        "demotion": {"event": events[0], "kernel_launches": demote_launches},
+        "resident": resident,
+        "sparse_id_prepare_s": prepare_s,
+        "kernel_timing": timing,
+        "kernel_launches": {k: launches[k] + off_launches[k] + demote_launches[k]
+                            for k in launches},
+    }
+
+
 # -- phase 5: kernel timing at the main path's shapes ------------------------
 
 
-def time_queued(fn, reps: int = 100) -> float:
+def time_queued(fn, reps: int = 100, waits: bool = False) -> float:
     """Milliseconds of one ``fn(i)`` on the card, the kernel alone: CUDA
     events around ``reps`` back-to-back calls, divided by ``reps``. The
     calls are enqueued behind a spin on the card that outlasts their
-    enqueueing, so the window holds the card's work and none of the host's
-    (unless a call waits for the card itself, as ``torch.bincount`` does)."""
+    enqueueing, so the window holds the card's work and none of the host's.
+    A call that waits for the card itself (``waits``: ``torch.bincount``
+    reads its ids' maximum back) would only wait the spin out, however
+    long, so it runs with none: its window holds the host's gaps too."""
     import torch
 
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    cycles = 20_000_000
+    cycles = 0 if waits else 20_000_000
     while True:
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         marks[0].record()
-        torch.cuda._sleep(cycles)
+        if cycles:
+            torch.cuda._sleep(cycles)
         marks[1].record()
         t0 = time.perf_counter()
         for i in range(reps):
@@ -1191,7 +1573,7 @@ def time_queued(fn, reps: int = 100) -> float:
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         marks[2].record()
         marks[2].synchronize()
-        if marks[0].elapsed_time(marks[1]) > enqueue_ms or cycles > 10**10:
+        if waits or marks[0].elapsed_time(marks[1]) > enqueue_ms or cycles > 10**10:
             return marks[1].elapsed_time(marks[2]) / reps
         cycles *= 4
 
@@ -1213,7 +1595,9 @@ def profiled_ms(fn, reps: int = 10, match: str = "bincount"):
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0 and (match in ev.key or ev.key.startswith("Memset")):
-            name = ev.key.split("::")[-1].split("(")[0]
+            # kernels of an anonymous namespace name it in their parameters too
+            key = ev.key.replace("(anonymous namespace)::", "")
+            name = key.split("(")[0].split("::")[-1].removeprefix("void ")
             by_kernel[name] = by_kernel.get(name, 0.0) + us / max(ev.count, 1) / 1e3
             events[name] = events.get(name, 0) + ev.count
     if not by_kernel:
@@ -1256,7 +1640,8 @@ def bincount_shape_timing(label: str, seg, m: int, rate: float, reps: int = 100,
     kernel_ms = regime_ms[name]
     call_ms = time_cuda(lambda: bincount(seg, m))
     plain_ms = time_queued(lambda i: bincount_plain(seg, m), reps)
-    library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps)
+    library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps,
+                             waits=True)
     got, want = bincount(seg, m), bincount_plain(seg, m)
     histogram_device.LAUNCHES = saved  # timing launches are not the path's
     err = int((got - want).abs().max())
@@ -1696,15 +2081,18 @@ def sketch_path(rows: int, seed: int, device) -> tuple:
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
     hll.LAUNCHES = 0
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch:
         result = suite.run()
     t_first = time.perf_counter() - t0
-    launches = {"hll": hll.LAUNCHES, "bincount": histogram_device.LAUNCHES, **k1_counts()}
+    launches = {"hll": hll.LAUNCHES, "bincount": histogram_device.LAUNCHES,
+                "fused_bincount": histogram_device.FUSED_LAUNCHES, **k1_counts()}
     k1_require(launches, "sketch_path")
+    if launches["fused_bincount"]:
+        fail(f"sketch_path: no grouping set, yet K7 launched {launches['fused_bincount']} times")
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -1940,7 +2328,7 @@ def check_api_path(table, device) -> dict:
     suite = VerificationSuite.on_data(table).add_check(build_check_api(table))
 
     SCAN_STATS.reset()
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     hll.LAUNCHES = 0
     k1_zero()
     builds = lut_cache.BUILDS
@@ -1958,10 +2346,15 @@ def check_api_path(table, device) -> dict:
         fail(f"torch operations computed on CPU tensors during run(): {watch.cpu_ops}")
     # Histogram(status), the binned Histogram(region), the dense
     # MI(status, region) and Histogram(f0) count on K5; MI(customer_id,
-    # status) has 9.7M slots, so it takes the sparse device route
-    if launches != 4 or stats["hist_kernel_dispatches"] != 4:
-        fail(f"check api path: {launches} bincount launches, "
-             f"{stats['hist_kernel_dispatches']} kernel dispatches (want 4 and 4)")
+    # status) has 9.7M slots, so it takes the sparse device route, and
+    # (region, status) is the one dense grouping set: nothing to fuse it
+    # with, so it counts on K5 alone
+    fused_launches = histogram_device.FUSED_LAUNCHES
+    if (launches, fused_launches, stats["hist_kernel_dispatches"],
+            stats["fused_group_passes"]) != (4, 0, 4, 0):
+        fail(f"check api path: {launches} K5 and {fused_launches} K7 launches, "
+             f"{stats['hist_kernel_dispatches']} kernel dispatches, "
+             f"{stats['fused_group_passes']} fused passes (want 4, 0, 4, 0)")
     if hll.LAUNCHES or stats["hist_plain_dispatches"] or stats["hist_host_dispatches"]:
         fail(f"check api path: unexpected routes {stats}")
     if stats["scan_passes"] != 1 or stats["last_scan_fetches"] != 1:
@@ -2005,6 +2398,7 @@ def check_api_path(table, device) -> dict:
         "metrics_checked": checked,
         "worst_mi_rel_err": worst_mi,
         "kernel_launches": launches,
+        "fused_launches": fused_launches,
         "k1_launches": k1_launches,
         "lut_builds": builds,
         "scan_stats": stats,
@@ -2135,7 +2529,7 @@ def frequency_path(rows: int, seed: int, device) -> dict:
 
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     hll.LAUNCHES = 0
     k1_zero()
     watch = watch_cpu_ops()
@@ -2145,6 +2539,8 @@ def frequency_path(rows: int, seed: int, device) -> dict:
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
     k1_launches = k1_counts()
+    if histogram_device.FUSED_LAUNCHES or SCAN_STATS.fused_group_passes:
+        fail("config 4: one grouping set, yet a fused dispatch ran")
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -2154,6 +2550,7 @@ def frequency_path(rows: int, seed: int, device) -> dict:
              "kernel dispatches (want one each for the top-k and Uniqueness counts)")
     if hll.LAUNCHES != stats["chunks_processed"]:
         fail(f"config 4: {hll.LAUNCHES} hll launches over {stats['chunks_processed']} chunks")
+    fused_launches = histogram_device.FUSED_LAUNCHES
     got = {m.name: (a, m) for a, m in result.metrics.items()}
     if distribution_of(got["Histogram"][1]) != want_hist:
         fail("config 4: the Histogram's Distribution differs from numpy's")
@@ -2193,6 +2590,7 @@ def frequency_path(rows: int, seed: int, device) -> dict:
         "reduced": {"rows": "BASELINE config 4's 10^8 rows cut to 10^7 for the "
                             "script's time limit"},
         "kernel_launches": launches,
+        "fused_launches": fused_launches,
         "k1_launches": k1_launches,
         "hll_launches": stats["chunks_processed"],
         "number_of_bins": want_hist[1],
@@ -2290,20 +2688,38 @@ class ResidentSpy:
 
 
 class PlainCheck:
-    """While active, every K5 launch of the resident consumers (the
-    resident counts in ``segment``; K4 launches its own kernel) is held
-    against ``bincount_plain`` on the same ids with ``torch.equal``; a
-    mismatch fails. ``shapes`` lists what was checked: ids, bins, calls and
-    the least and most ids inside the bins (the rest are dropped)."""
+    """While active, every K5 launch of the grouping counts (``segment``'s;
+    K4 launches its own kernel) is held against ``bincount_plain`` on the
+    same ids with ``torch.equal``, and every K7 launch against
+    ``fused_bincount_plain``; a mismatch fails. ``shapes`` lists the K5
+    calls checked: ids, bins, calls and the least and most ids inside the
+    bins (the rest are dropped); ``fused_shapes`` the K7 calls (each
+    input's rows, the keyspaces) and ``fused_calls`` their number."""
 
     def __init__(self, label: str):
         self.label = label
         self.seen = {}
+        self.fused_seen = {}
+        self.fused_calls = 0
 
     def __enter__(self):
         from deequ_tpu_torch.ops import histogram_device, segment
 
         self._orig = histogram_device.bincount
+        self._orig_fused = histogram_device.fused_bincount
+
+        def fused_checked(keys, keyspaces):
+            import torch
+
+            out = self._orig_fused(keys, keyspaces)
+            want = histogram_device.fused_bincount_plain(keys, keyspaces)
+            if not torch.equal(out, want):
+                fail(f"{self.label}: K7 != fused_bincount_plain at inputs of "
+                     f"{[k.numel() for k in keys]} rows over keyspaces {list(keyspaces)}")
+            key = (tuple(k.numel() for k in keys), tuple(int(x) for x in keyspaces))
+            self.fused_seen[key] = self.fused_seen.get(key, 0) + 1
+            self.fused_calls += 1
+            return out
 
         def checked(seg, num_segments, *args, **kwargs):
             import torch
@@ -2322,18 +2738,25 @@ class PlainCheck:
             return out
 
         segment.bincount = checked
+        segment.fused_bincount = fused_checked
         return self
 
     def __exit__(self, *exc):
         from deequ_tpu_torch.ops import segment
 
         segment.bincount = self._orig
+        segment.fused_bincount = self._orig_fused
 
     @property
     def shapes(self) -> list:
         return [{"ids": ids, "bins": bins, "calls": calls,
                  "ids_in_range_min": lo, "ids_in_range_max": hi}
                 for (ids, bins), (lo, hi, calls) in sorted(self.seen.items())]
+
+    @property
+    def fused_shapes(self) -> list:
+        return [{"rows": list(rows), "keyspaces": list(spaces), "calls": calls}
+                for (rows, spaces), calls in sorted(self.fused_seen.items())]
 
 
 def metric_values(result) -> dict:
@@ -2359,7 +2782,7 @@ def resident_runs(suite, table, device, label: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     hll.LAUNCHES = 0
     select_device.LAUNCHES = 0
     k1_zero()
@@ -2368,7 +2791,8 @@ def resident_runs(suite, table, device, label: str) -> dict:
     with watch, ResidentSpy() as spy:
         result = suite.run()
     t_first = time.perf_counter() - t0
-    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+    launches = {"bincount": histogram_device.LAUNCHES,
+                "fused_bincount": histogram_device.FUSED_LAUNCHES, "hll": hll.LAUNCHES,
                 "select": select_device.LAUNCHES, **k1_counts()}
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
@@ -2387,12 +2811,12 @@ def resident_runs(suite, table, device, label: str) -> dict:
             walls.append(time.perf_counter() - t0)
     if later.calls != 4 * spy.calls:
         fail(f"{label}: later runs took {later.calls} resident counts, want 4 x {spy.calls}")
-    with PlainCheck(label) as plain:  # every K5 launch of a further run against plain
+    with PlainCheck(label) as plain:  # every K5/K7 launch of a further run against plain
         suite.run()
     checked = sum(s["calls"] for s in plain.shapes)
-    if checked != launches["bincount"]:
-        fail(f"{label}: {checked} K5 launches held against plain, the run made "
-             f"{launches['bincount']}")
+    if (checked, plain.fused_calls) != (launches["bincount"], launches["fused_bincount"]):
+        fail(f"{label}: {checked} K5 and {plain.fused_calls} K7 launches held against "
+             f"plain, the run made {launches['bincount']} and {launches['fused_bincount']}")
     return {
         "result": result,
         "kernel_launches": launches,
@@ -2799,6 +3223,11 @@ def resident_main(table, device, streamed_result, streamed_report) -> dict:
              "resident codes, want 2 (status and region)")
     if runs["kernel_launches"]["bincount"] < 2 * n_chunks + 1:
         fail(f"resident main: {runs['kernel_launches']['bincount']} K5 launches")
+    # status and region count from resident codes, and customer_id is left
+    # alone in its group (id is sparse): fusion has nothing to fuse
+    if runs["kernel_launches"]["fused_bincount"] or stats["fused_group_passes"]:
+        fail(f"resident main: {runs['kernel_launches']['fused_bincount']} K7 launches, "
+             f"{stats['fused_group_passes']} fused passes (want none)")
     if stats["hist_plain_dispatches"] or stats["hist_host_dispatches"]:
         fail("resident main: a grouping count ran off the kernel")
     freed = unpersist_frees(table, device, "resident main")
@@ -3288,7 +3717,7 @@ def kernel_counts_zero() -> None:
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     SCAN_STATS.reset()
-    histogram_device.LAUNCHES = 0
+    histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
     hll.LAUNCHES = 0
     holt_winters.LAUNCHES = 0
     k1_zero()
@@ -3297,7 +3726,8 @@ def kernel_counts_zero() -> None:
 def kernel_counts() -> dict:
     from deequ_tpu_torch.ops import histogram_device, hll, holt_winters
 
-    return {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+    return {"bincount": histogram_device.LAUNCHES,
+            "fused_bincount": histogram_device.FUSED_LAUNCHES, "hll": hll.LAUNCHES,
             "holt_winters": holt_winters.LAUNCHES, **k1_counts()}
 
 
@@ -3519,8 +3949,12 @@ def partition_path(table, seed: int, device) -> dict:
         walls = [run_partition(part, prov, device) for part, prov in zip(parts, providers)]
         if watch.cpu_ops:
             fail(f"partition_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
-        if launches["bincount"] < 3 * PARTITIONS or launches["hll"] < PARTITIONS:
-            fail(f"partition_path: launches {launches}, want >= 3 K5 and 1 K2 a partition")
+        # each partition's four grouping sets (id is dense at 10^6 rows) fuse
+        # into one K7 launch; no set is left to K5
+        if (launches["bincount"] != 0 or launches["fused_bincount"] != PARTITIONS
+                or launches["hll"] < PARTITIONS):
+            fail(f"partition_path: launches {launches}, want 0 K5, one K7 and >= 1 K2 "
+                 "a partition")
         files = [os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs]
         sizes = [os.path.getsize(f) for f in files]
         first = aggregate_and_compare(table, providers, device, "partition_path")
@@ -3532,6 +3966,8 @@ def partition_path(table, seed: int, device) -> dict:
         with watch2:
             update_wall = run_partition(update_part, providers[3], device)
         update_launches = kernel_counts()
+        if (update_launches["bincount"], update_launches["fused_bincount"]) != (0, 1):
+            fail(f"partition update: launches {update_launches}, want 0 K5 and 1 K7")
         if watch2.cpu_ops:
             fail(f"partition update: torch operations computed on CPU tensors: {watch2.cpu_ops}")
         updated = replace_rows(table, bounds[3][0], update_part)
@@ -3546,9 +3982,10 @@ def partition_path(table, seed: int, device) -> dict:
             for part in parts:
                 run_partition(part, InMemoryStateProvider(), device)
         k5_checked = sum(s["calls"] for s in plain.shapes)
-        if k5_checked != launches["bincount"] or hplain.checked != launches["hll"]:
-            fail(f"partition_path: held {k5_checked} K5 / {hplain.checked} K2 launches "
-                 f"against plain, the runs made {launches}")
+        if (k5_checked, plain.fused_calls, hplain.checked) != (
+                launches["bincount"], launches["fused_bincount"], launches["hll"]):
+            fail(f"partition_path: held {k5_checked} K5 / {plain.fused_calls} K7 / "
+                 f"{hplain.checked} K2 launches against plain, the runs made {launches}")
         subnormal = subnormal_partitions(device, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3564,7 +4001,8 @@ def partition_path(table, seed: int, device) -> dict:
         "kernel_launches": {k: launches[k] + update_launches[k] for k in launches},
         "kernel_launches_partitions": launches,
         "kernel_launches_update": update_launches,
-        "k5_vs_plain": plain.shapes, "k2_vs_plain_launches": hplain.checked,
+        "k5_vs_plain": plain.shapes, "k7_vs_plain": plain.fused_shapes,
+        "k2_vs_plain_launches": hplain.checked,
         "peak_device_bytes": peak,
         "cpu_ops": watch.cpu_ops,
         "aggregated": first,
@@ -3710,6 +4148,9 @@ def stream_path(seed: int, device) -> dict:
     if k5_checked != launches["bincount"] or hplain.checked != launches["hll"]:
         fail(f"stream_path: held {k5_checked} K5 / {hplain.checked} K2 launches against "
              f"plain, the stream made {launches}")
+    # one grouping set a batch (status): nothing to fuse
+    if launches["fused_bincount"] or plain.fused_calls:
+        fail(f"stream_path: K7 launched {launches['fused_bincount']} times")
     return {
         "phase": "stream_path",
         "batches": STREAM_BATCHES, "batch_rows": STREAM_BATCH_ROWS, "window": STREAM_WINDOW,
@@ -3957,7 +4398,9 @@ def daily_run(table, history: dict, hw_plain, seed: int, device) -> dict:
         if launches["holt_winters"] != 1 or len(fits) != 1 or fits[0][3] != str(device):
             fail(f"daily_run: {launches['holt_winters']} K9 launches and fits {fits}, "
                  f"want one fit on {device}")
-        if launches["bincount"] < 3 or launches["hll"] < 1:
+        # the main suite's three dense sets fuse into one K7 launch
+        hold_fused_main(launches["bincount"], launches["fused_bincount"], stats, "daily_run")
+        if launches["hll"] < 1:
             fail(f"daily_run: kernel launches {launches}")
 
         # every metric against numpy
@@ -4377,6 +4820,7 @@ def repository_path(table, main_result, seed: int, device) -> dict:
             "holt_winters": (daily["kernel_launches"]["holt_winters"]
                              + fleet["kernel_launches"]["holt_winters"]),
             "bincount": daily["kernel_launches"]["bincount"],
+            "fused_bincount": daily["kernel_launches"]["fused_bincount"],
             "hll": daily["kernel_launches"]["hll"],
             **{k: daily["kernel_launches"][k] + fleet["kernel_launches"][k]
                for k in ("k1", "k1_merge")},
@@ -4786,15 +5230,20 @@ def profile_path(table, seed: int, device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = hll.LAUNCHES = select_device.LAUNCHES = 0
+    histogram_device.FUSED_LAUNCHES = 0
     k1_zero()
     watch = watch_cpu_ops()
     t0 = time.perf_counter()
     with watch, PersistSpy(device) as persist, ResidentSpy() as resident_counts:
         profiles = ColumnProfilerRunner.on_data(ptable, device).with_kll_profiling().run()
     first_s = time.perf_counter() - t0
-    launches = {"bincount": histogram_device.LAUNCHES, "hll": hll.LAUNCHES,
+    launches = {"bincount": histogram_device.LAUNCHES,
+                "fused_bincount": histogram_device.FUSED_LAUNCHES, "hll": hll.LAUNCHES,
                 "select": select_device.LAUNCHES, **k1_counts()}
     k1_require(launches, "profile_path")
+    if launches["fused_bincount"]:
+        fail(f"profile_path: the profiler groups no sets, yet K7 launched "
+             f"{launches['fused_bincount']} times")
     stats = SCAN_STATS.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
     if watch.cpu_ops:
@@ -4804,7 +5253,7 @@ def profile_path(table, seed: int, device) -> dict:
              f"resident, {stats['bytes_packed']} bytes packed (want 2 of 2 and 0)")
     if resident_counts.calls < 1:
         fail("profile_path: pass 3's histogram did not count from resident codes")
-    if min(launches.values()) < 1:
+    if min(v for k, v in launches.items() if k != "fused_bincount") < 1:
         fail(f"profile_path: a kernel of the path did not launch: {launches}")
     if len(persist.persists) != 2 or len(persist.evictions) != 2 or any(
             e["freed_bytes"] < e["bytes"] for e in persist.evictions) or (
@@ -4972,6 +5421,9 @@ def ooc_config2(table, main_result, device, smi: str):
     k1_require(launches, label)
     if launches["bincount"] < 1:
         fail(f"{label}: the groupings' batch counts never launched K5")
+    if launches["fused_bincount"]:
+        fail(f"{label}: a stream's grouping sets fuse nothing, yet K7 launched "
+             f"{launches['fused_bincount']} times")
     if watch.cpu_ops:
         fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
     if result.device != str(device):
@@ -5771,6 +6223,9 @@ def spill_config2(table, main_result, streamed, device, smi: str) -> dict:
         fail(f"{label}: spill directories left behind: {disk_mem.left()}")
     if mem_spill["spill_runs"] < 1:
         fail(f"{label}: the budgeted in-memory run spilled nothing")
+    if mem_launches["fused_bincount"]:
+        fail(f"{label}: a group memory budget stands fusion aside, yet K7 launched "
+             f"{mem_launches['fused_bincount']} times")
     from deequ_tpu_torch.spill import budget_batch_rows
 
     return {
@@ -6714,6 +7169,10 @@ def main(argv=None) -> int:
     emit({**res_main, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    fusion = fusion_path(table, main_result, res_main, device, smi, rate)
+    emit({**fusion, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     part = partition_path(table, args.seed, device)
     emit({**part, "card": smi, "seconds": time.perf_counter() - t0})
 
@@ -6790,6 +7249,7 @@ def main(argv=None) -> int:
 
     launches = {"main_path": report["kernel_launches"],
                 "check_api_path": api["kernel_launches"],
+                "fusion_path": fusion["kernel_launches"]["bincount"],
                 "sketch_path": sketch["kernel_launches"]["bincount"],
                 "frequency_path": freq["kernel_launches"],
                 "resident_path": sum(r["kernel_launches"]["bincount"]
@@ -6814,6 +7274,21 @@ def main(argv=None) -> int:
                     "device_fault_path": faults["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
+    fused_launches = {"main_path": report["fused_launches"],
+                      "check_api_path": api["fused_launches"],
+                      "sketch_path": sketch["kernel_launches"]["fused_bincount"],
+                      "frequency_path": freq["fused_launches"],
+                      "resident_path": sum(r["kernel_launches"]["fused_bincount"]
+                                           for r in (res_main, res_sketch, res_freq)),
+                      "fusion_path": fusion["kernel_launches"]["fused_bincount"],
+                      "partition_path": part["kernel_launches"]["fused_bincount"],
+                      "stream_path": stream["kernel_launches"]["fused_bincount"],
+                      "repository_path": repo["kernel_launches"]["fused_bincount"],
+                      "profile_path": prof["kernel_launches"]["fused_bincount"],
+                      "out_of_core_path": ooc["kernel_launches"].get("fused_bincount", 0),
+                      "spill_path": spill["kernel_launches"].get("fused_bincount", 0),
+                      "device_fault_path": faults["kernel_launches"].get("fused_bincount", 0)}
+    k7_time = fusion["kernel_timing"]
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
                "sketch_path": sketch["kernel_launches"],
                "frequency_path": freq["k1_launches"],
@@ -6852,6 +7327,26 @@ def main(argv=None) -> int:
         "library_ms": widest["library_ms"],
         "parity": "exact" if max_err == 0 else f"max abs err {max_err}",
         "shapes": shapes,
+    }, {
+        "name": "fused_bincount",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/bincount.cu",
+        "replaces": "deequ_tpu/ops/segment.py:1035",
+        "launches": sum(fused_launches.values()),
+        "launches_by_path": fused_launches,
+        "headline_shape": (f"main_path's fused group: {k7_time['column']}, "
+                           f"{sum(k7_time['rows_per_input'])} int64 ids over "
+                           f"{k7_time['num_segments']} bins"),
+        "max_abs_err": max(parity["fused"]["max_abs_err"], k7_time["max_abs_err"]),
+        "ms": k7_time["kernel_ms"],
+        "plain_ms": k7_time["plain_ms"],
+        "bound_ms": k7_time["bound_ms"],
+        "bound_by": k7_time["bound_by"],
+        "library_ms": k7_time["library_ms"],
+        "library_call": k7_time["library_call"],
+        "three_k5_ms": k7_time["three_k5_ms"],
+        "parity": "exact",
+        "shapes": [k7_time],
     }, {
         "name": "hll",
         "route": "cuda",

@@ -95,8 +95,9 @@ def scan_execution_report() -> dict:
     flat dict, read under its lock: passes, fetches, the device fault
     counters (``device_faults``, ``oom_bisections``, ``bisection_depth``,
     ``watchdog_timeouts``, ``fallback_refused``), copies of
-    ``degradation_events`` and ``unverified_row_ranges``, the budget's
-    charges."""
+    ``degradation_events`` and ``unverified_row_ranges`` (a demoted fused
+    grouping dispatch among them: ``fusion_demote``), the budget's
+    charges, ``fused_group_passes``."""
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     return SCAN_STATS.snapshot()

@@ -118,6 +118,17 @@ def _count_stats_capable(analyzer: Analyzer) -> bool:
     )
 
 
+def _count_stats_route(analyzers, aggregate_with, save_states_with) -> bool:
+    """True when a grouping set takes the count statistics: no state is
+    loaded or saved and every analyzer of the set is a function of the
+    count distribution (group values never decode)."""
+    return (
+        aggregate_with is None
+        and save_states_with is None
+        and all(_count_stats_capable(a) for a in analyzers)
+    )
+
+
 @dataclass
 class AnalyzerContext:
     """Result map Analyzer -> Metric (reference AnalyzerContext.scala:29-105).
@@ -418,12 +429,18 @@ class AnalysisRunner:
                         data, dev, aggregate_with, save_states_with
                     )
 
-        # (6) one computation per grouping set
+        # (6) one computation per grouping set; the dense sets of a table
+        # in memory first fuse into one dispatch, and a set fusion did not
+        # compute runs its own pass
         group_ctx = AnalyzerContext.empty()
+        fused = AnalysisRunner._fuse_grouping_sets(
+            data, by_grouping, dev, aggregate_with, save_states_with, budget
+        )
         for group_key, group_analyzers in by_grouping.items():
             group_ctx += AnalysisRunner._run_grouping_analyzers(
                 data, list(group_key), group_analyzers, dev,
                 aggregate_with, save_states_with, budget,
+                precomputed=fused.get(group_key),
             )
         result = results_loaded + failure_ctx + scan_ctx + own_ctx + group_ctx
 
@@ -978,6 +995,42 @@ class AnalysisRunner:
         return ctx
 
     @staticmethod
+    def _fuse_grouping_sets(
+        data, by_grouping, device, aggregate_with, save_states_with,
+        budget: Optional[int],
+    ) -> Dict[Tuple[str, ...], object]:
+        """Cross-set fusion ahead of the per-set passes (reference
+        ``_fuse_grouping_sets``): every grouping set of a table in memory
+        goes to ``segment.fused_group_counts`` in one call, so the dense
+        ones ride one dispatch. Returns {grouping key: state} for the sets
+        it computed; none with the switch off
+        (``DEEQU_TORCH_PLAN_FUSION=0``), fewer than two sets, a stream, a
+        group memory budget (a budgeted set is cut into slices, which one
+        fused vector would defeat), or any error (each set's own pass then
+        meets it and reports it per analyzer)."""
+        from deequ_tpu_torch.ops.scan_plan import plan_fusion_enabled
+        from deequ_tpu_torch.ops.segment import GroupRequest, fused_group_counts
+
+        if not plan_fusion_enabled():
+            return {}
+        if len(by_grouping) < 2 or getattr(data, "is_streaming", False) or budget is not None:
+            return {}
+        keys = list(by_grouping)
+        requests = [
+            GroupRequest(
+                key,
+                "stats" if _count_stats_route(by_grouping[key], aggregate_with,
+                                              save_states_with) else "freq",
+            )
+            for key in keys
+        ]
+        try:
+            computed = fused_group_counts(data, requests, device)
+        except Exception:  # noqa: BLE001 — the per-set passes surface it
+            return {}
+        return {keys[i]: state for i, state in computed.items()}
+
+    @staticmethod
     def _run_grouping_analyzers(
         data: ColumnarTable,
         grouping_columns: List[str],
@@ -986,6 +1039,7 @@ class AnalysisRunner:
         aggregate_with=None,
         save_states_with=None,
         budget: Optional[int] = None,
+        precomputed=None,
     ) -> AnalyzerContext:
         """The count statistics when no state is loaded or saved and every
         analyzer of the set is a function of the count distribution (group
@@ -996,7 +1050,10 @@ class AnalysisRunner:
         fold spills (each batch's state a canonical delta), and an
         in-memory table that would build its frequency table is cut into
         ``budget_batch_rows`` slices and takes it; the count statistics
-        are not affected by a budget."""
+        are not affected by a budget. ``precomputed``: the set's count
+        statistics or frequency table, already computed by cross-set
+        fusion (:meth:`_fuse_grouping_sets`), taken in place of its own
+        pass."""
         if getattr(data, "is_streaming", False):
             folder = _spilling_folder(grouping_columns, budget)
             try:
@@ -1015,11 +1072,7 @@ class AnalysisRunner:
                 a: a.calculate_metric(merged, aggregate_with, save_states_with)
                 for a in analyzers
             })
-        count_stats = (
-            aggregate_with is None
-            and save_states_with is None
-            and all(_count_stats_capable(a) for a in analyzers)
-        )
+        count_stats = _count_stats_route(analyzers, aggregate_with, save_states_with)
         if not count_stats and budget is not None:
             from deequ_tpu_torch.data.streaming import stream_table
             from deequ_tpu_torch.spill import budget_batch_rows
@@ -1031,7 +1084,9 @@ class AnalysisRunner:
                     device, aggregate_with, save_states_with, budget,
                 )
         try:
-            if count_stats:
+            if precomputed is not None:
+                stats = state = precomputed
+            elif count_stats:
                 stats = group_count_stats(data, grouping_columns, device)
             else:
                 state = group_counts_state(data, grouping_columns, device)

@@ -49,6 +49,39 @@
 //   L2 atomic. Not reachable from the dense grouping path, which stops at
 //   2^22 bins.
 //
+// The multi-input entry (deequ_bincount_multi) replaces the reference's
+// cross-set grouping fusion, deequ_tpu/ops/segment.py:1035
+// fused_group_counts, which offsets each set's int64 keys by the keyspaces
+// before it on the host, concatenates them and counts the one vector in one
+// histogram dispatch. Here each set's keys stay as they were prepared, and
+// the offset is added where a kernel loads an id: a row's slot is
+// id + offset where id >= 0 (two's-complement wrap, as torch and numpy
+// add) and -1 otherwise, then counted when inside [0, total). So the entry
+// computes the reference's function bit for bit, even for ids outside their
+// own keyspace. Only the shared and partition regimes take it (the dense
+// grouping path stops at 2^22 bins); the global regime refuses it with
+// cudaErrorInvalidValue.
+//
+// - shared (the summed keyspace fits a block's histogram): every input
+//   walked in turn with the same vector loads into one block histogram.
+// - partition: the summed keyspace is what is wide, not each set. A
+//   narrow set (a status column of 9 codes beside a million customer ids)
+//   would put all its rows in one bucket, and so on one pass-2 block. So
+//   each input takes the regime the single-input rule gives its OWN
+//   keyspace: the wide ones go through the two partition passes over the
+//   summed space, then the narrow ones are counted by one shared-memory
+//   kernel, each in a histogram of its own bins added at its offset (an id
+//   past its own keyspace adds straight into the output, after pass 2 has
+//   written it). In pass 1 a tile never straddles two inputs: each wide
+//   input's rows are cut into tiles of their own, numbered one after the
+//   other, so a block reads one pointer and one offset a tile, keeps its
+//   loads coalesced and needs no lookup a row; the price is at most one
+//   partly filled tile an input. Pass 2 is the single-input kernel.
+//
+// The inputs ride in the launch parameters, kMaxInputs at a time; longer
+// lists, and rows past kChunkRows, run as further launches within the
+// same call, which add into the output.
+//
 // Also measured and not taken: a histogram spread over a thread-block
 // cluster's shared memory (distributed shared-memory atomics were no
 // faster than L2 atomics), two cluster passes over halves of a wide key
@@ -81,6 +114,19 @@ constexpr int kMaxBucketShift = 15;     // u16 offsets: 32,768 bins a bucket
 constexpr long long kChunkRows = 1ll << 31;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr long long kPartitionBins = (long long)kMaxBuckets << kMaxBucketShift;
+constexpr int kMaxInputs = 64;          // inputs a multi-input launch carries
+
+// The inputs of one multi-input launch, passed by value: each one's int64
+// ids, rows, offset and own keyspace, and (partition passes) its first
+// tile.
+struct Pieces {
+  const long long* ids[kMaxInputs];
+  long long n[kMaxInputs];
+  unsigned long long off[kMaxInputs];
+  long long bins[kMaxInputs];
+  long long tile0[kMaxInputs + 1];  // tile0[k]: the launch's tiles
+  int k;
+};
 
 // -- the row walk of the shared and global regimes ---------------------------
 
@@ -144,24 +190,91 @@ __device__ __forceinline__ bool in_range(Id s, long long m) {
   return (unsigned long long)(long long)s < (unsigned long long)m;
 }
 
+// Input j's slot of id s: id + offset for an id >= 0, wrapping as a
+// two's-complement add does; -1 (dropped) otherwise.
+__device__ __forceinline__ long long offset_slot(long long s, unsigned long long off) {
+  return s >= 0 ? (long long)((unsigned long long)s + off) : -1;
+}
+
 // -- shared regime ------------------------------------------------------------
+
+// Zeroes the block's histogram copies; returns this warp's copy.
+__device__ __forceinline__ unsigned* hist_zero(unsigned* hist, int m, int copies) {
+  for (int i = threadIdx.x; i < m * copies; i += blockDim.x) hist[i] = 0u;
+  __syncthreads();
+  return hist + (int)((threadIdx.x / 32) % copies) * m;
+}
+
+// Adds the block's non-zero bins to out, one 64-bit atomic a bin.
+__device__ __forceinline__ void hist_flush(const unsigned* hist, int m, int copies,
+                                           unsigned long long* __restrict__ out) {
+  __syncthreads();
+  for (int b = threadIdx.x; b < m; b += blockDim.x) {
+    unsigned c = 0u;  // wraps mod 2^32 when weighted (see the weighted domain)
+    for (int k = 0; k < copies; ++k) c += hist[k * m + b];
+    if (c != 0u) atomicAdd(&out[b], (unsigned long long)c);
+  }
+}
 
 template <typename Id, bool Weighted>
 __global__ void __launch_bounds__(kThreads)
 bincount_shared(const Id* __restrict__ ids, const int32_t* __restrict__ w,
                 long long n, int m, int copies, unsigned long long* __restrict__ out) {
   extern __shared__ unsigned hist[];
-  for (int i = threadIdx.x; i < m * copies; i += blockDim.x) hist[i] = 0u;
-  __syncthreads();
-  unsigned* mine = hist + (int)((threadIdx.x / 32) % copies) * m;
+  unsigned* mine = hist_zero(hist, m, copies);
   walk(ids, n, [&](Id s, long long row) {
     if (in_range(s, m)) atomicAdd(&mine[(int)s], Weighted ? (unsigned)w[row] : 1u);
   });
-  __syncthreads();
-  for (int b = threadIdx.x; b < m; b += blockDim.x) {
-    unsigned c = 0u;  // wraps mod 2^32 when weighted (see the weighted domain)
-    for (int k = 0; k < copies; ++k) c += hist[k * m + b];
-    if (c != 0u) atomicAdd(&out[b], (unsigned long long)c);
+  hist_flush(hist, m, copies, out);
+}
+
+// The multi-input entry's shared regime: every input walked in turn.
+__global__ void __launch_bounds__(kThreads)
+bincount_shared_multi(const Pieces p, int m, int copies,
+                      unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned hist[];
+  unsigned* mine = hist_zero(hist, m, copies);
+  for (int j = 0; j < p.k; ++j) {
+    const unsigned long long off = p.off[j];
+    walk(p.ids[j], p.n[j], [&](long long s, long long) {
+      const long long slot = offset_slot(s, off);
+      if (in_range(slot, m)) atomicAdd(&mine[(int)slot], 1u);
+    });
+  }
+  hist_flush(hist, m, copies, out);
+}
+
+// Histogram copies of a block for m bins: one a warp while they fit the
+// default 48 KB, so a few hot bins spread their contention.
+__host__ __device__ __forceinline__ int shared_copies(long long m) {
+  const long long one = m * 4;
+  const int copies = one > 0 && one <= kDefaultSmem ? (int)(kDefaultSmem / one) : 1;
+  return copies < kWarps ? copies : kWarps;
+}
+
+// The partition regime's narrow inputs (each one's own keyspace within the
+// shared regime's width): every input in turn, in a histogram of its own
+// bins, added at its offset; an id past its own keyspace adds its slot
+// straight into out (m bins in all).
+__global__ void __launch_bounds__(kThreads)
+bincount_narrow_multi(const Pieces p, long long m, unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned hist[];
+  for (int j = 0; j < p.k; ++j) {
+    const int w = (int)p.bins[j];
+    const int copies = shared_copies(w);
+    unsigned* mine = hist_zero(hist, w, copies);
+    const unsigned long long off = p.off[j];
+    walk(p.ids[j], p.n[j], [&](long long s, long long) {
+      if (s < 0) return;
+      if (s < w) {
+        atomicAdd(&mine[(int)s], 1u);
+      } else {
+        const long long slot = offset_slot(s, off);
+        if (in_range(slot, m)) atomicAdd(&out[slot], 1ull);
+      }
+    });
+    hist_flush(hist, w, copies, out + off);
+    __syncthreads();  // the next input zeroes the histogram again
   }
 }
 
@@ -219,6 +332,44 @@ __device__ void exclusive_scan(const unsigned* count, unsigned* start, int bucke
   if (b0 < buckets && buckets <= b0 + 2) start[buckets] = excl + x0 + x1;
 }
 
+// Pass 1's second half for tile t: each kept row's rank within its bucket,
+// the tile's bucket starts, the rows staged in bucket order, then written
+// out. key[j] is row j * kTileThreads + threadIdx.x's id, ~0u if dropped.
+template <bool Weighted>
+__device__ __forceinline__ void partition_write(
+    const unsigned (&key)[kRowsPerThread], const int32_t (&wv)[kRowsPerThread],
+    long long t, long long tiles, int shift, int buckets, unsigned* count,
+    unsigned* start, unsigned short* stage, int32_t* wstage,
+    unsigned short* __restrict__ keys, int32_t* __restrict__ wsorted,
+    unsigned* __restrict__ offs) {
+  const unsigned low = (1u << shift) - 1u;
+  const long long base = t * kTile;
+  unsigned rank[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    if (key[j] != ~0u) rank[j] = atomicAdd(&count[key[j] >> shift], 1u);
+  __syncthreads();
+  exclusive_scan(count, start, buckets);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    if (key[j] != ~0u) {
+      const unsigned pos = start[key[j] >> shift] + rank[j];
+      stage[pos] = (unsigned short)(key[j] & low);
+      if (Weighted) wstage[pos] = wv[j];
+    }
+  }
+  __syncthreads();
+  const unsigned kept = start[buckets];
+  for (unsigned i = threadIdx.x; i < kept; i += blockDim.x) {
+    keys[base + i] = stage[i];
+    if (Weighted) wsorted[base + i] = wstage[i];
+  }
+  for (int b = threadIdx.x; b <= buckets; b += blockDim.x)
+    offs[(long long)b * tiles + t] = start[b];
+  __syncthreads();
+}
+
 // Pass 1: each tile of kTile rows, sorted by bucket (id >> shift) in shared
 // memory, is written to keys[t * kTile ...] as u16 offsets within the bucket
 // (weights beside them in wsorted); offs[b * tiles + t] is where bucket b
@@ -236,7 +387,6 @@ bincount_partition(const Id* __restrict__ ids, const int32_t* __restrict__ w,
   unsigned short* stage =
       reinterpret_cast<unsigned short*>(wstage + (Weighted ? kTile : 0));
   const long long tiles = (n + kTile - 1) / kTile;
-  const unsigned low = (1u << shift) - 1u;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int b = threadIdx.x; b < buckets; b += blockDim.x) count[b] = 0u;
     __syncthreads();
@@ -249,37 +399,46 @@ bincount_partition(const Id* __restrict__ ids, const int32_t* __restrict__ w,
       v[j] = i < n ? __ldcs(ids + i) : (Id)-1;
       if (Weighted) wv[j] = i < n ? __ldcs(w + i) : 0;
     }
-    // key and rank within its bucket in this tile; ~0u for a dropped row
-    unsigned key[kRowsPerThread], rank[kRowsPerThread];
+    unsigned key[kRowsPerThread];
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      if (in_range(v[j], m)) {
-        key[j] = (unsigned)v[j];
-        rank[j] = atomicAdd(&count[key[j] >> shift], 1u);
-      } else {
-        key[j] = ~0u;
-      }
-    }
+    for (int j = 0; j < kRowsPerThread; ++j) key[j] = in_range(v[j], m) ? (unsigned)v[j] : ~0u;
+    partition_write<Weighted>(key, wv, t, tiles, shift, buckets, count, start, stage,
+                              wstage, keys, wsorted, offs);
+  }
+}
+
+// The multi-input entry's pass 1: tile t belongs to the input j with
+// p.tile0[j] <= t < p.tile0[j + 1], and holds its rows from
+// (t - p.tile0[j]) * kTile on.
+__global__ void __launch_bounds__(kTileThreads, 2)
+bincount_partition_multi(const Pieces p, long long m, int shift, int buckets,
+                         unsigned short* __restrict__ keys, unsigned* __restrict__ offs) {
+  extern __shared__ unsigned smem[];
+  unsigned* count = smem;
+  unsigned* start = count + buckets;
+  unsigned short* stage = reinterpret_cast<unsigned short*>(start + buckets + 1);
+  const long long tiles = p.tile0[p.k];
+  const int32_t wv[kRowsPerThread] = {};
+  int j = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    while (p.tile0[j + 1] <= t) ++j;
+    for (int b = threadIdx.x; b < buckets; b += blockDim.x) count[b] = 0u;
     __syncthreads();
-    exclusive_scan(count, start, buckets);
-    __syncthreads();
+    const long long first = (t - p.tile0[j]) * kTile;
+    const long long* ids = p.ids[j];
+    const long long n = p.n[j];
+    const unsigned long long off = p.off[j];
+    long long v[kRowsPerThread];
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      if (key[j] != ~0u) {
-        const unsigned pos = start[key[j] >> shift] + rank[j];
-        stage[pos] = (unsigned short)(key[j] & low);
-        if (Weighted) wstage[pos] = wv[j];
-      }
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const long long i = first + r * kTileThreads + threadIdx.x;
+      v[r] = i < n ? offset_slot(__ldcs(ids + i), off) : -1;
     }
-    __syncthreads();
-    const unsigned kept = start[buckets];
-    for (unsigned i = threadIdx.x; i < kept; i += blockDim.x) {
-      keys[base + i] = stage[i];
-      if (Weighted) wsorted[base + i] = wstage[i];
-    }
-    for (int b = threadIdx.x; b <= buckets; b += blockDim.x)
-      offs[(long long)b * tiles + t] = start[b];
-    __syncthreads();
+    unsigned key[kRowsPerThread];
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) key[r] = in_range(v[r], m) ? (unsigned)v[r] : ~0u;
+    partition_write<false>(key, wv, t, tiles, shift, buckets, count, start, stage,
+                           nullptr, keys, nullptr, offs);
   }
 }
 
@@ -392,6 +551,9 @@ const Card* card(int* err) {
         allow_smem(bincount_partition<long long, true>, c.optin_smem),
         allow_smem(bincount_partition<int, false>, c.optin_smem),
         allow_smem(bincount_partition<int, true>, c.optin_smem),
+        allow_smem(bincount_shared_multi, c.optin_smem),
+        allow_smem(bincount_partition_multi, c.optin_smem),
+        allow_smem(bincount_narrow_multi, c.optin_smem),
         allow_smem(bincount_bucket<false>, c.optin_smem),
         allow_smem(bincount_bucket<true>, c.optin_smem),
     };
@@ -477,10 +639,8 @@ int launch(const Card& c, int r, const void* idsv, const void* wv, long long n,
     const Id* id = ids + off;
     const int32_t* wt = Weighted ? w + off : nullptr;
     if (r == kShared) {
-      const int one = (int)m * 4;
-      int copies = one <= kDefaultSmem ? kDefaultSmem / one : 1;
-      if (copies > kWarps) copies = kWarps;
-      bincount_shared<Id, Weighted><<<c.sms, kThreads, (size_t)one * copies, stream>>>(
+      const int copies = shared_copies(m);
+      bincount_shared<Id, Weighted><<<c.sms, kThreads, (size_t)m * 4 * copies, stream>>>(
           id, wt, rows, (int)m, copies, out);
     } else if (r == kGlobal) {
       bincount_global<Id, Weighted><<<2 * c.sms, kThreads, 0, stream>>>(id, wt, rows, m, out);
@@ -502,6 +662,53 @@ int launch(const Card& c, int r, const void* idsv, const void* wv, long long n,
   if (Weighted && (r != kPartition || n > kChunkRows))
     bincount_wrap<<<2 * c.sms, kThreads, 0, stream>>>(m, out);
   return (int)cudaGetLastError();
+}
+
+// Cuts the inputs that take(i) selects into launches of at most
+// kMaxInputs pieces and kChunkRows rows (so every u32 count of a launch is
+// exact), skipping empty inputs, and calls f(pieces) for each. Input i
+// lands at the keyspaces before it, summed over all k inputs; tile0 holds
+// each piece's first tile.
+template <typename Take, typename F>
+void for_each_launch(const void* const* ids, const long long* ns,
+                     const long long* keyspaces, int k, Take take, F f) {
+  Pieces p;
+  p.k = 0;
+  p.tile0[0] = 0;
+  long long rows = 0;
+  auto flush = [&]() {
+    if (p.k > 0) f(p);
+    p.k = 0;
+    rows = 0;
+  };
+  unsigned long long off = 0;
+  for (int i = 0; i < k; off += (unsigned long long)keyspaces[i], ++i) {
+    if (!take(i)) continue;
+    for (long long done = 0; done < ns[i];) {
+      if (p.k == kMaxInputs || rows == kChunkRows) flush();
+      long long piece = ns[i] - done;
+      if (piece > kChunkRows - rows) piece = kChunkRows - rows;
+      p.ids[p.k] = static_cast<const long long*>(ids[i]) + done;
+      p.n[p.k] = piece;
+      p.off[p.k] = off;
+      p.bins[p.k] = keyspaces[i];
+      p.tile0[p.k + 1] = p.tile0[p.k] + (piece + kTile - 1) / kTile;
+      ++p.k;
+      rows += piece;
+      done += piece;
+    }
+  }
+  flush();
+}
+
+bool multi_regime(const Card& c, int r, long long m) {
+  return (r == kShared || r == kPartition) && can_take(c, r, m);
+}
+
+long long sum_of(const long long* keyspaces, int k) {
+  long long m = 0;
+  for (int i = 0; i < k; ++i) m += keyspaces[i];
+  return m;
 }
 
 }  // namespace
@@ -559,6 +766,89 @@ int deequ_bincount(int r, const void* ids, int ids_are_64, const void* weights,
   }
   return weights ? launch<int, true>(*c, r, ids, weights, n, num_segments, scratch, out, s)
                  : launch<int, false>(*c, r, ids, weights, n, num_segments, scratch, out, s);
+}
+
+// Bytes of scratch a multi-input launch in regime r needs for these k
+// inputs (deequ_bincount_multi's arguments); -1 if r cannot take their
+// summed keyspace (only the shared and partition regimes take the
+// multi-input entry).
+long long deequ_bincount_multi_scratch_bytes(int r, const void* const* ids,
+                                             const long long* ns,
+                                             const long long* keyspaces, int k) {
+  int err = 0;
+  const Card* c = card(&err);
+  const long long m = sum_of(keyspaces, k);
+  if (!c || !multi_regime(*c, r, m)) return -1;
+  if (r != kPartition) return 0;
+  int shift = 0, buckets = 0;
+  buckets_for(*c, m, &shift, &buckets);
+  const long long narrow = widest(*c, kShared);
+  long long tiles = 0;
+  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] > narrow; },
+                  [&](const Pieces& p) {
+                    if (p.tile0[p.k] > tiles) tiles = p.tile0[p.k];
+                  });
+  return (long long)partition_scratch(tiles * kTile, buckets, false).bytes;
+}
+
+// Counts k int64 id vectors into one out of sum(keyspaces) int64 bins
+// (zeroed) in regime r (shared or partition; normally deequ_bincount_regime
+// of the sum): input i's ids[i] (ns[i] rows on the device) land at id plus
+// the keyspaces before it where id >= 0, and a slot outside the bins is
+// dropped. scratch: deequ_bincount_multi_scratch_bytes bytes. Enqueues on
+// stream and returns the CUDA error of the launches (0 = cudaSuccess;
+// cudaErrorInvalidValue where r cannot take the summed keyspace).
+int deequ_bincount_multi(int r, const void* const* ids, const long long* ns,
+                         const long long* keyspaces, int k, void* scratch, void* out,
+                         void* stream) {
+  int err = 0;
+  const Card* c = card(&err);
+  if (!c) return err;
+  const long long m = sum_of(keyspaces, k);
+  if (!multi_regime(*c, r, m)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* counts = static_cast<unsigned long long*>(out);
+  auto all = [](int) { return true; };
+  if (r == kShared) {
+    const int copies = shared_copies(m);
+    for_each_launch(ids, ns, keyspaces, k, all, [&](const Pieces& p) {
+      bincount_shared_multi<<<c->sms, kThreads, (size_t)m * 4 * copies, st>>>(
+          p, (int)m, copies, counts);
+    });
+    return (int)cudaGetLastError();
+  }
+  // partition: the wide inputs through the two passes (which write every
+  // bin of out), then the narrow ones into their own bins
+  const long long narrow = widest(*c, kShared);
+  int shift = 0, buckets = 0;
+  buckets_for(*c, m, &shift, &buckets);
+  int launch_no = 0;
+  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] > narrow; },
+                  [&](const Pieces& p) {
+    const long long tiles = p.tile0[p.k];
+    const Scratch s = partition_scratch(tiles * kTile, buckets, false);
+    char* base = static_cast<char*>(scratch);
+    unsigned short* keys = reinterpret_cast<unsigned short*>(base + s.keys);
+    unsigned* offs = reinterpret_cast<unsigned*>(base + s.offs);
+    long long grid = (long long)c->sms * c->partition_blocks;
+    if (grid > tiles) grid = tiles;
+    bincount_partition_multi<<<(unsigned)grid, kTileThreads,
+                               partition_smem(buckets, false), st>>>(
+        p, m, shift, buckets, keys, offs);
+    bincount_bucket<false><<<buckets, kThreads, (size_t)4 << shift, st>>>(
+        keys, nullptr, offs, tiles, m, shift, launch_no > 0 ? 1 : 0, counts);
+    ++launch_no;
+  });
+  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] <= narrow; },
+                  [&](const Pieces& p) {
+    size_t smem = 0;
+    for (int j = 0; j < p.k; ++j) {
+      const size_t need = (size_t)p.bins[j] * 4 * shared_copies(p.bins[j]);
+      if (need > smem) smem = need;
+    }
+    bincount_narrow_multi<<<c->sms, kThreads, smem, st>>>(p, m, counts);
+  });
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

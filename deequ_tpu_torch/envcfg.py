@@ -165,3 +165,15 @@ ON_BUDGET_EXHAUSTED = register(EnvVar(
     doc="what an exhausted run budget does: a partial result with exact "
         "unverified row ranges (degrade) or a typed raise",
 ))
+HOST_GROUP_LIMIT = register(EnvVar(
+    "DEEQU_TORCH_HOST_GROUP_LIMIT", "int", default=None, minimum=0,
+    doc="row count at or below which grouping counts and uniques run on "
+        "the host instead of paying a round trip to the card "
+        "(ops/segment.py's latency regime); unset = the module default "
+        "2^14",
+))
+PLAN_FUSION = register(EnvVar(
+    "DEEQU_TORCH_PLAN_FUSION", "flag01", default=True,
+    doc="0 turns off cross-set grouping fusion: every dense grouping set "
+        "then counts in its own dispatch (the A/B switch)",
+))

@@ -29,6 +29,12 @@ themselves (bisection, eviction, demotion, refusal) live in
 ``ops/scan_executors.py``; this module only decides *what* failed and
 *whether* the device is still trusted. ``MeshHealth`` and the per-shard
 deadline of a multi-card mesh come with the mesh.
+
+It also holds the histogram width caps the plan cost model prices
+against (:func:`hist_cpu_cap`, :func:`hist_accel_cap`, the reference's
+``device_policy.py:81-114``). In the reference they are the one-hot
+kernel's crossovers; the port routes no histogram variants, so here they
+only price a dispatch (``ops/plan_cost.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +48,28 @@ from deequ_tpu_torch.exceptions import (
     DeviceHangException,
     device_boundary,
 )
+
+# -- histogram width caps (plan cost model inputs) ----------------------------
+
+#: widest histogram the reference's one-hot matmul takes on a CPU backend
+#: (its round-14 crossover): the cost model's cap on a CPU device
+HIST_ONEHOT_CPU_MAX_SEGMENTS = 32
+
+#: widest histogram the reference's one-hot matmul takes on an
+#: accelerator (2^17, its factored-planes bound): the cap on a card
+HIST_ONEHOT_MXU_MAX_SEGMENTS = 1 << 17
+
+
+def hist_cpu_cap() -> int:
+    """The cost model's histogram width cap on a CPU device (read at each
+    call, so a monkeypatched constant steers it)."""
+    return HIST_ONEHOT_CPU_MAX_SEGMENTS
+
+
+def hist_accel_cap() -> int:
+    """The cost model's histogram width cap on a card."""
+    return HIST_ONEHOT_MXU_MAX_SEGMENTS
+
 
 # -- fault-injection seam ----------------------------------------------------
 

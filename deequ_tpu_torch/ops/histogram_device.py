@@ -15,6 +15,15 @@ port has one formulation per device:
   PyTorch version, which is also what tests and ``chip_smoke.py`` hold
   the kernel against.
 
+:func:`fused_bincount` is the counterpart of the reference's cross-set
+grouping fusion (``deequ_tpu/ops/segment.py:1035`` ``fused_group_counts``,
+K7): K int64 key vectors counted in one launch of the kernel's
+multi-input entry over their summed keyspace, each set's ids shifted by
+the keyspaces before it where the kernel loads them, so the host neither
+offsets nor concatenates. On a CPU tensor it runs
+:func:`fused_bincount_plain`, the reference's formulation (offset,
+concatenate, count).
+
 Contract (the reference's, shared by every variant): counts over
 ``[0, num_segments)``; ids outside that range — negative sentinels,
 padding — are dropped; optional int32 weights replace the 1; results are
@@ -40,6 +49,10 @@ from deequ_tpu_torch.ops import cuda_build
 #: kernel, and nowhere else (chip_smoke.py reads it around the main path)
 LAUNCHES = 0
 
+#: launches of the multi-input entry (:func:`fused_bincount`), counted
+#: apart from :data:`LAUNCHES`: one a call that launches on a card
+FUSED_LAUNCHES = 0
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.deequ_bincount.argtypes = [
@@ -56,6 +69,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ]
     lib.deequ_bincount_scratch_bytes.restype = ctypes.c_longlong
+    multi = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int]
+    lib.deequ_bincount_multi_scratch_bytes.argtypes = multi
+    lib.deequ_bincount_multi_scratch_bytes.restype = ctypes.c_longlong
+    lib.deequ_bincount_multi.argtypes = multi + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.deequ_bincount_multi.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -201,4 +222,118 @@ def _launch(seg, num_segments: int, weights, scratch, out, regime_name=None) -> 
         raise launch_error(
             f"bincount kernel launch failed (n={n}, num_segments={num_segments}, "
             f"regime={name})", rc,
+        )
+
+
+# -- the multi-input entry: K7's fused group counts ---------------------------
+
+
+def _check_fused_args(keys, keyspaces) -> None:
+    if len(keys) == 0 or len(keys) != len(keyspaces):
+        raise ValueError(
+            "fused_bincount: one keyspace for each of at least one key tensor"
+        )
+    device = keys[0].device if isinstance(keys[0], torch.Tensor) else None
+    for key in keys:
+        if not isinstance(key, torch.Tensor) or key.dim() != 1:
+            raise ValueError("fused_bincount: every key vector must be a 1-D tensor")
+        if key.dtype != torch.int64:
+            raise TypeError(f"fused_bincount: keys must be int64, got {key.dtype}")
+        if key.device != device:
+            raise ValueError("fused_bincount: the key vectors lie on different devices")
+    if any(int(k) < 0 for k in keyspaces):
+        raise ValueError(f"fused_bincount: keyspaces must be >= 0, got {keyspaces}")
+
+
+def fused_bincount_plain(keys, keyspaces) -> torch.Tensor:
+    """:func:`fused_bincount`'s plain version, the reference's formulation:
+    each set's ids >= 0 shifted by its offset (the rest -1), the vectors
+    concatenated, one :func:`bincount_plain` over the summed keyspace."""
+    keys = list(keys)
+    _check_fused_args(keys, keyspaces)
+    shifted, offset = [], 0
+    for key, k in zip(keys, keyspaces):
+        shifted.append(torch.where(key >= 0, key + offset, -1))
+        offset += int(k)
+    return bincount_plain(torch.cat(shifted), offset)
+
+
+def fused_bincount(keys, keyspaces) -> torch.Tensor:
+    """Counts of K int64 key vectors over ``sum(keyspaces)`` bins, set j's
+    ids in ``[0, keyspaces[j])`` landing after the keyspaces before it,
+    ids < 0 dropped (module doc). On CUDA tensors one launch of the
+    kernel's multi-input entry (shared or partition regime: the summed
+    keyspace must be at most the partition regime's width, 2^25; in the
+    partition regime each set whose own keyspace fits the shared regime is
+    counted there, into its own bins); on CPU tensors
+    :func:`fused_bincount_plain`. Exact int64 counts."""
+    global FUSED_LAUNCHES
+    keys = list(keys)
+    _check_fused_args(keys, keyspaces)
+    device = keys[0].device
+    if device.type == "cpu":
+        return fused_bincount_plain(keys, keyspaces)
+    if device.type != "cuda":
+        raise ValueError(f"fused_bincount: unsupported device {device}")
+    if not all(key.is_contiguous() for key in keys):
+        raise ValueError("fused_bincount: every key vector must be contiguous")
+    total = sum(int(k) for k in keyspaces)
+    if total == 0 or all(key.numel() == 0 for key in keys):
+        return torch.zeros(total, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        name = regime(total)
+    scratch, out = _fused_buffers(keys, keyspaces, name)
+    _fused_launch(keys, keyspaces, scratch, out, name)
+    FUSED_LAUNCHES += 1
+    return out
+
+
+def _fused_args(keys, keyspaces) -> tuple:
+    """The multi-input entry's inputs: pointers, rows, keyspaces, count."""
+    k = len(keys)
+    return (
+        (ctypes.c_void_p * k)(*[key.data_ptr() for key in keys]),
+        (ctypes.c_longlong * k)(*[key.numel() for key in keys]),
+        (ctypes.c_longlong * k)(*[int(x) for x in keyspaces]),
+        k,
+    )
+
+
+def _fused_buffers(keys, keyspaces, regime_name: str) -> tuple:
+    """What one multi-input launch writes, as :func:`fused_bincount`
+    allocates it: the regime's scratch and the zeroed int64 output."""
+    device = keys[0].device
+    total = sum(int(x) for x in keyspaces)
+    with torch.cuda.device(device):
+        nbytes = _library().deequ_bincount_multi_scratch_bytes(
+            REGIMES.index(regime_name), *_fused_args(keys, keyspaces)
+        )
+    if nbytes < 0:
+        raise ValueError(
+            f"fused_bincount: the {regime_name} regime cannot take {total} "
+            "bins (the multi-input entry takes the shared and partition regimes)"
+        )
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    out = torch.zeros(total, dtype=torch.int64, device=device)
+    return scratch, out
+
+
+def _fused_launch(keys, keyspaces, scratch, out, regime_name: str) -> None:
+    """Enqueue the multi-input entry on the current stream into ``out``
+    with the buffers of :func:`_fused_buffers`, with no checks and no
+    allocation (``chip_smoke.py`` times it alone). Raises if the launch
+    was refused."""
+    device = keys[0].device
+    args = _fused_args(keys, keyspaces)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _library().deequ_bincount_multi(
+            REGIMES.index(regime_name), *args,
+            scratch.data_ptr() if scratch.numel() else None, out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise launch_error(
+            f"fused bincount kernel launch failed ({len(keys)} inputs, "
+            f"{sum(key.numel() for key in keys)} rows, {out.numel()} bins, "
+            f"regime={regime_name})", rc,
         )

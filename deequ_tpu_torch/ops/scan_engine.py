@@ -192,7 +192,10 @@ class ScanStats:
     one a chunk), ``hist_plain_dispatches`` those that ran its plain
     version on a CPU tensor, ``hist_host_dispatches`` those of tables
     small enough for ``np.bincount`` on the host
-    (``segment.HOST_GROUP_LIMIT``).
+    (``segment.host_group_limit()``). ``fused_group_passes`` counts the
+    grouping passes that rode a fused dispatch
+    (``segment.fused_group_counts``: a group of K sets counts K here and
+    one histogram dispatch); each is a grouping pass too.
 
     Residency (the reference's meanings): ``resident_passes`` scans that
     walked a persisted table, ``bytes_resident`` the resident bytes they
@@ -258,6 +261,7 @@ class ScanStats:
         self.hist_kernel_dispatches = 0
         self.hist_plain_dispatches = 0
         self.hist_host_dispatches = 0
+        self.fused_group_passes = 0
         # KLL chunk sorts: one per torch.sort of a KLL op (a batched op
         # sorts all its columns at once), and the columns they sorted
         self.kll_sort_passes = 0
@@ -325,8 +329,8 @@ class ScanStats:
 
     def record_degradation(self, kind: str, **detail) -> Dict[str, Any]:
         """Append one rung taken (kind: 'oom_bisect', 'encoded_demote',
-        'watchdog_timeout', 'cpu_fallback_refused', 'budget_exhausted')
-        for ``scan_execution_report`` and
+        'watchdog_timeout', 'cpu_fallback_refused', 'budget_exhausted',
+        'fusion_demote') for ``scan_execution_report`` and
         ``VerificationResult.device_events``."""
         event = {"kind": kind, **detail}
         with self._lock:
@@ -361,6 +365,11 @@ class ScanStats:
         with self._lock:
             name = f"hist_{route}_dispatches"
             setattr(self, name, getattr(self, name) + 1)
+
+    def record_fused_group_pass(self, n: int = 1) -> None:
+        """``n`` grouping passes that rode one fused dispatch."""
+        with self._lock:
+            self.fused_group_passes += int(n)
 
     def snapshot(self) -> Dict[str, Any]:
         """Every counter, read under the lock; the event and range lists
@@ -877,8 +886,12 @@ class DeferredScan:
         self._vector = None
         try:
             self._results = self._fold.unflatten(host, self._filled)
-        except Exception as e:  # noqa: BLE001 — kept for result()
+        except BaseException as e:  # noqa: BLE001 — kept for result()
+            # an interrupt mid-unpack leaves the scan failed too: a later
+            # result() raises it again and never reads half its leaves
             self._error = e
+            if not isinstance(e, Exception):
+                raise
 
     def result(self) -> List[Dict[str, np.ndarray]]:
         if not self.done:

@@ -70,6 +70,19 @@ def select_kernel_enabled(param: Optional[bool] = None) -> bool:
     return bool(param)
 
 
+def plan_fusion_enabled(param: Optional[bool] = None) -> bool:
+    """The cross-set grouping fusion switch (the reference's
+    ``scan_plan.py:241``): an explicit True/False wins, then
+    ``DEEQU_TORCH_PLAN_FUSION`` ('0' turns it off), then on."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    if param is not None:
+        if not isinstance(param, (bool, int)) or param not in (0, 1):
+            raise ValueError(f"plan_fusion must be True/False, got {param!r}")
+        return bool(param)
+    return env_value("DEEQU_TORCH_PLAN_FUSION")
+
+
 @dataclass(frozen=True)
 class ScanPlan:
     """One scan's ops with their kernels chosen. ``select_ops`` and

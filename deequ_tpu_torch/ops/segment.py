@@ -13,9 +13,10 @@ mixed-radix packing of the codes, built on the host as in the reference.
 - Sparse key space: one device lexsort of the (k, n) code matrix plus run
   lengths; only four scalars come back.
 
-At or below ``HOST_GROUP_LIMIT`` rows (2^14) both paths run on the host,
-as in the reference (a round trip to the card costs more than the work):
-the unique-inverse and run lengths with numpy, a dense count with
+At or below :func:`host_group_limit` rows (``DEEQU_TORCH_HOST_GROUP_LIMIT``,
+else ``HOST_GROUP_LIMIT`` = 2^14) both paths run on the host, as in the
+reference (a round trip to the card costs more than the work): the
+unique-inverse and run lengths with numpy, a dense count with
 ``np.bincount``, recorded in ``ScanStats.hist_host_dispatches``.
 
 Three results come out of those counts:
@@ -34,8 +35,13 @@ On a table persisted on the run's device (``ColumnarTable.persist``), a
 string column's counts come from its resident codes
 (:func:`_resident_string_bincount`: one K5 launch a resident chunk, summed
 on the device): ``group_top_k`` ranks them there, and ``group_count_stats``
-of one string column reduces them there to four scalars. Cross-set fusion
-waits for a later slice.
+of one string column reduces them there to four scalars.
+
+Cross-set fusion (:func:`fused_group_counts`, the reference's round-19
+plan optimizer): the dense sets of one run count in one launch of the
+histogram kernel's multi-input entry (``histogram_device.fused_bincount``,
+K7) over their summed keyspace, and each set's slice of the counts is
+bit for bit what its own dispatch would have counted.
 """
 
 from __future__ import annotations
@@ -47,8 +53,9 @@ import numpy as np
 import torch
 
 from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
-from deequ_tpu_torch.exceptions import device_boundary
-from deequ_tpu_torch.ops.histogram_device import bincount
+from deequ_tpu_torch.exceptions import DeviceException, device_boundary
+from deequ_tpu_torch.ops.device_policy import check_not_abandoned
+from deequ_tpu_torch.ops.histogram_device import bincount, fused_bincount
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, fetch
 
 # dense count vectors are used up to this key-space size
@@ -56,8 +63,19 @@ DENSE_KEYSPACE_LIMIT = 1 << 22
 
 # at or below this row count grouping work runs entirely on the HOST, as
 # in the reference (a round trip to the card costs more than the work);
-# a plain module attribute, so tests can monkeypatch it
+# the default of DEEQU_TORCH_HOST_GROUP_LIMIT, and a plain module
+# attribute, so tests can monkeypatch it
 HOST_GROUP_LIMIT = 1 << 14
+
+
+def host_group_limit() -> int:
+    """The row count at or below which grouping runs on the host:
+    ``DEEQU_TORCH_HOST_GROUP_LIMIT`` when set, else ``HOST_GROUP_LIMIT``
+    (read at each call, so a monkeypatched attribute steers it)."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    value = env_value("DEEQU_TORCH_HOST_GROUP_LIMIT")
+    return HOST_GROUP_LIMIT if value is None else value
 
 
 def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -86,7 +104,7 @@ def _device_unique_inverse(
     n = len(values)
     if n == 0:
         return np.empty(0, dtype=values.dtype), np.zeros(0, dtype=np.int64)
-    if n <= HOST_GROUP_LIMIT and values.dtype != np.float64:
+    if n <= host_group_limit() and values.dtype != np.float64:
         vals = values[mask]
         uniques = np.unique(vals)
         codes = np.zeros(n, dtype=np.int64)
@@ -128,15 +146,20 @@ def column_key_codes(col: Column, device) -> Tuple[np.ndarray, np.ndarray]:
     return codes, uniques
 
 
+def _host_bincount(keys: np.ndarray, num_segments: int) -> np.ndarray:
+    """The latency regime's count: ``np.bincount`` on the host, the -1
+    rows in a trailing slot that is cut off."""
+    SCAN_STATS.record_hist_dispatch("host")
+    slots = np.where(keys >= 0, keys, num_segments)
+    counts = np.bincount(slots, minlength=num_segments + 1)
+    return counts[:num_segments].astype(np.int64)
+
+
 def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
     """Count key occurrences; ``keys`` holds -1 for rows to ignore. On the
     card this is one launch of the CUDA histogram kernel."""
-    n = len(keys)
-    if n <= HOST_GROUP_LIMIT:
-        SCAN_STATS.record_hist_dispatch("host")
-        slots = np.where(keys >= 0, keys, num_segments)
-        counts = np.bincount(slots, minlength=num_segments + 1)
-        return counts[:num_segments].astype(np.int64)
+    if len(keys) <= host_group_limit():
+        return _host_bincount(keys, num_segments)
     with device_boundary("execute"):
         seg = torch.from_numpy(keys).to(device)
         counts = bincount(seg, num_segments)
@@ -146,18 +169,25 @@ def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
         return fetch(counts)[0]
 
 
+def _resident_cache(table, column: str, device):
+    """The table's device cache when ``column`` is a string column whose
+    codes are resident on ``device``; else None."""
+    cache = getattr(table, "_device_cache", None)
+    if cache is None or not cache.device_chunks or not cache.matches(device, [column]):
+        return None
+    return cache if column in cache.packer.string_names else None
+
+
 def _resident_string_bincount(table, column: str, include_null: bool, device):
     """Counts per code slot (slot 0: null, counted only with
     ``include_null``) from the codes resident on ``device``, one K5 launch
     a resident chunk summed on the device — a device tensor of length
     cardinality + 1; None when the table or column is not resident there.
     (The port's resident chunks hold no padding rows, so none is dropped.)"""
-    cache = getattr(table, "_device_cache", None)
-    if cache is None or not cache.device_chunks or not cache.matches(device, [column]):
+    cache = _resident_cache(table, column, device)
+    if cache is None:
         return None
     packer = cache.packer
-    if column not in packer.string_names:
-        return None
     row = packer.string_names.index(column)
     slots = len(packer.cols[column].dictionary) + 1
     counts = None
@@ -374,7 +404,7 @@ def group_count_stats(
         if prep.any_non_null is not None
         else np.ones(table.num_rows, dtype=bool)
     )
-    if table.num_rows <= HOST_GROUP_LIMIT:
+    if table.num_rows <= host_group_limit():
         return _count_stats_from_counts(_host_rle_counts(matrix, valid), num_rows)
     SCAN_STATS.device_sort_passes += 1
     m, num_groups, singletons, clogc = _device_rle_stats(matrix, valid, device)
@@ -451,12 +481,12 @@ def _device_matrix_rle(
     reads the group count G back (its one scalar round trip) and the
     (k, G) representatives and G run lengths are gathered on the card, so
     the fetch is O(k·G), never the sorted (k, n) matrix. At or below
-    ``HOST_GROUP_LIMIT`` rows the same runs are taken on the host.
+    :func:`host_group_limit` rows the same runs are taken on the host.
     Returns (groups (k, G), counts (G,))."""
     k, n = code_matrix.shape
     if n == 0:
         return code_matrix[:, :0], np.zeros(0, dtype=np.int64)
-    if n <= HOST_GROUP_LIMIT:
+    if n <= host_group_limit():
         perm = np.lexsort(tuple(code_matrix) + (~valid,))
         smat = code_matrix[:, perm]
         sva = valid[perm]
@@ -544,6 +574,146 @@ def group_counts(
     return state.as_dict(), state.num_rows
 
 
+# -- cross-set grouping fusion ----------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GroupRequest:
+    """One grouping set fusion may take: its sorted columns and the shape
+    its analyzers need — "freq" (the frequency table,
+    ``FrequenciesAndNumRows``) or "stats" (``CountStats``, the
+    ``group_count_stats`` route)."""
+
+    columns: Tuple[str, ...]
+    mode: str = "freq"
+
+
+def _resident_stats_eligible(table, columns, device) -> bool:
+    """True exactly where a stats-mode set would take
+    ``group_count_stats``'s resident string route (four scalars from the
+    codes resident on ``device``): cheaper than any fusion, so fusion
+    leaves such a set to its own pass."""
+    return (
+        len(columns) == 1
+        and table[columns[0]].dtype == DType.STRING
+        and _resident_cache(table, columns[0], device) is not None
+    )
+
+
+def _fused_device_bincount(keys: List[np.ndarray], keyspaces, device) -> np.ndarray:
+    """One dispatch counting K dense sets' keys over their summed keyspace,
+    set j's slots after the keyspaces before it. At or below
+    :func:`host_group_limit` rows in all, the reference's host formulation
+    (offset, concatenate, ``np.bincount``); else each set's keys go to the
+    device as they were prepared and ``fused_bincount`` counts them — on
+    the card one launch of the multi-input entry."""
+    total = sum(keyspaces)
+    if sum(len(k) for k in keys) <= host_group_limit():
+        offsets = np.cumsum((0,) + tuple(keyspaces[:-1]))
+        combined = np.concatenate([
+            np.where(k >= 0, k + np.int64(off), np.int64(-1))
+            for k, off in zip(keys, offsets)
+        ])
+        return _host_bincount(combined, total)
+    with device_boundary("execute"):
+        check_not_abandoned()
+        segs = [torch.from_numpy(k).to(device) for k in keys]
+        counts = fused_bincount(segs, keyspaces)
+        SCAN_STATS.record_hist_dispatch(
+            "kernel" if counts.device.type == "cuda" else "plain"
+        )
+        return fetch(counts)[0]
+
+
+def fused_group_counts(
+    table: ColumnarTable, requests: Sequence[GroupRequest], device
+) -> Dict[int, object]:
+    """Cross-set grouping fusion (reference ``fused_group_counts``): the
+    dense sets among ``requests`` count in ONE dispatch
+    (:func:`_fused_device_bincount`: one launch of the histogram kernel's
+    multi-input entry on the card, one fetch), and each set's slice of the
+    counts finalizes as its own pass would. Integer counts are exact in
+    any order, so every slice is bit for bit the set's own dispatch.
+
+    Sets are packed greedily, in request order, into groups whose summed
+    keyspace stays within ``DENSE_KEYSPACE_LIMIT``; a group of one counts
+    in its own dispatch. Returns ``{request index: state}``
+    (``FrequenciesAndNumRows`` for "freq", ``CountStats`` for "stats"),
+    each counted as one grouping pass, as the per-set path counts it. A
+    request absent from the result takes its own pass: a sparse keyspace,
+    a resident string stats set, a failed preparation (the own pass
+    raises it into the analyzers' failure metrics), a set that failed
+    after the dispatch.
+
+    Fault rung: a ``DeviceException`` of the fused dispatch demotes its
+    group (a ``fusion_demote`` degradation: passes, keyspace, reason), and
+    each member counts in its own dispatch from the keys it prepared —
+    nothing is prepared again."""
+    preps: Dict[int, _GroupPrep] = {}
+    for i, req in enumerate(requests):
+        if req.mode == "stats" and _resident_stats_eligible(table, req.columns, device):
+            continue
+        try:
+            prep = _prepare_grouping(
+                table, list(req.columns), device, True, with_values=req.mode == "freq"
+            )
+        except Exception:  # noqa: BLE001 — its own pass re-raises it as a failure metric
+            continue
+        if prep.dense:
+            preps[i] = prep
+
+    # greedy packing: the fused dispatch counts into one vector of the
+    # summed width, which must stay dense
+    groups: List[List[int]] = []
+    width = 0
+    for i in sorted(preps):
+        if groups and width + preps[i].keyspace <= DENSE_KEYSPACE_LIMIT:
+            groups[-1].append(i)
+            width += preps[i].keyspace
+        else:
+            groups.append([i])
+            width = preps[i].keyspace
+
+    results: Dict[int, object] = {}
+    for group in groups:
+        sliced: Optional[List[np.ndarray]] = None
+        if len(group) >= 2:
+            keyspaces = [preps[i].keyspace for i in group]
+            try:
+                counts = _fused_device_bincount(
+                    [preps[i].keys for i in group], keyspaces, device
+                )
+            except DeviceException as e:
+                SCAN_STATS.record_degradation(
+                    "fusion_demote", passes=len(group),
+                    keyspace=int(sum(keyspaces)), reason=str(e),
+                )
+            else:
+                offsets = np.cumsum([0] + keyspaces[:-1])
+                sliced = [counts[o:o + k] for o, k in zip(offsets, keyspaces)]
+                SCAN_STATS.record_fused_group_pass(len(group))
+        for j, i in enumerate(group):
+            req, prep = requests[i], preps[i]
+            try:
+                counts = (
+                    sliced[j] if sliced is not None
+                    else _device_bincount(prep.keys, prep.keyspace, device)
+                )
+                if req.mode == "stats":
+                    state = _count_stats_from_counts(counts[counts > 0], prep.num_rows)
+                else:
+                    digit_cols, vec = _dense_digits(prep, counts)
+                    state = _freq_state_from_digits(
+                        req.columns, digit_cols, vec, prep.value_arrays, prep.num_rows
+                    )
+            except Exception:  # noqa: BLE001 — its own pass gives the failure metric
+                continue
+            SCAN_STATS.grouping_passes += 1
+            SCAN_STATS.rows_scanned += table.num_rows
+            results[i] = state
+    return results
+
+
 # -- top-k ----------------------------------------------------------------------
 
 NULL_FIELD_REPLACEMENT = "NullValue"
@@ -624,7 +794,7 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
     num_segments = len(values) + 1
     kk = min(k, num_segments)
 
-    if table.num_rows <= HOST_GROUP_LIMIT:
+    if table.num_rows <= host_group_limit():
         SCAN_STATS.record_hist_dispatch("host")
         counts = np.bincount(codes, minlength=num_segments).astype(np.int64)
         if nv_code >= 0:

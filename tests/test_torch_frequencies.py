@@ -243,21 +243,34 @@ def test_mutual_information_needs_two_columns():
 
 def test_count_stats_sets_skip_the_frequency_table(monkeypatch):
     """A grouping set of count-only analyzers takes group_count_stats; one
-    holding MutualInformation takes the frequency table."""
-    calls = []
+    holding MutualInformation takes the frequency table — in its own pass
+    with cross-set fusion off, and as a "freq" request of the fused
+    dispatch with it on (the count-only set a "stats" one)."""
+    calls, modes = [], {}
     real = port_segment.group_counts_state
     monkeypatch.setattr(
         "deequ_tpu_torch.analyzers.runner.group_counts_state",
         lambda *a, **k: calls.append(a[1]) or real(*a, **k),
     )
+    real_fused = port_segment.fused_group_counts
+
+    def spy(table, requests, device):
+        modes.update({r.columns: r.mode for r in requests})
+        return real_fused(table, requests, device)
+
+    monkeypatch.setattr(port_segment, "fused_group_counts", spy)
     table = port_table(_table(3000))
-    PortRunner.do_analysis_run(
-        table,
-        [port_analyzers.Uniqueness(["s", "i"]), port_analyzers.Entropy("s"),
-         port_analyzers.MutualInformation("i", "s"), port_analyzers.Distinctness(["i", "s"])],
-        device="cpu",
-    )
+    analyzers = [
+        port_analyzers.Uniqueness(["s", "i"]), port_analyzers.Entropy("s"),
+        port_analyzers.MutualInformation("i", "s"), port_analyzers.Distinctness(["i", "s"]),
+    ]
+    monkeypatch.setenv("DEEQU_TORCH_PLAN_FUSION", "0")
+    PortRunner.do_analysis_run(table, analyzers, device="cpu")
+    assert calls == [["i", "s"]] and modes == {}
+    monkeypatch.setenv("DEEQU_TORCH_PLAN_FUSION", "1")
+    PortRunner.do_analysis_run(table, analyzers, device="cpu")
     assert calls == [["i", "s"]]
+    assert modes == {("i", "s"): "freq", ("s",): "stats"}
 
 
 def test_main_path_keeps_the_count_stats_route(monkeypatch):

@@ -90,16 +90,20 @@ def test_grouping_parity(parity_env, monkeypatch, path, cols, name):
 
 @pytest.mark.parametrize("path", ["dense", "sparse"])
 def test_grouping_route_census(parity_env, monkeypatch, path):
-    """Dense sets count through the port's bincount (one dispatch per
-    grouping set, its plain version on the CPU); sparse sets sort."""
+    """Dense sets count through the port's bincount (its plain version on
+    the CPU): their summed key space is under 2^22, so cross-set fusion
+    counts all of them in one dispatch, each still one grouping pass.
+    Sparse sets sort, and nothing fuses."""
     _, census = _results(path, monkeypatch)
     assert census["grouping_passes"] == len(GROUPINGS)
     assert census["hist_kernel_dispatches"] == 0
     assert census["hist_host_dispatches"] == 0
     if path == "dense":
-        assert census["hist_plain_dispatches"] == len(GROUPINGS)
+        assert census["hist_plain_dispatches"] == 1
+        assert census["fused_group_passes"] == len(GROUPINGS)
     else:
         assert census["hist_plain_dispatches"] == 0
+        assert census["fused_group_passes"] == 0
         assert census["device_sort_passes"] >= len(GROUPINGS)
 
 

@@ -194,8 +194,10 @@ def test_smoke_schema_suite_parity(parity_env, monkeypatch, mode):
     assert port_result.scan_stats["scan_passes"] == 1
     assert port_result.scan_stats["grouping_passes"] == 4
     assert SCAN_STATS.last_scan_fetches == 1
-    # at 50k rows every grouping set's key space is dense (id's too)
-    assert SCAN_STATS.hist_plain_dispatches == 4
+    # at 50k rows every grouping set's key space is dense (id's too), and
+    # cross-set fusion counts the four sets in one dispatch
+    assert SCAN_STATS.hist_plain_dispatches == 1
+    assert SCAN_STATS.fused_group_passes == 4
 
 
 # (state class, analyzer spec): states the reference computes from data
