@@ -22,8 +22,11 @@ Phases, each printed as one JSON line on stdout:
    boundary, the partition regime's narrow and wide inputs alone and
    together, 70 inputs, inputs of one row and of none, a wholly dropped
    input, ids past their own keyspace, the main path's shape (10^7 Zipf ids
-   over each of 1,078,737, 9 and 5,001 bins), and a refusal past the
-   partition regime's width;
+   over each of 1,078,737, 9 and 5,001 bins), the partition route's edges
+   (narrow ids past their keyspace in a wide input's bins, every wide id in
+   one bucket, wide only, narrow only, the summed keyspace on both sides of
+   sms << 13, 70 wide and narrow inputs), and a refusal past the partition
+   regime's width;
 3b. ``k1_parity`` — K1, the fused scan's masked reductions
    (``csrc/masked_reduce.cu``), against its plain versions on the card:
    counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
@@ -63,11 +66,13 @@ Phases, each printed as one JSON line on stdout:
    fused pass (status and region count from resident codes, customer_id
    is alone in its group); the sparse ``id`` set's preparation, which the
    fused pre-pass drops and its own pass makes again, timed; and
-   ``kernel_timing`` of K7 at the fused group's shape (the kernel alone,
-   torch.profiler's time by kernel, a wrapper call, its plain version,
-   ``torch.bincount`` over the host-concatenated keys, the three K5
-   launches it replaces, its bound, and the grouping layer's one fused
-   dispatch against three, keys copied and counts fetched);
+   ``kernel_timing`` of K7 at the fused group's shape (the kernel alone
+   and the three K5 launches it replaces, in turns, each with
+   torch.profiler's time by kernel; a wrapper call, its plain version,
+   ``torch.bincount`` over the host-concatenated keys, its bound, and the
+   grouping layer's one fused dispatch against three, keys copied and
+   counts fetched; ``tools/time_k7.py --parent`` times another checkout's
+   entry in the same turns);
 5. ``kernel_timing`` — each kernel at the shapes the main path gave it:
    the kernel alone (``kernel_ms``: 100 queued launches into preallocated
    buffers, CUDA events; the same in every other regime that can take the
@@ -555,12 +560,16 @@ def kernel_parity(device) -> dict:
 
 def fused_parity(device, rng, boundaries: dict) -> dict:
     """K7, the kernel's multi-input entry (``fused_bincount``), against
-    ``fused_bincount_plain``, bit for bit: K = 1–4 inputs on both sides of
-    the shared/partition boundary, narrow and wide inputs of the partition
-    regime alone and together, 70 inputs (past one launch's 64), inputs of
-    one row and of none, a wholly dropped input, ids past their own
-    keyspace, and the main path's shape (10^7 Zipf ids over 1,078,737
-    bins beside 10^7 ids over 9 and over 5,001); past the partition
+    ``fused_bincount_plain``, bit for bit, one launch counted a call: K =
+    1–4 inputs on both sides of the shared/partition boundary, narrow and
+    wide inputs of the partition regime alone and together, 70 inputs (past
+    one launch's 64), inputs of one row and of none, a wholly dropped
+    input, ids past their own keyspace, the main path's shape (10^7 Zipf
+    ids over 1,078,737 bins beside 10^7 ids over 9 and over 5,001), and
+    the partition route's own edges: narrow ids past their keyspace in a
+    wide input's bins, every wide id in one bucket, a wide input only,
+    narrow inputs only past the shared width, the summed keyspace on both
+    sides of sms << 13, 70 wide and narrow inputs; past the partition
     regime's width the entry refuses."""
     import numpy as np
     import torch
@@ -619,6 +628,28 @@ def fused_parity(device, rng, boundaries: dict) -> dict:
     rows = 10_000_000
     check([zipf_ids(rng, rows, 1_078_737), zipf_ids(rng, rows, 9), zipf_ids(rng, rows, 5001)],
           [1_078_737, 9, 5001], "the main path's shape, 10^7 Zipf ids each")
+    # the partition route's two launches: narrow ids past their own keyspace
+    # (added into out by launch 1) landing in a wide input's bins (added by
+    # launch 2), every wide id in one bucket (one cluster takes all rows),
+    # no narrow input, no wide one (no launch 2), the summed keyspace on
+    # both sides of sms << 13 (where launch 2's bucket width steps), and 70
+    # wide and narrow inputs in two launches
+    check([rng.integers(-1, 200_000, size=1_000_000), ids(1_000_000, 150_000)],
+          [9, 150_000], "narrow ids past their keyspace into a wide input's bins")
+    check([(12_152 * 64) + rng.integers(0, 64, size=4_000_000), ids(100_000, 9)],
+          [1_000_000, 9], "every wide id in one bucket")
+    check([ids(3_000_000, 2_000_000)], [2_000_000], "a wide input only")
+    check([ids(1_000_000, 15_000) for _ in range(5)], [15_000] * 5,
+          "narrow inputs only, past the shared width")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for total in ((sms << 13) - 1, (sms << 13) + 1):
+        check([zipf_ids(rng, 2_000_000, total - 5_010), ids(1_000_000, 9),
+               ids(1_000_000, 5_001)], [total - 5_010, 9, 5_001],
+              f"{total} bins, sms << 13 {total - (sms << 13):+d}")
+    mixed = [int(rng.integers(16_385, 40_000)) if j % 2 else int(rng.integers(1, 3_000))
+             for j in range(70)]
+    check([ids(int(rng.integers(0, 50_000)), sp) for sp in mixed], mixed,
+          "70 wide and narrow inputs")
     # past the partition regime's width: refused, no launch
     before = histogram_device.FUSED_LAUNCHES
     wide = boundaries["partition"] + 1
@@ -1352,18 +1383,76 @@ def fusion_checked_run(suite, want: dict, label: str, fused: bool) -> tuple:
     return launches, stats, result
 
 
+def k7_turns(keys, spaces, libs: dict, reps: int = 20, unheld=()) -> dict:
+    """K7 alone at one shape from each build of ``bincount.cu`` in ``libs``
+    ({name: loaded library}, bound as the package binds it) and the K5
+    launches it replaces, one a set (the package's library), in turns: every build
+    and then the K5 launches, then the same in reverse order. Each time is
+    ``time_queued`` over ``reps`` launches into fresh buffers (as
+    ``fused_bincount`` allocates them for that build); each build's count
+    is held bit for bit against ``fused_bincount_plain`` and timed by
+    torch.profiler, by kernel (a probe build named in ``unheld`` computes
+    something else and is timed only). Returns {name: {"kernel_ms": [two turns],
+    "profiler_ms": ...}} with "k5" beside the builds. Launch counts
+    are the caller's to restore."""
+    import torch
+
+    from deequ_tpu_torch.ops import cuda_build
+    from deequ_tpu_torch.ops import histogram_device as hd
+
+    package = hd._library()
+    name = hd.regime(sum(spaces))
+    want = hd.fused_bincount_plain(keys, spaces)
+
+    def k7(lib):
+        cuda_build._LIBS["bincount"] = lib
+        bufs = [hd._fused_buffers(keys, spaces, name) for _ in range(reps)]
+        return bufs, lambda i: hd._fused_launch(keys, spaces, *bufs[i % reps], name)
+
+    def k5_launches():
+        cuda_build._LIBS["bincount"] = package
+        bufs = [[hd._buffers(k, sp) for k, sp in zip(keys, spaces)] for _ in range(reps)]
+
+        def launch(i):
+            for k, sp, b in zip(keys, spaces, bufs[i % reps]):
+                hd._launch(k, sp, None, *b)
+        return bufs, launch
+
+    out = {n: {"kernel_ms": []} for n in [*libs, "k5"]}
+    order = [*libs, "k5"]
+    try:
+        for label in order + order[::-1]:
+            bufs, launch = k5_launches() if label == "k5" else k7(libs[label])
+            out[label]["kernel_ms"].append(time_queued(launch, reps))
+            if "profiler_ms" not in out[label]:
+                prof = profiled_ms(launch, reps=reps)
+                out[label]["profiler_ms"] = prof if prof is not None else "no device time"
+            if label != "k5" and label not in unheld:
+                got = bufs[0][1].zero_()  # the entry adds into its zeroed output
+                launch(0)
+                if not torch.equal(got, want):
+                    err = int((got - want).abs().max())
+                    fail(f"K7 ({label}) at {[k.numel() for k in keys]} ids over {spaces} "
+                         f"bins differs from its plain version: max err {err}")
+            del bufs, launch
+    finally:
+        cuda_build._LIBS["bincount"] = package
+    return out
+
+
 def fused_dispatch_timing(table, device, rate: float, reps: int = 20) -> dict:
     """K7 at the main path's shape — the keys of customer_id, status and
     region as ``_prepare_grouping`` makes them, 3·10^7 int64 ids over their
-    summed keyspace — the kernel alone (fresh buffers a launch, as
-    ``fused_bincount`` allocates them), torch.profiler's time by kernel, one
-    wrapper call, the plain version, ``torch.bincount`` over the vector the
-    reference concatenates on the host (the library call), the three K5
-    launches it replaces (alone, in one window), and the bound: each key
-    read once and each count written once, over the card's memory rate.
-    Then the grouping layer's two dispatches as a caller pays them (keys
-    copied to the card, counted, fetched): ``_fused_device_bincount`` once
-    against ``_device_bincount`` three times, in turns."""
+    summed keyspace — the kernel alone and the three K5 launches it
+    replaces, in turns (``k7_turns``: fresh buffers a launch, as
+    ``fused_bincount`` allocates them; torch.profiler's time by kernel),
+    one wrapper call, the plain version, ``torch.bincount`` over the vector
+    the reference concatenates on the host (the library call), and the
+    bound: each key read once and each count written once, over the card's
+    memory rate. Then the grouping layer's two dispatches as a caller pays
+    them (keys copied to the card, counted, fetched):
+    ``_fused_device_bincount`` once against ``_device_bincount`` three
+    times, in turns."""
     import numpy as np
     import torch
 
@@ -1376,11 +1465,10 @@ def fused_dispatch_timing(table, device, rate: float, reps: int = 20) -> dict:
     keys = [torch.from_numpy(p.keys).to(device) for p in preps]
     saved = (hd.LAUNCHES, hd.FUSED_LAUNCHES)
     name = hd.regime(total)
-    bufs = [hd._fused_buffers(keys, spaces, name) for _ in range(reps)]
-    launch = lambda i: hd._fused_launch(keys, spaces, *bufs[i % reps], name)  # noqa: E731
-    kernel_ms = time_queued(launch, reps)
-    prof = profiled_ms(launch, reps=reps)
-    del bufs
+    turns = k7_turns(keys, spaces, {"tree": hd._library()}, reps)
+    kernel_ms = statistics.median(turns["tree"]["kernel_ms"])
+    k5_ms = statistics.median(turns["k5"]["kernel_ms"])
+    prof = turns["tree"]["profiler_ms"]
     call_ms = time_cuda(lambda: hd.fused_bincount(keys, spaces))
     plain_ms = time_queued(lambda i: hd.fused_bincount_plain(keys, spaces), reps)
     offsets = np.cumsum([0] + spaces[:-1])
@@ -1389,14 +1477,6 @@ def fused_dispatch_timing(table, device, rate: float, reps: int = 20) -> dict:
     slots = torch.from_numpy(np.where(combined >= 0, combined, total)).to(device)
     library_ms = time_queued(lambda i: torch.bincount(slots, minlength=total + 1), reps,
                              waits=True)
-    k5_bufs = [[hd._buffers(k, sp) for k, sp in zip(keys, spaces)] for _ in range(reps)]
-
-    def three_k5(i):
-        for k, sp, b in zip(keys, spaces, k5_bufs[i % reps]):
-            hd._launch(k, sp, None, *b)
-
-    k5_ms = time_queued(three_k5, reps)
-    del k5_bufs
     got = hd.fused_bincount(keys, spaces)
     want = hd.fused_bincount_plain(keys, spaces)
     per_set = torch.cat([hd.bincount(k, sp) for k, sp in zip(keys, spaces)])
@@ -1425,12 +1505,15 @@ def fused_dispatch_timing(table, device, rate: float, reps: int = 20) -> dict:
         "num_segments": total,
         "regime": name,
         "kernel_ms": kernel_ms,
-        "profiler_ms": prof if prof is not None else "no device time",
+        "kernel_ms_turns": turns["tree"]["kernel_ms"],
+        "profiler_ms": prof,
         "call_ms": call_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "library_call": "torch.bincount of the host-offset, concatenated keys",
         "three_k5_ms": k5_ms,
+        "three_k5_ms_turns": turns["k5"]["kernel_ms"],
+        "three_k5_profiler_ms": turns["k5"]["profiler_ms"],
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "bound_share": bound_ms / kernel_ms,

@@ -49,44 +49,88 @@
 //   L2 atomic. Not reachable from the dense grouping path, which stops at
 //   2^22 bins.
 //
-// The multi-input entry (deequ_bincount_multi) replaces the reference's
+// Also measured and not taken for K5: a histogram spread over a
+// thread-block cluster's shared memory (distributed shared-memory atomics
+// were no faster than L2 atomics), two cluster passes over halves of a wide
+// key space, and warp aggregation of equal keys (__match_any_sync costs
+// more than it saves unless most of a warp's keys are equal).
+//
+// The multi-input entry (deequ_bincount_multi, K7) replaces the reference's
 // cross-set grouping fusion, deequ_tpu/ops/segment.py:1035
 // fused_group_counts, which offsets each set's int64 keys by the keyspaces
-// before it on the host, concatenates them and counts the one vector in one
-// histogram dispatch. Here each set's keys stay as they were prepared, and
-// the offset is added where a kernel loads an id: a row's slot is
-// id + offset where id >= 0 (two's-complement wrap, as torch and numpy
-// add) and -1 otherwise, then counted when inside [0, total). So the entry
-// computes the reference's function bit for bit, even for ids outside their
-// own keyspace. Only the shared and partition regimes take it (the dense
-// grouping path stops at 2^22 bins); the global regime refuses it with
-// cudaErrorInvalidValue.
+// before it on the host, concatenates them and counts the one vector with
+// the Pallas kernel above (its _device_bincount, :1132). Here each set's
+// keys stay as they were prepared, and the offset is added where a kernel
+// loads an id: a row's slot is id + offset where id >= 0 (two's-complement
+// wrap, as torch and numpy add) and -1 otherwise, then counted when inside
+// [0, total). So the entry computes the reference's function bit for bit,
+// even for ids outside their own keyspace. Only the shared and partition
+// regimes take it (the dense grouping path stops at 2^22 bins); the global
+// regime refuses it with cudaErrorInvalidValue.
 //
 // - shared (the summed keyspace fits a block's histogram): every input
 //   walked in turn with the same vector loads into one block histogram.
-// - partition: the summed keyspace is what is wide, not each set. A
-//   narrow set (a status column of 9 codes beside a million customer ids)
-//   would put all its rows in one bucket, and so on one pass-2 block. So
-//   each input takes the regime the single-input rule gives its OWN
-//   keyspace: the wide ones go through the two partition passes over the
-//   summed space, then the narrow ones are counted by one shared-memory
-//   kernel, each in a histogram of its own bins added at its offset (an id
-//   past its own keyspace adds straight into the output, after pass 2 has
-//   written it). In pass 1 a tile never straddles two inputs: each wide
-//   input's rows are cut into tiles of their own, numbered one after the
-//   other, so a block reads one pointer and one offset a tile, keeps its
-//   loads coalesced and needs no lookup a row; the price is at most one
-//   partly filled tile an input. Pass 2 is the single-input kernel.
+// - partition: the summed keyspace is what is wide, not each set. What
+//   bounds it is reading every key once and writing every count once: at
+//   the main path's fused group (customer_id, status and region, 3 x 10^7
+//   int64 keys over 1,078,737 + 9 + 5,001 bins) 240 MB in and 8.67 MB out,
+//   0.0742 ms at 3.35 TB/s. A narrow input (own keyspace at most
+//   kNarrowBins: status, region) would put all its rows in one bucket of
+//   the summed space, so it is counted in a shared-memory histogram of its
+//   own bins instead; a wide one (customer_id) goes through the partition
+//   passes over the summed space. Two launches:
+//   1. bincount_fused_read reads every input once, in one grid: the wide
+//      inputs' pass-1 tiles and the narrow inputs' tiles are items of one
+//      list, interleaved evenly, and each block (two of 512 threads an SM)
+//      takes a contiguous run of it, so the narrow keys stream from memory
+//      while the wide ones are sorted by bucket. Narrow counts (and the
+//      ids past their own keyspace, with 64-bit atomics) go straight into
+//      the zeroed out.
+//   2. bincount_fused_bucket adds the wide inputs' buckets into out: a
+//      cluster of kCluster blocks a bucket, the bucket the widest power of
+//      two that still gives every SM a block (67 buckets of 2^14 bins, 134
+//      blocks at the main path's shape, where one block a bucket over the
+//      summed space had 67 blocks on 132 SMs). Each block counts its share
+//      of the bucket's tile runs, read as packed 16-byte vectors, into its
+//      own shared histogram; the cluster then sums the histograms once
+//      through distributed shared memory, each block adding its slice of
+//      the bins. A bucket's rows are split over its cluster, so one hot
+//      bucket is counted on kCluster SMs.
+//      Launch 1's atomics came first, so no bin has two writers in a
+//      launch, and the narrow keys need not wait for pass 2 to store out
+//      whole. It is launched as a programmatic dependent of launch 1
+//      (griddepcontrol), so its blocks are set up while launch 1 drains.
+//   In pass 1 a tile never straddles two inputs: each input's rows are cut
+//   into tiles of their own, numbered one after the other, so a block reads
+//   one pointer and one offset a tile, keeps its loads coalesced and needs
+//   no lookup a row; the price is at most one partly filled tile an input.
+//
+//   Measured on an H100 (tools/time_k7.py, PERF.md): the kernel takes
+//   about 0.127 ms at that shape (58% of its bound; the earlier route of
+//   three kernels in series 0.161, the three single-input launches it
+//   replaces 0.143), launch 1 0.100 and launch 2 0.025. What holds it
+//   there: launch 1 writes the wide tiles' 20 MB of u16 keys beside its
+//   240 MB of reads (without that write it takes 0.085 ms; the ranking
+//   atomics, the scan and the stage scatter cost nothing beside it, and
+//   the narrow counts 1 us), and launch 2 is bound by its shared-memory
+//   atomics (14 us of its 25; 8 us is its fixed cost, with no rows).
+//   Measured and not taken: dealing the items round-robin (with a grid a
+//   multiple of 3 every block took one kind only: launch 1 0.135 ms);
+//   copying each item's ids into shared memory with a bulk copy (TMA) two
+//   items ahead, one block of 1024 threads an SM (launch 1 no faster: the
+//   loads were never what it waited for); one block a bucket at 2^13 bins
+//   (133 blocks; within 2% of the cluster); clusters of 4 at 2^15 bins
+//   (launch 2 0.065 ms); three blocks an SM for launch 1 (registers
+//   spilled, 0.119 ms); buckets of any width by a multiply-shift division,
+//   so that launch 2 runs 66 clusters in one wave (no faster, and launch 1
+//   paid for the division); 8 key vectors a lane in flight in launch 2,
+//   two copies of region's histogram, 16-byte stores of the keys from the
+//   stage, and evict-last stores of them (each within 1%, the last at the
+//   risk of crowding L2 for later kernels).
 //
 // The inputs ride in the launch parameters, kMaxInputs at a time; longer
 // lists, and rows past kChunkRows, run as further launches within the
 // same call, which add into the output.
-//
-// Also measured and not taken: a histogram spread over a thread-block
-// cluster's shared memory (distributed shared-memory atomics were no
-// faster than L2 atomics), two cluster passes over halves of a wide key
-// space, and warp aggregation of equal keys (__match_any_sync costs more
-// than it saves unless most of a warp's keys are equal).
 //
 // Integer adds commute, so the result is bit-exact and deterministic. A
 // launch counts at most kChunkRows rows at a time, so every u32 count is
@@ -95,10 +139,13 @@
 // interface for ctypes; deequ_bincount returns the launch's
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -116,17 +163,47 @@ constexpr int kDefaultSmem = 48 * 1024;
 constexpr long long kPartitionBins = (long long)kMaxBuckets << kMaxBucketShift;
 constexpr int kMaxInputs = 64;          // inputs a multi-input launch carries
 
+// The multi-input entry's partition route: an input is narrow when its own
+// keyspace is at most kNarrowBins (one u32 copy of it fills kGroupWords);
+// the launch's narrow inputs share a block histogram of at most kGroupWords
+// words, in groups, each input kept in as many copies (one a warp, at most
+// kTileThreads / 32) as fit kCopyWords words, so a few hot bins spread
+// their contention over the warps.
+#ifndef DEEQU_K7_COPY_WORDS
+#define DEEQU_K7_COPY_WORDS 2048
+#endif
+// Launch 2's cluster: blocks a bucket. A probe build (tools/time_k7.py)
+// may set DEEQU_K7_COPY_WORDS, DEEQU_K7_CLUSTER, DEEQU_K7_READ_BLOCKS and
+// DEEQU_K7_KEY_VECS to compare; each DEEQU_K7_PROBE_* switch takes a phase
+// out (NO_SORT: the wide tiles' partition; NO_SCATTER: its stage scatter
+// and key write; NO_KEY_WRITE: the key write alone; NO_ATOMICS: the
+// shared-memory counts; NO_REDUCE: launch 2's cluster sum; NO_FLUSH: the
+// narrow flush) to time what it costs, and computes something else.
+#ifndef DEEQU_K7_CLUSTER
+#define DEEQU_K7_CLUSTER 2
+#endif
+constexpr int kGroupWords = 16384;
+constexpr int kNarrowBins = kGroupWords;
+constexpr int kCopyWords = DEEQU_K7_COPY_WORDS;
+constexpr int kCluster = DEEQU_K7_CLUSTER;
+
 // The inputs of one multi-input launch, passed by value: each one's int64
-// ids, rows, offset and own keyspace, and (partition passes) its first
-// tile.
+// ids, rows, offset and own keyspace, and (partition route) its first tile
+// and, for a narrow input, where its histogram copies start in its
+// group's, their number and its group. The partition route puts the wide
+// inputs first (kw of them), then the narrow ones group by group.
 struct Pieces {
   const long long* ids[kMaxInputs];
   long long n[kMaxInputs];
   unsigned long long off[kMaxInputs];
-  long long bins[kMaxInputs];
+  int bins[kMaxInputs];
+  int hist[kMaxInputs];
+  int copies[kMaxInputs];
+  int group[kMaxInputs];
   long long tile0[kMaxInputs + 1];  // tile0[k]: the launch's tiles
-  int k;
+  int k, kw, hist_words;
 };
+static_assert(sizeof(Pieces) <= 4096, "a launch's parameters are at most 4 KB");
 
 // -- the row walk of the shared and global regimes ---------------------------
 
@@ -252,32 +329,6 @@ __host__ __device__ __forceinline__ int shared_copies(long long m) {
   return copies < kWarps ? copies : kWarps;
 }
 
-// The partition regime's narrow inputs (each one's own keyspace within the
-// shared regime's width): every input in turn, in a histogram of its own
-// bins, added at its offset; an id past its own keyspace adds its slot
-// straight into out (m bins in all).
-__global__ void __launch_bounds__(kThreads)
-bincount_narrow_multi(const Pieces p, long long m, unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned hist[];
-  for (int j = 0; j < p.k; ++j) {
-    const int w = (int)p.bins[j];
-    const int copies = shared_copies(w);
-    unsigned* mine = hist_zero(hist, w, copies);
-    const unsigned long long off = p.off[j];
-    walk(p.ids[j], p.n[j], [&](long long s, long long) {
-      if (s < 0) return;
-      if (s < w) {
-        atomicAdd(&mine[(int)s], 1u);
-      } else {
-        const long long slot = offset_slot(s, off);
-        if (in_range(slot, m)) atomicAdd(&out[slot], 1ull);
-      }
-    });
-    hist_flush(hist, w, copies, out + off);
-    __syncthreads();  // the next input zeroes the histogram again
-  }
-}
-
 // -- global regime ------------------------------------------------------------
 
 template <typename Id, bool Weighted>
@@ -355,18 +406,30 @@ __device__ __forceinline__ void partition_write(
   for (int j = 0; j < kRowsPerThread; ++j) {
     if (key[j] != ~0u) {
       const unsigned pos = start[key[j] >> shift] + rank[j];
+#ifdef DEEQU_K7_PROBE_NO_SCATTER
+      if (pos == 0xffffffffu) stage[0] = (unsigned short)(key[j] & low);
+#else
       stage[pos] = (unsigned short)(key[j] & low);
+#endif
       if (Weighted) wstage[pos] = wv[j];
     }
   }
   __syncthreads();
+#if defined(DEEQU_K7_PROBE_NO_SCATTER) || defined(DEEQU_K7_PROBE_NO_KEY_WRITE)
+  const unsigned kept = 0;
+#else
   const unsigned kept = start[buckets];
+#endif
   for (unsigned i = threadIdx.x; i < kept; i += blockDim.x) {
     keys[base + i] = stage[i];
     if (Weighted) wsorted[base + i] = wstage[i];
   }
   for (int b = threadIdx.x; b <= buckets; b += blockDim.x)
+#if defined(DEEQU_K7_PROBE_NO_SCATTER) || defined(DEEQU_K7_PROBE_NO_KEY_WRITE)
+    offs[(long long)b * tiles + t] = 0u;
+#else
     offs[(long long)b * tiles + t] = start[b];
+#endif
   __syncthreads();
 }
 
@@ -407,40 +470,132 @@ bincount_partition(const Id* __restrict__ ids, const int32_t* __restrict__ w,
   }
 }
 
-// The multi-input entry's pass 1: tile t belongs to the input j with
-// p.tile0[j] <= t < p.tile0[j + 1], and holds its rows from
-// (t - p.tile0[j]) * kTile on.
-__global__ void __launch_bounds__(kTileThreads, 2)
-bincount_partition_multi(const Pieces p, long long m, int shift, int buckets,
-                         unsigned short* __restrict__ keys, unsigned* __restrict__ offs) {
+// -- the multi-input entry's partition route (K7) -----------------------------
+
+// Adds the block's histogram of narrow group g to out: each bin of each of
+// the group's inputs summed over its copies, one 64-bit atomic a non-zero
+// bin, at the input's offset.
+__device__ __forceinline__ void group_flush(const Pieces& p, int g, const unsigned* hist,
+                                            unsigned long long* __restrict__ out) {
+  __syncthreads();
+#ifdef DEEQU_K7_PROBE_NO_FLUSH
+  return;
+#endif
+  for (int j = p.kw; j < p.k; ++j) {
+    if (p.group[j] != g) continue;
+    const int w = p.bins[j];
+    const unsigned* h = hist + p.hist[j];
+    for (int b = threadIdx.x; b < w; b += blockDim.x) {
+      unsigned c = 0u;
+      for (int q = 0; q < p.copies[j]; ++q) c += h[q * w + b];
+      if (c != 0u) atomicAdd(&out[p.off[j] + b], (unsigned long long)c);
+    }
+  }
+  __syncthreads();
+}
+
+// Launch 1: every input read once, in one grid. The launch's tiles of
+// kTile rows (the wide inputs' first, numbered from 0, then the narrow
+// ones'; tile t of input j holds its rows from (t - p.tile0[j]) * kTile)
+// are items of one list, wide and narrow interleaved evenly, and block b
+// of the grid (as many blocks as fit the card) takes the b-th contiguous
+// run of it, so every block reads both kinds in the same mix and the
+// narrow inputs stream from memory while the wide ones are partitioned. A
+// wide tile is pass 1 of the partition regime (partition_write: u16 keys
+// by bucket of the summed keyspace, its bucket offsets). A narrow tile
+// counts into the block's histogram of its group (the launch's narrow
+// inputs packed into groups of at most kGroupWords words, each input's
+// bins kept in p.copies[j] copies); an id past its input's own keyspace
+// adds its slot straight into out. A block flushes a group's histogram
+// into out when it moves to the next group, and at its end.
+#ifndef DEEQU_K7_READ_BLOCKS
+#define DEEQU_K7_READ_BLOCKS 2
+#endif
+__global__ void __launch_bounds__(kTileThreads, DEEQU_K7_READ_BLOCKS)
+bincount_fused_read(const __grid_constant__ Pieces p, long long m, int shift, int buckets,
+                    unsigned short* __restrict__ keys, unsigned* __restrict__ offs,
+                    unsigned long long* __restrict__ out) {
   extern __shared__ unsigned smem[];
-  unsigned* count = smem;
-  unsigned* start = count + buckets;
+  unsigned* hist = smem;                   // p.hist_words
+  unsigned* count = hist + p.hist_words;   // buckets
+  unsigned* start = count + buckets;       // buckets + 1
   unsigned short* stage = reinterpret_cast<unsigned short*>(start + buckets + 1);
-  const long long tiles = p.tile0[p.k];
+  const long long wide = p.tile0[p.kw];
+  const long long items = p.tile0[p.k];
   const int32_t wv[kRowsPerThread] = {};
-  int j = 0;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+  const int warp = threadIdx.x >> 5;
+  int jw = 0, jn = p.kw, group = -1;
+  const long long i_end = (blockIdx.x + 1) * items / gridDim.x;
+  for (long long i = blockIdx.x * items / gridDim.x; i < i_end; ++i) {
+    // item i is wide if the even share of wide items grows at it
+    const long long before = i * wide / items;
+    const bool is_wide = (i + 1) * wide / items > before;
+    const long long t = is_wide ? before : wide + (i - before);
+    int j = is_wide ? jw : jn;
     while (p.tile0[j + 1] <= t) ++j;
-    for (int b = threadIdx.x; b < buckets; b += blockDim.x) count[b] = 0u;
-    __syncthreads();
-    const long long first = (t - p.tile0[j]) * kTile;
+    (is_wide ? jw : jn) = j;
     const long long* ids = p.ids[j];
     const long long n = p.n[j];
+    const long long first = (t - p.tile0[j]) * kTile;
     const unsigned long long off = p.off[j];
-    long long v[kRowsPerThread];
+    if (is_wide) {
+      long long v[kRowsPerThread];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const long long i = first + r * kTileThreads + threadIdx.x;
-      v[r] = i < n ? offset_slot(__ldcs(ids + i), off) : -1;
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        const long long row = first + r * kTileThreads + threadIdx.x;
+        v[r] = row < n ? offset_slot(__ldcs(ids + row), off) : -1;
+      }
+      for (int b = threadIdx.x; b < buckets; b += blockDim.x) count[b] = 0u;
+      __syncthreads();
+      unsigned key[kRowsPerThread];
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) key[r] = in_range(v[r], m) ? (unsigned)v[r] : ~0u;
+#ifdef DEEQU_K7_PROBE_NO_SORT
+      unsigned x = 0u;
+      for (int r = 0; r < kRowsPerThread; ++r) x ^= key[r];
+      if (x == 0x12345678u) count[0] = x;
+      for (int b = threadIdx.x; b <= buckets; b += blockDim.x) offs[(long long)b * wide + t] = 0u;
+      __syncthreads();
+#else
+      partition_write<false>(key, wv, t, wide, shift, buckets, count, start, stage,
+                             nullptr, keys, nullptr, offs);
+#endif
+    } else {
+      if (p.group[j] != group) {
+        if (group >= 0) group_flush(p, group, hist, out);
+        for (int w = threadIdx.x; w < p.hist_words; w += blockDim.x) hist[w] = 0u;
+        __syncthreads();
+        group = p.group[j];
+      }
+      long long s[kRowsPerThread];
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        const long long row = first + r * kTileThreads + threadIdx.x;
+        s[r] = row < n ? __ldcs(ids + row) : -1;
+      }
+      const int w = p.bins[j];
+      unsigned* mine = hist + p.hist[j] + (warp % p.copies[j]) * w;
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        if (s[r] < 0) continue;
+        if (s[r] < w) {
+#ifdef DEEQU_K7_PROBE_NO_ATOMICS
+          if (s[r] == 0x123456789ll) mine[0] = 1u;
+#else
+          atomicAdd(&mine[(int)s[r]], 1u);
+#endif
+        } else {
+          const long long slot = offset_slot(s[r], off);
+          if (in_range(slot, m)) atomicAdd(&out[slot], 1ull);
+        }
+      }
     }
-    unsigned key[kRowsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) key[r] = in_range(v[r], m) ? (unsigned)v[r] : ~0u;
-    partition_write<false>(key, wv, t, tiles, shift, buckets, count, start, stage,
-                           nullptr, keys, nullptr, offs);
   }
+  if (group >= 0) group_flush(p, group, hist, out);
+  __syncthreads();  // launch 2 may start once every block is here
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
+
 
 // Pass 2: block b counts bucket b's rows of every tile in shared memory and
 // writes (add == 0) or adds to its 2^shift bins of the output. A warp takes
@@ -498,6 +653,128 @@ bincount_bucket(const unsigned short* __restrict__ keys,
   }
 }
 
+// Launch 2 of the multi-input partition route: bucket b is counted by a
+// cluster of C blocks. Block rank r of it takes every C-th run of 32
+// tiles (a warp's share), counts its bucket's rows of them into its own
+// shared histogram, and then, after the cluster syncs, sums its 1/C slice
+// of the bins over the C histograms (distributed shared memory) and adds
+// each non-zero sum to out: launch 1's atomics came first, and each bin
+// has one writer here. A warp reads its 32 runs as the aligned 16-byte
+// vectors that cover them, packed one after the other across its lanes
+// (a prefix sum of the runs' vector counts; a lane finds its run by a
+// binary search of the prefix over the warp), kKeyVecs vectors a lane in
+// flight, and masks the keys outside its run.
+#ifndef DEEQU_K7_KEY_VECS
+#define DEEQU_K7_KEY_VECS 4
+#endif
+constexpr int kKeyVecs = DEEQU_K7_KEY_VECS;
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+bincount_fused_bucket(const unsigned short* __restrict__ keys,
+                      const unsigned* __restrict__ offs, long long tiles, long long m,
+                      int shift, unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned hist[];
+  const int width = 1 << shift;
+  const int b = blockIdx.x / C, r = blockIdx.x % C;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) hist[i] = 0u;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // launch 1's writes
+  __syncthreads();
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const uint4* kv = reinterpret_cast<const uint4*>(keys);
+  constexpr long long kTileVecs = kTile / 8;
+  for (long long t0 = ((long long)r * warps + warp) * 32; t0 < tiles;
+       t0 += (long long)C * warps * 32) {
+    unsigned s = 0u, e = 0u;
+    if (t0 + lane < tiles) {
+      s = offs[(long long)b * tiles + t0 + lane];
+      e = offs[(long long)(b + 1) * tiles + t0 + lane];
+    }
+    const unsigned nv = e > s ? ((e + 7u) >> 3) - (s >> 3) : 0u;
+    unsigned incl = nv;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(full, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned excl = incl - nv;
+    const unsigned total = __shfl_sync(full, incl, 31);
+    for (unsigned base = 0; base < total; base += 32 * kKeyVecs) {
+      uint4 vec[kKeyVecs];
+      unsigned lo[kKeyVecs], hi[kKeyVecs];
+#pragma unroll
+      for (int u = 0; u < kKeyVecs; ++u) {
+        const unsigned idx = base + u * 32 + lane;
+        // the run holding vector idx: the last lane whose prefix is <= idx
+        int g = 0;
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1) {
+          if (__shfl_sync(full, excl, g + step) <= idx) g += step;
+        }
+        const unsigned sg = __shfl_sync(full, s, g);
+        const unsigned eg = __shfl_sync(full, e, g);
+        const unsigned xg = __shfl_sync(full, excl, g);
+        const bool ok = idx < total;
+        const unsigned vi = (sg >> 3) + (idx - xg);  // the vector within its tile
+        vec[u] = ok ? __ldcg(kv + (t0 + g) * kTileVecs + vi) : make_uint4(0u, 0u, 0u, 0u);
+        lo[u] = ok && sg > vi * 8 ? sg - vi * 8 : 0u;
+        hi[u] = ok ? min(eg - vi * 8, 8u) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kKeyVecs; ++u) {
+        const unsigned words[4] = {vec[u].x, vec[u].y, vec[u].z, vec[u].w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (k >= (int)lo[u] && k < (int)hi[u]) {
+#ifdef DEEQU_K7_PROBE_NO_ATOMICS
+            if (((words[k >> 1] >> ((k & 1) * 16)) & 0xffffu) == 0x1ffffu) hist[0] = 1u;
+#else
+            atomicAdd(&hist[(words[k >> 1] >> ((k & 1) * 16)) & 0xffffu], 1u);
+#endif
+          }
+        }
+      }
+    }
+  }
+  if constexpr (C > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  // this block's slice of the bins, kKeyVecs a thread at once, so that
+  // their reads of out are in flight together
+  const long long lo = (long long)b << shift;
+  const int slice = (width + C - 1) / C;
+  const long long first = lo + r * slice;
+  long long last = lo + (r + 1 < C ? (r + 1) * slice : width);
+  if (last > m) last = m;
+#ifdef DEEQU_K7_PROBE_NO_REDUCE
+  last = first;
+#endif
+  for (long long i0 = first + threadIdx.x; i0 < last; i0 += kKeyVecs * blockDim.x) {
+    unsigned c[kKeyVecs];
+    unsigned long long v[kKeyVecs];
+#pragma unroll
+    for (int u = 0; u < kKeyVecs; ++u) {
+      const long long i = i0 + u * blockDim.x;
+      c[u] = i < last ? hist[i - lo] : 0u;
+      if constexpr (C > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        for (int q = 1; q < C; ++q)
+          if (i < last) c[u] += cluster.map_shared_rank(hist, (r + q) % C)[i - lo];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyVecs; ++u) v[u] = c[u] ? out[i0 + u * blockDim.x] : 0ull;
+#pragma unroll
+    for (int u = 0; u < kKeyVecs; ++u)
+      if (c[u]) out[i0 + u * blockDim.x] = v[u] + c[u];
+  }
+  if constexpr (C > 1) cg::this_cluster().sync();  // no block leaves while read
+}
+
 // -- the card's limits, read once per device ----------------------------------
 
 struct Card {
@@ -552,8 +829,8 @@ const Card* card(int* err) {
         allow_smem(bincount_partition<int, false>, c.optin_smem),
         allow_smem(bincount_partition<int, true>, c.optin_smem),
         allow_smem(bincount_shared_multi, c.optin_smem),
-        allow_smem(bincount_partition_multi, c.optin_smem),
-        allow_smem(bincount_narrow_multi, c.optin_smem),
+        allow_smem(bincount_fused_read, c.optin_smem),
+        allow_smem(bincount_fused_bucket<kCluster>, c.optin_smem),
         allow_smem(bincount_bucket<false>, c.optin_smem),
         allow_smem(bincount_bucket<true>, c.optin_smem),
     };
@@ -664,14 +941,13 @@ int launch(const Card& c, int r, const void* idsv, const void* wv, long long n,
   return (int)cudaGetLastError();
 }
 
-// Cuts the inputs that take(i) selects into launches of at most
-// kMaxInputs pieces and kChunkRows rows (so every u32 count of a launch is
-// exact), skipping empty inputs, and calls f(pieces) for each. Input i
-// lands at the keyspaces before it, summed over all k inputs; tile0 holds
-// each piece's first tile.
-template <typename Take, typename F>
+// Cuts the inputs into launches of at most kMaxInputs pieces and
+// kChunkRows rows (so every u32 count of a launch is exact), skipping empty
+// inputs, and calls f(pieces) for each. Input i lands at the keyspaces
+// before it; tile0 holds each piece's first tile.
+template <typename F>
 void for_each_launch(const void* const* ids, const long long* ns,
-                     const long long* keyspaces, int k, Take take, F f) {
+                     const long long* keyspaces, int k, F f) {
   Pieces p;
   p.k = 0;
   p.tile0[0] = 0;
@@ -683,7 +959,6 @@ void for_each_launch(const void* const* ids, const long long* ns,
   };
   unsigned long long off = 0;
   for (int i = 0; i < k; off += (unsigned long long)keyspaces[i], ++i) {
-    if (!take(i)) continue;
     for (long long done = 0; done < ns[i];) {
       if (p.k == kMaxInputs || rows == kChunkRows) flush();
       long long piece = ns[i] - done;
@@ -691,7 +966,7 @@ void for_each_launch(const void* const* ids, const long long* ns,
       p.ids[p.k] = static_cast<const long long*>(ids[i]) + done;
       p.n[p.k] = piece;
       p.off[p.k] = off;
-      p.bins[p.k] = keyspaces[i];
+      p.bins[p.k] = (int)keyspaces[i];
       p.tile0[p.k + 1] = p.tile0[p.k] + (piece + kTile - 1) / kTile;
       ++p.k;
       rows += piece;
@@ -699,6 +974,59 @@ void for_each_launch(const void* const* ids, const long long* ns,
     }
   }
   flush();
+}
+
+// The partition route's order of one launch's pieces: the wide ones first,
+// then the narrow ones, packed in input order into groups of at most
+// kGroupWords histogram words; tile0 renumbered in that order.
+Pieces arrange(const Pieces& in) {
+  Pieces p;
+  p.k = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) p.kw = p.k;
+    for (int j = 0; j < in.k; ++j) {
+      if ((in.bins[j] <= kNarrowBins) != (pass == 1)) continue;
+      p.ids[p.k] = in.ids[j];
+      p.n[p.k] = in.n[j];
+      p.off[p.k] = in.off[j];
+      p.bins[p.k] = in.bins[j];
+      ++p.k;
+    }
+  }
+  p.tile0[0] = 0;
+  p.hist_words = 0;
+  int group = 0, used = 0;
+  for (int j = 0; j < p.k; ++j) {
+    p.tile0[j + 1] = p.tile0[j] + (p.n[j] + kTile - 1) / kTile;
+    p.hist[j] = -1;
+    p.copies[j] = 0;
+    p.group[j] = -1;
+    if (j < p.kw) continue;
+    const int w = p.bins[j];
+    int copies = kCopyWords / w;
+    copies = copies < 1 ? 1 : (copies > kTileThreads / 32 ? kTileThreads / 32 : copies);
+    if (used + copies * w > kGroupWords) {
+      ++group;
+      used = 0;
+    }
+    p.hist[j] = used;
+    p.copies[j] = copies;
+    p.group[j] = group;
+    used += copies * w;
+    if (used > p.hist_words) p.hist_words = used;
+  }
+  return p;
+}
+
+// Buckets of the multi-input partition route: the widest power-of-two
+// bucket (at most kMaxBucketShift bits) that still gives launch 2 a block
+// an SM in clusters of kCluster.
+void multi_buckets(const Card& c, long long m, int* shift, int* buckets) {
+  auto count = [&](int s) { return (m + (1ll << s) - 1) >> s; };
+  int s = kMaxBucketShift;
+  while (s > 0 && count(s) * kCluster < c.sms) --s;
+  *shift = s;
+  *buckets = (int)count(s);
 }
 
 bool multi_regime(const Card& c, int r, long long m) {
@@ -781,13 +1109,12 @@ long long deequ_bincount_multi_scratch_bytes(int r, const void* const* ids,
   if (!c || !multi_regime(*c, r, m)) return -1;
   if (r != kPartition) return 0;
   int shift = 0, buckets = 0;
-  buckets_for(*c, m, &shift, &buckets);
-  const long long narrow = widest(*c, kShared);
+  multi_buckets(*c, m, &shift, &buckets);
   long long tiles = 0;
-  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] > narrow; },
-                  [&](const Pieces& p) {
-                    if (p.tile0[p.k] > tiles) tiles = p.tile0[p.k];
-                  });
+  for_each_launch(ids, ns, keyspaces, k, [&](const Pieces& raw) {
+    const Pieces p = arrange(raw);
+    if (p.tile0[p.kw] > tiles) tiles = p.tile0[p.kw];
+  });
   return (long long)partition_scratch(tiles * kTile, buckets, false).bytes;
 }
 
@@ -808,47 +1135,63 @@ int deequ_bincount_multi(int r, const void* const* ids, const long long* ns,
   if (!multi_regime(*c, r, m)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned long long* counts = static_cast<unsigned long long*>(out);
-  auto all = [](int) { return true; };
   if (r == kShared) {
     const int copies = shared_copies(m);
-    for_each_launch(ids, ns, keyspaces, k, all, [&](const Pieces& p) {
+    for_each_launch(ids, ns, keyspaces, k, [&](const Pieces& p) {
       bincount_shared_multi<<<c->sms, kThreads, (size_t)m * 4 * copies, st>>>(
           p, (int)m, copies, counts);
     });
     return (int)cudaGetLastError();
   }
-  // partition: the wide inputs through the two passes (which write every
-  // bin of out), then the narrow ones into their own bins
-  const long long narrow = widest(*c, kShared);
+  // partition: launch 1 reads every input (pass 1 of the wide ones, the
+  // narrow ones counted and added into out), launch 2 adds the wide ones'
+  // buckets into out
   int shift = 0, buckets = 0;
-  buckets_for(*c, m, &shift, &buckets);
-  int launch_no = 0;
-  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] > narrow; },
-                  [&](const Pieces& p) {
-    const long long tiles = p.tile0[p.k];
-    const Scratch s = partition_scratch(tiles * kTile, buckets, false);
+  multi_buckets(*c, m, &shift, &buckets);
+  cudaError_t failed = cudaSuccess;
+  for_each_launch(ids, ns, keyspaces, k, [&](const Pieces& raw) {
+    if (failed != cudaSuccess) return;
+    const Pieces p = arrange(raw);
+    const long long wide = p.tile0[p.kw];
+    const Scratch s = partition_scratch(wide * kTile, buckets, false);
     char* base = static_cast<char*>(scratch);
     unsigned short* keys = reinterpret_cast<unsigned short*>(base + s.keys);
     unsigned* offs = reinterpret_cast<unsigned*>(base + s.offs);
-    long long grid = (long long)c->sms * c->partition_blocks;
-    if (grid > tiles) grid = tiles;
-    bincount_partition_multi<<<(unsigned)grid, kTileThreads,
-                               partition_smem(buckets, false), st>>>(
-        p, m, shift, buckets, keys, offs);
-    bincount_bucket<false><<<buckets, kThreads, (size_t)4 << shift, st>>>(
-        keys, nullptr, offs, tiles, m, shift, launch_no > 0 ? 1 : 0, counts);
-    ++launch_no;
-  });
-  for_each_launch(ids, ns, keyspaces, k, [&](int i) { return keyspaces[i] <= narrow; },
-                  [&](const Pieces& p) {
-    size_t smem = 0;
-    for (int j = 0; j < p.k; ++j) {
-      const size_t need = (size_t)p.bins[j] * 4 * shared_copies(p.bins[j]);
-      if (need > smem) smem = need;
+    const size_t smem = (size_t)p.hist_words * 4 +
+                        (p.kw > 0 ? (size_t)partition_smem(buckets, false) : 0);
+    int per_sm = 0;
+    failed = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bincount_fused_read,
+                                                           kTileThreads, smem);
+    if (failed != cudaSuccess) return;
+    long long grid = (long long)c->sms * (per_sm > 0 ? per_sm : 1);
+    if (grid > p.tile0[p.k]) grid = p.tile0[p.k];
+    bincount_fused_read<<<(unsigned)grid, kTileThreads, smem, st>>>(p, m, shift, buckets, keys,
+                                                                    offs, counts);
+    failed = cudaGetLastError();
+    if (failed != cudaSuccess || wide == 0) return;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)buckets * kCluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)4 << shift;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[2];
+    int n_attr = 0;
+    if (kCluster > 1) {
+      attr[n_attr].id = cudaLaunchAttributeClusterDimension;
+      attr[n_attr].val.clusterDim.x = kCluster;
+      attr[n_attr].val.clusterDim.y = 1;
+      attr[n_attr].val.clusterDim.z = 1;
+      ++n_attr;
     }
-    bincount_narrow_multi<<<c->sms, kThreads, smem, st>>>(p, m, counts);
+    attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attr;
+    cfg.attrs = attr;
+    cfg.numAttrs = n_attr;
+    failed = cudaLaunchKernelEx(&cfg, bincount_fused_bucket<kCluster>, (const unsigned short*)keys,
+                                (const unsigned*)offs, wide, m, shift, counts);
   });
-  return (int)cudaGetLastError();
+  return failed != cudaSuccess ? (int)failed : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -17,11 +17,14 @@ port has one formulation per device:
 
 :func:`fused_bincount` is the counterpart of the reference's cross-set
 grouping fusion (``deequ_tpu/ops/segment.py:1035`` ``fused_group_counts``,
-K7): K int64 key vectors counted in one launch of the kernel's
-multi-input entry over their summed keyspace, each set's ids shifted by
-the keyspaces before it where the kernel loads them, so the host neither
-offsets nor concatenates. On a CPU tensor it runs
-:func:`fused_bincount_plain`, the reference's formulation (offset,
+K7): K int64 key vectors counted by one call of the kernel's multi-input
+entry over their summed keyspace, each set's ids shifted by the keyspaces
+before it where the kernel loads them, so the host neither offsets nor
+concatenates. Past a block's shared histogram the entry makes two
+launches: one grid reads every set once (the wide sets partitioned by
+bucket, the narrow ones counted in shared memory beside them), then a
+cluster of blocks a bucket adds the wide sets' counts. On a CPU tensor it
+runs :func:`fused_bincount_plain`, the reference's formulation (offset,
 concatenate, count).
 
 Contract (the reference's, shared by every variant): counts over
@@ -261,11 +264,12 @@ def fused_bincount_plain(keys, keyspaces) -> torch.Tensor:
 def fused_bincount(keys, keyspaces) -> torch.Tensor:
     """Counts of K int64 key vectors over ``sum(keyspaces)`` bins, set j's
     ids in ``[0, keyspaces[j])`` landing after the keyspaces before it,
-    ids < 0 dropped (module doc). On CUDA tensors one launch of the
-    kernel's multi-input entry (shared or partition regime: the summed
-    keyspace must be at most the partition regime's width, 2^25; in the
-    partition regime each set whose own keyspace fits the shared regime is
-    counted there, into its own bins); on CPU tensors
+    ids < 0 dropped (module doc). On CUDA tensors one call of the kernel's
+    multi-input entry (shared or partition regime: the summed keyspace must
+    be at most the partition regime's width, 2^25; in the partition regime
+    a set of at most 16,384 bins of its own is counted in shared memory,
+    into its own bins, while the wider ones are partitioned, in the same
+    grid), counted once in :data:`FUSED_LAUNCHES`; on CPU tensors
     :func:`fused_bincount_plain`. Exact int64 counts."""
     global FUSED_LAUNCHES
     keys = list(keys)
@@ -300,8 +304,9 @@ def _fused_args(keys, keyspaces) -> tuple:
 
 
 def _fused_buffers(keys, keyspaces, regime_name: str) -> tuple:
-    """What one multi-input launch writes, as :func:`fused_bincount`
-    allocates it: the regime's scratch and the zeroed int64 output."""
+    """What one multi-input call writes, as :func:`fused_bincount`
+    allocates it: the regime's scratch and the zeroed int64 output (every
+    launch of the entry adds into it)."""
     device = keys[0].device
     total = sum(int(x) for x in keyspaces)
     with torch.cuda.device(device):

@@ -474,6 +474,24 @@ def _fused_cases():
                             np.array([0, 4, 5, 100, big - 9, big - 10])],
                            (10, 5))
     cases["empty_inputs"] = ([np.zeros(0, np.int64), r.integers(0, 3, 10)], (4, 3))
+    # the kernel's partition route (a summed keyspace past a block's shared
+    # histogram): narrow ids past their own keyspace landing in a wide
+    # input's bins, every wide id in one bucket, a wide input alone, narrow
+    # inputs alone, the summed keyspace on both sides of 132 << 13 (where
+    # the H100's bucket width steps), 70 wide and narrow inputs
+    cases["narrow_past_keyspace_into_wide"] = (
+        [r.integers(-1, 90_000, 4000), r.integers(-1, 70_002, 3000)], (9, 70_000))
+    cases["one_bucket_wide"] = (
+        [12_152 * 64 + r.integers(0, 64, 6000), r.integers(-1, 10, 500)], (1_000_000, 9))
+    cases["wide_only"] = ([r.integers(-1, 200_002, 5000)], (200_000,))
+    cases["narrow_only_past_shared"] = (
+        [r.integers(-1, 15_002, 2000) for _ in range(5)], (15_000,) * 5)
+    for label, total in (("below_132<<13", (132 << 13) - 1), ("above_132<<13", (132 << 13) + 1)):
+        cases[label] = ([r.integers(-1, total - 5_010, 20_000), r.integers(-1, 10, 3000),
+                         r.integers(-1, 5_002, 3000)], (total - 5_010, 9, 5_001))
+    mixed = tuple(int(r.integers(16_385, 40_000)) if j % 2 else int(r.integers(1, 3_000))
+                  for j in range(70))
+    cases["70_mixed"] = ([r.integers(-1, s + 2, int(r.integers(0, 500))) for s in mixed], mixed)
     return cases
 
 
