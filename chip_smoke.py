@@ -223,9 +223,10 @@ Phases, each printed as one JSON line on stdout:
    one K9 launch, one K7 launch and no K5 launch (the main suite's
    fused sets), no torch op on a CPU tensor, today's result read back
    through a fresh repository, and a second run reusing today's key with
-   no scan and no launch. ``fleet_history``: 100 tables × 365 days × the
-   main run's 113 scalar metrics and Completeness(f1), 4,161,000 history
-   rows, seeded by ``save()`` into a ``ColumnarMetricsRepository`` that a
+   no scan and no launch. ``fleet_history``: 50 tables × 365 days × the
+   main run's 113 scalar metrics and Completeness(f1), 2,080,500 history
+   rows (cut from 100 tables to keep the script in its time),
+   seeded by ``save()`` into a ``ColumnarMetricsRepository`` that a
    ``QualityMonitor`` watches (Holt-Winters on tenant-0's Completeness(f1),
    a weekly pattern that steps after its first week, armed by one K9
    launch on the card within 1e-12 of the plain fit on the host's CPU,
@@ -278,8 +279,10 @@ Phases, each printed as one JSON line on stdout:
    card's busy share, and the share of the host-to-device copies' device
    time during which a kernel ran too); ``config3_stream`` — BASELINE.md
    config 3's check (the sketch path's, with size, completeness, min, max,
-   sum and mean of every numeric column) over 10^8 rows (ten times
-   ``--rows``) from a ``GeneratorBatchSource`` whose batch b of 2^17 rows
+   sum and mean of every numeric column) over 7·10^7 rows (seven times
+   ``--rows``: 535 chunks, one drain of the fold; cut from 10^8 to keep
+   the script in its time, ``tools/run_out_of_core.py`` runs 10^8)
+   from a ``GeneratorBatchSource`` whose batch b of 2^17 rows
    is made from (seed, b) on six threads and dropped after its use:
    counts, completeness, min and max exact against numpy's answer
    accumulated batch by batch, sums and means within 1e-12 (per-batch
@@ -301,7 +304,8 @@ Phases, each printed as one JSON line on stdout:
 18. ``spill_path`` (after ``out_of_core_path``) — group memory budgets,
    checkpoints and quarantine, each part a line of its own with the
    card's name and power limit: ``config4_spill`` — ``frequency_path``'s
-   config 4 table (``--rows`` rows) streamed in 2^20-row batches with
+   config 4 table at half ``--rows`` (cut from ``--rows`` to keep the
+   script in its time) streamed in 2^20-row batches with
    ``build_config4_check()`` under a quarter of the unbudgeted stream's
    Histogram state bytes (``spill/store.py:state_nbytes``): at least 4
    spill runs; the Histogram's 1,000 bins, Uniqueness and the state's row
@@ -357,17 +361,52 @@ Phases, each printed as one JSON line on stdout:
    in its host packing: the fused-scan analyzers fail with
    ``DeviceHangException``, and once the pack in flight returns the
    worker steps no chunk, launches no kernel and counts no fetch; the
-   main run's wall with the deadline armed and not, five each in turns;
+   main run's wall with the deadline armed and not, three each in turns;
    ``budget_degrade`` — the main suite streamed in 2^20-row batches with a
    persistent injected OOM from batch 6 and ``max_total_attempts=4``,
    ``on_budget_exhausted="degrade"``: ``unverified_row_ranges`` exactly
    [(6 · 2^20, rows)], the ledger five bisections and exhausted, every
    metric against numpy over the rows before, ``retry_stats`` reported;
    under "raise" a ``RunBudgetExhaustedException``;
+20. ``mesh_path`` (after ``device_fault_path``, over the main path's table
+   at its full 10^7 rows, not cut): the row-sharded mesh
+   (``deequ_tpu_torch/parallel/``) on a virtual mesh of 4 members on the
+   one card, one line a part. ``sharded`` — the main suite in memory and
+   persisted over the mesh: all 113 metrics against main_path's
+   single-device result (exact, or within ``_REL``); every member
+   launched K1 and K7 (in memory) or K1 and K5 (persisted) in the checked
+   run, each K1 batch held against its plain versions (``k1_hold``), each
+   K5 and K7 launch against its plain version (``PlainCheck``), each K8
+   merge (``scan_engine.mesh_merge``: the members' vectors folded on the
+   lead by ``k1_merge``) bit for bit against ``merge_tags_plain`` in
+   member order (K8's ``k1_merge`` launches counted at the launch under
+   the caller ``"mesh"``); one timed run each; K8 alone on the main chunk's
+   vectors and the 4-member int64 count sum of ``customer_id``'s bins
+   beside their bounds; ``reshard`` — member 2 lost mid-scan over the
+   persisted table: one ``mesh_reshard`` 4 -> 3, the residency evicted,
+   metrics bit for bit a healthy 3-member run's, and the next scan
+   leaving member 2 out up front (``mesh_quarantine``, no injection);
+   ``straggler`` — member 2 stalled 3.5 s under a 2 s shard deadline: the
+   fused-scan analyzers fail with ``DeviceHangException``, one
+   ``mesh_straggler``, and once the worker wakes no K1 or merge launch
+   (K8's included); ``all_lost`` — every member lost under "fallback": three
+   reshards, then ``DeviceFallbackRefusedException`` from a
+   ``MeshDegradedException``; ``processes`` — two processes on the card
+   over a gloo group (``tools/multiprocess_merge.py``), each persisting
+   its ``host_row_range`` half: their merged scan metrics, exactly the set
+   of main_path's scan-shareable analyzers (the grouping sets' frequency
+   tables are not merged across processes), against main_path's; and
+   with rank 1 killed, the survivor's suite through the builder's
+   ``.on_peer_loss("degrade")`` (over 10^6 rows: the hold is the report):
+   every metric computed and exactly rows [n / 2, n) on the result's
+   ``unverified_row_ranges``; ``cards`` — the in-memory
+   run over the default mesh of every card where there are several, else
+   skipped with the count;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge and K7, the fused group counts, each
-their own entry), the nvidia-smi line, and the result line
+their own entry, K8's merges as a part of the fold merge's and the mesh's
+count sums beside K5), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -387,6 +426,16 @@ import time
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
 KERNELS = ("bincount", "hll", "select", "holt_winters", "masked_reduce")
+
+#: the script's config 3 stream rows over ``--rows`` (seven: past one drain
+#: of the stream fold's 512 chunks; ``tools/run_out_of_core.py`` runs ten).
+#: This and the two cuts below keep the script inside its 1,200 s: with
+#: every path at its full size it ran 1,213 s on an H100 80GB HBM3 at
+#: 700 W (PERF.md §6)
+OOC_CONFIG3_RUN_SCALE = 7
+#: the script's config 4 spill rows are ``--rows`` over this
+#: (``tools/run_spill.py`` streams all 10^8)
+SPILL_CONFIG4_CUT = 2
 
 #: timed runs after a warm one of the sketch, check-API, stream, profile
 #: and streamed config 2 walls (three until device_fault_path joined the
@@ -686,6 +735,7 @@ def k1_zero() -> None:
     from deequ_tpu_torch.ops import masked_reduce
 
     masked_reduce.LAUNCHES = masked_reduce.MERGE_LAUNCHES = 0
+    masked_reduce.MERGE_LAUNCHES_BY_CALLER.clear()
 
 
 def k1_counts() -> dict:
@@ -719,9 +769,9 @@ class K1Spy:
             self.batches.append((flat, list(tasks), [tuple(o) for o in offsets]))
             return self._orig(flat, tasks, offsets)
 
-        def spy_merge(*args):
+        def spy_merge(*args, **kwargs):
             self.merges.append(args)
-            return self._orig_merge(*args)
+            return self._orig_merge(*args, **kwargs)
 
         masked_reduce.reduce_into = spy
         masked_reduce.merge_tags = spy_merge
@@ -4256,7 +4306,7 @@ def stream_path(seed: int, device) -> dict:
 
 #: the daily history one table keeps before today's run, and the fleet
 HISTORY_DAYS = 365
-FLEET_TABLES = 100
+FLEET_TABLES = 50
 TENANT = {"tenant": "tenant-0"}
 #: the Holt-Winters parity lengths: 2p (the monitor's warmup), then 28,
 #: 36 (the milk series' training span), a year and two years
@@ -6242,8 +6292,8 @@ def spill_config4(seed: int, device, smi: str, rows: int) -> dict:
     return {
         "part": "config4_spill", "card": smi, "rows": rows,
         "cardinality": len(col.dictionary), "batch_rows": SPILL_BATCH_ROWS,
-        "reduced": {"rows": "BASELINE config 4's 10^8 rows cut to 10^7, as "
-                            "frequency_path (tools/run_spill.py streams all 10^8)"},
+        "reduced": {"rows": f"BASELINE config 4's 10^8 rows cut to {rows} "
+                            "(tools/run_spill.py streams all 10^8)"},
         "histogram_state_bytes_unbudgeted": hist_bytes, "budget_bytes": budget,
         **spill, "spill_dir_peak_bytes": disk.peak, "spill_dirs_left": 0,
         "holds": ["Histogram 1,000 bins, Uniqueness, num_rows == numpy bincount",
@@ -6573,7 +6623,9 @@ FAULT_CHUNK_ROWS = 1 << 21
 FAULT_SLICE_ROWS = 1 << 16
 FAULT_FROM_BATCH = 6
 FAULT_ATTEMPTS = 4
-FAULT_TIMED_RUNS = 5
+#: the armed and unarmed main runs in turns (five until mesh_path joined
+#: the script; three keep it inside its time)
+FAULT_TIMED_RUNS = 3
 #: the run budget's wall in ``hang``'s abandoned attempt: less than the
 #: host packing of the main table's chunks
 FAULT_RUN_DEADLINE_S = 0.5
@@ -7065,8 +7117,8 @@ def fault_hang(table, expected: dict, main_result, device, smi: str) -> dict:
                     "probe_interval": DEVICE_HEALTH.probe_interval,
                     "refused_launches": refused_launches, "probe_launches": probe_launches},
         "abandoned_attempt": governed_part,
-        "run_wall_s_unarmed_median_of_5": statistics.median(unarmed),
-        "run_wall_s_armed_median_of_5": statistics.median(armed),
+        "run_wall_s_unarmed_median_of_3": statistics.median(unarmed),
+        "run_wall_s_armed_median_of_3": statistics.median(armed),
         "run_wall_s_unarmed": unarmed, "run_wall_s_armed": armed,
         "kernel_launches": launches_all,
     }
@@ -7168,6 +7220,503 @@ def device_fault_path(table, main_result, device, smi: str) -> dict:
             launches[k] = launches.get(k, 0) + v
     return {"kernel_launches": launches, "numpy_reference_s": numpy_s,
             "by_part": {k: p["kernel_launches"] for k, p in parts.items()}}
+
+
+# -- phase: mesh_path ---------------------------------------------------------
+
+#: the virtual mesh mesh_path drives on the one card: 4 members on cuda:0
+MESH_MEMBERS = 4
+#: the member mesh_path loses, and the one it stalls
+MESH_LOST = 2
+#: timed runs of each sharded main suite run after the checked one (one,
+#: as ``TIMED_REPEATS``, keeps the script inside its time)
+MESH_TIMED = 1
+#: rows of the two-process run that loses a peer (its hold is the report)
+MESH_PEER_LOST_ROWS = 1_000_000
+
+
+class MeshMergeSpy:
+    """Records every K8 merge (``scan_engine.mesh_merge``: its arguments and
+    its result) while active, launching as usual."""
+
+    def __enter__(self):
+        from deequ_tpu_torch.ops import scan_engine
+
+        self._orig = orig = scan_engine.mesh_merge
+        self.calls = []
+
+        def spy(is_sum, is_min, flats, src):
+            out = orig(is_sum, is_min, flats, src)
+            self.calls.append(((is_sum, is_min, list(flats), src), out))
+            return out
+
+        scan_engine.mesh_merge = spy
+        return self
+
+    def __exit__(self, *exc):
+        from deequ_tpu_torch.ops import scan_engine
+
+        scan_engine.mesh_merge = self._orig
+
+
+def mesh_merge_plain(is_sum, is_min, flats, src):
+    """K8's plain version: the members folded in order by ``merge_tags_plain``."""
+    from deequ_tpu_torch.ops import masked_reduce
+
+    acc = flats[0][src]
+    for flat in flats[1:]:
+        acc = masked_reduce.merge_tags_plain(is_sum, is_min, acc, flat, src)
+    return acc
+
+
+def mesh_counts() -> dict:
+    """The kernels' counts, and ``k1_merge_in_k8``: the part of
+    ``k1_merge``'s launches that K8 (``scan_engine.mesh_merge``) made,
+    counted at the launch under its caller."""
+    from deequ_tpu_torch.ops import masked_reduce
+
+    return {**kernel_counts(),
+            "k1_merge_in_k8": masked_reduce.MERGE_LAUNCHES_BY_CALLER.get("mesh", 0)}
+
+
+def hold_against_main(result, main_result, label: str) -> dict:
+    """Every metric of ``result`` against ``main_path``'s single-device
+    result under the contract: exact where ``_EXACT`` says so, else within
+    ``_REL``; returns the worst relative difference a name saw."""
+    want = metric_values(main_result)
+    have = metric_values(result)
+    if set(have) != set(want):
+        fail(f"{label}: metric sets differ from main_path's: {set(have) ^ set(want)}")
+    worst = {}
+    for key, w in want.items():
+        h = have[key]
+        name = key[0]
+        if name in _EXACT:
+            if h != w:
+                fail(f"{label}: {key} {h!r}, main_path {w!r} (exact)")
+            continue
+        rel = abs(h - w) / max(abs(w), 1e-300)
+        worst[name] = max(worst.get(name, 0.0), rel)
+        if rel > _REL[name]:
+            fail(f"{label}: {key} {h!r} vs main_path {w!r}, rel {rel:.3g} > {_REL[name]}")
+    return {"metrics_held": len(want), "worst_rel_by_name": worst}
+
+
+def member_launches_held(stats: dict, mesh, kernels, label: str) -> dict:
+    """Each member's launches of ``kernels`` in the checked run: every
+    member launched each at least once."""
+    by_member = {int(m): dict(c) for m, c in stats["member_launches"].items()}
+    for member in mesh.device_ids:
+        got = by_member.get(member, {})
+        for kernel in kernels:
+            if got.get(kernel, 0) < 1:
+                fail(f"{label}: member {member} launched {kernel} {got.get(kernel, 0)} times")
+    return by_member
+
+
+def mesh_k8_timing(call, rate: float) -> dict:
+    """K8 alone on a merge the resident run made (the 4 members' flat
+    vectors of the main chunk): CUDA events around 100 queued calls, its
+    plain version on the same card tensors, and the bound: each member's
+    elementwise entries, the gather indices and the tags read once and the
+    merged vector written once, over the memory rate."""
+    import torch
+
+    from deequ_tpu_torch.ops import scan_engine
+
+    (is_sum, is_min, flats, src), out = call
+    m, n = src.numel(), len(flats)
+    nbytes = n * 8 * m + 8 * m + 2 * m + 8 * m
+    bound_ms = nbytes / rate * 1e3
+    kernel_ms = time_queued(lambda i: scan_engine.mesh_merge(is_sum, is_min, flats, src))
+    plain_ms = time_cuda(lambda: mesh_merge_plain(is_sum, is_min, flats, src))
+    return {"members": n, "entries": m, "flat_entries": flats[0].numel(),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / kernel_ms, "max_abs_err": 0.0}
+
+
+def mesh_count_sum_timing(table, mesh, device, rate: float) -> dict:
+    """The count sum of ``customer_id``'s members (each member's K5 counts
+    copied to the lead and added in int64, ``segment._member_counts``)
+    alone: the sum's time, its bound (the members' counts read once and the
+    sum written once over the memory rate), and ``torch.stack(...).sum(0)``,
+    one library call computing the same."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.segment import _prepare_grouping
+
+    prep = _prepare_grouping(table, ["customer_id"], device, True)
+    keys = prep.keys
+    local = -(-len(keys) // mesh.size)
+    parts = [histogram_device.bincount(
+        torch.from_numpy(np.ascontiguousarray(keys[i * local:(i + 1) * local])).to(dev),
+        prep.keyspace) for i, (_, dev) in enumerate(mesh.members)]
+
+    def summed(i):
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(device, non_blocking=True)
+        return total
+
+    got = summed(0)
+    want = histogram_device.bincount_plain(
+        torch.from_numpy(keys).to(device), prep.keyspace)
+    if not torch.equal(got, want):
+        fail("mesh_path: the members' summed counts differ from one count of every key")
+    nbytes = (len(parts) + 1) * 8 * prep.keyspace
+    bound_ms = nbytes / rate * 1e3
+    sum_ms = time_queued(summed)
+    library_ms = time_queued(lambda i: torch.stack(parts).sum(0))
+    return {"column": "customer_id", "members": len(parts), "bins": prep.keyspace,
+            "sum_ms": sum_ms, "library_ms": library_ms, "library_call":
+            "torch.stack(counts).sum(0)", "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / sum_ms}
+
+
+def mesh_sharded(table, main_result, device, smi: str, rate: float) -> dict:
+    """Part 1, ``sharded`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, persist_table
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+
+    label = "mesh_path/sharded"
+    mesh = virtual_mesh(MESH_MEMBERS, device)
+    table.unpersist()
+    out = {"members": MESH_MEMBERS, "device": str(device)}
+    runs = {}
+    for mode in ("in_memory", "resident"):
+        if mode == "resident":
+            t0 = time.perf_counter()
+            persist_table(table, device, mesh=mesh)
+            torch.cuda.synchronize()
+            out["persist_s"] = time.perf_counter() - t0
+            cache = table._device_cache
+            out["resident_shard_rows"] = [cache.shard(0, i)[0].shape[1]
+                                          for i in range(MESH_MEMBERS)]
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel_counts_zero()
+        watch = watch_cpu_ops()
+        with use_mesh(mesh), K1Spy() as spy, MeshMergeSpy() as k8, \
+                PlainCheck(f"{label}/{mode}") as plain, watch:
+            t0 = time.perf_counter()
+            result = build_suite(table).run()
+            first_s = time.perf_counter() - t0
+        launches = mesh_counts()
+        stats = SCAN_STATS.snapshot()
+        peak = torch.cuda.max_memory_allocated(device)
+        if watch.cpu_ops:
+            fail(f"{label}/{mode}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+        held = hold_against_main(result, main_result, f"{label}/{mode}")
+        kernels = ("K1", "K7") if mode == "in_memory" else ("K1", "K5")
+        by_member = member_launches_held(stats, mesh, kernels, f"{label}/{mode}")
+        if stats["resident_passes"] != (mode == "resident"):
+            fail(f"{label}/{mode}: {stats['resident_passes']} resident passes")
+        # each launch against its plain version (launches that compare do
+        # not count: the run's counts are read above)
+        k1 = [k1_hold(tasks, f"{label}/{mode} batch {i}")
+              for i, (_, tasks, _) in enumerate(spy.batches)]
+        if len(spy.batches) != MESH_MEMBERS * stats["chunks_processed"]:
+            fail(f"{label}/{mode}: {len(spy.batches)} K1 batches over "
+                 f"{stats['chunks_processed']} chunks, want one a member a chunk")
+        if len(k8.calls) != stats["chunks_processed"] or launches["k1_merge_in_k8"] < 1:
+            fail(f"{label}/{mode}: {len(k8.calls)} K8 merges ({launches['k1_merge_in_k8']} "
+                 f"k1_merge launches) over {stats['chunks_processed']} chunks")
+        for call, got in k8.calls:
+            want = mesh_merge_plain(*call)
+            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                fail(f"{label}/{mode}: a K8 merge differs from merge_tags_plain in its bits")
+        walls = []
+        with use_mesh(mesh):
+            for _ in range(MESH_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build_suite(table).run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        runs[mode] = {
+            **held, "kernel_launches": launches, "member_launches": by_member,
+            "k1_holds": len(k1), "k1_max_abs_err": max(h["max_abs_err"] for h in k1),
+            "k8_holds": len(k8.calls), "k5_held": plain.shapes, "k7_held": plain.fused_shapes,
+            "first_run_s": first_s, "run_wall_s": walls, "peak_device_bytes": peak,
+            "grouping_passes": stats["grouping_passes"],
+            "hist_kernel_dispatches": stats["hist_kernel_dispatches"],
+        }
+        if mode == "resident":
+            out["k8_timing"] = mesh_k8_timing(k8.calls[0], rate)
+    out["count_sum_timing"] = mesh_count_sum_timing(table, mesh, device, rate)
+    out["runs"] = runs
+    out["kernel_launches"] = {
+        k: runs["in_memory"]["kernel_launches"][k] + runs["resident"]["kernel_launches"][k]
+        for k in runs["in_memory"]["kernel_launches"]}
+    return out
+
+
+def mesh_reshard(table, device, smi: str) -> dict:
+    """Part 2, ``reshard`` (module doc)."""
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, MESH_HEALTH
+    from deequ_tpu_torch.ops.scan_engine import persist_table
+    from deequ_tpu_torch.parallel.mesh import mesh_excluding, use_mesh, virtual_mesh
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook, FaultSchedule
+
+    label = "mesh_path/reshard"
+    mesh = virtual_mesh(MESH_MEMBERS, device)
+    three = mesh_excluding(mesh, {MESH_LOST})
+    table.unpersist()
+    DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
+    with use_mesh(three):
+        t0 = time.perf_counter()
+        healthy3 = build_suite(table).run()
+        healthy_s = time.perf_counter() - t0
+    persist_table(table, device, mesh=mesh)
+    hook = FaultInjectingScanHook(
+        faults={i: ("lost", FaultSchedule.PERMANENT, MESH_LOST) for i in range(2)})
+    kernel_counts_zero()
+    with use_mesh(mesh), scan_hook(hook):
+        t0 = time.perf_counter()
+        degraded = build_suite(table).run()
+        degraded_s = time.perf_counter() - t0
+        launches = mesh_counts()
+        reshards = [e for e in degraded.mesh_events if e["kind"] == "mesh_reshard"]
+        if (not degraded.resharded or len(reshards) != 1
+                or (reshards[0]["mesh_from"], reshards[0]["mesh_to"]) != (4, 3)
+                or reshards[0]["lost_devices"] != [MESH_LOST]):
+            fail(f"{label}: mesh events {degraded.mesh_events}, want one reshard 4 -> 3")
+        if reshards[0]["evicted_bytes"] <= 0 or table.is_persisted:
+            fail(f"{label}: the residency over the old mesh was not evicted")
+        differ = differing_bits(metric_values(healthy3), metric_values(degraded))
+        if differ:
+            fail(f"{label}: the resharded run differs from a healthy 3-member run in {differ}")
+        injected = len(hook.injected)
+        # the next scan leaves the quarantined member out up front
+        again = build_suite(table).run()
+        kinds = [e["kind"] for e in again.mesh_events]
+        if len(hook.injected) != injected or kinds != ["mesh_quarantine"]:
+            fail(f"{label}: the next scan's mesh events {kinds}, {len(hook.injected) - injected} "
+                 "new injections; want one mesh_quarantine and none")
+        if differing_bits(metric_values(healthy3), metric_values(again)):
+            fail(f"{label}: the quarantined run differs from a healthy 3-member run")
+    MESH_HEALTH.reset()
+    return {"mesh_events": degraded.mesh_events, "next_scan_events": again.mesh_events,
+            "injected": [list(i) for i in hook.injected], "healthy3_s": healthy_s,
+            "resharded_run_s": degraded_s, "kernel_launches": launches,
+            "bit_identical_to_healthy3": True}
+
+
+def mesh_straggler(table, device, smi: str) -> dict:
+    """Part 3, ``straggler`` (module doc)."""
+    import torch
+
+    from deequ_tpu_torch.exceptions import DeviceHangException
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, MESH_HEALTH
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook
+
+    label = "mesh_path/straggler"
+    mesh = virtual_mesh(MESH_MEMBERS, device)
+    table.unpersist()
+    DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
+    hook = FaultInjectingScanHook(faults={0: ("hang", 1, MESH_LOST)},
+                                  hang_seconds=FAULT_STALL_S)
+    _, scanned = suite_scan_ops(table)
+    kernel_counts_zero()
+    with use_mesh(mesh), scan_hook(hook):
+        t0 = time.perf_counter()
+        hung = build_suite(table).with_shard_deadline(FAULT_DEADLINE_S).run()
+        hung_s = time.perf_counter() - t0
+    errors = scan_failures(hung, scanned, DeviceHangException, label)
+    stragglers = [e for e in hung.mesh_events if e["kind"] == "mesh_straggler"]
+    if (len(stragglers) != 1 or stragglers[0]["deadline"] != FAULT_DEADLINE_S
+            or stragglers[0]["mesh_size"] != MESH_MEMBERS or errors[0].deadline != FAULT_DEADLINE_S):
+        fail(f"{label}: mesh events {hung.mesh_events}")
+    # the stalled member's worker wakes, finds its call abandoned, and
+    # launches nothing
+    time.sleep(FAULT_STALL_S - FAULT_DEADLINE_S + 0.25)
+    torch.cuda.synchronize()
+    launches = mesh_counts()
+    if launches["k1"] or launches["k1_merge"]:
+        fail(f"{label}: the abandoned step launched K1 {launches['k1']} and its merge "
+             f"{launches['k1_merge']} times (K8's included)")
+    DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
+    return {"mesh_events": hung.mesh_events, "hung_run_s": hung_s,
+            "deadline_s": FAULT_DEADLINE_S, "stall_s": FAULT_STALL_S,
+            "kernel_launches": launches}
+
+
+def mesh_all_lost(table, device, smi: str) -> dict:
+    """Part 4, ``all_lost`` (module doc)."""
+    from deequ_tpu_torch.exceptions import DeviceFallbackRefusedException, MeshDegradedException
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, MESH_HEALTH
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+    from deequ_tpu_torch.resilience import FaultInjectingScanHook, FaultSchedule
+
+    label = "mesh_path/all_lost"
+    mesh = virtual_mesh(MESH_MEMBERS, device)
+    hooks = [FaultInjectingScanHook(faults={0: ("lost", FaultSchedule.PERMANENT, m)})
+             for m in mesh.device_ids]
+
+    def all_dead(boundary, ctx):
+        for h in hooks:
+            h(boundary, ctx)
+
+    DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
+    _, scanned = suite_scan_ops(table)
+    kernel_counts_zero()
+    with use_mesh(mesh), scan_hook(all_dead):
+        run = build_suite(table).on_device_error("fallback").run()
+    launches = mesh_counts()
+    for err in scan_failures(run, scanned, DeviceFallbackRefusedException, label):
+        if not isinstance(err.__cause__, MeshDegradedException):
+            fail(f"{label}: refused for {type(err.__cause__).__name__}")
+    reshards = [e for e in run.mesh_events if e["kind"] == "mesh_reshard"]
+    if len(reshards) != MESH_MEMBERS - 1:
+        fail(f"{label}: {len(reshards)} reshards before the refusal, want {MESH_MEMBERS - 1}")
+    DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
+    return {"mesh_events": run.mesh_events,
+            "refused": [e for e in run.device_events if e["kind"] == "cpu_fallback_refused"],
+            "kernel_launches": launches}
+
+
+def mesh_processes(main_result, rows: int, seed: int, device, smi: str) -> dict:
+    """Part 5, ``processes`` (module doc): two processes on ``device``
+    through ``tools/multiprocess_merge.py``."""
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.runner import _is_grouping_shared
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(here, "tools", "multiprocess_merge.py")
+    out_dir = os.path.join(here, "build", "mesh_path")
+    os.makedirs(out_dir, exist_ok=True)
+    label = "mesh_path/processes"
+    want = {repr(a): m.value.get() for a, m in main_result.metrics.items()
+            if m.value.is_success}
+    names = {repr(a): type(a).__name__ for a in main_result.metrics}
+    # the states a row-range split merges: the scan-shareable analyzers'
+    # (the grouping sets' frequency tables are not merged across processes)
+    scan_keys = {repr(a) for a in main_result.metrics
+                 if isinstance(a, ScanShareableAnalyzer) and not _is_grouping_shared(a)}
+    out = {}
+    for mode, n, extra in (("merge", rows, []),
+                           ("peer_lost", MESH_PEER_LOST_ROWS,
+                            ["--kill-rank", "1", "--peer-timeout", "5"])):
+        path = os.path.join(out_dir, f"{mode}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, tool, "--spawn", "2", "--rows", str(n), "--seed", str(seed),
+             "--device", str(device), "--persist", "--timeout", "240", "--out", path, *extra],
+            capture_output=True, text=True, timeout=300,
+        )
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{label}/{mode}: the processes failed: {proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        half = [0, n // 2]
+        if got["shard"] != half:
+            fail(f"{label}/{mode}: rank 0 held rows {got['shard']}, want {half}")
+        entry = {"rows": n, "wall_s": wall, "times": got["times"]}
+        if mode == "merge":
+            if set(got["metrics"]) != scan_keys:
+                fail(f"{label}: merged {len(got['metrics'])} metrics, want main_path's "
+                     f"{len(scan_keys)} scan metrics: {set(got['metrics']) ^ scan_keys}")
+            entry["metrics"] = len(got["metrics"])
+            worst = {}
+            for key, h in got["metrics"].items():
+                if key not in want or isinstance(h, str):
+                    fail(f"{label}: {key} merged {h!r}, main_path {want.get(key)!r}")
+                w, name = want[key], names[key]
+                if name in _EXACT:
+                    if h != w:
+                        fail(f"{label}: {key} merged {h!r}, main_path {w!r} (exact)")
+                    continue
+                rel = abs(h - w) / max(abs(w), 1e-300)
+                worst[name] = max(worst.get(name, 0.0), rel)
+                if rel > _REL[name]:
+                    fail(f"{label}: {key} merged {h!r} vs main_path {w!r}, rel {rel:.3g}")
+            entry["worst_rel_by_name"] = worst
+        else:
+            # the survivor's run through the builder's on_peer_loss("degrade")
+            lost_half = [[n // 2, n]]
+            events = [[e["start"], e["stop"]] for e in got["peer_lost_events"]]
+            if got["unverified_row_ranges"] != lost_half or events != lost_half:
+                fail(f"{label}/{mode}: unverified rows {got['unverified_row_ranges']}, "
+                     f"peer_lost events {got['peer_lost_events']}; want rows {lost_half}")
+            if got["failed_metrics"] or got["metrics"] != len(main_result.metrics):
+                fail(f"{label}/{mode}: {got['metrics']} metrics, failed: "
+                     f"{got['failed_metrics']}")
+            entry.update({k: got[k] for k in ("status", "unverified_row_ranges",
+                                              "peer_lost_events", "metrics")})
+        out[mode] = entry
+    return {**out, "kernel_launches": {}}
+
+
+def mesh_cards(table, main_result, device, smi: str) -> dict:
+    """Part 6, ``cards`` (module doc): step 1's in-memory run over the
+    default mesh of every visible card, where there are several."""
+    import torch
+
+    from deequ_tpu_torch.parallel.mesh import default_mesh, use_mesh
+
+    count = torch.cuda.device_count()
+    mesh = default_mesh()
+    if mesh is None:
+        return {"skipped": f"torch.cuda.device_count() is {count}: no mesh of cards",
+                "device_count": count, "kernel_launches": {}}
+    table.unpersist()
+    kernel_counts_zero()
+    with use_mesh(mesh):
+        result = build_suite(table).run()
+    return {"device_count": count, "members": mesh.size,
+            **hold_against_main(result, main_result, "mesh_path/cards"),
+            "kernel_launches": mesh_counts()}
+
+
+def mesh_path(table, main_result, rows: int, seed: int, device, smi: str, rate: float,
+              parts=None) -> dict:
+    """Phase ``mesh_path`` (module doc): its six parts (or those named in
+    ``parts``), each printed as a line of its own; returns the launches
+    summed over the parts and by part, and the K8 and count-sum timings."""
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, MESH_HEALTH
+
+    wanted = parts
+    parts = {}
+    runs = (
+        ("sharded", lambda: mesh_sharded(table, main_result, device, smi, rate)),
+        ("reshard", lambda: mesh_reshard(table, device, smi)),
+        ("straggler", lambda: mesh_straggler(table, device, smi)),
+        ("all_lost", lambda: mesh_all_lost(table, device, smi)),
+        ("processes", lambda: mesh_processes(main_result, rows, seed, device, smi)),
+        ("cards", lambda: mesh_cards(table, main_result, device, smi)),
+    )
+    try:
+        for name, run in runs:
+            if wanted is not None and name not in wanted:
+                continue
+            t0 = time.perf_counter()
+            part = run()
+            emit({"phase": "mesh_path", "part": name, "card": smi, **part,
+                  "seconds": time.perf_counter() - t0})
+            parts[name] = part
+    finally:
+        table.unpersist()
+        DEVICE_HEALTH.reset()
+        MESH_HEALTH.reset()
+    launches = {}
+    for part in parts.values():
+        for k, v in part["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    sharded = parts.get("sharded", {"runs": {}})
+    return {"kernel_launches": launches,
+            "by_part": {k: p["kernel_launches"] for k, p in parts.items()},
+            "k8_timing": sharded.get("k8_timing"),
+            "count_sum_timing": sharded.get("count_sum_timing")}
 
 
 def nvidia_smi_line() -> str:
@@ -7275,12 +7824,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ooc, streamed = out_of_core_path(table, main_result, args.seed, device, smi,
-                                     10 * args.rows)
+                                     OOC_CONFIG3_RUN_SCALE * args.rows)
     emit({"phase": "out_of_core_path", "card": smi, **ooc,
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    spill = spill_path(table, main_result, streamed, args.seed, device, smi, args.rows)
+    spill = spill_path(table, main_result, streamed, args.seed, device, smi,
+                       args.rows // SPILL_CONFIG4_CUT)
     emit({"phase": "spill_path", "card": smi, **spill,
           "seconds": time.perf_counter() - t0})
     del streamed
@@ -7289,6 +7839,10 @@ def main(argv=None) -> int:
     faults = device_fault_path(table, main_result, device, smi)
     emit({"phase": "device_fault_path", "card": smi, **faults,
           "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    mesh = mesh_path(table, main_result, args.rows, args.seed, device, smi, rate)
+    emit({"phase": "mesh_path", "card": smi, **mesh, "seconds": time.perf_counter() - t0})
     del table, main_result
 
     t0 = time.perf_counter()
@@ -7343,7 +7897,8 @@ def main(argv=None) -> int:
                 "profile_path": prof["kernel_launches"]["bincount"],
                 "out_of_core_path": ooc["kernel_launches"]["bincount"],
                 "spill_path": spill["kernel_launches"]["bincount"],
-                "device_fault_path": faults["kernel_launches"]["bincount"]}
+                "device_fault_path": faults["kernel_launches"]["bincount"],
+                "mesh_path": mesh["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -7370,7 +7925,8 @@ def main(argv=None) -> int:
                       "profile_path": prof["kernel_launches"]["fused_bincount"],
                       "out_of_core_path": ooc["kernel_launches"].get("fused_bincount", 0),
                       "spill_path": spill["kernel_launches"].get("fused_bincount", 0),
-                      "device_fault_path": faults["kernel_launches"].get("fused_bincount", 0)}
+                      "device_fault_path": faults["kernel_launches"].get("fused_bincount", 0),
+                      "mesh_path": mesh["kernel_launches"]["fused_bincount"]}
     k7_time = fusion["kernel_timing"]
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
                "sketch_path": sketch["kernel_launches"],
@@ -7384,9 +7940,11 @@ def main(argv=None) -> int:
                "profile_path": prof["kernel_launches"],
                "out_of_core_path": ooc["kernel_launches"],
                "spill_path": spill["kernel_launches"],
-               "device_fault_path": faults["kernel_launches"]}
+               "device_fault_path": faults["kernel_launches"],
+               "mesh_path": mesh["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
+    k8_time = mesh["k8_timing"]
     k1_time = res_main["k1_fused_scan"]["k1"]
     k1_merge = res_main["k1_fused_scan"]["k1_merge"]
     # the headline shape: the config 4 top-k count, the shape this slice
@@ -7410,6 +7968,9 @@ def main(argv=None) -> int:
         "library_ms": widest["library_ms"],
         "parity": "exact" if max_err == 0 else f"max abs err {max_err}",
         "shapes": shapes,
+        # mesh_path: each member's counts summed on the lead by torch int64
+        # adds (segment._member_counts), no kernel of their own
+        "mesh_count_sum": mesh["count_sum_timing"],
     }, {
         "name": "fused_bincount",
         "route": "cuda",
@@ -7531,6 +8092,17 @@ def main(argv=None) -> int:
         "library_call": None,
         "parity": "bit for bit",
         "shapes": [k1_merge],
+        # K8 (scan_engine.mesh_merge) is k1_merge over the members in
+        # member order: its launches are part of mesh_path's above
+        "mesh_merge": {
+            "replaces": "deequ_tpu/ops/scan_engine.py:541",
+            "launches": mesh["kernel_launches"]["k1_merge_in_k8"],
+            "headline_shape": (f"{k8_time['members']} members' flat vectors of the main "
+                               f"chunk: {k8_time['entries']} state entries of "
+                               f"{k8_time['flat_entries']}"),
+            "parity": "bit for bit against merge_tags_plain in member order",
+            **k8_time,
+        },
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

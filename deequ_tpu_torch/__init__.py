@@ -8,7 +8,11 @@ imports ``torch`` and numpy, never ``jax`` and nothing of ``deequ_tpu``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, with
 ``use_device("cpu")`` or a ``device=`` argument; without a CUDA device
 and without that request they raise ``DeviceUnavailableException``. The
-device computes in native float64.
+device computes in native float64. Over a mesh of members
+(``parallel/``: the default mesh of a machine with several cards, or one
+a caller asks for with ``use_mesh``) every scan and dense grouping count
+is row-sharded, and several processes can split a table by row ranges
+and merge their states (``parallel/distributed.py``).
 
 The port carries ``VerificationSuite.run`` over an in-memory
 ``ColumnarTable``: the scan analyzers (Size, Completeness, Compliance,
@@ -70,7 +74,9 @@ from deequ_tpu_torch.exceptions import (
     DeviceLostException,
     DeviceOOMException,
     DeviceUnavailableException,
+    MeshDegradedException,
     NotYetPortedException,
+    PeerLostException,
     RunBudgetExhaustedException,
 )
 from deequ_tpu_torch.metrics import DoubleMetric, Entity, HistogramMetric, Metric
@@ -119,8 +125,10 @@ __all__ = [
     "Entity",
     "HistogramMetric",
     "IncrementalVerificationStream",
+    "MeshDegradedException",
     "Metric",
     "NotYetPortedException",
+    "PeerLostException",
     "RunBudget",
     "RunBudgetExhaustedException",
     "RunPolicy",

@@ -149,22 +149,24 @@ class Analyzer(ABC):
         aggregate_with=None,
         save_states_with=None,
     ) -> Metric:
-        """One analyzer on its own pass, on ``device`` (resolved as the
-        entry points resolve it: ``deequ_tpu_torch.device``). With
-        ``aggregate_with`` (a StateLoader) the state loaded for this
-        analyzer merges into the computed one; with ``save_states_with``
-        (a StatePersister) the merged state is saved."""
-        from deequ_tpu_torch.device import resolve_device
+        """One analyzer on its own pass, on ``device`` and its mesh
+        (resolved as the entry points resolve them:
+        ``parallel/mesh.py:resolve_placement``). With ``aggregate_with`` (a
+        StateLoader) the state loaded for this analyzer merges into the
+        computed one; with ``save_states_with`` (a StatePersister) the
+        merged state is saved."""
+        from deequ_tpu_torch.parallel.mesh import resolve_placement, use_mesh
 
-        dev = resolve_device(device)
+        dev, mesh = resolve_placement(device)
         failing = find_first_failing(table.schema, self.preconditions())
         if failing is not None:
             return self.to_failure_metric(failing)
         try:
-            if getattr(table, "is_streaming", False):
-                state = self.compute_state_from_stream(table, dev)
-            else:
-                state = self.compute_state_from(table, dev)
+            with use_mesh(mesh):
+                if getattr(table, "is_streaming", False):
+                    state = self.compute_state_from_stream(table, dev)
+                else:
+                    state = self.compute_state_from(table, dev)
         except (DeviceUnavailableException, NotYetPortedException):
             raise
         except Exception as e:  # noqa: BLE001 — failure is data

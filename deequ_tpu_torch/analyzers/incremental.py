@@ -36,7 +36,7 @@ from deequ_tpu_torch.analyzers.runner import (
     AnalyzerContext,
     _is_grouping_shared,
 )
-from deequ_tpu_torch.device import resolve_device
+from deequ_tpu_torch.parallel.mesh import resolve_placement, use_mesh
 from deequ_tpu_torch.exceptions import wrap_if_necessary
 
 
@@ -65,8 +65,11 @@ class IncrementalAnalysisStream:
             ...
 
     ``window`` is the group size; at most two groups are held (one
-    filling, one scanned and not yet drained). ``device`` is resolved
-    once, as every entry point resolves it."""
+    filling, one scanned and not yet drained). ``device`` and the mesh are
+    resolved once, as every entry point resolves them
+    (``parallel/mesh.py:resolve_placement``); over a mesh the batches do
+    not group (``group_scannable`` declines) and each takes its own
+    sharded scan."""
 
     def __init__(
         self,
@@ -80,7 +83,7 @@ class IncrementalAnalysisStream:
         self.aggregate_with = aggregate_with
         self.save_states_with = save_states_with
         self.window = max(1, int(window))
-        self.device = resolve_device(device)
+        self.device, self.mesh = resolve_placement(device)
         self._buffer: List[_Submission] = []
         # dispatched groups: (entries, scannable, plan, scan, kind), kind
         # "group" (a DeferredGroupScan) or "per-batch" (a list of
@@ -123,6 +126,10 @@ class IncrementalAnalysisStream:
     # -- internals ----------------------------------------------------------
 
     def _dispatch_buffered(self) -> None:
+        with use_mesh(self.mesh):
+            self._dispatch_buffered_in_scope()
+
+    def _dispatch_buffered_in_scope(self) -> None:
         from deequ_tpu_torch.ops.scan_engine import group_scannable, run_scan_group
 
         entries, self._buffer = self._buffer, []
@@ -135,7 +142,7 @@ class IncrementalAnalysisStream:
                 first.data, first.scanning
             )
             tables = [e.data for e in entries]
-            layout = group_scannable(tables, ops) if scannable else False
+            layout = group_scannable(tables, ops, self.mesh) if scannable else False
             if layout:
                 for entry in entries:
                     for a, err in op_fail.items():
@@ -193,7 +200,7 @@ class IncrementalAnalysisStream:
                 ctx += AnalysisRunner.do_analysis_run(
                     entry.data, entry.non_scan, self.device,
                     aggregate_with=self.aggregate_with,
-                    save_states_with=self.save_states_with,
+                    save_states_with=self.save_states_with, mesh=self.mesh,
                 )
             out.append((entry.tag, ctx))
         return out

@@ -1,6 +1,9 @@
 """AnalysisRunner — the query planner (reference layer L4,
 analyzers/runners/AnalysisRunner.scala; the counterpart of
-``deequ_tpu/analyzers/runner.py`` for one in-memory table on one device).
+``deequ_tpu/analyzers/runner.py``). A run resolves its device and mesh
+once (``parallel/mesh.py:resolve_placement``) and holds the mesh's scope
+for its whole analysis, so every fused scan and dense grouping count
+inside is row-sharded over the members.
 
 Planning pipeline, mirroring doAnalysisRun (reference L97-203):
 
@@ -49,7 +52,8 @@ batches that cannot be read quarantined and reported on
 it too, so each batch's scan gets the whole device fault ladder.
 
 Device faults and governance: each fused scan runs the fault ladder of
-``ops/scan_executors.py`` (``on_device_error``, ``device_deadline``); a run
+``ops/scan_executors.py`` (``on_device_error``, ``device_deadline``, over a
+mesh the reshard and ``shard_deadline``); a run
 budget (``resilience/governance.py``, armed here from the environment when
 no caller armed one) spans every scan of the analysis, and its exhaustion
 under ``on_budget_exhausted="degrade"`` becomes a partial result: failure
@@ -64,6 +68,8 @@ appends the run's metrics to the repository's entry for that key.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import json
 from dataclasses import dataclass, field
@@ -83,7 +89,6 @@ from deequ_tpu_torch.analyzers.grouping import (
     ScanShareableFrequencyBasedAnalyzer,
 )
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
-from deequ_tpu_torch.device import resolve_device
 from deequ_tpu_torch.exceptions import (
     GroupBudgetIgnoredWarning,
     MetricCalculationRuntimeException,
@@ -95,6 +100,7 @@ from deequ_tpu_torch.exceptions import (
 from deequ_tpu_torch.metrics import Metric
 from deequ_tpu_torch.ops.scan_engine import run_scan
 from deequ_tpu_torch.ops.segment import group_count_stats, group_counts_state
+from deequ_tpu_torch.parallel.mesh import _UNSET, resolve_placement, use_mesh
 
 
 def _is_grouping_shared(analyzer: Analyzer) -> bool:
@@ -250,10 +256,20 @@ class AnalysisRunner:
         on_batch_error: str = "fail",
         on_device_error: str = "fail",
         device_deadline: Optional[float] = None,
+        mesh=_UNSET,
+        shard_deadline: Optional[float] = None,
+        _placed: bool = False,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric over ``data`` on ``device``
         (default: ``cuda``, or the ambient ``use_device`` scope; raises
-        DeviceUnavailableException when that device is not there).
+        DeviceUnavailableException when that device is not there), over
+        ``mesh`` (default: the ``use_mesh`` scope, else the default mesh
+        of a machine with several cards when no device was asked for; the
+        rule is ``parallel/mesh.py:resolve_placement``). Over a mesh every
+        fused scan and dense grouping count is row-sharded over its
+        members, and ``shard_deadline`` (seconds; default
+        ``DEEQU_TORCH_SHARD_DEADLINE``) arms the straggler watchdog on the
+        scans' chunk steps.
         ``aggregate_with`` (a StateLoader) merges each analyzer's saved
         state into the one computed here; ``save_states_with`` (a
         StatePersister) saves the result. With ``metrics_repository``:
@@ -302,38 +318,39 @@ class AnalysisRunner:
             raise ValueError(
                 f"on_batch_error must be 'fail' or 'skip', got {on_batch_error!r}"
             )
-        dev = resolve_device(device)
+        dev, mesh = resolve_placement(device, mesh)
         if not analyzers:
             return AnalyzerContext.empty()
+        if not _placed:
+            from deequ_tpu_torch.resilience.governance import (
+                current_run_budget,
+                resolve_run_policy,
+                run_budget_scope,
+            )
 
-        # a budget the environment arms spans the whole analysis: without
-        # it every per-batch scan of a stream would arm a fresh one and the
-        # stream would pay per batch again
-        from deequ_tpu_torch.resilience.governance import (
-            current_run_budget,
-            resolve_run_policy,
-            run_budget_scope,
-        )
-
-        if current_run_budget() is None:
-            policy = resolve_run_policy()
-            if policy is not None:
-                with run_budget_scope(policy.arm()):
-                    return AnalysisRunner.do_analysis_run(
-                        data, analyzers, dev,
-                        aggregate_with=aggregate_with,
-                        save_states_with=save_states_with,
-                        metrics_repository=metrics_repository,
-                        reuse_existing_results_for_key=reuse_existing_results_for_key,
-                        fail_if_results_missing=fail_if_results_missing,
-                        save_or_append_results_with_key=save_or_append_results_with_key,
-                        retry_policy=retry_policy,
-                        group_memory_budget=group_memory_budget,
-                        checkpoint=checkpoint,
-                        on_batch_error=on_batch_error,
-                        on_device_error=on_device_error,
-                        device_deadline=device_deadline,
-                    )
+            # the mesh scope holds for the whole run: every scan and count
+            # inside reads it. A budget the environment arms spans the
+            # whole analysis too: without it every per-batch scan of a
+            # stream would arm a fresh one and pay per batch again
+            policy = resolve_run_policy() if current_run_budget() is None else None
+            with use_mesh(mesh), (run_budget_scope(policy.arm()) if policy is not None
+                                  else contextlib.nullcontext()):
+                return AnalysisRunner.do_analysis_run(
+                    data, analyzers, dev,
+                    aggregate_with=aggregate_with,
+                    save_states_with=save_states_with,
+                    metrics_repository=metrics_repository,
+                    reuse_existing_results_for_key=reuse_existing_results_for_key,
+                    fail_if_results_missing=fail_if_results_missing,
+                    save_or_append_results_with_key=save_or_append_results_with_key,
+                    retry_policy=retry_policy,
+                    group_memory_budget=group_memory_budget,
+                    checkpoint=checkpoint,
+                    on_batch_error=on_batch_error,
+                    on_device_error=on_device_error,
+                    device_deadline=device_deadline,
+                    mesh=mesh, shard_deadline=shard_deadline, _placed=True,
+                )
         streaming = getattr(data, "is_streaming", False)
         if retry_policy is not None and streaming:
             data = data.with_retry(retry_policy)
@@ -389,7 +406,7 @@ class AnalysisRunner:
                 aggregate_with, save_states_with, budget=budget,
                 checkpoint=checkpoint, on_batch_error=on_batch_error,
                 retry_policy=retry_policy, on_device_error=on_device_error,
-                device_deadline=device_deadline,
+                device_deadline=device_deadline, shard_deadline=shard_deadline,
             )
             result = results_loaded + failure_ctx + resilient_ctx
             _save_or_append_result(
@@ -401,6 +418,7 @@ class AnalysisRunner:
         scan_ctx = AnalysisRunner._run_scanning_analyzers(
             data, scanning, dev, aggregate_with, save_states_with,
             on_device_error=on_device_error, device_deadline=device_deadline,
+            shard_deadline=shard_deadline,
         )
 
         # (5) own-pass analyzers (reference L155-160); on a stream they
@@ -530,6 +548,7 @@ class AnalysisRunner:
         defer: bool = False,
         on_device_error: str = "fail",
         device_deadline: Optional[float] = None,
+        shard_deadline: Optional[float] = None,
     ):
         """Build the ops and run the fused scan. Returns (ctx holding the
         failures, scannable, plan, results); results is None when nothing
@@ -548,7 +567,8 @@ class AnalysisRunner:
         try:
             results = run_scan(data, exec_ops, device, defer=defer,
                                on_device_error=on_device_error,
-                               device_deadline=device_deadline)
+                               device_deadline=device_deadline,
+                               shard_deadline=shard_deadline)
         except RunBudgetExhaustedException:
             raise
         except Exception as e:  # noqa: BLE001 — failure is data
@@ -590,6 +610,7 @@ class AnalysisRunner:
         save_states_with=None,
         on_device_error: str = "fail",
         device_deadline: Optional[float] = None,
+        shard_deadline: Optional[float] = None,
     ) -> AnalyzerContext:
         """One fused scan for ``analyzers``, then their metrics. A run
         budget exhausted by the scan under ``on_budget_exhausted="degrade"``
@@ -600,7 +621,7 @@ class AnalysisRunner:
         try:
             ctx, scannable, plan, results = AnalysisRunner._dispatch_scanning_analyzers(
                 data, analyzers, device, on_device_error=on_device_error,
-                device_deadline=device_deadline,
+                device_deadline=device_deadline, shard_deadline=shard_deadline,
             )
         except RunBudgetExhaustedException as e:
             if not e.degraded:
@@ -670,6 +691,7 @@ class AnalysisRunner:
         retry_policy=None,
         on_device_error: str = "fail",
         device_deadline: Optional[float] = None,
+        shard_deadline: Optional[float] = None,
     ) -> AnalyzerContext:
         """One resilient loop over the stream for every kind of analyzer
         (scan-shareable, own pass, grouping), with the fold states on the
@@ -864,7 +886,7 @@ class AnalysisRunner:
             if alive:
                 sctx, scannable, plan, scan = AnalysisRunner._dispatch_scanning_analyzers(
                     batch, alive, device, defer=True, on_device_error=on_device_error,
-                    device_deadline=device_deadline,
+                    device_deadline=device_deadline, shard_deadline=shard_deadline,
                 )
                 failed.update(sctx.metric_map)
                 if scan is not None:

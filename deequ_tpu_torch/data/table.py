@@ -351,19 +351,24 @@ class ColumnarTable:
 
     def persist(
         self, device=None, encode: Optional[bool] = None,
-        max_bytes: Optional[int] = None,
+        max_bytes: Optional[int] = None, mesh=None,
     ) -> "ColumnarTable":
         """Pack every column and copy it to ``device`` once (default:
         ``cuda``, or the ambient ``use_device`` scope); every later scan
         of this table on that device walks the resident chunks and packs
-        and copies nothing. Encoded columns stay encoded on the device
-        unless ``encode=False``. ``max_bytes`` caps the combined resident
-        bytes of every persisted table (default on a card: a fixed share
-        of its memory, ``scan_engine.RESIDENT_FRACTION``; the CPU has no
-        default). Raises MemoryError past the cap."""
-        from deequ_tpu_torch.ops.scan_engine import persist_table
+        and copies nothing. Over a mesh (``mesh``, else the ``use_mesh``
+        scope, else the default mesh when no device was asked for) each
+        member holds its shard of every chunk on its device, and scans
+        over that mesh read them. Encoded columns stay encoded on the
+        device unless ``encode=False``. ``max_bytes`` caps the combined
+        resident bytes of every persisted table on a device (default on a
+        card: a fixed share of its memory,
+        ``scan_engine.RESIDENT_FRACTION``; the CPU has no default).
+        Raises MemoryError past the cap."""
+        from deequ_tpu_torch.ops.scan_engine import _UNSET, persist_table
 
-        persist_table(self, device, max_bytes=max_bytes, encode=encode)
+        persist_table(self, device, max_bytes=max_bytes, encode=encode,
+                      mesh=_UNSET if mesh is None else mesh)
         return self
 
     def unpersist(self) -> "ColumnarTable":

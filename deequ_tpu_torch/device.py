@@ -1,5 +1,7 @@
-"""Which device a run executes on — the port's counterpart of
-``deequ_tpu/parallel/mesh.py:use_mesh`` for one card.
+"""Which device a run executes on. A run over a mesh of members
+(``parallel/mesh.py``) is led by its first member's device, and
+``parallel/mesh.py:resolve_placement`` states how a mesh and a device
+resolve together; this module resolves the one device.
 
 Resolution: an explicit ``device=`` argument > the ambient
 :func:`use_device` scope > ``cuda``. A run resolved to ``cuda`` in a
@@ -35,6 +37,12 @@ def use_device(device: DeviceLike):
         yield
     finally:
         _ACTIVE_DEVICE.reset(token)
+
+
+def explicit_device(device: DeviceLike = None) -> DeviceLike:
+    """The device a caller asked for by name: ``device``, else the
+    :func:`use_device` scope; None when neither names one."""
+    return device if device is not None else _ACTIVE_DEVICE.get()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

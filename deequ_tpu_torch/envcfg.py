@@ -149,6 +149,13 @@ DEVICE_DEADLINE = register(EnvVar(
     doc="watchdog deadline (s) on each device call of a scan (a chunk's "
         "step, a fetch); unset or 0 disarms it (ops/device_policy.py)",
 ))
+SHARD_DEADLINE = register(EnvVar(
+    "DEEQU_TORCH_SHARD_DEADLINE", "float", default=None, zero_disables=True,
+    doc="straggler deadline (s) on each chunk step of a scan over a mesh "
+        "of two or more members: a member that stalls past it raises "
+        "DeviceHangException (a mesh_straggler event); unset or 0 disarms "
+        "it (ops/device_policy.py)",
+))
 RUN_DEADLINE = register(EnvVar(
     "DEEQU_TORCH_RUN_DEADLINE", "float", default=None, zero_disables=True,
     doc="run-level wall budget (s) for the composed fault ladder "

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import re
-from typing import Optional
+from typing import Optional, Tuple
 
 
 class EnvConfigError(ValueError):
@@ -154,11 +154,19 @@ class DeviceException(MetricCalculationRuntimeException):
     it surfaced: ``"transfer"`` (a host->device copy, or packing for one),
     ``"trace"`` (a kernel's build or load), ``"execute"`` (a kernel launch
     or a torch op on the card) or ``"fetch"`` (the device->host result
-    copy, where asynchronous faults surface)."""
+    copy, where asynchronous faults surface).
 
-    def __init__(self, message: str, boundary: str = "execute"):
+    ``device_ids`` names the mesh members the raw error implicated (a
+    message naming ``cuda:3``, "CUDA device 3" or "GPU 3": on a mesh of
+    cards the member id is the ordinal); empty when the fault is
+    unattributable. Attribution is what lets the mesh ladder shed one
+    member instead of failing the whole mesh."""
+
+    def __init__(self, message: str, boundary: str = "execute",
+                 device_ids: Tuple[int, ...] = ()):
         super().__init__(message)
         self.boundary = boundary
+        self.device_ids = tuple(device_ids)
 
 
 class DeviceOOMException(DeviceException):
@@ -208,6 +216,30 @@ class DeviceFallbackRefusedException(DeviceException):
         self.reason = reason
 
 
+class MeshDegradedException(DeviceException):
+    """A lost-class device failure on a mesh that names specific members
+    (``device_ids``): one member's shard faulted while the rest of the
+    mesh is presumed healthy. The mesh ladder
+    (``ops/scan_executors.py``) evicts residency pinned to the old mesh,
+    rebuilds the mesh over the survivors and runs the same scan again;
+    with no member left, the scan fails typed (or its CPU rung is
+    refused)."""
+
+
+class PeerLostException(DeviceException):
+    """A multi-process run lost contact with peer processes (a heartbeat
+    or barrier timeout over the process group's store).
+    ``lost_processes`` names the ranks that stopped responding (empty when
+    the stall could not be attributed). Under ``on_peer_loss="degrade"``
+    the survivors finish and the lost ranks' row ranges are reported
+    unverified instead."""
+
+    def __init__(self, message: str, lost_processes: Tuple[int, ...] = (),
+                 boundary: str = "execute"):
+        super().__init__(message, boundary)
+        self.lost_processes = tuple(lost_processes)
+
+
 class DeviceUnavailableException(DeviceException):
     """The run was asked to execute on a CUDA device that this process
     cannot see. Entry points run on ``cuda`` unless the caller asks for
@@ -244,6 +276,32 @@ _LOST_RE = re.compile(
     re.DOTALL,
 )
 
+# attribution: the singular shapes a message names one card or member by
+# ("cuda:3", "CUDA device 3", "device 3", "GPU 3", "chip #5", "mesh
+# position 4", "core 1"). The word prefix keeps byte counts and error
+# codes from parsing as ids, and it is singular on purpose: an
+# enumeration ("visible devices: 0,1") names a set, not a culprit, and
+# must not pin a whole-backend loss on its first entry
+_DEVICE_ID_RE = re.compile(
+    r"(?:device|cuda|GPU|TPU|chip|core|member|mesh position)[ _:#]+(\d+)",
+    re.IGNORECASE,
+)
+
+
+def implicated_devices(exception: BaseException) -> Tuple[int, ...]:
+    """The device ids a raw error message names, in order, without
+    repeats; empty when the failure is unattributable (a whole-backend
+    loss, an allocator OOM that does not say where)."""
+    if isinstance(exception, DeviceException) and exception.device_ids:
+        return exception.device_ids
+    seen = []
+    for m in _DEVICE_ID_RE.finditer(f"{type(exception).__name__}: {exception}"):
+        did = int(m.group(1))
+        if did not in seen:
+            seen.append(did)
+    return tuple(seen)
+
+
 #: torch's own CUDA error types: device-shaped by type, not only by text
 _STRONG_TYPES = ("OutOfMemoryError", "AcceleratorError", "CudaError", "DeferredCudaCallError")
 
@@ -271,7 +329,8 @@ def classify_device_error(
     ``torch.cuda.OutOfMemoryError`` and a ``MemoryError`` are OOM by type;
     otherwise the message decides: CUDA out-of-memory text, then a
     kernel's build or load (compile), then the sticky CUDA errors and any
-    other ``CUDA error`` (lost). A plain RuntimeError with no such text
+    other ``CUDA error`` (lost; :class:`MeshDegradedException` when the
+    message names members). ``device_ids`` is :func:`implicated_devices`. A plain RuntimeError with no such text
     stays unclassified at every boundary — an application bug inside an
     op's update surfaces as itself — while one of torch's CUDA error
     types with no recognisable text is a compile failure at the
@@ -282,6 +341,7 @@ def classify_device_error(
     if strength is None:
         return None
     text = f"{type(exception).__name__}: {exception}"
+    device_ids = implicated_devices(exception)
     klass = None
     if (isinstance(exception, MemoryError)
             or type(exception).__name__ == "OutOfMemoryError"
@@ -290,12 +350,15 @@ def classify_device_error(
     elif _COMPILE_RE.search(text):
         klass = DeviceCompileException
     elif _LOST_RE.search(text):
-        klass = DeviceLostException
+        # a loss the message pins on members is a mesh fault: the rest of
+        # the mesh is presumed healthy and the ladder sheds the named ones
+        klass = MeshDegradedException if device_ids else DeviceLostException
     elif boundary == "trace" and strength == "strong":
         klass = DeviceCompileException
     if klass is None:
         return None
     typed = klass(f"[{boundary}] {text}", boundary=boundary)
+    typed.device_ids = device_ids
     typed.__cause__ = exception
     return typed
 

@@ -1,6 +1,6 @@
 """Device-fault policy for the scan engine — boundary classification, the
-compute watchdog, the fault-injection seam and the device's health (the
-port of ``deequ_tpu/ops/device_policy.py`` for one device).
+compute watchdog, the fault-injection seam and the health of the card and
+of each mesh member (the port of ``deequ_tpu/ops/device_policy.py``).
 
 - :func:`device_call` wraps one device-boundary call of a scan
   (``transfer`` / ``execute`` / ``fetch``): a raw torch or CUDA error
@@ -18,7 +18,11 @@ port of ``deequ_tpu/ops/device_policy.py`` for one device).
   again and again opens a circuit breaker: scans under
   ``on_device_error="fallback"`` are then refused up front
   (``DeviceFallbackRefusedException``), with a half-open probe on the card
-  every ``probe_interval``-th scan.
+  every ``probe_interval``-th scan;
+- :class:`MeshHealth` keeps the same count per mesh member: a member a
+  fault names is quarantined, and the next scan builds its mesh without
+  it up front; :func:`default_shard_deadline` is the straggler deadline
+  armed on the chunk steps of a scan over two or more members.
 
 A worker abandoned by the watchdog may wake up long after its caller
 moved on. :func:`current_watchdog_call_abandoned` tells code running on
@@ -27,8 +31,7 @@ given up: it must launch nothing more on the card and count nothing
 (``ScanStats.record_fetch`` drops its fetch). The degradation policies
 themselves (bisection, eviction, demotion, refusal) live in
 ``ops/scan_executors.py``; this module only decides *what* failed and
-*whether* the device is still trusted. ``MeshHealth`` and the per-shard
-deadline of a multi-card mesh come with the mesh.
+*whether* the device is still trusted.
 
 It also holds the histogram width caps the plan cost model prices
 against (:func:`hist_cpu_cap`, :func:`hist_accel_cap`, the reference's
@@ -39,6 +42,7 @@ only price a dispatch (``ops/plan_cost.py``).
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 from typing import Any, Callable, Dict, Optional
@@ -46,6 +50,8 @@ from typing import Any, Callable, Dict, Optional
 from deequ_tpu_torch.exceptions import (
     DeviceException,
     DeviceHangException,
+    DeviceLostException,
+    MeshDegradedException,
     device_boundary,
 )
 
@@ -102,6 +108,18 @@ def default_device_deadline() -> Optional[float]:
     from deequ_tpu_torch.envcfg import env_value
 
     return env_value("DEEQU_TORCH_DEVICE_DEADLINE")
+
+
+def default_shard_deadline() -> Optional[float]:
+    """The process-wide straggler deadline (seconds) from
+    ``DEEQU_TORCH_SHARD_DEADLINE``, armed only on scans over a mesh of two
+    or more members: a member that stalls a chunk step past it raises
+    ``DeviceHangException`` (a ``mesh_straggler`` event) instead of
+    freezing the mesh. Unset, empty or 0 disarms it; a malformed value
+    raises ``EnvConfigError``."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    return env_value("DEEQU_TORCH_SHARD_DEADLINE")
 
 
 #: the watchdog call a worker thread is running: {"abandoned", "parent"},
@@ -231,9 +249,12 @@ def on_callers_stream(fn: Callable, device) -> Callable:
 def call_with_deadline(fn: Callable, deadline: float, what: str, boundary: str,
                        device=None):
     """Run ``fn`` on a pooled watchdog worker (on the caller's device and
-    stream); past ``deadline`` seconds raise DeviceHangException and
-    abandon the worker."""
-    return _WATCHDOG_POOL.call(on_callers_stream(fn, device), deadline, what, boundary)
+    stream, in a copy of its context: the ``use_device`` and ``use_mesh``
+    scopes hold there too); past ``deadline`` seconds raise
+    DeviceHangException and abandon the worker."""
+    context = contextvars.copy_context()
+    fn = on_callers_stream(fn, device)
+    return _WATCHDOG_POOL.call(lambda: context.run(fn), deadline, what, boundary)
 
 
 def device_call(
@@ -316,3 +337,73 @@ class DeviceHealth:
 
 #: the process-wide health of the card, read by run_scan's refusal policy
 DEVICE_HEALTH = DeviceHealth()
+
+
+# -- the mesh members' health ------------------------------------------------------
+
+
+class MeshHealth:
+    """Per-member fault registry of a mesh — :class:`DeviceHealth` at the
+    granularity of a member (the reference's ``MeshHealth``).
+
+    A classified fault that names its members (``device_ids``) counts
+    against them, not the whole device: one flaky member of eight costs
+    one member. A member whose consecutive faults reach ``threshold`` is
+    quarantined, and later scans build their mesh without it up front;
+    every ``probe_interval``-th such decision readmits the quarantined
+    members for one probe, and a scan that completes over a member clears
+    its record. A ``DeviceLostException`` or ``MeshDegradedException``
+    quarantines at once; other attributed faults (an OOM that names its
+    card) count one step."""
+
+    def __init__(self, threshold: int = 2, probe_interval: int = 8):
+        self.threshold = int(threshold)
+        self.probe_interval = int(probe_interval)
+        self.reset()
+
+    def reset(self) -> None:
+        self.consecutive_faults: Dict[int, int] = {}
+        self.total_faults: Dict[int, int] = {}
+        self._filtered = 0
+
+    def record_fault(self, exc: DeviceException) -> None:
+        """Count one fault against every member it names (an
+        unattributed fault is :class:`DeviceHealth`'s)."""
+        fatal = isinstance(exc, (DeviceLostException, MeshDegradedException))
+        for did in getattr(exc, "device_ids", ()) or ():
+            count = self.consecutive_faults.get(did, 0) + 1
+            if fatal:
+                count = max(count, self.threshold)
+            self.consecutive_faults[did] = count
+            self.total_faults[did] = self.total_faults.get(did, 0) + 1
+
+    def record_success(self, device_ids) -> None:
+        """A scan completed over these members: their records clear (only
+        theirs — a success on a shrunken mesh says nothing of the member
+        left out)."""
+        for did in device_ids:
+            self.consecutive_faults.pop(int(did), None)
+
+    def quarantined(self) -> frozenset:
+        return frozenset(
+            did for did, count in self.consecutive_faults.items() if count >= self.threshold
+        )
+
+    def healthy_subset(self, device_ids):
+        """(healthy, excluded) of ``device_ids`` for a scan about to build
+        its mesh; the half-open probe counter advances only when something
+        would be excluded."""
+        bad = self.quarantined()
+        ids = [int(d) for d in device_ids]
+        excluded = [d for d in ids if d in bad]
+        if not excluded:
+            return ids, []
+        self._filtered += 1
+        if self.probe_interval and self._filtered % self.probe_interval == 0:
+            return ids, []  # half-open probe: the whole mesh this once
+        return [d for d in ids if d not in bad], excluded
+
+
+#: the process-wide health of each mesh member, read by run_scan's
+#: up-front quarantine and the mesh ladder
+MESH_HEALTH = MeshHealth()

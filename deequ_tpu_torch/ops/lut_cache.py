@@ -13,7 +13,10 @@ dictionary and kind and kept:
 - :func:`dictionary_lut_device` keeps the array on a device, keyed also by
   the device, so a second ``run()`` over the same table builds nothing and
   copies nothing. An empty dictionary's LUT gets one zero entry: null rows
-  gather index 0 and are masked out.
+  gather index 0 and are masked out. The device in the key is the
+  reference's mesh value key: a scan over a mesh places each LUT on every
+  member's device, one copy a distinct device (a virtual mesh's members
+  share theirs).
 
 ``BUILDS`` counts builder calls (``chip_smoke.py`` reads it around a
 second run).
@@ -85,3 +88,4 @@ def dictionary_lut_device(
         lut = torch.from_numpy(host).to(device)
         _store(_DEVICE_MEMO, key, dictionary, lut)
     return lut
+

@@ -54,7 +54,7 @@ bound with ``ctypes`` (``ops/cuda_build.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,9 @@ from deequ_tpu_torch.ops import cuda_build
 LAUNCHES = 0
 #: calls of :func:`merge_tags` that launched its kernel
 MERGE_LAUNCHES = 0
+#: the same launches by the caller named in ``merge_tags(..., caller=)``:
+#: ``"fold"`` (a scan's fold) and ``"mesh"`` (K8, ``scan_engine.mesh_merge``)
+MERGE_LAUNCHES_BY_CALLER: Dict[str, int] = {}
 
 #: task kinds, in the source's numbering, and the outputs of each
 KINDS = ("count", "sum", "min", "max", "moments", "comoments")
@@ -374,10 +377,12 @@ def _reduce_plain_into(flat, tasks, offsets) -> None:
 
 
 def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
-               flat: torch.Tensor, src: Optional[torch.Tensor] = None) -> torch.Tensor:
+               flat: torch.Tensor, src: Optional[torch.Tensor] = None,
+               caller: str = "fold") -> torch.Tensor:
     """:func:`merge_tags_plain`'s function into a new tensor: the kernel
     for CUDA tensors, the plain version for CPU ones; any other device
-    raises."""
+    raises. A launch counts in ``MERGE_LAUNCHES`` and under ``caller`` in
+    ``MERGE_LAUNCHES_BY_CALLER``."""
     global MERGE_LAUNCHES
     m = acc.numel()
     for t, dt in ((is_sum, torch.bool), (is_min, torch.bool), (acc, torch.float64),
@@ -413,6 +418,7 @@ def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
     if rc != 0:
         raise launch_error(f"K1 merge kernel launch failed (n={m})", rc)
     MERGE_LAUNCHES += 1
+    MERGE_LAUNCHES_BY_CALLER[caller] = MERGE_LAUNCHES_BY_CALLER.get(caller, 0) + 1
     return out
 
 

@@ -1,5 +1,5 @@
-"""The fused scan on one device — the counterpart of
-``deequ_tpu/ops/scan_engine.py:run_scan`` for an in-memory table.
+"""The fused scan, on one device or row-sharded over a mesh — the
+counterpart of ``deequ_tpu/ops/scan_engine.py:run_scan``.
 
 One pass over the table runs every scan-shareable analyzer of a run:
 
@@ -43,10 +43,22 @@ group — each batch's results bit for bit those of its own ``run_scan``.
 Every scan resolves its switches, deadline and run budget once
 (:func:`run_scan`) and runs under an executor of ``ops/scan_executors.py``:
 an in-memory scan's attempts (:func:`_run_scan_once`) climb the device
-fault ladder — eviction, encoded->decoded demotion, chunk bisection, then
-a typed raise or the refused CPU rung — each chunk's transfer and step
-and the fetch a device boundary (``ops/device_policy.py:device_call``:
-classification, the watchdog, the fault hook).
+fault ladder — eviction, encoded->decoded demotion, chunk bisection, a
+mesh reshard, then a typed raise or the refused CPU rung — each chunk's
+transfer and step and the fetch a device boundary
+(``ops/device_policy.py:device_call``: classification, the watchdog, the
+fault hook).
+
+Over a mesh (``parallel/mesh.py``) every scan is row-sharded as the
+reference's: the chunk rounds up to a multiple of the n members, each
+member holds ``local_n = chunk / n`` rows of it (members past the chunk's
+last row hold fewer, or none: the rows that would pad it exist nowhere),
+and its step runs on its own device with ``capacity = local_n``. Each
+member's flat vector is copied to the lead, and the chunk's vectors fold
+there (:func:`mesh_merge`, K8: sum, min and max in member order by
+``k1_merge``, then into the chunk fold; gather leaves member-major, as
+``all_gather`` lays them out). A table persisted over a mesh holds each
+member's rows of each chunk on that member's device.
 
 The card has native f64, so the port computes in f64 and carries no
 counterpart of the reference's (hi, lo) f32 pairs; ``ops/masked_reduce.py``
@@ -57,6 +69,7 @@ the analyzers' states, never a raw sum of squares.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import threading
@@ -71,10 +84,12 @@ from deequ_tpu_torch.data.table import Column, DType
 from deequ_tpu_torch.exceptions import device_boundary
 from deequ_tpu_torch.ops.device_policy import (  # noqa: F401 — the engine's fault seam
     DEVICE_HEALTH,
+    MESH_HEALTH,
     call_with_deadline,
     check_not_abandoned,
     current_watchdog_call_abandoned,
     default_device_deadline,
+    default_shard_deadline,
     device_call,
     install_scan_fault_hook,
 )
@@ -82,6 +97,16 @@ from deequ_tpu_torch.expr.eval import Val
 from deequ_tpu_torch.ops import masked_reduce
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 from deequ_tpu_torch.ops.scan_plan import encoded_ingest_enabled, plan_scan_ops
+from deequ_tpu_torch.parallel.mesh import (  # noqa: F401 — the executors' mesh seam
+    _UNSET,
+    Mesh,
+    mesh_device_ids,
+    mesh_excluding,
+    mesh_size,
+    round_chunk,
+    scoped_mesh,
+    shard_bounds,
+)
 
 DEFAULT_CHUNK_BYTES = 512 << 20
 MAX_CHUNK_ROWS = 1 << 23
@@ -239,7 +264,15 @@ class ScanStats:
     [start, stop) rows a degraded run finished without verifying
     (:meth:`record_unverified`). Run governance: ``budget_charges``
     attempts charged to a run budget, ``budget_exhaustions`` budgets that
-    ran out."""
+    ran out.
+
+    Meshes (the reference's meanings): ``mesh_faults`` faults that named
+    mesh members, ``mesh_reshards`` meshes rebuilt over the survivors,
+    ``mesh_stragglers`` hangs under the straggler deadline,
+    ``peer_losses`` peer processes a multi-process check lost;
+    ``member_launches`` counts each member's kernel launches by kernel
+    ({member id: {"K1": n, "K2": n, "K4": n, "K5": n, "K7": n}}), the
+    launches made inside that member's step or count."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -300,6 +333,12 @@ class ScanStats:
         self.unverified_row_ranges: List[Tuple[int, int]] = []
         self.budget_charges = 0
         self.budget_exhaustions = 0
+        # meshes
+        self.mesh_faults = 0
+        self.mesh_reshards = 0
+        self.mesh_stragglers = 0
+        self.peer_losses = 0
+        self.member_launches: Dict[int, Dict[str, int]] = {}
 
     @property
     def ingest_overlap_frac(self) -> float:
@@ -330,8 +369,10 @@ class ScanStats:
     def record_degradation(self, kind: str, **detail) -> Dict[str, Any]:
         """Append one rung taken (kind: 'oom_bisect', 'encoded_demote',
         'watchdog_timeout', 'cpu_fallback_refused', 'budget_exhausted',
-        'fusion_demote') for ``scan_execution_report`` and
-        ``VerificationResult.device_events``."""
+        'fusion_demote', and on a mesh 'mesh_reshard', 'mesh_quarantine',
+        'mesh_straggler', 'stale_residency_evicted', 'peer_lost') for
+        ``scan_execution_report`` and ``VerificationResult.device_events``
+        (the mesh kinds also on ``mesh_events``)."""
         event = {"kind": kind, **detail}
         with self._lock:
             self.degradation_events.append(event)
@@ -371,6 +412,13 @@ class ScanStats:
         with self._lock:
             self.fused_group_passes += int(n)
 
+    def record_member_launches(self, member: int, counts: Dict[str, int]) -> None:
+        """Add one member's kernel launches (``counts`` by kernel)."""
+        with self._lock:
+            mine = self.member_launches.setdefault(int(member), {})
+            for kernel, n in counts.items():
+                mine[kernel] = mine.get(kernel, 0) + int(n)
+
     def snapshot(self) -> Dict[str, Any]:
         """Every counter, read under the lock; the event and range lists
         are copies, not live views."""
@@ -378,11 +426,56 @@ class ScanStats:
             snap = {k: v for k, v in vars(self).items() if not k.startswith("_")}
             snap["degradation_events"] = [dict(e) for e in self.degradation_events]
             snap["unverified_row_ranges"] = [tuple(r) for r in self.unverified_row_ranges]
+            snap["member_launches"] = {m: dict(c) for m, c in self.member_launches.items()}
         snap["ingest_overlap_frac"] = self.ingest_overlap_frac
         return snap
 
 
 SCAN_STATS = ScanStats()
+
+
+def _launch_counts() -> Dict[str, int]:
+    """Every hand-written kernel's launch count, by kernel."""
+    from deequ_tpu_torch.ops import histogram_device, hll, select_device
+
+    return {"K1": masked_reduce.LAUNCHES, "K2": hll.LAUNCHES, "K4": select_device.LAUNCHES,
+            "K5": histogram_device.LAUNCHES, "K7": histogram_device.FUSED_LAUNCHES}
+
+
+@contextlib.contextmanager
+def member_scope(member: Optional[int], device):
+    """Run the block as mesh member ``member`` (None: no mesh): on
+    ``device``'s CUDA context, its kernel launches counted in
+    ``ScanStats.member_launches``."""
+    if member is None:
+        yield
+        return
+    before = _launch_counts()
+    guard = torch.cuda.device(device) if torch.device(device).type == "cuda" \
+        else contextlib.nullcontext()
+    try:
+        with guard:
+            yield
+    finally:
+        after = _launch_counts()
+        SCAN_STATS.record_member_launches(
+            member, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        )
+
+
+def mesh_merge(is_sum: torch.Tensor, is_min: torch.Tensor, flats: Sequence[torch.Tensor],
+               src: torch.Tensor) -> torch.Tensor:
+    """K8, the tagged merge of a mesh's members (the reference's
+    ``_tag_collective`` psum/pmin/pmax): ``flats`` are one chunk's member
+    vectors, on the lead, in member order; the elementwise entries ``src``
+    selects fold member by member, starting from member 0's own, through
+    ``masked_reduce.merge_tags`` — ``k1_merge`` on a card (its launches
+    counted under the caller ``"mesh"``), the plain version on the CPU.
+    Returns the chunk's merged elementwise vector."""
+    acc = flats[0][src]
+    for flat in flats[1:]:
+        acc = masked_reduce.merge_tags(is_sum, is_min, acc, flat, src, caller="mesh")
+    return acc
 
 
 def fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -531,6 +624,13 @@ class _DeviceFoldPlan:
       written into row ``ci`` of a (capacity, width) buffer — the device
       equivalent of the host concatenation, order preserved.
 
+    Over a mesh of ``members`` members each chunk brings one flat vector a
+    member (:meth:`merge_members`): the elementwise entries fold across
+    the members first (:func:`mesh_merge`, K8) and then into the
+    accumulator, and each member's gather leaves take a row of their own,
+    chunk-major and member-major within a chunk — ``capacity`` chunks
+    then fill ``capacity * members`` rows.
+
     An in-memory scan sizes ``capacity`` to its chunk count. A stream
     cannot know its chunk count, so its fold holds
     :data:`STREAM_FOLD_CAPACITY` chunks: when that many are gathered
@@ -544,7 +644,8 @@ class _DeviceFoldPlan:
     whether it is an integer come from the tensor, or from its task.
     """
 
-    def __init__(self, ops: Sequence[ScanOp], partials, capacity: int, device):
+    def __init__(self, ops: Sequence[ScanOp], partials, capacity: int, device,
+                 members: int = 1):
         self._layout = []  # per op: [(key, tag, region_offset, size, shape, is_int)]
         self._slots = []  # per op: [(flat offset, size)]
         elem_src, gather_src = [], []
@@ -586,21 +687,25 @@ class _DeviceFoldPlan:
         self.elem_size = elem_off
         self.gather_size = gather_off
         self.capacity = capacity
+        self.members = members
         self._elem_src = dev(cat(elem_src, np.int64))
         self._gather_src = dev(cat(gather_src, np.int64))
         self._is_sum = dev(cat(sum_mask, bool))
         self._is_min = dev(cat(min_mask, bool))
         self._acc = dev(cat(init, np.float64))
         self._gathered = torch.zeros(
-            (capacity, self.gather_size), dtype=torch.float64, device=device
+            (capacity * members, self.gather_size), dtype=torch.float64, device=device
         )
         self._filled = 0
 
-    def flatten(self, partials, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One chunk's partials as its flat f64 vector. ``row_valid`` is
-        the chunk's row-validity mask, which the engine builds all-true: a
-        task drops it (``Reduction.without``) and reads no such mask."""
-        flat = torch.empty(self.flat_size, dtype=torch.float64, device=self.device)
+    def flatten(self, partials, row_valid: Optional[torch.Tensor] = None,
+                device=None) -> torch.Tensor:
+        """One chunk's partials as its flat f64 vector, on ``device`` (the
+        partials' own: a mesh member's; default the fold's). ``row_valid``
+        is the chunk's row-validity mask, which the engine builds all-true:
+        a task drops it (``Reduction.without``) and reads no such mask."""
+        flat = torch.empty(self.flat_size, dtype=torch.float64,
+                           device=self.device if device is None else device)
         tasks: Dict[int, Tuple[masked_reduce.Reduction, List[int]]] = {}
         for part, slots in zip(partials, self._slots):
             for leaf, (off, size) in zip(part.values(), slots):
@@ -625,19 +730,34 @@ class _DeviceFoldPlan:
 
     def merge(self, flat: torch.Tensor) -> None:
         """Fold one chunk's flat vector into the accumulator."""
+        self.merge_members([flat])
+
+    def merge_members(self, flats: Sequence[torch.Tensor]) -> None:
+        """Fold one chunk's member vectors (on the fold's device, in member
+        order; one without a mesh): the members' elementwise entries by
+        :func:`mesh_merge`, then the accumulator; each member's gather
+        leaves into a row of their own."""
         if self.gather_full:
             raise ValueError("the fold's gather buffer is full: drain it first")
+        if len(flats) != self.members:
+            raise ValueError(f"the fold takes {self.members} member vectors a chunk")
         if self.elem_size:
-            self._acc = self._merged(self._acc, flat)
-        if self.gather_size:
-            self._gathered[self._filled] = flat[self._gather_src]
-        self._filled += 1
+            if len(flats) == 1:
+                self._acc = self._merged(self._acc, flats[0])
+            else:
+                chunk = mesh_merge(self._is_sum, self._is_min, flats, self._elem_src)
+                self._acc = masked_reduce.merge_tags(self._is_sum, self._is_min,
+                                                     self._acc, chunk)
+        for flat in flats:
+            if self.gather_size:
+                self._gathered[self._filled] = flat[self._gather_src]
+            self._filled += 1
 
     @property
     def gather_full(self) -> bool:
         """Whether the gather buffer holds ``capacity`` chunks (a fold
         with no gather leaf never fills)."""
-        return bool(self.gather_size) and self._filled >= self.capacity
+        return bool(self.gather_size) and self._filled >= self.capacity * self.members
 
     def drain_gathered(self) -> List[Dict[str, np.ndarray]]:
         """Fetch the gathered chunks (one fetch) and empty the buffer:
@@ -728,25 +848,73 @@ def _device_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], device):
     return out
 
 
+def _member_luts(ops: Sequence[ScanOp], cols: Dict[str, Column], members):
+    """:func:`_device_luts` on every member's device: {device: {column:
+    {key: tensor}}}. The LUT memo keys on the device
+    (``lut_cache.dictionary_lut_device``), so each distinct device holds
+    one copy: a virtual mesh's members share theirs."""
+    return {dev: _device_luts(ops, cols, dev) for dev in dict.fromkeys(d for _, d in members)}
+
+
+def _members_of(mesh: Optional[Mesh], device) -> Tuple[Tuple[Optional[int], torch.device], ...]:
+    """The (member id, device) pairs a scan runs on: the mesh's members,
+    or one member with no id on ``device``."""
+    if mesh is None:
+        return ((None, torch.device(device)),)
+    return mesh.members
+
+
 class DeviceTableCache:
-    """A table's packed chunks resident on one device — the analogue of
+    """A table's packed chunks resident on a device — the analogue of
     Spark's ``df.persist()`` (the reference's ``DeviceTableCache``):
     ``device_chunks`` holds one tuple of device planes
     (values, masks, codes, enc) a chunk of ``chunk`` rows, packed by
-    ``packer`` from every column of the table; ``nbytes`` counts them."""
+    ``packer`` from every column of the table; ``nbytes`` counts them.
 
-    def __init__(self, packer: _ChunkPacker, chunk: int, device_chunks, device, nbytes: int):
+    Persisted over a mesh (``mesh``), ``device_chunks[ci]`` holds one
+    plane tuple a member — member ``i``'s ``local_n`` rows of chunk ``ci``
+    on its device (:meth:`shard`) — and ``member_bytes`` each member's
+    bytes, which count against the budget of that member's device."""
+
+    def __init__(self, packer: _ChunkPacker, chunk: int, device_chunks, device, nbytes: int,
+                 mesh: Optional[Mesh] = None, member_bytes: Sequence[int] = ()):
         self.packer = packer
         self.chunk = chunk
         self.device_chunks = device_chunks
         self.device = torch.device(device)
         self.nbytes = nbytes
+        self.mesh = mesh
+        self.member_bytes = list(member_bytes)
         _ACTIVE_CACHES.add(self)
 
-    def matches(self, device, needed_cols) -> bool:
-        return torch.device(device) == self.device and set(needed_cols) <= set(
-            self.packer.cols
-        )
+    def shard(self, ci: int, member: int):
+        """Member ``member``'s planes of chunk ``ci`` (the chunk's planes
+        without a mesh)."""
+        planes = self.device_chunks[ci]
+        return planes if self.mesh is None else planes[member]
+
+    def bytes_on(self, device) -> int:
+        """The resident bytes this cache holds on ``device``."""
+        device = torch.device(device)
+        if self.mesh is None:
+            return self.nbytes if self.device == device else 0
+        return sum(b for b, dev in zip(self.member_bytes, self.mesh.devices) if dev == device)
+
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The distinct devices the cache holds chunks on."""
+        return (self.device,) if self.mesh is None else tuple(dict.fromkeys(self.mesh.devices))
+
+    def mesh_matches(self, mesh: Optional[Mesh]) -> bool:
+        """Whether the cache was sharded over ``mesh`` (both None: one
+        device each)."""
+        return mesh == self.mesh
+
+    def matches(self, device, needed_cols, mesh: Optional[Mesh] = None) -> bool:
+        if not self.mesh_matches(mesh):
+            return False
+        if mesh is None and torch.device(device) != self.device:
+            return False
+        return set(needed_cols) <= set(self.packer.cols)
 
 
 # the live caches, weakly held: persist() checks the combined resident
@@ -757,11 +925,10 @@ _ACTIVE_CACHES: "weakref.WeakSet[DeviceTableCache]" = weakref.WeakSet()
 
 def total_resident_bytes(device=None) -> int:
     """The resident bytes of every persisted table, or of those on
-    ``device`` alone."""
+    ``device`` alone (a mesh cache counts its members there)."""
     if device is None:
         return sum(c.nbytes for c in _ACTIVE_CACHES)
-    device = torch.device(device)
-    return sum(c.nbytes for c in _ACTIVE_CACHES if c.device == device)
+    return sum(c.bytes_on(device) for c in _ACTIVE_CACHES)
 
 
 def has_resident_budget(device) -> bool:
@@ -788,44 +955,62 @@ def persist_table(
     chunk_rows: Optional[int] = None,
     max_bytes: Optional[int] = None,
     encode: Optional[bool] = None,
+    mesh=_UNSET,
 ) -> DeviceTableCache:
-    """Pack every column of ``table`` and copy it to ``device`` (resolved
-    as every entry point resolves it: ``cuda`` unless the caller asks for
-    the CPU) once, into chunks of the reference's resident size; attach
-    the cache as ``table._device_cache``. Encoded columns stay encoded
-    unless ``encode=False`` (None: ``scan_plan.encoded_ingest_enabled``,
-    on unless ``DEEQU_TORCH_ENCODED_INGEST=0``). Persisting a persisted table replaces its
-    chunks. Raises MemoryError, leaving the table not persisted, when the
-    combined resident bytes on ``device`` would pass ``max_bytes``
-    (:func:`resident_budget` by default)."""
-    from deequ_tpu_torch.device import resolve_device
+    """Pack every column of ``table`` and copy it to ``device`` once, into
+    chunks of the reference's resident size; attach the cache as
+    ``table._device_cache``. The device and mesh resolve as every entry
+    point resolves them (``parallel/mesh.py:resolve_placement``: ``cuda``
+    unless the caller asks for the CPU; a mesh asked for, or the default
+    mesh of a machine with several cards): over a mesh of n members the
+    chunk rounds up to a multiple of n and each member holds its
+    ``chunk / n`` rows of every chunk on its own device. Encoded columns
+    stay encoded unless ``encode=False`` (None:
+    ``scan_plan.encoded_ingest_enabled``, on unless
+    ``DEEQU_TORCH_ENCODED_INGEST=0``). Persisting a persisted table
+    replaces its chunks. Raises MemoryError, leaving the table not
+    persisted, when the combined resident bytes on a device would pass
+    ``max_bytes`` (:func:`resident_budget` of that device by default)."""
+    from deequ_tpu_torch.parallel.mesh import resolve_placement
 
-    device = resolve_device(device)
-    if max_bytes is None:
-        max_bytes = resident_budget(device)
+    device, mesh = resolve_placement(device, mesh)
+    members = _members_of(mesh, device)
+    n_dev = len(members)
+    devices = list(dict.fromkeys(dev for _, dev in members))
+    caps = {dev: max_bytes if max_bytes is not None else resident_budget(dev)
+            for dev in devices}
     _evict_device_cache(table)
     cols = {name: table[name] for name in table.column_names}
     n_rows = table.num_rows
-    chunk = chunk_rows or min(
+    chunk = round_chunk(chunk_rows or min(
         _auto_chunk_rows(cols, RESIDENT_CHUNK_BYTES, RESIDENT_MAX_CHUNK_ROWS),
         max(n_rows, 1),
-    )
+    ), n_dev)
+    local_n = chunk // n_dev
     packer = _ChunkPacker(cols, encode=encoded_ingest_enabled(encode))
-    base = total_resident_bytes(device)
+    base = {dev: total_resident_bytes(dev) for dev in devices}
+    added = dict.fromkeys(devices, 0)
+    member_bytes = [0] * n_dev
     device_chunks = []
-    nbytes = 0
     for start, stop in _chunk_bounds(n_rows, chunk):
-        planes = packer.pack(start, stop)
-        nbytes += sum(p.nbytes for p in planes)
-        if base + nbytes > max_bytes:
-            raise MemoryError(
-                f"persist_table: the combined resident size would pass "
-                f"{max_bytes} bytes; stream instead or raise max_bytes"
-            )
-        device_chunks.append(packer.to_device(planes, device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    cache = DeviceTableCache(packer, chunk, device_chunks, device, nbytes)
+        shards = []
+        for i, (_, dev) in enumerate(members):
+            planes = packer.pack(*shard_bounds(start, stop, local_n, i))
+            size = sum(p.nbytes for p in planes)
+            member_bytes[i] += size
+            added[dev] += size
+            if base[dev] + added[dev] > caps[dev]:
+                raise MemoryError(
+                    f"persist_table: the combined resident size on {dev} would pass "
+                    f"{caps[dev]} bytes; stream instead or raise max_bytes"
+                )
+            shards.append(packer.to_device(planes, dev))
+        device_chunks.append(shards[0] if mesh is None else tuple(shards))
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    cache = DeviceTableCache(packer, chunk, device_chunks, device, sum(member_bytes),
+                             mesh=mesh, member_bytes=member_bytes)
     table._device_cache = cache
     return cache
 
@@ -833,28 +1018,31 @@ def persist_table(
 def _evict_device_cache(table) -> int:
     """Drop the table's resident chunks now and take them off the budget;
     returns the bytes freed: on a card, what ``torch.cuda.memory_allocated``
-    fell by (nothing while another reference still holds the chunks), on
-    the CPU the chunks' bytes."""
+    fell by on each device the cache held (nothing while another
+    reference still holds the chunks), on the CPU the chunks' bytes."""
     cache = getattr(table, "_device_cache", None)
     if cache is None:
         return 0
-    on_card = cache.device.type == "cuda"
-    before = torch.cuda.memory_allocated(cache.device) if on_card else 0
-    nbytes = cache.nbytes
+    cards = [dev for dev in cache.devices() if dev.type == "cuda"]
+    before = {dev: torch.cuda.memory_allocated(dev) for dev in cards}
+    host_bytes = sum(cache.bytes_on(dev) for dev in cache.devices() if dev.type != "cuda")
     cache.device_chunks = []
     cache.nbytes = 0
+    cache.member_bytes = [0] * len(cache.member_bytes)
     _ACTIVE_CACHES.discard(cache)
     table._device_cache = None
-    if not on_card:
-        return nbytes
-    return max(before - torch.cuda.memory_allocated(cache.device), 0)
+    return host_bytes + sum(
+        max(before[dev] - torch.cuda.memory_allocated(dev), 0) for dev in cards
+    )
 
 
-def _resident_cache(table, device, needed, chunk_rows) -> Optional[DeviceTableCache]:
+def _resident_cache(table, device, needed, chunk_rows,
+                    mesh: Optional[Mesh] = None) -> Optional[DeviceTableCache]:
     """The table's resident cache when it can serve this scan: the same
-    device, every needed column, and the chunk size if one was asked."""
+    device and mesh, every needed column, and the chunk size if one was
+    asked."""
     cache = getattr(table, "_device_cache", None)
-    if cache is None or not cache.matches(device, needed):
+    if cache is None or not cache.matches(device, needed, mesh):
         return None
     if chunk_rows is not None and chunk_rows != cache.chunk:
         return None
@@ -977,6 +1165,8 @@ def run_scan(
     run_deadline: Optional[float] = None,
     max_total_attempts: Optional[int] = None,
     on_budget_exhausted: Optional[str] = None,
+    mesh=_UNSET,
+    shard_deadline: Optional[float] = None,
 ):
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
@@ -1018,6 +1208,18 @@ def run_scan(
       device's circuit breaker is open (``DEVICE_HEALTH``); the port never
       moves a CUDA run onto the CPU.
 
+    Meshes (``parallel/mesh.py``): ``mesh`` (default: the ``use_mesh``
+    scope; a mesh must be led by ``device``) shards every chunk's rows over
+    its members (module doc). Members that ``MESH_HEALTH`` quarantined are
+    left out up front (a ``mesh_quarantine`` event). A fault that names
+    members sheds them: the mesh is rebuilt over the survivors, residency
+    pinned to the old mesh evicted, and the scan runs again
+    (``mesh_reshard``); with no member left the scan fails typed, or its
+    CPU rung is refused. ``shard_deadline`` (default
+    ``DEEQU_TORCH_SHARD_DEADLINE``) arms the straggler watchdog on each
+    chunk step of a scan over two or more members: a stall past it raises
+    ``DeviceHangException`` (``mesh_straggler``).
+
     Run governance (``resilience/governance.py``): ``run_deadline`` /
     ``max_total_attempts`` (defaults ``DEEQU_TORCH_RUN_DEADLINE`` /
     ``DEEQU_TORCH_RUN_ATTEMPTS``) arm one budget for this scan that every
@@ -1039,6 +1241,9 @@ def run_scan(
             f"on_device_error must be 'fail' or 'fallback', got {on_device_error!r}"
         )
     device = torch.device(device)
+    mesh = scoped_mesh(device, mesh)
+    if mesh is not None:
+        device = mesh.lead
     budget = current_run_budget()
     if budget is None:
         policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
@@ -1046,32 +1251,52 @@ def run_scan(
             # a scan-local budget, ambient for every charge site inside
             with run_budget_scope(policy.arm()):
                 return run_scan(table, ops, device, chunk_rows, select_kernel,
-                                encoded_ingest, defer, on_device_error, device_deadline)
+                                encoded_ingest, defer, on_device_error, device_deadline,
+                                mesh=mesh, shard_deadline=shard_deadline)
     # the switches resolve once a run, so every rung plans alike; the
     # encoded switch is also the ladder's demotion state
     select_kernel = select_kernel_enabled(select_kernel)
     encoded = encoded_ingest_enabled(encoded_ingest)
     if device_deadline is None:
         device_deadline = default_device_deadline()
+    if shard_deadline is None:
+        shard_deadline = default_shard_deadline()
     scan_id = next(_SCAN_IDS)
     if scan_executors.classify(table) == "streaming":
         return scan_executors.run_streaming_scan(
             table, ops, device=device, chunk_rows=chunk_rows, defer=defer,
             device_deadline=device_deadline, encoded_ingest=encoded,
-            budget=budget, scan_id=scan_id,
+            budget=budget, scan_id=scan_id, mesh=mesh, shard_deadline=shard_deadline,
         )
+    # members MESH_HEALTH quarantined stay out up front (half-open: it
+    # readmits them now and then as a probe): a dead member must not fail
+    # every scan again before each reshard
+    mesh_exhausted = False
+    if mesh_size(mesh) > 1:
+        _, excluded = MESH_HEALTH.healthy_subset(mesh.device_ids)
+        if excluded:
+            shrunk = mesh_excluding(mesh, excluded)
+            if shrunk is None:
+                mesh_exhausted = True
+            else:
+                SCAN_STATS.record_degradation(
+                    "mesh_quarantine", scan_id=scan_id, excluded_devices=sorted(excluded),
+                    mesh_from=mesh.size, mesh_to=shrunk.size,
+                )
+                mesh = shrunk
     # "fallback" alone asks the breaker: its question advances the
     # half-open probe's count
-    if on_device_error == "fallback" and DEVICE_HEALTH.should_force_fallback():
+    if on_device_error == "fallback" and (mesh_exhausted or DEVICE_HEALTH.should_force_fallback()):
         scan_executors.refuse_cpu_rung(
-            table, scan_id, "unhealthy_backend", DEVICE_HEALTH.last_fault, budget,
+            table, scan_id, "mesh_exhausted" if mesh_exhausted else "unhealthy_backend",
+            DEVICE_HEALTH.last_fault, budget,
             consecutive_faults=DEVICE_HEALTH.consecutive_faults,
         )
     return scan_executors.run_laddered_scan(
         table, ops, device=device, chunk_rows=chunk_rows, defer=defer,
         on_device_error=on_device_error, device_deadline=device_deadline,
         select_kernel=select_kernel, encoded_ingest=encoded, budget=budget,
-        scan_id=scan_id,
+        scan_id=scan_id, mesh=mesh, shard_deadline=shard_deadline,
     )
 
 
@@ -1086,31 +1311,49 @@ def _run_scan_once(
     report: Dict[str, Any],
     select_kernel: bool = True,
     encoded: bool = True,
+    mesh: Optional[Mesh] = None,
 ):
     """One attempt of the fused in-memory scan, each chunk's transfer, each
     chunk's step (the fault hook's seam, ``scan_ctx`` plus its
     ``chunk_index``) and the fetch a device boundary (``device_call``).
     ``report`` returns the chunk rows the attempt used and whether it read
     an encoded layout, for the ladder's next rung. Every attempt starts a
-    fresh fold sized for its own chunk count."""
+    fresh fold sized for its own chunk count. Over ``mesh`` each chunk's
+    step runs every member's shard on its device and folds them on the
+    lead (module doc); a cache persisted over another mesh is evicted
+    (``stale_residency_evicted``): its shards may sit on a member that is
+    gone."""
     n_rows = table.num_rows
     needed = sorted({c for op in ops for c in op.columns})
-    cache = _resident_cache(table, device, needed, chunk_rows)
+    if mesh is not None:
+        device = mesh.lead
+    members = _members_of(mesh, device)
+    n_dev = len(members)
+    cache = getattr(table, "_device_cache", None)
+    if (cache is not None and (cache.mesh is not None or mesh is not None)
+            and not cache.mesh_matches(mesh)):
+        freed = _evict_device_cache(table)
+        SCAN_STATS.record_degradation(
+            "stale_residency_evicted", scan_id=scan_ctx.get("scan_id"), evicted_bytes=freed,
+        )
+    cache = _resident_cache(table, device, needed, chunk_rows, mesh)
     if cache is not None and cache.packer.enc_names and not encoded:
         cache = None
     if cache is not None:
         packer, chunk = cache.packer, cache.chunk
     else:
         packer = _ChunkPacker({name: table[name] for name in needed}, encode=encoded)
-        chunk = chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1))
+        chunk = round_chunk(chunk_rows or min(_auto_chunk_rows(packer.cols), max(n_rows, 1)),
+                            n_dev)
+    local_n = chunk // n_dev
     report["chunk"] = chunk
     bounds = _chunk_bounds(n_rows, chunk)
-    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, chunk)
+    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, local_n)
     report["encoded"] = bool(plan.encoded_columns)
     ops = plan.ops
     n_chunks = len(bounds)
-    op_luts = _device_luts(ops, packer.cols, device)
-    enc_luts = packer.enc_luts(device)
+    op_luts = _member_luts(ops, packer.cols, members)
+    enc_luts = {dev: packer.enc_luts(dev) for dev in op_luts}
     SCAN_STATS.scan_passes += 1
     SCAN_STATS.rows_scanned += n_rows
     SCAN_STATS.device_sort_passes += plan.sort_ops * n_chunks
@@ -1124,31 +1367,42 @@ def _run_scan_once(
     fold: Optional[_DeviceFoldPlan] = None
 
     def transfer(start: int, stop: int):
-        host = packer.pack(start, stop)
-        return packer.to_device(host, device), sum(p.nbytes for p in host)
+        shards, nbytes = [], 0
+        for i, (_, dev) in enumerate(members):
+            host = packer.pack(*shard_bounds(start, stop, local_n, i))
+            shards.append(packer.to_device(host, dev))
+            nbytes += sum(p.nbytes for p in host)
+        return shards, nbytes
 
-    def step(planes, n: int) -> None:
+    def step(shards, start: int, stop: int) -> None:
         nonlocal fold
-        row_valid = torch.ones(n, dtype=torch.bool, device=device)
-        vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
-        partials = [op.update(vals, row_valid, n, chunk) for op in ops]
-        if fold is None:
-            fold = _DeviceFoldPlan(ops, partials, n_chunks, device)
-        fold.merge(fold.flatten(partials, row_valid))
+        flats = []
+        for i, (member, dev) in enumerate(members):
+            lo, hi = shard_bounds(start, stop, local_n, i)
+            with member_scope(member, dev):
+                row_valid = torch.ones(hi - lo, dtype=torch.bool, device=dev)
+                vals = packer.unpack_vals(*shards[i], row_valid, op_luts[dev], enc_luts[dev],
+                                          needed)
+                partials = [op.update(vals, row_valid, hi - lo, local_n) for op in ops]
+                if fold is None:
+                    fold = _DeviceFoldPlan(ops, partials, n_chunks, device, members=n_dev)
+                flat = fold.flatten(partials, row_valid, dev)
+            flats.append(flat if dev == device else flat.to(device, non_blocking=True))
+        fold.merge_members(flats)
 
     for ci, (start, stop) in enumerate(bounds):
         # an attempt abandoned by its run-budget watchdog steps no further
         check_not_abandoned()
         if cache is not None:
-            planes = cache.device_chunks[ci]
+            shards = [cache.shard(ci, i) for i in range(n_dev)]
         else:
-            planes, nbytes = device_call(
+            shards, nbytes = device_call(
                 lambda: transfer(start, stop), "transfer", what=f"chunk {ci} transfer",
                 deadline=device_deadline, device=device,
             )
             SCAN_STATS.bytes_packed += nbytes
         device_call(
-            lambda: step(planes, stop - start), "execute", what=f"chunk {ci} step",
+            lambda: step(shards, start, stop), "execute", what=f"chunk {ci} step",
             deadline=device_deadline, hook_ctx={**scan_ctx, "chunk_index": ci},
             device=device,
         )
@@ -1353,6 +1607,7 @@ def _run_scan_stream(
     encoded_ingest: Optional[bool] = None,
     scan_id: int = -1,
     device_deadline: Optional[float] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """One fused pass over a StreamingTable (the reference's
     ``_run_scan_stream``): batches come off the source on a reader thread
@@ -1372,8 +1627,11 @@ def _run_scan_stream(
     and bounded by the source's row count when its metadata knows it. A
     stream that needs no
     column reads one, to keep its row count; an empty stream folds one
-    empty chunk. There is no fallback: on a card every kernel of the step
-    runs there, or the scan raises."""
+    empty chunk. Over ``mesh`` the chunk rounds up to a multiple of its
+    members, each member's shard of a chunk is staged to its own device
+    through staging slots of its own, and the fold takes the members'
+    vectors on the lead (module doc). There is no fallback: on a card
+    every kernel of the step runs there, or the scan raises."""
     from deequ_tpu_torch.data.streaming import empty_columns
 
     encode = encoded_ingest_enabled(encoded_ingest)
@@ -1391,35 +1649,51 @@ def _run_scan_stream(
     known_rows = getattr(getattr(stream, "source", None), "num_rows", None)
     if known_rows:
         chunk = min(chunk, known_rows)
-    chunk = max(int(chunk), 1)
+    if mesh is not None:
+        device = mesh.lead
+    members = _members_of(mesh, device)
+    n_dev = len(members)
+    chunk = round_chunk(max(int(chunk), 1), n_dev)
+    local_n = chunk // n_dev
     # a stream's chunks are never resident: its KLL ops sort
-    plan = plan_scan_ops(ops, None, False, None, chunk)
+    plan = plan_scan_ops(ops, None, False, None, local_n)
     ops = plan.ops
     SCAN_STATS.scan_passes += 1
     fetches_before = SCAN_STATS.device_fetches
-    staging = _StagingSlots(device)
+    staging = [_StagingSlots(dev) for _, dev in members]
     host_gather = _StreamGather(ops)
     fold: Optional[_DeviceFoldPlan] = None
     staged: Optional[Tuple] = None  # the chunk copied and not yet scanned
     chunk_ids = itertools.count()
     encoded_counted = False
+    hook_ids = mesh_device_ids(mesh)
 
     def scan_staged(entry) -> None:
-        packer, planes, event, n, op_luts, enc_luts, idx = entry
+        packer, shards, start, stop, op_luts, enc_luts, idx = entry
 
-        def step() -> torch.Tensor:
+        def step() -> List[torch.Tensor]:
             nonlocal fold
-            staging.ready(event)
-            row_valid = torch.ones(n, dtype=torch.bool, device=device)
-            vals = packer.unpack_vals(*planes, row_valid, op_luts, enc_luts, needed)
-            partials = [op.update(vals, row_valid, n, chunk) for op in ops]
-            if fold is None:
-                fold = _DeviceFoldPlan(ops, partials, STREAM_FOLD_CAPACITY, device)
-            return fold.flatten(partials, row_valid)
+            flats = []
+            for i, (member, dev) in enumerate(members):
+                planes, event = shards[i]
+                lo, hi = shard_bounds(start, stop, local_n, i)
+                with member_scope(member, dev):
+                    staging[i].ready(event)
+                    row_valid = torch.ones(hi - lo, dtype=torch.bool, device=dev)
+                    vals = packer.unpack_vals(*planes, row_valid, op_luts[dev], enc_luts[dev],
+                                              needed)
+                    partials = [op.update(vals, row_valid, hi - lo, local_n) for op in ops]
+                    if fold is None:
+                        fold = _DeviceFoldPlan(ops, partials, STREAM_FOLD_CAPACITY, device,
+                                               members=n_dev)
+                    flat = fold.flatten(partials, row_valid, dev)
+                flats.append(flat if dev == device else flat.to(device, non_blocking=True))
+            return flats
 
-        flat = device_call(
+        flats = device_call(
             step, "execute", what=f"stream chunk {idx} step", deadline=device_deadline,
-            hook_ctx={"scan_id": scan_id, "attempt": 0, "chunk_index": idx},
+            hook_ctx={"scan_id": scan_id, "attempt": 0, "chunk_index": idx,
+                      "device_ids": hook_ids},
             device=device,
         )
         if fold.gather_full:
@@ -1427,8 +1701,8 @@ def _run_scan_stream(
                                         deadline=device_deadline, device=device),
                             final=False)
             SCAN_STATS.fold_drains += 1
-        device_call(lambda: fold.merge(flat), "execute", what=f"stream chunk {idx} fold",
-                    deadline=device_deadline, device=device)
+        device_call(lambda: fold.merge_members(flats), "execute",
+                    what=f"stream chunk {idx} fold", deadline=device_deadline, device=device)
         SCAN_STATS.chunks_processed += 1
         SCAN_STATS.device_sort_passes += plan.sort_ops
 
@@ -1438,15 +1712,19 @@ def _run_scan_stream(
         if packer.enc_names and not encoded_counted:
             encoded_counted = True
             SCAN_STATS.encoded_scan_passes += 1
-        op_luts = _device_luts(ops, cols, device)
-        enc_luts = packer.enc_luts(device)
+        op_luts = _member_luts(ops, cols, members)
+        enc_luts = {dev: packer.enc_luts(dev) for dev in op_luts}
         for start, stop in _chunk_bounds(n, chunk):
             check_not_abandoned()
-            planes, nbytes, event = staging.stage(packer, start, stop)
+            shards, nbytes = [], 0
+            for i, slots in enumerate(staging):
+                planes, size, event = slots.stage(packer, *shard_bounds(start, stop, local_n, i))
+                shards.append((planes, event))
+                nbytes += size
             SCAN_STATS.bytes_packed += nbytes
             SCAN_STATS.record_staged(nbytes, overlapped=staged is not None)
-            previous, staged = staged, (packer, planes, event, stop - start, op_luts,
-                                        enc_luts, next(chunk_ids))
+            previous, staged = staged, (packer, shards, start, stop, op_luts, enc_luts,
+                                        next(chunk_ids))
             if previous is not None:
                 scan_staged(previous)
 
@@ -1506,9 +1784,11 @@ class DeferredGroupScan:
         return self._results
 
 
-def group_scannable(tables, ops):
+def group_scannable(tables, ops, mesh: Optional[Mesh] = None):
     """The shared packer layout (truthy) when :func:`run_scan_group` can
-    take these batches, else False: equal non-zero sizes, each within one
+    take these batches, else False: no mesh (a group scan runs on one
+    device; over a mesh each batch takes its own sharded scan), equal
+    non-zero sizes, each within one
     chunk of the serial scan's rule, none persisted or streaming, one dtype a needed
     column and one packer layout (the reference's rule,
     ``deequ_tpu/ops/scan_engine.py:group_scannable``). A bigger batch would
@@ -1518,6 +1798,8 @@ def group_scannable(tables, ops):
     no rule against dictionary-baked ops: an op reads each batch's own
     dictionary and lookup tables when it runs."""
     needed = sorted({c for op in ops for c in op.columns})
+    if mesh is not None:
+        return False
     if any(getattr(t, "is_streaming", False) for t in tables):
         return False  # a stream's batches scan through its own pipeline
     first = tables[0]

@@ -1,24 +1,33 @@
 """Scan executors — the run strategies behind ``run_scan`` (the port of
-``deequ_tpu/ops/scan_executors.py`` for one device).
+``deequ_tpu/ops/scan_executors.py``).
 
-``ops/scan_engine.run_scan`` owns resolution (the switches, the deadline,
-the run budget, the breaker) and then hands the scan to one executor,
-chosen by :func:`classify`:
+``ops/scan_engine.run_scan`` owns resolution (the switches, the deadlines,
+the run budget, the breaker, the mesh's up-front quarantine) and then
+hands the scan to one executor, chosen by :func:`classify`:
 
 - ``"streaming"`` — one governed pass over a StreamingTable (no ladder: a
-  half-read stream cannot rewind);
-- ``"resident"`` — the fault ladder of an in-memory scan on one device:
-  on an OOM, eviction of residency, then encoded->decoded demotion, then
-  chunk bisection; past them, or on any other device fault, a typed raise
-  — or, under ``on_device_error="fallback"``, the refusal of the CPU rung
+  half-read stream cannot rewind), under the tighter of the device and
+  straggler deadlines over a mesh;
+- ``"resident"`` — the fault ladder of an in-memory scan
+  (:func:`run_laddered_scan`): on an OOM, eviction of residency, then
+  encoded->decoded demotion, then chunk bisection; past them, or on any
+  other device fault, a typed raise — or, under
+  ``on_device_error="fallback"``, the refusal of the CPU rung
   (:func:`refuse_cpu_rung`), where the reference re-runs the scan on its
-  CPU backend.
+  CPU backend. Over a mesh of two or more members the mesh rungs arm
+  themselves, as in the reference: a fault that names members reshards
+  the scan onto the survivors (``mesh_reshard``, charged to the run
+  budget) before any refusal, an OOM that names its card does so once
+  the bisection reached its floor, and a hang under the straggler
+  deadline is a ``mesh_straggler``. With no member left the port's rule
+  holds: a typed raise or ``DeviceFallbackRefusedException``, never the
+  CPU.
 
-Every rung re-enters ``scan_engine._run_scan_once``, which plans the
-attempt anew (residency, layout, chunk rows) and starts a fresh fold, and
-every retry charges the run budget before it is spent. The mesh rungs
-(reshard, straggler) come with the multi-card mesh; the serving and
-windowed executors with serving.
+Every rung
+re-enters ``scan_engine._run_scan_once``, which plans the attempt anew
+(residency, layout, chunk rows) and starts a fresh fold, and every retry
+charges the run budget before it is spent. The serving and windowed
+executors come with serving.
 
 Engine internals are reached through the module (``_engine()``), never
 imported by name, so a test's monkeypatch of ``scan_engine`` reaches the
@@ -51,6 +60,15 @@ def classify(table) -> str:
     return "streaming" if getattr(table, "is_streaming", False) else "resident"
 
 
+def _attempt_deadline(device_deadline: Optional[float], shard_deadline: Optional[float],
+                      n_dev: int) -> Optional[float]:
+    """The watchdog of an attempt's device calls: over two or more members
+    the tighter of the device and straggler deadlines."""
+    if shard_deadline is None or n_dev <= 1:
+        return device_deadline
+    return shard_deadline if device_deadline is None else min(device_deadline, shard_deadline)
+
+
 def run_streaming_scan(
     table,
     ops: Sequence,
@@ -62,17 +80,22 @@ def run_streaming_scan(
     encoded_ingest: bool,
     budget,
     scan_id: int,
+    mesh=None,
+    shard_deadline: Optional[float] = None,
 ):
     """One governed pass over a StreamingTable: the whole stream is one
     attempt, under one attempt-level watchdog when the run budget has a
-    wall deadline."""
+    wall deadline. A stream cannot reshard (it does not rewind), but over a
+    mesh the straggler deadline arms its device calls too, so a stalled
+    member becomes a typed DeviceHangException, never a frozen run."""
     eng = _engine()
     if defer:
         raise ValueError("run_scan(defer=True) takes an in-memory table")
+    deadline = _attempt_deadline(device_deadline, shard_deadline, eng.mesh_size(mesh))
     return eng._governed_attempt(
         budget,
         lambda: eng._run_scan_stream(table, ops, device, chunk_rows, encoded_ingest,
-                                     scan_id=scan_id, device_deadline=device_deadline),
+                                     scan_id=scan_id, device_deadline=deadline, mesh=mesh),
         f"stream scan {scan_id} (run budget)",
         device,
     )
@@ -142,38 +165,86 @@ def run_laddered_scan(
     encoded_ingest: bool,
     budget,
     scan_id: int,
+    mesh=None,
+    shard_deadline: Optional[float] = None,
 ):
-    """The in-memory fault ladder on one device (module doc). Each attempt
-    runs under the run budget's watchdog (``_governed_attempt``); a fault
-    is handled after its ``except`` block has released the attempt: the
-    frames of the exception chain are cleared, the residency evicted and
-    the allocator's cache freed before the next attempt allocates."""
+    """The in-memory fault ladder, on one device or over a mesh (module
+    doc). Each attempt runs under the run budget's watchdog
+    (``_governed_attempt``); a fault is handled after its ``except`` block
+    has released the attempt: the frames of the exception chain are
+    cleared, the residency evicted and the allocator's cache freed before
+    the next attempt allocates. The rungs, in the reference's order: for
+    an OOM, encoded demotion, then bisection (to a multiple of the mesh
+    size), then a reshard when the OOM names members; for any other fault
+    a reshard when it names members; then the refusal or the typed
+    raise."""
     eng = _engine()
     chunk_override = chunk_rows
     attempt = 0
     depth = 0
     while True:
-        floor = min(eng.MIN_BISECT_CHUNK_ROWS, max(table.num_rows, 1))
-        scan_ctx = {"scan_id": scan_id, "attempt": attempt}
+        if mesh is not None:
+            device = mesh.lead
+        n_dev = eng.mesh_size(mesh)
+        floor = max(n_dev, min(eng.MIN_BISECT_CHUNK_ROWS, max(table.num_rows, 1)))
+        straggler_armed = shard_deadline is not None and n_dev > 1
+        deadline = _attempt_deadline(device_deadline, shard_deadline, n_dev)
+        scan_ctx = {"scan_id": scan_id, "attempt": attempt,
+                    "device_ids": eng.mesh_device_ids(mesh)}
         report: Dict[str, Any] = {}
         try:
             result = eng._governed_attempt(
                 budget,
                 lambda: eng._run_scan_once(
-                    table, ops, device, chunk_override, defer, device_deadline,
+                    table, ops, device, chunk_override, defer, deadline,
                     scan_ctx, report, select_kernel=select_kernel, encoded=encoded_ingest,
+                    mesh=mesh,
                 ),
                 f"scan {scan_id} attempt {attempt} (run budget)",
                 device,
             )
             eng.DEVICE_HEALTH.record_success()
+            if n_dev > 1:
+                eng.MESH_HEALTH.record_success(eng.mesh_device_ids(mesh))
             return result
         except DeviceException as e:
             fault = e
         _release_frames(fault)
         eng.SCAN_STATS.device_faults += 1
-        eng.DEVICE_HEALTH.record_fault(fault)
+
+        def reshard() -> bool:
+            """Shrink the mesh around the members ``fault`` names; True
+            when a member survives and the scan should run again."""
+            nonlocal mesh, chunk_override, depth
+            mesh_ids = set(eng.mesh_device_ids(mesh))
+            lost = [d for d in getattr(fault, "device_ids", ()) if d in mesh_ids]
+            if not lost or len(mesh_ids) <= 1:
+                return False
+            eng.SCAN_STATS.mesh_faults += 1
+            eng.MESH_HEALTH.record_fault(fault)
+            shrunk = eng.mesh_excluding(mesh, set(lost) | set(eng.MESH_HEALTH.quarantined()))
+            if shrunk is None:
+                return False
+            if budget is not None:
+                budget.charge("mesh_reshard", scan_id=scan_id)
+            # the residency is sharded over the old mesh, the lost
+            # members included: it cannot serve the shrunken one
+            freed = eng._evict_device_cache(table)
+            eng.SCAN_STATS.mesh_reshards += 1
+            eng.SCAN_STATS.record_degradation(
+                "mesh_reshard", scan_id=scan_id, lost_devices=sorted(lost),
+                mesh_from=len(mesh_ids), mesh_to=shrunk.size, evicted_bytes=freed,
+                error=str(fault),
+            )
+            mesh = shrunk
+            # the pressure that drove a bisection left with the member: the
+            # survivors start again at the caller's chunk size
+            chunk_override = chunk_rows
+            depth = 0
+            return True
+
         if isinstance(fault, DeviceOOMException):
+            eng.DEVICE_HEALTH.record_fault(fault)
             used = int(report.get("chunk") or chunk_override or max(table.num_rows, 1))
             freed = eng._evict_device_cache(table)
             if device.type == "cuda":
@@ -193,6 +264,7 @@ def run_laddered_scan(
                 attempt += 1
                 continue
             halved = max(floor, used // 2)
+            halved = max(n_dev, halved // n_dev * n_dev)
             if halved < used:
                 if budget is not None:
                     budget.charge("oom_bisect", scan_id=scan_id)
@@ -206,17 +278,39 @@ def run_laddered_scan(
                 chunk_override = halved
                 attempt += 1
                 continue
+            # at the floor an OOM that names one card sheds that member
+            # before the mesh gives up
+            if reshard():
+                attempt += 1
+                continue
             reason = "oom_at_bisection_floor"
             detail = {"chunk": used}
         else:
-            # a lost device is sticky and a kernel that does not build stays
-            # so: no rung retries them on the card; nor a hang
             if isinstance(fault, DeviceHangException):
                 eng.SCAN_STATS.watchdog_timeouts += 1
-                eng.SCAN_STATS.record_degradation(
-                    "watchdog_timeout", scan_id=scan_id, deadline=fault.deadline,
-                    error=str(fault),
-                )
+                # a straggler only when the straggler deadline was the one
+                # that bound: a tighter device deadline's hang is a plain
+                # watchdog timeout
+                if straggler_armed and (device_deadline is None
+                                        or shard_deadline <= device_deadline):
+                    eng.SCAN_STATS.mesh_stragglers += 1
+                    eng.SCAN_STATS.record_degradation(
+                        "mesh_straggler", scan_id=scan_id, deadline=fault.deadline,
+                        mesh_size=n_dev, error=str(fault),
+                    )
+                else:
+                    eng.SCAN_STATS.record_degradation(
+                        "watchdog_timeout", scan_id=scan_id, deadline=fault.deadline,
+                        error=str(fault),
+                    )
+            # a fault that names members costs those members, never the
+            # mesh: the scan goes on over the survivors
+            if reshard():
+                attempt += 1
+                continue
+            # a lost device is sticky and a kernel that does not build stays
+            # so: no rung retries them on the card; nor a hang
+            eng.DEVICE_HEALTH.record_fault(fault)
             reason = type(fault).__name__
             detail = {}
         if on_device_error == "fallback":

@@ -42,6 +42,17 @@ plan optimizer): the dense sets of one run count in one launch of the
 histogram kernel's multi-input entry (``histogram_device.fused_bincount``,
 K7) over their summed keyspace, and each set's slice of the counts is
 bit for bit what its own dispatch would have counted.
+
+Over a mesh (the ``use_mesh`` scope, led by the device these functions
+are handed: ``parallel/mesh.py``) every dense count is sharded as the
+reference's ``shard_map`` wrappers shard it (:func:`_member_counts`):
+the keys split into one row shard a member, each member counts its shard
+with K5 or K7 on its own device, and the counts are copied to the lead
+and summed there in int64 — exact, as the reference's psum is. The top-k
+and the count statistics run after the sum, on the lead; a resident
+string column counts each member's resident codes of each chunk. The
+sorts (unique codes, the sparse run lengths) run on the lead over all
+rows, as the reference runs them unsharded.
 """
 
 from __future__ import annotations
@@ -56,7 +67,8 @@ from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
 from deequ_tpu_torch.exceptions import DeviceException, device_boundary
 from deequ_tpu_torch.ops.device_policy import check_not_abandoned
 from deequ_tpu_torch.ops.histogram_device import bincount, fused_bincount
-from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, fetch
+from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, _members_of, fetch, member_scope
+from deequ_tpu_torch.parallel.mesh import scoped_mesh, shard_bounds
 
 # dense count vectors are used up to this key-space size
 DENSE_KEYSPACE_LIMIT = 1 << 22
@@ -155,25 +167,49 @@ def _host_bincount(keys: np.ndarray, num_segments: int) -> np.ndarray:
     return counts[:num_segments].astype(np.int64)
 
 
+def _member_counts(arrays: Sequence[np.ndarray], count, device) -> torch.Tensor:
+    """``count(tensors)`` of the host ``arrays`` (one a grouping input,
+    equal lengths) as a device int64 counts tensor on ``device``. Over the
+    scoped mesh (module doc) member i counts the i-th row shard of every
+    array on its own device — the reference's sharding: ceil(rows / n)
+    rows a member — and the members' counts sum in int64 on the lead."""
+    mesh = scoped_mesh(device)
+    if mesh is None:
+        return count([torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays])
+    total = None
+    for i, (member, dev) in enumerate(mesh.members):
+        with member_scope(member, dev):
+            shards = []
+            for a in arrays:
+                lo, hi = shard_bounds(0, len(a), -(-len(a) // mesh.size), i)
+                shards.append(torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev))
+            counts = count(shards)
+        counts = counts.to(mesh.lead, non_blocking=True)
+        total = counts if total is None else total + counts
+    return total
+
+
 def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
     """Count key occurrences; ``keys`` holds -1 for rows to ignore. On the
-    card this is one launch of the CUDA histogram kernel."""
+    card this is one launch of the CUDA histogram kernel (one a member
+    over a mesh, the counts summed on the lead)."""
     if len(keys) <= host_group_limit():
         return _host_bincount(keys, num_segments)
     with device_boundary("execute"):
-        seg = torch.from_numpy(keys).to(device)
-        counts = bincount(seg, num_segments)
+        counts = _member_counts([keys], lambda segs: bincount(segs[0], num_segments), device)
         SCAN_STATS.record_hist_dispatch(
-            "kernel" if seg.device.type == "cuda" else "plain"
+            "kernel" if counts.device.type == "cuda" else "plain"
         )
         return fetch(counts)[0]
 
 
 def _resident_cache(table, column: str, device):
     """The table's device cache when ``column`` is a string column whose
-    codes are resident on ``device``; else None."""
+    codes are resident on ``device`` (over the scoped mesh, sharded over
+    it); else None."""
     cache = getattr(table, "_device_cache", None)
-    if cache is None or not cache.device_chunks or not cache.matches(device, [column]):
+    if (cache is None or not cache.device_chunks
+            or not cache.matches(device, [column], scoped_mesh(device))):
         return None
     return cache if column in cache.packer.string_names else None
 
@@ -181,24 +217,29 @@ def _resident_cache(table, column: str, device):
 def _resident_string_bincount(table, column: str, include_null: bool, device):
     """Counts per code slot (slot 0: null, counted only with
     ``include_null``) from the codes resident on ``device``, one K5 launch
-    a resident chunk summed on the device — a device tensor of length
-    cardinality + 1; None when the table or column is not resident there.
-    (The port's resident chunks hold no padding rows, so none is dropped.)"""
+    a resident chunk (a member's shard of it over a mesh) summed on the
+    device (the lead) — a device tensor of length cardinality + 1; None
+    when the table or column is not resident there. (The port's resident
+    chunks hold no padding rows, so none is dropped.)"""
     cache = _resident_cache(table, column, device)
     if cache is None:
         return None
     packer = cache.packer
     row = packer.string_names.index(column)
     slots = len(packer.cols[column].dictionary) + 1
+    members = _members_of(cache.mesh, cache.device)
     counts = None
     with device_boundary("execute"):
-        for planes in cache.device_chunks:
-            seg = planes[2][row] + 1  # code -1 (null) lands in slot 0
-            part = bincount(seg, slots)
-            SCAN_STATS.record_hist_dispatch(
-                "kernel" if seg.device.type == "cuda" else "plain"
-            )
-            counts = part if counts is None else counts + part
+        for ci in range(len(cache.device_chunks)):
+            for i, (member, dev) in enumerate(members):
+                with member_scope(member, dev):
+                    seg = cache.shard(ci, i)[2][row] + 1  # code -1 (null) lands in slot 0
+                    part = bincount(seg, slots)
+                SCAN_STATS.record_hist_dispatch(
+                    "kernel" if seg.device.type == "cuda" else "plain"
+                )
+                part = part.to(cache.device, non_blocking=True)
+                counts = part if counts is None else counts + part
         if not include_null:
             counts[0] = 0
     return counts
@@ -617,8 +658,7 @@ def _fused_device_bincount(keys: List[np.ndarray], keyspaces, device) -> np.ndar
         return _host_bincount(combined, total)
     with device_boundary("execute"):
         check_not_abandoned()
-        segs = [torch.from_numpy(k).to(device) for k in keys]
-        counts = fused_bincount(segs, keyspaces)
+        counts = _member_counts(keys, lambda segs: fused_bincount(segs, keyspaces), device)
         SCAN_STATS.record_hist_dispatch(
             "kernel" if counts.device.type == "cuda" else "plain"
         )
@@ -805,10 +845,11 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
         top_counts = counts[top_idx]
     else:
         with device_boundary("execute"):
-            seg = torch.from_numpy(np.ascontiguousarray(codes)).to(device)
-            counts = bincount(seg, num_segments)
+            counts = _member_counts(
+                [codes], lambda segs: bincount(segs[0], num_segments), device
+            )
             SCAN_STATS.record_hist_dispatch(
-                "kernel" if seg.device.type == "cuda" else "plain"
+                "kernel" if counts.device.type == "cuda" else "plain"
             )
             keys, groups = _topk_merged(counts, kk, nv_code)
             num_groups, keys = fetch(groups, keys)

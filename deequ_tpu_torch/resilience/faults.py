@@ -259,6 +259,24 @@ _DEVICE_FAULT_MESSAGES = {
 }
 
 
+# the same, naming the mesh member the fault is pinned to, as a CUDA
+# failure names its card, so the classifier attributes it
+_TARGETED_FAULT_MESSAGES = {
+    "oom": (
+        "CUDA out of memory. Tried to allocate {nbytes} bytes. GPU {device} has "
+        "a total capacity of 79.19 GiB [injected scan_id={scan_id} attempt={attempt}]"
+    ),
+    "compile": (
+        "CUDA error: no kernel image is available for execution on the device "
+        "(CUDA device {device}) [injected scan_id={scan_id} attempt={attempt}]"
+    ),
+    "lost": (
+        "CUDA error: an illegal memory access was encountered on cuda:{device} "
+        "[injected scan_id={scan_id} attempt={attempt}]"
+    ),
+}
+
+
 class FaultInjectingScanHook:
     """Seeded, scripted device faults at the scan engine's execute seam.
 
@@ -282,13 +300,22 @@ class FaultInjectingScanHook:
     ``DeviceHangException`` (a kernel spinning on the card could not be
     cancelled and would leave the CUDA context unusable) — and returns.
 
+    Mesh targeting: a 3-tuple spec ``(kind, times, member)`` pins the
+    fault to one mesh member. It fires only while that member id is in
+    the scan's mesh (``ctx["device_ids"]``), and its message names the
+    member as a CUDA failure names its card, so the classifier attributes
+    it (``exceptions.implicated_devices``) and the mesh ladder sheds the
+    member: ``("lost", FaultSchedule.PERMANENT, 2)`` stops faulting once a
+    reshard drops member 2, as a dead card no one launches on any more. A
+    targeted ``"hang"`` stalls the step while the member is in the mesh.
+
     ``faults`` keys are scan ids; with ``relative=True`` they count from
     the first scan this hook observes. Every injection appends ``(kind,
-    scan_id, attempt)`` to ``injected`` and every observation ``(boundary,
+    scan_id, attempt)`` — ``(kind, scan_id, attempt, member)`` for a
+    targeted fault — to ``injected`` and every observation ``(boundary,
     scan_id, attempt, chunk_index)`` to ``calls``, so replays compare. The
-    reference's spared CPU-fallback attempts (the port has none), its
-    lost-device release of a hang and its mesh-targeted 3-tuple specs are
-    not carried."""
+    reference's spared CPU-fallback attempts (the port has none) and its
+    lost-device release of a hang are not carried."""
 
     def __init__(
         self,
@@ -296,19 +323,20 @@ class FaultInjectingScanHook:
         hang_seconds: float = 30.0,
         relative: bool = True,
     ):
-        self.faults: Dict[int, Tuple[str, float]] = {}
+        self.faults: Dict[int, Tuple[str, float, Optional[int]]] = {}
         for scan, spec in (faults or {}).items():
             if isinstance(spec, str):
                 spec = (spec, 1)
-            if len(spec) != 2:
+            if len(spec) not in (2, 3):
                 raise ValueError(
-                    f"a device fault is (kind, times), got {spec!r} (targeted "
-                    "faults come with the multi-card mesh)"
+                    f"a device fault is (kind, times) or (kind, times, member), got {spec!r}"
                 )
-            kind, times = spec
+            kind, times = spec[:2]
+            member = spec[2] if len(spec) == 3 else None
             if kind not in ("oom", "compile", "lost", "hang"):
                 raise ValueError(f"unknown device fault kind {kind!r}")
-            self.faults[int(scan)] = (kind, float(times))
+            self.faults[int(scan)] = (kind, float(times),
+                                      None if member is None else int(member))
         self.hang_seconds = float(hang_seconds)
         self.relative = bool(relative)
         self._base_scan_id: Optional[int] = None
@@ -326,12 +354,19 @@ class FaultInjectingScanHook:
         spec = self.faults.get(scan_id)
         if spec is None:
             return
-        kind, times = spec
+        kind, times, member = spec
         if attempt >= times:
             return
-        self.injected.append((kind, scan_id, attempt))
+        if member is not None:
+            # a targeted fault fires only while its member is in the mesh
+            if member not in (ctx.get("device_ids") or ()):
+                return
+            self.injected.append((kind, scan_id, attempt, member))
+        else:
+            self.injected.append((kind, scan_id, attempt))
         if kind == "hang":
             time.sleep(self.hang_seconds)
             return
-        raise InjectedDeviceError(_DEVICE_FAULT_MESSAGES[kind].format(
-            nbytes=8 << 30, scan_id=scan_id, attempt=attempt))
+        messages = _DEVICE_FAULT_MESSAGES if member is None else _TARGETED_FAULT_MESSAGES
+        raise InjectedDeviceError(messages[kind].format(
+            nbytes=8 << 30, scan_id=scan_id, attempt=attempt, device=member))

@@ -127,7 +127,8 @@ class RunBudget:
 
     def charge(self, kind: str, **detail) -> None:
         """Spend one attempt of ``kind`` ('io_retry' | 'oom_bisect' |
-        'encoded_demote' | 'cpu_fallback_refused' | ...); raises typed
+        'encoded_demote' | 'mesh_reshard' | 'cpu_fallback_refused' | ...);
+        raises typed
         when this charge exhausts the budget (or it already was
         exhausted)."""
         self.attempts += 1
@@ -299,24 +300,26 @@ def run_budget_remaining() -> Optional[float]:
 def fault_state_scope(reset: bool = True):
     """Isolate the process-wide fault singletons for the block.
 
-    Snapshots ``DEVICE_HEALTH`` (ops/device_policy.py) and
+    Snapshots ``DEVICE_HEALTH`` and ``MESH_HEALTH`` (ops/device_policy.py),
     ``RETRY_TELEMETRY`` (resilience/retry.py) and the installed scan fault
     hook; with ``reset=True`` (the default) the hook is removed and each
     singleton starts the block fresh (``reset=False`` keeps them live and
     only guarantees the restore). On exit everything is restored as it
     was: a test can trip the breaker and exhaust retries without leaking
     any of it into the next run. The singletons hold plain values (ints,
-    floats, strings, one exception object), so a shallow copy of each is
-    its snapshot."""
+    floats, strings, one exception object) and flat dicts of them, so a
+    copy of each, its dicts copied, is its snapshot."""
     from deequ_tpu_torch.ops.device_policy import (
         DEVICE_HEALTH,
+        MESH_HEALTH,
         current_scan_fault_hook,
         install_scan_fault_hook,
     )
     from deequ_tpu_torch.resilience.retry import RETRY_TELEMETRY
 
-    singletons = (DEVICE_HEALTH, RETRY_TELEMETRY)
-    saved = [(obj, dict(obj.__dict__)) for obj in singletons]
+    singletons = (DEVICE_HEALTH, MESH_HEALTH, RETRY_TELEMETRY)
+    saved = [(obj, {k: dict(v) if isinstance(v, dict) else v for k, v in vars(obj).items()})
+             for obj in singletons]
     prev_hook = current_scan_fault_hook()
     if reset:
         install_scan_fault_hook(None)

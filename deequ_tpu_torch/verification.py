@@ -40,7 +40,8 @@ from deequ_tpu_torch.analyzers.runner import (
 )
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckResult, CheckStatus
 from deequ_tpu_torch.data.table import ColumnarTable, Schema
-from deequ_tpu_torch.device import resolve_device, use_device
+from deequ_tpu_torch.device import use_device
+from deequ_tpu_torch.parallel.mesh import _UNSET, resolve_placement, use_mesh
 from deequ_tpu_torch.metrics import Metric
 
 
@@ -68,7 +69,15 @@ class VerificationResult:
     last exception); ``unverified_row_ranges`` the [start, stop) rows the
     run finished without verifying — non-empty means the metrics cover a
     strict subset of the data; ``run_budget`` the armed run budget's
-    ledger (empty when the run was ungoverned)."""
+    ledger (empty when the run was ungoverned).
+
+    Meshes (the reference's fields): ``mesh_events`` the mesh-level rows
+    of ``device_events`` (``mesh_reshard``, ``mesh_quarantine``,
+    ``mesh_straggler``, ``stale_residency_evicted``, ``peer_lost``);
+    ``resharded`` True when a scan of the run finished on a mesh shrunk
+    around lost members — its metrics are those of a healthy run on the
+    smaller mesh. A multi-process run under ``on_peer_loss="degrade"``
+    that lost a peer lists the peer's rows on ``unverified_row_ranges``."""
 
     status: CheckStatus
     check_results: Dict[Check, CheckResult]
@@ -80,6 +89,8 @@ class VerificationResult:
     retry_stats: Dict[str, object] = field(default_factory=dict)
     unverified_row_ranges: List[tuple] = field(default_factory=list)
     run_budget: Dict[str, object] = field(default_factory=dict)
+    mesh_events: List[dict] = field(default_factory=list)
+    resharded: bool = False
 
     @staticmethod
     def success_metrics_as_rows(
@@ -143,7 +154,20 @@ _STAT_KEYS = (
     "fallback_refused",
     "budget_charges",
     "budget_exhaustions",
+    "mesh_faults",
+    "mesh_reshards",
+    "mesh_stragglers",
+    "peer_losses",
 )
+
+#: the degradation kinds of mesh-level decisions (``mesh_events``)
+_MESH_EVENT_KINDS = frozenset((
+    "mesh_reshard",
+    "mesh_quarantine",
+    "mesh_straggler",
+    "stale_residency_evicted",
+    "peer_lost",
+))
 
 
 def _required(checks: Sequence[Check], required_analyzers) -> List[Analyzer]:
@@ -207,6 +231,10 @@ class VerificationSuite:
         run_deadline: Optional[float] = None,
         max_total_attempts: Optional[int] = None,
         on_budget_exhausted: Optional[str] = None,
+        shard_deadline: Optional[float] = None,
+        on_peer_loss: Optional[str] = None,
+        peer_timeout: Optional[float] = None,
+        mesh=_UNSET,
     ) -> VerificationResult:
         """One verification run; ``aggregate_with`` (a StateLoader) merges
         saved states into this run's, ``save_states_with`` (a
@@ -243,7 +271,20 @@ class VerificationSuite:
         ``unverified_row_ranges`` — and ``"raise"`` raises a typed
         ``RunBudgetExhaustedException``. The ledger lands on
         ``run_budget``, the rungs on ``device_events``, the retries on
-        ``retry_stats``."""
+        ``retry_stats``.
+
+        Meshes (``parallel/mesh.py``): the run takes ``mesh`` (default: the
+        ``use_mesh`` scope, else the default mesh of a machine with several
+        cards when no device was asked for) and shards every scan and
+        dense count over it. A fault that names members reshards onto the
+        survivors (``mesh_events``, ``resharded``); ``shard_deadline``
+        (seconds) arms the straggler watchdog. ``on_peer_loss`` (None: no
+        check) runs ``parallel/distributed.py:check_peers`` inside the
+        run, before the analysis: ``"fail"`` raises a typed
+        ``PeerLostException`` when a peer process stopped responding,
+        ``"degrade"`` reports the lost ranks' row ranges on
+        ``unverified_row_ranges``; ``peer_timeout`` overrides the probe's
+        timeout."""
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
         from deequ_tpu_torch.resilience.governance import (
             current_run_budget,
@@ -252,7 +293,7 @@ class VerificationSuite:
         )
         from deequ_tpu_torch.resilience.retry import RETRY_TELEMETRY
 
-        dev = resolve_device(device)
+        dev, mesh = resolve_placement(device, mesh)
         before = {k: getattr(SCAN_STATS, k) for k in _STAT_KEYS}
         events_before = len(SCAN_STATS.degradation_events)
         unverified_before = len(SCAN_STATS.unverified_row_ranges)
@@ -266,6 +307,22 @@ class VerificationSuite:
             if policy is not None:
                 budget = armed_here = policy.arm()
         with run_budget_scope(budget) if armed_here is not None else contextlib.nullcontext():
+            # the peer check runs inside the run, after the baselines, so a
+            # degraded outcome lands on this result
+            if on_peer_loss is not None:
+                from deequ_tpu_torch.parallel.distributed import DEFAULT_PEER_TIMEOUT, check_peers
+
+                # a source that does not know its rows still gets the check;
+                # the lost ranks' rows just cannot be named
+                try:
+                    total_rows = int(data.num_rows or 0)
+                except (AttributeError, TypeError):
+                    total_rows = 0
+                check_peers(
+                    total_rows,
+                    timeout=DEFAULT_PEER_TIMEOUT if peer_timeout is None else peer_timeout,
+                    on_peer_loss=on_peer_loss,
+                )
             context = AnalysisRunner.do_analysis_run(
                 data, _required(checks, required_analyzers), dev,
                 aggregate_with=aggregate_with, save_states_with=save_states_with,
@@ -278,8 +335,10 @@ class VerificationSuite:
                 on_batch_error=on_batch_error,
                 on_device_error=on_device_error,
                 device_deadline=device_deadline,
+                mesh=mesh,
+                shard_deadline=shard_deadline,
             )
-        with use_device(dev):
+        with use_device(dev), use_mesh(mesh):
             result = VerificationSuite._evaluate(checks, context)
             _save_or_append_result(
                 metrics_repository, save_or_append_results_with_key, context
@@ -289,6 +348,9 @@ class VerificationSuite:
             k: getattr(SCAN_STATS, k) - v for k, v in before.items()
         }
         result.device_events = [dict(e) for e in SCAN_STATS.degradation_events[events_before:]]
+        result.mesh_events = [e for e in result.device_events
+                              if e.get("kind") in _MESH_EVENT_KINDS]
+        result.resharded = any(e.get("kind") == "mesh_reshard" for e in result.mesh_events)
         result.unverified_row_ranges = [
             tuple(r) for r in SCAN_STATS.unverified_row_ranges[unverified_before:]
         ]
@@ -396,7 +458,7 @@ class IncrementalVerificationStream:
 
     def _finalize(self, drained):
         out = []
-        with use_device(self._stream.device):
+        with use_device(self._stream.device), use_mesh(self._stream.mesh):
             for result_key, ctx in drained:
                 result = VerificationSuite._evaluate(self.checks, ctx)
                 _save_or_append_result(self.metrics_repository, result_key, ctx)
@@ -448,6 +510,9 @@ class VerificationRunBuilder:
         self._run_deadline: Optional[float] = None
         self._max_total_attempts: Optional[int] = None
         self._on_budget_exhausted: Optional[str] = None
+        self._shard_deadline: Optional[float] = None
+        self._on_peer_loss: Optional[str] = None
+        self._peer_timeout: Optional[float] = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -536,6 +601,32 @@ class VerificationRunBuilder:
         self._device_deadline = float(seconds)
         return self
 
+    def with_shard_deadline(self, seconds: float) -> "VerificationRunBuilder":
+        """Arm the straggler watchdog on the chunk steps of this run's
+        scans over a mesh of two or more members: a member stalling past
+        ``seconds`` raises a typed ``DeviceHangException`` (a
+        ``mesh_straggler`` event on ``mesh_events``) instead of freezing
+        the mesh. A scan on one device is not affected. Also settable
+        process-wide with ``DEEQU_TORCH_SHARD_DEADLINE``."""
+        self._shard_deadline = float(seconds)
+        return self
+
+    def on_peer_loss(self, policy: str, timeout: Optional[float] = None
+                     ) -> "VerificationRunBuilder":
+        """The multi-process peer-loss policy, checked inside the run (a
+        no-op in a single process): ``"fail"`` raises a typed
+        ``PeerLostException`` when a peer stopped responding; ``"degrade"``
+        finishes on the surviving processes and reports the lost ranks'
+        ``host_row_range`` rows on ``unverified_row_ranges``. ``timeout``
+        (seconds) overrides the probe's heartbeat and barrier deadline."""
+        from deequ_tpu_torch.parallel.distributed import validate_loss_mode
+
+        validate_loss_mode(policy, "on_peer_loss")
+        self._on_peer_loss = policy
+        if timeout is not None:
+            self._peer_timeout = float(timeout)
+        return self
+
     def with_run_budget(
         self,
         run_deadline: Optional[float] = None,
@@ -585,6 +676,9 @@ class VerificationRunBuilder:
             run_deadline=self._run_deadline,
             max_total_attempts=self._max_total_attempts,
             on_budget_exhausted=self._on_budget_exhausted,
+            shard_deadline=self._shard_deadline,
+            on_peer_loss=self._on_peer_loss,
+            peer_timeout=self._peer_timeout,
         )
 
 

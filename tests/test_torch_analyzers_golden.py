@@ -7,7 +7,13 @@ reductions are K1's tasks (``deequ_tpu_torch/ops/masked_reduce.py``).
 Each test keeps its reference twin's name and assertions. The last one
 twins ``tests/test_analyzers.py::test_host_fold_widens_int_counts_to_i64``
 against the port's fold: the device fold (``masked_reduce.merge_tags``)
-and the host unflatten keep counts past 2^31 exact and give int64."""
+and the host unflatten keep counts past 2^31 exact and give int64.
+
+The mesh/no-mesh matrix: every test here runs twice, over the port's
+8-member virtual mesh on the CPU and with no mesh
+(``torch_parity.port_mesh_mode``), as the reference's suite runs under
+its 8-device mesh and without it.
+"""
 
 import math
 
@@ -40,9 +46,10 @@ from deequ_tpu_torch.analyzers import (
     UniqueValueRatio,
 )
 from deequ_tpu_torch.metrics import Entity
-from torch_parity import port_table
+from torch_parity import port_table, port_mesh_mode  # noqa: F401
 
-pytestmark = pytest.mark.torch_port
+# every test runs over the port's 8-member virtual mesh and with none
+pytestmark = [pytest.mark.torch_port, pytest.mark.usefixtures("port_mesh_mode")]
 
 
 @pytest.fixture(autouse=True)

@@ -5,14 +5,14 @@ governance tests of tests/test_chaos.py under the same names, and parity
 with the reference.
 
 The twins keep the reference's holds on its integer-valued table (every
-fold sum exact in f64). Two of the reference's tests need a multi-card
-mesh and wait for it: ``test_budget_exhaustion_mid_reshard_degrades_partial``
-and the reshard half of ``test_bisect_and_reshard_charge_one_budget``,
-whose twin holds the bisection half (two scans, two bisections, one
-ledger). ``test_fault_state_scope_isolates_singletons_and_hook`` holds the
-port's singletons (``DEVICE_HEALTH``, ``RETRY_TELEMETRY``; ``MESH_HEALTH``
-comes with the mesh). The chaos engine's tests wait for the port's
-tooling.
+fold sum exact in f64). The two that reshard a mesh,
+``test_bisect_and_reshard_charge_one_budget`` and
+``test_budget_exhaustion_mid_reshard_degrades_partial``, run over the
+port's 8-member virtual mesh on the CPU (``parallel/mesh.py:virtual_mesh``),
+where the reference runs over its 8 forced host devices.
+``test_fault_state_scope_isolates_singletons_and_hook`` holds the port's
+singletons (``DEVICE_HEALTH``, ``MESH_HEALTH``, ``RETRY_TELEMETRY``). The
+chaos engine's tests wait for the port's tooling.
 
 Port-only: the same fault schedule and budget give the same
 ``unverified_row_ranges``, exhaustion reason, ledger and partial metrics
@@ -34,7 +34,7 @@ from deequ_tpu_torch.exceptions import (
     DeviceOOMException,
     RunBudgetExhaustedException,
 )
-from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH
+from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, MESH_HEALTH
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, install_scan_fault_hook
 from deequ_tpu_torch.resilience import (
     RETRY_TELEMETRY,
@@ -144,6 +144,7 @@ def test_budget_scope_is_ambient_and_restores():
 
 def test_fault_state_scope_isolates_singletons_and_hook():
     DEVICE_HEALTH.reset()
+    MESH_HEALTH.reset()
     outer_attempts = RETRY_TELEMETRY.attempts
 
     def hook(boundary, ctx):
@@ -158,10 +159,12 @@ def test_fault_state_scope_isolates_singletons_and_hook():
             assert current_scan_fault_hook() is None
             DEVICE_HEALTH.consecutive_faults = 99
             DEVICE_HEALTH.last_fault = DeviceOOMException("inside the scope")
+            MESH_HEALTH.consecutive_faults[3] = 7
             RETRY_TELEMETRY.attempts += 41
         # ... and leaks nothing out
         assert DEVICE_HEALTH.consecutive_faults == 0
         assert DEVICE_HEALTH.last_fault is None
+        assert MESH_HEALTH.consecutive_faults == {}
         assert RETRY_TELEMETRY.attempts == outer_attempts
         from deequ_tpu_torch.ops.device_policy import current_scan_fault_hook
 
@@ -174,10 +177,15 @@ def test_fault_state_scope_isolates_singletons_and_hook():
 
 
 def test_bisect_and_reshard_charge_one_budget():
-    """Two scans, each bisecting (the reshard half waits for the
-    multi-card mesh): one ledger records every rung of both."""
-    with fault_state_scope():
-        hook = FaultInjectingScanHook({0: ("oom", 2), 1: ("oom", 1)}, relative=True)
+    """Two scans over the 8-member virtual mesh, two different rungs (an
+    OOM bisection, then a targeted member loss resharding the mesh): one
+    ledger records both."""
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+
+    mesh = virtual_mesh(8, "cpu")
+    victim = mesh.device_ids[1]
+    with fault_state_scope(), use_mesh(mesh):
+        hook = FaultInjectingScanHook({0: ("oom", 2), 1: ("lost", 1, victim)}, relative=True)
         install_scan_fault_hook(hook)
         budget = RunPolicy(max_total_attempts=10).arm()
         with run_budget_scope(budget):
@@ -185,9 +193,35 @@ def test_bisect_and_reshard_charge_one_budget():
             ctx2 = AnalysisRunner.do_analysis_run(int_table(seed=2), analyzers_for())
         assert all(m.value.is_success for m in ctx1.all_metrics())
         assert all(m.value.is_success for m in ctx2.all_metrics())
-        assert budget.charges == {"oom_bisect": 3}
+        assert budget.charges.get("oom_bisect") == 2
+        assert budget.charges.get("mesh_reshard") == 1
         assert budget.attempts == sum(budget.charges.values())
         assert budget.exhausted_reason is None
+
+
+def test_budget_exhaustion_mid_reshard_degrades_partial():
+    """A zero budget over the 8-member virtual mesh: the first reshard
+    charge exhausts it mid-rung, and the run degrades to a partial result
+    with every row unverified."""
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+
+    mesh = virtual_mesh(8, "cpu")
+    victim = mesh.device_ids[2]
+    table = int_table()
+    with fault_state_scope(), use_mesh(mesh):
+        hook = FaultInjectingScanHook(
+            {0: ("lost", FaultSchedule.PERMANENT, victim)}, relative=True
+        )
+        install_scan_fault_hook(hook)
+        result = VerificationSuite.do_verification_run(
+            table, [check_for()], analyzers_for(),
+            max_total_attempts=0, on_budget_exhausted="degrade",
+        )
+    assert result.run_budget["exhausted"] == "max_total_attempts"
+    assert result.run_budget["charges"] == {"mesh_reshard": 1}
+    assert result.unverified_row_ranges == [(0, table.num_rows)]
+    for metric in result.metrics.values():
+        assert isinstance(metric.value.exception, RunBudgetExhaustedException)
 
 
 def test_io_retries_and_ladder_share_the_budget():

@@ -21,6 +21,12 @@ reference on the CPU.
   incremental_metrics_example.py and pipelined_incremental_example.py
   (without its anomaly check and repository, which wait for their slice),
   through both packages.
+
+The mesh/no-mesh matrix: every test here runs twice, over the port's
+8-member virtual mesh on the CPU and with no mesh
+(``torch_parity.port_mesh_mode``), as the reference's suite runs under
+its 8-device mesh and without it; over the mesh the group path stays off
+(``group_scannable`` declines), and the group-path holds read the mode.
 """
 
 import math
@@ -62,14 +68,17 @@ from deequ_tpu_torch.analyzers.runner import AnalysisRunner
 from deequ_tpu_torch.analyzers.runner import AnalyzerContext as PortContext
 from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
 from deequ_tpu_torch.ops.scan_engine import MAX_CHUNK_ROWS, SCAN_STATS, group_scannable
+from deequ_tpu_torch.parallel.mesh import current_mesh
+from deequ_tpu_torch.parallel.mesh import use_mesh as port_use_mesh
 from deequ_tpu_torch.states import (
     FileSystemStateProvider,
     InMemoryStateProvider,
     state_file_name,
 )
-from torch_parity import assert_metric_parity, parity_env, port_table  # noqa: F401
+from torch_parity import assert_metric_parity, parity_env, port_table, port_mesh_mode  # noqa: F401
 
-pytestmark = pytest.mark.torch_port
+# every test runs over the port's 8-member virtual mesh and with none
+pytestmark = [pytest.mark.torch_port, pytest.mark.usefixtures("port_mesh_mode")]
 
 
 @pytest.fixture(autouse=True)
@@ -235,7 +244,9 @@ def test_pipelined_stream_equals_serial():
     serial, serial_states = _run_serial(batches, analyzers)
     SCAN_STATS.reset()
     piped, stream_states = _run_stream(batches, analyzers, window=3)
-    assert SCAN_STATS.group_scan_passes == 2  # groups of 3, 3; the last batch alone
+    # groups of 3, 3, the last batch alone; over a mesh every batch takes
+    # its own sharded scan (group_scannable declines)
+    assert SCAN_STATS.group_scan_passes == (2 if current_mesh() is None else 0)
     _assert_bit_identical(serial, piped, analyzers)
     for a in analyzers:  # the state chains end equal too
         assert stream_states.load(a) == serial_states.load(a)
@@ -263,7 +274,8 @@ def test_pipelined_stream_mixed_schemas_falls_back():
     serial, _ = _run_serial(tables, analyzers)
     SCAN_STATS.reset()
     piped, _ = _run_stream(tables, analyzers, window=2)
-    assert SCAN_STATS.group_scan_passes == 1  # batches 0-1; 2-3 and 4-5 fall back
+    # batches 0-1; 2-3 and 4-5 fall back (all of them over a mesh)
+    assert SCAN_STATS.group_scan_passes == (1 if current_mesh() is None else 0)
     for b in range(6):
         for a in analyzers:
             want, got = serial[b].metric_map[a].value, piped[b].metric_map[a].value
@@ -384,9 +396,13 @@ def test_group_fast_path_engages_and_matches_serial():
     serial, _ = _run_serial(batches, analyzers)
     SCAN_STATS.reset()
     piped, _ = _run_stream(batches, analyzers, window=3)
-    # 6 batches / window 3 = 2 group passes with one fetch each, not 6 scans
-    assert SCAN_STATS.scan_passes == 2, SCAN_STATS.scan_passes
-    assert SCAN_STATS.group_fetches == 2 and SCAN_STATS.device_fetches == 2
+    if current_mesh() is None:
+        # 6 batches / window 3 = 2 group passes with one fetch each, not 6 scans
+        assert SCAN_STATS.scan_passes == 2, SCAN_STATS.scan_passes
+        assert SCAN_STATS.group_fetches == 2 and SCAN_STATS.device_fetches == 2
+    else:
+        # over a mesh the group path stays off: one sharded scan a batch
+        assert SCAN_STATS.scan_passes == 6 and SCAN_STATS.group_scan_passes == 0
     _assert_bit_identical(serial, piped, analyzers)
 
 
@@ -409,7 +425,7 @@ def test_pipelined_group_path_takes_string_columns():
     SCAN_STATS.reset()
     piped, _ = _run_stream(batches, analyzers, window=3, states=False)
     _assert_bit_identical(serial, piped, analyzers)
-    assert SCAN_STATS.scan_passes == 2, SCAN_STATS.scan_passes
+    assert SCAN_STATS.scan_passes == (2 if current_mesh() is None else 6), SCAN_STATS.scan_passes
 
 
 def test_stream_without_card_raises_unless_asked_for_the_cpu(monkeypatch):
@@ -418,7 +434,12 @@ def test_stream_without_card_raises_unless_asked_for_the_cpu(monkeypatch):
     from deequ_tpu_torch.exceptions import DeviceUnavailableException
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with use_device(None), pytest.raises(DeviceUnavailableException):
+    mesh = current_mesh()
+    if mesh is not None:
+        # a mesh asked for (on the CPU here) is where the stream runs
+        with use_device(None):
+            assert IncrementalAnalysisStream([Size()]).device == mesh.lead
+    with use_device(None), port_use_mesh(None), pytest.raises(DeviceUnavailableException):
         IncrementalAnalysisStream([Size()])
     with pytest.raises(DeviceUnavailableException):
         deequ_tpu_torch.verification.IncrementalVerificationStream([], device="cuda")

@@ -3,7 +3,13 @@ the grouping half of tests/test_scan_fusion.py (and its two scan-sharing
 cases), each run with cross-set grouping fusion on and off
 (``DEEQU_TORCH_PLAN_FUSION``): the same grouping passes either way, the
 fused passes only with it on, and the same metrics as the reference's run
-over the same table (tests/torch_parity.py's bounds; counts exact)."""
+over the same table (tests/torch_parity.py's bounds; counts exact).
+
+The mesh/no-mesh matrix: every test here runs twice, over the port's
+8-member virtual mesh on the CPU and with no mesh
+(``torch_parity.port_mesh_mode``), as the reference's suite runs under
+its 8-device mesh and without it.
+"""
 
 import collections
 
@@ -18,9 +24,10 @@ from deequ_tpu.analyzers.runner import AnalysisRunner as RefRunner
 from deequ_tpu.data.table import ColumnarTable as RefTable
 from deequ_tpu_torch.analyzers.runner import AnalysisRunner as PortRunner
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
-from torch_parity import assert_metric_parity, port_table, ref_column
+from torch_parity import assert_metric_parity, port_table, ref_column, port_mesh_mode  # noqa: F401
 
-pytestmark = pytest.mark.torch_port
+# every test runs over the port's 8-member virtual mesh and with none
+pytestmark = [pytest.mark.torch_port, pytest.mark.usefixtures("port_mesh_mode")]
 
 
 @pytest.fixture(params=["fused", "unfused"])

@@ -29,6 +29,11 @@ the CPU.
   estimates (a function of the registers) and group statistics exact, sums
   and means within tests/torch_parity.py's bounds, quantiles within the
   KLL rank error of numpy.
+
+The mesh/no-mesh matrix: every test here runs twice, over the port's
+8-member virtual mesh on the CPU and with no mesh
+(``torch_parity.port_mesh_mode``), as the reference's suite runs under
+its 8-device mesh and without it.
 """
 
 import threading
@@ -89,9 +94,10 @@ from deequ_tpu_torch.ops import scan_engine
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 from deequ_tpu_torch.exceptions import RetryExhaustedException
 from deequ_tpu_torch.resilience.retry import RetryPolicy
-from torch_parity import assert_metric_parity, parity_env, port_table  # noqa: F401
+from torch_parity import assert_metric_parity, parity_env, port_table, port_mesh_mode  # noqa: F401
 
-pytestmark = pytest.mark.torch_port
+# every test runs over the port's 8-member virtual mesh and with none
+pytestmark = [pytest.mark.torch_port, pytest.mark.usefixtures("port_mesh_mode")]
 
 
 @pytest.fixture(autouse=True)

@@ -127,3 +127,16 @@ def assert_metric_parity(ref_metric, port_metric) -> None:
         f"{ref_metric.name}({ref_metric.instance}): reference {a!r} vs port {b!r}"
         f" (bound {'exact' if rel == 0.0 else rel})"
     )
+
+
+@pytest.fixture(params=["mesh8", "single"])
+def port_mesh_mode(request):
+    """The port's mesh/no-mesh matrix (the reference's ``_mesh_mode`` of
+    tests/conftest.py): a test that takes this fixture runs once over the
+    port's 8-member virtual mesh on the CPU and once with no mesh, so a
+    regression of either path shows. Yields the mode's name."""
+    from deequ_tpu_torch.parallel.mesh import use_mesh, virtual_mesh
+
+    mesh = virtual_mesh(8, "cpu") if request.param == "mesh8" else None
+    with use_mesh(mesh):
+        yield request.param
