@@ -26,7 +26,16 @@ Phases, each printed as one JSON line on stdout:
    (narrow ids past their keyspace in a wide input's bins, every wide id in
    one bucket, wide only, narrow only, the summed keyspace on both sides of
    sms << 13, 70 wide and narrow inputs), and a refusal past the partition
-   regime's width;
+   regime's width; and K6, the one-hot variant of the histogram tier
+   (``csrc/onehot.cu``, ``bincount_onehot``), against both its plain
+   versions (``bincount_onehot_plain``, ``bincount_plain``) bit for bit:
+   int32 and int64 ids at 1 to 2^17 bins over 0 and 1 rows and both sides
+   of a step of 32 rows, a staged chunk and a row slice of its plan;
+   widths on both sides of a tile's and a block's bins; negative ids, ids
+   past m and past the padded A·B, int64 ids past 2^31; 10^7 Zipf and
+   single-bin ids; negative, INT32_MAX and wrapping weights; its
+   multi-input entry against ``fused_bincount_plain``; its refusals past
+   its widths;
 3b. ``k1_parity`` — K1, the fused scan's masked reductions
    (``csrc/masked_reduce.cu``), against its plain versions on the card:
    counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
@@ -73,6 +82,22 @@ Phases, each printed as one JSON line on stdout:
    grouping layer's one fused dispatch against three, keys copied and
    counts fetched; ``tools/time_k7.py --parent`` times another checkout's
    entry in the same turns);
+4c. ``hist_variant_path`` (after ``fusion_path``, over the main path's
+   table) — the histogram kernel-variant tier: the main suite with
+   ``DEEQU_TORCH_HIST_VARIANT`` forced to onehot, scatter and pallas, one
+   checked run each in memory (every metric bit for bit main_path's) and
+   one each persisted (bit for bit the unforced persisted run's, which is
+   held against main_path's within the contract); each run's K6 launches
+   equal the census's one-hot dispatches, above 0 under onehot only, and
+   a forced run counts no other variant; the policy's default route of
+   each of the main path's dispatches; K6 at status's and region's shapes
+   and its multi-input entry at the fused group's beside K7; and the
+   sweep: K6, K5 in its regime and torch.bincount at 10^7 int64 Zipf ids
+   and 9 to 2^17 bins, each with the histogram's bound (its bytes over
+   the memory rate) and, apart, the one-hot product's operations over the
+   part's dense INT8 rate; the sweep sets the card's one-hot cap
+   (``device_policy.HIST_ONEHOT_MXU_MAX_SEGMENTS``), and the phase fails
+   when the default cap is not the sweep's;
 5. ``kernel_timing`` — each kernel at the shapes the main path gave it:
    the kernel alone (``kernel_ms``: 100 queued launches into preallocated
    buffers, CUDA events; the same in every other regime that can take the
@@ -404,9 +429,10 @@ Phases, each printed as one JSON line on stdout:
    skipped with the count;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
-paths, and by path; K1's fold merge and K7, the fused group counts, each
-their own entry, K8's merges as a part of the fold merge's and the mesh's
-count sums beside K5), the nvidia-smi line, and the result line
+paths, and by path; K1's fold merge, K7, the fused group counts, and K6,
+the one-hot variant (its launches by path and by forced variant, its
+shapes and the sweep), each their own entry, K8's merges as a part of the
+fold merge's and the mesh's count sums beside K5), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -425,13 +451,13 @@ import time
 
 #: the hand-written kernels of the port's path, each built from
 #: deequ_tpu_torch/csrc/<name>.cu
-KERNELS = ("bincount", "hll", "select", "holt_winters", "masked_reduce")
+KERNELS = ("bincount", "onehot", "hll", "select", "holt_winters", "masked_reduce")
 
 #: the script's config 3 stream rows over ``--rows`` (seven: past one drain
 #: of the stream fold's 512 chunks; ``tools/run_out_of_core.py`` runs ten).
-#: This and the two cuts below keep the script inside its 1,200 s: with
-#: every path at its full size it ran 1,213 s on an H100 80GB HBM3 at
-#: 700 W (PERF.md §6)
+#: This and the cuts below keep the script inside its 1,200 s: with every
+#: path at its full size it ran 1,213 s on an H100 80GB HBM3 at 700 W, and
+#: with hist_variant_path added 1,000.9 s (PERF.md §4)
 OOC_CONFIG3_RUN_SCALE = 7
 #: the script's config 4 spill rows are ``--rows`` over this
 #: (``tools/run_spill.py`` streams all 10^8)
@@ -602,9 +628,12 @@ def kernel_parity(device) -> dict:
     for m in (9, 5001, 65_536):
         for weights in (inside, beyond):
             check(seg, m, weights, regimes=takers(m))
+    fused = fused_parity(device, rng, boundaries)
+    t0 = time.perf_counter()
+    onehot = onehot_parity(device, rng)
     return {"cases": cases, "max_abs_err": max_err, "boundaries": boundaries,
             "skew_widths": {m: takers(m) for m in skew_widths},
-            "fused": fused_parity(device, rng, boundaries)}
+            "fused": fused, "onehot": onehot, "onehot_parity_s": time.perf_counter() - t0}
 
 
 def fused_parity(device, rng, boundaries: dict) -> dict:
@@ -713,6 +742,172 @@ def fused_parity(device, rng, boundaries: dict) -> dict:
         fail(f"K7 took {wide} bins, past the partition regime's width")
     return {"cases": cases, "by_regime": seen, "max_abs_err": 0,
             "refused_past_partition": wide}
+
+
+# -- phase 3: K6, the histogram tier's one-hot variant -------------------------
+
+#: the widths K6 is held at against its plain versions
+ONEHOT_WIDTHS = (1, 8, 9, 127, 128, 129, 5001, 1 << 16, 1 << 17)
+
+
+def onehot_parity(device, rng) -> dict:
+    """K6 (``csrc/onehot.cu``, ``bincount_onehot``) against both its plain
+    versions (``bincount_onehot_plain``, the reference's formulation, and
+    ``bincount_plain``), bit for bit, one launch counted a call: int32 and
+    int64 ids at every width of :data:`ONEHOT_WIDTHS` over 0 and 1 rows
+    and both sides of a step of 32 rows, a staged chunk and a row slice of
+    the kernel's plan; widths on both sides of a tile's and a block's bins;
+    negative ids, ids >= m, ids past the padded A·B, int64 ids past 2^31;
+    10^7 Zipf ids and 10^7 ids in one bin; weights negative, INT32_MAX,
+    with per-block partials past int32 and with totals past int32; the
+    multi-input entry (``fused_bincount(..., "onehot")``) against
+    ``fused_bincount_plain``; and the refusals past its widths."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.histogram_device import (
+        bincount_onehot,
+        bincount_onehot_plain,
+        bincount_plain,
+        fused_bincount,
+        fused_bincount_plain,
+        onehot_plan,
+        onehot_widest,
+    )
+
+    saved = histogram_device.ONEHOT_LAUNCHES
+    cases = 0
+
+    def check(seg_np, m, weights_np=None, dtype=torch.int64, label=""):
+        nonlocal cases
+        seg = torch.from_numpy(np.asarray(seg_np)).to(device=device, dtype=dtype)
+        w = None if weights_np is None else torch.from_numpy(weights_np).to(device)
+        before = histogram_device.ONEHOT_LAUNCHES
+        got = bincount_onehot(seg, m, weights=w)
+        launched = histogram_device.ONEHOT_LAUNCHES - before
+        for plain in (bincount_onehot_plain, bincount_plain):
+            want = plain(seg, m, weights=w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = int((got - want).abs().max())
+                fail(f"K6 != {plain.__name__} ({label} n={seg.numel()}, m={m}, "
+                     f"weighted={w is not None}, {dtype}): max err {err}")
+        if launched != (1 if seg.numel() else 0):
+            fail(f"K6 {label}: {launched} launches for {seg.numel()} rows")
+        cases += 1
+
+    for dtype in (torch.int32, torch.int64):
+        for m in ONEHOT_WIDTHS:
+            plan = onehot_plan(m, 1_000_000)
+            chunk, srows = plan["chunk_rows"], plan["slice_rows"]
+            for n in sorted({0, 1, 31, 32, 33, chunk - 1, chunk, chunk + 1,
+                             srows - 1, srows, srows + 1, 1_000_000}):
+                check(rng.integers(-3, m + 3, size=n), m, dtype=dtype, label="rows")
+    tiles = {}
+    for base in (5001, 1 << 16):
+        plan = onehot_plan(base, 1_000_000)
+        tile = 16 << plan["log2_b"]
+        block = tile * plan["tiles_a_block"]
+        tiles[base] = {"tile_bins": tile, "block_bins": block}
+        for m in (tile - 1, tile, tile + 1, block - 1, block, block + 1):
+            check(rng.integers(-1, m + 1, size=300_000), m, label="tile edge")
+    for m in (9, 5001, 1 << 17):
+        plan = onehot_plan(m, 200_000)
+        span = plan["a_pad"] << plan["log2_b"]
+        seg = np.concatenate([
+            rng.integers(-5, m + 5, size=200_000), rng.integers(m, span + 100, size=2_000),
+            np.array([span - 1, span, span + 1, 2**31 - 1, 2**31, 2**31 + m // 2,
+                      2**32 + 3, 2**40, 2**62, -(2**31), -(2**40)], dtype=np.int64)])
+        seg = rng.permutation(seg)
+        check(seg, m, label="out of range")
+        check(seg[(seg >= -(2**31)) & (seg < 2**31)], m, dtype=torch.int32,
+              label="out of range")
+    rows = 10_000_000
+    t0 = time.perf_counter()
+    for m in (9, 5001, 1 << 16, 1 << 17):
+        for seg in (zipf_ids(rng, rows, m), np.full(rows, m // 2, dtype=np.int64)):
+            for dtype in (torch.int32, torch.int64):
+                check(seg, m, dtype=dtype, label="10^7 rows")
+    ten_million_s = time.perf_counter() - t0
+    # weights: negative and any int32; INT32_MAX (totals past int32); per-
+    # block partials past int32 whose totals stay inside (the second half
+    # repeats the first half's ids with negated weights)
+    half = rng.integers(0, 8, size=2_000_000)
+    seg = np.concatenate([half, half, rng.integers(0, 8, size=1000)])
+    big = np.int32(2**30 + 12345)
+    inside = np.concatenate([np.full(len(half), big, np.int32),
+                             np.full(len(half), -big, np.int32),
+                             rng.integers(-100, 100, size=1000).astype(np.int32)])
+    for m in (9, 5001, 1 << 16, 1 << 17):
+        anyw = rng.integers(-(2**31), 2**31, size=len(seg), dtype=np.int64).astype(np.int32)
+        for weights in (inside, anyw, np.full(len(seg), np.iinfo(np.int32).max, np.int32)):
+            check(seg, m, weights, label="weighted")
+        wide = zipf_ids(rng, 3_000_000, m)
+        check(wide, m, rng.integers(-(2**31), 2**31, size=len(wide)).astype(np.int32),
+              label="weighted Zipf")
+
+    # the multi-input entry
+    multi = 0
+
+    def check_multi(keys_np, spaces, label):
+        nonlocal multi
+        keys = [torch.from_numpy(np.asarray(k, dtype=np.int64)).to(device) for k in keys_np]
+        before = histogram_device.ONEHOT_LAUNCHES
+        got = fused_bincount(keys, spaces, "onehot")
+        want = fused_bincount_plain(keys, spaces)
+        torch.cuda.synchronize()
+        if histogram_device.ONEHOT_LAUNCHES != before + 1:
+            fail(f"K6 multi {label}: {histogram_device.ONEHOT_LAUNCHES - before} launches")
+        if not torch.equal(got, want):
+            err = int((got - want).abs().max())
+            fail(f"K6 multi != fused_bincount_plain ({label}: rows "
+                 f"{[len(k) for k in keys_np]}, keyspaces {list(spaces)}): max err {err}")
+        multi += 1
+
+    def ids(n, space):
+        return rng.integers(-1, space + 2, size=n)
+
+    for k in (1, 2, 3, 4):
+        spaces = [int(x) for x in rng.integers(1, 40_000, k)]
+        check_multi([ids(int(rng.integers(1, 300_000)), sp) for sp in spaces], spaces,
+                    f"K={k}")
+    check_multi([ids(1, 9), ids(2_000_000, 100_001), np.zeros(0, np.int64), ids(1, 1)],
+                [9, 100_001, 7, 1], "one-row and empty inputs")
+    check_multi([np.full(300_000, -1), ids(300_000, 70_000), np.full(5, -3)], [12, 70_000, 5],
+                "wholly dropped inputs")
+    check_multi([rng.integers(-1, 200_000, size=1_000_000), ids(1_000_000, 150_000)],
+                [9, 150_000], "ids past their keyspace into a later input's bins")
+    many = [int(x) for x in rng.integers(1, 3_000, 40)]
+    check_multi([ids(int(rng.integers(0, 20_000)), sp) for sp in many], many,
+                "40 inputs (two launches of the entry's 32)")
+    check_multi([zipf_ids(rng, rows, 1_078_737), zipf_ids(rng, rows, 9),
+                 zipf_ids(rng, rows, 5001)], [1_078_737, 9, 5001],
+                "the main path's fused group, 10^7 Zipf ids each")
+
+    # refusals: no launch past the widths
+    refused = {}
+    for label, call in (
+            ("unweighted", lambda: bincount_onehot(
+                torch.zeros(4, dtype=torch.int64, device=device), onehot_widest() + 1)),
+            ("weighted", lambda: bincount_onehot(
+                torch.zeros(4, dtype=torch.int64, device=device), onehot_widest(True) + 1,
+                weights=torch.ones(4, dtype=torch.int32, device=device))),
+            ("multi", lambda: fused_bincount(
+                [torch.zeros(4, dtype=torch.int64, device=device)] * 2,
+                [onehot_widest(), 1], "onehot"))):
+        before = histogram_device.ONEHOT_LAUNCHES
+        try:
+            call()
+        except ValueError:
+            refused[label] = True
+        if not refused.get(label) or histogram_device.ONEHOT_LAUNCHES != before:
+            fail(f"K6 took a width past its widest ({label})")
+    histogram_device.ONEHOT_LAUNCHES = saved  # parity launches are not a path's
+    return {"cases": cases, "multi_cases": multi, "max_abs_err": 0,
+            "widths": list(ONEHOT_WIDTHS), "tile_edges": tiles,
+            "widest": {"unweighted": onehot_widest(), "weighted": onehot_widest(True)},
+            "refused": refused, "ten_million_rows_s": ten_million_s}
 
 
 # -- phase 3b: K1, the fused scan's masked reductions ------------------------
@@ -1303,6 +1498,7 @@ def main_path(rows: int, seed: int, device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
+    histogram_device.ONEHOT_LAUNCHES = 0
     hll.LAUNCHES = 0
     k1_zero()
     watch = watch_cpu_ops()
@@ -1312,6 +1508,7 @@ def main_path(rows: int, seed: int, device) -> dict:
     t_first = time.perf_counter() - t0
     launches = histogram_device.LAUNCHES
     fused_launches = histogram_device.FUSED_LAUNCHES
+    onehot_launches = histogram_device.ONEHOT_LAUNCHES
     k1_launches = k1_counts()
     k1_require(k1_launches, "main_path")
     if hll.LAUNCHES:
@@ -1349,6 +1546,7 @@ def main_path(rows: int, seed: int, device) -> dict:
         "worst_rel_err": worst,
         "kernel_launches": launches,
         "fused_launches": fused_launches,
+        "onehot_launches": onehot_launches,
         "k1_launches": k1_launches,
         "scan_stats": stats,
         "first_run_s_watched": t_first,
@@ -1613,7 +1811,7 @@ def fusion_path(table, main_result, res_main: dict, device, smi: str, rate: floa
     timing = fused_dispatch_timing(table, device, rate)
 
     # the demotion rung: an OOM at the fused dispatch
-    def oom(keys, keyspaces):
+    def oom(keys, keyspaces, *variant):
         raise DeviceOOMException("injected at the fused dispatch")
 
     real = segment.fused_bincount
@@ -2821,13 +3019,15 @@ class ResidentSpy:
 
 
 class PlainCheck:
-    """While active, every K5 launch of the grouping counts (``segment``'s;
-    K4 launches its own kernel) is held against ``bincount_plain`` on the
-    same ids with ``torch.equal``, and every K7 launch against
-    ``fused_bincount_plain``; a mismatch fails. ``shapes`` lists the K5
-    calls checked: ids, bins, calls and the least and most ids inside the
-    bins (the rest are dropped); ``fused_shapes`` the K7 calls (each
-    input's rows, the keyspaces) and ``fused_calls`` their number."""
+    """While active, every histogram launch of the grouping counts
+    (``segment``'s ``bincount_variant``: K5, or K6 under "onehot"; K4
+    launches its own kernel) is held against ``bincount_plain`` on the
+    same ids with ``torch.equal``, and every multi-input launch (K7, or
+    K6's entry) against ``fused_bincount_plain``; a mismatch fails.
+    ``shapes`` lists the single-input calls checked: ids, bins, calls and
+    the least and most ids inside the bins (the rest are dropped);
+    ``fused_shapes`` the multi-input calls (each input's rows, the
+    keyspaces) and ``fused_calls`` their number."""
 
     def __init__(self, label: str):
         self.label = label
@@ -2838,13 +3038,13 @@ class PlainCheck:
     def __enter__(self):
         from deequ_tpu_torch.ops import histogram_device, segment
 
-        self._orig = histogram_device.bincount
+        self._orig = histogram_device.bincount_variant
         self._orig_fused = histogram_device.fused_bincount
 
-        def fused_checked(keys, keyspaces):
+        def fused_checked(keys, keyspaces, variant="scatter"):
             import torch
 
-            out = self._orig_fused(keys, keyspaces)
+            out = self._orig_fused(keys, keyspaces, variant)
             want = histogram_device.fused_bincount_plain(keys, keyspaces)
             if not torch.equal(out, want):
                 fail(f"{self.label}: K7 != fused_bincount_plain at inputs of "
@@ -2854,14 +3054,14 @@ class PlainCheck:
             self.fused_calls += 1
             return out
 
-        def checked(seg, num_segments, *args, **kwargs):
+        def checked(variant, seg, num_segments, *args, **kwargs):
             import torch
 
-            out = self._orig(seg, num_segments, *args, **kwargs)
+            out = self._orig(variant, seg, num_segments, *args, **kwargs)
             want = histogram_device.bincount_plain(seg, num_segments, *args, **kwargs)
             if not torch.equal(out, want):
-                fail(f"{self.label}: K5 != bincount_plain at {seg.numel()} ids, "
-                     f"{num_segments} bins")
+                fail(f"{self.label}: the {variant} kernel != bincount_plain at "
+                     f"{seg.numel()} ids, {num_segments} bins")
             if seg.numel() == 0 or num_segments == 0:
                 return out  # the wrapper launches nothing
             inside = int(want.sum())
@@ -2870,14 +3070,14 @@ class PlainCheck:
             self.seen[key] = (min(lo, inside), max(hi, inside), calls + 1)
             return out
 
-        segment.bincount = checked
+        segment.bincount_variant = checked
         segment.fused_bincount = fused_checked
         return self
 
     def __exit__(self, *exc):
         from deequ_tpu_torch.ops import segment
 
-        segment.bincount = self._orig
+        segment.bincount_variant = self._orig
         segment.fused_bincount = self._orig_fused
 
     @property
@@ -3851,6 +4051,7 @@ def kernel_counts_zero() -> None:
 
     SCAN_STATS.reset()
     histogram_device.LAUNCHES = histogram_device.FUSED_LAUNCHES = 0
+    histogram_device.ONEHOT_LAUNCHES = 0
     hll.LAUNCHES = 0
     holt_winters.LAUNCHES = 0
     k1_zero()
@@ -3860,7 +4061,8 @@ def kernel_counts() -> dict:
     from deequ_tpu_torch.ops import histogram_device, hll, holt_winters
 
     return {"bincount": histogram_device.LAUNCHES,
-            "fused_bincount": histogram_device.FUSED_LAUNCHES, "hll": hll.LAUNCHES,
+            "fused_bincount": histogram_device.FUSED_LAUNCHES,
+            "onehot": histogram_device.ONEHOT_LAUNCHES, "hll": hll.LAUNCHES,
             "holt_winters": holt_winters.LAUNCHES, **k1_counts()}
 
 
@@ -7719,6 +7921,260 @@ def mesh_path(table, main_result, rows: int, seed: int, device, smi: str, rate: 
             "count_sum_timing": sharded.get("count_sum_timing")}
 
 
+# -- phase: hist_variant_path, the histogram kernel-variant tier ---------------
+
+#: the variants the main suite runs under, forced one after the other
+HIST_FORCED = ("onehot", "scatter", "pallas")
+#: the sweep's widths, at 10^7 int64 Zipf ids
+SWEEP_WIDTHS = (9, 128, 1024, 5001, 1 << 14, 1 << 16, 1 << 17)
+SWEEP_ROWS = 10_000_000
+# dense INT8 tensor rate of each H100 part (NVIDIA data sheets), ops/s
+_INT8_RATE = {"PCIe": 1513e12, "NVL": 1671e12, "SXM": 1979e12}
+
+
+def int8_rate(name: str) -> float:
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return _INT8_RATE[key]
+    return _INT8_RATE["SXM"]
+
+
+class forced_hist_variant:
+    """``DEEQU_TORCH_HIST_VARIANT`` set to ``variant`` (None: unset) for
+    the block, the caller's value restored after."""
+
+    def __init__(self, variant):
+        self.variant = variant
+
+    def __enter__(self):
+        self.saved = os.environ.pop("DEEQU_TORCH_HIST_VARIANT", None)
+        if self.variant is not None:
+            os.environ["DEEQU_TORCH_HIST_VARIANT"] = self.variant
+
+    def __exit__(self, *exc):
+        os.environ.pop("DEEQU_TORCH_HIST_VARIANT", None)
+        if self.saved is not None:
+            os.environ["DEEQU_TORCH_HIST_VARIANT"] = self.saved
+
+
+def census_of(stats: dict) -> dict:
+    from deequ_tpu_torch.ops.histogram_device import HIST_VARIANTS
+
+    return {v: stats[f"hist_{v}_dispatches"] for v in HIST_VARIANTS}
+
+
+def variant_run(suite, variant, label: str) -> tuple:
+    """One checked run of ``suite`` with the variant forced (None: the
+    policy's): counts set to 0 just before, read just after, watched for
+    CPU ops. K6's launches must equal the census's one-hot dispatches, be
+    above 0 forced to "onehot" and 0 under the other forces, and a forced
+    run must count no dispatch under another variant."""
+    import torch
+
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    kernel_counts_zero()
+    watch = watch_cpu_ops()
+    with forced_hist_variant(variant):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with watch:
+            result = suite.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    stats = SCAN_STATS.snapshot()
+    census = census_of(stats)
+    if watch.cpu_ops:
+        fail(f"{label}: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    if census["onehot"] != launches["onehot"]:
+        fail(f"{label}: {census['onehot']} one-hot dispatches, {launches['onehot']} K6 launches")
+    if variant == "onehot" and launches["onehot"] < 1:
+        fail(f"{label}: forced to onehot, K6 never launched")
+    if variant not in (None, "onehot") and launches["onehot"]:
+        fail(f"{label}: forced to {variant}, K6 launched {launches['onehot']} times")
+    if variant is not None and any(n for v, n in census.items() if v != variant):
+        fail(f"{label}: forced to {variant}, the census counted {census}")
+    return result, {"run_wall_s_watched": wall, "kernel_launches": launches,
+                    "census": census, "hist_kernel_dispatches": stats["hist_kernel_dispatches"],
+                    "grouping_passes": stats["grouping_passes"]}
+
+
+def k6_shape_timing(label: str, seg, m: int, rate: float, ops_rate: float,
+                    plain_reps: int = 3, reps: int = 20) -> dict:
+    """K6 at one shape: the kernel alone (CUDA events around ``reps``
+    launches queued behind a spin, as K5's rows), one wrapper call, its
+    plain version (``bincount_onehot_plain``), K5 in its regime, and
+    torch.bincount; the bound is the histogram's: each id read once, each
+    count written once, over the memory rate. The one-hot product's
+    operations (n · A_pad · B · 2 over the dense INT8 rate) are reported
+    apart as ``formulation_ops_ms``: a histogram needs none of them."""
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.histogram_device import (
+        bincount_onehot,
+        bincount_onehot_plain,
+        bincount_plain,
+        onehot_plan,
+    )
+
+    saved = (histogram_device.LAUNCHES, histogram_device.ONEHOT_LAUNCHES)
+    n = seg.numel()
+    plan = onehot_plan(m, n)
+    out = torch.zeros(m, dtype=torch.int64, device=seg.device)
+    kernel_ms = time_queued(lambda i: histogram_device._onehot_launch(seg, m, None, out), reps)
+    prof = profiled_ms(lambda i: histogram_device._onehot_launch(seg, m, None, out),
+                       match="onehot")
+    call_ms = time_cuda(lambda: bincount_onehot(seg, m), reps=5)
+    plain_ms = time_cuda(lambda: bincount_onehot_plain(seg, m), reps=plain_reps, warmup=1)
+    name = histogram_device.regime(m)
+    bufs = histogram_device._buffers(seg, m, None, name)
+    k5_ms = time_queued(lambda i: histogram_device._launch(seg, m, None, *bufs,
+                                                           regime_name=name), reps)
+    slots = torch.where(seg >= 0, seg, m).long()  # torch.bincount refuses negatives
+    library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps,
+                             waits=True)
+    got, want = bincount_onehot(seg, m), bincount_plain(seg, m)
+    histogram_device.LAUNCHES, histogram_device.ONEHOT_LAUNCHES = saved
+    if not torch.equal(got, want):
+        fail(f"K6 != plain at the {label} shape (n={n}, m={m})")
+    b = 1 << plan["log2_b"]
+    bound_ms = (n * seg.element_size() + m * 8) / rate * 1e3
+    ops_ms = n * plan["a_pad"] * b * 2 / ops_rate * 1e3
+    return {
+        "column": label, "n": n, "num_segments": m,
+        "ids": str(seg.dtype).replace("torch.", ""),
+        "radix_b": b, "a_pad": plan["a_pad"], "plan": plan,
+        "kernel_ms": kernel_ms,
+        "profiler_ms": prof if prof is not None else "no device time",
+        "call_ms": call_ms, "plain_ms": plain_ms, "k5_ms": k5_ms, "k5_regime": name,
+        "library_ms": library_ms, "library_call": "torch.bincount",
+        "bound_ms": bound_ms, "bound_by": "bytes", "formulation_ops_ms": ops_ms,
+        "bound_share": bound_ms / kernel_ms, "k6_over_k5": kernel_ms / k5_ms,
+        "max_abs_err": 0,
+    }
+
+
+def hist_variant_sweep(device, rate: float, ops_rate: float, seed: int) -> dict:
+    """K6 against K5 (its regime) and torch.bincount alone at
+    :data:`SWEEP_ROWS` int64 Zipf ids and each width of
+    :data:`SWEEP_WIDTHS` (the plain version is timed at the narrowest
+    only); the card's cap is the widest width at which K6 was no slower
+    than K5 (0: none)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 20)
+    rows = []
+    for m in SWEEP_WIDTHS:
+        seg = torch.from_numpy(zipf_ids(rng, SWEEP_ROWS, m)).to(device)
+        rows.append(k6_shape_timing(f"Zipf, {m} bins", seg, m, rate, ops_rate,
+                                    plain_reps=3 if m <= 5001 else 1))
+        del seg
+    wins = [r["num_segments"] for r in rows if r["kernel_ms"] <= r["k5_ms"]]
+    return {"rows": rows, "k6_no_slower_at": wins, "cap_from_sweep": max(wins, default=0)}
+
+
+def hist_variant_path(table, main_result, device, smi: str, rate: float, seed: int) -> dict:
+    """The main suite over main_path's table under each forced variant
+    (``DEEQU_TORCH_HIST_VARIANT``: onehot, scatter, pallas), one checked run
+    each in memory and one each persisted: in memory every metric bit for
+    bit main_path's, persisted bit for bit the unforced persisted run's
+    (held within the contract against main_path's); K6 launched, and
+    counted by the census, under "onehot" only. Then K6 at the main
+    path's narrow shapes, its multi-input entry at the fused group's, the
+    sweep and the cap it sets, and the policy's default routes."""
+    import torch
+
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.ops.device_policy import hist_accel_cap, resolve_hist_variant
+    from deequ_tpu_torch.ops.histogram_device import fused_bincount_plain
+    from deequ_tpu_torch.ops.segment import _prepare_grouping
+
+    ops_rate = int8_rate(torch.cuda.get_device_name(device))
+    suite = build_suite(table)
+    want = bits_of(metric_values(main_result))
+    runs, by_variant = {}, {}
+    t0 = time.perf_counter()
+    for variant in HIST_FORCED:
+        result, report = variant_run(suite, variant, f"in memory, {variant}")
+        diff = differing_bits(metric_values(main_result), metric_values(result))
+        if diff:
+            fail(f"hist_variant_path: in memory under {variant}, {len(diff)} metrics differ "
+                 f"from main_path's bits: {diff[:5]}")
+        runs[f"in_memory_{variant}"] = report
+        by_variant[variant] = report["kernel_launches"]["onehot"]
+    in_memory_s = time.perf_counter() - t0
+    cache, persist_s = persist_timed(table, device)
+    base, base_report = variant_run(suite, None, "persisted, the policy's")
+    held = hold_against_main(base, main_result, "hist_variant_path persisted")
+    runs["persisted_default"] = base_report
+    for variant in HIST_FORCED:
+        result, report = variant_run(suite, variant, f"persisted, {variant}")
+        diff = differing_bits(metric_values(base), metric_values(result))
+        if diff:
+            fail(f"hist_variant_path: persisted under {variant}, {len(diff)} metrics differ "
+                 f"from the unforced persisted run: {diff[:5]}")
+        runs[f"persisted_{variant}"] = report
+        by_variant[variant] += report["kernel_launches"]["onehot"]
+    freed = unpersist_frees(table, device, "hist_variant_path")
+
+    # the default routes of the main path's dispatches (the reference's
+    # widths: the counted bins plus a trailing slot)
+    n = table.num_rows
+    preps = {c: _prepare_grouping(table, [c], device) for c in FUSED_SETS}
+    spaces = [preps[c].keyspace for c in FUSED_SETS]
+    routes = {f"{c} ({preps[c].keyspace} bins)": resolve_hist_variant(
+        (preps[c].keyspace + 1,), rows=n, platform="cuda") for c in FUSED_SETS}
+    routes[f"the fused group ({sum(spaces)} bins)"] = resolve_hist_variant(
+        (sum(spaces) + 1,), rows=n * len(FUSED_SETS), platform="cuda")
+
+    # K6 at the main path's narrow dispatch shapes, and its multi-input
+    # entry at the fused group's beside K7
+    shapes = []
+    for col in ("status", "region"):
+        seg = torch.from_numpy(preps[col].keys).to(device)
+        shapes.append(k6_shape_timing(col, seg, preps[col].keyspace, rate, ops_rate))
+    keys = [torch.from_numpy(preps[c].keys).to(device) for c in FUSED_SETS]
+    out = torch.zeros(sum(spaces), dtype=torch.int64, device=device)
+    saved = histogram_device.ONEHOT_LAUNCHES
+    multi_ms = time_queued(lambda i: histogram_device._onehot_multi_launch(keys, spaces, out), 5)
+    got = histogram_device.fused_bincount(keys, spaces, "onehot")
+    histogram_device.ONEHOT_LAUNCHES = saved
+    if not torch.equal(got, fused_bincount_plain(keys, spaces)):
+        fail("K6's multi-input entry != fused_bincount_plain at the fused group's shape")
+    name = histogram_device.regime(sum(spaces))
+    scratch, k7_out = histogram_device._fused_buffers(keys, spaces, name)
+    k7_ms = time_queued(lambda i: histogram_device._fused_launch(keys, spaces, scratch, k7_out,
+                                                                 name), 20)
+    plan = histogram_device.onehot_plan(sum(spaces), n * len(FUSED_SETS))
+    rows_all = n * len(FUSED_SETS)
+    ops_ms = rows_all * plan["a_pad"] * (1 << plan["log2_b"]) * 2 / ops_rate * 1e3
+    bytes_ms = (rows_all * 8 + sum(spaces) * 8) / rate * 1e3
+    fused = {"column": "main_path's fused group: " + ", ".join(FUSED_SETS),
+             "n": rows_all, "num_segments": sum(spaces), "kernel_ms": multi_ms, "k7_ms": k7_ms,
+             "bound_ms": bytes_ms, "bound_by": "bytes", "formulation_ops_ms": ops_ms,
+             "bound_share": bytes_ms / multi_ms, "max_abs_err": 0}
+    del keys, out, scratch, k7_out
+
+    sweep = hist_variant_sweep(device, rate, ops_rate, seed)
+    if "DEEQU_TORCH_HIST_ACCEL_CAP" not in os.environ \
+            and hist_accel_cap() != sweep["cap_from_sweep"]:
+        fail(f"hist_variant_path: the card's default one-hot cap is {hist_accel_cap()}, "
+             f"the sweep's is {sweep['cap_from_sweep']} (K6 no slower than K5 at "
+             f"{sweep['k6_no_slower_at']})")
+    return {
+        "phase": "hist_variant_path", "card": smi,
+        "runs": runs, "metrics_bit_for_bit": len(want), "persisted_vs_main": held,
+        "in_memory_s": in_memory_s, "persist_s": persist_s, **freed,
+        "k6_launches_by_variant": by_variant,
+        "kernel_launches": {"onehot": sum(by_variant.values())},
+        "default_routes": routes, "accel_cap": hist_accel_cap(),
+        "k6_shapes": shapes, "k6_fused_group": fused, "sweep": sweep,
+    }
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7803,6 +8259,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fusion = fusion_path(table, main_result, res_main, device, smi, rate)
     emit({**fusion, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    hv = hist_variant_path(table, main_result, device, smi, rate, args.seed)
+    emit({**hv, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     part = partition_path(table, args.seed, device)
@@ -7943,6 +8403,11 @@ def main(argv=None) -> int:
                "device_fault_path": faults["kernel_launches"],
                "mesh_path": mesh["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
+    onehot_launches = {"main_path": report["onehot_launches"],
+                       "hist_variant_path": hv["kernel_launches"]["onehot"],
+                       **{path: c["onehot"] for path, c in by_path.items()
+                          if isinstance(c, dict) and "onehot" in c}}
+    k6_head = hv["k6_shapes"][0]
     k1_merges = {path: c["k1_merge"] for path, c in by_path.items()}
     k8_time = mesh["k8_timing"]
     k1_time = res_main["k1_fused_scan"]["k1"]
@@ -7991,6 +8456,30 @@ def main(argv=None) -> int:
         "three_k5_ms": k7_time["three_k5_ms"],
         "parity": "exact",
         "shapes": [k7_time],
+    }, {
+        "name": "onehot",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/onehot.cu",
+        "replaces": "deequ_tpu/ops/histogram_device.py:154",
+        "launches": sum(onehot_launches.values()),
+        "launches_by_path": onehot_launches,
+        "launches_by_forced_variant": hv["k6_launches_by_variant"],
+        "headline_shape": (f"{k6_head['column']} under the onehot force: {k6_head['n']} "
+                           f"{k6_head['ids']} ids over {k6_head['num_segments']} bins"),
+        "max_abs_err": max(parity["onehot"]["max_abs_err"], k6_head["max_abs_err"]),
+        "ms": k6_head["kernel_ms"],
+        "plain_ms": k6_head["plain_ms"],
+        "bound_ms": k6_head["bound_ms"],
+        "bound_by": k6_head["bound_by"],
+        "formulation_ops_ms": k6_head["formulation_ops_ms"],
+        "library_ms": k6_head["library_ms"],
+        "library_call": k6_head["library_call"],
+        "k5_ms": k6_head["k5_ms"],
+        "parity": "exact",
+        "shapes": hv["k6_shapes"] + [hv["k6_fused_group"]],
+        "sweep": hv["sweep"]["rows"],
+        "cap_from_sweep": hv["sweep"]["cap_from_sweep"],
+        "accel_cap": hv["accel_cap"],
     }, {
         "name": "hll",
         "route": "cuda",

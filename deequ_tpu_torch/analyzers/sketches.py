@@ -75,6 +75,7 @@ from deequ_tpu_torch.ops.select_device import (
     MAX_SELECT_SKETCH_SIZE,
     chunk_summary_select,
     chunk_summary_select_batched,
+    pass_width,
 )
 from deequ_tpu_torch.tryresult import Failure, Success, Try
 
@@ -301,6 +302,7 @@ def _kll_scan_op(column: str, sketch_size: int, where: Optional[str] = None) -> 
         sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
         select_size=sketch_size,
+        hist_widths=(pass_width(1, sketch_size),),
         compact=_make_kll_compact(1, sketch_size),
     )
 
@@ -326,6 +328,7 @@ def _kll_multi_scan_op(columns: Tuple[str, ...], sketch_size: int) -> ScanOp:
         tuple(sorted(set(columns))), update, dict(_KLL_TAGS), sorts_chunk=True,
         select_update=update_select if sketch_size <= MAX_SELECT_SKETCH_SIZE else None,
         select_size=sketch_size,
+        hist_widths=(pass_width(len(columns), sketch_size),),
         compact=_make_kll_compact(len(columns), sketch_size),
     )
 

@@ -184,3 +184,22 @@ PLAN_FUSION = register(EnvVar(
     doc="0 turns off cross-set grouping fusion: every dense grouping set "
         "then counts in its own dispatch (the A/B switch)",
 ))
+HIST_VARIANT = register(EnvVar(
+    "DEEQU_TORCH_HIST_VARIANT", "choice", default=None,
+    choices=("scatter", "onehot", "pallas"),
+    doc="force the histogram kernel variant of every dispatch and plan "
+        "(ops/histogram_device.py: onehot is K6, scatter and pallas are K5 "
+        "on a card); unset = ops/device_policy.resolve_hist_variant decides",
+))
+HIST_CPU_CAP = register(EnvVar(
+    "DEEQU_TORCH_HIST_CPU_CAP", "int", default=None, minimum=1,
+    doc="widest keyspace the one-hot variant takes by default on a CPU "
+        "device (unset = the module default 32); also priced by the plan "
+        "cost model",
+))
+HIST_ACCEL_CAP = register(EnvVar(
+    "DEEQU_TORCH_HIST_ACCEL_CAP", "int", default=None, minimum=1,
+    doc="widest keyspace the one-hot variant (K6) takes by default on a "
+        "card (unset = the module default, set from the card's sweep in "
+        "PERF.md); also priced by the plan cost model",
+))

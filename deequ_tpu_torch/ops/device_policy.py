@@ -33,11 +33,12 @@ themselves (bisection, eviction, demotion, refusal) live in
 ``ops/scan_executors.py``; this module only decides *what* failed and
 *whether* the device is still trusted.
 
-It also holds the histogram width caps the plan cost model prices
-against (:func:`hist_cpu_cap`, :func:`hist_accel_cap`, the reference's
-``device_policy.py:81-114``). In the reference they are the one-hot
-kernel's crossovers; the port routes no histogram variants, so here they
-only price a dispatch (``ops/plan_cost.py``).
+It also holds the histogram kernel-variant policy
+(:func:`resolve_hist_variant`, the reference's ``device_policy.py:81-158``):
+which variant of ``ops/histogram_device.py`` a dispatch or a plan runs, by
+the force switch, the row count and the platform's width cap
+(:func:`hist_cpu_cap`, :func:`hist_accel_cap`, which the plan cost model,
+``ops/plan_cost.py``, also prices against).
 """
 
 from __future__ import annotations
@@ -55,26 +56,90 @@ from deequ_tpu_torch.exceptions import (
     device_boundary,
 )
 
-# -- histogram width caps (plan cost model inputs) ----------------------------
+# -- the histogram kernel-variant policy -----------------------------------------
 
-#: widest histogram the reference's one-hot matmul takes on a CPU backend
-#: (its round-14 crossover): the cost model's cap on a CPU device
+#: widest keyspace the one-hot variant takes by default on a CPU device: the
+#: reference's round-14 crossover, where its f32 sgemm form stops beating
+#: the scatter (the port's CPU plain versions keep the reference's choice)
 HIST_ONEHOT_CPU_MAX_SEGMENTS = 32
 
-#: widest histogram the reference's one-hot matmul takes on an
-#: accelerator (2^17, its factored-planes bound): the cap on a card
-HIST_ONEHOT_MXU_MAX_SEGMENTS = 1 << 17
+#: widest keyspace the one-hot variant (K6, ``csrc/onehot.cu``) takes by
+#: default on a card: the widest width of chip_smoke.py's sweep (10^7 int64
+#: Zipf ids at 9 to 2^17 bins on an H100) at which K6 was no slower than K5
+#: (PERF.md). K6 was slower at every swept width, so the cap is 0 and no
+#: width routes to it by default: only the force switch reaches it, as the
+#: reference's "pallas" is reached. (The reference's cap, 2^17, bounds its
+#: MXU planes.)
+HIST_ONEHOT_MXU_MAX_SEGMENTS = 0
+
+#: below this many rows a dispatch keeps the scatter variant (the
+#: reference's: the dispatch outweighs any kernel's difference)
+HIST_MIN_ROWS = 1 << 14
 
 
 def hist_cpu_cap() -> int:
-    """The cost model's histogram width cap on a CPU device (read at each
-    call, so a monkeypatched constant steers it)."""
-    return HIST_ONEHOT_CPU_MAX_SEGMENTS
+    """The one-hot cap on a CPU device: ``DEEQU_TORCH_HIST_CPU_CAP`` when
+    set, else :data:`HIST_ONEHOT_CPU_MAX_SEGMENTS` (read at each call, so a
+    monkeypatched constant steers it)."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    value = env_value("DEEQU_TORCH_HIST_CPU_CAP")
+    return HIST_ONEHOT_CPU_MAX_SEGMENTS if value is None else value
 
 
 def hist_accel_cap() -> int:
-    """The cost model's histogram width cap on a card."""
-    return HIST_ONEHOT_MXU_MAX_SEGMENTS
+    """The one-hot cap on a card: ``DEEQU_TORCH_HIST_ACCEL_CAP`` when set,
+    else :data:`HIST_ONEHOT_MXU_MAX_SEGMENTS`."""
+    from deequ_tpu_torch.envcfg import env_value
+
+    value = env_value("DEEQU_TORCH_HIST_ACCEL_CAP")
+    return HIST_ONEHOT_MXU_MAX_SEGMENTS if value is None else value
+
+
+def default_platform() -> str:
+    """The port's default device type: "cuda" where it resolves to a card,
+    "cpu" otherwise (a ``use_device("cpu")`` scope, or no card)."""
+    from deequ_tpu_torch.device import resolve_device
+    from deequ_tpu_torch.exceptions import DeviceUnavailableException
+
+    try:
+        return resolve_device(None).type
+    except DeviceUnavailableException:
+        return "cpu"
+
+
+def resolve_hist_variant(
+    widths,
+    rows: Optional[int] = None,
+    platform: Optional[str] = None,
+    force: Optional[str] = None,
+) -> str:
+    """The histogram variant of one dispatch or plan, in the reference's
+    order: the ``force`` argument, then ``DEEQU_TORCH_HIST_VARIANT``; no
+    ``widths`` -> "scatter"; fewer than :data:`HIST_MIN_ROWS` ``rows`` (None
+    means many: a resident chunk) -> "scatter"; else "onehot" when the
+    widest width is within the platform's cap (:func:`hist_cpu_cap` on
+    "cpu", :func:`hist_accel_cap` otherwise), "scatter" past it. The
+    platform defaults to :func:`default_platform`. "pallas" is never
+    resolved by default (on a card it is K5, as "scatter" is)."""
+    from deequ_tpu_torch.envcfg import env_value
+    from deequ_tpu_torch.ops.histogram_device import HIST_VARIANTS
+
+    if force is None:
+        force = env_value("DEEQU_TORCH_HIST_VARIANT")
+    if force is not None:
+        if force not in HIST_VARIANTS:
+            raise ValueError(f"hist variant must be one of {HIST_VARIANTS}, got {force!r}")
+        return force
+    widths = tuple(int(w) for w in widths)
+    if not widths:
+        return "scatter"
+    if rows is not None and rows < HIST_MIN_ROWS:
+        return "scatter"
+    if platform is None:
+        platform = default_platform()
+    cap = hist_cpu_cap() if platform == "cpu" else hist_accel_cap()
+    return "onehot" if max(widths) <= cap else "scatter"
 
 
 # -- fault-injection seam ----------------------------------------------------

@@ -85,13 +85,9 @@ class PlanCostModel:
         it resolves to a card, "cpu" otherwise."""
         if self._platform is not None:
             return self._platform
-        from deequ_tpu_torch.device import resolve_device
-        from deequ_tpu_torch.exceptions import DeviceUnavailableException
+        from deequ_tpu_torch.ops.device_policy import default_platform
 
-        try:
-            return resolve_device(None).type
-        except DeviceUnavailableException:
-            return "cpu"
+        return default_platform()
 
     def predict(self, f: PlanFeatures) -> PlanCost:
         """Nondecreasing in every :class:`PlanFeatures` field (the

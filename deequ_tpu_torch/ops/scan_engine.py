@@ -188,7 +188,9 @@ class ScanOp:
     ``sorts_chunk``: ``update`` sorts each chunk on the device (the KLL
     summary); ``select_update``: the same partials by the radix select,
     which a resident scan runs instead where the select is the faster
-    (``ops/scan_plan.py``), and ``select_size`` its sketch size.
+    (``ops/scan_plan.py``), ``select_size`` its sketch size and
+    ``hist_widths`` the bins of its select's histogram passes (the input
+    of the plan's histogram variant).
 
     ``compact``: a host compaction of the op's gathered leaves (a dict of
     them, returned with the same keys and trailing shapes, fewer rows),
@@ -204,6 +206,7 @@ class ScanOp:
     sorts_chunk: bool = False
     select_update: Optional[Callable] = None
     select_size: int = 0
+    hist_widths: Tuple[int, ...] = ()
     compact: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None
     compact_threshold: int = 1 << 20
 
@@ -213,11 +216,17 @@ class ScanStats:
     port's slice touches): fused passes, rows scanned, device->host
     fetches and their bytes, grouping passes, device sorts, and the
     histogram census by route — ``hist_kernel_dispatches`` counts
-    grouping counts that ran the CUDA kernel (a resident string count:
-    one a chunk), ``hist_plain_dispatches`` those that ran its plain
+    grouping counts that ran a CUDA kernel (a resident string count:
+    one a chunk), ``hist_plain_dispatches`` those that ran a plain
     version on a CPU tensor, ``hist_host_dispatches`` those of tables
     small enough for ``np.bincount`` on the host
-    (``segment.host_group_limit()``). ``fused_group_passes`` counts the
+    (``segment.host_group_limit()``) — and by variant (the reference's):
+    ``hist_scatter_dispatches``, ``hist_onehot_dispatches`` and
+    ``hist_pallas_dispatches`` count the device dispatches under the
+    variant each resolved (``device_policy.resolve_hist_variant``): the
+    grouping counts, and the histogram passes of a select plan's plain
+    version (on a card K4 counts its passes inside its kernel, so none is
+    dispatched there). ``fused_group_passes`` counts the
     grouping passes that rode a fused dispatch
     (``segment.fused_group_counts``: a group of K sets counts K here and
     one histogram dispatch); each is a grouping pass too.
@@ -271,7 +280,7 @@ class ScanStats:
     ``mesh_stragglers`` hangs under the straggler deadline,
     ``peer_losses`` peer processes a multi-process check lost;
     ``member_launches`` counts each member's kernel launches by kernel
-    ({member id: {"K1": n, "K2": n, "K4": n, "K5": n, "K7": n}}), the
+    ({member id: {"K1": n, "K2": n, "K4": n, "K5": n, "K6": n, "K7": n}}), the
     launches made inside that member's step or count."""
 
     def __init__(self):
@@ -294,6 +303,9 @@ class ScanStats:
         self.hist_kernel_dispatches = 0
         self.hist_plain_dispatches = 0
         self.hist_host_dispatches = 0
+        self.hist_scatter_dispatches = 0
+        self.hist_onehot_dispatches = 0
+        self.hist_pallas_dispatches = 0
         self.fused_group_passes = 0
         # KLL chunk sorts: one per torch.sort of a KLL op (a batched op
         # sorts all its columns at once), and the columns they sorted
@@ -401,11 +413,12 @@ class ScanStats:
             self.kll_sort_passes += 1
             self.kll_sorted_columns += int(columns)
 
-    def record_hist_dispatch(self, route: str) -> None:
-        """``route``: "kernel", "plain" or "host"."""
+    def record_hist_dispatch(self, name: str, n: int = 1) -> None:
+        """``n`` histogram dispatches under ``name``: a route ("kernel",
+        "plain" or "host") or a variant ("scatter", "onehot", "pallas")."""
         with self._lock:
-            name = f"hist_{route}_dispatches"
-            setattr(self, name, getattr(self, name) + 1)
+            field = f"hist_{name}_dispatches"
+            setattr(self, field, getattr(self, field) + int(n))
 
     def record_fused_group_pass(self, n: int = 1) -> None:
         """``n`` grouping passes that rode one fused dispatch."""
@@ -439,7 +452,8 @@ def _launch_counts() -> Dict[str, int]:
     from deequ_tpu_torch.ops import histogram_device, hll, select_device
 
     return {"K1": masked_reduce.LAUNCHES, "K2": hll.LAUNCHES, "K4": select_device.LAUNCHES,
-            "K5": histogram_device.LAUNCHES, "K7": histogram_device.FUSED_LAUNCHES}
+            "K5": histogram_device.LAUNCHES, "K6": histogram_device.ONEHOT_LAUNCHES,
+            "K7": histogram_device.FUSED_LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -1348,7 +1362,8 @@ def _run_scan_once(
     local_n = chunk // n_dev
     report["chunk"] = chunk
     bounds = _chunk_bounds(n_rows, chunk)
-    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, local_n)
+    plan = plan_scan_ops(ops, packer, cache is not None, select_kernel, local_n,
+                         torch.device(device).type)
     report["encoded"] = bool(plan.encoded_columns)
     ops = plan.ops
     n_chunks = len(bounds)

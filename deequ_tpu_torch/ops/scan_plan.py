@@ -14,14 +14,24 @@ its update. The plan's census (``select_ops``, ``sort_ops``) is what
 
 Every numeric column of the port rides f64, and K4 keys on the 64-bit
 order of the f64 itself, so any column a select op reads is selectable
-(the reference keeps its wide-f64 columns on the sort). There is one
-histogram kernel entry, so no histogram-variant resolution either.
+(the reference keeps its wide-f64 columns on the sort).
+
+A plan that routes select ops also declares its ``hist_variant`` (the
+reference's ``scan_plan.py:118-148``, ``:392-416``): the histogram variant
+of ``ops/histogram_device.py`` resolved once for the plan by
+``device_policy.resolve_hist_variant`` over the widest pass its select ops
+declare (``ScanOp.hist_widths``), at the chunk's rows; "none" when the
+plan routes no select. On the CPU it is bound around each select update
+(:func:`_bind_hist_variant`), so the plain select's passes
+(``select_device._select_batch``) count under it. On a card K4 counts its
+passes inside its own kernel (``csrc/select.cu``), so there the variant is
+declared, the update stays bare and no histogram is dispatched for it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 
 #: the rule's thresholds (:func:`select_beats_sort`)
@@ -88,6 +98,8 @@ class ScanPlan:
     """One scan's ops with their kernels chosen. ``select_ops`` and
     ``sort_ops`` count the ops a chunk that run the radix select and a
     device sort; ``variant`` is "select", "sort", "mixed" or "none";
+    ``hist_variant`` the histogram variant of the select ops' passes
+    ("scatter", "onehot", "pallas", or "none" with no select: module doc);
     ``encoded_columns`` are the columns on the int16 code plane."""
 
     ops: Tuple
@@ -96,6 +108,19 @@ class ScanPlan:
     sort_ops: int
     variant: str
     encoded_columns: Tuple[str, ...] = ()
+    hist_variant: str = "none"
+
+
+def _bind_hist_variant(update: Callable, variant: str) -> Callable:
+    """``update`` with the ambient histogram variant bound to ``variant``
+    while it runs (``histogram_device.active_hist_variant``)."""
+    from deequ_tpu_torch.ops.histogram_device import active_hist_variant
+
+    def bound_update(*args):
+        with active_hist_variant(variant):
+            return update(*args)
+
+    return bound_update
 
 
 def plan_scan_ops(
@@ -104,16 +129,35 @@ def plan_scan_ops(
     resident: bool = False,
     select_kernel: Optional[bool] = None,
     chunk_rows: Optional[int] = None,
+    platform: Optional[str] = None,
 ) -> ScanPlan:
     """Route each op for one scan (module doc); ``chunk_rows``: the scan's
-    chunk capacity (None: no shape rule)."""
+    chunk capacity (None: no shape rule, and many rows to the variant
+    policy); ``platform``: the scan's device type (None: the port's
+    default device)."""
+    from deequ_tpu_torch.ops.device_policy import default_platform, resolve_hist_variant
+
     use_select = select_kernel_enabled(select_kernel) and resident
+    routed = [
+        use_select and op.select_update is not None and (
+            chunk_rows is None or select_beats_sort(chunk_rows, op.select_size))
+        for op in ops
+    ]
+    hist_variant = "none"
+    if any(routed):
+        platform = platform or default_platform()
+        hist_variant = resolve_hist_variant(
+            tuple(w for op, sel in zip(ops, routed) if sel for w in op.hist_widths),
+            rows=chunk_rows, platform=platform,
+        )
     resolved = []
     n_select = n_sort = 0
-    for op in ops:
-        if use_select and op.select_update is not None and (
-                chunk_rows is None or select_beats_sort(chunk_rows, op.select_size)):
-            resolved.append(replace(op, update=op.select_update, sorts_chunk=False))
+    for op, sel in zip(ops, routed):
+        if sel:
+            update = op.select_update
+            if platform == "cpu":
+                update = _bind_hist_variant(update, hist_variant)
+            resolved.append(replace(op, update=update, sorts_chunk=False))
             n_select += 1
         else:
             resolved.append(op)
@@ -133,4 +177,5 @@ def plan_scan_ops(
         sort_ops=n_sort,
         variant=variant,
         encoded_columns=tuple(packer.enc_names) if packer is not None else (),
+        hist_variant=hist_variant,
     )

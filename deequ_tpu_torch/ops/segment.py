@@ -7,9 +7,12 @@ from a device sort (``_device_unique_inverse``). A group key is the
 mixed-radix packing of the codes, built on the host as in the reference.
 
 - Dense key space (at most ``DENSE_KEYSPACE_LIMIT``): one histogram of the
-  packed keys over the key space — the CUDA kernel of
-  ``ops/histogram_device.py`` on the card — and the count distribution's
-  scalars are taken on the host from the fetched counts.
+  packed keys over the key space — on the card the kernel of the variant
+  the dispatch resolves (``device_policy.resolve_hist_variant`` over its
+  width, as the reference resolves it: K5 for "scatter" and "pallas", K6
+  for "onehot"; ``ops/histogram_device.py``), recorded in the census by
+  route and by variant — and the count distribution's scalars are taken
+  on the host from the fetched counts.
 - Sparse key space: one device lexsort of the (k, n) code matrix plus run
   lengths; only four scalars come back.
 
@@ -33,23 +36,26 @@ Three results come out of those counts:
 
 On a table persisted on the run's device (``ColumnarTable.persist``), a
 string column's counts come from its resident codes
-(:func:`_resident_string_bincount`: one K5 launch a resident chunk, summed
-on the device): ``group_top_k`` ranks them there, and ``group_count_stats``
-of one string column reduces them there to four scalars.
+(:func:`_resident_string_bincount`: one launch of the resolved variant's
+kernel a resident chunk, summed on the device): ``group_top_k`` ranks
+them there, and ``group_count_stats`` of one string column reduces them
+there to four scalars.
 
 Cross-set fusion (:func:`fused_group_counts`, the reference's round-19
 plan optimizer): the dense sets of one run count in one launch of the
-histogram kernel's multi-input entry (``histogram_device.fused_bincount``,
-K7) over their summed keyspace, and each set's slice of the counts is
-bit for bit what its own dispatch would have counted.
+histogram kernel's multi-input entry (``histogram_device.fused_bincount``:
+K7, or K6's entry where the summed width resolves "onehot") over their
+summed keyspace, and each set's slice of the counts is bit for bit what
+its own dispatch would have counted.
 
 Over a mesh (the ``use_mesh`` scope, led by the device these functions
 are handed: ``parallel/mesh.py``) every dense count is sharded as the
 reference's ``shard_map`` wrappers shard it (:func:`_member_counts`):
 the keys split into one row shard a member, each member counts its shard
-with K5 or K7 on its own device, and the counts are copied to the lead
-and summed there in int64 — exact, as the reference's psum is. The top-k
-and the count statistics run after the sum, on the lead; a resident
+with the dispatch's kernel (K5, K6 or K7) on its own device, and the
+counts are copied to the lead and summed there in int64 — exact, as the
+reference's psum is. The top-k and the count statistics run after the
+sum, on the lead; a resident
 string column counts each member's resident codes of each chunk. The
 sorts (unique codes, the sparse run lengths) run on the lead over all
 rows, as the reference runs them unsharded.
@@ -65,8 +71,8 @@ import torch
 
 from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
 from deequ_tpu_torch.exceptions import DeviceException, device_boundary
-from deequ_tpu_torch.ops.device_policy import check_not_abandoned
-from deequ_tpu_torch.ops.histogram_device import bincount, fused_bincount
+from deequ_tpu_torch.ops.device_policy import check_not_abandoned, resolve_hist_variant
+from deequ_tpu_torch.ops.histogram_device import bincount_variant, fused_bincount
 from deequ_tpu_torch.ops.scan_engine import SCAN_STATS, _members_of, fetch, member_scope
 from deequ_tpu_torch.parallel.mesh import scoped_mesh, shard_bounds
 
@@ -189,17 +195,33 @@ def _member_counts(arrays: Sequence[np.ndarray], count, device) -> torch.Tensor:
     return total
 
 
+def _hist_variant(width: int, rows: int, device) -> str:
+    """The histogram variant of one grouping dispatch of ``width`` slots
+    (the reference's: the counted bins plus its trailing slot) over
+    ``rows`` rows on ``device`` (``device_policy.resolve_hist_variant``)."""
+    return resolve_hist_variant((width,), rows=rows, platform=torch.device(device).type)
+
+
+def _record_dispatch(variant: str, counts: torch.Tensor, n: int = 1) -> None:
+    """One grouping dispatch (``n`` for a resident count's chunks) in the
+    census: by route, a kernel on a card or a plain version on the CPU, and
+    by the variant it resolved."""
+    SCAN_STATS.record_hist_dispatch("kernel" if counts.device.type == "cuda" else "plain", n)
+    SCAN_STATS.record_hist_dispatch(variant, n)
+
+
 def _device_bincount(keys: np.ndarray, num_segments: int, device) -> np.ndarray:
     """Count key occurrences; ``keys`` holds -1 for rows to ignore. On the
-    card this is one launch of the CUDA histogram kernel (one a member
-    over a mesh, the counts summed on the lead)."""
+    card this is one launch of the resolved variant's kernel (K6 or K5; one
+    a member over a mesh, the counts summed on the lead)."""
     if len(keys) <= host_group_limit():
         return _host_bincount(keys, num_segments)
+    variant = _hist_variant(num_segments + 1, len(keys), device)
     with device_boundary("execute"):
-        counts = _member_counts([keys], lambda segs: bincount(segs[0], num_segments), device)
-        SCAN_STATS.record_hist_dispatch(
-            "kernel" if counts.device.type == "cuda" else "plain"
+        counts = _member_counts(
+            [keys], lambda segs: bincount_variant(variant, segs[0], num_segments), device
         )
+        _record_dispatch(variant, counts)
         return fetch(counts)[0]
 
 
@@ -216,9 +238,9 @@ def _resident_cache(table, column: str, device):
 
 def _resident_string_bincount(table, column: str, include_null: bool, device):
     """Counts per code slot (slot 0: null, counted only with
-    ``include_null``) from the codes resident on ``device``, one K5 launch
-    a resident chunk (a member's shard of it over a mesh) summed on the
-    device (the lead) — a device tensor of length cardinality + 1; None
+    ``include_null``) from the codes resident on ``device``, one launch of
+    the resolved variant's kernel a resident chunk (a member's shard of it
+    over a mesh) summed on the device (the lead) — a device tensor of length cardinality + 1; None
     when the table or column is not resident there. (The port's resident
     chunks hold no padding rows, so none is dropped.)"""
     cache = _resident_cache(table, column, device)
@@ -228,13 +250,15 @@ def _resident_string_bincount(table, column: str, include_null: bool, device):
     row = packer.string_names.index(column)
     slots = len(packer.cols[column].dictionary) + 1
     members = _members_of(cache.mesh, cache.device)
+    variant = _hist_variant(slots + 1, table.num_rows, cache.device)
+    SCAN_STATS.record_hist_dispatch(variant, len(cache.device_chunks))
     counts = None
     with device_boundary("execute"):
         for ci in range(len(cache.device_chunks)):
             for i, (member, dev) in enumerate(members):
                 with member_scope(member, dev):
                     seg = cache.shard(ci, i)[2][row] + 1  # code -1 (null) lands in slot 0
-                    part = bincount(seg, slots)
+                    part = bincount_variant(variant, seg, slots)
                 SCAN_STATS.record_hist_dispatch(
                     "kernel" if seg.device.type == "cuda" else "plain"
                 )
@@ -656,12 +680,13 @@ def _fused_device_bincount(keys: List[np.ndarray], keyspaces, device) -> np.ndar
             for k, off in zip(keys, offsets)
         ])
         return _host_bincount(combined, total)
+    variant = _hist_variant(total + 1, sum(len(k) for k in keys), device)
     with device_boundary("execute"):
         check_not_abandoned()
-        counts = _member_counts(keys, lambda segs: fused_bincount(segs, keyspaces), device)
-        SCAN_STATS.record_hist_dispatch(
-            "kernel" if counts.device.type == "cuda" else "plain"
+        counts = _member_counts(
+            keys, lambda segs: fused_bincount(segs, keyspaces, variant), device
         )
+        _record_dispatch(variant, counts)
         return fetch(counts)[0]
 
 
@@ -844,13 +869,12 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
         top_idx = np.argsort(-counts, kind="stable")[:kk]
         top_counts = counts[top_idx]
     else:
+        variant = _hist_variant(num_segments + 1, len(codes), device)
         with device_boundary("execute"):
             counts = _member_counts(
-                [codes], lambda segs: bincount(segs[0], num_segments), device
+                [codes], lambda segs: bincount_variant(variant, segs[0], num_segments), device
             )
-            SCAN_STATS.record_hist_dispatch(
-                "kernel" if counts.device.type == "cuda" else "plain"
-            )
+            _record_dispatch(variant, counts)
             keys, groups = _topk_merged(counts, kk, nv_code)
             num_groups, keys = fetch(groups, keys)
         top_idx, top_counts = _unpack_topk(keys)

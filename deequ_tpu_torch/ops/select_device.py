@@ -42,9 +42,11 @@ so their prefixes are), and an element finds its interval by search. Each
 target then takes the byte whose cumulative count passes its rank inside
 the interval. After pass 8 each target knows its key and its rank inside
 the key's tie group. The plain version counts each pass with one
-``bincount`` over every column of a batch (bins offset by column; K5 on
-the card, its plain version on the CPU), a batch holding at most
-``MAX_BINS`` bins.
+``bincount`` over every column of a batch (bins offset by column), a
+batch holding at most ``MAX_BINS`` bins (:func:`pass_width`), under the
+ambient histogram variant (the plan binds its ``hist_variant`` around a
+select update: ``ops/scan_plan.py``); each pass is one dispatch of the
+census (``ScanStats.hist_<variant>_dispatches``).
 
 Bits. A key other than the zero key and the NaN key is one f64 bit
 pattern, so its value is the key inverted. A target on the zero key
@@ -69,7 +71,7 @@ import torch
 
 from deequ_tpu_torch.exceptions import launch_error
 from deequ_tpu_torch.ops import cuda_build
-from deequ_tpu_torch.ops.histogram_device import bincount
+from deequ_tpu_torch.ops.histogram_device import bincount, current_hist_variant
 from deequ_tpu_torch.ops.kll_device import strata_capacity, strata_weight
 
 #: the largest sketch size the select takes: its per-pass histograms are
@@ -140,12 +142,22 @@ def _intervals(prefix: torch.Tensor):
     return table, torch.searchsorted(table, prefix)
 
 
+def pass_width(columns: int, sketch_size: int) -> int:
+    """The bins one histogram pass of the plain select counts for a batch
+    of ``columns`` columns at this sketch size (the columns of a batch past
+    :data:`MAX_BINS` bins split into further batches)."""
+    per = max(1, MAX_BINS // ((sketch_size + 2) * _B))
+    return min(columns, per) * (sketch_size + 2) * _B
+
+
 def _select_batch(key: torch.Tensor, ranks: torch.Tensor, trace: Optional[list] = None):
     """Resolve ``ranks`` ((K, R) int64, each in [0, n)) against the
     ascending order of each row of ``key`` ((K, n) int64): returns the key
     at each rank and the target's rank inside that key's tie group, both
     (K, R). Eight histogram passes, no sort of the data. With ``trace``,
     appends each pass's (prefix, rank left), the prefix read unsigned."""
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
     K, n = key.shape
     R = ranks.shape[1]
     dev = key.device
@@ -167,6 +179,7 @@ def _select_batch(key: torch.Tensor, ranks: torch.Tensor, trace: Optional[list] 
             inside = table.gather(1, at) == top
             cell = torch.where(inside, col * c + at * _B + digit, K * c)
         hist = bincount(cell.reshape(-1), K * c).view(K, R, _B)
+        SCAN_STATS.record_hist_dispatch(current_hist_variant())
         tcum = hist.cumsum(2).gather(1, row.unsqueeze(2).expand(K, R, _B))
         bucket, below = _bucket_of_rank(tcum, rank_rem)
         rank_rem = rank_rem - below

@@ -408,13 +408,13 @@ def test_member_counts_sum_each_members_shard(mesh8, monkeypatch):
     from deequ_tpu_torch.ops import histogram_device, segment
 
     seen = []
-    real = histogram_device.bincount
+    real = histogram_device.bincount_variant
 
-    def spy(seg, num_segments, *a, **k):
+    def spy(variant, seg, num_segments, *a, **k):
         seen.append(seg.numel())
-        return real(seg, num_segments, *a, **k)
+        return real(variant, seg, num_segments, *a, **k)
 
-    monkeypatch.setattr(segment, "bincount", spy)
+    monkeypatch.setattr(segment, "bincount_variant", spy)
     monkeypatch.setattr(segment, "HOST_GROUP_LIMIT", 0)
     keys = np.random.default_rng(3).integers(-1, 50, 1003)
     with use_mesh(mesh8):

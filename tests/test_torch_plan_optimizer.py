@@ -593,13 +593,19 @@ def test_cost_cap_knobs_price_the_crossover(monkeypatch):
     assert acapped > auncapped
 
 
-def test_cost_model_prices_as_the_reference():
+def test_cost_model_prices_as_the_reference(monkeypatch):
     """The port's model gives the reference's numbers for the same
-    features and platform class, and resolves its platform from the port's
+    features and platform class, with the accelerator's one-hot cap set
+    equal through both packages' switches (the card's default cap comes
+    from its own sweep), and resolves its platform from the port's
     default device (the CPU here: no card, or a use_device scope)."""
+    from deequ_tpu.ops.device_policy import HIST_ONEHOT_MXU_MAX_SEGMENTS as REF_CAP
     from deequ_tpu.ops.plan_cost import PlanCostModel as RefModel
     from deequ_tpu.ops.plan_cost import PlanFeatures as RefFeatures
     from deequ_tpu_torch import use_device
+
+    monkeypatch.setenv("DEEQU_TPU_HIST_ACCEL_CAP", str(REF_CAP))
+    monkeypatch.setenv("DEEQU_TORCH_HIST_ACCEL_CAP", str(REF_CAP))
 
     fields = dict(rows=1 << 15, scan_ops=3, sort_ops=1, select_ops=2,
                   hist_widths=(16, 1 << 18), group_keyspaces=(100, 1 << 20),

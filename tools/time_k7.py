@@ -25,7 +25,11 @@ first of its ten slices: customer_id, id, status and region); ``--split``
 also times the wide sets alone and the narrow ones alone. Prints one JSON
 line a build (ptxas's registers and shared memory by kernel, parity, both
 turns, the profiler's split, the bound and its share), one for the K5
-launches, and the card's name and power limit.
+launches, one for the plain version and the library call at the same
+shape (``fused_bincount_plain``, and ``torch.bincount`` of the keys the
+reference offsets and concatenates on the host, both as chip_smoke.py's
+``fused_dispatch_timing`` times them), and the card's name and power
+limit.
 """
 
 import argparse
@@ -144,7 +148,12 @@ def main(argv=None) -> int:
     preps = [segment._prepare_grouping(table, [c], device) for c in sets]
     spaces = [p.keyspace for p in preps]
     keys = [torch.from_numpy(p.keys).to(device) for p in preps]
-    del table, preps
+    total = sum(spaces)
+    offsets = np.cumsum([0] + spaces[:-1])
+    combined = np.concatenate([np.where(p.keys >= 0, p.keys + off, -1)
+                               for p, off in zip(preps, offsets)])
+    slots = torch.from_numpy(np.where(combined >= 0, combined, total)).to(device)
+    del table, preps, combined
     turns = cs.k7_turns(keys, spaces, libs, args.reps, unheld)
     if args.split:
         # the wide inputs alone, and the narrow ones (at most 16,384 bins of
@@ -172,6 +181,13 @@ def main(argv=None) -> int:
             row["kernel_ms_median"] = statistics.median(row["kernel_ms"])
             row["bound_share"] = bound_ms / row["kernel_ms_median"]
         print(json.dumps(row), flush=True)
+    plain_ms = cs.time_queued(lambda i: hd.fused_bincount_plain(keys, spaces), args.reps)
+    library_ms = cs.time_queued(lambda i: torch.bincount(slots, minlength=total + 1),
+                                args.reps, waits=True)
+    print(json.dumps({"build": "plain and library", "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "library_call": "torch.bincount of the host-offset, concatenated keys",
+                      **shape}), flush=True)
     print(card, flush=True)
     return 0
 
