@@ -29,13 +29,14 @@ Phases, each printed as one JSON line on stdout:
    regime's width; and K6, the one-hot variant of the histogram tier
    (``csrc/onehot.cu``, ``bincount_onehot``), against both its plain
    versions (``bincount_onehot_plain``, ``bincount_plain``) bit for bit:
-   int32 and int64 ids at 1 to 2^17 bins over 0 and 1 rows and both sides
-   of a step of 32 rows, a staged chunk and a row slice of its plan;
-   widths on both sides of a tile's and a block's bins; negative ids, ids
-   past m and past the padded A·B, int64 ids past 2^31; 10^7 Zipf and
-   single-bin ids; negative, INT32_MAX and wrapping weights; its
-   multi-input entry against ``fused_bincount_plain``; its refusals past
-   its widths;
+   int32 and int64 ids at 1 to 2^17 bins (each side of its narrow route's
+   edge, 2,048, and of a wide tile's) over 0 to 3 rows, both sides of a
+   step of 32 rows, a group of 64 and a partition chunk; ids off a 16-byte
+   boundary; negative ids, ids past m and past the tiles, int64 ids past
+   2^31, all rows dropped; 10^7 Zipf and single-bin ids, 2^22 bins;
+   negative, INT32_MAX, wrapping and all-ones weights each side of the
+   weighted edges, to 2^20 bins; its multi-input entry on both routes
+   against ``fused_bincount_plain``; its refusals past its widths;
 3b. ``k1_parity`` — K1, the fused scan's masked reductions
    (``csrc/masked_reduce.cu``), against its plain versions on the card:
    counts, min and max exact (NaN included), sums within 1e-13 · Σ|x|,
@@ -91,13 +92,16 @@ Phases, each printed as one JSON line on stdout:
    equal the census's one-hot dispatches, above 0 under onehot only, and
    a forced run counts no other variant; the policy's default route of
    each of the main path's dispatches; K6 at status's and region's shapes
-   and its multi-input entry at the fused group's beside K7; and the
-   sweep: K6, K5 in its regime and torch.bincount at 10^7 int64 Zipf ids
-   and 9 to 2^17 bins, each with the histogram's bound (its bytes over
-   the memory rate) and, apart, the one-hot product's operations over the
-   part's dense INT8 rate; the sweep sets the card's one-hot cap
-   (``device_policy.HIST_ONEHOT_MXU_MAX_SEGMENTS``), and the phase fails
-   when the default cap is not the sweep's;
+   and its multi-input entry at the fused group's beside K7, in turns; and
+   the sweep: K6 and K5 in its regime in turns, and torch.bincount, at
+   10^7 int64 Zipf ids and 9 to 2^22 bins (K6's narrow edge and K5's
+   shared edge among them), each with the histogram's bound (its bytes
+   over the memory rate) and, apart, K6's own traffic and the one-hot
+   product's operations over the part's dense INT8 rate; the sweep sets
+   the card's one-hot cap (``device_policy.HIST_ONEHOT_MXU_MAX_SEGMENTS``:
+   ``cap_from_sweep``, the widest width up to which K6 was no slower at
+   every swept width), and the phase fails when the default cap is not
+   the rule's;
 5. ``kernel_timing`` — each kernel at the shapes the main path gave it:
    the kernel alone (``kernel_ms``: 100 queued launches into preallocated
    buffers, CUDA events; the same in every other regime that can take the
@@ -746,22 +750,33 @@ def fused_parity(device, rng, boundaries: dict) -> dict:
 
 # -- phase 3: K6, the histogram tier's one-hot variant -------------------------
 
-#: the widths K6 is held at against its plain versions
-ONEHOT_WIDTHS = (1, 8, 9, 127, 128, 129, 5001, 1 << 16, 1 << 17)
+#: the widths K6 is held at against its plain versions: each side of the
+#: narrow route's radix steps and its edge (2,048), of a wide tile's edge
+#: (4,096), of the wide route's radix step (2^21), region's width, a select
+#: pass's and the sweep's
+ONEHOT_WIDTHS = (1, 8, 9, 127, 128, 129, 2047, 2048, 2049, 4095, 4096, 4097, 5001,
+                 1 << 16, 1 << 17, 1 << 21, (1 << 21) + 1)
+#: the weighted edges: the narrow route's (512) and the wide route's
+#: second tile (1,024) each side, and the widest
+ONEHOT_WEIGHTED_WIDTHS = (9, 511, 512, 513, 1023, 1024, 1025, 5001, 1 << 16, 1 << 17, 1 << 20)
 
 
 def onehot_parity(device, rng) -> dict:
     """K6 (``csrc/onehot.cu``, ``bincount_onehot``) against both its plain
     versions (``bincount_onehot_plain``, the reference's formulation, and
     ``bincount_plain``), bit for bit, one launch counted a call: int32 and
-    int64 ids at every width of :data:`ONEHOT_WIDTHS` over 0 and 1 rows
-    and both sides of a step of 32 rows, a staged chunk and a row slice of
-    the kernel's plan; widths on both sides of a tile's and a block's bins;
-    negative ids, ids >= m, ids past the padded A·B, int64 ids past 2^31;
-    10^7 Zipf ids and 10^7 ids in one bin; weights negative, INT32_MAX,
-    with per-block partials past int32 and with totals past int32; the
-    multi-input entry (``fused_bincount(..., "onehot")``) against
-    ``fused_bincount_plain``; and the refusals past its widths."""
+    int64 ids at every width of :data:`ONEHOT_WIDTHS` (both routes and
+    their edges) over 0 to 3 rows, both sides of a step of 32 rows, a group
+    of 64, a partition chunk, and 300,000 rows; ids off a 16-byte boundary
+    on both routes; negative ids, ids >= m, int64 ids past 2^31, all rows
+    dropped; 10^7 Zipf ids and 10^7 ids in one bin (at 2^17 bins a hot tile
+    spread over every multiplying block), and 2^22 bins; weights at every
+    width of :data:`ONEHOT_WEIGHTED_WIDTHS`: negative, INT32_MAX (totals
+    past int32), per-block partials past int32, 255 in every byte (-1) with
+    10^7 rows in one bin; the multi-input entry
+    (``fused_bincount(..., "onehot")``) against ``fused_bincount_plain``
+    with sets on both routes, more than 32 inputs on both, and ids past
+    their own keyspace; and the refusals past its widths."""
     import numpy as np
     import torch
 
@@ -778,11 +793,10 @@ def onehot_parity(device, rng) -> dict:
 
     saved = histogram_device.ONEHOT_LAUNCHES
     cases = 0
+    routes = {}
 
-    def check(seg_np, m, weights_np=None, dtype=torch.int64, label=""):
+    def check_tensor(seg, m, w=None, label=""):
         nonlocal cases
-        seg = torch.from_numpy(np.asarray(seg_np)).to(device=device, dtype=dtype)
-        w = None if weights_np is None else torch.from_numpy(weights_np).to(device)
         before = histogram_device.ONEHOT_LAUNCHES
         got = bincount_onehot(seg, m, weights=w)
         launched = histogram_device.ONEHOT_LAUNCHES - before
@@ -792,29 +806,33 @@ def onehot_parity(device, rng) -> dict:
             if not torch.equal(got, want):
                 err = int((got - want).abs().max())
                 fail(f"K6 != {plain.__name__} ({label} n={seg.numel()}, m={m}, "
-                     f"weighted={w is not None}, {dtype}): max err {err}")
+                     f"weighted={w is not None}, {seg.dtype}): max err {err}")
         if launched != (1 if seg.numel() else 0):
             fail(f"K6 {label}: {launched} launches for {seg.numel()} rows")
+        routes[f"{m}{' weighted' if w is not None else ''}"] = (
+            "wide" if onehot_plan(m, max(seg.numel(), 1), w is not None)["wide"] else "narrow")
         cases += 1
 
+    def check(seg_np, m, weights_np=None, dtype=torch.int64, label=""):
+        seg = torch.from_numpy(np.asarray(seg_np)).to(device=device, dtype=dtype)
+        w = None if weights_np is None else torch.from_numpy(weights_np).to(device)
+        check_tensor(seg, m, w, label)
+
+    chunk = onehot_plan(1 << 17, 1_000_000)["chunk_rows"]
     for dtype in (torch.int32, torch.int64):
         for m in ONEHOT_WIDTHS:
-            plan = onehot_plan(m, 1_000_000)
-            chunk, srows = plan["chunk_rows"], plan["slice_rows"]
-            for n in sorted({0, 1, 31, 32, 33, chunk - 1, chunk, chunk + 1,
-                             srows - 1, srows, srows + 1, 1_000_000}):
+            for n in sorted({0, 1, 2, 3, 31, 32, 33, 63, 64, 65, 257, chunk - 1, chunk,
+                             chunk + 1, 300_000}):
                 check(rng.integers(-3, m + 3, size=n), m, dtype=dtype, label="rows")
-    tiles = {}
-    for base in (5001, 1 << 16):
-        plan = onehot_plan(base, 1_000_000)
-        tile = 16 << plan["log2_b"]
-        block = tile * plan["tiles_a_block"]
-        tiles[base] = {"tile_bins": tile, "block_bins": block}
-        for m in (tile - 1, tile, tile + 1, block - 1, block, block + 1):
-            check(rng.integers(-1, m + 1, size=300_000), m, label="tile edge")
-    for m in (9, 5001, 1 << 17):
+        # off a 16-byte boundary: the narrow route's head and tail rows
+        for m in (9, 2048, 4097, 1 << 17):
+            base = torch.from_numpy(rng.integers(-1, m + 1, size=100_003)).to(device, dtype)
+            for k in (1, 2, 3):
+                check_tensor(base[k:], m, label=f"offset {k}")
+                check_tensor(base[k:k + 5], m, label=f"offset {k}, 5 rows")
+    for m in (9, 2049, 5001, 1 << 17, 1 << 22):
         plan = onehot_plan(m, 200_000)
-        span = plan["a_pad"] << plan["log2_b"]
+        span = plan["tiles"] * plan["tile_bins"]
         seg = np.concatenate([
             rng.integers(-5, m + 5, size=200_000), rng.integers(m, span + 100, size=2_000),
             np.array([span - 1, span, span + 1, 2**31 - 1, 2**31, 2**31 + m // 2,
@@ -823,29 +841,37 @@ def onehot_parity(device, rng) -> dict:
         check(seg, m, label="out of range")
         check(seg[(seg >= -(2**31)) & (seg < 2**31)], m, dtype=torch.int32,
               label="out of range")
+        check(np.full(100_000, -1), m, label="all dropped")
+        check(np.full(100_000, m), m, label="all dropped")
+        check(np.full(100_000, 2**31 + 1), m, label="all dropped")
     rows = 10_000_000
     t0 = time.perf_counter()
     for m in (9, 5001, 1 << 16, 1 << 17):
         for seg in (zipf_ids(rng, rows, m), np.full(rows, m // 2, dtype=np.int64)):
             for dtype in (torch.int32, torch.int64):
                 check(seg, m, dtype=dtype, label="10^7 rows")
+    check(zipf_ids(rng, 1_000_000, 1 << 22), 1 << 22, label="the widest")
+    check(rng.integers(-1, (1 << 22) + 1, size=1_000_000), 1 << 22, label="the widest")
     ten_million_s = time.perf_counter() - t0
     # weights: negative and any int32; INT32_MAX (totals past int32); per-
     # block partials past int32 whose totals stay inside (the second half
     # repeats the first half's ids with negated weights)
-    half = rng.integers(0, 8, size=2_000_000)
-    seg = np.concatenate([half, half, rng.integers(0, 8, size=1000)])
-    big = np.int32(2**30 + 12345)
-    inside = np.concatenate([np.full(len(half), big, np.int32),
-                             np.full(len(half), -big, np.int32),
-                             rng.integers(-100, 100, size=1000).astype(np.int32)])
-    for m in (9, 5001, 1 << 16, 1 << 17):
+    for m in ONEHOT_WEIGHTED_WIDTHS:
+        half = rng.integers(0, min(m, 8), size=2_000_000)
+        seg = np.concatenate([half, half, rng.integers(0, m, size=1000)])
+        big = np.int32(2**30 + 12345)
+        inside = np.concatenate([np.full(len(half), big, np.int32),
+                                 np.full(len(half), -big, np.int32),
+                                 rng.integers(-100, 100, size=1000).astype(np.int32)])
         anyw = rng.integers(-(2**31), 2**31, size=len(seg), dtype=np.int64).astype(np.int32)
         for weights in (inside, anyw, np.full(len(seg), np.iinfo(np.int32).max, np.int32)):
             check(seg, m, weights, label="weighted")
         wide = zipf_ids(rng, 3_000_000, m)
         check(wide, m, rng.integers(-(2**31), 2**31, size=len(wide)).astype(np.int32),
               label="weighted Zipf")
+        if m in (9, 512, 513, 1 << 20):  # 255 in every byte, every row in one bin
+            check(np.full(rows, m - 1, dtype=np.int64), m, np.full(rows, -1, np.int32),
+                  label="weights of -1, one bin")
 
     # the multi-input entry
     multi = 0
@@ -863,6 +889,8 @@ def onehot_parity(device, rng) -> dict:
             err = int((got - want).abs().max())
             fail(f"K6 multi != fused_bincount_plain ({label}: rows "
                  f"{[len(k) for k in keys_np]}, keyspaces {list(spaces)}): max err {err}")
+        routes[f"multi {sum(spaces)}"] = "wide" if onehot_plan(
+            sum(spaces), max(sum(len(k) for k in keys_np), 1))["wide"] else "narrow"
         multi += 1
 
     def ids(n, space):
@@ -872,15 +900,23 @@ def onehot_parity(device, rng) -> dict:
         spaces = [int(x) for x in rng.integers(1, 40_000, k)]
         check_multi([ids(int(rng.integers(1, 300_000)), sp) for sp in spaces], spaces,
                     f"K={k}")
+        narrow = [int(x) for x in rng.integers(1, 2048 // k, k)]
+        check_multi([ids(int(rng.integers(1, 300_000)), sp) for sp in narrow], narrow,
+                    f"K={k}, the narrow route")
     check_multi([ids(1, 9), ids(2_000_000, 100_001), np.zeros(0, np.int64), ids(1, 1)],
                 [9, 100_001, 7, 1], "one-row and empty inputs")
     check_multi([np.full(300_000, -1), ids(300_000, 70_000), np.full(5, -3)], [12, 70_000, 5],
                 "wholly dropped inputs")
     check_multi([rng.integers(-1, 200_000, size=1_000_000), ids(1_000_000, 150_000)],
                 [9, 150_000], "ids past their keyspace into a later input's bins")
+    check_multi([rng.integers(-1, 2_000, size=1_000_000), ids(1_000_000, 40)],
+                [9, 40], "ids past their keyspace, the narrow route")
     many = [int(x) for x in rng.integers(1, 3_000, 40)]
     check_multi([ids(int(rng.integers(0, 20_000)), sp) for sp in many], many,
-                "40 inputs (two launches of the entry's 32)")
+                "40 inputs (two rounds of the entry's 32)")
+    few = [int(x) for x in rng.integers(1, 50, 40)]
+    check_multi([ids(int(rng.integers(0, 20_000)), sp) for sp in few], few,
+                "40 inputs, the narrow route")
     check_multi([zipf_ids(rng, rows, 1_078_737), zipf_ids(rng, rows, 9),
                  zipf_ids(rng, rows, 5001)], [1_078_737, 9, 5001],
                 "the main path's fused group, 10^7 Zipf ids each")
@@ -904,8 +940,11 @@ def onehot_parity(device, rng) -> dict:
         if not refused.get(label) or histogram_device.ONEHOT_LAUNCHES != before:
             fail(f"K6 took a width past its widest ({label})")
     histogram_device.ONEHOT_LAUNCHES = saved  # parity launches are not a path's
+    narrow_edge = {w: onehot_plan(1, 1, w)["narrow_widest"] for w in (False, True)}
     return {"cases": cases, "multi_cases": multi, "max_abs_err": 0,
-            "widths": list(ONEHOT_WIDTHS), "tile_edges": tiles,
+            "widths": list(ONEHOT_WIDTHS), "weighted_widths": list(ONEHOT_WEIGHTED_WIDTHS),
+            "narrow_widest": {"unweighted": narrow_edge[False], "weighted": narrow_edge[True]},
+            "routes": routes,
             "widest": {"unweighted": onehot_widest(), "weighted": onehot_widest(True)},
             "refused": refused, "ten_million_rows_s": ten_million_s}
 
@@ -4543,21 +4582,39 @@ def _plain_fit_job(job):
     return holt_winters.fit_plain(torch.tensor(series, dtype=torch.float64), p, steps).tolist()
 
 
-def plain_fits_on_host(jobs: dict) -> dict:
-    """{name: (alpha, beta, gamma)} of the plain fit of every job
-    {name: (series, p, steps)}, on the host's CPU, one worker process a
-    core (spawned, so none shares this process's CUDA context), all shut
-    down before returning."""
-    import concurrent.futures
-    import multiprocessing
+class plain_fits_on_host:
+    """The plain (autograd) fit of every job {name: (series, p, steps)} on
+    the host's CPU, one worker process a core but one (spawned, so none
+    shares this process's CUDA context), started on entry, the longest
+    first, so the card's work of the phase runs beside them; ``get(name)``
+    waits for one fit's (alpha, beta, gamma), ``all()`` for every one. The
+    workers are shut down on exit."""
 
-    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+    def __init__(self, jobs: dict):
+        self.jobs = jobs
+
+    def __enter__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        workers = max(1, min(len(self.jobs), (os.cpu_count() or 2) - 1))
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.t0 = time.perf_counter()
         # longest first, so the two-year fits do not start last
-        order = sorted(jobs, key=lambda k: -len(jobs[k][0]))
-        futures = {name: pool.submit(_plain_fit_job, jobs[name]) for name in order}
-        return {name: tuple(f.result()) for name, f in futures.items()}
+        order = sorted(self.jobs, key=lambda k: -len(self.jobs[k][0]))
+        self.futures = {name: self.pool.submit(_plain_fit_job, self.jobs[name])
+                        for name in order}
+        return self
+
+    def get(self, name: str) -> tuple:
+        return tuple(self.futures[name].result())
+
+    def all(self) -> dict:
+        return {name: self.get(name) for name in self.futures}
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def hw_series(kind: str, n: int, seed: int):
@@ -5122,9 +5179,11 @@ def holt_winters_timing(cases: dict, device) -> list:
 
 def repository_path(table, main_result, seed: int, device) -> dict:
     """Phase ``repository_path`` (module doc): the plain Holt-Winters fits
-    on the host's CPU first (the parity cases and the daily run's), then
-    the kernel held against them and timed, then the daily run, then the
-    fleet's repository."""
+    on the host's CPU (the parity cases', the daily run's and the fleet
+    monitor's) started first; the fleet's repository and the daily run
+    while the long fits finish; then the kernel held against them and
+    timed. ``plain_cpu_wall_s`` is the fits' wall from their start, beside
+    the card's work."""
     from deequ_tpu_torch.ops import holt_winters
 
     history = daily_history(seed)
@@ -5132,23 +5191,26 @@ def repository_path(table, main_result, seed: int, device) -> dict:
     jobs = {name: (list(s[:n]), p, holt_winters.STEPS) for name, (s, n, p) in cases.items()}
     jobs["daily_run"] = (list(history["completeness_f1"]), 7, holt_winters.STEPS)
     jobs["fleet_monitor"] = (list(fleet_completeness_f1()[:14]), 7, holt_winters.STEPS)
-    t0 = time.perf_counter()
-    plain = plain_fits_on_host(jobs)
-    plain_s = time.perf_counter() - t0
+    with plain_fits_on_host(jobs) as fits:
+        # the fleet and the daily run need one short fit each: they run
+        # on the card while the parity cases' long fits finish
+        t0 = time.perf_counter()
+        fleet = fleet_history(main_result, fits.get("fleet_monitor"), seed, device)
+        fleet["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        daily = daily_run(table, history, fits.get("daily_run"), seed, device)
+        daily["seconds"] = time.perf_counter() - t0
+        plain = fits.all()
+        plain_s = time.perf_counter() - fits.t0
     t0 = time.perf_counter()
     parity = holt_winters_parity(cases, plain, device)
     timing = holt_winters_timing(cases, device)
     hw_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    daily = daily_run(table, history, plain["daily_run"], seed, device)
-    daily["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fleet = fleet_history(main_result, plain["fleet_monitor"], seed, device)
-    fleet["seconds"] = time.perf_counter() - t0
     return {
         "phase": "repository_path",
         "holt_winters_parity": {**parity, "plain_cpu_fits": len(jobs),
-                                "plain_cpu_wall_s": plain_s, "kernel_side_s": hw_s},
+                                "plain_cpu_wall_s": plain_s, "kernel_side_s": hw_s,
+                                "plain_fits_beside": ["fleet_history", "daily_run"]},
         "daily_run": daily,
         "fleet_history": fleet,
         "kernel_launches": {
@@ -7925,9 +7987,12 @@ def mesh_path(table, main_result, rows: int, seed: int, device, smi: str, rate: 
 
 #: the variants the main suite runs under, forced one after the other
 HIST_FORCED = ("onehot", "scatter", "pallas")
-#: the sweep's widths, at 10^7 int64 Zipf ids
-SWEEP_WIDTHS = (9, 128, 1024, 5001, 1 << 14, 1 << 16, 1 << 17)
+#: the sweep's widths, at 10^7 int64 Zipf ids, beside the two the card
+#: gives (:func:`sweep_widths`: K6's narrow edge and K5's shared edge)
+SWEEP_WIDTHS = (9, 128, 1024, 5001, 1 << 14, 1 << 16, 1 << 17, 1 << 20, 1 << 22)
 SWEEP_ROWS = 10_000_000
+#: K6 and K5 are timed in turns at each width, the first side alternating
+SWEEP_TURNS = 3
 # dense INT8 tensor rate of each H100 part (NVIDIA data sheets), ops/s
 _INT8_RATE = {"PCIe": 1513e12, "NVL": 1671e12, "SXM": 1979e12}
 
@@ -8000,15 +8065,65 @@ def variant_run(suite, variant, label: str) -> tuple:
                     "grouping_passes": stats["grouping_passes"]}
 
 
+def sweep_widths() -> list:
+    """:data:`SWEEP_WIDTHS` and the two widths the card gives: K6's narrow
+    edge (``onehot_plan``'s ``narrow_widest``) and K5's shared edge
+    (``regime_widths()["shared"]``)."""
+    from deequ_tpu_torch.ops.histogram_device import onehot_plan, regime_widths
+
+    return sorted({*SWEEP_WIDTHS, onehot_plan(1, 1)["narrow_widest"],
+                   regime_widths()["shared"]})
+
+
+def cap_from_sweep(rows) -> int:
+    """The card's one-hot cap from a sweep: the widest swept width such
+    that K6 was no slower than K5 at every swept width up to it (0 when it
+    was slower at the narrowest). A band of wins past a loss does not
+    count: routing every width under a lone far win to K6 would route the
+    widths of the loss to the slower kernel."""
+    cap = 0
+    for row in sorted(rows, key=lambda r: r["num_segments"]):
+        if row["kernel_ms"] > row["k5_ms"]:
+            break
+        cap = row["num_segments"]
+    return cap
+
+
+def in_turns(fns: dict, reps: int, turns: int = SWEEP_TURNS) -> dict:
+    """Each of ``fns`` (name -> fn(i)) timed alone (``time_queued``) in
+    ``turns`` rounds, the order reversed every other round so each side
+    goes first as often; returns name -> the times."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(turns):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            times[name].append(time_queued(fns[name], reps))
+    return times
+
+
+def k6_traffic(plan: dict, n: int, id_bytes: int, m: int) -> dict:
+    """The bytes K6 moves and the product's operations at ``plan`` over
+    ``n`` ids: the narrow route reads the ids once; the wide route reads
+    them twice and writes and reads each kept row's u16 digit once. The
+    product is n · 16 · B · 2 operations on both routes."""
+    reads = n * id_bytes * (2 if plan["wide"] else 1)
+    digits = 2 * n * 2 if plan["wide"] else 0
+    return {"route": "wide" if plan["wide"] else "narrow", "ids_read_bytes": reads,
+            "digit_bytes": digits, "out_bytes": m * 8,
+            "product_ops": n * plan["tile_bins"] * 2}
+
+
 def k6_shape_timing(label: str, seg, m: int, rate: float, ops_rate: float,
                     plain_reps: int = 3, reps: int = 20) -> dict:
-    """K6 at one shape: the kernel alone (CUDA events around ``reps``
-    launches queued behind a spin, as K5's rows), one wrapper call, its
-    plain version (``bincount_onehot_plain``), K5 in its regime, and
-    torch.bincount; the bound is the histogram's: each id read once, each
-    count written once, over the memory rate. The one-hot product's
-    operations (n · A_pad · B · 2 over the dense INT8 rate) are reported
-    apart as ``formulation_ops_ms``: a histogram needs none of them."""
+    """K6 at one shape: the kernel alone and K5 in its regime, each
+    (CUDA events around ``reps`` launches queued behind a spin, as K5's
+    rows) in :data:`SWEEP_TURNS` turns, the first side alternating, their
+    medians; one wrapper call; its plain version
+    (``bincount_onehot_plain``); and torch.bincount. The bound is the
+    histogram's: each id read once, each count written once, over the
+    memory rate. K6's own traffic and the one-hot product's operations
+    (n · 16 · B · 2 over the dense INT8 rate, ``formulation_ops_ms``) are
+    reported beside it: a histogram needs none of them."""
     import torch
 
     from deequ_tpu_torch.ops import histogram_device
@@ -8022,16 +8137,21 @@ def k6_shape_timing(label: str, seg, m: int, rate: float, ops_rate: float,
     saved = (histogram_device.LAUNCHES, histogram_device.ONEHOT_LAUNCHES)
     n = seg.numel()
     plan = onehot_plan(m, n)
-    out = torch.zeros(m, dtype=torch.int64, device=seg.device)
-    kernel_ms = time_queued(lambda i: histogram_device._onehot_launch(seg, m, None, out), reps)
-    prof = profiled_ms(lambda i: histogram_device._onehot_launch(seg, m, None, out),
-                       match="onehot")
-    call_ms = time_cuda(lambda: bincount_onehot(seg, m), reps=5)
-    plain_ms = time_cuda(lambda: bincount_onehot_plain(seg, m), reps=plain_reps, warmup=1)
+    scratch, out = histogram_device._onehot_buffers(n, m, False, seg.device)
     name = histogram_device.regime(m)
     bufs = histogram_device._buffers(seg, m, None, name)
-    k5_ms = time_queued(lambda i: histogram_device._launch(seg, m, None, *bufs,
-                                                           regime_name=name), reps)
+    turns = in_turns({
+        "k6": lambda i: histogram_device._onehot_launch(seg, m, None, scratch, out),
+        "k5": lambda i: histogram_device._launch(seg, m, None, *bufs, regime_name=name),
+    }, reps)
+    kernel_ms = statistics.median(turns["k6"])
+    k5_ms = statistics.median(turns["k5"])
+    prof = profiled_ms(lambda i: histogram_device._onehot_launch(seg, m, None, scratch, out),
+                       match="onehot")
+    call_ms = time_cuda(lambda: bincount_onehot(seg, m), reps=5)
+    # one cold repeat past 2^17 bins, where a call takes seconds
+    plain_ms = time_cuda(lambda: bincount_onehot_plain(seg, m), reps=plain_reps,
+                         warmup=1 if plain_reps > 1 else 0)
     slots = torch.where(seg >= 0, seg, m).long()  # torch.bincount refuses negatives
     library_ms = time_queued(lambda i: torch.bincount(slots, minlength=m + 1), reps,
                              waits=True)
@@ -8039,41 +8159,44 @@ def k6_shape_timing(label: str, seg, m: int, rate: float, ops_rate: float,
     histogram_device.LAUNCHES, histogram_device.ONEHOT_LAUNCHES = saved
     if not torch.equal(got, want):
         fail(f"K6 != plain at the {label} shape (n={n}, m={m})")
-    b = 1 << plan["log2_b"]
+    traffic = k6_traffic(plan, n, seg.element_size(), m)
     bound_ms = (n * seg.element_size() + m * 8) / rate * 1e3
-    ops_ms = n * plan["a_pad"] * b * 2 / ops_rate * 1e3
+    own_ms = (traffic["ids_read_bytes"] + traffic["digit_bytes"] + m * 8) / rate * 1e3
     return {
         "column": label, "n": n, "num_segments": m,
         "ids": str(seg.dtype).replace("torch.", ""),
-        "radix_b": b, "a_pad": plan["a_pad"], "plan": plan,
-        "kernel_ms": kernel_ms,
+        "radix_b": 1 << plan["log2_b"], "plan": plan, **traffic,
+        "kernel_ms": kernel_ms, "k5_ms": k5_ms, "k5_regime": name,
+        "turns_ms": turns,
         "profiler_ms": prof if prof is not None else "no device time",
-        "call_ms": call_ms, "plain_ms": plain_ms, "k5_ms": k5_ms, "k5_regime": name,
+        "call_ms": call_ms, "plain_ms": plain_ms, "plain_reps": plain_reps,
         "library_ms": library_ms, "library_call": "torch.bincount",
-        "bound_ms": bound_ms, "bound_by": "bytes", "formulation_ops_ms": ops_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "own_traffic_ms": own_ms,
+        "formulation_ops_ms": traffic["product_ops"] / ops_rate * 1e3,
         "bound_share": bound_ms / kernel_ms, "k6_over_k5": kernel_ms / k5_ms,
         "max_abs_err": 0,
     }
 
 
 def hist_variant_sweep(device, rate: float, ops_rate: float, seed: int) -> dict:
-    """K6 against K5 (its regime) and torch.bincount alone at
+    """K6 against K5 (its regime), in turns, and torch.bincount at
     :data:`SWEEP_ROWS` int64 Zipf ids and each width of
-    :data:`SWEEP_WIDTHS` (the plain version is timed at the narrowest
-    only); the card's cap is the widest width at which K6 was no slower
-    than K5 (0: none)."""
+    :func:`sweep_widths` (the plain version timed three times up to 2^17
+    bins, once past it); the card's cap is :func:`cap_from_sweep`'s."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed + 20)
     rows = []
-    for m in SWEEP_WIDTHS:
+    for m in sweep_widths():
         seg = torch.from_numpy(zipf_ids(rng, SWEEP_ROWS, m)).to(device)
         rows.append(k6_shape_timing(f"Zipf, {m} bins", seg, m, rate, ops_rate,
-                                    plain_reps=3 if m <= 5001 else 1))
+                                    plain_reps=3 if m <= 1 << 17 else 1))
         del seg
     wins = [r["num_segments"] for r in rows if r["kernel_ms"] <= r["k5_ms"]]
-    return {"rows": rows, "k6_no_slower_at": wins, "cap_from_sweep": max(wins, default=0)}
+    cap = cap_from_sweep(rows)
+    return {"rows": rows, "k6_no_slower_at": wins, "cap_from_sweep": cap,
+            "band_past_the_cap": [w for w in wins if w > cap]}
 
 
 def hist_variant_path(table, main_result, device, smi: str, rate: float, seed: int) -> dict:
@@ -8137,33 +8260,40 @@ def hist_variant_path(table, main_result, device, smi: str, rate: float, seed: i
         seg = torch.from_numpy(preps[col].keys).to(device)
         shapes.append(k6_shape_timing(col, seg, preps[col].keyspace, rate, ops_rate))
     keys = [torch.from_numpy(preps[c].keys).to(device) for c in FUSED_SETS]
-    out = torch.zeros(sum(spaces), dtype=torch.int64, device=device)
+    rows_all = n * len(FUSED_SETS)
+    k6_scratch, out = histogram_device._onehot_buffers(rows_all, sum(spaces), False, device)
+    name = histogram_device.regime(sum(spaces))
+    scratch, k7_out = histogram_device._fused_buffers(keys, spaces, name)
     saved = histogram_device.ONEHOT_LAUNCHES
-    multi_ms = time_queued(lambda i: histogram_device._onehot_multi_launch(keys, spaces, out), 5)
+    turns = in_turns({
+        "k6": lambda i: histogram_device._onehot_multi_launch(keys, spaces, k6_scratch, out),
+        "k7": lambda i: histogram_device._fused_launch(keys, spaces, scratch, k7_out, name),
+    }, 20)
+    prof = profiled_ms(lambda i: histogram_device._onehot_multi_launch(keys, spaces, k6_scratch,
+                                                                       out), match="onehot")
     got = histogram_device.fused_bincount(keys, spaces, "onehot")
     histogram_device.ONEHOT_LAUNCHES = saved
     if not torch.equal(got, fused_bincount_plain(keys, spaces)):
         fail("K6's multi-input entry != fused_bincount_plain at the fused group's shape")
-    name = histogram_device.regime(sum(spaces))
-    scratch, k7_out = histogram_device._fused_buffers(keys, spaces, name)
-    k7_ms = time_queued(lambda i: histogram_device._fused_launch(keys, spaces, scratch, k7_out,
-                                                                 name), 20)
-    plan = histogram_device.onehot_plan(sum(spaces), n * len(FUSED_SETS))
-    rows_all = n * len(FUSED_SETS)
-    ops_ms = rows_all * plan["a_pad"] * (1 << plan["log2_b"]) * 2 / ops_rate * 1e3
+    multi_ms, k7_ms = statistics.median(turns["k6"]), statistics.median(turns["k7"])
+    plan = histogram_device.onehot_plan(sum(spaces), rows_all)
+    traffic = k6_traffic(plan, rows_all, 8, sum(spaces))
     bytes_ms = (rows_all * 8 + sum(spaces) * 8) / rate * 1e3
     fused = {"column": "main_path's fused group: " + ", ".join(FUSED_SETS),
-             "n": rows_all, "num_segments": sum(spaces), "kernel_ms": multi_ms, "k7_ms": k7_ms,
-             "bound_ms": bytes_ms, "bound_by": "bytes", "formulation_ops_ms": ops_ms,
+             "n": rows_all, "num_segments": sum(spaces), "plan": plan, **traffic,
+             "kernel_ms": multi_ms, "k7_ms": k7_ms, "turns_ms": turns,
+             "profiler_ms": prof if prof is not None else "no device time",
+             "bound_ms": bytes_ms, "bound_by": "bytes",
+             "formulation_ops_ms": traffic["product_ops"] / ops_rate * 1e3,
              "bound_share": bytes_ms / multi_ms, "max_abs_err": 0}
-    del keys, out, scratch, k7_out
+    del keys, out, k6_scratch, scratch, k7_out
 
     sweep = hist_variant_sweep(device, rate, ops_rate, seed)
     if "DEEQU_TORCH_HIST_ACCEL_CAP" not in os.environ \
             and hist_accel_cap() != sweep["cap_from_sweep"]:
         fail(f"hist_variant_path: the card's default one-hot cap is {hist_accel_cap()}, "
-             f"the sweep's is {sweep['cap_from_sweep']} (K6 no slower than K5 at "
-             f"{sweep['k6_no_slower_at']})")
+             f"the sweep's rule gives {sweep['cap_from_sweep']} (K6 no slower than K5 "
+             f"at {sweep['k6_no_slower_at']})")
     return {
         "phase": "hist_variant_path", "card": smi,
         "runs": runs, "metrics_bit_for_bit": len(want), "persisted_vs_main": held,

@@ -64,12 +64,13 @@ from deequ_tpu_torch.exceptions import (
 HIST_ONEHOT_CPU_MAX_SEGMENTS = 32
 
 #: widest keyspace the one-hot variant (K6, ``csrc/onehot.cu``) takes by
-#: default on a card: the widest width of chip_smoke.py's sweep (10^7 int64
-#: Zipf ids at 9 to 2^17 bins on an H100) at which K6 was no slower than K5
-#: (PERF.md). K6 was slower at every swept width, so the cap is 0 and no
-#: width routes to it by default: only the force switch reaches it, as the
-#: reference's "pallas" is reached. (The reference's cap, 2^17, bounds its
-#: MXU planes.)
+#: default on a card: chip_smoke.py's ``cap_from_sweep`` over its sweep
+#: (10^7 int64 Zipf ids at 9 to 2^22 bins on an H100, K6 and K5 timed in
+#: turns), the widest swept width up to which K6 was no slower than K5 at
+#: every swept width (PERF.md). K6 was slower at the narrowest, 9 bins,
+#: and at every other, so the cap is 0 and no width routes to it by
+#: default: only the force switch reaches it, as the reference's "pallas"
+#: is reached. (The reference's cap, 2^17, bounds its MXU planes.)
 HIST_ONEHOT_MXU_MAX_SEGMENTS = 0
 
 #: below this many rows a dispatch keeps the scatter variant (the

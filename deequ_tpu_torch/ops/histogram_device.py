@@ -10,8 +10,9 @@ the policy; what each runs:
   (``bincount_onehot``): an id splits into (hi, lo) digits and the counts
   are ``one_hot(hi)^T @ one_hot(lo)``. On a CUDA tensor
   :func:`bincount_onehot` launches K6, the hand-written tensor-core kernel
-  of ``deequ_tpu_torch/csrc/onehot.cu`` (integer MMA over digits staged in
-  shared memory; the source says why), or raises; on a CPU tensor it runs
+  of ``deequ_tpu_torch/csrc/onehot.cu`` (integer MMA fed from registers
+  for a keyspace of one tile, rows partitioned by tile first past it; the
+  source says why), or raises; on a CPU tensor it runs
   :func:`bincount_onehot_plain`, the reference's formulation in torch (f32
   one-hot planes a row block of :func:`_onehot_geometry`, ``torch.matmul``,
   an integer fold a block);
@@ -371,18 +372,22 @@ def bincount_onehot_plain(
 def _bind_onehot(lib: ctypes.CDLL) -> None:
     lib.deequ_onehot.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.deequ_onehot.restype = ctypes.c_int
     lib.deequ_onehot_multi.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.deequ_onehot_multi.restype = ctypes.c_int
     lib.deequ_onehot_plan.argtypes = [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.deequ_onehot_plan.restype = ctypes.c_int
+    lib.deequ_onehot_scratch_bytes.argtypes = [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ]
+    lib.deequ_onehot_scratch_bytes.restype = ctypes.c_longlong
     lib.deequ_onehot_widest.argtypes = [ctypes.c_int]
     lib.deequ_onehot_widest.restype = ctypes.c_longlong
 
@@ -392,8 +397,9 @@ def _onehot_library() -> ctypes.CDLL:
 
 
 #: the fields of :func:`onehot_plan`, in the kernel's order
-ONEHOT_PLAN_FIELDS = ("log2_b", "a_pad", "tiles", "tiles_a_block", "row_groups",
-                      "grid_x", "slices", "slice_rows", "chunk_rows")
+ONEHOT_PLAN_FIELDS = ("wide", "log2_b", "tiles", "tile_bins", "narrow_widest", "blocks",
+                      "partition_blocks", "count_copies", "chunk_rows", "round_rows",
+                      "scratch_bytes")
 
 
 def onehot_widest(weighted: bool = False) -> int:
@@ -403,10 +409,12 @@ def onehot_widest(weighted: bool = False) -> int:
 
 def onehot_plan(num_segments: int, n: int, weighted: bool = False) -> dict:
     """K6's geometry for ``num_segments`` bins over ``n`` rows on the
-    current card (:data:`ONEHOT_PLAN_FIELDS`: the lo radix, the padded hi
-    values, the tiles and how a block takes them, the grid and its row
-    slices) — what ``chip_smoke.py`` reads to test both sides of each
-    boundary and to bound the kernel's operations."""
+    current card (:data:`ONEHOT_PLAN_FIELDS`: the route, 1 when the keyspace
+    is partitioned by tile first; the lo radix and the tiles of 16·B bins;
+    the narrow route's widest keyspace; the grids; the partition's chunk
+    rows; the rows of one round; the scratch bytes) — what ``chip_smoke.py``
+    reads to test both sides of each boundary and to count the kernel's
+    bytes and operations."""
     out = (ctypes.c_longlong * len(ONEHOT_PLAN_FIELDS))()
     rc = _onehot_library().deequ_onehot_plan(
         int(num_segments), int(n), 1 if weighted else 0, ctypes.addressof(out)
@@ -439,23 +447,40 @@ def bincount_onehot(
         raise ValueError(
             f"bincount_onehot: K6 takes at most {widest} segments, got {num_segments}"
         )
-    out = torch.zeros(num_segments, dtype=torch.int64, device=seg.device)
-    _onehot_launch(seg, num_segments, weights, out)
+    scratch, out = _onehot_buffers(seg.numel(), num_segments, weights is not None,
+                                   seg.device)
+    _onehot_launch(seg, num_segments, weights, scratch, out)
     ONEHOT_LAUNCHES += 1
     return out if dtype == torch.int64 else out.to(dtype)
 
 
-def _onehot_launch(seg, num_segments: int, weights, out) -> None:
+def _onehot_buffers(rows: int, num_segments: int, weighted: bool, device) -> tuple:
+    """What one K6 call over ``rows`` rows in all writes: the scratch the
+    kernel asks for (empty on the narrow route) and the zeroed int64
+    output."""
+    with torch.cuda.device(device):
+        nbytes = _onehot_library().deequ_onehot_scratch_bytes(
+            int(num_segments), int(rows), 1 if weighted else 0
+        )
+    if nbytes < 0:
+        raise ValueError(f"onehot: no scratch for {num_segments} bins over {rows} rows")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    out = torch.zeros(num_segments, dtype=torch.int64, device=device)
+    return scratch, out
+
+
+def _onehot_launch(seg, num_segments: int, weights, scratch, out) -> None:
     """Enqueue K6 on the current stream, adding into ``out`` (zeroed int64
-    of ``num_segments``), with no checks and no allocation
-    (``chip_smoke.py`` times it alone). Raises if the launch was refused."""
+    of ``num_segments``) with the buffers of :func:`_onehot_buffers`, with
+    no checks and no allocation (``chip_smoke.py`` times it alone). Raises
+    if the launch was refused."""
     n = seg.numel()
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
         rc = _onehot_library().deequ_onehot(
             seg.data_ptr(), 1 if seg.dtype == torch.int64 else 0,
             None if weights is None else weights.data_ptr(), n, int(num_segments),
-            out.data_ptr(), stream,
+            scratch.data_ptr() if scratch.numel() else None, out.data_ptr(), stream,
         )
     if rc != 0:
         raise launch_error(
@@ -534,8 +559,9 @@ def fused_bincount(keys, keyspaces, variant: str = "scatter") -> torch.Tensor:
             raise ValueError(
                 f"fused_bincount: K6 takes at most {widest} bins in all, got {total}"
             )
-        out = torch.zeros(total, dtype=torch.int64, device=device)
-        _onehot_multi_launch(keys, keyspaces, out)
+        scratch, out = _onehot_buffers(sum(key.numel() for key in keys), total, False,
+                                       device)
+        _onehot_multi_launch(keys, keyspaces, scratch, out)
         ONEHOT_LAUNCHES += 1
         return out
     with torch.cuda.device(device):
@@ -546,16 +572,18 @@ def fused_bincount(keys, keyspaces, variant: str = "scatter") -> torch.Tensor:
     return out
 
 
-def _onehot_multi_launch(keys, keyspaces, out) -> None:
+def _onehot_multi_launch(keys, keyspaces, scratch, out) -> None:
     """Enqueue K6's multi-input entry on the current stream, adding into
-    ``out`` (zeroed int64 of the summed keyspace), with no checks and no
+    ``out`` (zeroed int64 of the summed keyspace) with the buffers of
+    :func:`_onehot_buffers` over every key's rows, with no checks and no
     allocation (``chip_smoke.py`` times it alone). Raises if the launch
     was refused."""
     device = keys[0].device
     args = _fused_args(keys, keyspaces)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _onehot_library().deequ_onehot_multi(*args, out.data_ptr(), stream)
+        rc = _onehot_library().deequ_onehot_multi(
+            *args, scratch.data_ptr() if scratch.numel() else None, out.data_ptr(), stream)
     if rc != 0:
         raise launch_error(
             f"onehot multi-input launch failed ({len(keys)} inputs, "

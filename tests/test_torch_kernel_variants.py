@@ -17,9 +17,15 @@ alone); the grouping counts and top-k under each forced variant equal the
 reference's under the same force; the suite on the chip-smoke schema gives
 the same metrics under each forced variant as unforced, in memory and
 persisted, over a virtual mesh of 8 members and without; a fused group of
-narrow sets resolves "onehot" and counts bit for bit as unfused. The
-``cuda``-marked cases hold K6 against its plain versions and run the
-suite under each forced variant on a card; they skip here.
+narrow sets resolves "onehot" and counts bit for bit as unfused; the
+parity grid takes K6's route edges (the narrow route to 2,048 bins, 512
+weighted; the wide route's radix step at 2^21) and the card sweep's
+widths to 2^22 at small row counts; ``chip_smoke.cap_from_sweep``, the
+rule that sets the card's one-hot cap, holds on made-up sweeps. The
+``cuda``-marked cases hold K6 against its plain versions on both routes,
+at their edges, with hot tiles, dropped rows, unaligned ids and the
+multi-input entry, and run the suite under each forced variant on a
+card; they skip here.
 
 Every case resets ``SCAN_STATS`` before it reads it, and reads no other
 process-global counter, so it holds under any xdist split.
@@ -127,6 +133,21 @@ def _reference(variant, seg: np.ndarray, m: int, weights=None) -> np.ndarray:
         (4097, 33),      # one row past it (second block of 1)
         (8192, 300),     # width past the 128-lane radix (A > 2)
         (5000, 1 << 12),  # square-ish factored split
+        # K6's route edges: the weighted narrow edge (512) and the narrow
+        # edge (2,048) each side, a wide tile's edge (4,096), and the
+        # sweep's wide widths (K5's shared edge, 2^20, 2^22) at 300 rows
+        (300, 511),
+        (300, 513),
+        (300, 2047),
+        (300, 2048),
+        (300, 2049),
+        (300, 4096),
+        (300, 4097),
+        (300, 58112),
+        (300, 1 << 20),
+        (300, 1 << 21),        # the wide route's radix step
+        (300, (1 << 21) + 1),
+        (300, 1 << 22),
     ],
 )
 def test_bincount_parity(variant, n, m):
@@ -208,7 +229,7 @@ def test_host_numpy_path():
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("m", [1, 8, 9, 127, 128, 129, 5001])
+@pytest.mark.parametrize("m", [1, 8, 9, 127, 128, 129, 5001, 511, 512, 513, 1024, 2048, 2049])
 def test_variants_match_reference_over_widths(variant, m):
     """The port's plain version of each variant against the reference's
     function, int32 and int64 ids, unweighted and weighted, ids on both
@@ -347,6 +368,31 @@ def test_policy_platform_is_the_default_device():
     with use_device("cpu"):
         assert device_policy.default_platform() == "cpu"
         assert resolve_hist_variant((HIST_ONEHOT_CPU_MAX_SEGMENTS,)) == "onehot"
+
+
+def _sweep(times):
+    """Made-up sweep rows: {width: (K6 ms, K5 ms)}."""
+    return [{"num_segments": m, "kernel_ms": k6, "k5_ms": k5} for m, (k6, k5) in times.items()]
+
+
+@pytest.mark.parametrize("times,cap", [
+    # wins everywhere: the widest swept width
+    ({9: (0.02, 0.03), 2048: (0.04, 0.05), 1 << 17: (0.06, 0.07)}, 1 << 17),
+    # a loss at the narrowest: nothing routes to K6
+    ({9: (0.04, 0.03), 2048: (0.04, 0.05), 1 << 17: (0.06, 0.07)}, 0),
+    # a band past a loss: the cap stops before the loss, the band is not
+    # taken (rows in any order)
+    ({1 << 22: (0.1, 0.2), 9: (0.02, 0.03), 5001: (0.09, 0.03), 1 << 20: (0.1, 0.2),
+      2048: (0.03, 0.04)}, 2048),
+    # a tie is no slower
+    ({9: (0.03, 0.03), 128: (0.03, 0.03), 1024: (0.05, 0.04)}, 128),
+])
+def test_cap_from_sweep_rule(times, cap):
+    """chip_smoke.py's rule for the card's one-hot cap: the widest swept
+    width such that K6 was no slower than K5 at every swept width up to it."""
+    import chip_smoke
+
+    assert chip_smoke.cap_from_sweep(_sweep(times)) == cap
 
 
 WIDTH_GRID = (1, 8, 31, 32, 33, 64, 1000, 1 << 16, 1 << 17, (1 << 17) + 1, 1 << 22)
@@ -723,24 +769,108 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _onehot_held(seg, m, w=None):
+    """K6 on ``seg`` against both plain versions, one launch counted."""
+    before = histogram_device.ONEHOT_LAUNCHES
+    got = histogram_device.bincount_onehot(seg, m, w)
+    assert histogram_device.ONEHOT_LAUNCHES == before + 1
+    assert torch.equal(got, bincount_onehot_plain(seg, m, w))
+    assert torch.equal(got, bincount_plain(seg, m, w))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 9, 128, 129, 5001, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("m", [1, 9, 128, 129, 2047, 2048, 2049, 4095, 4096, 4097, 5001,
+                               1 << 16, 1 << 17, 1 << 21, (1 << 21) + 1, 1 << 22])
 def test_cuda_onehot_kernel_matches_plain(cuda_device, m):
+    """Both routes and their edges (the narrow route to 2,048 bins, wide
+    tiles of 1,024 bins to 2^21, of 2,048 past it), int32 and int64 ids,
+    unweighted and weighted up to the weighted widest; the multi-input
+    entry with this width beside narrow sets."""
     rng = np.random.default_rng(m)
     for dtype in (torch.int32, torch.int64):
         seg = torch.from_numpy(rng.integers(-3, m + 3, 300_000)).to(cuda_device, dtype)
-        w = torch.from_numpy(rng.integers(-(2**31), 2**31, 300_000).astype(np.int32)).to(
-            cuda_device)
-        before = histogram_device.ONEHOT_LAUNCHES
-        got = histogram_device.bincount_onehot(seg, m)
-        assert histogram_device.ONEHOT_LAUNCHES == before + 1
-        assert torch.equal(got, bincount_onehot_plain(seg, m))
-        assert torch.equal(got, bincount_plain(seg, m))
-        assert torch.equal(histogram_device.bincount_onehot(seg, m, w), bincount_plain(seg, m, w))
+        _onehot_held(seg, m)
+        if m <= histogram_device.onehot_widest(True):
+            w = torch.from_numpy(rng.integers(-(2**31), 2**31, 300_000).astype(np.int32)).to(
+                cuda_device)
+            _onehot_held(seg, m, w)
     keys = [torch.from_numpy(rng.integers(-1, k + 2, 100_000)).to(cuda_device)
             for k in (m, 9, 5001)]
-    assert torch.equal(fused_bincount(keys, [m, 9, 5001], "onehot"),
-                       fused_bincount_plain(keys, [m, 9, 5001]))
+    spaces = [m, 9, 5001]
+    if sum(spaces) <= histogram_device.onehot_widest():
+        assert torch.equal(fused_bincount(keys, spaces, "onehot"),
+                           fused_bincount_plain(keys, spaces))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [511, 512, 513, 1023, 1024, 1025, 1 << 20])
+def test_cuda_onehot_weighted_edges(cuda_device, m):
+    """The weighted route edges (narrow to 512 bins, wide tiles of 512) and
+    the weighted widest: any int32 weights, and 255 in every byte (-1)
+    with every row in one bin."""
+    rng = np.random.default_rng(m)
+    seg = torch.from_numpy(rng.integers(-3, m + 3, 300_000)).to(cuda_device)
+    w = torch.from_numpy(rng.integers(-(2**31), 2**31, 300_000).astype(np.int32)).to(cuda_device)
+    _onehot_held(seg, m, w)
+    one = torch.full((2_000_000,), m - 1, dtype=torch.int64, device=cuda_device)
+    _onehot_held(one, m, torch.full_like(one, -1, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot tile", "all dropped", "past 2^31", "offset"])
+def test_cuda_onehot_edge_inputs(cuda_device, case):
+    """10^7 ids in one bin at 2^17 (a hot tile over every multiplying
+    block), all rows dropped, int64 ids past 2^31, ids off a 16-byte
+    boundary (the narrow route's head and tail rows)."""
+    rng = np.random.default_rng(21)
+    if case == "hot tile":
+        _onehot_held(torch.full((10_000_000,), 1 << 16, dtype=torch.int64,
+                                device=cuda_device), 1 << 17)
+    elif case == "all dropped":
+        for m in (9, 2048, 4097, 1 << 17):
+            _onehot_held(torch.full((100_000,), -1, dtype=torch.int64, device=cuda_device), m)
+            _onehot_held(torch.full((100_000,), m, dtype=torch.int64, device=cuda_device), m)
+    elif case == "past 2^31":
+        far = np.array([2**31, 2**31 + 3, 2**32 + 1, 2**40 + 2, -(2**40)], dtype=np.int64)
+        for m in (9, 2049, 1 << 17):
+            seg = rng.permutation(np.concatenate([rng.integers(0, m, 50_000), far]))
+            _onehot_held(torch.from_numpy(seg).to(cuda_device), m)
+    else:
+        for dtype in (torch.int32, torch.int64):
+            for m in (9, 2048, 4097):
+                base = torch.from_numpy(rng.integers(-1, m + 1, 100_003)).to(cuda_device, dtype)
+                for k in (1, 2, 3):
+                    _onehot_held(base[k:], m)
+                    _onehot_held(base[k:k + 5], m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["both routes", "more than 32 inputs", "past own keyspace"])
+def test_cuda_onehot_multi_input(cuda_device, case):
+    """The multi-input entry against ``fused_bincount_plain``: sets whose
+    summed keyspace takes each route, more than 32 inputs on each, ids
+    past their own keyspace landing in later sets' bins."""
+    rng = np.random.default_rng(22)
+
+    def held(keys_np, spaces):
+        keys = [torch.from_numpy(np.asarray(k, dtype=np.int64)).to(cuda_device)
+                for k in keys_np]
+        before = histogram_device.ONEHOT_LAUNCHES
+        got = fused_bincount(keys, spaces, "onehot")
+        assert histogram_device.ONEHOT_LAUNCHES == before + 1
+        assert torch.equal(got, fused_bincount_plain(keys, spaces))
+
+    if case == "both routes":
+        for spaces in ([9, 40, 1000], [9, 5001, 100_000]):
+            held([rng.integers(-1, k + 2, 200_000) for k in spaces], spaces)
+    elif case == "more than 32 inputs":
+        for top in (50, 3000):
+            spaces = [int(x) for x in rng.integers(1, top, 40)]
+            held([rng.integers(-1, k + 2, int(rng.integers(0, 20_000))) for k in spaces], spaces)
+    else:
+        held([rng.integers(-1, 2000, 500_000), rng.integers(-1, 42, 500_000)], [9, 40])
+        held([rng.integers(-1, 200_000, 500_000), rng.integers(-1, 150_002, 500_000)],
+             [9, 150_000])
 
 
 @pytest.mark.cuda
