@@ -223,8 +223,9 @@ Phases, each printed as one JSON line on stdout:
    provider, against a serial loop of ``do_verification_run`` with the
    same providers: every batch's metrics and every saved state's bytes
    identical; 4 groups, one fetch a group, the host-to-device copies a
-   group scan makes, both walls, K2 one launch a batch, every K5 and K2
-   launch against its plain version;
+   group scan makes, both walls, both runs' peak device bytes, K1 batches
+   a group, K2 one launch a batch, every K5 and K2 launch against its
+   plain version;
 15. ``repository_path`` (after ``stream_path``, over the main path's
    table) — the metrics repository, anomaly checks and the monitor, in
    three parts. First the Holt-Winters fit (K9, ``csrc/holt_winters.cu``):
@@ -326,10 +327,11 @@ Phases, each printed as one JSON line on stdout:
    streamed; ``profile_stream`` — ``ColumnProfilerRunner`` with KLL over
    the main table with ``zip`` as a stream: against numpy and the
    in-memory profile, each KLL percentile's rank within 0.01, nothing
-   persisted; ``parquet`` — where pyarrow imports, the main table written
-   by ``write_parquet_stream`` (row groups of 2^20) to a temporary
-   directory and the main suite over ``stream_parquet`` bit for bit the
-   table's stream, else the line says it did not run;
+   persisted; ``parquet`` — where pyarrow imports, the main table's first
+   half (``OOC_PARQUET_CUT``) written by ``write_parquet_stream`` (row
+   groups of 2^20) to a temporary directory and the main suite over
+   ``stream_parquet`` bit for bit the same rows' table stream, else the
+   line says it did not run;
 18. ``spill_path`` (after ``out_of_core_path``) — group memory budgets,
    checkpoints and quarantine, each part a line of its own with the
    card's name and power limit: ``config4_spill`` — ``frequency_path``'s
@@ -431,12 +433,46 @@ Phases, each printed as one JSON line on stdout:
    ``unverified_row_ranges``; ``cards`` — the in-memory
    run over the default mesh of every card where there are several, else
    skipped with the count;
+21. ``serve_path`` (after ``mesh_path``) — the in-process serving tier
+   (``deequ_tpu_torch/serve``, ``obs``): Load A, the reference's serving
+   load (its ``bench.py:measure_serving_load``): 1,000 tenants of 256 rows
+   (``x`` f64 with 5% nulls, ``i`` integral), 8 repeat suite shapes, 20
+   fresh tenants reading a column of their own, the reference's check,
+   ``max_batch`` 256, submitted all at once to a service whose worker is
+   watched for CPU ops, once cold and three times sustained: a sample of
+   32 tenants bit for bit its serial ``VerificationSuite.run`` on the
+   card; the device fetches, K1 batches and fold merges (under the caller
+   ``"coalesced"``) each equal the coalesced batches; a sustained pass
+   builds no program and counts 1,000 plan-cache hits; the serial suites/s
+   of 64 tenants (min of 3), the cold and sustained suites/s, p50 and p99
+   submit->resolve from ``SERVE_LATENCY``, members a batch; then
+   ``stop(drain=False)`` after a pass's first resolution and ``resume()``
+   on a fresh service: every future resolved once, the sample bit for
+   bit. Traced: a pass on a service with a recorder, the Chrome trace
+   written and parsed, the batches' ``coalesce_assembly``, ``transfer``,
+   ``execute`` and ``fetch`` spans one each a batch on the worker's track
+   inside the tenants' ``serve_request`` spans, their walls against
+   ``dispatch_seconds`` and ``drain_wait_seconds``; the armed and disarmed
+   walls reported. Load B, main_path's width: 64 tenants of 2^17 rows (one
+   chunk), cut from main_path's table, on the scan-shareable constraints of the main check in one
+   coalesced batch, each bit for bit its serial run, the first against
+   numpy, one K1 batch, the batch's and one serial run's peak device
+   bytes; 4 tenants on the whole check served serially,
+   against numpy. Isolation: a poison tenant (``FaultInjectingScanHook``'s
+   ``tenant_faults``: an OOM that follows it) in a batch of 8 bisects it
+   (3 ``coalesce_bisect`` events) and ends typed on its serial rung, the 7
+   others bit for bit; a second such batch quarantines it and a healthy
+   run readmits it; a member with no budget under an injected OOM
+   degrades alone. Then K1 and its fold merge at Load A's largest
+   coalesced batch, alone: kernel, plain and library ms, the bound, every
+   task held against its plain version;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge, K7, the fused group counts, and K6,
 the one-hot variant (its launches by path and by forced variant, its
 shapes and the sweep), each their own entry, K8's merges as a part of the
-fold merge's and the mesh's count sums beside K5), the nvidia-smi line, and the result line
+fold merge's and the mesh's count sums beside K5; K1's and its merge's
+coalesced-batch shapes beside their resident ones), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}`` last. Each path runs with the launch
 counts set to 0 just before it and read just after. Any failure exits
 non-zero without the result line. The script imports nothing of JAX.
@@ -466,6 +502,10 @@ OOC_CONFIG3_RUN_SCALE = 7
 #: the script's config 4 spill rows are ``--rows`` over this
 #: (``tools/run_spill.py`` streams all 10^8)
 SPILL_CONFIG4_CUT = 2
+#: out_of_core_path's Parquet part reads the main table's first rows over
+#: this (``tools/run_out_of_core.py`` reads all of them): with serve_path the
+#: script ran 1,140 s of its 1,200 on a slow host, the Parquet read 77 s
+OOC_PARQUET_CUT = 2
 
 #: timed runs after a warm one of the sketch, check-API, stream, profile
 #: and streamed config 2 walls (three until device_fault_path joined the
@@ -1326,7 +1366,9 @@ def make_table(rows: int, seed: int):
     return ColumnarTable(cols)
 
 
-def build_check():
+def build_scan_check():
+    """The scan-shareable constraints of :func:`build_check`, in its order:
+    every analyzer they need rides the fused scan."""
     from deequ_tpu_torch import Check, CheckLevel
 
     check = Check(CheckLevel.ERROR, "chip smoke").has_size(lambda n: n > 0)
@@ -1342,6 +1384,19 @@ def build_check():
         .is_contained_in("status", [f"S{i}" for i in range(7)], lambda v: v > 0.9)
         .satisfies("f3 > -20", "f3 above -20", lambda v: v > 0.5)
         .where("status = 'S1'")
+    )
+
+
+#: the metrics of build_check()'s grouping constraints (the rest are
+#: build_scan_check()'s)
+GROUPING_METRICS = {("Uniqueness", "id"), ("Uniqueness", "customer_id"),
+                    ("UniqueValueRatio", "customer_id"), ("Distinctness", "status"),
+                    ("Entropy", "region")}
+
+
+def build_check():
+    return (
+        build_scan_check()
         .is_unique("id")
         .has_uniqueness(["customer_id"], lambda v: 0 < v < 1)
         .has_distinctness(["status"], lambda v: v > 0)
@@ -4486,18 +4541,27 @@ def stream_path(seed: int, device) -> dict:
     serial_states = Recording()
     serial = serial_loop(serial_states)
 
-    def timed(fn) -> float:
+    # a group holds its batches' K1 partials until its K1 batch: each run's
+    # peak device bytes above what it starts with, the stream's beside the
+    # serial loop's, which holds one batch's at a time
+    peaks = {"stream": 0, "serial": 0}
+
+    def timed(fn, name) -> float:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         fn(InMemoryStateProvider())
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated(device) - base)
+        return wall
 
     # the walls, unwatched, the two alternating
     walls = {"stream": [], "serial": []}
     for _ in range(TIMED_REPEATS):
-        walls["stream"].append(timed(run_stream))
-        walls["serial"].append(timed(serial_loop))
+        walls["stream"].append(timed(run_stream, "stream"))
+        walls["serial"].append(timed(serial_loop, "serial"))
 
     compared = 0
     for b in range(STREAM_BATCHES):
@@ -4535,6 +4599,8 @@ def stream_path(seed: int, device) -> dict:
         "stream_wall_s_median": statistics.median(walls["stream"]),
         "serial_loop_wall_s_median": statistics.median(walls["serial"]),
         "stream_wall_s": walls["stream"], "serial_loop_wall_s": walls["serial"],
+        "peak_device_bytes": peaks, "group_k1_rows": scan_engine.GROUP_K1_ROWS,
+        "k1_launches_a_group": launches["k1"] / groups,
         "metrics_bit_identical": compared,
         "states_bytes_identical": len(serial_states.saved),
         "kernel_launches": launches,
@@ -6334,9 +6400,10 @@ def ooc_profile(table, seed: int, device, smi: str) -> dict:
             "chunks_staged": stats["chunks_staged"], "peak_device_bytes": peak}
 
 
-def ooc_parquet(table, streamed_result, device, smi: str) -> dict:
-    """Part 4: config 2's table written by write_parquet_stream and read
-    back by stream_parquet, bit for bit part 1's stream — where this host
+def ooc_parquet(table, streamed_result, device, smi: str, cut: int = OOC_PARQUET_CUT) -> dict:
+    """Part 4: config 2's table (its first rows over ``cut``) written by
+    write_parquet_stream and read back by stream_parquet, bit for bit the
+    same rows' table stream (part 1's when ``cut`` is 1) — where this host
     has pyarrow."""
     import shutil
     import tempfile
@@ -6352,6 +6419,9 @@ def ooc_parquet(table, streamed_result, device, smi: str) -> dict:
     from deequ_tpu_torch.data.io import stream_parquet, write_parquet_stream
 
     label = "out_of_core_path/parquet"
+    if cut > 1:
+        table = slice_rows(table, 0, table.num_rows // cut)
+        streamed_result = build_suite(stream_table(table, OOC_BATCH_ROWS)).run()
     root = tempfile.mkdtemp(prefix="ooc_parquet_")
     try:
         path = os.path.join(root, "config2.parquet")
@@ -6374,13 +6444,14 @@ def ooc_parquet(table, streamed_result, device, smi: str) -> dict:
     differ = differing_bits(metric_values(streamed_result), metric_values(result))
     if differ:
         fail(f"{label}: the Parquet stream differs from the table's stream in {differ}")
-    return {"part": "parquet", "card": smi, "rows": written, "row_group_rows": OOC_BATCH_ROWS,
-            "file_bytes": file_bytes, "write_wall_s": write_s, "read_run_wall_s": read_s,
+    return {"part": "parquet", "card": smi, "rows": written, "cut": cut,
+            "row_group_rows": OOC_BATCH_ROWS, "file_bytes": file_bytes, "write_wall_s": write_s, "read_run_wall_s": read_s,
             "bit_for_bit_metrics": len(metric_values(result)), "kernel_launches": launches}
 
 
 def out_of_core_path(table, main_result, seed: int, device, smi: str,
-                     sketch_rows: int = SKETCH_STREAM_ROWS) -> dict:
+                     sketch_rows: int = SKETCH_STREAM_ROWS,
+                     parquet_cut: int = OOC_PARQUET_CUT) -> dict:
     """Phase ``out_of_core_path`` (module doc): its four parts, each
     printed as a line of its own, each with the launch counts set to 0
     just before its checked run and read just after; returns (the launches
@@ -6392,7 +6463,8 @@ def out_of_core_path(table, main_result, seed: int, device, smi: str,
     parts["config2_stream"] = config2
     for name, run in (("config3_stream", lambda: ooc_config3(seed, device, smi, sketch_rows)),
                       ("profile_stream", lambda: ooc_profile(table, seed, device, smi)),
-                      ("parquet", lambda: ooc_parquet(table, streamed, device, smi))):
+                      ("parquet", lambda: ooc_parquet(table, streamed, device, smi,
+                                                      parquet_cut))):
         t0 = time.perf_counter()
         part = run()
         emit({"phase": "out_of_core_path", **part, "seconds": time.perf_counter() - t0})
@@ -8305,6 +8377,600 @@ def hist_variant_path(table, main_result, device, smi: str, rate: float, seed: i
     }
 
 
+# -- phase 21: serve_path -----------------------------------------------------
+
+#: Load A, the reference's serving load (bench.py:measure_serving_load):
+#: tenants of 256 rows, 8 repeat suite shapes, 2% fresh tenants with an
+#: extra column of their own, taken 256 a batch
+SERVE_TENANTS = 1000
+SERVE_ROWS = 256
+SERVE_SHAPES = 8
+SERVE_FRESH_FRAC = 0.02
+SERVE_MAX_BATCH = 256
+#: tenants held bit for bit against their serial runs, and the serial
+#: baseline's tenants (min of 3 passes after a warm one)
+SERVE_SAMPLE = 32
+SERVE_SERIAL_TENANTS = 64
+SERVE_SUSTAINED_PASSES = 3
+#: Load B, main_path's width: tenants of 2^17 rows (one chunk: the chunk
+#: rule gives at least 2^18) on the scan-shareable constraints, and
+#: tenants on the whole check (served serially, as grouping suites are)
+SERVE_WIDE_TENANTS = 64
+SERVE_WIDE_ROWS = 1 << 17
+SERVE_WIDE_SERIAL = 4
+#: the isolation batch and its poison tenant
+SERVE_POISON_BATCH = 8
+SERVE_POISON = "iso-3"
+
+
+def serve_load(seed: int) -> list:
+    """Load A: (tenant, table, checks) for each of SERVE_TENANTS tenants,
+    made from ``seed``: ``x`` f64 with 5% nulls and ``i`` integral; the
+    reference's check (has_size, is_complete, has_completeness, has_mean);
+    a fresh tenant reads an extra column of its own, so its plan key is its
+    own."""
+    import numpy as np
+
+    from deequ_tpu_torch import Check, CheckLevel
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+    n = SERVE_ROWS
+
+    def table(shape: int, t: int, fresh: bool):
+        r = np.random.default_rng([seed, t])
+        cols = [Column("x", DType.FRACTIONAL, values=r.normal(100 + shape, 5, n),
+                       mask=r.random(n) > 0.05),
+                Column("i", DType.INTEGRAL, values=r.integers(0, 40 + shape, n).astype(np.float64),
+                       mask=np.ones(n, dtype=bool))]
+        if fresh:
+            cols.append(Column(f"f{t}", DType.FRACTIONAL, values=r.normal(0, 1, n),
+                               mask=np.ones(n, dtype=bool)))
+        return ColumnarTable(cols)
+
+    def check(shape: int, fresh_id=None):
+        c = (Check(CheckLevel.ERROR, f"suite-{shape}").has_size(lambda k: k == n)
+             .is_complete("i").has_completeness("x", lambda v: v > 0.5)
+             .has_mean("x", lambda m, s=shape: 90 + s < m < 110 + s))
+        if fresh_id is not None:
+            c = c.has_completeness(f"f{fresh_id}", lambda v: v == 1.0)
+        return c
+
+    n_fresh = max(1, int(SERVE_TENANTS * SERVE_FRESH_FRAC))
+    load = []
+    for t in range(SERVE_TENANTS):
+        if t < n_fresh:
+            load.append((f"fresh-{t}", table(0, t, True), [check(0, t)]))
+        else:
+            shape = t % SERVE_SHAPES
+            load.append((f"tenant-{t}", table(shape, t, False), [check(shape)]))
+    return load
+
+
+def same_result(want, got, label: str) -> None:
+    """Fails unless ``got`` is ``want`` bit for bit: the status and every
+    metric (a failure the same failure type)."""
+    if want.status != got.status:
+        fail(f"{label}: status {got.status} against the serial run's {want.status}")
+    if set(want.metrics) != set(got.metrics):
+        fail(f"{label}: the analyzers differ from the serial run's")
+    for a, m1 in want.metrics.items():
+        m2 = got.metrics[a]
+        if m1.value.is_success != m2.value.is_success:
+            fail(f"{label}: {a} succeeded on one side only")
+        if m1.value.is_success:
+            v1, v2 = m1.value.get(), m2.value.get()
+            if (struct_bits(v1) != struct_bits(v2)) if isinstance(v1, float) else v1 != v2:
+                fail(f"{label}: {a} {m2.value.get()!r} against the serial run's "
+                     f"{m1.value.get()!r}")
+        elif type(m1.value.exception) is not type(m2.value.exception):
+            fail(f"{label}: {a} failed as {type(m2.value.exception).__name__}, the serial "
+                 f"run as {type(m1.value.exception).__name__}")
+
+
+def watched_service(watch=None, **knobs):
+    """A VerificationService whose worker serves each batch under its
+    ``watch`` attribute while one is set: dispatch modes are per thread, so
+    the watch is entered on the worker, and a watch costs every torch op a
+    Python call, so the timed passes run with none."""
+    from deequ_tpu_torch.serve import VerificationService
+
+    class Watched(VerificationService):
+        def _serve_batch(self, batch):
+            if self.watch is None:
+                return super()._serve_batch(batch)
+            with self.watch:
+                return super()._serve_batch(batch)
+
+    start = knobs.pop("start", True)
+    svc = Watched(start=False, **knobs)
+    svc.watch = watch
+    if start:
+        svc.start()
+    return svc
+
+
+def run_load(service, load, timeout: float = 600.0) -> tuple:
+    """Submit every (tenant, table, checks) of ``load`` at once and wait
+    for all: (wall seconds, futures, results)."""
+    t0 = time.perf_counter()
+    futures = [service.submit(table, checks, tenant=tenant) for tenant, table, checks in load]
+    results = [f.result(timeout=timeout) for f in futures]
+    return time.perf_counter() - t0, futures, results
+
+
+def serve_counters() -> dict:
+    from deequ_tpu_torch.ops import masked_reduce
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    return {"batches": SCAN_STATS.coalesced_batches, "tenants": SCAN_STATS.coalesced_tenants,
+            "fetches": SCAN_STATS.device_fetches, "built": SCAN_STATS.programs_built,
+            "hits": SCAN_STATS.plan_cache_hits, "misses": SCAN_STATS.plan_cache_misses,
+            "k1": masked_reduce.LAUNCHES,
+            "merges": masked_reduce.MERGE_LAUNCHES_BY_CALLER.get("coalesced", 0),
+            "dispatch_s": SCAN_STATS.dispatch_seconds, "drain_s": SCAN_STATS.drain_wait_seconds}
+
+
+def serve_delta(before: dict) -> dict:
+    now = serve_counters()
+    return {k: now[k] - before[k] for k in now}
+
+
+def hold_coalesced(delta: dict, label: str, tenants: int, built=None) -> None:
+    """Every tenant of the pass coalesced; one fetch, one K1 batch and one
+    fold merge a coalesced batch, whatever its members."""
+    if delta["tenants"] != tenants:
+        fail(f"{label}: {delta['tenants']} of {tenants} tenants coalesced")
+    if delta["fetches"] != delta["batches"]:
+        fail(f"{label}: {delta['fetches']} fetches for {delta['batches']} coalesced batches")
+    if delta["k1"] != delta["batches"] or delta["merges"] != delta["batches"]:
+        fail(f"{label}: {delta['k1']} K1 batches and {delta['merges']} fold merges for "
+             f"{delta['batches']} coalesced batches (want one each)")
+    if built is not None and delta["built"] != built:
+        fail(f"{label}: {delta['built']} programs built, want {built}")
+
+
+def serve_load_a(load, device, smi: str) -> dict:
+    """Load A: the serial baseline, the cold and sustained passes, the
+    latency and occupancy, kill-and-resume, and the coalesced batch's K1
+    and fold merge captured for their timing."""
+    import numpy as np
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.obs.registry import REGISTRY, SERVE_LATENCY
+    from deequ_tpu_torch.serve import VerificationService
+
+    sample = load[:: max(1, len(load) // SERVE_SAMPLE)][:SERVE_SAMPLE]
+    serial_sample = {tenant: VerificationSuite.run(table, checks)
+                     for tenant, table, checks in sample}
+    baseline = load[:SERVE_SERIAL_TENANTS]
+    for _, table, checks in baseline:  # warm
+        VerificationSuite.run(table, checks)
+    serial_walls = []
+    for _ in range(3):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, table, checks in baseline:
+            VerificationSuite.run(table, checks)
+        torch.cuda.synchronize()
+        serial_walls.append(time.perf_counter() - t0)
+    serial_per_s = len(baseline) / min(serial_walls)
+
+    watch = watch_cpu_ops()
+    svc = watched_service(max_batch=SERVE_MAX_BATCH)
+    try:
+        before = serve_counters()
+        cold_s, _, cold = run_load(svc, load)
+        cold_delta = serve_delta(before)
+        hold_coalesced(cold_delta, "serve_path cold", len(load))
+        if cold_delta["built"] < 1 or cold_delta["hits"] + cold_delta["misses"] != len(load):
+            fail(f"serve_path cold: {cold_delta['built']} programs built, "
+                 f"{cold_delta['hits']} hits and {cold_delta['misses']} misses")
+        by_tenant = {tenant: r for (tenant, _, _), r in zip(load, cold)}
+        for tenant, want in serial_sample.items():
+            same_result(want, by_tenant[tenant], f"serve_path cold {tenant}")
+        SERVE_LATENCY.reset()
+        sustained, deltas, latencies = [], [], []
+        for p in range(SERVE_SUSTAINED_PASSES):
+            before = serve_counters()
+            wall, futures, results = run_load(svc, load)
+            delta = serve_delta(before)
+            hold_coalesced(delta, f"serve_path sustained {p}", len(load), built=0)
+            if delta["hits"] != len(load) or delta["misses"]:
+                fail(f"serve_path sustained {p}: {delta['hits']} plan-cache hits, "
+                     f"{delta['misses']} misses (want {len(load)} and 0)")
+            by_tenant = {tenant: r for (tenant, _, _), r in zip(load, results)}
+            for tenant, want in serial_sample.items():
+                same_result(want, by_tenant[tenant], f"serve_path sustained {tenant}")
+            sustained.append(wall)
+            deltas.append(delta)
+            latencies += [f.latency_seconds for f in futures]
+        serve_section = REGISTRY.snapshot()["serve"]
+        # one more sustained pass with every batch watched for CPU ops
+        svc.watch = watch
+        before = serve_counters()
+        watched_s, _, _ = run_load(svc, load)
+        hold_coalesced(serve_delta(before), "serve_path watched", len(load), built=0)
+    finally:
+        svc.stop(drain=False)
+    if watch.cpu_ops:
+        fail(f"serve_path: torch operations computed on CPU tensors: {watch.cpu_ops}")
+
+    # kill-and-resume: stop a pass after its first resolution, resume the
+    # pending requests on a fresh service
+    first = VerificationService(max_batch=SERVE_MAX_BATCH)
+    futures = [first.submit(table, checks, tenant=tenant) for tenant, table, checks in load]
+    while not any(f.done() for f in futures):
+        time.sleep(0.0005)
+    pending = first.stop(drain=False)
+    served_before = sum(f.done() for f in futures)
+    second = VerificationService(max_batch=SERVE_MAX_BATCH)
+    try:
+        second.resume(pending)
+        resumed = [f.result(timeout=600) for f in futures]
+    finally:
+        second.stop()
+    if not pending or served_before + len(pending) != len(load):
+        fail(f"serve_path kill-and-resume: {served_before} served before the stop and "
+             f"{len(pending)} pending of {len(load)}")
+    if any(f.resolve_count != 1 or f.late_resolutions for f in futures):
+        fail("serve_path kill-and-resume: a future resolved other than exactly once")
+    by_tenant = {tenant: r for (tenant, _, _), r in zip(load, resumed)}
+    for tenant, want in serial_sample.items():
+        same_result(want, by_tenant[tenant], f"serve_path resumed {tenant}")
+
+    lat = np.array(latencies)
+    sustained_s = min(sustained)
+    return {
+        "tenants": len(load), "rows_a_tenant": SERVE_ROWS, "shapes": SERVE_SHAPES,
+        "fresh_tenants": sum(t.startswith("fresh-") for t, _, _ in load),
+        "max_batch": SERVE_MAX_BATCH, "sample_bit_for_bit": len(serial_sample),
+        "cold_s": cold_s, "cold_suites_per_s": len(load) / cold_s,
+        "cold": cold_delta, "sustained_s": sustained,
+        "sustained_suites_per_s": len(load) / sustained_s,
+        "sustained": deltas,
+        "serial_tenants": len(baseline), "serial_walls_s": serial_walls,
+        "serial_suites_per_s": serial_per_s,
+        "sustained_over_serial": len(load) / sustained_s / serial_per_s,
+        "latency_p50_s": serve_section["latency"]["p50"],
+        "latency_p99_s": serve_section["latency"]["p99"],
+        "latency_histogram": serve_section["latency"],
+        "latency_futures_p50_s": float(np.percentile(lat, 50)),
+        "latency_futures_p99_s": float(np.percentile(lat, 99)),
+        "members_a_batch": deltas[0]["tenants"] / max(deltas[0]["batches"], 1),
+        "batch_occupancy_of_max_batch": deltas[0]["tenants"] / max(deltas[0]["batches"], 1)
+        / SERVE_MAX_BATCH,
+        "coalesce_occupancy": serve_section["coalesce_occupancy"],
+        "cpu_ops": watch.cpu_ops, "watched_pass_s": watched_s,
+        "kill_resume": {"served_before_stop": served_before, "pending": len(pending),
+                        "resolved_once": len(futures)},
+        "card": smi,
+    }
+
+
+def serve_trace(load, device) -> dict:
+    """Load A once on a traced service (its plans warm first) and once on an
+    untraced one, in turns: the exported Chrome trace parses, each batch's
+    ``coalesce_assembly``, ``execute`` and ``fetch`` spans lie on the
+    worker's track inside the tenants' ``serve_request`` spans, and their
+    counts and walls reconcile with ScanStats. The armed and disarmed walls
+    are reported, with no hold on speed."""
+    import tempfile
+
+    from deequ_tpu_torch.obs import FlightRecorder, write_chrome_trace
+    from deequ_tpu_torch.serve import VerificationService
+
+    rec = FlightRecorder(capacity=1 << 20)
+    traced = VerificationService(trace=rec, max_batch=SERVE_MAX_BATCH)
+    plain = VerificationService(max_batch=SERVE_MAX_BATCH)
+    try:
+        run_load(traced, load)
+        run_load(plain, load)
+        rec.clear()
+        disarmed_s, _, _ = run_load(plain, load)
+        before = serve_counters()
+        armed_s, _, _ = run_load(traced, load)
+        delta = serve_delta(before)
+        disarmed_s2, _, _ = run_load(plain, load)
+    finally:
+        traced.stop()
+        plain.stop()
+    hold_coalesced(delta, "serve_path traced", len(load), built=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_chrome_trace(rec, os.path.join(tmp, "serve.json"))
+        trace_bytes = os.path.getsize(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    spans = {}
+    for r in rec.records():
+        if r.kind == "span":
+            spans.setdefault(r.name, []).append(r)
+    coalesced = {name: [r for r in spans.get(name, [])
+                        if name == "coalesce_assembly" or "coalesced" in r.args.get("what", "")]
+                 for name in ("coalesce_assembly", "transfer", "execute", "fetch")}
+    requests = spans.get("serve_request", [])
+    counts = {name: len(v) for name, v in coalesced.items()}
+    if any(c != delta["batches"] for c in counts.values()) or len(requests) != len(load):
+        fail(f"serve_path trace: spans {counts} and {len(requests)} requests for "
+             f"{delta['batches']} coalesced batches and {len(load)} tenants")
+    tracks = {r.track for v in coalesced.values() for r in v}
+    if tracks != {"deequ-torch-serve"}:
+        fail(f"serve_path trace: the batches' spans lie on tracks {tracks}")
+    starts = sorted(r.t_start for r in requests)
+    ends = sorted(r.t_end for r in requests)
+    for r in coalesced["coalesce_assembly"] + coalesced["fetch"]:
+        if not (starts[0] <= r.t_start and r.t_end <= ends[-1]):
+            fail(f"serve_path trace: a {r.name} span lies outside every serve_request span")
+    execute_s = sum(r.duration for r in coalesced["execute"])
+    fetch_s = sum(r.duration for r in coalesced["fetch"])
+    if not (execute_s <= delta["dispatch_s"] + 1e-3 * delta["batches"]
+            and execute_s >= 0.9 * delta["dispatch_s"] - 5e-3):
+        fail(f"serve_path trace: the execute spans' {execute_s:.6f} s against ScanStats' "
+             f"dispatch_seconds {delta['dispatch_s']:.6f}")
+    if not (fetch_s <= delta["drain_s"] + 1e-3 * delta["batches"]
+            and fetch_s >= 0.9 * delta["drain_s"] - 5e-3):
+        fail(f"serve_path trace: the fetch spans' {fetch_s:.6f} s against ScanStats' "
+             f"drain_wait_seconds {delta['drain_s']:.6f}")
+    return {"spans": counts, "requests": len(requests), "trace_events": len(trace["traceEvents"]),
+            "trace_bytes": trace_bytes, "dropped": rec.dropped,
+            "execute_span_s": execute_s, "dispatch_seconds": delta["dispatch_s"],
+            "fetch_span_s": fetch_s, "drain_wait_seconds": delta["drain_s"],
+            "armed_s": armed_s, "disarmed_s": [disarmed_s, disarmed_s2],
+            "armed_over_disarmed": armed_s / min(disarmed_s, disarmed_s2)}
+
+
+def serve_load_b(table, device, smi: str) -> dict:
+    """Load B at main_path's width: SERVE_WIDE_TENANTS tenants of 2^17 rows
+    cut from main_path's table, on the scan-shareable constraints, one
+    coalesced batch, each tenant bit for bit its serial run (and the first
+    against numpy), one K1 batch; then SERVE_WIDE_SERIAL more tenants on
+    the whole check, served serially, against numpy."""
+    from deequ_tpu_torch import VerificationSuite
+
+    t0 = time.perf_counter()
+    tenants = SERVE_WIDE_TENANTS + SERVE_WIDE_SERIAL
+    if tenants * SERVE_WIDE_ROWS > table.num_rows:
+        fail(f"serve_path Load B: {tenants} tenants of {SERVE_WIDE_ROWS} rows need more "
+             f"than the table's {table.num_rows}")
+    tables = [slice_rows(table, k * SERVE_WIDE_ROWS, (k + 1) * SERVE_WIDE_ROWS)
+              for k in range(tenants)]
+    table_s = time.perf_counter() - t0
+    scan_tables, whole_tables = tables[:SERVE_WIDE_TENANTS], tables[SERVE_WIDE_TENANTS:]
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [VerificationSuite.run(t, [build_scan_check()]) for t in scan_tables]
+    torch.cuda.synchronize()
+    serial_runs_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    VerificationSuite.run(scan_tables[0], [build_scan_check()])
+    torch.cuda.synchronize()
+    serial_peak = torch.cuda.max_memory_allocated(device) - base
+    watch = watch_cpu_ops()
+    svc = watched_service(watch, start=False, max_batch=SERVE_MAX_BATCH)
+    try:
+        futures = [svc.submit(t, [build_scan_check()], tenant=f"wide-{k}")
+                   for k, t in enumerate(scan_tables)]
+        before = serve_counters()
+        t0 = time.perf_counter()
+        svc.start()
+        served = [f.result(timeout=600) for f in futures]
+        coalesced_s = time.perf_counter() - t0
+        delta = serve_delta(before)
+        hold_coalesced(delta, "serve_path Load B", len(scan_tables))
+        if delta["batches"] != 1:
+            fail(f"serve_path Load B: {delta['batches']} coalesced batches, want 1")
+        for k, (want, got) in enumerate(zip(serial, served)):
+            same_result(want, got, f"serve_path Load B tenant {k}")
+        want = {key: v for key, v in expected_metrics(scan_tables[0]).items()
+                if key not in GROUPING_METRICS and key[0] != "CountDistinct"}
+        worst_coalesced = check_metrics(served[0], want)
+        # the same batch again, its plan built and no watch: the wall, and
+        # the device memory the batch allocates at its peak (its members'
+        # K1 partials are held until its one K1 batch)
+        svc.watch = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        again_s, _, again = run_load(svc, [(f"wide-{k}", t, [build_scan_check()])
+                                           for k, t in enumerate(scan_tables)])
+        torch.cuda.synchronize()
+        batch_peak = torch.cuda.max_memory_allocated(device) - base
+        for k, (want_k, got) in enumerate(zip(serial, again)):
+            same_result(want_k, got, f"serve_path Load B again, tenant {k}")
+        svc.watch = watch
+        before_serial = serve_counters()
+        t0 = time.perf_counter()
+        whole = [svc.submit(t, [build_check()], tenant=f"whole-{k}")
+                 for k, t in enumerate(whole_tables)]
+        whole_results = [f.result(timeout=600) for f in whole]
+        serial_s = time.perf_counter() - t0
+        whole_delta = serve_delta(before_serial)
+    finally:
+        svc.stop(drain=False)
+    if whole_delta["tenants"] != 0:
+        fail(f"serve_path Load B: {whole_delta['tenants']} whole-check tenants coalesced")
+    worst = 0.0
+    for k, (t, r) in enumerate(zip(whole_tables, whole_results)):
+        if r.scan_stats.get("coalesced") is not False:
+            fail(f"serve_path Load B: whole-check tenant {k} was not served serially")
+        want = {key: v for key, v in expected_metrics(t).items() if key[0] != "CountDistinct"}
+        worst = max(worst, check_metrics(r, want))
+    if watch.cpu_ops:
+        fail(f"serve_path Load B: torch operations computed on CPU tensors: {watch.cpu_ops}")
+    return {"tenants": len(scan_tables), "rows_a_tenant": SERVE_WIDE_ROWS,
+            "columns": len(scan_tables[0].column_names),
+            "analyzers": len(build_scan_check().required_analyzers()),
+            "coalesced": delta, "coalesced_wall_s_watched": coalesced_s,
+            "coalesced_wall_s": again_s, "coalesced_suites_per_s": len(scan_tables) / again_s,
+            "serial_runs_s": serial_runs_s,
+            "serial_suites_per_s": len(scan_tables) / serial_runs_s,
+            "peak_device_bytes": {"coalesced_batch": batch_peak, "serial_run": serial_peak},
+            "bit_for_bit": len(scan_tables), "worst_rel_err_coalesced_vs_numpy": worst_coalesced,
+            "whole_check_tenants": len(whole_tables), "whole_check_wall_s_watched": serial_s,
+            "whole_check_worst_rel_err": worst, "tables_s": table_s, "card": smi}
+
+
+def serve_isolation(load, device, smi: str) -> dict:
+    """On the card: a poison tenant (an OOM that follows it, the port's
+    FaultInjectingScanHook with ``tenant_faults``) in a batch of 8 bisects
+    the batch (3 ``coalesce_bisect`` events) and ends typed on its serial
+    rung while the 7 others are bit for bit their serial runs; the second
+    such batch quarantines it, a healthy run readmits it; a member whose
+    budget is 0 under an injected OOM degrades alone."""
+    from deequ_tpu_torch import RunPolicy, VerificationSuite
+    from deequ_tpu_torch.exceptions import DeviceOOMException
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, install_scan_fault_hook
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.resilience.faults import FaultInjectingScanHook
+    from deequ_tpu_torch.serve import VerificationService
+
+    members = [(f"iso-{k}", table, checks)
+               for k, (_, table, checks) in enumerate(load[100:100 + SERVE_POISON_BATCH])]
+    serial = {tenant: VerificationSuite.run(table, checks) for tenant, table, checks in members}
+    svc = VerificationService(start=False, max_batch=SERVE_POISON_BATCH, coalesce_window=0.0,
+                              quarantine_after=2)
+    rounds = []
+    hook = FaultInjectingScanHook(tenant_faults={SERVE_POISON: "oom"})
+    prev = install_scan_fault_hook(hook)
+    try:
+        for round_ in range(2):
+            events = len(SCAN_STATS.degradation_events)
+            futures = {tenant: svc.submit(table, checks, tenant=tenant)
+                       for tenant, table, checks in members}
+            if round_ == 0:
+                svc.start()
+            results = {tenant: f.result(timeout=300) for tenant, f in futures.items()}
+            kinds = [e["kind"] for e in SCAN_STATS.degradation_events[events:]]
+            if kinds.count("coalesce_bisect") != 3:
+                fail(f"serve_path isolation round {round_}: {kinds.count('coalesce_bisect')} "
+                     "coalesce_bisect events, want 3 (8 -> 4 -> 2 -> 1)")
+            poison = results[SERVE_POISON]
+            if not poison.scan_stats.get("isolated_after") or not all(
+                    not m.value.is_success and isinstance(m.value.exception, DeviceOOMException)
+                    for m in poison.metrics.values()):
+                fail(f"serve_path isolation round {round_}: the poison tenant did not end "
+                     "typed on its serial rung")
+            for tenant, want in serial.items():
+                if tenant != SERVE_POISON:
+                    same_result(want, results[tenant], f"serve_path isolation {tenant}")
+            rounds.append({"events": {k: kinds.count(k) for k in set(kinds)}})
+        if not svc.tenant_health.is_quarantined(SERVE_POISON):
+            fail("serve_path isolation: the poison tenant was not quarantined after 2 failures")
+    finally:
+        install_scan_fault_hook(prev)
+        DEVICE_HEALTH.reset()
+    try:
+        tenant, table, checks = next(m for m in members if m[0] == SERVE_POISON)
+        healed = svc.submit(table, checks, tenant=tenant).result(timeout=300)
+    finally:
+        svc.stop(drain=False)
+    if healed.scan_stats.get("coalesced") is not False:
+        fail("serve_path isolation: the quarantined tenant coalesced")
+    same_result(serial[SERVE_POISON], healed, "serve_path isolation readmission")
+    if svc.tenant_health.is_quarantined(SERVE_POISON):
+        fail("serve_path isolation: one healthy run did not readmit the tenant")
+
+    # one member's budget of 0 under an injected OOM at the first dispatch
+    budget_svc = VerificationService(start=False, max_batch=SERVE_POISON_BATCH)
+    prev = install_scan_fault_hook(FaultInjectingScanHook(faults={0: ("oom", 1)}, relative=True))
+    try:
+        futures = {tenant: budget_svc.submit(
+            table, checks, tenant=tenant,
+            run_policy=RunPolicy(max_total_attempts=0 if k == 1 else 100))
+            for k, (tenant, table, checks) in enumerate(members)}
+        budget_svc.start()
+        results = {tenant: f.result(timeout=300) for tenant, f in futures.items()}
+    finally:
+        install_scan_fault_hook(prev)
+        DEVICE_HEALTH.reset()
+        budget_svc.stop(drain=False)
+    spent = members[1][0]
+    if not results[spent].run_budget.get("exhausted") or all(
+            m.value.is_success for m in results[spent].metrics.values()):
+        fail("serve_path isolation: the member with no budget did not degrade")
+    for tenant, want in serial.items():
+        if tenant != spent:
+            same_result(want, results[tenant], f"serve_path budget {tenant}")
+    return {"batch": SERVE_POISON_BATCH, "poison": SERVE_POISON, "rounds": rounds,
+            "injected": len(hook.injected), "quarantined_then_readmitted": True,
+            "budget_degraded": spent, "card": smi}
+
+
+def serve_k1_timing(load, rate: float) -> dict:
+    """K1 and its fold merge at a coalesced batch's shape: one pass of Load A
+    under the spy, its largest batch (one ``reduce_into`` over every
+    member's tasks) held against the plain versions and timed alone, as
+    ``fused_scan_timing`` times the resident chunk's; its fold merge the
+    same (``k1_merge_timing``)."""
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce
+    from deequ_tpu_torch.serve import VerificationService
+
+    svc = VerificationService(max_batch=SERVE_MAX_BATCH)
+    try:
+        run_load(svc, load)  # warm
+        with K1Spy() as spy:
+            run_load(svc, load)
+    finally:
+        svc.stop()
+    torch.cuda.synchronize()
+    flat, tasks, offsets = max(spy.batches, key=lambda b: len(b[1]))
+    members = len({t.data[0].data_ptr() if t.data else id(t) for t in tasks
+                   if t.kind == "sum"})
+    batch = masked_reduce.group(tasks, offsets)
+    held = k1_hold(tasks, "coalesced batch")
+    out = torch.empty_like(flat)
+    kernel_ms = time_queued(lambda i: masked_reduce.reduce_into(out, tasks, offsets), reps=20)
+    plain_ms = time_cuda(lambda: [t.plain() for t in tasks], reps=5, warmup=1)
+    library_ms = time_cuda(lambda: k1_library(tasks), reps=5, warmup=1)
+    bound = k1_bound(tasks, offsets, rate)
+    merge_args = max(spy.merges, key=lambda a: a[2].numel())
+    merge = k1_merge_timing(merge_args, rate)
+    return {"column": (f"Load A's largest coalesced batch: {len(tasks)} tasks of "
+                       f"{SERVE_ROWS} rows, {members} members' sums, one reduce_into"),
+            "tasks": len(tasks), "sources": len(batch.sources), "combos": len(batch.combos),
+            "outputs": len(batch.outs), "batches_in_pass": len(spy.batches),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "one torch.sum / amin / amax a task over its column, summed "
+                            "(no mask)",
+            **bound, "bound_share": bound["bound_ms"] / kernel_ms, "vs_plain": held,
+            "merge": {**merge, "column": f"the same batch's fold merge: {merge['entries']} "
+                                         f"entries of {merge['flat_entries']}"}}
+
+
+def serve_path(table, seed: int, device, smi: str, rate: float) -> dict:
+    """Phase 21 (module doc): the serving tier on the card; Load B's
+    tenants are cut from ``table`` (main_path's)."""
+    t0 = time.perf_counter()
+    load = serve_load(seed)
+    load_s = time.perf_counter() - t0
+    kernel_counts_zero()
+    t0 = time.perf_counter()
+    load_a = serve_load_a(load, device, smi)
+    load_a["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traced = serve_trace(load, device)
+    traced["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_b = serve_load_b(table, device, smi)
+    load_b["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    isolation = serve_isolation(load, device, smi)
+    isolation["seconds"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    k1_require(launches, "serve_path")
+    t0 = time.perf_counter()
+    k1_time = serve_k1_timing(load, rate)
+    k1_time["seconds"] = time.perf_counter() - t0
+    return {"load_a": load_a, "trace": traced, "load_b": load_b, "isolation": isolation,
+            "kernel_launches": launches, "k1_coalesced": k1_time, "load_build_s": load_s}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8433,6 +9099,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh = mesh_path(table, main_result, args.rows, args.seed, device, smi, rate)
     emit({"phase": "mesh_path", "card": smi, **mesh, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    serve = serve_path(table, args.seed, device, smi, rate)
+    emit({"phase": "serve_path", "card": smi, **serve, "seconds": time.perf_counter() - t0})
     del table, main_result
 
     t0 = time.perf_counter()
@@ -8488,7 +9158,8 @@ def main(argv=None) -> int:
                 "out_of_core_path": ooc["kernel_launches"]["bincount"],
                 "spill_path": spill["kernel_launches"]["bincount"],
                 "device_fault_path": faults["kernel_launches"]["bincount"],
-                "mesh_path": mesh["kernel_launches"]["bincount"]}
+                "mesh_path": mesh["kernel_launches"]["bincount"],
+                "serve_path": serve["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -8499,7 +9170,8 @@ def main(argv=None) -> int:
                     "profile_path": prof["kernel_launches"]["hll"],
                     "out_of_core_path": ooc["kernel_launches"]["hll"],
                     "spill_path": spill["kernel_launches"]["hll"],
-                    "device_fault_path": faults["kernel_launches"]["hll"]}
+                    "device_fault_path": faults["kernel_launches"]["hll"],
+                    "serve_path": serve["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
     fused_launches = {"main_path": report["fused_launches"],
@@ -8516,7 +9188,8 @@ def main(argv=None) -> int:
                       "out_of_core_path": ooc["kernel_launches"].get("fused_bincount", 0),
                       "spill_path": spill["kernel_launches"].get("fused_bincount", 0),
                       "device_fault_path": faults["kernel_launches"].get("fused_bincount", 0),
-                      "mesh_path": mesh["kernel_launches"]["fused_bincount"]}
+                      "mesh_path": mesh["kernel_launches"]["fused_bincount"],
+                      "serve_path": serve["kernel_launches"]["fused_bincount"]}
     k7_time = fusion["kernel_timing"]
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
                "sketch_path": sketch["kernel_launches"],
@@ -8531,7 +9204,8 @@ def main(argv=None) -> int:
                "out_of_core_path": ooc["kernel_launches"],
                "spill_path": spill["kernel_launches"],
                "device_fault_path": faults["kernel_launches"],
-               "mesh_path": mesh["kernel_launches"]}
+               "mesh_path": mesh["kernel_launches"],
+               "serve_path": serve["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     onehot_launches = {"main_path": report["onehot_launches"],
                        "hist_variant_path": hv["kernel_launches"]["onehot"],
@@ -8542,6 +9216,8 @@ def main(argv=None) -> int:
     k8_time = mesh["k8_timing"]
     k1_time = res_main["k1_fused_scan"]["k1"]
     k1_merge = res_main["k1_fused_scan"]["k1_merge"]
+    k1_coalesced = {k: v for k, v in serve["k1_coalesced"].items()
+                    if k not in ("vs_plain", "merge")}
     # the headline shape: the config 4 top-k count, the shape this slice
     # was cut for; every shape timed is listed beside it
     shapes = shapes + c4["bincount"]
@@ -8681,7 +9357,8 @@ def main(argv=None) -> int:
         "headline_shape": (f"the resident main chunk: {k1_time['tasks']} tasks over "
                            f"{k1_time['distinct_tensors']} tensors of {args.rows} rows, "
                            f"{k1_time['sources']} sources, {k1_time['combos']} combos"),
-        "max_abs_err": max(kparity["max_abs_err"], k1_time["vs_plain"]["max_abs_err"]),
+        "max_abs_err": max(kparity["max_abs_err"], k1_time["vs_plain"]["max_abs_err"],
+                           serve["k1_coalesced"]["vs_plain"]["max_abs_err"]),
         "ms": k1_time["kernel_ms"],
         "plain_ms": k1_time["plain_ms"],
         "bound_ms": k1_time["bound_ms"],
@@ -8691,7 +9368,9 @@ def main(argv=None) -> int:
         "parity": ("counts, min and max exact; sums within 1e-13 sum|x|; m2, x_mk, y_mk "
                    "within 1e-12 relative, ck within 1e-12 sqrt(x_mk y_mk), each plus "
                    "n (128 ulp max|x|)^2; the fold merge bit for bit"),
-        "shapes": [{k: v for k, v in k1_time.items() if k != "vs_plain"}],
+        "shapes": [{k: v for k, v in k1_time.items() if k != "vs_plain"}, k1_coalesced],
+        # serve_path: one batch a coalesced dispatch of K members, whatever K
+        "coalesced_batch": k1_coalesced,
     }, {
         "name": "masked_reduce_merge",
         "route": "cuda",
@@ -8710,7 +9389,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "library_call": None,
         "parity": "bit for bit",
-        "shapes": [k1_merge],
+        "shapes": [k1_merge, serve["k1_coalesced"]["merge"]],
         # K8 (scan_engine.mesh_merge) is k1_merge over the members in
         # member order: its launches are part of mesh_path's above
         "mesh_merge": {

@@ -59,6 +59,16 @@ not build fails the scan's analyzers typed, and ``on_device_error=
 run, and its exhaustion degrades to a partial result with exact
 ``unverified_row_ranges``. :func:`scan_execution_report` is the engine's
 counters as one flat dict.
+
+Serving and observability: ``serve.VerificationService`` takes many small
+suites from many tenants (``submit`` returns a future) and runs the suites
+of one plan as one coalesced dispatch on the card — one copy, one K1
+batch, one fold merge and one fetch a batch — with admission control, SLO
+classes, fault isolation by bisection and kill-and-resume. The flight
+recorder (``obs/``: ``with_tracing()``, ``DEEQU_TORCH_TRACE=1``) records
+the engine's seams as spans and events, exported as a Perfetto trace, and
+:func:`execution_report` reads every counter of the engine through one
+registry.
 """
 
 from deequ_tpu_torch.checks import Check, CheckLevel, CheckStatus
@@ -96,6 +106,19 @@ from deequ_tpu_torch.resilience.governance import (
 __version__ = "0.1.0"
 
 
+def execution_report() -> dict:
+    """The whole engine in one dict: the unified registry's snapshot
+    (``obs/registry.py``). Sections: ``"scan"`` (:func:`scan_execution_report`),
+    ``"retry"``, ``"hbm"`` (the residency of persisted tables), ``"env"``
+    (the ``DEEQU_TORCH_*`` switches as resolved), ``"repository"``,
+    ``"kernels"``, ``"planner"``, ``"serve"`` (queue depth, latency,
+    admissions, sheds, brownout) and ``"instruments"`` (the registry's own
+    counters, gauges and histograms)."""
+    from deequ_tpu_torch.obs.registry import REGISTRY
+
+    return REGISTRY.snapshot()
+
+
 def scan_execution_report() -> dict:
     """The scan engine's counters (``ops/scan_engine.py:ScanStats``) as one
     flat dict, read under its lock: passes, fetches, the device fault
@@ -103,10 +126,28 @@ def scan_execution_report() -> dict:
     ``watchdog_timeouts``, ``fallback_refused``), copies of
     ``degradation_events`` and ``unverified_row_ranges`` (a demoted fused
     grouping dispatch among them: ``fusion_demote``), the budget's
-    charges, ``fused_group_passes``."""
+    charges, ``fused_group_passes``, the serving counters. It is
+    ``execution_report()["scan"]``."""
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
     return SCAN_STATS.snapshot()
+
+
+def execution_report_text() -> str:
+    """:func:`execution_report` as Prometheus-style text."""
+    from deequ_tpu_torch.obs.registry import REGISTRY
+
+    return REGISTRY.render_text()
+
+
+def reset_execution_report() -> None:
+    """Zero the scan engine's counters and the registry's instruments."""
+    from deequ_tpu_torch.obs.registry import REGISTRY
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+
+    SCAN_STATS.reset()
+    REGISTRY.reset_instruments()
+
 
 __all__ = [
     "Check",
@@ -135,7 +176,10 @@ __all__ = [
     "StreamingTable",
     "VerificationResult",
     "VerificationSuite",
+    "execution_report",
+    "execution_report_text",
     "fault_state_scope",
+    "reset_execution_report",
     "run_budget_scope",
     "scan_execution_report",
     "stream_table",

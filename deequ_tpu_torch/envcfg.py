@@ -203,3 +203,39 @@ HIST_ACCEL_CAP = register(EnvVar(
         "card (unset = the module default, set from the card's sweep in "
         "PERF.md); also priced by the plan cost model",
 ))
+TRACE = register(EnvVar(
+    "DEEQU_TORCH_TRACE", "flag01", default=False,
+    doc="1 arms the process-global flight recorder (obs/recorder.py)",
+))
+TRACE_CAPACITY = register(EnvVar(
+    "DEEQU_TORCH_TRACE_CAPACITY", "int", default=None, minimum=1,
+    doc="ring capacity (records) of the flight recorder DEEQU_TORCH_TRACE "
+        "arms; unset = obs.recorder.DEFAULT_CAPACITY",
+))
+SERVE_MAX_BATCH = register(EnvVar(
+    "DEEQU_TORCH_SERVE_MAX_BATCH", "int", default=64, minimum=1,
+    doc="most tenant suites the serving worker takes a batch "
+        "(serve/service.py); each plan's share of a take is one coalesced "
+        "dispatch",
+))
+SERVE_COALESCE_WINDOW = register(EnvVar(
+    "DEEQU_TORCH_SERVE_COALESCE_WINDOW", "float", default=0.002, minimum=0.0,
+    doc="seconds the serving worker waits after a first arrival for "
+        "suites to coalesce with",
+))
+SLO_CLASS = register(EnvVar(
+    "DEEQU_TORCH_SLO_CLASS", "choice", default="standard",
+    choices=("critical", "standard", "best_effort"),
+    doc="SLO class of a submission that carries none (serve/admission.py)",
+))
+SLO_DEADLINE_MS = register(EnvVar(
+    "DEEQU_TORCH_SLO_DEADLINE_MS", "float", default=None, zero_disables=True,
+    doc="absolute submit->dispatch deadline (ms) of a submission that "
+        "carries no SLO; an expired request is shed typed before dispatch "
+        "(unset or 0: no deadline)",
+))
+BROWNOUT = register(EnvVar(
+    "DEEQU_TORCH_BROWNOUT", "flag01", default=True,
+    doc="0 turns off the serving brownout ladder (admission-side shedding "
+        "by SLO class; computation is never degraded)",
+))

@@ -123,6 +123,67 @@ class NotYetPortedException(MetricCalculationException, NotImplementedError):
         self.what = what
 
 
+class ServeException(MetricCalculationRuntimeException):
+    """Base of the serving layer's (``serve/``) failures: conditions of the
+    service, not of one suite's data (those stay failure metrics and typed
+    device errors)."""
+
+
+class ServiceClosedException(ServeException):
+    """A submit, resume or flush against a stopped VerificationService."""
+
+
+class ServiceOverloadedException(ServeException):
+    """Typed backpressure: the service refused to buffer this request (its
+    queue is at ``max_pending``, or — the subclasses below — the request's
+    SLO class ran out of queue budget or its deadline expired in the
+    queue). ``queue_depth`` is the pending count at refusal,
+    ``retry_after_s`` the service's estimate of when a retry could be
+    admitted, ``slo_class`` the request's class; all optional."""
+
+    def __init__(self, message: str, queue_depth: Optional[int] = None,
+                 retry_after_s: Optional[float] = None,
+                 slo_class: Optional[str] = None):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.retry_after_s = retry_after_s
+        self.slo_class = slo_class
+
+
+class AdmissionRejectedException(ServiceOverloadedException):
+    """The admission controller (``serve/admission.py``) refused this request
+    at ``submit()``. ``reason``: ``"class_budget"``,
+    ``"brownout_best_effort"``, ``"brownout_critical_only"`` or
+    ``"tenant_inflight_cap"``; ``retry_after_s`` is always set."""
+
+    def __init__(self, message: str, reason: str = "class_budget",
+                 queue_depth: Optional[int] = None,
+                 retry_after_s: Optional[float] = None,
+                 slo_class: Optional[str] = None):
+        super().__init__(message, queue_depth=queue_depth,
+                         retry_after_s=retry_after_s, slo_class=slo_class)
+        self.reason = reason
+
+
+class DeadlineExceededException(ServiceOverloadedException):
+    """An accepted request's absolute SLO deadline expired before its
+    dispatch: it is shed before any device work, resolved once and typed on
+    its own future. ``waited_s`` is how long it sat accepted,
+    ``deadline_ms`` the deadline it missed."""
+
+    def __init__(self, message: str, tenant=None,
+                 slo_class: Optional[str] = None,
+                 deadline_ms: Optional[float] = None,
+                 waited_s: Optional[float] = None,
+                 queue_depth: Optional[int] = None,
+                 retry_after_s: Optional[float] = None):
+        super().__init__(message, queue_depth=queue_depth,
+                         retry_after_s=retry_after_s, slo_class=slo_class)
+        self.tenant = tenant
+        self.deadline_ms = deadline_ms
+        self.waited_s = waited_s
+
+
 class RunBudgetExhaustedException(MetricCalculationRuntimeException):
     """The run-level fault budget (``resilience/governance.py``) ran out
     mid-ladder: the composed retry ladder — I/O retries, OOM bisections,

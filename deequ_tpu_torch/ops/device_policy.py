@@ -55,6 +55,7 @@ from deequ_tpu_torch.exceptions import (
     MeshDegradedException,
     device_boundary,
 )
+from deequ_tpu_torch.obs.recorder import current_recorder
 
 # -- the histogram kernel-variant policy -----------------------------------------
 
@@ -351,10 +352,20 @@ def device_call(
             check_not_abandoned()
         return fn()
 
-    with device_boundary(boundary):
-        if deadline is not None:
-            return call_with_deadline(body, deadline, what, boundary, device)
-        return body()
+    def classified():
+        with device_boundary(boundary):
+            if deadline is not None:
+                return call_with_deadline(body, deadline, what, boundary, device)
+            return body()
+
+    # the flight recorder's boundary seam: with a recorder armed each
+    # device boundary is a span on the caller's thread, the watchdog's
+    # wait included, so a hang shows as a long span ending in a typed error
+    rec = current_recorder()
+    if rec is not None:
+        with rec.span(boundary, what=what):
+            return classified()
+    return classified()
 
 
 # -- the device's health ---------------------------------------------------------

@@ -259,11 +259,14 @@ class Reduction:
 
     def without(self, mask: Optional[torch.Tensor]) -> "Reduction":
         """This task less ``mask`` (by identity): the engine drops its
-        chunk's row-validity mask, which it builds all-true."""
+        chunk's row-validity mask, which it builds all-true. The task was
+        checked when it was made, so its copy is not checked again."""
         if mask is None or not any(m is mask for m in self.masks):
             return self
-        return Reduction(self.kind, self.data, [m for m in self.masks if m is not mask],
-                         self.n, self.device)
+        task = Reduction.__new__(Reduction)
+        task.kind, task.data, task.n, task.device = self.kind, self.data, self.n, self.device
+        task.masks = tuple(m for m in self.masks if m is not mask)
+        return task
 
     def plain(self) -> Tuple[torch.Tensor, ...]:
         """The task's outputs by the plain versions, one tensor each."""

@@ -73,6 +73,7 @@ import contextlib
 import itertools
 import queue
 import threading
+import time
 import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -94,6 +95,7 @@ from deequ_tpu_torch.ops.device_policy import (  # noqa: F401 — the engine's f
     install_scan_fault_hook,
 )
 from deequ_tpu_torch.expr.eval import Val
+from deequ_tpu_torch.obs.recorder import current_recorder, recording_scope
 from deequ_tpu_torch.ops import masked_reduce
 from deequ_tpu_torch.ops.lut_cache import dictionary_lut_device
 from deequ_tpu_torch.ops.scan_plan import encoded_ingest_enabled, plan_scan_ops
@@ -281,7 +283,17 @@ class ScanStats:
     ``peer_losses`` peer processes a multi-process check lost;
     ``member_launches`` counts each member's kernel launches by kernel
     ({member id: {"K1": n, "K2": n, "K4": n, "K5": n, "K6": n, "K7": n}}), the
-    launches made inside that member's step or count."""
+    launches made inside that member's step or count.
+
+    Serving (``serve/``, the reference's meanings): ``plan_cache_hits`` /
+    ``plan_cache_misses`` count suites whose coalesced batch found or built
+    its program, ``programs_built`` / ``programs_reused`` the batches that
+    built or reused one, ``subplan_cache_hits`` the suites served from a
+    program another plan key built; ``coalesced_batches`` and
+    ``coalesced_tenants`` the coalesced dispatches and their members;
+    ``coalesce_padded_slots`` stays 0 (the port pads no tenant axis).
+    ``dispatch_seconds`` and ``drain_wait_seconds`` are the host's wall at
+    the execute and fetch boundaries of in-memory and coalesced scans."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -351,6 +363,21 @@ class ScanStats:
         self.mesh_stragglers = 0
         self.peer_losses = 0
         self.member_launches: Dict[int, Dict[str, int]] = {}
+        # serving (serve/): plan-cache hits and misses by suite, programs
+        # built and reused, coalesced batches and their members, padded
+        # slots (0 in the port: no tenant axis is padded), sub-plan hits
+        self.plan_cache_hits = 0
+        self.plan_cache_misses = 0
+        self.programs_built = 0
+        self.programs_reused = 0
+        self.coalesced_batches = 0
+        self.coalesced_tenants = 0
+        self.coalesce_padded_slots = 0
+        self.subplan_cache_hits = 0
+        # host wall seconds at the execute and fetch boundaries of the
+        # in-memory and coalesced scans (the fetch synchronises)
+        self.dispatch_seconds = 0.0
+        self.drain_wait_seconds = 0.0
 
     @property
     def ingest_overlap_frac(self) -> float:
@@ -388,6 +415,12 @@ class ScanStats:
         event = {"kind": kind, **detail}
         with self._lock:
             self.degradation_events.append(event)
+        # the flight recorder's rung seam: every ladder's rungs report here,
+        # so each is an instant event inside the span it fired in
+        rec = current_recorder()
+        if rec is not None:
+            rec.event(kind, **{k: v for k, v in detail.items()
+                               if isinstance(v, (int, float, str, bool, type(None)))})
         return event
 
     def record_unverified(self, start: int, stop: int, reason: str,
@@ -407,6 +440,12 @@ class ScanStats:
                 self.budget_exhaustions += 1
             else:
                 self.budget_charges += 1
+
+    def record_subplan_hit(self, n: int = 1) -> None:
+        """``n`` suites served from a program another plan key built
+        (``serve/plan_cache.SUBPLAN_CACHE``)."""
+        with self._lock:
+            self.subplan_cache_hits += int(n)
 
     def record_kll_sort(self, columns: int) -> None:
         with self._lock:
@@ -711,6 +750,9 @@ class _DeviceFoldPlan:
             (capacity * members, self.gather_size), dtype=torch.float64, device=device
         )
         self._filled = 0
+        # single_rows' masks, identities and indices tiled for the most rows
+        # seen yet; K rows read the first K * elem_size entries
+        self._tiled: Optional[Tuple[torch.Tensor, ...]] = None
 
     def flatten(self, partials, row_valid: Optional[torch.Tensor] = None,
                 device=None) -> torch.Tensor:
@@ -718,26 +760,40 @@ class _DeviceFoldPlan:
         partials' own: a mesh member's; default the fold's). ``row_valid``
         is the chunk's row-validity mask, which the engine builds all-true:
         a task drops it (``Reduction.without``) and reads no such mask."""
-        flat = torch.empty(self.flat_size, dtype=torch.float64,
-                           device=self.device if device is None else device)
+        return self.flatten_rows([partials], row_valid, device)[0]
+
+    def flatten_rows(self, rows, row_valid: Optional[torch.Tensor] = None,
+                     device=None) -> torch.Tensor:
+        """K chunks' partials (``rows``: the batches of a group scan, the
+        members of a coalesced batch) as one (K, flat size) tensor: each
+        row's tensor leaves copied into it, and the K1 tasks of all K rows
+        resolved by ONE ``reduce_into``, row k's outputs at their slots of
+        row k. Each row is bit for bit :meth:`flatten` of its partials
+        alone: K1's bits depend only on a task's rows and ``n``, never on
+        its place in the batch or the other tasks there. ``row_valid`` is
+        one mask all rows share."""
+        flats = torch.empty((len(rows), self.flat_size), dtype=torch.float64,
+                            device=self.device if device is None else device)
         tasks: Dict[int, Tuple[masked_reduce.Reduction, List[int]]] = {}
-        for part, slots in zip(partials, self._slots):
-            for leaf, (off, size) in zip(part.values(), slots):
-                outs = masked_reduce.outputs_of(leaf)
-                if outs is None:
-                    flat[off:off + size].copy_(leaf.reshape(-1))
-                    continue
-                for j, (task, index) in enumerate(outs):
-                    entry = tasks.setdefault(id(task), (task, [-1] * task.n_outputs))
-                    if entry[1][index] != -1:
-                        raise ValueError("a task output is placed in two scan leaves")
-                    entry[1][index] = off + j
+        for k, partials in enumerate(rows):
+            base = k * self.flat_size
+            for part, slots in zip(partials, self._slots):
+                for leaf, (off, size) in zip(part.values(), slots):
+                    outs = masked_reduce.outputs_of(leaf)
+                    if outs is None:
+                        flats[k, off:off + size].copy_(leaf.reshape(-1))
+                        continue
+                    for j, (task, index) in enumerate(outs):
+                        entry = tasks.setdefault(id(task), (task, [-1] * task.n_outputs))
+                        if entry[1][index] != -1:
+                            raise ValueError("a task output is placed in two scan leaves")
+                        entry[1][index] = base + off + j
         if tasks:
             masked_reduce.reduce_into(
-                flat, [task.without(row_valid) for task, _ in tasks.values()],
+                flats.view(-1), [task.without(row_valid) for task, _ in tasks.values()],
                 [offs for _, offs in tasks.values()],
             )
-        return flat
+        return flats
 
     def _merged(self, acc: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
         return masked_reduce.merge_tags(self._is_sum, self._is_min, acc, flat, self._elem_src)
@@ -792,8 +848,35 @@ class _DeviceFoldPlan:
         the same merge from the identities, then its gather leaves —
         bit for bit what :meth:`merge` and :meth:`fetch_unflatten` give a
         one-chunk table."""
-        elem = self._merged(self._acc, flat) if self.elem_size else self._acc
-        return torch.cat([elem, flat[self._gather_src]])
+        return self.single_rows(flat.unsqueeze(0))[0]
+
+    def single_rows(self, flats: torch.Tensor, caller: str = "fold") -> torch.Tensor:
+        """For each row of ``flats`` ((K, flat size), :meth:`flatten_rows`)
+        the vector a scan of ONE chunk with that flat vector fetches: the
+        elementwise entries merged from the identities — all K rows in ONE
+        ``merge_tags`` (the masks, identities and source indices tiled K
+        times; ``caller`` names it in ``MERGE_LAUNCHES_BY_CALLER``) — then
+        the gather leaves. Row k is bit for bit what :meth:`merge` and
+        :meth:`fetch_unflatten` give a one-chunk table of row k's chunk;
+        the fold's own accumulator is not touched. One tiling is kept, for
+        the most rows seen yet: K rows take its first K * ``elem_size``
+        entries, which are the tiling for K, so the tiling's device memory
+        grows with the largest K alone."""
+        K = flats.shape[0]
+        if self.elem_size:
+            tiled = self._tiled
+            if tiled is None or tiled[0].numel() < K * self.elem_size:
+                offsets = torch.arange(K, dtype=torch.int64, device=self.device) * self.flat_size
+                tiled = self._tiled = (
+                    self._is_sum.repeat(K), self._is_min.repeat(K), self._acc.repeat(K),
+                    (self._elem_src.unsqueeze(0) + offsets.unsqueeze(1)).reshape(-1),
+                )
+            is_sum, is_min, acc, src = (t[:K * self.elem_size] for t in tiled)
+            elem = masked_reduce.merge_tags(is_sum, is_min, acc, flats.reshape(-1), src,
+                                            caller=caller).view(K, self.elem_size)
+        else:
+            elem = flats.new_empty((K, 0))
+        return torch.cat([elem, flats[:, self._gather_src]], dim=1)
 
     def flat_result(self) -> torch.Tensor:
         """The fold's result as one new device vector: the accumulator,
@@ -1157,8 +1240,14 @@ def _governed_attempt(budget, fn: Callable, what: str, device):
         return fn()
     from deequ_tpu_torch.resilience.governance import run_budget_scope
 
+    # the recorder is thread-local too: the worker re-enters it, parented
+    # to the caller's open span, so the attempt's spans keep recording
+    rec = current_recorder()
+    rec_parent = rec.current_span_id() if rec is not None else None
+
     def governed_fn():
-        with run_budget_scope(budget):
+        with run_budget_scope(budget), (recording_scope(rec, rec_parent) if rec is not None
+                                        else contextlib.nullcontext()):
             return fn()
 
     return call_with_deadline(
@@ -1181,6 +1270,7 @@ def run_scan(
     on_budget_exhausted: Optional[str] = None,
     mesh=_UNSET,
     shard_deadline: Optional[float] = None,
+    trace=None,
 ):
     """Run all ops in ONE fused pass over the table on ``device``. Returns
     one dict of reduced numpy leaves per op. The whole pass performs one
@@ -1241,7 +1331,14 @@ def run_scan(
     verification run's) charges that one instead. The first charge past it
     raises a typed ``RunBudgetExhaustedException``; with a wall deadline
     each whole attempt runs under one watchdog armed with the budget
-    left."""
+    left.
+
+    Tracing (``obs/``): ``trace`` (a FlightRecorder, True or False) scopes
+    a recorder for this scan, every attempt included; None takes the
+    caller's scope or the recorder ``DEEQU_TORCH_TRACE=1`` arms. Each
+    attempt is a ``scan_attempt`` span, each device boundary a span inside
+    it, each rung an instant event."""
+    from deequ_tpu_torch.obs.recorder import maybe_arm_from_env, resolve_recorder
     from deequ_tpu_torch.ops import scan_executors
     from deequ_tpu_torch.ops.scan_plan import select_kernel_enabled
     from deequ_tpu_torch.resilience.governance import (
@@ -1254,6 +1351,12 @@ def run_scan(
         raise ValueError(
             f"on_device_error must be 'fail' or 'fallback', got {on_device_error!r}"
         )
+    maybe_arm_from_env()
+    if trace is not None:
+        with recording_scope(resolve_recorder(trace)):
+            return run_scan(table, ops, device, chunk_rows, select_kernel, encoded_ingest,
+                            defer, on_device_error, device_deadline, run_deadline,
+                            max_total_attempts, on_budget_exhausted, mesh, shard_deadline)
     device = torch.device(device)
     mesh = scoped_mesh(device, mesh)
     if mesh is not None:
@@ -1416,18 +1519,22 @@ def _run_scan_once(
                 deadline=device_deadline, device=device,
             )
             SCAN_STATS.bytes_packed += nbytes
+        t_d = time.perf_counter()
         device_call(
             lambda: step(shards, start, stop), "execute", what=f"chunk {ci} step",
             deadline=device_deadline, hook_ctx={**scan_ctx, "chunk_index": ci},
             device=device,
         )
+        SCAN_STATS.dispatch_seconds += time.perf_counter() - t_d
         SCAN_STATS.chunks_processed += 1
     if defer:
         return DeferredScan(fold, fold.flat_result(), fold._filled, device_deadline)
     # CUDA runs asynchronously: a fault or a stall of the card surfaces at
     # this synchronising copy, so the watchdog and classification hold here
+    t_f = time.perf_counter()
     results = device_call(fold.fetch_unflatten, "fetch", what="scan fetch",
                           deadline=device_deadline, device=device)
+    SCAN_STATS.drain_wait_seconds += time.perf_counter() - t_f
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results
 
@@ -1443,13 +1550,20 @@ def _prefetch(iterator, depth: int = 2):
     consumer takes to free a slot; a consumer that abandons the generator
     stops the reader instead of leaving it blocked on a full queue. The
     reader re-enters the caller's run budget (thread-local): the read
-    retries a source makes there charge this run's ledger."""
+    retries a source makes there charge this run's ledger — and the
+    caller's recorder, when one is armed, so their retry events land on
+    this run's trace."""
     from deequ_tpu_torch.resilience.governance import current_run_budget, run_budget_scope
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     stop = threading.Event()
     budget = current_run_budget()
+    rec = current_recorder()
+    # scoped only when armed: a scope of None would arm the counter and
+    # take every disarmed seam of the process off its one-read path
+    rec_scope = (recording_scope(rec, rec.current_span_id()) if rec is not None
+                 else contextlib.nullcontext())
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -1462,7 +1576,7 @@ def _prefetch(iterator, depth: int = 2):
 
     def run():
         try:
-            with run_budget_scope(budget):
+            with run_budget_scope(budget), rec_scope:
                 for item in iterator:
                     if not put(item):
                         return
@@ -1865,15 +1979,113 @@ def _stack_luts(ops, tables) -> List[Tuple[str, str, np.ndarray]]:
     return out
 
 
+class _GroupBuffer:
+    """K equal-size tables packed into ONE host buffer and copied to the
+    device once: per plane (then per op lookup table) K aligned slots, one
+    a table, each the shape that table's own scan packs. The slots are
+    views of the one device copy (:meth:`planes`, :meth:`op_luts`)."""
+
+    def __init__(self, packers: Sequence[_ChunkPacker], n: int, ops: Sequence[ScanOp],
+                 tables):
+        self.K = len(packers)
+        self.luts = _stack_luts(ops, tables)
+        shapes = [((rows, n), np.dtype(dt))
+                  for rows, dt in zip(packers[0].plane_rows(), _ChunkPacker.PLANE_DTYPES)]
+        shapes += [(arr.shape[1:], arr.dtype) for _, _, arr in self.luts]
+        self.shapes = shapes
+        self._torch_dtypes = [torch.from_numpy(np.empty(0, dtype=dt)).dtype for _, dt in shapes]
+        self.slots, total = [], 0
+        for shape, dt in shapes:
+            size = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            self.slots.append((total, _aligned(size), size))
+            total += self.K * _aligned(size)
+        self.host = np.empty(total, dtype=np.uint8)
+        for k, packer in enumerate(packers):
+            packer.pack(0, n, out=tuple(self._host_view(i, k) for i in range(4)))
+        for j, (_, _, arr) in enumerate(self.luts):
+            for k in range(self.K):
+                self._host_view(4 + j, k)[...] = arr[k]
+        self.dev: Optional[torch.Tensor] = None
+
+    def _host_view(self, i: int, k: int) -> np.ndarray:
+        base, step, size = self.slots[i]
+        off = base + k * step
+        shape, dt = self.shapes[i]
+        return self.host[off:off + size].view(dt).reshape(shape)
+
+    def to_device(self, device) -> None:
+        """The one host->device copy."""
+        with device_boundary("transfer"):
+            self.dev = torch.from_numpy(self.host).to(device)
+
+    def _dev_view(self, i: int, k: int) -> torch.Tensor:
+        base, step, size = self.slots[i]
+        shape = self.shapes[i][0]
+        tdt = self._torch_dtypes[i]
+        if size == 0:
+            return torch.empty(shape, dtype=tdt, device=self.dev.device)
+        off = base + k * step
+        return self.dev[off:off + size].view(tdt).reshape(shape)
+
+    def planes(self, k: int) -> List[torch.Tensor]:
+        return [self._dev_view(i, k) for i in range(4)]
+
+    def op_luts(self, k: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for j, (col, key, _) in enumerate(self.luts):
+            out.setdefault(col, {})[key] = self._dev_view(4 + j, k)
+        return out
+
+
+#: a group scan resolves its tables' K1 tasks in batches holding at most
+#: this many rows (at least one table): a task keeps its derived tensors
+#: (predicates, where-masks, casts) on the device until it resolves, so the
+#: cap bounds the group scan's device memory beyond its input buffer, while
+#: a window of one-chunk batches up to this size still takes one launch
+GROUP_K1_ROWS = 1 << 21
+
+
+def _group_rows(buffer: _GroupBuffer, packers: Sequence[_ChunkPacker], ops: Sequence[ScanOp],
+                needed, n: int, device, fold: Optional["_DeviceFoldPlan"] = None,
+                caller: str = "group", k1_rows: Optional[int] = None):
+    """Every table of ``buffer`` through ``ops`` on views of its slot — the
+    shapes its own scan gives it — and into row k of one (K, S) tensor:
+    the K tables' K1 tasks resolved in batches of at most ``k1_rows`` rows
+    (None: ONE batch) and their elementwise entries merged in ONE
+    ``merge_tags`` (``_DeviceFoldPlan.flatten_rows``, ``single_rows``),
+    each row bit for bit its table's own one-chunk scan. ``fold``: a fold
+    plan built for these ops at ``n`` rows (None: built from the first
+    table's partials). Returns (out, fold)."""
+    row_valid = torch.ones(n, dtype=torch.bool, device=device)
+    flats, rows = [], []
+    for k, packer in enumerate(packers):
+        vals = packer.unpack_vals(*buffer.planes(k), row_valid, buffer.op_luts(k),
+                                  packer.enc_luts(device), needed)
+        rows.append([op.update(vals, row_valid, n, n) for op in ops])
+        SCAN_STATS.chunks_processed += 1
+        if fold is None:
+            fold = _DeviceFoldPlan(ops, rows[0], 1, device)
+        if k1_rows is not None and len(rows) * n >= k1_rows:
+            flats.append(fold.flatten_rows(rows, row_valid))
+            rows = []
+    if rows:
+        flats.append(fold.flatten_rows(rows, row_valid))
+    flat = flats[0] if len(flats) == 1 else torch.cat(flats)
+    return fold.single_rows(flat, caller), fold
+
+
 def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> DeferredGroupScan:
     """One pass over K batches that :func:`group_scannable` admitted: every
     batch's planes (and its op lookup tables) packed into ONE host buffer,
-    each batch in a slot of its own, and copied to ``device`` once; each
-    batch's ``op.update`` then runs on views of its slot — the shapes its
-    own ``run_scan`` gives it — and writes its folded vector into row k
-    of one (K, S) tensor, fetched once by ``results()``. No reduction runs
-    across batches: a stacked (K, n) reduction would associate otherwise
-    than the 1-D one and break the bit-for-bit contract."""
+    each batch in a slot of its own, and copied to ``device`` once
+    (:class:`_GroupBuffer`); each batch's ``op.update`` then runs on views
+    of its slot — the shapes its own ``run_scan`` gives it — and the K
+    batches' reductions resolve in one K1 batch every
+    :data:`GROUP_K1_ROWS` rows and one fold merge into the rows of one
+    (K, S) tensor, fetched once by ``results()`` (:func:`_group_rows`). No
+    reduction runs across batches: a stacked (K, n) reduction would
+    associate otherwise than the 1-D one and break the bit-for-bit
+    contract."""
     device = torch.device(device)
     K = len(tables)
     n = tables[0].num_rows
@@ -1888,43 +2100,9 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
     plan = plan_scan_ops(ops, packers[0], False, None, n)
     ops = plan.ops
     fetches_before = SCAN_STATS.device_fetches
-
-    # one host buffer: per plane (then per lookup table), K aligned slots
-    shapes = [((rows, n), np.dtype(dt))
-              for rows, dt in zip(packers[0].plane_rows(), _ChunkPacker.PLANE_DTYPES)]
-    luts = _stack_luts(ops, tables)
-    shapes += [(arr.shape[1:], arr.dtype) for _, _, arr in luts]
-    slots, total = [], 0
-    for shape, dt in shapes:
-        size = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
-        slots.append((total, _aligned(size), size))
-        total += K * _aligned(size)
-    host = np.empty(total, dtype=np.uint8)
-
-    def host_view(i, k):
-        base, step, size = slots[i]
-        off = base + k * step
-        shape, dt = shapes[i]
-        return host[off:off + size].view(dt).reshape(shape)
-
-    for k, packer in enumerate(packers):
-        packer.pack(0, n, out=tuple(host_view(i, k) for i in range(4)))
-    for j, (_, _, arr) in enumerate(luts):
-        for k in range(K):
-            host_view(4 + j, k)[...] = arr[k]
-    SCAN_STATS.bytes_packed += host.nbytes
-    with device_boundary("transfer"):
-        dev = torch.from_numpy(host).to(device)
-
-    def dev_view(i, k):
-        base, step, size = slots[i]
-        shape, dt = shapes[i]
-        tdt = torch.from_numpy(np.empty(0, dtype=dt)).dtype
-        if size == 0:
-            return torch.empty(shape, dtype=tdt, device=device)
-        off = base + k * step
-        return dev[off:off + size].view(tdt).reshape(shape)
-
+    buffer = _GroupBuffer(packers, n, ops, tables)
+    SCAN_STATS.bytes_packed += buffer.host.nbytes
+    buffer.to_device(device)
     SCAN_STATS.scan_passes += 1
     SCAN_STATS.group_scan_passes += 1
     SCAN_STATS.rows_scanned += K * n
@@ -1932,29 +2110,10 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
     if plan.encoded_columns:
         SCAN_STATS.encoded_scan_passes += 1
     deadline = default_device_deadline()
-
-    def step():
-        fold: Optional[_DeviceFoldPlan] = None
-        out: Optional[torch.Tensor] = None
-        row_valid = torch.ones(n, dtype=torch.bool, device=device)
-        for k, packer in enumerate(packers):
-            op_luts: Dict[str, Dict[str, torch.Tensor]] = {}
-            for j, (col, key, _) in enumerate(luts):
-                op_luts.setdefault(col, {})[key] = dev_view(4 + j, k)
-            planes = [dev_view(i, k) for i in range(4)]
-            vals = packer.unpack_vals(*planes, row_valid, op_luts,
-                                      packer.enc_luts(device), needed)
-            partials = [op.update(vals, row_valid, n, n) for op in ops]
-            if fold is None:
-                fold = _DeviceFoldPlan(ops, partials, 1, device)
-                out = torch.empty((K, fold.single_size), dtype=torch.float64,
-                                  device=device)
-            out[k] = fold.single(fold.flatten(partials, row_valid))
-            SCAN_STATS.chunks_processed += 1
-        return out, fold
-
     # a device boundary under the process deadline, like a scan's step; a
     # group scan has no ladder (the reference's has none either)
-    out, fold = device_call(step, "execute", what=f"group scan of {K} batches",
+    out, fold = device_call(lambda: _group_rows(buffer, packers, ops, needed, n, device,
+                                                k1_rows=GROUP_K1_ROWS),
+                            "execute", what=f"group scan of {K} batches",
                             deadline=deadline, device=device)
     return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before, deadline)

@@ -36,6 +36,7 @@ executors.
 
 from __future__ import annotations
 
+import contextlib
 import traceback
 from typing import Any, Dict, Optional, Sequence
 
@@ -47,6 +48,7 @@ from deequ_tpu_torch.exceptions import (
     DeviceHangException,
     DeviceOOMException,
 )
+from deequ_tpu_torch.obs.recorder import current_recorder
 
 
 def _engine():
@@ -92,13 +94,16 @@ def run_streaming_scan(
     if defer:
         raise ValueError("run_scan(defer=True) takes an in-memory table")
     deadline = _attempt_deadline(device_deadline, shard_deadline, eng.mesh_size(mesh))
-    return eng._governed_attempt(
-        budget,
-        lambda: eng._run_scan_stream(table, ops, device, chunk_rows, encoded_ingest,
-                                     scan_id=scan_id, device_deadline=deadline, mesh=mesh),
-        f"stream scan {scan_id} (run budget)",
-        device,
-    )
+    rec = current_recorder()
+    with (rec.span("scan_attempt", scan_id=scan_id, attempt=0, stream=True)
+          if rec is not None else contextlib.nullcontext()):
+        return eng._governed_attempt(
+            budget,
+            lambda: eng._run_scan_stream(table, ops, device, chunk_rows, encoded_ingest,
+                                         scan_id=scan_id, device_deadline=deadline, mesh=mesh),
+            f"stream scan {scan_id} (run budget)",
+            device,
+        )
 
 
 def _release_frames(exc: BaseException) -> None:
@@ -179,140 +184,146 @@ def run_laddered_scan(
     a reshard when it names members; then the refusal or the typed
     raise."""
     eng = _engine()
+    rec = current_recorder()
     chunk_override = chunk_rows
     attempt = 0
     depth = 0
     while True:
-        if mesh is not None:
-            device = mesh.lead
-        n_dev = eng.mesh_size(mesh)
-        floor = max(n_dev, min(eng.MIN_BISECT_CHUNK_ROWS, max(table.num_rows, 1)))
-        straggler_armed = shard_deadline is not None and n_dev > 1
-        deadline = _attempt_deadline(device_deadline, shard_deadline, n_dev)
-        scan_ctx = {"scan_id": scan_id, "attempt": attempt,
-                    "device_ids": eng.mesh_device_ids(mesh)}
-        report: Dict[str, Any] = {}
-        try:
-            result = eng._governed_attempt(
-                budget,
-                lambda: eng._run_scan_once(
-                    table, ops, device, chunk_override, defer, deadline,
-                    scan_ctx, report, select_kernel=select_kernel, encoded=encoded_ingest,
-                    mesh=mesh,
-                ),
-                f"scan {scan_id} attempt {attempt} (run budget)",
-                device,
-            )
-            eng.DEVICE_HEALTH.record_success()
-            if n_dev > 1:
-                eng.MESH_HEALTH.record_success(eng.mesh_device_ids(mesh))
-            return result
-        except DeviceException as e:
-            fault = e
-        _release_frames(fault)
-        eng.SCAN_STATS.device_faults += 1
-
-        def reshard() -> bool:
-            """Shrink the mesh around the members ``fault`` names; True
-            when a member survives and the scan should run again."""
-            nonlocal mesh, chunk_override, depth
-            mesh_ids = set(eng.mesh_device_ids(mesh))
-            lost = [d for d in getattr(fault, "device_ids", ()) if d in mesh_ids]
-            if not lost or len(mesh_ids) <= 1:
-                return False
-            eng.SCAN_STATS.mesh_faults += 1
-            eng.MESH_HEALTH.record_fault(fault)
-            shrunk = eng.mesh_excluding(mesh, set(lost) | set(eng.MESH_HEALTH.quarantined()))
-            if shrunk is None:
-                return False
-            if budget is not None:
-                budget.charge("mesh_reshard", scan_id=scan_id)
-            # the residency is sharded over the old mesh, the lost
-            # members included: it cannot serve the shrunken one
-            freed = eng._evict_device_cache(table)
-            eng.SCAN_STATS.mesh_reshards += 1
-            eng.SCAN_STATS.record_degradation(
-                "mesh_reshard", scan_id=scan_id, lost_devices=sorted(lost),
-                mesh_from=len(mesh_ids), mesh_to=shrunk.size, evicted_bytes=freed,
-                error=str(fault),
-            )
-            mesh = shrunk
-            # the pressure that drove a bisection left with the member: the
-            # survivors start again at the caller's chunk size
-            chunk_override = chunk_rows
-            depth = 0
-            return True
-
-        if isinstance(fault, DeviceOOMException):
-            eng.DEVICE_HEALTH.record_fault(fault)
-            used = int(report.get("chunk") or chunk_override or max(table.num_rows, 1))
-            freed = eng._evict_device_cache(table)
-            if device.type == "cuda":
-                torch.cuda.empty_cache()  # the freed blocks back to the card
-            # encoded -> decoded first, at the same chunk: the decode
-            # gathers and dictionary tables are allocations the decoded
-            # layout does not make; an OOM there bisects as before
-            if encoded_ingest and report.get("encoded"):
-                if budget is not None:
-                    budget.charge("encoded_demote", scan_id=scan_id)
-                encoded_ingest = False
-                eng.SCAN_STATS.encoded_demotions += 1
-                eng.SCAN_STATS.record_degradation(
-                    "encoded_demote", scan_id=scan_id, chunk=used,
-                    evicted_bytes=freed, error=str(fault),
+        # one span an attempt: the boundary spans of its device calls nest
+        # under it, and a rung taken below records its event inside the
+        # attempt it degraded
+        with (rec.span("scan_attempt", scan_id=scan_id, attempt=attempt)
+              if rec is not None else contextlib.nullcontext()):
+            if mesh is not None:
+                device = mesh.lead
+            n_dev = eng.mesh_size(mesh)
+            floor = max(n_dev, min(eng.MIN_BISECT_CHUNK_ROWS, max(table.num_rows, 1)))
+            straggler_armed = shard_deadline is not None and n_dev > 1
+            deadline = _attempt_deadline(device_deadline, shard_deadline, n_dev)
+            scan_ctx = {"scan_id": scan_id, "attempt": attempt,
+                        "device_ids": eng.mesh_device_ids(mesh)}
+            report: Dict[str, Any] = {}
+            try:
+                result = eng._governed_attempt(
+                    budget,
+                    lambda: eng._run_scan_once(
+                        table, ops, device, chunk_override, defer, deadline,
+                        scan_ctx, report, select_kernel=select_kernel, encoded=encoded_ingest,
+                        mesh=mesh,
+                    ),
+                    f"scan {scan_id} attempt {attempt} (run budget)",
+                    device,
                 )
-                attempt += 1
-                continue
-            halved = max(floor, used // 2)
-            halved = max(n_dev, halved // n_dev * n_dev)
-            if halved < used:
+                eng.DEVICE_HEALTH.record_success()
+                if n_dev > 1:
+                    eng.MESH_HEALTH.record_success(eng.mesh_device_ids(mesh))
+                return result
+            except DeviceException as e:
+                fault = e
+            _release_frames(fault)
+            eng.SCAN_STATS.device_faults += 1
+
+            def reshard() -> bool:
+                """Shrink the mesh around the members ``fault`` names; True
+                when a member survives and the scan should run again."""
+                nonlocal mesh, chunk_override, depth
+                mesh_ids = set(eng.mesh_device_ids(mesh))
+                lost = [d for d in getattr(fault, "device_ids", ()) if d in mesh_ids]
+                if not lost or len(mesh_ids) <= 1:
+                    return False
+                eng.SCAN_STATS.mesh_faults += 1
+                eng.MESH_HEALTH.record_fault(fault)
+                shrunk = eng.mesh_excluding(mesh, set(lost) | set(eng.MESH_HEALTH.quarantined()))
+                if shrunk is None:
+                    return False
                 if budget is not None:
-                    budget.charge("oom_bisect", scan_id=scan_id)
-                depth += 1
-                eng.SCAN_STATS.oom_bisections += 1
-                eng.SCAN_STATS.bisection_depth = max(eng.SCAN_STATS.bisection_depth, depth)
+                    budget.charge("mesh_reshard", scan_id=scan_id)
+                # the residency is sharded over the old mesh, the lost
+                # members included: it cannot serve the shrunken one
+                freed = eng._evict_device_cache(table)
+                eng.SCAN_STATS.mesh_reshards += 1
                 eng.SCAN_STATS.record_degradation(
-                    "oom_bisect", scan_id=scan_id, chunk_from=used, chunk_to=halved,
-                    depth=depth, evicted_bytes=freed, error=str(fault),
+                    "mesh_reshard", scan_id=scan_id, lost_devices=sorted(lost),
+                    mesh_from=len(mesh_ids), mesh_to=shrunk.size, evicted_bytes=freed,
+                    error=str(fault),
                 )
-                chunk_override = halved
-                attempt += 1
-                continue
-            # at the floor an OOM that names one card sheds that member
-            # before the mesh gives up
-            if reshard():
-                attempt += 1
-                continue
-            reason = "oom_at_bisection_floor"
-            detail = {"chunk": used}
-        else:
-            if isinstance(fault, DeviceHangException):
-                eng.SCAN_STATS.watchdog_timeouts += 1
-                # a straggler only when the straggler deadline was the one
-                # that bound: a tighter device deadline's hang is a plain
-                # watchdog timeout
-                if straggler_armed and (device_deadline is None
-                                        or shard_deadline <= device_deadline):
-                    eng.SCAN_STATS.mesh_stragglers += 1
+                mesh = shrunk
+                # the pressure that drove a bisection left with the member: the
+                # survivors start again at the caller's chunk size
+                chunk_override = chunk_rows
+                depth = 0
+                return True
+
+            if isinstance(fault, DeviceOOMException):
+                eng.DEVICE_HEALTH.record_fault(fault)
+                used = int(report.get("chunk") or chunk_override or max(table.num_rows, 1))
+                freed = eng._evict_device_cache(table)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()  # the freed blocks back to the card
+                # encoded -> decoded first, at the same chunk: the decode
+                # gathers and dictionary tables are allocations the decoded
+                # layout does not make; an OOM there bisects as before
+                if encoded_ingest and report.get("encoded"):
+                    if budget is not None:
+                        budget.charge("encoded_demote", scan_id=scan_id)
+                    encoded_ingest = False
+                    eng.SCAN_STATS.encoded_demotions += 1
                     eng.SCAN_STATS.record_degradation(
-                        "mesh_straggler", scan_id=scan_id, deadline=fault.deadline,
-                        mesh_size=n_dev, error=str(fault),
+                        "encoded_demote", scan_id=scan_id, chunk=used,
+                        evicted_bytes=freed, error=str(fault),
                     )
-                else:
+                    attempt += 1
+                    continue
+                halved = max(floor, used // 2)
+                halved = max(n_dev, halved // n_dev * n_dev)
+                if halved < used:
+                    if budget is not None:
+                        budget.charge("oom_bisect", scan_id=scan_id)
+                    depth += 1
+                    eng.SCAN_STATS.oom_bisections += 1
+                    eng.SCAN_STATS.bisection_depth = max(eng.SCAN_STATS.bisection_depth, depth)
                     eng.SCAN_STATS.record_degradation(
-                        "watchdog_timeout", scan_id=scan_id, deadline=fault.deadline,
-                        error=str(fault),
+                        "oom_bisect", scan_id=scan_id, chunk_from=used, chunk_to=halved,
+                        depth=depth, evicted_bytes=freed, error=str(fault),
                     )
-            # a fault that names members costs those members, never the
-            # mesh: the scan goes on over the survivors
-            if reshard():
-                attempt += 1
-                continue
-            # a lost device is sticky and a kernel that does not build stays
-            # so: no rung retries them on the card; nor a hang
-            eng.DEVICE_HEALTH.record_fault(fault)
-            reason = type(fault).__name__
-            detail = {}
-        if on_device_error == "fallback":
-            refuse_cpu_rung(table, scan_id, reason, fault, budget, **detail)
-        raise fault
+                    chunk_override = halved
+                    attempt += 1
+                    continue
+                # at the floor an OOM that names one card sheds that member
+                # before the mesh gives up
+                if reshard():
+                    attempt += 1
+                    continue
+                reason = "oom_at_bisection_floor"
+                detail = {"chunk": used}
+            else:
+                if isinstance(fault, DeviceHangException):
+                    eng.SCAN_STATS.watchdog_timeouts += 1
+                    # a straggler only when the straggler deadline was the one
+                    # that bound: a tighter device deadline's hang is a plain
+                    # watchdog timeout
+                    if straggler_armed and (device_deadline is None
+                                            or shard_deadline <= device_deadline):
+                        eng.SCAN_STATS.mesh_stragglers += 1
+                        eng.SCAN_STATS.record_degradation(
+                            "mesh_straggler", scan_id=scan_id, deadline=fault.deadline,
+                            mesh_size=n_dev, error=str(fault),
+                        )
+                    else:
+                        eng.SCAN_STATS.record_degradation(
+                            "watchdog_timeout", scan_id=scan_id, deadline=fault.deadline,
+                            error=str(fault),
+                        )
+                # a fault that names members costs those members, never the
+                # mesh: the scan goes on over the survivors
+                if reshard():
+                    attempt += 1
+                    continue
+                # a lost device is sticky and a kernel that does not build stays
+                # so: no rung retries them on the card; nor a hang
+                eng.DEVICE_HEALTH.record_fault(fault)
+                reason = type(fault).__name__
+                detail = {}
+            if on_device_error == "fallback":
+                refuse_cpu_rung(table, scan_id, reason, fault, budget, **detail)
+            raise fault

@@ -100,7 +100,9 @@ class ScanPlan:
     device sort; ``variant`` is "select", "sort", "mixed" or "none";
     ``hist_variant`` the histogram variant of the select ops' passes
     ("scatter", "onehot", "pallas", or "none" with no select: module doc);
-    ``encoded_columns`` are the columns on the int16 code plane."""
+    ``encoded_columns`` are the columns on the int16 code plane. A packed
+    plan (:func:`plan_packed_scan`) also counts its ``tenants`` and
+    declares each one's contracts in ``members``."""
 
     ops: Tuple
     resident: bool
@@ -109,6 +111,8 @@ class ScanPlan:
     variant: str
     encoded_columns: Tuple[str, ...] = ()
     hist_variant: str = "none"
+    tenants: int = 1
+    members: Tuple = ()
 
 
 def _bind_hist_variant(update: Callable, variant: str) -> Callable:
@@ -179,3 +183,39 @@ def plan_scan_ops(
         encoded_columns=tuple(packer.enc_names) if packer is not None else (),
         hist_variant=hist_variant,
     )
+
+
+@dataclass(frozen=True)
+class PackedMember:
+    """One tenant's declared contracts inside a packed plan (the
+    reference's ``scan_plan.PackedMember``): ``label`` names the member
+    (its tenant), the other fields mirror the plan's contract fields. In a
+    coalesced batch every member's declaration equals the shared plan's:
+    the service admits only suites of one plan key. ``padding`` marks a
+    padding slot, which the port never packs (the reference pads its
+    tenant axis to a power of two to bound its compiled programs)."""
+
+    label: str
+    variant: str = "sort"
+    ingest_variant: str = "decoded"
+    encoded_columns: Tuple[str, ...] = ()
+    padding: bool = False
+
+
+def plan_packed_scan(
+    ops: Sequence,
+    packer=None,
+    members: Sequence[PackedMember] = (),
+    select_kernel: Optional[bool] = None,
+    chunk_rows: Optional[int] = None,
+    platform: Optional[str] = None,
+) -> ScanPlan:
+    """The multi-tenant packed plan (``serve/executor.py``): one op list
+    every member of a coalesced batch runs, ``members`` declaring each
+    one's contracts. Members are packed fresh a batch and never resident,
+    so each op keeps its sorting update — what a serial scan of the same
+    table runs, which the bit-for-bit contract needs. The plan's fetch
+    contract is one fetch a coalesced batch."""
+    base = plan_scan_ops(ops, packer, resident=False, select_kernel=select_kernel,
+                         chunk_rows=chunk_rows, platform=platform)
+    return replace(base, tenants=len(members), members=tuple(members))

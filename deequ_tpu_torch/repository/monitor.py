@@ -30,9 +30,10 @@ already folded, so the resumed state equals the uninterrupted run's bit
 for bit and no alert is emitted twice.
 
 ``DEEQU_TORCH_MONITOR=0`` (envcfg) turns observation off process-wide:
-saves are unaffected, alerts stop. The reference's serving seam
-(``observe_verification``) and flight-recorder event wait for the port's
-``serve/`` and ``obs/``.
+saves are unaffected, alerts stop. Serving traffic feeds the same rules
+at the resolve seam (:meth:`QualityMonitor.observe_verification`, called
+by ``VerificationService(monitor=...)``), and each alert is an instant
+event on an armed flight recorder (``obs/``).
 """
 
 from __future__ import annotations
@@ -524,11 +525,22 @@ class QualityMonitor:
             int(key.data_set_date),
         )
 
+    def observe_verification(self, tenant, result) -> List[QualityAlert]:
+        """The serving resolve seam (``VerificationService(monitor=...)``):
+        fold a resolved VerificationResult's metrics as the tenant's
+        series, timed by a per-series sequence (serving traffic has no
+        dataset date: the stream position is the time axis)."""
+        metric_map = getattr(result, "metrics", None)
+        if not metric_map:
+            return []
+        tags = {"tenant": "?" if tenant is None else str(tenant)}
+        return self._observe_metrics(metric_map, tags, None)
+
     def _observe_metrics(
         self,
         metric_map: Dict[Any, Any],
         tags: Dict[str, str],
-        time: int,
+        time: Optional[int],
     ) -> List[QualityAlert]:
         if not self.enabled():
             return []
@@ -567,6 +579,8 @@ class QualityMonitor:
                         state = rule.make_state()
                         self._states[(rule.name, series)] = state
                     point_time = time
+                    if point_time is None:
+                        point_time = 0 if state.last_time is None else state.last_time + 1
                     if (
                         state.last_time is not None
                         and point_time <= state.last_time
@@ -601,6 +615,12 @@ class QualityMonitor:
             self.alerts = self.alerts[-self.max_alerts:]
             self.alerts_dropped += 1
         MONITOR_STATS.alerts_emitted += 1
+        from deequ_tpu_torch.obs.recorder import current_recorder
+
+        rec = current_recorder()
+        if rec is not None:
+            rec.event("quality_alert", rule=alert.rule, time=alert.time,
+                      value=alert.value, detail=alert.detail)
 
     # -- checkpoint / resume ---------------------------------------------
 

@@ -309,6 +309,14 @@ class FaultInjectingScanHook:
     reshard drops member 2, as a dead card no one launches on any more. A
     targeted ``"hang"`` stalls the step while the member is in the mesh.
 
+    Tenant targeting (the serving layer's poison tenant): ``tenant_faults``
+    maps a tenant's label to a kind. It fires at every coalesced dispatch
+    whose members include the tenant (the executor's ``ctx["tenants"]``),
+    and, once a dispatch of that tenant alone faulted, at every attempt of
+    the next scan that names no tenants — the serial rung the service runs
+    the tenant on — so the fault follows the tenant through the service's
+    bisection to its serial ladder.
+
     ``faults`` keys are scan ids; with ``relative=True`` they count from
     the first scan this hook observes. Every injection appends ``(kind,
     scan_id, attempt)`` — ``(kind, scan_id, attempt, member)`` for a
@@ -322,8 +330,17 @@ class FaultInjectingScanHook:
         faults: Optional[Dict[int, Union[str, Tuple]]] = None,
         hang_seconds: float = 30.0,
         relative: bool = True,
+        tenant_faults: Optional[Dict[str, str]] = None,
     ):
         self.faults: Dict[int, Tuple[str, float, Optional[int]]] = {}
+        self.tenant_faults = dict(tenant_faults or {})
+        for kind in self.tenant_faults.values():
+            if kind not in ("oom", "compile", "lost"):
+                raise ValueError(f"unknown tenant fault kind {kind!r}")
+        # the kind of a tenant fault whose lone dispatch faulted, until the
+        # serial scan after it is seen; then that scan's id and kind
+        self._serial_next: Optional[str] = None
+        self._serial_scan: Optional[Tuple[int, str]] = None
         for scan, spec in (faults or {}).items():
             if isinstance(spec, str):
                 spec = (spec, 1)
@@ -351,6 +368,8 @@ class FaultInjectingScanHook:
             scan_id -= self._base_scan_id
         attempt = int(ctx.get("attempt", 0))
         self.calls.append((boundary, scan_id, attempt, int(ctx.get("chunk_index", -1))))
+        if self.tenant_faults:
+            self._tenant_fault(scan_id, attempt, ctx)
         spec = self.faults.get(scan_id)
         if spec is None:
             return
@@ -370,3 +389,24 @@ class FaultInjectingScanHook:
         messages = _DEVICE_FAULT_MESSAGES if member is None else _TARGETED_FAULT_MESSAGES
         raise InjectedDeviceError(messages[kind].format(
             nbytes=8 << 30, scan_id=scan_id, attempt=attempt, device=member))
+
+    def _tenant_fault(self, scan_id: int, attempt: int, ctx: Dict) -> None:
+        """Raise a tenant-targeted fault where one applies (class doc)."""
+        tenants = ctx.get("tenants")
+        kind = None
+        if tenants is not None:
+            hit = [t for t in tenants if t in self.tenant_faults]
+            if hit:
+                kind = self.tenant_faults[hit[0]]
+                self._serial_next = kind if len(tenants) == 1 else None
+                self.injected.append((kind, scan_id, attempt, tuple(hit)))
+        elif self._serial_scan is not None and self._serial_scan[0] == scan_id:
+            kind = self._serial_scan[1]
+            self.injected.append((kind, scan_id, attempt, "serial"))
+        elif self._serial_next is not None:
+            kind, self._serial_next = self._serial_next, None
+            self._serial_scan = (scan_id, kind)
+            self.injected.append((kind, scan_id, attempt, "serial"))
+        if kind is not None:
+            raise InjectedDeviceError(_DEVICE_FAULT_MESSAGES[kind].format(
+                nbytes=8 << 30, scan_id=scan_id, attempt=attempt))

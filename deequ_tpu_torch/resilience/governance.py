@@ -136,6 +136,13 @@ class RunBudget:
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
         SCAN_STATS.record_budget_charge()
+        # the flight recorder's budget seam: every charge is an instant
+        # event (which rung spent the budget, and when)
+        from deequ_tpu_torch.obs.recorder import current_recorder
+
+        rec = current_recorder()
+        if rec is not None:
+            rec.event("budget_charge", charge_kind=kind, attempts=self.attempts)
         reason = self.exhausted_reason
         if reason is None:
             cap = self.policy.max_total_attempts

@@ -50,6 +50,13 @@ class RetryTelemetry:
 
     def record_attempt(self) -> None:
         self.attempts += 1
+        # the flight recorder's I/O seam: a failed try is an instant event
+        # (a clean first try never reaches here)
+        from deequ_tpu_torch.obs.recorder import current_recorder
+
+        rec = current_recorder()
+        if rec is not None:
+            rec.event("io_retry", attempts=self.attempts)
 
     def record_retry(self, slept: float, exc: BaseException) -> None:
         self.retries += 1
@@ -59,6 +66,11 @@ class RetryTelemetry:
     def record_exhausted(self, exc: BaseException) -> None:
         self.exhausted += 1
         self.last_exception = f"{type(exc).__name__}: {exc}"
+        from deequ_tpu_torch.obs.recorder import current_recorder
+
+        rec = current_recorder()
+        if rec is not None:
+            rec.event("io_retry_exhausted", error=self.last_exception)
 
     def snapshot(self) -> dict:
         return {

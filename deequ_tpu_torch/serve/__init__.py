@@ -1,0 +1,48 @@
+"""deequ_tpu_torch.serve — the in-process multi-tenant verification
+service (the counterpart of ``deequ_tpu/serve``: its service, admission,
+plan cache and coalesced executor).
+
+Many small suites from many tenants cost the card microseconds each, and
+a run's fixed costs — building its ops and fold, a copy in, a fetch out —
+dwarf them. This package pays those costs once a batch:
+
+- :mod:`plan_cache` — suites are fingerprinted by (schema, analyzer set,
+  packer layout, row count); a repeat tenant reuses the built plan and its
+  program on the device and builds nothing (``ScanStats.plan_cache_hits``);
+- :mod:`executor` — a coalesced batch: K tenants' tables in one host
+  buffer, one copy, every member's K1 tasks in one batch, one fold merge
+  and one fetch, each member bit for bit its serial run;
+- :mod:`service` — :class:`VerificationService`: ``submit(...) ->
+  VerificationFuture``, a worker with a coalescing window, per-tenant run
+  budgets, bisection of a faulted batch, quarantine, kill-and-resume;
+- :mod:`admission` — SLO classes, typed admission with ``retry_after_s``,
+  the deadline-aware tenant-fair queue and the brownout ladder.
+"""
+
+from deequ_tpu_torch.serve.admission import (
+    AdmissionController,
+    BrownoutController,
+    Slo,
+    TenantFairQueue,
+)
+from deequ_tpu_torch.serve.plan_cache import PlanCache, PlanKey, ServePlan
+from deequ_tpu_torch.serve.service import (
+    PendingWork,
+    ServeConfig,
+    VerificationFuture,
+    VerificationService,
+)
+
+__all__ = [
+    "AdmissionController",
+    "BrownoutController",
+    "PendingWork",
+    "PlanCache",
+    "PlanKey",
+    "ServeConfig",
+    "ServePlan",
+    "Slo",
+    "TenantFairQueue",
+    "VerificationFuture",
+    "VerificationService",
+]

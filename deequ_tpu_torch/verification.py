@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -77,7 +78,16 @@ class VerificationResult:
     ``resharded`` True when a scan of the run finished on a mesh shrunk
     around lost members — its metrics are those of a healthy run on the
     smaller mesh. A multi-process run under ``on_peer_loss="degrade"``
-    that lost a peer lists the peer's rows on ``unverified_row_ranges``."""
+    that lost a peer lists the peer's rows on ``unverified_row_ranges``.
+
+    Tracing (``obs/``, armed by ``with_tracing()``,
+    ``do_verification_run(trace=...)`` or ``DEEQU_TORCH_TRACE=1``; off by
+    default): ``run_trace`` the run's per-phase breakdown
+    (``FlightRecorder.summary``: spans and events by name, wall seconds a
+    phase; the execute and fetch phases cover the wall ``scan_stats``
+    counts as ``dispatch_seconds`` and ``drain_wait_seconds``), empty for
+    an untraced run; ``trace_recorder`` the recorder (export it with
+    ``obs.write_chrome_trace``), None for an untraced run."""
 
     status: CheckStatus
     check_results: Dict[Check, CheckResult]
@@ -91,6 +101,8 @@ class VerificationResult:
     run_budget: Dict[str, object] = field(default_factory=dict)
     mesh_events: List[dict] = field(default_factory=list)
     resharded: bool = False
+    run_trace: Dict[str, object] = field(default_factory=dict)
+    trace_recorder: Optional[object] = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def success_metrics_as_rows(
@@ -158,6 +170,8 @@ _STAT_KEYS = (
     "mesh_reshards",
     "mesh_stragglers",
     "peer_losses",
+    "dispatch_seconds",
+    "drain_wait_seconds",
 )
 
 #: the degradation kinds of mesh-level decisions (``mesh_events``)
@@ -205,9 +219,10 @@ class VerificationSuite:
         checks: Sequence[Check],
         required_analyzers: Sequence[Analyzer] = (),
         device=None,
+        trace=None,
     ) -> VerificationResult:
         return VerificationSuite.do_verification_run(
-            data, checks, required_analyzers, device
+            data, checks, required_analyzers, device, trace=trace
         )
 
     @staticmethod
@@ -235,6 +250,7 @@ class VerificationSuite:
         on_peer_loss: Optional[str] = None,
         peer_timeout: Optional[float] = None,
         mesh=_UNSET,
+        trace=None,
     ) -> VerificationResult:
         """One verification run; ``aggregate_with`` (a StateLoader) merges
         saved states into this run's, ``save_states_with`` (a
@@ -284,7 +300,22 @@ class VerificationSuite:
         ``PeerLostException`` when a peer process stopped responding,
         ``"degrade"`` reports the lost ranks' row ranges on
         ``unverified_row_ranges``; ``peer_timeout`` overrides the probe's
-        timeout."""
+        timeout.
+
+        Tracing (``obs/``): ``trace`` arms the flight recorder for this run
+        — a FlightRecorder, ``True`` (the ``DEEQU_TORCH_TRACE``-armed global
+        recorder, else a fresh one for this run) or ``False`` (no tracing,
+        the global recorder included); None takes the caller's scope or the
+        global recorder. Nothing is armed process-wide. The run is one
+        ``verification_run`` span around every seam's spans and events; the
+        summary lands on ``run_trace``, the recorder on
+        ``trace_recorder``."""
+        from deequ_tpu_torch.obs.recorder import (
+            current_recorder,
+            maybe_arm_from_env,
+            recording_scope,
+            resolve_recorder,
+        )
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
         from deequ_tpu_torch.resilience.governance import (
             current_run_budget,
@@ -306,7 +337,19 @@ class VerificationSuite:
             policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
             if policy is not None:
                 budget = armed_here = policy.arm()
-        with run_budget_scope(budget) if armed_here is not None else contextlib.nullcontext():
+        # the recorder: the trace argument, else the caller's scope, else
+        # the global one; the run's summary is a delta from here
+        maybe_arm_from_env()
+        recorder = resolve_recorder(trace) if trace is not None else current_recorder()
+        trace_since = time.monotonic() if recorder is not None else None
+        trace_dropped = recorder.dropped if recorder is not None else 0
+        with contextlib.ExitStack() as scopes:
+            if trace is not None:
+                scopes.enter_context(recording_scope(recorder))
+            if recorder is not None:
+                scopes.enter_context(recorder.span("verification_run"))
+            if armed_here is not None:
+                scopes.enter_context(run_budget_scope(budget))
             # the peer check runs inside the run, after the baselines, so a
             # degraded outcome lands on this result
             if on_peer_loss is not None:
@@ -357,6 +400,10 @@ class VerificationSuite:
         result.retry_stats = RETRY_TELEMETRY.delta_since(retry_before)
         if budget is not None:
             result.run_budget = budget.snapshot()
+        if recorder is not None:
+            result.run_trace = recorder.summary(since=trace_since,
+                                                dropped_baseline=trace_dropped)
+            result.trace_recorder = recorder
         return result
 
     @staticmethod
@@ -513,6 +560,7 @@ class VerificationRunBuilder:
         self._shard_deadline: Optional[float] = None
         self._on_peer_loss: Optional[str] = None
         self._peer_timeout: Optional[float] = None
+        self._trace = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -655,6 +703,23 @@ class VerificationRunBuilder:
         self._on_budget_exhausted = on_budget_exhausted
         return self
 
+    def with_tracing(self, recorder=None, capacity: Optional[int] = None
+                     ) -> "VerificationRunBuilder":
+        """Arm the flight recorder (``obs/``) for this run: pass a
+        FlightRecorder to share one across runs, or let this make one
+        (``capacity`` bounds its ring). The summary lands on
+        ``result.run_trace`` and the recorder on ``result.trace_recorder``
+        (``obs.write_chrome_trace(result.trace_recorder, path)`` writes the
+        Perfetto file). Off otherwise, unless ``DEEQU_TORCH_TRACE=1``."""
+        from deequ_tpu_torch.obs.recorder import FlightRecorder
+
+        if recorder is not None and capacity is not None:
+            raise ValueError("pass either an existing recorder or a capacity, not both")
+        if recorder is None:
+            recorder = FlightRecorder() if capacity is None else FlightRecorder(capacity)
+        self._trace = recorder
+        return self
+
     def use_repository(self, repository) -> "VerificationRunBuilderWithRepository":
         return VerificationRunBuilderWithRepository(self, repository)
 
@@ -679,6 +744,7 @@ class VerificationRunBuilder:
             shard_deadline=self._shard_deadline,
             on_peer_loss=self._on_peer_loss,
             peer_timeout=self._peer_timeout,
+            trace=self._trace,
         )
 
 

@@ -406,6 +406,47 @@ def test_group_fast_path_engages_and_matches_serial():
     _assert_bit_identical(serial, piped, analyzers)
 
 
+@pytest.mark.parametrize("cap_batches", [1, 2, 5])
+def test_group_scan_caps_rows_a_k1_batch_holds(monkeypatch, cap_batches):
+    """A group scan resolves its batches' K1 tasks in batches of at most
+    ``GROUP_K1_ROWS`` rows (at least one table), and merges the group once:
+    a window of 5 batches under a cap of ``cap_batches`` tables takes
+    ceil(5 / cap_batches) K1 batches, and every batch keeps its serial bits."""
+    from deequ_tpu_torch.ops import masked_reduce, scan_engine
+
+    n = 3000
+    rng = np.random.default_rng(35)
+    batches = [ColumnarTable([
+        Column("v", DType.FRACTIONAL, values=rng.normal(2.0, 1.5, n), mask=rng.random(n) > 0.1),
+    ]) for _ in range(5)]
+    analyzers = [Size(), Completeness("v"), Mean("v"), StandardDeviation("v"), Minimum("v"),
+                 Maximum("v"), Sum("v", where="v > 2")]
+    serial, _ = _run_serial(batches, analyzers)
+    calls = {"reduce_into": 0, "merge_tags": []}
+    reduce_into, merge_tags = masked_reduce.reduce_into, masked_reduce.merge_tags
+
+    def counted_reduce(*a, **k):
+        calls["reduce_into"] += 1
+        return reduce_into(*a, **k)
+
+    def counted_merge(*a, caller="fold", **k):
+        calls["merge_tags"].append(caller)
+        return merge_tags(*a, caller=caller, **k)
+
+    monkeypatch.setattr(scan_engine, "GROUP_K1_ROWS", cap_batches * n)
+    monkeypatch.setattr(masked_reduce, "reduce_into", counted_reduce)
+    monkeypatch.setattr(masked_reduce, "merge_tags", counted_merge)
+    SCAN_STATS.reset()
+    piped, _ = _run_stream(batches, analyzers, window=5)
+    if current_mesh() is None:
+        assert SCAN_STATS.group_scan_passes == 1
+        assert calls["reduce_into"] == -(-5 // cap_batches)
+        assert calls["merge_tags"] == ["group"]
+    else:  # over a mesh each batch takes its own sharded scan
+        assert SCAN_STATS.group_scan_passes == 0
+    _assert_bit_identical(serial, piped, analyzers)
+
+
 def test_pipelined_group_path_takes_string_columns():
     rng = np.random.default_rng(33)
     batches = []

@@ -644,3 +644,179 @@ def test_estimate_suite_orders_heavier_suites_higher():
     ref_light, ref_heavy = suites(ref_analyzers)
     assert cl == REF_MODEL.estimate_suite(ref_light, n).total
     assert ch == REF_MODEL.estimate_suite(ref_heavy, n).total
+
+
+# -- the serving layer's consumers of the plan optimizer (serve/) --------------
+
+
+@pytest.fixture
+def cpu_serving():
+    """The port's serving worker on the CPU, one torch thread."""
+    from deequ_tpu_torch import use_device
+    from deequ_tpu_torch.parallel.mesh import use_mesh as port_use_mesh
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with use_device("cpu"), port_use_mesh(None):
+        yield
+    torch.set_num_threads(threads)
+
+
+def _serve_sides():
+    """Each package's (name, analyzers, table type, service, SCAN_STATS,
+    SUBPLAN_CACHE, mesh scope): the reference on one device."""
+    import contextlib
+
+    import deequ_tpu.ops.scan_engine as ref_engine
+    import deequ_tpu.serve as ref_serve
+    import deequ_tpu.serve.plan_cache as ref_plan_cache
+    import deequ_tpu_torch.serve as port_serve
+    import deequ_tpu_torch.serve.plan_cache as port_plan_cache
+
+    return [
+        ("ref", ref_analyzers, ref_serve.VerificationService, ref_engine.SCAN_STATS,
+         ref_plan_cache.SUBPLAN_CACHE, lambda: use_mesh(None)),
+        ("port", port_analyzers, port_serve.VerificationService, SCAN_STATS,
+         port_plan_cache.SUBPLAN_CACHE, contextlib.nullcontext),
+    ]
+
+
+def _serve_table(side, ref):
+    return ref if side == "ref" else port_table(ref)
+
+
+def test_subplan_sharing_across_permuted_suites(cpu_serving):
+    """Two tenants submit one analyzer set in two orders: distinct exact
+    plan keys, one shared program below them — the second suite builds
+    nothing and its sub-plan hit is counted; every metric bit for bit, and
+    the reference's service counts the same and computes the same metrics
+    within tests/torch_parity.py's bounds."""
+    from torch_parity import assert_metric_parity
+
+    r = np.random.default_rng(11)
+    n = 256
+    ref_table = RefTable([
+        ref_column("x", "fractional", r.normal(0, 1, n), np.ones(n, bool)),
+        ref_column("y", "fractional", r.normal(5, 2, n), np.ones(n, bool)),
+    ])
+    counts, metrics = {}, {}
+    for side, pkg, Service, stats, subplans, scope in _serve_sides():
+        with scope():
+            subplans.clear()
+            table = _serve_table(side, ref_table)
+            suite = [pkg.Completeness("x"), pkg.Mean("x"), pkg.Minimum("y")]
+            svc = Service(max_batch=4, coalesce_window=0.0)
+            try:
+                hits0, built0 = stats.subplan_cache_hits, stats.programs_built
+                res_a = svc.submit(table, required_analyzers=tuple(suite),
+                                   tenant="a").result(timeout=60)
+                built, reused = stats.programs_built, stats.programs_reused
+                hits = stats.subplan_cache_hits
+                res_b = svc.submit(table, required_analyzers=tuple(reversed(suite)),
+                                   tenant="b").result(timeout=60)
+                counts[side] = (built > built0, hits - hits0,
+                                stats.programs_built - built,
+                                stats.subplan_cache_hits - hits >= 1,
+                                stats.programs_reused - reused >= 1)
+            finally:
+                svc.stop(drain=False)
+            for a in suite:
+                va, vb = res_a.metrics[a].value, res_b.metrics[a].value
+                assert va.is_success and vb.is_success, str(a)
+                assert _bits(va.get()) == _bits(vb.get()), str(a)
+            metrics[side] = [res_a.metrics[a] for a in suite]
+    # a permuted suite adopts the shared program: it builds nothing
+    assert counts["port"] == (True, 0, 0, True, True)
+    assert counts["port"] == counts["ref"]
+    for ref_metric, port_metric in zip(metrics["ref"], metrics["port"]):
+        assert_metric_parity(ref_metric, port_metric)
+
+
+def test_planner_obs_section_counts(device_counts):
+    """The registry's ``planner`` section reads the optimizer's census:
+    fused passes and sub-plan hits surface through execution_report, as
+    the reference's do for the same grouping requests."""
+    import deequ_tpu
+    import deequ_tpu_torch
+    from deequ_tpu.ops.scan_engine import SCAN_STATS as REF_STATS
+    from deequ_tpu.ops.segment import GroupRequest as RefGroupRequest
+    from deequ_tpu.ops.segment import fused_group_counts as ref_fused_group_counts
+
+    ref_table = _grouping_table(seed=5)
+    REF_STATS.reset()
+    ref_fused_group_counts(ref_table, [RefGroupRequest(("a",)), RefGroupRequest(("b",))])
+    ref = deequ_tpu.execution_report()["planner"]
+    fused_group_counts(port_table(ref_table), [GroupRequest(("a",)), GroupRequest(("b",))],
+                       "cpu")
+    rep = deequ_tpu_torch.execution_report()["planner"]
+    assert rep["fused_group_passes"] == 2
+    assert rep["plan_fusion"] is True
+    assert "subplan_cache_hits" in rep
+    assert set(rep) == set(ref)
+    for key in ("fused_group_passes", "plan_fusion", "subplan_cache_hits"):
+        assert rep[key] == ref[key], key
+
+
+def test_retry_after_orders_by_queued_cost():
+    """One queue depth schedules a later retry when the queued work is
+    predicted heavier: depth alone no longer decides retry_after_s. The
+    reference's controller, fed the same batches, gives the same
+    schedules."""
+    import deequ_tpu.serve.admission as ref_admission
+    import deequ_tpu_torch.serve.admission as port_admission
+
+    def schedules(m):
+        ctl = m.AdmissionController(max_pending=64)
+        for _ in range(4):
+            ctl.note_served(1, 0.1, cost=1000.0)
+        light = ctl.retry_after(3, queued_cost=3 * 1000.0)
+        heavy = ctl.retry_after(3, queued_cost=3 * 50_000.0)
+        fresh = m.AdmissionController(max_pending=64).retry_after(3, queued_cost=1e9)
+        return light, heavy, fresh
+
+    light, heavy, fresh = schedules(port_admission)
+    assert heavy > light
+    assert fresh > 0
+    assert (light, heavy, fresh) == schedules(ref_admission)
+
+
+def test_brownout_reads_cost_pressure():
+    """The brownout ladder rises on the queued-cost fraction at a shallow
+    depth, to the reference's level for the same pressures."""
+    import deequ_tpu.serve.admission as ref_admission
+    import deequ_tpu_torch.serve.admission as port_admission
+
+    def levels(m):
+        return [m.BrownoutController(capacity=100).update(5, cost_frac=frac)
+                for frac in (None, 0.5, 0.8, 0.95)]
+
+    got = levels(port_admission)
+    lvl_depth_only, lvl_cost = got[0], got[3]
+    assert lvl_cost >= lvl_depth_only
+    assert lvl_cost >= 1, "95% queued-cost pressure must brown out"
+    assert got == levels(ref_admission)
+
+
+def test_service_stamps_predicted_cost_and_drains_ledger(cpu_serving):
+    """submit() prices the suite with PLAN_COST_MODEL, the queue's ledger
+    sums it, and a drained queue pins the ledger back to zero; the
+    reference's service prices the same suite alike."""
+    r = np.random.default_rng(2)
+    ref_table = RefTable([ref_column("x", "fractional", r.normal(0, 1, 512),
+                                     np.ones(512, bool))])
+    ledgers = {}
+    for side, pkg, Service, _, _, scope in _serve_sides():
+        with scope():
+            svc = Service(max_batch=4, coalesce_window=0.0)
+            try:
+                completeness = pkg.Completeness("x")
+                res = svc.submit(_serve_table(side, ref_table),
+                                 required_analyzers=(completeness,)).result(timeout=60)
+                assert res.metrics[completeness].value.is_success
+                ledgers[side] = (svc._queued_cost, svc._admission._avg_cost)
+            finally:
+                svc.stop(drain=False)
+    queued, avg_cost = ledgers["port"]
+    assert queued == 0.0
+    assert avg_cost is not None and avg_cost > 0
+    assert ledgers["port"] == ledgers["ref"]

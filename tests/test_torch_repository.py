@@ -1,8 +1,7 @@
 """The port's metrics repositories, queries and quality monitor
 (``deequ_tpu_torch/repository``) against the reference's
 (``deequ_tpu/repository``): the port twin of tests/test_repository.py and
-tests/test_metrics_repo.py (but ``test_monitor_at_serving_resolve_seam``,
-which needs the serving layer).
+tests/test_metrics_repo.py.
 
 The same saves go through both packages on the CPU, held to:
 
@@ -19,9 +18,14 @@ The same saves go through both packages on the CPU, held to:
 - cross-package reads: a ``FileSystemMetricsRepository`` file, a
   ``ColumnarMetricsRepository`` directory and a monitor checkpoint
   written by one package are read by the other with identical loader
-  results and alerts, in both directions.
+  results and alerts, in both directions;
+- the monitor's observability and serving seams: the execution report's
+  ``repository`` section, the ``quality_alert`` event and the alerts a
+  ``VerificationService(monitor=...)`` raises, each equal to the
+  reference's over the same stream.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -938,3 +942,100 @@ def test_verification_run_saves_after_evaluating_and_reuses(df_with_numeric_valu
     assert [k for k, _ in out] == [ResultKey(2), ResultKey(3), ResultKey(4)]
     for key in (2, 3, 4):
         assert repo.load_by_key(ResultKey(key)).analyzer_context.metric_map[Size()].value.get() == 6.0
+
+
+def _monitor_side(pkg):
+    """One package's (package, QualityMonitor, ColumnarMetricsRepository)."""
+    import importlib
+
+    name = "deequ_tpu_torch" if pkg == "port" else "deequ_tpu"
+    return (importlib.import_module(name),
+            importlib.import_module(name + ".repository.monitor").QualityMonitor,
+            importlib.import_module(name + ".repository").ColumnarMetricsRepository)
+
+
+def test_monitor_alerts_in_execution_report():
+    """The execution-report half of the reference's
+    test_monitor_alerts_at_save_time_and_in_execution_report: the alert and
+    the saves reach the registry's ``repository`` section, which reads
+    MONITOR_STATS and REPO_STATS through; the reference's section moves
+    alike over the same stream."""
+    moved = {}
+    for pkg in ("ref", "port"):
+        package, Monitor, Repository = _monitor_side(pkg)
+        monitor = Monitor()
+        monitor.watch(_normal_strategy(pkg), metric_name="Completeness", instance="x",
+                      name="completeness-x", warmup=15)
+        repo = Repository(monitor=monitor)
+        before = package.execution_report()["repository"]
+        for d, v in _stream(40, spike_at=(30,)):
+            repo.save(_scalar_result(d, {"t": "a"}, {"x": v}, pkg=pkg))
+        report = package.execution_report()["repository"]
+        moved[pkg] = (report["active"], report["alerts_emitted"] - before["alerts_emitted"],
+                      report["saves"] - before["saves"], sorted(report),
+                      [(a.rule, a.time) for a in monitor.alerts])
+        if pkg == "port":
+            assert report["alerts_emitted"] == MONITOR_STATS.alerts_emitted
+    assert moved["port"][:3] == (True, 1, 40)
+    assert moved["port"][4] == [("completeness-x", 30)]
+    assert moved["port"] == moved["ref"]
+
+
+def test_monitor_at_serving_resolve_seam():
+    """VerificationService(monitor=...): resolved suites feed the same
+    watch rules repository saves do, the serving stream position as the
+    time axis — the alerts the reference's service raises on the same
+    stream."""
+    from deequ_tpu.data.table import ColumnarTable as RefTable
+    from deequ_tpu.parallel.mesh import use_mesh as ref_use_mesh
+    from tests.torch_parity import ref_column
+
+    def table(v, pkg):
+        ref = RefTable([ref_column("x", "fractional", np.full(64, v), np.ones(64, bool))])
+        return ref if pkg == "ref" else port_table(ref)
+
+    alerts = {}
+    for pkg, scope in (("ref", lambda: ref_use_mesh(None)), ("port", contextlib.nullcontext)):
+        package, Monitor, _ = _monitor_side(pkg)
+        serve = __import__(package.__name__ + ".serve", fromlist=["VerificationService"])
+        an = PKGS[pkg][0]
+        monitor = Monitor()
+        monitor.watch(_normal_strategy(pkg), metric_name="Mean", name="mean-x")
+        with scope():
+            service = serve.VerificationService(monitor=monitor, coalesce_window=0.0)
+            try:
+                for i in range(25):
+                    service.submit(table(100.0 if i != 20 else 5.0, pkg),
+                                   required_analyzers=[an.Mean("x")],
+                                   tenant="t0").result(timeout=120)
+            finally:
+                service.stop()
+        alerts[pkg] = [(a.rule, a.time) for a in monitor.alerts]
+    assert alerts["port"] == [("mean-x", 20)]
+    assert alerts["port"] == alerts["ref"]
+
+
+def test_monitor_alert_is_an_instant_event_on_the_recording():
+    """An alert emitted while a recorder is armed is a ``quality_alert``
+    instant event carrying the rule and the point, with the arguments the
+    reference's event carries."""
+    import importlib
+
+    events = {}
+    for pkg in ("ref", "port"):
+        package, Monitor, Repository = _monitor_side(pkg)
+        obs = importlib.import_module(package.__name__ + ".obs")
+        monitor = Monitor()
+        monitor.watch(_normal_strategy(pkg), metric_name="Completeness", instance="x",
+                      name="completeness-x", warmup=15)
+        repo = Repository(monitor=monitor)
+        rec = obs.FlightRecorder()
+        with obs.recording_scope(rec):
+            for d, v in _stream(40, spike_at=(30,)):
+                repo.save(_scalar_result(d, {"t": "a"}, {"x": v}, pkg=pkg))
+        events[pkg] = [(r.kind, r.args) for r in rec.records() if r.name == "quality_alert"]
+    assert len(events["port"]) == 1
+    kind, args = events["port"][0]
+    assert kind == "instant" and args["rule"] == "completeness-x" and args["time"] == 30
+    assert events["port"] == events["ref"]
+

@@ -7,7 +7,8 @@ Builds the kernels, makes the main table (``--rows``, seed ``--seed``),
 runs the main suite over it once in memory (the run the streams are held
 against), then the phase's four parts with every hold of the script;
 ``--sketch-rows`` (default ten times ``--rows``, as the script) sizes the
-config-3 stream. Prints the script's lines for the parts and one summary
+config-3 stream; the Parquet part reads all ``--rows`` (the script reads
+the first half). Prints the script's lines for the parts and one summary
 line with the card's name and power limit; exits non-zero on a failed
 hold.
 """
@@ -46,7 +47,8 @@ def main(argv=None) -> int:
     main_result = cs.build_suite(table).run()
     t0 = time.perf_counter()
     sketch_rows = args.sketch_rows or 10 * args.rows
-    ooc, _ = cs.out_of_core_path(table, main_result, args.seed, device, smi, sketch_rows)
+    ooc, _ = cs.out_of_core_path(table, main_result, args.seed, device, smi, sketch_rows,
+                                 parquet_cut=1)
     cs.emit({"phase": "out_of_core_path", "card": smi, "rows": args.rows,
              "sketch_rows": sketch_rows, "build_s": build_s, **ooc,
              "seconds": time.perf_counter() - t0})
