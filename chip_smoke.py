@@ -466,6 +466,41 @@ Phases, each printed as one JSON line on stdout:
    degrades alone. Then K1 and its fold merge at Load A's largest
    coalesced batch, alone: kernel, plain and library ms, the bound, every
    task held against its plain version;
+22. ``fleet_path`` (after ``serve_path``) — the serving fleet
+   (``serve/fleet.py``, ``router.py``, ``membership.py``, ``ledger.py``),
+   every worker on the card, after the reference's probe
+   (``bench.py:measure_fleet_failover``). Every serial reference is run
+   first, before the counts are zeroed, so the phase's launches are its
+   fleets' own (the 4-worker fleets and the 1-worker baselines).
+   ``healthy`` — Load A again over 4 workers from 4 submitter threads,
+   cold and then timed in turns with a 1-worker fleet: every future
+   resolved once, 64 sampled members and every member of the busiest
+   worker bit for bit their serial runs, one K1 batch, one fold merge and
+   one fetch a coalesced batch summed over the workers, no grouping count
+   on the host, tenants per worker, suites/s of both, p50/p99
+   submit->resolve, and at least half the 1-worker rate; ``death`` — the
+   probe's 144 tenants over 12 row counts, which spread over the ring,
+   timed on the 4 workers and on a 1-worker fleet in turns from one
+   submitter (the probe's no-collapse gate: at least half the 1-worker
+   rate) and from 4 (reported), then the busiest warm worker wedged, the
+   load submitted with a run budget each, the worker killed: exactly its
+   tenants re-dispatched, each charged ``worker_failover`` once, all bit
+   for bit; ``monitor_and_rejoin`` — a 1.5 s stall found by the heartbeat
+   monitor (0.05 s, stall timeout 0.5 s): one loss recorded, its requests
+   failed over bit for bit, no woken worker's resolution reaching a
+   future; a warm rejoin whose joiner builds no serve plan (and the fleet
+   no program) and serves; every worker dead, typed; ``quarantine`` — a
+   poison tenant quarantined by its home worker is quarantined on all,
+   served serially by another, and that success readmits it everywhere;
+   ``ledger`` — 200 accepted requests stopped undrained, replayed by a
+   fresh fleet on the same directory onto their futures, once and bit for
+   bit, with accepts/s with and without the ledger's fsync;
+   ``whole_check`` — two tenants of 2^17 rows on main_path's whole check,
+   served serially by a worker (or the nearest count below whose digest
+   lands off Load A's busiest worker) while the workers run Load A: bit
+   for bit, against numpy, one K7 launch each and no K5. Then K1 and its
+   fold merge at the fleet's largest batch held against their plain
+   versions;
 
 then the ``kernels`` summary line (each kernel's launches summed over the
 paths, and by path; K1's fold merge, K7, the fused group counts, and K6,
@@ -8943,9 +8978,10 @@ def serve_k1_timing(load, rate: float) -> dict:
                                          f"entries of {merge['flat_entries']}"}}
 
 
-def serve_path(table, seed: int, device, smi: str, rate: float) -> dict:
+def serve_path(table, seed: int, device, smi: str, rate: float) -> tuple:
     """Phase 21 (module doc): the serving tier on the card; Load B's
-    tenants are cut from ``table`` (main_path's)."""
+    tenants are cut from ``table`` (main_path's). Returns (the report,
+    Load A), which fleet_path serves again."""
     t0 = time.perf_counter()
     load = serve_load(seed)
     load_s = time.perf_counter() - t0
@@ -8968,7 +9004,592 @@ def serve_path(table, seed: int, device, smi: str, rate: float) -> dict:
     k1_time = serve_k1_timing(load, rate)
     k1_time["seconds"] = time.perf_counter() - t0
     return {"load_a": load_a, "trace": traced, "load_b": load_b, "isolation": isolation,
-            "kernel_launches": launches, "k1_coalesced": k1_time, "load_build_s": load_s}
+            "kernel_launches": launches, "k1_coalesced": k1_time, "load_build_s": load_s}, load
+
+
+# -- phase 22: fleet_path -----------------------------------------------------
+
+#: the fleet of the phase: 4 workers on the card, fed by 4 submitter threads
+FLEET_WORKERS = 4
+FLEET_SUBMITTERS = 4
+#: Load A's members held bit for bit against their serial runs (beside
+#: every member of the fleet's busiest worker)
+FLEET_SAMPLE = 64
+#: the timed Load A passes of the fleet and of a 1-worker fleet, in turns
+FLEET_TURNS = 2
+#: the reference probe's death load (bench.py:measure_fleet_failover):
+#: 144 tenants over 12 row counts (64 + 16 * shape), so they spread over
+#: the ring, on Size, Completeness, Mean and Sum
+FLEET_DEATH_TENANTS = 144
+FLEET_DEATH_SHAPES = 12
+#: the monitored stall: heartbeat, stall timeout, and the stall itself
+FLEET_HEARTBEAT_S = 0.05
+FLEET_STALL_TIMEOUT_S = 0.5
+FLEET_STALL_S = 1.5
+#: the durable ledger's accepted requests, and the whole-check tenants
+#: (main_path's width, cut from its table past Load B's)
+FLEET_LEDGER_REQUESTS = 200
+FLEET_WHOLE_TENANTS = 2
+FLEET_POISON = "fleet-poison"
+
+
+def fleet_death_load(seed: int) -> list:
+    """(tenant, table) for the reference probe's 144 tenants, made from
+    ``seed``: ``x`` f64 with 5% nulls, ``i`` integral, 64 + 16 * shape
+    rows."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import Column, ColumnarTable, DType
+
+    load = []
+    for t in range(FLEET_DEATH_TENANTS):
+        r = np.random.default_rng([seed, 7000 + t])
+        n = 64 + 16 * (t % FLEET_DEATH_SHAPES)
+        load.append((f"death-{t}", ColumnarTable([
+            Column("x", DType.FRACTIONAL, values=r.normal(100, 5, n), mask=r.random(n) > 0.05),
+            Column("i", DType.INTEGRAL, values=r.integers(0, 50, n).astype(np.float64),
+                   mask=np.ones(n, dtype=bool))])))
+    return load
+
+
+def fleet_analyzers():
+    from deequ_tpu_torch.analyzers import Completeness, Mean, Size, Sum
+
+    return [Size(), Completeness("x"), Mean("x"), Sum("i")]
+
+
+def fleet_pass(fleet, load, threads: int = FLEET_SUBMITTERS, **submit) -> tuple:
+    """Every (tenant, table, checks) of ``load`` submitted from ``threads``
+    threads (a share each), then every future awaited: (wall seconds,
+    {tenant: future}, {tenant: result}). A submitter's error is raised
+    here, in the calling thread."""
+    import threading
+
+    futures, errors = {}, []
+    lock = threading.Lock()
+
+    def submitter(items):
+        try:
+            for tenant, table, checks in items:
+                f = fleet.submit(table, checks, tenant=tenant, **submit)
+                with lock:
+                    futures[tenant] = f
+        except BaseException as e:  # noqa: BLE001 — raised by the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=submitter, args=(load[i::threads],))
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    if errors:
+        raise errors[0]
+    results = {tenant: f.result(timeout=600) for tenant, f in futures.items()}
+    return time.perf_counter() - t0, futures, results
+
+
+def fleet_once(futures: dict, label: str) -> int:
+    """Fails unless every future resolved exactly once; returns the late
+    resolutions its gate dropped."""
+    bad = [t for t, f in futures.items() if f.resolve_count != 1]
+    if bad:
+        fail(f"fleet_path {label}: {len(bad)} futures resolved other than once ({bad[:3]})")
+    return sum(f.late_resolutions for f in futures.values())
+
+
+def fleet_placement():
+    """Where a fleet of FLEET_WORKERS places a submission: its ring, built
+    alone, so that the phase's serial references are computed before any
+    fleet runs and before its launch counts are zeroed."""
+    from deequ_tpu_torch.serve import ConsistentHashRouter, VerificationFleet, route_digest
+
+    ring = ConsistentHashRouter()
+    for w in range(FLEET_WORKERS):
+        ring.add_worker(w)
+
+    def place(table, checks=(), required_analyzers=()):
+        return ring.place(route_digest(
+            table, VerificationFleet._analyzers_of(checks, required_analyzers)))
+
+    return place
+
+
+def fleet_references(table, load, death) -> dict:
+    """Every serial run the phase holds the fleet against, made before its
+    launch counts are zeroed (so that the counts are the fleet's own work):
+    Load A's sample and every member of its busiest worker; the 144
+    tenants; the ledger's 200 requests; the two whole-check tenants."""
+    import collections
+
+    from deequ_tpu_torch import VerificationSuite
+
+    place = fleet_placement()
+    routed = {t: place(tb, ch) for t, tb, ch in load}
+    per_worker = collections.Counter(routed.values())
+    busiest = max(per_worker, key=per_worker.get)
+    held = {t: (tb, ch) for t, tb, ch in load[:: max(1, len(load) // FLEET_SAMPLE)][:FLEET_SAMPLE]}
+    held.update({t: (tb, ch) for t, tb, ch in load if routed[t] == busiest})
+
+    requests = []
+    for tenant, tb, checks in load[:FLEET_LEDGER_REQUESTS]:
+        analyzers = []
+        for check in checks:
+            analyzers.extend(check.required_analyzers())
+        requests.append((tenant, tb, analyzers))
+
+    # the whole-check tenants: 2^17 rows, or the nearest count below whose
+    # digest places them off Load A's busiest worker, so that their
+    # grouping kernels run beside that worker's K1 batches
+    first = SERVE_WIDE_TENANTS + SERVE_WIDE_SERIAL
+    if (first + FLEET_WHOLE_TENANTS) * SERVE_WIDE_ROWS > table.num_rows:
+        fail(f"fleet_path: the whole-check tenants need more than the table's {table.num_rows} "
+             "rows")
+    rows = next(r for r in range(SERVE_WIDE_ROWS, SERVE_WIDE_ROWS - 64, -1)
+                if place(slice_rows(table, 0, r), [build_check()]) != busiest)
+    start = first * SERVE_WIDE_ROWS
+    whole = [slice_rows(table, start + k * rows, start + (k + 1) * rows)
+             for k in range(FLEET_WHOLE_TENANTS)]
+    return {
+        "routed": routed, "per_worker": per_worker, "busiest": busiest,
+        "healthy": {t: VerificationSuite.run(tb, ch) for t, (tb, ch) in held.items()},
+        "death": {t: VerificationSuite.run(tb, [], required_analyzers=fleet_analyzers())
+                  for t, tb in death},
+        "ledger_requests": requests,
+        "ledger": {t: VerificationSuite.run(tb, [], required_analyzers=an)
+                   for t, tb, an in requests},
+        "whole_rows": rows, "whole_tables": whole,
+        "whole_worker": place(whole[0], [build_check()]),
+        "whole": [VerificationSuite.run(t, [build_check()]) for t in whole],
+    }
+
+
+def fleet_healthy(load, refs: dict, device, smi: str) -> tuple:
+    """Part 1: Load A over 4 workers from 4 submitters, cold then timed in
+    turns with a 1-worker fleet; the holds of the module doc. Returns (the
+    report, the K1 spy of the cold pass)."""
+    import numpy as np
+    import torch
+
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.serve import VerificationFleet, route_digest
+
+    knobs = {"max_batch": SERVE_MAX_BATCH}
+    serial, per_worker = refs["healthy"], refs["per_worker"]
+    fleet = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, distinct_devices=True,
+                              worker_knobs=knobs)
+    one = VerificationFleet(n_workers=1, monitor=False, distinct_devices=True,
+                            worker_knobs=knobs)
+    try:
+        placed = {str(w.device) for w in fleet._workers.values()}
+        if torch.cuda.device_count() == 1 and placed != {str(device)}:
+            fail(f"fleet_path: workers placed on {placed}, want every one on {device}")
+        moved = [t for t, tb, ch in load if fleet.route(tb, ch) != refs["routed"][t]]
+        if moved:
+            fail(f"fleet_path: the fleet places {len(moved)} tenants off its ring's placement")
+
+        def checked(flt, label):
+            """One pass: summed over the workers every tenant coalesced,
+            one fetch, K1 batch and fold merge a coalesced batch, no
+            grouping count on the host; each future once; the held
+            members bit for bit."""
+            before, host = serve_counters(), SCAN_STATS.hist_host_dispatches
+            wall, futures, results = fleet_pass(flt, load)
+            hold_coalesced(serve_delta(before), f"fleet_path {label}", len(load))
+            if SCAN_STATS.hist_host_dispatches != host:
+                fail(f"fleet_path {label}: a grouping count ran on the host")
+            late = fleet_once(futures, label)
+            for t, want in serial.items():
+                same_result(want, results[t], f"fleet_path {label} {t}")
+            return wall, futures, late
+
+        with K1Spy() as spy:
+            cold_s, _, late = checked(fleet, "cold")
+        fleet.prewarm()
+        checked(one, "1-worker warm")
+        walls = {"fleet": [], "one_worker": []}
+        latencies = []
+        for turn in range(FLEET_TURNS):
+            wall, futures, late_t = checked(fleet, f"turn {turn}")
+            walls["fleet"].append(wall)
+            latencies += [f.latency_seconds for f in futures.values()]
+            late += late_t
+            walls["one_worker"].append(checked(one, f"1-worker turn {turn}")[0])
+        served = {i: w.service.suites_served for i, w in fleet._workers.items()}
+    finally:
+        fleet.stop()
+        one.stop()
+    fleet_rate = len(load) / min(walls["fleet"])
+    one_rate = len(load) / min(walls["one_worker"])
+    # the no-collapse gate (bench.py:1421-1428) on this load too; its
+    # placement is skewed, so it is held on the 144 tenants as well
+    if fleet_rate < 0.5 * one_rate:
+        fail(f"fleet_path: {fleet_rate:.0f} suites/s over {FLEET_WORKERS} workers, under half "
+             f"the 1-worker fleet's {one_rate:.0f}")
+    lat = np.array(latencies)
+    return {
+        "tenants": len(load), "workers": FLEET_WORKERS, "submitters": FLEET_SUBMITTERS,
+        "placed_on": sorted(placed),
+        "tenants_per_worker": {str(w): per_worker.get(w, 0) for w in range(FLEET_WORKERS)},
+        "distinct_digests": len({route_digest(tb, [a for c in ch for a in c.required_analyzers()])
+                                 for _, tb, ch in load}),
+        "suites_served_per_worker": served,
+        "bit_for_bit": len(serial), "every_member_of_worker": refs["busiest"],
+        "cold_s": cold_s, "walls_s": walls,
+        "fleet_suites_per_s": fleet_rate, "one_worker_suites_per_s": one_rate,
+        "fleet_over_one_worker": fleet_rate / one_rate,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "late_resolutions": late, "card": smi,
+    }, spy
+
+
+def fleet_death(death, serial: dict, smi: str) -> dict:
+    """Part 2, the reference probe's death pass: the 144 tenants, which
+    spread over the ring, timed on the 4 warm workers and on a 1-worker
+    fleet in turns, from one submitter as the probe submits (the
+    no-collapse gate, bench.py:1421-1428) and from 4; then the busiest
+    worker wedged, the tenants submitted (a run budget each), the worker
+    killed: exactly its tenants re-dispatch, each charged
+    ``worker_failover`` once, every result bit for bit its serial run."""
+    import collections
+
+    from deequ_tpu_torch import RunPolicy
+    from deequ_tpu_torch.serve import VerificationFleet
+
+    analyzers = fleet_analyzers()
+    warm = [(t, tb, []) for t, tb in death]
+    fleet = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, distinct_devices=True)
+    one = VerificationFleet(n_workers=1, monitor=False, distinct_devices=True)
+    walls = {subs: {"fleet": [], "one_worker": []} for subs in (1, FLEET_SUBMITTERS)}
+    try:
+        fleet_pass(fleet, warm, required_analyzers=analyzers)
+        fleet_pass(one, warm, required_analyzers=analyzers)
+        fleet.prewarm()
+        for _ in range(3):
+            for subs, by_fleet in walls.items():
+                for name, flt in (("fleet", fleet), ("one_worker", one)):
+                    wall, futures, _ = fleet_pass(flt, warm, threads=subs,
+                                                  required_analyzers=analyzers)
+                    fleet_once(futures, f"death load {name}")
+                    by_fleet[name].append(wall)
+        one.stop()
+        routed = {t: fleet.route(tb, required_analyzers=analyzers) for t, tb in death}
+        victim = max(set(routed.values()), key=lambda w: sum(v == w for v in routed.values()))
+        victims = {t for t, w in routed.items() if w == victim}
+        zombie = fleet._workers[victim].service
+        fleet.stall_worker(victim, 600.0)
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        futures = {t: fleet.submit(tb, required_analyzers=analyzers, tenant=t,
+                                   run_policy=RunPolicy(max_total_attempts=100))
+                   for t, tb in death}
+        redispatched = fleet.kill_worker(victim)
+        zombie_served = zombie.suites_served
+        results = {t: f.result(timeout=600) for t, f in futures.items()}
+        wall = time.perf_counter() - t0
+        moved = fleet.requests_redispatched
+    finally:
+        fleet.stop()
+        one.stop()
+    rates = {subs: {name: len(death) / min(w) for name, w in by_fleet.items()}
+             for subs, by_fleet in walls.items()}
+    gate = rates[1]
+    if gate["fleet"] < 0.5 * gate["one_worker"]:
+        fail(f"fleet_path death load: {gate['fleet']:.0f} suites/s over {FLEET_WORKERS} workers, "
+             f"under half the 1-worker fleet's {gate['one_worker']:.0f} (one submitter)")
+    if redispatched != len(victims) or moved != redispatched:
+        fail(f"fleet_path death: worker {victim} held {len(victims)} tenants, "
+             f"{redispatched} re-dispatched, {moved} moved in all")
+    for t, result in results.items():
+        same_result(serial[t], result, f"fleet_path death {t}")
+        charges = (result.run_budget or {}).get("charges", {}).get("worker_failover", 0)
+        if charges != (1 if t in victims else 0):
+            fail(f"fleet_path death: {t} charged worker_failover {charges} times")
+    late = fleet_once(futures, "death")
+    per_worker = collections.Counter(routed.values())
+    return {"tenants": len(death), "shapes": FLEET_DEATH_SHAPES,
+            "tenants_per_worker": {str(w): per_worker.get(w, 0) for w in range(FLEET_WORKERS)},
+            "walls_s_by_submitters": walls,
+            "by_submitters": {subs: {"fleet_suites_per_s": r["fleet"],
+                                     "one_worker_suites_per_s": r["one_worker"],
+                                     "fleet_over_one_worker": r["fleet"] / r["one_worker"]}
+                              for subs, r in rates.items()},
+            "no_collapse_gate": "one submitter, fleet >= 0.5x the 1-worker fleet",
+            "victim_worker": victim, "victim_tenants": len(victims),
+            "redispatched": redispatched, "death_pass_s": wall, "late_resolutions": late,
+            "zombie_suites_served_after_kill": zombie.suites_served - zombie_served,
+            "zombie_joined": not zombie._thread.is_alive(), "card": smi}
+
+
+def fleet_monitored(death, serial: dict, smi: str) -> dict:
+    """Parts 3 and 4: a stall found by the heartbeat monitor (its requests
+    fail over bit for bit, the woken worker's resolutions dropped), then a
+    warm rejoin whose joiner builds no serve plan of its own (nor a
+    program), then every worker dead, typed. The fleet hands a joiner as
+    many plans as the load has shapes (``warm_plans``)."""
+    from deequ_tpu_torch.exceptions import ServiceClosedException
+    from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
+    from deequ_tpu_torch.serve import VerificationFleet
+
+    analyzers = fleet_analyzers()
+    load = [(t, tb, []) for t, tb in death]
+    fleet = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, distinct_devices=True,
+                              heartbeat_interval=FLEET_HEARTBEAT_S,
+                              stall_timeout=FLEET_STALL_TIMEOUT_S,
+                              warm_plans=FLEET_DEATH_SHAPES)
+    try:
+        # warm every plan, hand them round, then arm the monitor: a cold
+        # build would read as a stall
+        fleet_pass(fleet, load, required_analyzers=analyzers)
+        fleet.prewarm()
+        fleet.membership.start()
+        routed = {t: fleet.route(tb, required_analyzers=analyzers) for t, tb in death}
+        victim = max(set(routed.values()), key=lambda w: sum(v == w for v in routed.values()))
+        events = len(SCAN_STATS.degradation_events)
+        fleet.stall_worker(victim, FLEET_STALL_S)
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        wall, futures, results = fleet_pass(fleet, load, required_analyzers=analyzers)
+        detected_s = time.perf_counter() - t0
+        lost = [e for e in SCAN_STATS.degradation_events[events:]
+                if e["kind"] == "worker_failover"]
+        if fleet.workers_lost != 1 or len(lost) != 1 or "stopped heartbeating" not in lost[0][
+                "error"] or lost[0]["worker"] != victim:
+            fail(f"fleet_path monitor: {fleet.workers_lost} workers lost, events {lost}")
+        for t, result in results.items():
+            same_result(serial[t], result, f"fleet_path monitor {t}")
+        late = fleet_once(futures, "monitor")
+        time.sleep(max(0.0, FLEET_STALL_S - detected_s) + 0.1)  # the stall is over
+        if any(f.resolve_count != 1 for f in futures.values()):
+            fail("fleet_path monitor: a woken worker's resolution reached a future")
+        redispatched = fleet.requests_redispatched
+
+        # part 4: the warm rejoin. On one card the joiner would find every
+        # program in the process-wide sub-plan cache even cold, so what is
+        # held is its own warmth: it builds no serve plan
+        built = SCAN_STATS.programs_built
+        worker = fleet.rejoin_worker(victim)
+        rejoin = [e for e in SCAN_STATS.degradation_events if e["kind"] == "worker_rejoin"]
+        if not rejoin or rejoin[-1].get("warmed_plans", 0) < 1:
+            fail(f"fleet_path rejoin: no worker_rejoin event with warmed plans ({rejoin[-1:]})")
+        _, futures, results = fleet_pass(fleet, load, required_analyzers=analyzers)
+        fleet.flush()
+        joiner_served = worker.service.suites_served
+        joiner_plans = worker.service.plans_built
+        rebuilt = SCAN_STATS.programs_built - built
+        if joiner_plans or rebuilt or not joiner_served:
+            fail(f"fleet_path rejoin: the joiner built {joiner_plans} serve plans, the fleet "
+                 f"{rebuilt} programs, the joiner served {joiner_served} suites (want 0, 0 and "
+                 "at least 1)")
+        fleet_once(futures, "rejoin")
+        for t, result in results.items():
+            same_result(serial[t], result, f"fleet_path rejoin {t}")
+        for idx in fleet._alive_ids():
+            fleet.kill_worker(idx)
+        try:
+            fleet.submit(death[0][1], required_analyzers=analyzers, tenant="after-all-dead")
+            fail("fleet_path: a submit with every worker dead was accepted")
+        except ServiceClosedException as e:
+            if "no alive" not in str(e):
+                fail(f"fleet_path: every worker dead raised {e!r}")
+    finally:
+        fleet.stop()
+    return {"heartbeat_s": FLEET_HEARTBEAT_S, "stall_timeout_s": FLEET_STALL_TIMEOUT_S,
+            "stall_s": FLEET_STALL_S, "victim_worker": victim, "pass_s": wall,
+            "redispatched": redispatched, "late_resolutions": late,
+            "rejoin_warmed_plans": rejoin[-1]["warmed_plans"],
+            "joiner_plans_built": joiner_plans, "rejoin_programs_built": rebuilt,
+            "joiner_suites_served": joiner_served,
+            "all_dead": "ServiceClosedException", "card": smi}
+
+
+def fleet_quarantine(death, serial: dict, smi: str) -> dict:
+    """Part 5: a poison tenant (an OOM that follows it) quarantined by its
+    home worker is quarantined on every worker; served by another worker
+    it runs serially, and that one success readmits it on all."""
+    from deequ_tpu_torch.ops.device_policy import DEVICE_HEALTH, install_scan_fault_hook
+    from deequ_tpu_torch.resilience.faults import FaultInjectingScanHook
+    from deequ_tpu_torch.serve import VerificationFleet
+
+    analyzers = fleet_analyzers()
+    tenant, table = death[5]
+    fleet = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, distinct_devices=True,
+                              quarantine_after=2, worker_knobs={"coalesce_window": 0.0})
+    prev = install_scan_fault_hook(FaultInjectingScanHook(tenant_faults={FLEET_POISON: "oom"}))
+    try:
+        try:
+            for _ in range(2):
+                fleet.verify(table, required_analyzers=analyzers, tenant=FLEET_POISON)
+        finally:
+            install_scan_fault_hook(prev)
+            DEVICE_HEALTH.reset()
+        home = fleet.route(table, required_analyzers=analyzers)
+        flagged = [i for i, w in fleet._workers.items()
+                   if w.service.tenant_health.is_quarantined(FLEET_POISON)]
+        if flagged != sorted(fleet._workers):
+            fail(f"fleet_path quarantine: quarantined on workers {flagged} only")
+        other = next(w for i, w in fleet._workers.items() if i != home)
+        healed = other.service.submit(table, required_analyzers=analyzers,
+                                      tenant=FLEET_POISON).result(timeout=300)
+        if healed.scan_stats.get("coalesced") is not False:
+            fail("fleet_path quarantine: the quarantined tenant coalesced on another worker")
+        same_result(serial[tenant], healed, "fleet_path quarantine readmission")
+        if any(w.service.tenant_health.is_quarantined(FLEET_POISON)
+               for w in fleet._workers.values()):
+            fail("fleet_path quarantine: one success did not readmit the tenant fleet-wide")
+        again = fleet.verify(table, required_analyzers=analyzers, tenant=FLEET_POISON)
+        if again.scan_stats.get("coalesced") is not True:
+            fail("fleet_path quarantine: the readmitted tenant did not coalesce at home")
+        same_result(serial[tenant], again, "fleet_path quarantine home")
+    finally:
+        fleet.stop()
+    return {"home_worker": home, "served_serially_by": other.idx,
+            "quarantined_on": len(flagged), "card": smi}
+
+
+def fleet_ledger(refs: dict, smi: str) -> dict:
+    """Part 6: a fleet with a ledger on local disk accepts 200 requests
+    (required analyzers only: a check's lambdas need cloudpickle) while its
+    workers are stalled and stops without draining; a fresh fleet on the
+    directory resolves each on its original future once, bit for bit its
+    serial run. Accepts/s with the ledger (an fsync an accept) and
+    without."""
+    import tempfile
+
+    from deequ_tpu_torch.serve import VerificationFleet
+
+    requests, serial = refs["ledger_requests"], refs["ledger"]
+
+    def accept_all(fleet):
+        for idx in range(FLEET_WORKERS):
+            fleet.stall_worker(idx, 600.0)
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        futures = {t: fleet.submit(tb, required_analyzers=an, tenant=t)
+                   for t, tb, an in requests}
+        return time.perf_counter() - t0, futures
+
+    with tempfile.TemporaryDirectory(prefix="fleet-ledger-") as root:
+        plain = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False)
+        try:
+            plain_s, _ = accept_all(plain)
+        finally:
+            plain.stop(drain=False)
+        first = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, ledger_dir=root)
+        try:
+            ledger_s, futures = accept_all(first)
+        finally:
+            t0 = time.perf_counter()
+            leftovers = first.stop(drain=False)
+            stop_s = time.perf_counter() - t0
+        if len(leftovers) != len(requests) or any(f.done() for f in futures.values()):
+            fail(f"fleet_path ledger: {len(leftovers)} of {len(requests)} unresolved at stop")
+        second = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False, ledger_dir=root,
+                                   resume_futures={f.accept_id: f for f in futures.values()})
+        try:
+            t0 = time.perf_counter()
+            results = {t: f.result(timeout=600) for t, f in futures.items()}
+            replay_s = time.perf_counter() - t0
+            replayed = len(second.resumed)
+        finally:
+            second.stop()
+    if replayed != len(requests) or any(second.resumed[f.accept_id] is not f
+                                        for f in futures.values()):
+        fail(f"fleet_path ledger: {replayed} of {len(requests)} replayed on their futures")
+    late = fleet_once(futures, "ledger")
+    for t, result in results.items():
+        same_result(serial[t], result, f"fleet_path ledger {t}")
+    return {"requests": len(requests), "replayed": replayed, "late_resolutions": late,
+            "accepts_per_s_ledger": len(requests) / ledger_s,
+            "accepts_per_s_no_ledger": len(requests) / plain_s,
+            "stop_s": stop_s, "replay_s": replay_s, "card": smi}
+
+
+def fleet_whole_check(load, refs: dict, smi: str) -> dict:
+    """Part 7: two whole-check tenants at main_path's width on the fleet's
+    serial route while the workers run Load A's coalesced batches: bit for
+    bit their serial runs, against numpy, one K7 launch and no K5 launch
+    each. Their rows (``fleet_references``) place them off the worker that
+    holds Load A's repeat shapes, so their grouping kernels run beside that
+    worker's K1 batches."""
+    from deequ_tpu_torch.ops import histogram_device
+    from deequ_tpu_torch.serve import VerificationFleet
+
+    tables, serial = refs["whole_tables"], refs["whole"]
+    fleet = VerificationFleet(n_workers=FLEET_WORKERS, monitor=False,
+                              worker_knobs={"max_batch": SERVE_MAX_BATCH})
+    try:
+        if fleet.route(tables[0], [build_check()]) != refs["whole_worker"]:
+            fail("fleet_path whole check: the fleet places the tenants off its ring's placement")
+        fleet_pass(fleet, load)  # warm
+        k5, k7 = histogram_device.LAUNCHES, histogram_device.FUSED_LAUNCHES
+        whole = [(f"whole-{k}", t, [build_check()]) for k, t in enumerate(tables)]
+        wall, futures, results = fleet_pass(fleet, whole + load)
+        k5, k7 = histogram_device.LAUNCHES - k5, histogram_device.FUSED_LAUNCHES - k7
+    finally:
+        fleet.stop()
+    fleet_once(futures, "whole check")
+    if (k5, k7) != (0, FLEET_WHOLE_TENANTS):
+        fail(f"fleet_path whole check: K5 {k5} and K7 {k7} launches, want 0 and "
+             f"{FLEET_WHOLE_TENANTS}")
+    worst = 0.0
+    for k, (t, want) in enumerate(zip(tables, serial)):
+        got = results[f"whole-{k}"]
+        if got.scan_stats.get("coalesced") is not False:
+            fail(f"fleet_path whole check: tenant {k} was not served serially")
+        same_result(want, got, f"fleet_path whole check {k}")
+        expect = {key: v for key, v in expected_metrics(t).items() if key[0] != "CountDistinct"}
+        worst = max(worst, check_metrics(got, expect))
+    return {"tenants": FLEET_WHOLE_TENANTS, "rows_a_tenant": refs["whole_rows"],
+            "beside_load_a_tenants": len(load), "whole_check_worker": refs["whole_worker"],
+            "load_a_busiest_worker": [refs["busiest"], refs["per_worker"][refs["busiest"]]],
+            "pass_s": wall, "k5": k5, "k7": k7,
+            "worst_rel_err_vs_numpy": worst, "card": smi}
+
+
+def fleet_path(table, load, seed: int, device, smi: str) -> dict:
+    """Phase 22 (module doc): the serving fleet on the card, over Load A
+    (``load``, serve_path's) and main_path's ``table``. Every serial
+    reference is made before the counts are zeroed: the phase's launches
+    are the fleet's own."""
+    phase_t0 = time.perf_counter()
+    death = fleet_death_load(seed)
+    t0 = time.perf_counter()
+    refs = fleet_references(table, load, death)
+    refs_s = time.perf_counter() - t0
+    kernel_counts_zero()
+    parts = {}
+    t0 = time.perf_counter()
+    parts["healthy"], spy = fleet_healthy(load, refs, device, smi)
+    parts["healthy"]["seconds"] = time.perf_counter() - t0
+    for name, run in (("death", lambda: fleet_death(death, refs["death"], smi)),
+                      ("monitor_and_rejoin", lambda: fleet_monitored(death, refs["death"], smi)),
+                      ("quarantine", lambda: fleet_quarantine(death, refs["death"], smi)),
+                      ("ledger", lambda: fleet_ledger(refs, smi)),
+                      ("whole_check", lambda: fleet_whole_check(load, refs, smi))):
+        t0 = time.perf_counter()
+        parts[name] = run()
+        parts[name]["seconds"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    k1_require(launches, "fleet_path")
+    # K1 and its fold merge at the fleet's largest coalesced batch, held
+    # against their plain versions (after the counts: these launches
+    # compare, they are not the path's)
+    import torch
+
+    from deequ_tpu_torch.ops import masked_reduce
+
+    flat, tasks, offsets = max(spy.batches, key=lambda b: len(b[1]))
+    held = k1_hold(tasks, "fleet batch")
+    merge = max(spy.merges, key=lambda a: a[2].numel())
+    if not torch.equal(masked_reduce.merge_tags(*merge).view(torch.int64),
+                       masked_reduce.merge_tags_plain(*merge).view(torch.int64)):
+        fail("fleet_path: the fold merge differs from its plain version in its bits")
+    return {"parts": parts, "references_s": refs_s, "kernel_launches": launches, "k1_hold": held,
+            "k1_merge_entries": merge[2].numel(), "seconds_in_phase":
+                time.perf_counter() - phase_t0}
 
 
 def nvidia_smi_line() -> str:
@@ -9101,9 +9722,13 @@ def main(argv=None) -> int:
     emit({"phase": "mesh_path", "card": smi, **mesh, "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    serve = serve_path(table, args.seed, device, smi, rate)
+    serve, load = serve_path(table, args.seed, device, smi, rate)
     emit({"phase": "serve_path", "card": smi, **serve, "seconds": time.perf_counter() - t0})
-    del table, main_result
+
+    t0 = time.perf_counter()
+    fleet = fleet_path(table, load, args.seed, device, smi)
+    emit({"phase": "fleet_path", "card": smi, **fleet, "seconds": time.perf_counter() - t0})
+    del table, main_result, load
 
     t0 = time.perf_counter()
     sketch, table, streamed = sketch_path(args.rows, args.seed, device)
@@ -9159,7 +9784,8 @@ def main(argv=None) -> int:
                 "spill_path": spill["kernel_launches"]["bincount"],
                 "device_fault_path": faults["kernel_launches"]["bincount"],
                 "mesh_path": mesh["kernel_launches"]["bincount"],
-                "serve_path": serve["kernel_launches"]["bincount"]}
+                "serve_path": serve["kernel_launches"]["bincount"],
+                "fleet_path": fleet["kernel_launches"]["bincount"]}
     hll_launches = {"sketch_path": sketch["kernel_launches"]["hll"],
                     "frequency_path": freq["hll_launches"],
                     "resident_path": sum(r["kernel_launches"]["hll"]
@@ -9171,7 +9797,8 @@ def main(argv=None) -> int:
                     "out_of_core_path": ooc["kernel_launches"]["hll"],
                     "spill_path": spill["kernel_launches"]["hll"],
                     "device_fault_path": faults["kernel_launches"]["hll"],
-                    "serve_path": serve["kernel_launches"]["hll"]}
+                    "serve_path": serve["kernel_launches"]["hll"],
+                    "fleet_path": fleet["kernel_launches"]["hll"]}
     select_launches = {"resident_path": res_sketch["kernel_launches"]["select"],
                        "profile_path": prof["kernel_launches"]["select"]}
     fused_launches = {"main_path": report["fused_launches"],
@@ -9189,7 +9816,8 @@ def main(argv=None) -> int:
                       "spill_path": spill["kernel_launches"].get("fused_bincount", 0),
                       "device_fault_path": faults["kernel_launches"].get("fused_bincount", 0),
                       "mesh_path": mesh["kernel_launches"]["fused_bincount"],
-                      "serve_path": serve["kernel_launches"]["fused_bincount"]}
+                      "serve_path": serve["kernel_launches"]["fused_bincount"],
+                      "fleet_path": fleet["kernel_launches"]["fused_bincount"]}
     k7_time = fusion["kernel_timing"]
     by_path = {"main_path": report["k1_launches"], "check_api_path": api["k1_launches"],
                "sketch_path": sketch["kernel_launches"],
@@ -9205,7 +9833,8 @@ def main(argv=None) -> int:
                "spill_path": spill["kernel_launches"],
                "device_fault_path": faults["kernel_launches"],
                "mesh_path": mesh["kernel_launches"],
-               "serve_path": serve["kernel_launches"]}
+               "serve_path": serve["kernel_launches"],
+               "fleet_path": fleet["kernel_launches"]}
     k1_launches = {path: c["k1"] for path, c in by_path.items()}
     onehot_launches = {"main_path": report["onehot_launches"],
                        "hist_variant_path": hv["kernel_launches"]["onehot"],
@@ -9358,7 +9987,8 @@ def main(argv=None) -> int:
                            f"{k1_time['distinct_tensors']} tensors of {args.rows} rows, "
                            f"{k1_time['sources']} sources, {k1_time['combos']} combos"),
         "max_abs_err": max(kparity["max_abs_err"], k1_time["vs_plain"]["max_abs_err"],
-                           serve["k1_coalesced"]["vs_plain"]["max_abs_err"]),
+                           serve["k1_coalesced"]["vs_plain"]["max_abs_err"],
+                           fleet["k1_hold"]["max_abs_err"]),
         "ms": k1_time["kernel_ms"],
         "plain_ms": k1_time["plain_ms"],
         "bound_ms": k1_time["bound_ms"],

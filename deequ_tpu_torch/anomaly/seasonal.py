@@ -89,7 +89,7 @@ def _fit_parameters(
     fitted = holt_winters.fit(s, periodicity).cpu().numpy()
     # the fit's one device->host copy, charged to bytes_fetched only:
     # device_fetches counts the one fetch of each scan pass
-    SCAN_STATS.bytes_fetched += fitted.nbytes
+    SCAN_STATS.bump(bytes_fetched=fitted.nbytes)
     a, b, g = (float(x) for x in fitted)
     return a, b, g
 

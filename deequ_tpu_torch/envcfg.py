@@ -11,9 +11,9 @@ parser for every switch of the port (the counterpart of
   registered variable.
 
 Kinds: ``flag01`` (``'' | '0' | '1'`` strictly), ``int`` and ``float``
-(an optional ``minimum``; ``zero_disables`` maps 0 and below to None) and
-``choice``. Only the switches a ported module reads are registered; the
-others come with their modules.
+(an optional ``minimum``; ``zero_disables`` maps 0 and below to None),
+``choice`` and ``str`` (taken as given). Only the switches a ported
+module reads are registered; the others come with their modules.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from deequ_tpu_torch.exceptions import EnvConfigError
 
-_KINDS = ("flag01", "int", "float", "choice")
+_KINDS = ("flag01", "int", "float", "choice", "str")
 
 
 @dataclass(frozen=True)
@@ -76,6 +76,8 @@ def _parse(var: EnvVar, raw: str) -> Any:
         except ValueError:
             raise EnvConfigError(var.name, raw, "a number") from None
         return _bound(var, val)
+    if var.kind == "str":
+        return raw
     if raw not in var.choices:
         raise EnvConfigError(var.name, raw, f"one of {list(var.choices)}")
     return raw
@@ -238,4 +240,26 @@ BROWNOUT = register(EnvVar(
     "DEEQU_TORCH_BROWNOUT", "flag01", default=True,
     doc="0 turns off the serving brownout ladder (admission-side shedding "
         "by SLO class; computation is never degraded)",
+))
+FLEET_WORKERS = register(EnvVar(
+    "DEEQU_TORCH_FLEET_WORKERS", "int", default=None, minimum=1,
+    doc="VerificationFleet worker count (serve/fleet.py; unset = one per "
+        "card, at most 4)",
+))
+HEARTBEAT_INTERVAL = register(EnvVar(
+    "DEEQU_TORCH_HEARTBEAT_INTERVAL", "float", default=0.25, minimum=0.005,
+    doc="seconds between the fleet membership's liveness probes of its "
+        "workers",
+))
+FAILOVER_RETRIES = register(EnvVar(
+    "DEEQU_TORCH_FAILOVER_RETRIES", "int", default=2, minimum=0,
+    doc="most worker-loss re-dispatches one accepted request may take "
+        "before it rejects typed (WorkerLostException)",
+))
+FLEET_LEDGER_DIR = register(EnvVar(
+    "DEEQU_TORCH_FLEET_LEDGER_DIR", "str", default=None,
+    doc="directory of the fleet's durable checksummed request ledger "
+        "(serve/ledger.py): accepted work is fsynced at accept, and a fleet "
+        "opened on the same directory replays what was not resolved "
+        "(unset = no ledger)",
 ))

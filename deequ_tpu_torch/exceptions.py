@@ -301,6 +301,23 @@ class PeerLostException(DeviceException):
         self.lost_processes = tuple(lost_processes)
 
 
+class WorkerLostException(DeviceException):
+    """A serving-fleet worker (``serve/fleet.py``) died or stopped
+    heartbeating past the membership's stall timeout. ``worker_ids`` names
+    the lost fleet members, as ``PeerLostException`` names lost ranks;
+    ``device_ids`` stays empty, so neither the fault ladder nor the
+    service's bisection takes it for a fault of a card. The fleet answers
+    it with failover, not abort: the lost worker's accepted requests
+    re-dispatch onto survivors on their original futures, each charging
+    the tenant's run budget ``worker_failover``; a caller sees it only
+    when no survivor remains or a request ran out of failover retries."""
+
+    def __init__(self, message: str, worker_ids: Tuple[int, ...] = (),
+                 boundary: str = "execute"):
+        super().__init__(message, boundary)
+        self.worker_ids = tuple(worker_ids)
+
+
 class DeviceUnavailableException(DeviceException):
     """The run was asked to execute on a CUDA device that this process
     cannot see. Entry points run on ``cuda`` unless the caller asks for

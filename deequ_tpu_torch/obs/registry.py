@@ -441,3 +441,16 @@ def _serve_section() -> dict:
 
 
 REGISTRY.register_collector("serve", _serve_section)
+
+
+# -- the fleet's instruments (serve/fleet.py, serve/ledger.py; the "fleet"
+#    section, read through the active fleet, is registered by serve/fleet.py) --
+
+FLEET_FAILOVERS = REGISTRY.counter(
+    "fleet_failovers", "worker-loss failovers of a VerificationFleet (one a lost worker)")
+FLEET_WORKERS_ALIVE = REGISTRY.gauge(
+    "fleet_workers_alive", "alive workers of the active VerificationFleet")
+LEDGER_APPENDS = REGISTRY.counter(
+    "fleet_ledger_appends",
+    "durable request-ledger frames appended (serve/ledger.py: one an accept, one "
+    "tombstone a resolution, each fsynced before the submit or resolution goes on)")

@@ -68,7 +68,7 @@ from contextlib import contextmanager
 import torch
 
 from deequ_tpu_torch.exceptions import DeviceException, launch_error
-from deequ_tpu_torch.ops import cuda_build
+from deequ_tpu_torch.ops import counters, cuda_build
 
 #: kernel launches since the last reset: one per launch of the CUDA
 #: kernel, and nowhere else (chip_smoke.py reads it around the main path)
@@ -229,7 +229,6 @@ def bincount_scatter(
     :data:`LAUNCHES`; a CPU tensor runs :func:`bincount_plain`. Unweighted
     counts are exact; with int32 ``weights`` each bin holds its total mod
     2^32 read as an int32 (module doc)."""
-    global LAUNCHES
     _check_args(seg, num_segments, weights)
     if seg.device.type == "cpu":
         return bincount_plain(seg, num_segments, weights, dtype)
@@ -241,7 +240,7 @@ def bincount_scatter(
         name = regime(num_segments)
     bufs = _buffers(seg, num_segments, weights, name)
     _launch(seg, num_segments, weights, *bufs, regime_name=name)
-    LAUNCHES += 1
+    counters.inc(globals(), "LAUNCHES")
     out = bufs[-1]
     return out if dtype == torch.int64 else out.to(dtype)
 
@@ -433,7 +432,6 @@ def bincount_onehot(
     (``csrc/onehot.cu``), counted in :data:`ONEHOT_LAUNCHES`, or raises
     (ValueError past :func:`onehot_widest`); a CPU tensor runs
     :func:`bincount_onehot_plain`. The tier's contract (module doc)."""
-    global ONEHOT_LAUNCHES
     _check_args(seg, num_segments, weights)
     if seg.device.type == "cpu":
         return bincount_onehot_plain(seg, num_segments, weights, dtype)
@@ -450,7 +448,7 @@ def bincount_onehot(
     scratch, out = _onehot_buffers(seg.numel(), num_segments, weights is not None,
                                    seg.device)
     _onehot_launch(seg, num_segments, weights, scratch, out)
-    ONEHOT_LAUNCHES += 1
+    counters.inc(globals(), "ONEHOT_LAUNCHES")
     return out if dtype == torch.int64 else out.to(dtype)
 
 
@@ -538,7 +536,6 @@ def fused_bincount(keys, keyspaces, variant: str = "scatter") -> torch.Tensor:
     in shared memory, into its own bins, while the wider ones are
     partitioned, in the same grid), counted once in :data:`FUSED_LAUNCHES`.
     On CPU tensors :func:`fused_bincount_plain`. Exact int64 counts."""
-    global FUSED_LAUNCHES, ONEHOT_LAUNCHES
     keys = list(keys)
     _check_fused_args(keys, keyspaces)
     _check_variant(variant)
@@ -562,13 +559,13 @@ def fused_bincount(keys, keyspaces, variant: str = "scatter") -> torch.Tensor:
         scratch, out = _onehot_buffers(sum(key.numel() for key in keys), total, False,
                                        device)
         _onehot_multi_launch(keys, keyspaces, scratch, out)
-        ONEHOT_LAUNCHES += 1
+        counters.inc(globals(), "ONEHOT_LAUNCHES")
         return out
     with torch.cuda.device(device):
         name = regime(total)
     scratch, out = _fused_buffers(keys, keyspaces, name)
     _fused_launch(keys, keyspaces, scratch, out, name)
-    FUSED_LAUNCHES += 1
+    counters.inc(globals(), "FUSED_LAUNCHES")
     return out
 
 

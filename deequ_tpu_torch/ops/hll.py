@@ -44,7 +44,7 @@ import torch
 
 from deequ_tpu_torch import native
 from deequ_tpu_torch.exceptions import launch_error
-from deequ_tpu_torch.ops import cuda_build
+from deequ_tpu_torch.ops import counters, cuda_build
 
 DEFAULT_RELATIVE_SD = 0.05
 XXHASH_SEED = 42
@@ -379,7 +379,6 @@ def registers(x: torch.Tensor, valid: Optional[torch.Tensor] = None,
       rank = packed & 0x3F; a code < 0 (null) or past the table is dropped.
 
     A CUDA tensor runs the CUDA kernel; a CPU tensor runs the plain version."""
-    global LAUNCHES
     _check_args(x, valid, p, lut)
     if x.device.type == "cpu":
         return registers_plain(x, valid, p, lut)
@@ -393,7 +392,7 @@ def registers(x: torch.Tensor, valid: Optional[torch.Tensor] = None,
     if x.numel() == 0:
         return out
     _launch(x, valid, int(p), lut, out)
-    LAUNCHES += 1
+    counters.inc(globals(), "LAUNCHES")
     return out
 
 

@@ -35,7 +35,7 @@ import math
 import torch
 
 from deequ_tpu_torch.exceptions import DeviceException, launch_error
-from deequ_tpu_torch.ops import cuda_build
+from deequ_tpu_torch.ops import counters, cuda_build
 
 #: kernel launches since the last reset: one per launch of the CUDA
 #: kernel, and nowhere else (chip_smoke.py reads it around its paths)
@@ -177,7 +177,6 @@ def fit(series: torch.Tensor, periodicity: int, steps: int = STEPS) -> torch.Ten
     cycles of ``periodicity``), as a (3,) float64 tensor on its device. A
     CUDA tensor runs the CUDA kernel, one launch (periodicity 7 or 12); a
     CPU tensor runs the plain version."""
-    global LAUNCHES
     _check_args(series, periodicity, steps)
     if series.device.type == "cpu":
         return fit_plain(series, periodicity, steps)
@@ -185,7 +184,7 @@ def fit(series: torch.Tensor, periodicity: int, steps: int = STEPS) -> torch.Ten
         raise ValueError(f"holt_winters: unsupported device {series.device}")
     out = torch.empty(3, dtype=torch.float64, device=series.device)
     _launch(series.contiguous(), int(periodicity), int(steps), out)
-    LAUNCHES += 1
+    counters.inc(globals(), "LAUNCHES")
     return out
 
 

@@ -18,17 +18,23 @@ dictionary and kind and kept:
   member's device, one copy a distinct device (a virtual mesh's members
   share theirs).
 
-``BUILDS`` counts builder calls (``chip_smoke.py`` reads it around a
-second run).
+``BUILDS`` counts the LUTs built and kept (``chip_smoke.py`` reads it
+around a second run). The memos and the count are shared by threads (a
+fleet's workers): a lookup and a store take the lock, a build runs outside
+it, and when two threads built one key at once the first stored is kept
+and counted, the other discarded.
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from deequ_tpu_torch.ops import counters
 
 _MAX_ENTRIES = 64
 # (id(dictionary), kind) -> (weakref to dictionary, lut); insertion order
@@ -37,8 +43,9 @@ _MEMO: Dict[Tuple[int, str], Tuple[weakref.ref, np.ndarray]] = {}
 # the same keying plus the device, for device tensors
 _DEVICE_MEMO: Dict[Tuple[int, str, str], Tuple[weakref.ref, torch.Tensor]] = {}
 
-#: builder calls since the last reset
+#: LUTs built and kept since the last reset
 BUILDS = 0
+_LOCK = threading.Lock()
 
 
 def _lookup(memo: dict, key, dictionary):
@@ -49,27 +56,35 @@ def _lookup(memo: dict, key, dictionary):
     return None
 
 
-def _store(memo: dict, key, dictionary, value) -> None:
+def _store(memo: dict, key, dictionary, value):
+    """Keep ``value`` unless a thread stored the key meanwhile; returns
+    the value kept. Caller holds ``_LOCK``."""
+    held = _lookup(memo, key, dictionary)
+    if held is not None:
+        return held
+    if memo is _MEMO:
+        counters.inc(globals(), "BUILDS")
     try:
         ref = weakref.ref(dictionary)
     except TypeError:  # plain lists: no identity guard possible, no memo
-        return
+        return value
     memo[key] = (ref, value)
     while len(memo) > _MAX_ENTRIES:
         memo.pop(next(iter(memo)))
+    return value
 
 
 def dictionary_lut(
     dictionary, kind: str, builder: Callable[[np.ndarray], np.ndarray]
 ) -> np.ndarray:
     """``builder(dictionary)``, memoized per (dictionary identity, kind)."""
-    global BUILDS
     key = (id(dictionary), kind)
-    lut = _lookup(_MEMO, key, dictionary)
+    with _LOCK:
+        lut = _lookup(_MEMO, key, dictionary)
     if lut is None:
-        BUILDS += 1
         lut = np.asarray(builder(dictionary))
-        _store(_MEMO, key, dictionary, lut)
+        with _LOCK:
+            lut = _store(_MEMO, key, dictionary, lut)
     return lut
 
 
@@ -80,12 +95,14 @@ def dictionary_lut_device(
     identity, kind, device): built and copied once."""
     device = torch.device(device)
     key = (id(dictionary), kind, str(device))
-    lut = _lookup(_DEVICE_MEMO, key, dictionary)
+    with _LOCK:
+        lut = _lookup(_DEVICE_MEMO, key, dictionary)
     if lut is None:
         host = np.ascontiguousarray(dictionary_lut(dictionary, kind, builder))
         if host.shape[-1] == 0:
             host = np.zeros(host.shape[:-1] + (1,), dtype=host.dtype)
         lut = torch.from_numpy(host).to(device)
-        _store(_DEVICE_MEMO, key, dictionary, lut)
+        with _LOCK:
+            lut = _store(_DEVICE_MEMO, key, dictionary, lut)
     return lut
 

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from deequ_tpu_torch.exceptions import DeviceException, launch_error
-from deequ_tpu_torch.ops import cuda_build
+from deequ_tpu_torch.ops import counters, cuda_build
 
 #: calls of :func:`reduce_into` that launched the kernel (each one batch:
 #: two launches, the tiles and the fold), and nowhere else (chip_smoke.py
@@ -354,7 +354,6 @@ def reduce_into(flat: torch.Tensor, tasks: Sequence[Reduction],
     """Write output i of each task, as f64, at ``flat[offsets[t][i]]``
     (-1: not written). A CUDA ``flat`` launches the kernel over the whole
     batch; a CPU one runs the plain versions; any other device raises."""
-    global LAUNCHES
     _check_into(flat, tasks, offsets)
     if flat.device.type == "cpu":
         _reduce_plain_into(flat, tasks, offsets)
@@ -364,7 +363,7 @@ def reduce_into(flat: torch.Tensor, tasks: Sequence[Reduction],
     if not tasks:
         return
     _launch_reduce(flat, tasks, offsets)
-    LAUNCHES += 1
+    counters.inc(globals(), "LAUNCHES")
 
 
 def _reduce_plain_into(flat, tasks, offsets) -> None:
@@ -386,7 +385,6 @@ def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
     for CUDA tensors, the plain version for CPU ones; any other device
     raises. A launch counts in ``MERGE_LAUNCHES`` and under ``caller`` in
     ``MERGE_LAUNCHES_BY_CALLER``."""
-    global MERGE_LAUNCHES
     m = acc.numel()
     for t, dt in ((is_sum, torch.bool), (is_min, torch.bool), (acc, torch.float64),
                   (flat, torch.float64)):
@@ -420,8 +418,8 @@ def merge_tags(is_sum: torch.Tensor, is_min: torch.Tensor, acc: torch.Tensor,
         )
     if rc != 0:
         raise launch_error(f"K1 merge kernel launch failed (n={m})", rc)
-    MERGE_LAUNCHES += 1
-    MERGE_LAUNCHES_BY_CALLER[caller] = MERGE_LAUNCHES_BY_CALLER.get(caller, 0) + 1
+    counters.inc(globals(), "MERGE_LAUNCHES")
+    counters.inc(globals(), "MERGE_LAUNCHES_BY_CALLER", caller)
     return out
 
 

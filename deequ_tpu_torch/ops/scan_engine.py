@@ -70,6 +70,7 @@ the analyzers' states, never a raw sum of squares.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import itertools
 import queue
 import threading
@@ -211,6 +212,26 @@ class ScanOp:
     hist_widths: Tuple[int, ...] = ()
     compact: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None
     compact_threshold: int = 1 << 20
+
+
+#: the tallies open in this context (:meth:`ScanStats.tally`), innermost
+#: last
+_TALLIES: contextvars.ContextVar[Tuple["RunTally", ...]] = contextvars.ContextVar(
+    "deequ_torch_scan_tallies", default=())
+
+
+class RunTally:
+    """What one context added to :data:`SCAN_STATS` while the tally was
+    open: counter deltas by name, degradation events and unverified row
+    ranges. A watchdog call runs in a copy of its caller's context, so its
+    counts land here; another thread's (a fleet's other workers) do not."""
+
+    __slots__ = ("counts", "events", "unverified")
+
+    def __init__(self):
+        self.counts: Dict[str, Any] = {}
+        self.events: List[Dict[str, Any]] = []
+        self.unverified: List[Tuple[int, int]] = []
 
 
 class ScanStats:
@@ -385,14 +406,44 @@ class ScanStats:
             return 0.0
         return self.chunks_staged_overlapped / self.chunks_staged
 
+    def _add(self, name: str, delta) -> None:
+        """Add ``delta`` to counter ``name`` and to every tally open in this
+        context. Caller holds the lock."""
+        setattr(self, name, getattr(self, name) + delta)
+        for tally in _TALLIES.get():
+            tally.counts[name] = tally.counts.get(name, 0) + delta
+
+    def bump(self, **deltas) -> None:
+        """Add each delta to its counter under the lock: every counter is
+        bumped here or in a ``record_*`` method, so counts stay exact while
+        threads bump at once (a fleet's workers scan side by side)."""
+        with self._lock:
+            for name, delta in deltas.items():
+                self._add(name, delta)
+
+    def raise_to(self, **values) -> None:
+        """Raise each high-water counter to its value, under the lock."""
+        with self._lock:
+            for name, value in values.items():
+                setattr(self, name, max(getattr(self, name), value))
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Yield a :class:`RunTally` of what this context adds to the
+        counters, events and unverified ranges until the block ends."""
+        own = RunTally()
+        token = _TALLIES.set(_TALLIES.get() + (own,))
+        try:
+            yield own
+        finally:
+            _TALLIES.reset(token)
+
     def record_staged(self, nbytes: int, overlapped: bool) -> None:
         """One chunk copied to the device by a streaming scan;
         ``overlapped``: its copy was issued while the previous chunk was
         staged and not yet scanned."""
-        with self._lock:
-            self.chunks_staged += 1
-            self.chunks_staged_overlapped += int(overlapped)
-            self.bytes_staged += int(nbytes)
+        self.bump(chunks_staged=1, chunks_staged_overlapped=int(overlapped),
+                  bytes_staged=int(nbytes))
 
     def record_fetch(self, nbytes: int) -> None:
         """One device->host fetch and its bytes. A fetch made by a watchdog
@@ -401,9 +452,7 @@ class ScanStats:
         run is active when the call wakes."""
         if current_watchdog_call_abandoned():
             return
-        with self._lock:
-            self.device_fetches += 1
-            self.bytes_fetched += int(nbytes)
+        self.bump(device_fetches=1, bytes_fetched=int(nbytes))
 
     def record_degradation(self, kind: str, **detail) -> Dict[str, Any]:
         """Append one rung taken (kind: 'oom_bisect', 'encoded_demote',
@@ -415,6 +464,8 @@ class ScanStats:
         event = {"kind": kind, **detail}
         with self._lock:
             self.degradation_events.append(event)
+            for tally in _TALLIES.get():
+                tally.events.append(event)
         # the flight recorder's rung seam: every ladder's rungs report here,
         # so each is an instant event inside the span it fired in
         rec = current_recorder()
@@ -428,41 +479,37 @@ class ScanStats:
         """Mark rows [start, stop) unverified: a budget-exhausted run
         finished without them. The omission is reported, never silent
         (``VerificationResult.unverified_row_ranges``)."""
+        rows = (int(start), int(stop))
         with self._lock:
-            self.unverified_row_ranges.append((int(start), int(stop)))
+            self.unverified_row_ranges.append(rows)
+            for tally in _TALLIES.get():
+                tally.unverified.append(rows)
         return self.record_degradation(kind, start=int(start), stop=int(stop), reason=reason)
 
     def record_budget_charge(self, exhausted: bool = False) -> None:
         """One charge to a run budget, or (``exhausted``) a budget that ran
         out."""
-        with self._lock:
-            if exhausted:
-                self.budget_exhaustions += 1
-            else:
-                self.budget_charges += 1
+        if exhausted:
+            self.bump(budget_exhaustions=1)
+        else:
+            self.bump(budget_charges=1)
 
     def record_subplan_hit(self, n: int = 1) -> None:
         """``n`` suites served from a program another plan key built
         (``serve/plan_cache.SUBPLAN_CACHE``)."""
-        with self._lock:
-            self.subplan_cache_hits += int(n)
+        self.bump(subplan_cache_hits=int(n))
 
     def record_kll_sort(self, columns: int) -> None:
-        with self._lock:
-            self.kll_sort_passes += 1
-            self.kll_sorted_columns += int(columns)
+        self.bump(kll_sort_passes=1, kll_sorted_columns=int(columns))
 
     def record_hist_dispatch(self, name: str, n: int = 1) -> None:
         """``n`` histogram dispatches under ``name``: a route ("kernel",
         "plain" or "host") or a variant ("scatter", "onehot", "pallas")."""
-        with self._lock:
-            field = f"hist_{name}_dispatches"
-            setattr(self, field, getattr(self, field) + int(n))
+        self.bump(**{f"hist_{name}_dispatches": int(n)})
 
     def record_fused_group_pass(self, n: int = 1) -> None:
         """``n`` grouping passes that rode one fused dispatch."""
-        with self._lock:
-            self.fused_group_passes += int(n)
+        self.bump(fused_group_passes=int(n))
 
     def record_member_launches(self, member: int, counts: Dict[str, int]) -> None:
         """Add one member's kernel launches (``counts`` by kernel)."""
@@ -656,6 +703,10 @@ class _ChunkPacker:
                 valid = row_valid
             vals[name] = Val("num", data, valid)
         return vals
+
+
+#: guards the publication of a fold plan's single_rows tiling
+_TILING_LOCK = threading.Lock()
 
 
 class _DeviceFoldPlan:
@@ -864,13 +915,20 @@ class _DeviceFoldPlan:
         grows with the largest K alone."""
         K = flats.shape[0]
         if self.elem_size:
+            # threads share a plan's fold (a fleet's workers): each reads
+            # the published tiling once, builds a wider one of its own when
+            # it is short, and publishes that only if still the widest — a
+            # tiling is never written after it is published
             tiled = self._tiled
             if tiled is None or tiled[0].numel() < K * self.elem_size:
                 offsets = torch.arange(K, dtype=torch.int64, device=self.device) * self.flat_size
-                tiled = self._tiled = (
+                tiled = (
                     self._is_sum.repeat(K), self._is_min.repeat(K), self._acc.repeat(K),
                     (self._elem_src.unsqueeze(0) + offsets.unsqueeze(1)).reshape(-1),
                 )
+                with _TILING_LOCK:
+                    if self._tiled is None or self._tiled[0].numel() < tiled[0].numel():
+                        self._tiled = tiled
             is_sum, is_min, acc, src = (t[:K * self.elem_size] for t in tiled)
             elem = masked_reduce.merge_tags(is_sum, is_min, acc, flats.reshape(-1), src,
                                             caller=caller).view(K, self.elem_size)
@@ -1203,7 +1261,7 @@ def fetch_deferred(scans: Sequence[DeferredScan]) -> None:
         "fetch", what="deferred scan fetch", deadline=deadline,
         device=pending[0]._vector.device,
     )
-    SCAN_STATS.deferred_fetches += 1
+    SCAN_STATS.bump(deferred_fetches=1)
     off = 0
     for scan, size in zip(pending, sizes):
         scan._settle(host[off:off + size])
@@ -1472,15 +1530,12 @@ def _run_scan_once(
     n_chunks = len(bounds)
     op_luts = _member_luts(ops, packer.cols, members)
     enc_luts = {dev: packer.enc_luts(dev) for dev in op_luts}
-    SCAN_STATS.scan_passes += 1
-    SCAN_STATS.rows_scanned += n_rows
-    SCAN_STATS.device_sort_passes += plan.sort_ops * n_chunks
-    SCAN_STATS.device_select_passes += plan.select_ops * n_chunks
-    if plan.encoded_columns:
-        SCAN_STATS.encoded_scan_passes += 1
+    SCAN_STATS.bump(scan_passes=1, rows_scanned=n_rows,
+                    device_sort_passes=plan.sort_ops * n_chunks,
+                    device_select_passes=plan.select_ops * n_chunks,
+                    encoded_scan_passes=int(bool(plan.encoded_columns)))
     if cache is not None:
-        SCAN_STATS.resident_passes += 1
-        SCAN_STATS.bytes_resident += cache.nbytes
+        SCAN_STATS.bump(resident_passes=1, bytes_resident=cache.nbytes)
     fetches_before = SCAN_STATS.device_fetches
     fold: Optional[_DeviceFoldPlan] = None
 
@@ -1518,15 +1573,14 @@ def _run_scan_once(
                 lambda: transfer(start, stop), "transfer", what=f"chunk {ci} transfer",
                 deadline=device_deadline, device=device,
             )
-            SCAN_STATS.bytes_packed += nbytes
+            SCAN_STATS.bump(bytes_packed=nbytes)
         t_d = time.perf_counter()
         device_call(
             lambda: step(shards, start, stop), "execute", what=f"chunk {ci} step",
             deadline=device_deadline, hook_ctx={**scan_ctx, "chunk_index": ci},
             device=device,
         )
-        SCAN_STATS.dispatch_seconds += time.perf_counter() - t_d
-        SCAN_STATS.chunks_processed += 1
+        SCAN_STATS.bump(dispatch_seconds=time.perf_counter() - t_d, chunks_processed=1)
     if defer:
         return DeferredScan(fold, fold.flat_result(), fold._filled, device_deadline)
     # CUDA runs asynchronously: a fault or a stall of the card surfaces at
@@ -1534,7 +1588,7 @@ def _run_scan_once(
     t_f = time.perf_counter()
     results = device_call(fold.fetch_unflatten, "fetch", what="scan fetch",
                           deadline=device_deadline, device=device)
-    SCAN_STATS.drain_wait_seconds += time.perf_counter() - t_f
+    SCAN_STATS.bump(drain_wait_seconds=time.perf_counter() - t_f)
     SCAN_STATS.last_scan_fetches = SCAN_STATS.device_fetches - fetches_before
     return results
 
@@ -1584,7 +1638,9 @@ def _prefetch(iterator, depth: int = 2):
         except BaseException as e:  # noqa: BLE001 — handed to the consumer, raised there
             put(e)
 
-    reader = threading.Thread(target=run, daemon=True, name="deequ-torch-prefetch")
+    # in a copy of the consumer's context: its counts reach the run's tally
+    reader = threading.Thread(target=contextvars.copy_context().run, args=(run,), daemon=True,
+                              name="deequ-torch-prefetch")
     reader.start()
     try:
         while True:
@@ -1724,8 +1780,7 @@ class _StreamGather:
                 continue
             if max(leaf.size for leaf in block.values()) > op.compact_threshold:
                 self.blocks[i] = op.compact(block)
-                SCAN_STATS.kll_compactions += 1
-                SCAN_STATS.kll_midscan_compactions += int(not final)
+                SCAN_STATS.bump(kll_compactions=1, kll_midscan_compactions=int(not final))
 
 
 def _run_scan_stream(
@@ -1787,7 +1842,7 @@ def _run_scan_stream(
     # a stream's chunks are never resident: its KLL ops sort
     plan = plan_scan_ops(ops, None, False, None, local_n)
     ops = plan.ops
-    SCAN_STATS.scan_passes += 1
+    SCAN_STATS.bump(scan_passes=1)
     fetches_before = SCAN_STATS.device_fetches
     staging = [_StagingSlots(dev) for _, dev in members]
     host_gather = _StreamGather(ops)
@@ -1829,18 +1884,17 @@ def _run_scan_stream(
             host_gather.add(device_call(fold.drain_gathered, "fetch", what="stream fold drain",
                                         deadline=device_deadline, device=device),
                             final=False)
-            SCAN_STATS.fold_drains += 1
+            SCAN_STATS.bump(fold_drains=1)
         device_call(lambda: fold.merge_members(flats), "execute",
                     what=f"stream chunk {idx} fold", deadline=device_deadline, device=device)
-        SCAN_STATS.chunks_processed += 1
-        SCAN_STATS.device_sort_passes += plan.sort_ops
+        SCAN_STATS.bump(chunks_processed=1, device_sort_passes=plan.sort_ops)
 
     def scan_batch(cols: Dict[str, Column], n: int) -> None:
         nonlocal staged, encoded_counted
         packer = _ChunkPacker(cols, encode=encode)
         if packer.enc_names and not encoded_counted:
             encoded_counted = True
-            SCAN_STATS.encoded_scan_passes += 1
+            SCAN_STATS.bump(encoded_scan_passes=1)
         op_luts = _member_luts(ops, cols, members)
         enc_luts = {dev: packer.enc_luts(dev) for dev in op_luts}
         for start, stop in _chunk_bounds(n, chunk):
@@ -1850,7 +1904,7 @@ def _run_scan_stream(
                 planes, size, event = slots.stage(packer, *shard_bounds(start, stop, local_n, i))
                 shards.append((planes, event))
                 nbytes += size
-            SCAN_STATS.bytes_packed += nbytes
+            SCAN_STATS.bump(bytes_packed=nbytes)
             SCAN_STATS.record_staged(nbytes, overlapped=staged is not None)
             previous, staged = staged, (packer, shards, start, stop, op_luts, enc_luts,
                                         next(chunk_ids))
@@ -1859,7 +1913,7 @@ def _run_scan_stream(
 
     try:
         for batch in itertools.chain([first] if first is not None else [], batches):
-            SCAN_STATS.rows_scanned += batch.num_rows
+            SCAN_STATS.bump(rows_scanned=batch.num_rows)
             scan_batch({name: batch[name] for name in needed}, batch.num_rows)
     finally:
         batches.close()
@@ -1899,15 +1953,15 @@ class DeferredGroupScan:
         self._fold = fold
         self._deadline = deadline
         self._results: Optional[list] = None
-        SCAN_STATS.group_fetches += dispatch_fetches
+        SCAN_STATS.bump(group_fetches=dispatch_fetches)
 
     def results(self) -> list:
         if self._results is None:
-            before = SCAN_STATS.device_fetches
-            (host,) = device_call(lambda: fetch(self._device_out), "fetch",
-                                  what="group scan fetch", deadline=self._deadline,
-                                  device=self._device_out.device)
-            SCAN_STATS.group_fetches += SCAN_STATS.device_fetches - before
+            with SCAN_STATS.tally() as own:
+                (host,) = device_call(lambda: fetch(self._device_out), "fetch",
+                                      what="group scan fetch", deadline=self._deadline,
+                                      device=self._device_out.device)
+            SCAN_STATS.bump(group_fetches=own.counts.get("device_fetches", 0))
             self._results = [self._fold.unflatten(row, 1) for row in host]
             self._device_out = None
         return self._results
@@ -2062,7 +2116,7 @@ def _group_rows(buffer: _GroupBuffer, packers: Sequence[_ChunkPacker], ops: Sequ
         vals = packer.unpack_vals(*buffer.planes(k), row_valid, buffer.op_luts(k),
                                   packer.enc_luts(device), needed)
         rows.append([op.update(vals, row_valid, n, n) for op in ops])
-        SCAN_STATS.chunks_processed += 1
+        SCAN_STATS.bump(chunks_processed=1)
         if fold is None:
             fold = _DeviceFoldPlan(ops, rows[0], 1, device)
         if k1_rows is not None and len(rows) * n >= k1_rows:
@@ -2099,21 +2153,18 @@ def run_scan_group(tables, ops: Sequence[ScanOp], device, layout=None) -> Deferr
         raise ValueError("run_scan_group: the batches' layout is not the admitted one")
     plan = plan_scan_ops(ops, packers[0], False, None, n)
     ops = plan.ops
-    fetches_before = SCAN_STATS.device_fetches
-    buffer = _GroupBuffer(packers, n, ops, tables)
-    SCAN_STATS.bytes_packed += buffer.host.nbytes
-    buffer.to_device(device)
-    SCAN_STATS.scan_passes += 1
-    SCAN_STATS.group_scan_passes += 1
-    SCAN_STATS.rows_scanned += K * n
-    SCAN_STATS.device_sort_passes += plan.sort_ops * K
-    if plan.encoded_columns:
-        SCAN_STATS.encoded_scan_passes += 1
-    deadline = default_device_deadline()
-    # a device boundary under the process deadline, like a scan's step; a
-    # group scan has no ladder (the reference's has none either)
-    out, fold = device_call(lambda: _group_rows(buffer, packers, ops, needed, n, device,
-                                                k1_rows=GROUP_K1_ROWS),
-                            "execute", what=f"group scan of {K} batches",
-                            deadline=deadline, device=device)
-    return DeferredGroupScan(out, fold, SCAN_STATS.device_fetches - fetches_before, deadline)
+    with SCAN_STATS.tally() as own:
+        buffer = _GroupBuffer(packers, n, ops, tables)
+        SCAN_STATS.bump(bytes_packed=buffer.host.nbytes)
+        buffer.to_device(device)
+        SCAN_STATS.bump(scan_passes=1, group_scan_passes=1, rows_scanned=K * n,
+                        device_sort_passes=plan.sort_ops * K,
+                        encoded_scan_passes=int(bool(plan.encoded_columns)))
+        deadline = default_device_deadline()
+        # a device boundary under the process deadline, like a scan's step;
+        # a group scan has no ladder (the reference's has none either)
+        out, fold = device_call(lambda: _group_rows(buffer, packers, ops, needed, n, device,
+                                                    k1_rows=GROUP_K1_ROWS),
+                                "execute", what=f"group scan of {K} batches",
+                                deadline=deadline, device=device)
+    return DeferredGroupScan(out, fold, own.counts.get("device_fetches", 0), deadline)

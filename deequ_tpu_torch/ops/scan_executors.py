@@ -143,7 +143,7 @@ def refuse_cpu_rung(table, scan_id: int, reason: str, cause: Optional[BaseExcept
         budget.charge("cpu_fallback_refused", scan_id=scan_id)
     eng._evict_device_cache(table)
     error = "" if cause is None else str(cause)
-    eng.SCAN_STATS.fallback_refused += 1
+    eng.SCAN_STATS.bump(fallback_refused=1)
     eng.SCAN_STATS.record_degradation(
         "cpu_fallback_refused", scan_id=scan_id, reason=reason, error=error, **detail,
     )
@@ -221,7 +221,7 @@ def run_laddered_scan(
             except DeviceException as e:
                 fault = e
             _release_frames(fault)
-            eng.SCAN_STATS.device_faults += 1
+            eng.SCAN_STATS.bump(device_faults=1)
 
             def reshard() -> bool:
                 """Shrink the mesh around the members ``fault`` names; True
@@ -231,7 +231,7 @@ def run_laddered_scan(
                 lost = [d for d in getattr(fault, "device_ids", ()) if d in mesh_ids]
                 if not lost or len(mesh_ids) <= 1:
                     return False
-                eng.SCAN_STATS.mesh_faults += 1
+                eng.SCAN_STATS.bump(mesh_faults=1)
                 eng.MESH_HEALTH.record_fault(fault)
                 shrunk = eng.mesh_excluding(mesh, set(lost) | set(eng.MESH_HEALTH.quarantined()))
                 if shrunk is None:
@@ -241,7 +241,7 @@ def run_laddered_scan(
                 # the residency is sharded over the old mesh, the lost
                 # members included: it cannot serve the shrunken one
                 freed = eng._evict_device_cache(table)
-                eng.SCAN_STATS.mesh_reshards += 1
+                eng.SCAN_STATS.bump(mesh_reshards=1)
                 eng.SCAN_STATS.record_degradation(
                     "mesh_reshard", scan_id=scan_id, lost_devices=sorted(lost),
                     mesh_from=len(mesh_ids), mesh_to=shrunk.size, evicted_bytes=freed,
@@ -267,7 +267,7 @@ def run_laddered_scan(
                     if budget is not None:
                         budget.charge("encoded_demote", scan_id=scan_id)
                     encoded_ingest = False
-                    eng.SCAN_STATS.encoded_demotions += 1
+                    eng.SCAN_STATS.bump(encoded_demotions=1)
                     eng.SCAN_STATS.record_degradation(
                         "encoded_demote", scan_id=scan_id, chunk=used,
                         evicted_bytes=freed, error=str(fault),
@@ -280,8 +280,8 @@ def run_laddered_scan(
                     if budget is not None:
                         budget.charge("oom_bisect", scan_id=scan_id)
                     depth += 1
-                    eng.SCAN_STATS.oom_bisections += 1
-                    eng.SCAN_STATS.bisection_depth = max(eng.SCAN_STATS.bisection_depth, depth)
+                    eng.SCAN_STATS.bump(oom_bisections=1)
+                    eng.SCAN_STATS.raise_to(bisection_depth=depth)
                     eng.SCAN_STATS.record_degradation(
                         "oom_bisect", scan_id=scan_id, chunk_from=used, chunk_to=halved,
                         depth=depth, evicted_bytes=freed, error=str(fault),
@@ -298,13 +298,13 @@ def run_laddered_scan(
                 detail = {"chunk": used}
             else:
                 if isinstance(fault, DeviceHangException):
-                    eng.SCAN_STATS.watchdog_timeouts += 1
+                    eng.SCAN_STATS.bump(watchdog_timeouts=1)
                     # a straggler only when the straggler deadline was the one
                     # that bound: a tighter device deadline's hang is a plain
                     # watchdog timeout
                     if straggler_armed and (device_deadline is None
                                             or shard_deadline <= device_deadline):
-                        eng.SCAN_STATS.mesh_stragglers += 1
+                        eng.SCAN_STATS.bump(mesh_stragglers=1)
                         eng.SCAN_STATS.record_degradation(
                             "mesh_straggler", scan_id=scan_id, deadline=fault.deadline,
                             mesh_size=n_dev, error=str(fault),

@@ -129,7 +129,7 @@ def _device_unique_inverse(
         if len(uniques):
             codes[mask] = np.searchsorted(uniques, vals) + 1
         return uniques, codes
-    SCAN_STATS.device_sort_passes += 1
+    SCAN_STATS.bump(device_sort_passes=1)
     with device_boundary("execute"):
         v = torch.from_numpy(np.ascontiguousarray(values)).to(device)
         m = torch.from_numpy(np.ascontiguousarray(mask)).to(device)
@@ -440,8 +440,8 @@ def group_count_stats(
 ) -> CountStats:
     """Count-distribution aggregates for a grouping (reference
     ``group_count_stats``): group values never decode on the host."""
-    SCAN_STATS.grouping_passes += 1
-    SCAN_STATS.rows_scanned += table.num_rows
+    SCAN_STATS.bump(grouping_passes=1)
+    SCAN_STATS.bump(rows_scanned=table.num_rows)
 
     # one resident string column: the four scalars from its resident codes
     if len(columns) == 1 and table[columns[0]].dtype == DType.STRING:
@@ -471,7 +471,7 @@ def group_count_stats(
     )
     if table.num_rows <= host_group_limit():
         return _count_stats_from_counts(_host_rle_counts(matrix, valid), num_rows)
-    SCAN_STATS.device_sort_passes += 1
+    SCAN_STATS.bump(device_sort_passes=1)
     m, num_groups, singletons, clogc = _device_rle_stats(matrix, valid, device)
     if num_rows > 0 and num_groups > 0:
         # entropy = -sum (c/N) log(c/N) = log N - (sum c*log c)/N, N = m
@@ -560,7 +560,7 @@ def _device_matrix_rle(
         positions = np.nonzero(starts)[0]
         counts = np.diff(np.append(positions, int(sva.sum()))).astype(np.int64)
         return smat[:, positions], counts
-    SCAN_STATS.device_sort_passes += 1
+    SCAN_STATS.bump(device_sort_passes=1)
     with device_boundary("execute"):
         mat = torch.from_numpy(np.ascontiguousarray(code_matrix)).to(device)
         va = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
@@ -596,8 +596,8 @@ def group_counts_state(
     is a value-ascending rank); a string column's codes follow its
     dictionary, whose order is arbitrary, so the delta is checked in O(G)
     and sorted on the host only where the check fails."""
-    SCAN_STATS.grouping_passes += 1
-    SCAN_STATS.rows_scanned += table.num_rows
+    SCAN_STATS.bump(grouping_passes=1)
+    SCAN_STATS.bump(rows_scanned=table.num_rows)
 
     prep = _prepare_grouping(
         table, columns, device, require_any_non_null, with_values=True
@@ -773,8 +773,8 @@ def fused_group_counts(
                     )
             except Exception:  # noqa: BLE001 — its own pass gives the failure metric
                 continue
-            SCAN_STATS.grouping_passes += 1
-            SCAN_STATS.rows_scanned += table.num_rows
+            SCAN_STATS.bump(grouping_passes=1)
+            SCAN_STATS.bump(rows_scanned=table.num_rows)
             results[i] = state
     return results
 
@@ -825,8 +825,8 @@ def group_top_k(table: ColumnarTable, column: str, k: int, device) -> TopKCounts
     Histogram metric gives nulls), the null slot merges into it before
     ranking. A string column of a table resident on ``device`` counts from
     its resident codes."""
-    SCAN_STATS.grouping_passes += 1
-    SCAN_STATS.rows_scanned += table.num_rows
+    SCAN_STATS.bump(grouping_passes=1)
+    SCAN_STATS.bump(rows_scanned=table.num_rows)
     if table.num_rows >= 1 << 31:
         raise ValueError("group_top_k: counts must stay below 2^31 to be ranked")
 

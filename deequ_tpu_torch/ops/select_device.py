@@ -70,7 +70,7 @@ from typing import Optional
 import torch
 
 from deequ_tpu_torch.exceptions import launch_error
-from deequ_tpu_torch.ops import cuda_build
+from deequ_tpu_torch.ops import counters, cuda_build
 from deequ_tpu_torch.ops.histogram_device import bincount, current_hist_variant
 from deequ_tpu_torch.ops.kll_device import strata_capacity, strata_weight
 
@@ -400,7 +400,6 @@ def chunk_summary_select_batched(
     summary per column, exactly ``kll_device.chunk_summary_batched``'s
     (module doc). A CUDA tensor runs the CUDA kernel; a CPU tensor runs
     the plain version."""
-    global LAUNCHES
     _check_args(X, M)
     if X.device.type == "cpu":
         return chunk_summary_select_batched_plain(X, M, sketch_size, capacity)
@@ -409,14 +408,13 @@ def chunk_summary_select_batched(
     bufs = summary_buffers(X, sketch_size, capacity)
     if X.shape[0]:
         launch_summary(X, M, sketch_size, bufs)
-        LAUNCHES += 1
+        counters.inc(globals(), "LAUNCHES")
     return {name: bufs[name] for name in ("items", "weights", "count", "min", "max")}
 
 
 def select_ranks(X: torch.Tensor, M: torch.Tensor, ranks: torch.Tensor, trace: bool = False):
     """:func:`select_ranks_plain`'s function: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    global LAUNCHES
     _check_args(X, M)
     if ranks.shape[0] != X.shape[0] or ranks.dtype != torch.int64 or ranks.device != X.device:
         raise ValueError("select: ranks must be (K, R) int64 on X's device")
@@ -441,7 +439,7 @@ def select_ranks(X: torch.Tensor, M: torch.Tensor, ranks: torch.Tensor, trace: b
             )
         if rc != 0:
             raise launch_error(f"select kernel launch failed (K={K}, n={n}, R={R})", rc)
-        LAUNCHES += 1
+        counters.inc(globals(), "LAUNCHES")
     return (keys, tie, steps) if trace else (keys, tie)
 
 

@@ -324,7 +324,7 @@ def check_peers(
         )
     from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
-    SCAN_STATS.peer_losses += len(lost)
+    SCAN_STATS.bump(peer_losses=len(lost))
     for start, stop in report.unverified_row_ranges:
         SCAN_STATS.record_unverified(start, stop, reason=f"peer_lost:{','.join(map(str, lost))}",
                                      kind="peer_lost")

@@ -83,10 +83,12 @@ def _fsync_if_possible(handle) -> None:
 def quarantine_path(fs, path: str, suffix: str = ".corrupt") -> str:
     """The first unused quarantine name for ``path`` on ``fs``: ``path +
     suffix``, then ``.corrupt.1``, ``.corrupt.2``, ..., so a second
-    recovery in one directory never overwrites the first one's evidence."""
+    recovery in one directory never overwrites the first one's evidence.
+    ``fs=None`` checks the local disk with ``os`` (the request ledger)."""
+    exists = os.path.exists if fs is None else fs.exists
     candidate = path + suffix
     n = 0
-    while fs.exists(candidate):
+    while exists(candidate):
         n += 1
         candidate = f"{path}{suffix}.{n}"
     return candidate

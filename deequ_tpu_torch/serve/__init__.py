@@ -1,6 +1,6 @@
 """deequ_tpu_torch.serve — the in-process multi-tenant verification
-service (the counterpart of ``deequ_tpu/serve``: its service, admission,
-plan cache and coalesced executor).
+service and fleet (the counterpart of ``deequ_tpu/serve``: its service,
+admission, plan cache, coalesced executor, fleet and request ledger).
 
 Many small suites from many tenants cost the card microseconds each, and
 a run's fixed costs — building its ops and fold, a copy in, a fetch out —
@@ -16,7 +16,13 @@ dwarf them. This package pays those costs once a batch:
   VerificationFuture``, a worker with a coalescing window, per-tenant run
   budgets, bisection of a faulted batch, quarantine, kill-and-resume;
 - :mod:`admission` — SLO classes, typed admission with ``retry_after_s``,
-  the deadline-aware tenant-fair queue and the brownout ladder.
+  the deadline-aware tenant-fair queue and the brownout ladder;
+- :mod:`fleet` — :class:`VerificationFleet`: N services behind one
+  ``submit``, placed by consistent hash (:mod:`router`), watched by
+  heartbeat (:mod:`membership`), failing a lost worker's requests over
+  onto survivors bit for bit and exactly once, with one quarantine, warm
+  joins and an optional durable request ledger (:mod:`ledger`, framed by
+  :mod:`transport`'s checksummed codec).
 """
 
 from deequ_tpu_torch.serve.admission import (
@@ -25,7 +31,11 @@ from deequ_tpu_torch.serve.admission import (
     Slo,
     TenantFairQueue,
 )
+from deequ_tpu_torch.serve.fleet import FleetConfig, VerificationFleet
+from deequ_tpu_torch.serve.ledger import RequestLedger
+from deequ_tpu_torch.serve.membership import FleetMembership, WorkerLossReport
 from deequ_tpu_torch.serve.plan_cache import PlanCache, PlanKey, ServePlan
+from deequ_tpu_torch.serve.router import ConsistentHashRouter, route_digest
 from deequ_tpu_torch.serve.service import (
     PendingWork,
     ServeConfig,
@@ -36,13 +46,20 @@ from deequ_tpu_torch.serve.service import (
 __all__ = [
     "AdmissionController",
     "BrownoutController",
+    "ConsistentHashRouter",
+    "FleetConfig",
+    "FleetMembership",
     "PendingWork",
     "PlanCache",
     "PlanKey",
+    "RequestLedger",
+    "route_digest",
     "ServeConfig",
     "ServePlan",
     "Slo",
     "TenantFairQueue",
+    "VerificationFleet",
     "VerificationFuture",
     "VerificationService",
+    "WorkerLossReport",
 ]

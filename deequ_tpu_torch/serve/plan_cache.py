@@ -39,29 +39,46 @@ from typing import Any, Dict, List, Optional, Tuple
 
 
 class _BoundedLRU:
-    """A bounded LRU over a dict (insertion order is recency)."""
+    """A bounded LRU over a dict (insertion order is recency), under a
+    lock: a fleet reads a worker's cache from another thread to warm a
+    joiner while the worker uses it."""
 
     def __init__(self, cap: int):
         self.cap = cap
         self._d: Dict[Any, Any] = {}
+        self._lock = threading.Lock()
 
     def get(self, key):
-        val = self._d.pop(key, None)
-        if val is not None:
-            self._d[key] = val  # most recently used last
-        return val
+        with self._lock:
+            val = self._d.pop(key, None)
+            if val is not None:
+                self._d[key] = val  # most recently used last
+            return val
 
     def put(self, key, val) -> None:
-        self._d.pop(key, None)
-        self._d[key] = val
-        while len(self._d) > self.cap:
-            self._d.pop(next(iter(self._d)))
+        with self._lock:
+            self._d.pop(key, None)
+            self._d[key] = val
+            while len(self._d) > self.cap:
+                self._d.pop(next(iter(self._d)))
+
+    def values(self) -> List[Any]:
+        """The values, least recently used first."""
+        with self._lock:
+            return list(self._d.values())
+
+    def items(self) -> Dict[Any, Any]:
+        """A copy of the entries, least recently used first."""
+        with self._lock:
+            return dict(self._d)
 
     def __len__(self) -> int:
-        return len(self._d)
+        with self._lock:
+            return len(self._d)
 
     def clear(self) -> None:
-        self._d.clear()
+        with self._lock:
+            self._d.clear()
 
 
 @dataclass(frozen=True)
@@ -131,6 +148,11 @@ class PlanCache:
     def __len__(self) -> int:
         return len(self._lru)
 
+    def entries(self) -> List[ServePlan]:
+        """The cached plans, most recently used last: the fleet's hot-plan
+        feed for a joining worker."""
+        return self._lru.values()
+
     def clear(self) -> None:
         self._lru.clear()
 
@@ -152,30 +174,25 @@ class SubPlanKey:
 
 
 class SubPlanCache:
-    """A bounded LRU of programs by :class:`SubPlanKey`, under a lock (the
-    serving workers of a process share it). A program is stored in
-    canonical op order; each plan that adopts one keeps its own
-    permutation beside it."""
+    """A bounded LRU of programs by :class:`SubPlanKey` (the serving
+    workers of a process share it; the LRU's lock covers them). A program
+    is stored in canonical op order; each plan that adopts one keeps its
+    own permutation beside it."""
 
     def __init__(self, cap: int = 128):
         self._lru = _BoundedLRU(cap)
-        self._lock = threading.Lock()
 
     def get(self, key: SubPlanKey):
-        with self._lock:
-            return self._lru.get(key)
+        return self._lru.get(key)
 
     def put(self, key: SubPlanKey, program) -> None:
-        with self._lock:
-            self._lru.put(key, program)
+        self._lru.put(key, program)
 
     def __len__(self) -> int:
-        with self._lock:
-            return len(self._lru)
+        return len(self._lru)
 
     def clear(self) -> None:
-        with self._lock:
-            self._lru.clear()
+        self._lru.clear()
 
 
 #: the process-wide program cache (``serve/executor.py`` reads it on every

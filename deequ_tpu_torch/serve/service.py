@@ -313,7 +313,7 @@ class VerificationService:
     """The long-lived serving entry point (module doc)."""
 
     def __init__(self, config: Optional[ServeConfig] = None, start: bool = True, trace=None,
-                 device=None, monitor=None, **knobs):
+                 device=None, tenant_health=None, monitor=None, **knobs):
         from deequ_tpu_torch.obs.recorder import (
             current_recorder,
             maybe_arm_from_env,
@@ -332,7 +332,9 @@ class VerificationService:
         self._context = contextvars.copy_context()
         self._device = device
         self.plan_cache = PlanCache(self.config.plan_cache_size)
-        self.tenant_health = _TenantHealth(self.config.quarantine_after)
+        # injectable, so that a fleet's workers share one quarantine ledger
+        self.tenant_health = (tenant_health if tenant_health is not None
+                              else _TenantHealth(self.config.quarantine_after))
         #: a QualityMonitor fed every resolved suite's metrics at the
         #: resolve seam (``repository/monitor.py``)
         self.monitor = monitor
@@ -360,6 +362,10 @@ class VerificationService:
         self._thread: Optional[threading.Thread] = None
         self.batches_served = 0
         self.suites_served = 0
+        # serve plans this service built (a first sight or a plan-cache
+        # miss): a joiner warmed from the fleet builds none for the plans
+        # it was handed
+        self.plans_built = 0
         # the queued predicted cost, changed only under self._cv with the
         # queue: the feed of the cost-priced retry_after_s and the
         # brownout ladder's cost pressure
@@ -417,10 +423,43 @@ class VerificationService:
 
     def inject_stall(self, seconds: float) -> None:
         """The worker sleeps ``seconds`` before its next batch: a scripted
-        stall (its heartbeat stops for the time)."""
+        stall (its heartbeat stops for the time). ``stop`` ends the sleep:
+        a stopped worker has nothing left to take."""
         with self._cv:
             self._stall_seconds = float(seconds)
             self._cv.notify_all()
+
+    def _sleep_stall(self, seconds: float) -> None:
+        end = time.monotonic() + seconds
+        with self._cv:
+            while self._running:
+                left = end - time.monotonic()
+                if left <= 0:
+                    return
+                self._cv.wait(left)
+
+    # -- fleet warm-up -------------------------------------------------------
+
+    def warm_state(self, limit: Optional[int] = None):
+        """What a joining worker imports (``serve/fleet.py``): the cached
+        plans, most recently used last (the last ``limit`` of them), and the
+        analyzer-family cache. Plans travel by reference, their programs
+        with them: a program is built once a plan and device
+        (``ServePlan.programs``), so a joiner on the same device builds
+        nothing."""
+        plans = self.plan_cache.entries()
+        if limit is not None:
+            plans = plans[-limit:] if limit > 0 else []
+        return plans, self._families.items()
+
+    def warm_from(self, plans, families) -> None:
+        """Adopt a donor's warm state before admitting traffic, so the
+        joiner's first requests hit the plan cache."""
+        for key, family in dict(families).items():
+            self._families.put(key, family)
+        for plan in plans:
+            if plan.key is not None:
+                self.plan_cache.put(plan)
 
     def flush(self, timeout: Optional[float] = None) -> None:
         """Block until the queue is empty and the worker idle."""
@@ -544,7 +583,7 @@ class VerificationService:
                 with self._cv:
                     stall, self._stall_seconds = self._stall_seconds, 0.0
                 if stall > 0:
-                    time.sleep(stall)
+                    self._sleep_stall(stall)
                 self.heartbeat = time.monotonic()
                 batch = self._take_batch()
                 if batch is None:
@@ -725,6 +764,7 @@ class VerificationService:
             # healthy build. A table's own degeneracy (a missing column, a
             # table past one chunk) serves serially and caches nothing
             plan = build_serve_plan(data, req.analyzers)
+            self.plans_built += 1
             if plan.serial_class:
                 self._families.put(req.analyzers, ((), False))
                 return
@@ -756,6 +796,7 @@ class VerificationService:
         plan = self.plan_cache.get(req.key)
         if plan is None:
             plan = build_serve_plan(req.data, req.analyzers, key_hint=req.key)
+            self.plans_built += 1
             self.plan_cache.put(plan)
         return plan
 

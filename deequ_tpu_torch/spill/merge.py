@@ -173,7 +173,7 @@ def collapse_runs(
     paths = list(paths)
     pass_idx = 0
     while len(paths) > max_fanin:
-        SCAN_STATS.spill_merge_passes += 1
+        SCAN_STATS.bump(spill_merge_passes=1)
         next_paths: List[str] = []
         for i in range(0, len(paths), max_fanin):
             chunk = paths[i:i + max_fanin]
@@ -192,10 +192,8 @@ def collapse_runs(
                 ),
                 n_cols,
             )
-            SCAN_STATS.spill_bytes_written += writer.bytes_written
-            SCAN_STATS.spill_bytes_read += sum(
-                r.bytes_read for r in readers
-            )
+            SCAN_STATS.bump(spill_bytes_written=writer.bytes_written,
+                            spill_bytes_read=sum(r.bytes_read for r in readers))
             for p in chunk:
                 try:
                     os.unlink(p)
@@ -236,4 +234,4 @@ def merge_runs(
             [r.blocks() for r in readers], dtypes, out_groups
         )
     finally:
-        SCAN_STATS.spill_bytes_read += sum(r.bytes_read for r in readers)
+        SCAN_STATS.bump(spill_bytes_read=sum(r.bytes_read for r in readers))

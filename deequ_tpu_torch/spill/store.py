@@ -215,9 +215,7 @@ class SpillingFrequencyStore:
         )
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
-        SCAN_STATS.peak_group_state_bytes = max(
-            SCAN_STATS.peak_group_state_bytes, self._tail_bytes
-        )
+        SCAN_STATS.raise_to(peak_group_state_bytes=self._tail_bytes)
         if self._tail_bytes >= self.budget_bytes * SPILL_FRACTION:
             self._flush()
 
@@ -272,8 +270,8 @@ class SpillingFrequencyStore:
         self._spilled_num_rows += merged.num_rows
         from deequ_tpu_torch.ops.scan_engine import SCAN_STATS
 
-        SCAN_STATS.spill_runs += 1
-        SCAN_STATS.spill_bytes_written += writer.bytes_written
+        SCAN_STATS.bump(spill_runs=1)
+        SCAN_STATS.bump(spill_bytes_written=writer.bytes_written)
         # subsequent tails start empty and re-canonical
         self._all_canonical = True
 

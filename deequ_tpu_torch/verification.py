@@ -325,78 +325,77 @@ class VerificationSuite:
         from deequ_tpu_torch.resilience.retry import RETRY_TELEMETRY
 
         dev, mesh = resolve_placement(device, mesh)
-        before = {k: getattr(SCAN_STATS, k) for k in _STAT_KEYS}
-        events_before = len(SCAN_STATS.degradation_events)
-        unverified_before = len(SCAN_STATS.unverified_row_ranges)
         retry_before = RETRY_TELEMETRY.snapshot()
-        # ONE budget for the whole run (unless the caller's scope holds
-        # one): every charge site of every scan draws on it
-        budget = current_run_budget()
-        armed_here = None
-        if budget is None:
-            policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
-            if policy is not None:
-                budget = armed_here = policy.arm()
-        # the recorder: the trace argument, else the caller's scope, else
-        # the global one; the run's summary is a delta from here
-        maybe_arm_from_env()
-        recorder = resolve_recorder(trace) if trace is not None else current_recorder()
-        trace_since = time.monotonic() if recorder is not None else None
-        trace_dropped = recorder.dropped if recorder is not None else 0
-        with contextlib.ExitStack() as scopes:
-            if trace is not None:
-                scopes.enter_context(recording_scope(recorder))
-            if recorder is not None:
-                scopes.enter_context(recorder.span("verification_run"))
-            if armed_here is not None:
-                scopes.enter_context(run_budget_scope(budget))
-            # the peer check runs inside the run, after the baselines, so a
-            # degraded outcome lands on this result
-            if on_peer_loss is not None:
-                from deequ_tpu_torch.parallel.distributed import DEFAULT_PEER_TIMEOUT, check_peers
+        # the run's own counts, events and unverified ranges: other threads
+        # (a fleet's other workers) scan at the same time
+        with SCAN_STATS.tally() as own:
+            # ONE budget for the whole run (unless the caller's scope holds
+            # one): every charge site of every scan draws on it
+            budget = current_run_budget()
+            armed_here = None
+            if budget is None:
+                policy = resolve_run_policy(run_deadline, max_total_attempts, on_budget_exhausted)
+                if policy is not None:
+                    budget = armed_here = policy.arm()
+            # the recorder: the trace argument, else the caller's scope, else
+            # the global one; the run's summary is a delta from here
+            maybe_arm_from_env()
+            recorder = resolve_recorder(trace) if trace is not None else current_recorder()
+            trace_since = time.monotonic() if recorder is not None else None
+            trace_dropped = recorder.dropped if recorder is not None else 0
+            with contextlib.ExitStack() as scopes:
+                if trace is not None:
+                    scopes.enter_context(recording_scope(recorder))
+                if recorder is not None:
+                    scopes.enter_context(recorder.span("verification_run"))
+                if armed_here is not None:
+                    scopes.enter_context(run_budget_scope(budget))
+                # the peer check runs inside the run, after the baselines, so a
+                # degraded outcome lands on this result
+                if on_peer_loss is not None:
+                    from deequ_tpu_torch.parallel.distributed import (
+                        DEFAULT_PEER_TIMEOUT,
+                        check_peers,
+                    )
 
-                # a source that does not know its rows still gets the check;
-                # the lost ranks' rows just cannot be named
-                try:
-                    total_rows = int(data.num_rows or 0)
-                except (AttributeError, TypeError):
-                    total_rows = 0
-                check_peers(
-                    total_rows,
-                    timeout=DEFAULT_PEER_TIMEOUT if peer_timeout is None else peer_timeout,
-                    on_peer_loss=on_peer_loss,
+                    # a source that does not know its rows still gets the check;
+                    # the lost ranks' rows just cannot be named
+                    try:
+                        total_rows = int(data.num_rows or 0)
+                    except (AttributeError, TypeError):
+                        total_rows = 0
+                    check_peers(
+                        total_rows,
+                        timeout=DEFAULT_PEER_TIMEOUT if peer_timeout is None else peer_timeout,
+                        on_peer_loss=on_peer_loss,
+                    )
+                context = AnalysisRunner.do_analysis_run(
+                    data, _required(checks, required_analyzers), dev,
+                    aggregate_with=aggregate_with, save_states_with=save_states_with,
+                    metrics_repository=metrics_repository,
+                    reuse_existing_results_for_key=reuse_existing_results_for_key,
+                    fail_if_results_missing=fail_if_results_missing,
+                    retry_policy=retry_policy,
+                    group_memory_budget=group_memory_budget,
+                    checkpoint=checkpoint,
+                    on_batch_error=on_batch_error,
+                    on_device_error=on_device_error,
+                    device_deadline=device_deadline,
+                    mesh=mesh,
+                    shard_deadline=shard_deadline,
                 )
-            context = AnalysisRunner.do_analysis_run(
-                data, _required(checks, required_analyzers), dev,
-                aggregate_with=aggregate_with, save_states_with=save_states_with,
-                metrics_repository=metrics_repository,
-                reuse_existing_results_for_key=reuse_existing_results_for_key,
-                fail_if_results_missing=fail_if_results_missing,
-                retry_policy=retry_policy,
-                group_memory_budget=group_memory_budget,
-                checkpoint=checkpoint,
-                on_batch_error=on_batch_error,
-                on_device_error=on_device_error,
-                device_deadline=device_deadline,
-                mesh=mesh,
-                shard_deadline=shard_deadline,
-            )
-        with use_device(dev), use_mesh(mesh):
-            result = VerificationSuite._evaluate(checks, context)
-            _save_or_append_result(
-                metrics_repository, save_or_append_results_with_key, context
-            )
+            with use_device(dev), use_mesh(mesh):
+                result = VerificationSuite._evaluate(checks, context)
+                _save_or_append_result(
+                    metrics_repository, save_or_append_results_with_key, context
+                )
         result.device = str(dev)
-        result.scan_stats = {
-            k: getattr(SCAN_STATS, k) - v for k, v in before.items()
-        }
-        result.device_events = [dict(e) for e in SCAN_STATS.degradation_events[events_before:]]
+        result.scan_stats = {k: own.counts.get(k, 0) for k in _STAT_KEYS}
+        result.device_events = [dict(e) for e in own.events]
         result.mesh_events = [e for e in result.device_events
                               if e.get("kind") in _MESH_EVENT_KINDS]
         result.resharded = any(e.get("kind") == "mesh_reshard" for e in result.mesh_events)
-        result.unverified_row_ranges = [
-            tuple(r) for r in SCAN_STATS.unverified_row_ranges[unverified_before:]
-        ]
+        result.unverified_row_ranges = [tuple(r) for r in own.unverified]
         result.retry_stats = RETRY_TELEMETRY.delta_since(retry_before)
         if budget is not None:
             result.run_budget = budget.snapshot()

@@ -84,7 +84,7 @@ def main(argv=None) -> int:
         profile_first_worker(args.profile)
     t0 = time.perf_counter()
     table = cs.make_table(args.rows, args.seed)
-    serve = cs.serve_path(table, args.seed, device, smi, rate)
+    serve, _ = cs.serve_path(table, args.seed, device, smi, rate)
     line = {"phase": "serve_path", "card": smi, **serve,
             "seconds": time.perf_counter() - t0, "build_s": build_s}
     cs.emit(line)
